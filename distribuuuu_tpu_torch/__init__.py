@@ -1,0 +1,22 @@
+"""distribuuuu_tpu_torch: the PyTorch/CUDA port of distribuuuu_tpu for NVIDIA Hopper.
+
+This slice serves the ResNet family (``python -m distribuuuu_tpu_torch.serve``)
+with the fused conv epilogue running as a hand-written CUDA kernel. Entry
+points run on ``cuda`` unless the caller passes ``device="cpu"``; without a
+card and without that explicit choice they raise.
+"""
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device`` as a ``torch.device``; ``None`` means the card, and raises
+    when there is none. The CPU is used only when asked for by name."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; distribuuuu_tpu_torch runs on the "
+                "GPU unless the caller passes device='cpu' explicitly"
+            )
+        return torch.device("cuda")
+    return torch.device(device)

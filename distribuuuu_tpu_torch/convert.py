@@ -1,0 +1,90 @@
+"""Carry weights into the port.
+
+- :func:`from_jax_variables` maps the JAX package's ``{"params",
+  "batch_stats"}`` (nested dicts of numpy arrays) to the port's state_dict:
+  HWIO -> OIHW convs, ``[in, out]`` -> ``[out, in]`` linears, ``layerS_I`` ->
+  ``layerS.I``, ``ds_conv``/``ds_bn`` -> ``downsample.0``/``downsample.1``.
+  The port's own copy of the ResNet part of ``distribuuuu_tpu.convert``'s
+  ``export_state_dict``.
+- :func:`load_weights` reads a torch ``.pt``/``.pth`` state_dict in
+  torchvision naming.
+
+Orbax directories cannot be read without JAX: a weights directory written
+by the JAX package reaches the port through ``export_state_dict`` and
+``torch.save``, run where JAX is installed.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from distribuuuu_tpu_torch.models.registry import list_models
+
+
+def _flatten(tree: Mapping, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _flatten(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def _module_name(mod: list[str]) -> str:
+    parts = []
+    for p in mod:
+        m = re.fullmatch(r"(layer\d+)_(\d+)", p)
+        if m:
+            parts += [m.group(1), m.group(2)]
+        elif p == "ds_conv":
+            parts += ["downsample", "0"]
+        elif p == "ds_bn":
+            parts += ["downsample", "1"]
+        else:
+            parts.append(p)
+    return ".".join(parts)
+
+
+def from_jax_variables(variables: Mapping, arch: str) -> dict[str, torch.Tensor]:
+    """The port's state_dict for ``arch`` from JAX ``{"params", "batch_stats"}``."""
+    if arch not in list_models():
+        raise KeyError(f"{arch!r} is not a model of the port; it has: {', '.join(list_models())}")
+    sd: dict[str, torch.Tensor] = {}
+    for col in ("params", "batch_stats"):
+        for path, leaf in _flatten(variables.get(col, {})):
+            val = np.asarray(leaf, dtype=np.float32)
+            prefix, leaf_name = _module_name(list(path[:-1])), path[-1]
+            if col == "batch_stats":
+                key, val = f"{prefix}.running_{'mean' if leaf_name == 'mean' else 'var'}", val
+            elif leaf_name == "kernel":
+                key = f"{prefix}.weight"
+                val = np.transpose(val, (3, 2, 0, 1)) if val.ndim == 4 else val.T
+            elif leaf_name == "scale":
+                key = f"{prefix}.weight"
+            elif leaf_name == "bias":
+                key = f"{prefix}.bias"
+            else:
+                raise KeyError(f"unmapped leaf {'/'.join(path)} for {arch}")
+            sd[key] = torch.from_numpy(np.ascontiguousarray(val))
+    return sd
+
+
+def load_weights(path: str) -> dict[str, torch.Tensor]:
+    """A torchvision-layout state_dict from a ``.pt``/``.pth`` file.
+
+    Loaded with ``weights_only=True`` (no arbitrary unpickling). A
+    ``{"state_dict": ...}`` wrapper and ``module.`` prefixes are unwrapped,
+    and torchvision's ``num_batches_tracked`` buffers are dropped: the
+    port's BN has none.
+    """
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(sd.get("state_dict"), Mapping):
+        sd = sd["state_dict"]
+    return {
+        k.removeprefix("module."): v
+        for k, v in sd.items()
+        if not k.endswith(".num_batches_tracked")
+    }

@@ -1,0 +1,20 @@
+"""Device-side input normalization (counterpart of ``data/transforms.py``)."""
+
+from __future__ import annotations
+
+import torch
+
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+
+
+def device_normalize(images: torch.Tensor) -> torch.Tensor:
+    """``ToTensor`` + ``Normalize`` for NHWC uint8 batches, in float32 on the
+    tensor's device: ``(x / 255 - mean) / std``. Float input passes through
+    (already normalized on the host)."""
+    if images.dtype != torch.uint8:
+        return images
+    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=images.device)
+    std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=images.device)
+    x = images.to(torch.float32) / 255.0
+    return (x - mean) / std

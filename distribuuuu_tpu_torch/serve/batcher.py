@@ -1,0 +1,295 @@
+"""Dynamic micro-batching (the port's copy of ``serve/batcher.py``).
+
+Requests coalesce in a per-model queue; a dispatcher thread packs whole
+requests up to the largest ladder size, pads them with zeros to the
+smallest ladder size that holds them, and dispatches when the batch is full
+or the oldest request has waited ``max_delay_ms``. A bounded queue sheds
+with `QueueFullError` (HTTP 503), never silently. Eval forwards are
+per-example independent, so padding rows do not change real rows.
+
+Trimmed to this slice: no canary routing and no trace spans; the SLO sink
+is optional. :meth:`MicroBatcher.submit` also returns the ladder size the
+request ran at.
+"""
+
+from __future__ import annotations
+
+import math
+import threading
+import time
+from typing import Callable
+
+import numpy as np
+
+from distribuuuu_tpu_torch.logging import logger
+
+
+class QueueFullError(RuntimeError):
+    """The bounded request queue shed this request (backpressure)."""
+
+
+class _Pending:
+    """One queued request: inputs + a done-event the submitter blocks on."""
+
+    __slots__ = ("inputs", "n", "t_enqueue", "event", "result", "error", "batch_size")
+
+    def __init__(self, inputs: np.ndarray):
+        self.inputs = inputs
+        self.n = int(inputs.shape[0])
+        self.t_enqueue = time.monotonic()
+        self.event = threading.Event()
+        self.result: np.ndarray | None = None
+        self.error: BaseException | None = None
+        self.batch_size = 0
+
+
+class SLOTracker:
+    """Per-model SLO accounting -> periodic ``serve_slo`` rollups.
+
+    Thread-safe; fed by the batcher (batches, sheds) and the frontend
+    (request latencies). ``journal_event(kind, **fields)`` receives each
+    rollup; ``None`` drops them. ``maybe_emit`` rolls the window when
+    ``window_s`` elapsed; ``flush`` emits whatever the window holds.
+    """
+
+    def __init__(
+        self,
+        journal_event: Callable[..., None] | None = None,
+        window_s: float = 10.0,
+    ):
+        self._event = journal_event or (lambda kind, **fields: None)
+        self.window_s = float(window_s)
+        self._lock = threading.Lock()
+        self._t0 = time.monotonic()
+        self._lat: dict[str, list[float]] = {}
+        self._shed: dict[str, int] = {}
+        self._examples: dict[str, int] = {}
+        self._fill: dict[str, dict[int, int]] = {}
+        self._fill_sum: dict[str, float] = {}
+        self._batches: dict[str, int] = {}
+
+    @staticmethod
+    def _rank(sorted_vals: list[float], q: float) -> float:
+        """Nearest-rank percentile (exact for the window's sample set)."""
+        if not sorted_vals:
+            return 0.0
+        return sorted_vals[max(0, min(len(sorted_vals) - 1, math.ceil(q * len(sorted_vals)) - 1))]
+
+    def request(self, model: str, latency_ms: float) -> None:
+        with self._lock:
+            self._lat.setdefault(model, []).append(float(latency_ms))
+
+    def shed(self, model: str) -> None:
+        with self._lock:
+            self._shed[model] = self._shed.get(model, 0) + 1
+
+    def batch(self, model: str, batch_size: int, examples: int) -> None:
+        with self._lock:
+            self._examples[model] = self._examples.get(model, 0) + int(examples)
+            hist = self._fill.setdefault(model, {})
+            hist[int(batch_size)] = hist.get(int(batch_size), 0) + 1
+            self._fill_sum[model] = self._fill_sum.get(model, 0.0) + examples / batch_size
+            self._batches[model] = self._batches.get(model, 0) + 1
+
+    def maybe_emit(self) -> None:
+        if time.monotonic() - self._t0 >= self.window_s:
+            self.flush()
+
+    def flush(self) -> None:
+        with self._lock:
+            window = time.monotonic() - self._t0
+            snapshot = []
+            for m in sorted(set(self._lat) | set(self._shed) | set(self._examples)):
+                lat = sorted(self._lat.get(m, []))
+                batches = self._batches.get(m, 0)
+                snapshot.append(
+                    dict(
+                        model=m,
+                        window_s=round(window, 3),
+                        requests=len(lat),
+                        shed=self._shed.get(m, 0),
+                        qps=round(len(lat) / max(window, 1e-9), 3),
+                        p50_ms=round(self._rank(lat, 0.50), 3),
+                        p99_ms=round(self._rank(lat, 0.99), 3),
+                        examples=self._examples.get(m, 0),
+                        mean_fill=(
+                            round(self._fill_sum.get(m, 0.0) / batches, 4) if batches else 0.0
+                        ),
+                        fill_hist={str(k): v for k, v in sorted(self._fill.get(m, {}).items())},
+                        batches=batches,
+                    )
+                )
+            for d in (self._lat, self._shed, self._examples, self._fill, self._fill_sum,
+                      self._batches):
+                d.clear()
+            self._t0 = time.monotonic()
+        for fields in snapshot:  # emit outside the lock
+            self._event("serve_slo", **fields)
+
+
+class MicroBatcher:
+    """Per-model coalescing queues in front of an engine runner."""
+
+    def __init__(
+        self,
+        runner: Callable[[str, np.ndarray], np.ndarray],
+        ladders: dict[str, list[int]],
+        *,
+        max_delay_ms: float,
+        max_depth: int,
+        slo: SLOTracker | None = None,
+    ):
+        self._runner = runner
+        self._ladders = {m: sorted(int(b) for b in ladder) for m, ladder in ladders.items()}
+        self.max_delay_s = float(max_delay_ms) / 1000.0
+        self.max_depth = int(max_depth)
+        self._slo = slo
+        self._cond = {m: threading.Condition() for m in self._ladders}
+        self._queue: dict[str, list[_Pending]] = {m: [] for m in self._ladders}
+        self._depth = {m: 0 for m in self._ladders}
+        self._threads: list[threading.Thread] = []
+        self._stop = False
+
+    # -- lifecycle -----------------------------------------------------------
+
+    def start(self) -> "MicroBatcher":
+        for model in self._ladders:
+            t = threading.Thread(
+                target=self._dispatch_loop, args=(model,), daemon=True,
+                name=f"dtpu-serve-batcher-{model}",
+            )
+            t.start()
+            self._threads.append(t)
+        return self
+
+    def stop(self) -> None:
+        """Drain-free shutdown: queued requests fail with a clear error."""
+        self._stop = True
+        for model, cond in self._cond.items():
+            with cond:
+                for req in self._queue[model]:
+                    req.error = RuntimeError("batcher stopped")
+                    req.event.set()
+                self._queue[model].clear()
+                self._depth[model] = 0
+                cond.notify_all()
+        for t in self._threads:
+            t.join(timeout=5.0)
+
+    # -- submission ----------------------------------------------------------
+
+    def queue_depth(self, model: str) -> int:
+        """Pending examples queued for one model."""
+        cond = self._cond.get(model)
+        if cond is None:
+            return 0
+        with cond:
+            return self._depth.get(model, 0)
+
+    def retry_after_s(self, model: str) -> float:
+        """Estimated drain time of the backlog: the 503 ``Retry-After`` hint."""
+        ladder = self._ladders.get(model)
+        if not ladder:
+            return 0.1
+        rounds = max(1, math.ceil(self.queue_depth(model) / ladder[-1]))
+        return min(5.0, max(0.05, rounds * self.max_delay_s))
+
+    def submit(
+        self, model: str, inputs: np.ndarray, timeout_s: float = 60.0
+    ) -> tuple[np.ndarray, int]:
+        """Block until the request's logits are ready; sheds raise.
+
+        ``inputs`` is ``(n, H, W, C)`` with ``n`` <= the largest ladder size
+        (the caller splits larger requests). Returns ``(logits, batch_size)``:
+        the request's rows and the ladder size its batch ran at.
+        """
+        ladder = self._ladders.get(model)
+        if ladder is None:
+            raise KeyError(f"unknown model {model!r}; serving: {sorted(self._ladders)}")
+        n = int(inputs.shape[0])
+        if n < 1:
+            raise ValueError("empty request")
+        if n > ladder[-1]:
+            raise ValueError(
+                f"request of {n} examples exceeds {model!r}'s largest compiled "
+                f"batch {ladder[-1]} — split the request client-side"
+            )
+        req = _Pending(inputs)
+        cond = self._cond[model]
+        with cond:
+            if self._depth[model] + n > self.max_depth:
+                depth = self._depth[model]
+                if self._slo is not None:
+                    self._slo.shed(model)
+                raise QueueFullError(
+                    f"{model!r} queue at {depth}/{self.max_depth} examples — "
+                    f"request of {n} shed (retry against another replica)"
+                )
+            self._queue[model].append(req)
+            self._depth[model] += n
+            cond.notify_all()
+        if not req.event.wait(timeout_s):
+            raise TimeoutError(f"request not served within {timeout_s:.1f}s")
+        if req.error is not None:
+            raise req.error
+        return req.result, req.batch_size
+
+    # -- dispatch ------------------------------------------------------------
+
+    def _take_batch(self, model: str) -> list[_Pending]:
+        """Wait for work, then coalesce until full or the deadline passes.
+        Returns [] only at shutdown. Runs on the model's dispatcher thread."""
+        cond = self._cond[model]
+        max_size = self._ladders[model][-1]
+        with cond:
+            while not self._queue[model] and not self._stop:
+                cond.wait(0.1)
+            if self._stop:
+                return []
+            deadline = self._queue[model][0].t_enqueue + self.max_delay_s
+            while self._depth[model] < max_size and not self._stop:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    break
+                cond.wait(remaining)
+            taken: list[_Pending] = []
+            total = 0
+            queue = self._queue[model]
+            while queue and total + queue[0].n <= max_size:
+                req = queue.pop(0)
+                total += req.n
+                taken.append(req)
+            self._depth[model] -= total
+            return taken
+
+    def _dispatch_loop(self, model: str) -> None:
+        ladder = self._ladders[model]
+        while not self._stop:
+            taken = self._take_batch(model)
+            if not taken:
+                continue
+            n = sum(r.n for r in taken)
+            batch_size = next(b for b in ladder if b >= n)
+            try:
+                first = taken[0].inputs
+                padded = np.zeros((batch_size, *first.shape[1:]), dtype=first.dtype)
+                row = 0
+                for req in taken:
+                    padded[row : row + req.n] = req.inputs
+                    row += req.n
+                logits = self._runner(model, padded)
+                row = 0
+                for req in taken:
+                    req.result = logits[row : row + req.n]
+                    req.batch_size = batch_size
+                    row += req.n
+                    req.event.set()
+                if self._slo is not None:
+                    self._slo.batch(model, batch_size, n)
+                    self._slo.maybe_emit()
+            except Exception as exc:  # a bad batch must not kill the loop
+                logger.error(f"serve: batch dispatch for {model!r} failed: {exc!r}")
+                for req in taken:
+                    if not req.event.is_set():
+                        req.error = exc
+                        req.event.set()
