@@ -6,21 +6,34 @@
 Phases (any failure exits non-zero):
 
 1. device: the card's name and power limit (``nvidia-smi``); no CUDA -> fail;
-2. build: the fused conv-epilogue kernel (K1) from ``ops/csrc/epilogue.cu``,
-   with nvcc's register and spill report;
+2. build: the fused conv-epilogue kernel (K1, ``ops/csrc/epilogue.cu``) and
+   the fused attention kernel (K2-K5, ``ops/csrc/attention.cu``), one nvcc
+   each, started together, with nvcc's register and spill report;
 3. K1 against its plain PyTorch version at every distinct epilogue shape of
    a ResNet-50 forward at batch 128, 224x224 (bitwise, ``torch.equal``),
    x bf16 -> f32 (serving) and bf16 -> bf16, timed with CUDA events beside
    the plain version, a ``F.batch_norm`` composition and the HBM bound;
-4. serve: ``config/serve_resnet50.yaml`` at full width (ResNet-50, 224,
-   1000 classes, bf16, uint8 wire, ladder [1, 8, 32, 128]) on seeded random
+4. the attention kernel against its plain version at the shapes the BoTNet
+   paths give it (K2: B*N 512, L 196; K4: B*N 32, L 1024; the table mode
+   K3/K5 at both; f32 at a small ragged shape), timed beside the plain
+   version, ``F.scaled_dot_product_attention`` and the bytes/FLOP bound;
+5. serve ResNet-50: ``config/serve_resnet50.yaml`` at full width (224, 1000
+   classes, bf16, uint8 wire, ladder [1, 8, 32, 128]) on seeded random
    weights; mixed-size concurrent requests through ``ServeReplica.handle``
    plus one HTTP round trip; every forward must launch K1 49 times; each
-   response must equal the direct forward of its images; f32 card vs f32 CPU
-   and bf16 serve vs f32 tolerances; per-ladder-size latency;
-5. the ``{"kernels": [...]}`` line; 6. the ``{"ok": true, ...}`` last line.
+   response must equal the direct forward of its images; f32 card vs f32
+   CPU and bf16 serve vs f32 tolerances; per-ladder-size latency; profile;
+6. serve BoTNet-50: the same config with ``MODEL.ARCH botnet50``; every
+   forward must launch the attention kernel 3 times and K1 40 times; the
+   same checks, and a profile with an attention class;
+7. large crop: botnet50 at 512x512, batch 8 (L 1024, the K4 route), f32
+   card vs f32 CPU on 2 images and bf16 vs f32; ``MHSA(rel_pos_emb=False)``
+   at full width (batch 128, fmap 14x14) and at fmap 32x32, card vs CPU
+   (the K3/K5 route);
+8. the ``{"kernels": [...]}`` line; 9. the ``{"ok": true, ...}`` last line.
 
-Per-shape K1 numbers are also written to ``smoke_out/chip_smoke_k1.json``.
+Each path is driven with the launch counts set to 0 just before it and read
+just after. Per-shape numbers are also written to ``smoke_out/``.
 """
 
 from __future__ import annotations
@@ -49,6 +62,20 @@ IM = 224
 BF16_REL_TOL = 5e-2
 # f32 on the card (TF32 off) vs f32 on the CPU: only summation order differs.
 F32_REL_TOL = 1e-3
+# One MHSA layer, f32 card vs f32 CPU: one conv and one attention of
+# summation-order differences, ~1e-6 relative; 1e-4 still catches any
+# wrong index, which moves outputs by O(1).
+MHSA_F32_REL_TOL = 1e-4
+# Attention kernel vs its plain version, relative to max(1, max|out|):
+# f32 differs in summation order only (the JAX tests' 2e-5); in bf16 the
+# kernel casts p to bf16 before normalising (as the TPU's blockwise kernel)
+# and the plain version after (as the single-tile one): the two differ by up
+# to one bf16 rounding of p (2^-9 relative) and of the output (2^-8 near 1),
+# ~4e-3; 2e-2 is the JAX tests' bf16 bound.
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# the served models and the launches each of their forwards must make
+SERVED = {"resnet50": dict(name="rn50", k1=49, attention=0),
+          "botnet50": dict(name="bot", k1=40, attention=3)}
 
 
 def fail(msg: str) -> None:
@@ -70,6 +97,7 @@ def hbm_bytes_per_s(name: str) -> float:
 
 
 F32_PEAK_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
+BF16_PEAK_FLOPS = 989e12  # H100 SXM, dense bf16 on the tensor cores
 
 
 def resnet50_epilogue_shapes(n: int, im: int) -> Counter:
@@ -106,18 +134,37 @@ def cuda_ms(fn, runs: int = 25, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def phase_build():
+def phase_build(names=("epilogue", "attention")) -> dict:
+    """Build every kernel library at once (one nvcc each, in parallel)."""
     from distribuuuu_tpu_torch.ops import _build
 
-    _, info = _build.load("epilogue")
-    regs = [int(m) for m in re.findall(r"Used (\d+) registers", info.ptxas)]
-    spills = [ln.strip() for ln in info.ptxas.splitlines()
-              if "spill" in ln and "0 bytes spill stores, 0 bytes spill loads" not in ln]
-    if not regs:
-        fail(f"nvcc gave no -Xptxas -v report:\n{info.ptxas}")
-    say(f"[build] {info.path.name}: nvcc {info.wall_s:.2f}s; {len(regs)} instantiations, "
-        f"{min(regs)}-{max(regs)} registers/thread, spills: {spills or 'none'}")
-    return info.wall_s, regs, spills
+    results: dict = {}
+
+    def build(name):
+        try:
+            results[name] = _build.load(name)[1]
+        except Exception as exc:  # reported below; the phase fails
+            results[name] = exc
+
+    threads = [threading.Thread(target=build, args=(n,)) for n in names]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    out = {}
+    for name in names:
+        info = results[name]
+        if isinstance(info, Exception):
+            fail(f"building {name}: {info}")
+        regs = [int(m) for m in re.findall(r"Used (\d+) registers", info.ptxas)]
+        spills = [ln.strip() for ln in info.ptxas.splitlines()
+                  if "spill" in ln and "0 bytes spill stores, 0 bytes spill loads" not in ln]
+        if not regs:
+            fail(f"nvcc gave no -Xptxas -v report for {name}:\n{info.ptxas}")
+        say(f"[build] {info.path.name}: nvcc {info.wall_s:.2f}s; {len(regs)} instantiations, "
+            f"{min(regs)}-{max(regs)} registers/thread, spills: {spills or 'none'}")
+        out[name] = dict(build_s=info.wall_s, registers=regs, spills=spills)
+    return out
 
 
 def phase_k1(card: str):
@@ -184,23 +231,119 @@ def phase_k1(card: str):
     return rows, max_err
 
 
-def synthetic_state_dict(seed: int = 0):
-    """Seeded ResNet-50 weights: fan-in normal convs, BN stats and affine
-    drawn away from the identity, a small fc."""
+# (name, B, N, L, D, Dv, dtype, mode): the shapes the BoTNet paths give the
+# attention kernel (4 heads of 128 at 224^2 batch 128, and at 512^2 batch 8)
+# plus f32 at a small ragged shape (L, D, Dv not multiples of the tiles)
+ATTN_CASES = [
+    ("K2", 128, 4, 196, 128, 128, "bfloat16", "bias"),
+    ("K3", 128, 4, 196, 128, 128, "bfloat16", "table"),
+    ("K4", 8, 4, 1024, 128, 128, "bfloat16", "bias"),
+    ("K5", 8, 4, 1024, 128, 128, "bfloat16", "table"),
+    ("f32 bias", 2, 3, 70, 40, 24, "float32", "bias"),
+    ("f32 table", 2, 3, 70, 40, 24, "float32", "table"),
+]
+
+
+def attention_bound(bn, l, d, dv, dtype, mode, bw) -> tuple[float, str, float]:
+    """(bound ms, what bounds it, bytes): q, k, v read once, the output
+    written once, plus the [B, N, L, L] bias in its dtype or the [L, D]
+    table; the two products (q.k and p.v; in table mode q.(k + emb)) at the
+    card's peak for the inputs' type."""
+    item = 2 if dtype == "bfloat16" else 4
+    nbytes = bn * l * (2 * d + 2 * dv) * item + (bn * l * l * item if mode == "bias" else l * d * item)
+    flops = 2.0 * bn * l * l * (d + dv)
+    peak = BF16_PEAK_FLOPS if dtype == "bfloat16" else F32_PEAK_FLOPS
+    by = "bytes" if nbytes / bw >= flops / peak else "operations"
+    return 1e3 * max(nbytes / bw, flops / peak), by, nbytes
+
+
+def phase_attention(card: str):
+    """The attention kernel vs its plain version at the paths' shapes."""
+    import torch
+    import torch.nn.functional as F
+
+    from distribuuuu_tpu_torch.ops import attention as att
+
+    bw = hbm_bytes_per_s(card)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rows = {}
+    for name, b, n, l, d, dv, dtype, mode in ATTN_CASES:
+        dt = getattr(torch, dtype)
+
+        def heads_first(width, scale=1.0):  # the [B, N, L, d] view MHSA hands the kernel
+            t = torch.randn(b, l, n * width, generator=gen, device="cuda") * scale
+            return t.to(dt).view(b, l, n, width).transpose(1, 2)
+
+        q, k, v = heads_first(d, 0.3), heads_first(d, 0.3), heads_first(dv)
+        if mode == "bias":  # bf16 at the model's shapes, as RelPosEmb produces it
+            last = (torch.randn(b, n, l, l, generator=gen, device="cuda") * 0.5).to(dt)
+
+            def kernel():
+                return att.fused_attention(q, k, v, last)
+
+            def plain():
+                return att.attention_reference(q, k, v, last)
+
+            def library():
+                return F.scaled_dot_product_attention(q, k, v, attn_mask=last, scale=1.0)
+        else:
+            last = (torch.randn(l, d, generator=gen, device="cuda") * 0.5).to(dt)
+
+            def kernel():
+                return att.fused_attention_abs(q, k, v, last)
+
+            def plain():
+                return att.attention_table_reference(q, k, v, last)
+
+            def library():  # the q.emb^T product formed first, in q's dtype
+                mask = torch.einsum("bnxd,yd->bnxy", q, last)
+                return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=1.0)
+
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        if got.dtype != dt or got.shape != (b, n, l, dv):
+            fail(f"attention {name}: output {got.dtype} {tuple(got.shape)}")
+        scale = max(1.0, want.float().abs().max().item())
+        err = (got.float() - want.float()).abs().max().item()
+        lib_err = (library().float() - want.float()).abs().max().item()
+        tol = ATTN_TOL[dtype] * scale
+        if not err <= tol:
+            fail(f"attention {name} != plain: max|d| {err:.3e} > {tol:.3e}")
+        ms, plain_ms, lib_ms = cuda_ms(kernel), cuda_ms(plain), cuda_ms(library)
+        bound_ms, bound_by, nbytes = attention_bound(b * n, l, d, dv, dtype, mode, bw)
+        rows[name] = dict(b=b, n=n, l=l, d=d, dv=dv, dtype=dtype, mode=mode, max_abs_err=err,
+                          tol=tol, library_max_abs_err=lib_err, ms=ms, plain_ms=plain_ms,
+                          library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes)
+        say(f"[attention] {name}: B*N {b * n}, L {l}, D {d}, Dv {dv}, {dtype} {mode}: max|d| "
+            f"{err:.3e} (limit {tol:.1e}; SDPA {lib_err:.3e}); {ms:.4f} ms (plain {plain_ms:.4f}, "
+            f"SDPA {lib_ms:.4f}, bound {bound_ms:.4f} by {bound_by}, "
+            f"{100 * bound_ms / ms:.0f}% of bound)")
+        del q, k, v, last, got, want
+    torch.cuda.empty_cache()
+    return rows
+
+
+def synthetic_state_dict(arch: str = "resnet50", seed: int = 0, im: int = IM):
+    """Seeded weights: fan-in normal convs, BN stats and affine drawn away
+    from the identity (every BN scale, BoTNet's zero-γ ``bn_out`` too),
+    position tables at their init scale, a small fc."""
     import numpy as np
     import torch
 
     from distribuuuu_tpu_torch.models import build_model
 
     rng = np.random.default_rng(seed)
-    template = build_model("resnet50", num_classes=1000, dtype=torch.float32).state_dict()
+    model = build_model(arch, num_classes=1000, dtype=torch.float32, im_size=im)
+    fc = next(n for n, m in model.named_modules() if isinstance(m, torch.nn.Linear))
     sd = {}
-    for k, v in template.items():
+    for k, v in model.state_dict().items():
         shape = tuple(v.shape)
-        if k == "fc.weight":
+        if k == f"{fc}.weight":
             a = rng.standard_normal(shape) / np.sqrt(shape[1])
-        elif k == "fc.bias":
+        elif k == f"{fc}.bias":
             a = rng.standard_normal(shape) * 0.01
+        elif k.rsplit(".", 1)[-1] in ("rel_height", "rel_width", "height", "width"):
+            a = rng.standard_normal(shape) * shape[1] ** -0.5
         elif v.dim() == 4:
             a = rng.standard_normal(shape) * np.sqrt(2.0 / np.prod(shape[1:]))
         elif k.endswith("running_mean") or k.endswith(".bias"):
@@ -215,35 +358,90 @@ def synthetic_state_dict(seed: int = 0):
     return sd
 
 
-def phase_serve(card: str, tmp: Path):
+def calibrate_bn(sd: dict, arch: str, im: int, batch: int = 16) -> dict:
+    """``sd`` with the running statistics of the BNs that feed each MHSA
+    (``bn_in``) and of the BoTStack's shortcut BN set to the statistics of
+    their input over ``batch`` seeded serving-like images (one f32 forward
+    on the card). Random statistics leave the trunk's output in the
+    thousands, so q.k^T reaches ~1e4, the softmax is one-hot and bf16
+    rounding of q and k flips it: the JAX model itself then puts bf16 16 %
+    from f32. Calibrated, the MHSA inputs and the BoTStack's residual stream
+    are at unit scale, as in a trained network. The other BNs keep their
+    random statistics: calibrating ``bn_mid`` would divide the small spread
+    of a near-uniform attention output by its own std and amplify bf16
+    rounding, and calibrating the trunk makes it chaotic."""
+    import numpy as np
+    import torch
+
+    from distribuuuu_tpu_torch.data.transforms import device_normalize
+    from distribuuuu_tpu_torch.models import build_model, layers
+    from distribuuuu_tpu_torch.models.botnet import BoTBlock
+
+    model = build_model(arch, num_classes=1000, dtype=torch.float32, im_size=im)
+    model.load_state_dict(sd, strict=True)
+    model = model.to("cuda", memory_format=torch.channels_last).eval()
+    bns = [bn for blk in model.modules() if isinstance(blk, BoTBlock)
+           for bn in (blk.net[1], *([blk.shortcut[1]] if isinstance(blk.shortcut, torch.nn.Sequential)
+                                    else []))]
+    by_mean = {id(bn.running_mean): bn for bn in bns}
+    real = {fn: getattr(layers, fn) for fn in ("fused_conv_epilogue", "epilogue_reference")}
+
+    def recalibrating(fn):
+        def call(x, mean, mul, bias, *args, **kw):
+            bn = by_mean.get(id(mean))
+            if bn is None:
+                return fn(x, mean, mul, bias, *args, **kw)
+            bn.running_mean.copy_(x.float().mean((0, 2, 3)))
+            bn.running_var.copy_(x.float().var((0, 2, 3), unbiased=False))
+            return fn(x, *bn.affine(), *args, **kw)
+        return call
+
+    imgs = np.random.default_rng(5).integers(0, 256, size=(batch, im, im, 3), dtype=np.uint8)
+    try:
+        for name, fn in real.items():
+            setattr(layers, name, recalibrating(fn))
+        with torch.no_grad():
+            model(device_normalize(torch.from_numpy(imgs).cuda()))
+    finally:
+        for name, fn in real.items():
+            setattr(layers, name, fn)
+    return {k: v.cpu() for k, v in model.state_dict().items()}
+
+
+def phase_serve(card: str, tmp: Path, arch: str):
+    """Serve ``arch`` from config/serve_resnet50.yaml with ``MODEL.ARCH`` and
+    ``SERVE.MODELS`` overridden: the user's entry point at full width."""
     import numpy as np
     import torch
 
     from distribuuuu_tpu_torch.config import cfg, load_cfg_fom_args, reset_cfg
     from distribuuuu_tpu_torch.data.transforms import device_normalize
     from distribuuuu_tpu_torch.models import build_model
+    from distribuuuu_tpu_torch.ops import attention as att
     from distribuuuu_tpu_torch.ops import epilogue as ep
     from distribuuuu_tpu_torch.serve.engine import parse_model_specs
     from distribuuuu_tpu_torch.serve.frontend import ServeReplica, run_http
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    sd = synthetic_state_dict(0)
-    weights = tmp / "rn50.pt"
+    want = SERVED[arch]
+    name = want["name"]
+    sd = synthetic_state_dict(arch, 0)
+    if want["attention"]:
+        sd = calibrate_bn(sd, arch, IM)
+    weights = tmp / f"{name}.pt"
     torch.save(sd, weights)
     reset_cfg()
-    load_cfg_fom_args(argv=["--cfg", str(SERVE_CFG), "SERVE.MODELS",
-                            f"['rn50=resnet50@{weights}']", "SERVE.PORT", "0",
+    load_cfg_fom_args(argv=["--cfg", str(SERVE_CFG), "MODEL.ARCH", arch, "SERVE.MODELS",
+                            f"['{name}={arch}@{weights}']", "SERVE.PORT", "0",
                             "OUT_DIR", str(tmp / "out")])
     cfg.freeze()
     s = cfg.SERVE
-    if (cfg.MODEL.ARCH, int(cfg.MODEL.NUM_CLASSES), str(cfg.MODEL.DTYPE), int(s.IM_SIZE),
+    if (int(cfg.MODEL.NUM_CLASSES), str(cfg.MODEL.DTYPE), int(s.IM_SIZE),
             str(s.INPUT_DTYPE), list(s.BATCH_SIZES)) != (
-            "resnet50", 1000, "bfloat16", 224, "uint8", [1, 8, 32, 128]):
+            1000, "bfloat16", 224, "uint8", [1, 8, 32, 128]):
         fail(f"{SERVE_CFG} no longer describes the full-width serving config")
 
     # --- the main path: counts zeroed just before, read just after ---------
-    ep.LAUNCHES = 0
+    ep.LAUNCHES = att.LAUNCHES = att.TABLE_LAUNCHES = 0
     tic = time.perf_counter()
     replica = ServeReplica(parse_model_specs(list(s.MODELS)))
     startup_s = time.perf_counter() - tic
@@ -262,7 +460,7 @@ def phase_serve(card: str, tmp: Path):
 
         def client(i):
             try:
-                responses[i] = replica.handle({"model": "rn50", "inputs": {
+                responses[i] = replica.handle({"model": name, "inputs": {
                     "b64": base64.b64encode(reqs[i].tobytes()).decode(),
                     "shape": list(reqs[i].shape)}})
             except Exception as exc:  # reported below; the phase fails
@@ -276,7 +474,7 @@ def phase_serve(card: str, tmp: Path):
         if errors or any(t.is_alive() for t in threads):
             fail(f"serving requests failed: {errors}")
         http_imgs = rng.integers(0, 256, size=(2, IM, IM, 3), dtype=np.uint8)
-        body = json.dumps({"model": "rn50", "inputs": {
+        body = json.dumps({"model": name, "inputs": {
             "b64": base64.b64encode(http_imgs.tobytes()).decode(),
             "shape": list(http_imgs.shape)}}).encode()
         url = f"http://127.0.0.1:{replica.port}"
@@ -286,18 +484,20 @@ def phase_serve(card: str, tmp: Path):
             http_resp = json.loads(r.read())
         with urllib.request.urlopen(url + "/healthz", timeout=10) as r:
             health = json.loads(r.read())
-        launches, forwards = ep.LAUNCHES, engine.forwards
+        launches = dict(k1=ep.LAUNCHES, attention=att.LAUNCHES, table=att.TABLE_LAUNCHES)
+        forwards = engine.forwards
     finally:
         stop.set()
         http.join(10)
         replica.shutdown()
     # -----------------------------------------------------------------------
-    say(f"[serve] startup {startup_s:.2f}s (load + warmup of every ladder size); "
-        f"{forwards} forwards, {launches} K1 launches; /healthz {health}")
-    if forwards < len(engine.batch_sizes) + 2 or launches != 49 * forwards:
-        fail(f"K1 launches {launches} != 49 x {forwards} forwards")
+    say(f"[serve {name}] startup {startup_s:.2f}s (load + warmup of every ladder size); "
+        f"{forwards} forwards, launches {launches}; /healthz {health}")
+    expected = dict(k1=want["k1"] * forwards, attention=want["attention"] * forwards, table=0)
+    if forwards < len(engine.batch_sizes) + 2 or launches != expected:
+        fail(f"{arch}: launches {launches} != {expected} for {forwards} forwards")
     batch_sizes = [r["batch_size"] for r in responses] + [http_resp["batch_size"]]
-    say(f"[serve] request sizes {sizes + [2]} ran at ladder sizes {batch_sizes}")
+    say(f"[serve {name}] request sizes {sizes + [2]} ran at ladder sizes {batch_sizes}")
     # each response equals the direct forward of its own images at its size
     all_reqs = reqs + [http_imgs]
     all_resp = [np.asarray(r["logits"], np.float32) for r in responses] + [
@@ -305,7 +505,7 @@ def phase_serve(card: str, tmp: Path):
     for imgs, got, b in zip(all_reqs, all_resp, batch_sizes):
         padded = np.zeros((b, IM, IM, 3), np.uint8)
         padded[: len(imgs)] = imgs
-        direct = engine.forward("rn50", padded)[: len(imgs)]
+        direct = engine.forward(name, padded)[: len(imgs)]
         if got.shape != (len(imgs), 1000) or not np.isfinite(got).all():
             fail(f"response of {len(imgs)} images: shape {got.shape} or non-finite logits")
         if not np.array_equal(got, direct):
@@ -318,19 +518,19 @@ def phase_serve(card: str, tmp: Path):
     latency = {}
     for b in engine.batch_sizes:
         batch = rng.integers(0, 256, size=(b, IM, IM, 3), dtype=np.uint8)
-        times = [engine.forward_timed("rn50", batch)[1] for _ in range(15)]
+        times = [engine.forward_timed(name, batch)[1] for _ in range(15)]
         latency[b] = statistics.median(times)
-        say(f"[serve] batch {b}: median forward {latency[b]:.3f} ms, "
+        say(f"[serve {name}] batch {b}: median forward {latency[b]:.3f} ms, "
             f"{1000.0 * b / latency[b]:.1f} images/s ({card})")
 
-    profile = {b: profile_forward(engine, rng, b) for b in (1, LADDER_BATCH)}
+    profile = {b: profile_forward(engine, name, rng, b) for b in (1, LADDER_BATCH)}
 
-    # (a) f32 on the card (kernel) vs f32 on the CPU (plain epilogue)
+    # (a) f32 on the card (kernels) vs f32 on the CPU (plain versions)
     imgs = torch.from_numpy(reqs[2])  # the 8-image request, served at bf16
     with torch.inference_mode():
-        m_gpu = build_model("resnet50", num_classes=1000, dtype=torch.float32)
+        m_gpu = build_model(arch, num_classes=1000, dtype=torch.float32, im_size=IM)
         m_gpu.load_state_dict(sd, strict=True)
-        m_cpu = build_model("resnet50", num_classes=1000, dtype=torch.float32)
+        m_cpu = build_model(arch, num_classes=1000, dtype=torch.float32, im_size=IM)
         m_cpu.load_state_dict(sd, strict=True)
         m_gpu = m_gpu.to("cuda", memory_format=torch.channels_last).eval()
         m_cpu = m_cpu.to(memory_format=torch.channels_last).eval()
@@ -338,49 +538,51 @@ def phase_serve(card: str, tmp: Path):
         f32_cpu = m_cpu(device_normalize(imgs)).numpy()
     scale = float(np.abs(f32_cpu).max())
     d_a = float(np.abs(f32_gpu - f32_cpu).max())
-    say(f"[check a] f32 card vs f32 CPU: max|d| {d_a:.3e}, max|logit| {scale:.4f}, "
+    say(f"[check a {name}] f32 card vs f32 CPU: max|d| {d_a:.3e}, max|logit| {scale:.4f}, "
         f"ratio {d_a / scale:.3e} (limit {F32_REL_TOL})")
     if not d_a <= F32_REL_TOL * scale:
-        fail("f32 card logits disagree with the CPU reference")
+        fail(f"{arch}: f32 card logits disagree with the CPU reference")
     # (b) bf16 serve logits vs f32 card logits
     served = all_resp[2]
     d_b = float(np.abs(served - f32_gpu).max()) / float(np.abs(f32_gpu).max())
     top1 = float(np.mean(served.argmax(1) == f32_gpu.argmax(1)))
-    say(f"[check b] bf16 serve vs f32: max|d|/max|logit| {d_b:.3e} (limit {BF16_REL_TOL}), "
+    say(f"[check b {name}] bf16 serve vs f32: max|d|/max|logit| {d_b:.3e} (limit {BF16_REL_TOL}), "
         f"top-1 agreement {top1:.3f} over {len(served)} images")
     if not d_b <= BF16_REL_TOL:
-        fail("bf16 serve logits are outside the stated tolerance of f32")
+        fail(f"{arch}: bf16 serve logits are outside the stated tolerance of f32")
     return dict(launches=launches, forwards=forwards, latency_ms=latency, profile=profile,
                 f32_ratio=d_a / scale, bf16_ratio=d_b, top1=top1, startup_s=startup_s)
 
 
-def profile_forward(engine, rng, b: int, runs: int = 3) -> dict:
-    """Device time of ``runs`` forwards at batch ``b`` by kernel class, from
-    a torch.profiler trace, and the device's idle share over the window
-    from the first kernel's start to the last kernel's end."""
+def profile_forward(engine, name: str, rng, b: int, runs: int = 3) -> dict:
+    """Device time of ``runs`` forwards of model ``name`` at batch ``b`` (the
+    engine's crop) by kernel class, from a torch.profiler trace, and the
+    device's idle share over the window from the first kernel's start to the
+    last kernel's end."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    batch = rng.integers(0, 256, size=(b, IM, IM, 3), dtype=np.uint8)
-    engine.forward("rn50", batch)
+    batch = rng.integers(0, 256, size=(b, engine.im_size, engine.im_size, 3), dtype=np.uint8)
+    engine.forward(name, batch)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(runs):
-            engine.forward("rn50", batch)
+            engine.forward(name, batch)
     spans = [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA and e.time_range.end > 0]
     if not spans:
-        say(f"[profile] batch {b}: the profiler recorded no device time (not measured)")
+        say(f"[profile {name}] batch {b}: the profiler recorded no device time (not measured)")
         return {}
     by_class: Counter = Counter()
     by_name: Counter = Counter()
-    for name, start, end in spans:
-        low = name.lower()
+    for kname, start, end in spans:
+        low = kname.lower()
         cls = ("K1" if "epilogue_kernel" in low else
+               "attention" if "attention_kernel" in low else
                "conv/gemm" if any(k in low for k in ("xmma", "conv", "gemm", "cutlass", "cudnn"))
                else "other")
         by_class[cls] += end - start
-        by_name[name[:60]] += end - start
+        by_name[kname[:60]] += end - start
     busy, last = 0.0, None
     for _, start, end in sorted(spans, key=lambda s: s[1]):
         if last is None or start >= last:
@@ -393,11 +595,101 @@ def profile_forward(engine, rng, b: int, runs: int = 3) -> dict:
     res = {"per_forward_us": {k: v / runs for k, v in by_class.items()},
            "busy_per_forward_us": busy / runs, "idle_share": 1.0 - busy / window,
            "kernels_per_forward": len(spans) / runs,
-           "top": [(n, t / runs) for n, t in by_name.most_common(6)]}
-    say(f"[profile] batch {b} per forward: " + ", ".join(
+           "top": [(n, t / runs) for n, t in by_name.most_common(8)]}
+    say(f"[profile {name}] batch {b} per forward: " + ", ".join(
         f"{k} {v:.0f} us" for k, v in sorted(res["per_forward_us"].items()))
         + f"; device busy {res['busy_per_forward_us']:.0f} us, idle share "
         f"{100 * res['idle_share']:.1f}%, {res['kernels_per_forward']:.0f} kernels")
+    say(f"[profile {name}] batch {b} top kernels: " + "; ".join(
+        f"{n} {t:.0f} us" for n, t in res["top"]))
+    return res
+
+
+def phase_large_crop(card: str, tmp: Path, im: int = 512, batch: int = 8, n_cpu: int = 2):
+    """botnet50 at a 512^2 crop (fmap 32x32, L 1024: the route of the TPU's
+    blockwise K4) through the engine: bf16 and f32 on the card, f32 on the
+    CPU for ``n_cpu`` of the images."""
+    import numpy as np
+    import torch
+
+    from distribuuuu_tpu_torch.ops import attention as att
+    from distribuuuu_tpu_torch.ops import epilogue as ep
+    from distribuuuu_tpu_torch.serve.engine import InferenceEngine, ModelSpec
+
+    weights = tmp / "bot512.pt"
+    torch.save(calibrate_bn(synthetic_state_dict("botnet50", 0, im=im), "botnet50", im, batch),
+               weights)
+    spec = ModelSpec("bot512", "botnet50", str(weights))
+    imgs = np.random.default_rng(4).integers(0, 256, size=(batch, im, im, 3), dtype=np.uint8)
+
+    def engine(dtype, sizes, device=None):
+        e = InferenceEngine(batch_sizes=sizes, im_size=im, num_classes=1000,
+                            compute_dtype=dtype, device=device)
+        e.load(spec)
+        return e
+
+    # --- this path: counts zeroed just before, read just after -------------
+    ep.LAUNCHES = att.LAUNCHES = att.TABLE_LAUNCHES = 0
+    bf16, f32 = engine("bfloat16", [batch]), engine("float32", [batch])
+    served = bf16.forward("bot512", imgs)
+    f32_card = f32.forward("bot512", imgs)
+    launches = dict(k1=ep.LAUNCHES, attention=att.LAUNCHES, table=att.TABLE_LAUNCHES)
+    # -----------------------------------------------------------------------
+    if launches != dict(k1=80, attention=6, table=0):
+        fail(f"botnet50 at {im}^2: launches {launches} != 40 K1 and 3 attention per forward")
+    ms = statistics.median(bf16.forward_timed("bot512", imgs)[1] for _ in range(5))
+    f32_cpu = engine("float32", [n_cpu], device="cpu").forward("bot512", imgs[:n_cpu])
+    scale = float(np.abs(f32_cpu).max())
+    d_a = float(np.abs(f32_card[:n_cpu] - f32_cpu).max()) / scale
+    d_b = float(np.abs(served - f32_card).max()) / float(np.abs(f32_card).max())
+    say(f"[large crop] botnet50 {im}^2 batch {batch}: launches {launches} over 2 forwards; "
+        f"f32 card vs CPU {d_a:.3e} (limit {F32_REL_TOL}), bf16 vs f32 {d_b:.3e} "
+        f"(limit {BF16_REL_TOL}); bf16 forward {ms:.3f} ms ({card})")
+    if not (np.isfinite(served).all() and d_a <= F32_REL_TOL and d_b <= BF16_REL_TOL):
+        fail(f"botnet50 at {im}^2 is outside the stated tolerances")
+    return dict(launches=launches, f32_ratio=d_a, bf16_ratio=d_b, forward_ms=ms)
+
+
+def phase_mhsa_table() -> dict:
+    """``MHSA(rel_pos_emb=False)`` at BoTNet-50's width (512 in, 4 heads of
+    128): the table mode, at fmap 14x14 batch 128 (K3's shape) and fmap
+    32x32 batch 8 (K5's), f32 and bf16 on the card, f32 on the CPU for a
+    few of the images."""
+    import torch
+
+    from distribuuuu_tpu_torch.models.botnet import MHSA
+    from distribuuuu_tpu_torch.ops import attention as att
+
+    torch.manual_seed(3)
+    res = {}
+    for kname, side, batch, n_cpu in (("K3", 14, 128, 4), ("K5", 32, 8, 2)):
+        ref = MHSA(512, (side, side), 4, 128, 128, rel_pos_emb=False, dtype=torch.float32)
+        for conv in (ref.to_qk, ref.to_v):  # fan-in normal: logits of O(1), a peaked softmax
+            torch.nn.init.normal_(conv.weight, std=(2.0 / 512) ** 0.5)
+        ref.eval()
+        x = torch.relu(torch.randn(batch, side, side, 512)).permute(0, 3, 1, 2)
+        with torch.inference_mode():
+            want = ref(x[:n_cpu])
+            # --- this path: counts zeroed just before, read just after -----
+            att.LAUNCHES = att.TABLE_LAUNCHES = 0
+            card = {}
+            for dtype in (torch.float32, torch.bfloat16):
+                m = MHSA(512, (side, side), 4, 128, 128, rel_pos_emb=False, dtype=dtype)
+                m.load_state_dict(ref.state_dict())
+                card[dtype] = m.cuda().eval()(x.cuda()).float().cpu()
+            launches = dict(attention=att.LAUNCHES, table=att.TABLE_LAUNCHES)
+            # -----------------------------------------------------------------
+        if launches != dict(attention=0, table=2):
+            fail(f"MHSA table mode at fmap {side}: launches {launches} != 1 per forward")
+        d_a = float((card[torch.float32][:n_cpu] - want).abs().max() / want.abs().max())
+        d_b = float((card[torch.bfloat16] - card[torch.float32]).abs().max()
+                    / card[torch.float32].abs().max())
+        say(f"[mhsa table {kname}] fmap {side}x{side} batch {batch}: launches {launches}; "
+            f"f32 card vs CPU {d_a:.3e} (limit {MHSA_F32_REL_TOL}), bf16 vs f32 {d_b:.3e} "
+            f"(limit {BF16_REL_TOL})")
+        if not (d_a <= MHSA_F32_REL_TOL and d_b <= BF16_REL_TOL):
+            fail(f"MHSA table mode at fmap {side} is outside the stated tolerances")
+        res[kname] = dict(launches=launches["table"], f32_ratio=d_a, bf16_ratio=d_b)
     return res
 
 
@@ -415,11 +707,17 @@ def main() -> None:
     ).stdout.strip().splitlines()[0]
     card = torch.cuda.get_device_name(0)
     say(f"[device] {card}; nvidia-smi: {smi}; torch {torch.__version__} CUDA {torch.version.cuda}")
+    torch.backends.cudnn.allow_tf32 = False  # f32 on the card is full f32 everywhere
+    torch.backends.cuda.matmul.allow_tf32 = False
 
-    build_s, _, spills = phase_build()
+    builds = phase_build()
     rows, max_err = phase_k1(card)
+    attn = phase_attention(card)
     with tempfile.TemporaryDirectory() as tmp:
-        serve = phase_serve(card, Path(tmp))
+        serve = phase_serve(card, Path(tmp), "resnet50")
+        bot = phase_serve(card, Path(tmp), "botnet50")
+        large = phase_large_crop(card, Path(tmp))
+    table = phase_mhsa_table()
 
     serving = [r for r in rows if r["combo"] == "bf16->f32"]
     per_fwd = {k: sum(r[k] * r["launches_per_forward"] for r in serving)
@@ -427,19 +725,22 @@ def main() -> None:
     out = ROOT / "smoke_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke_k1.json").write_text(json.dumps(
-        {"card": smi, "build_s": build_s, "spills": spills, "rows": rows,
+        {"card": smi, "build_s": builds["epilogue"]["build_s"],
+         "spills": builds["epilogue"]["spills"], "rows": rows,
          "per_forward_b128": per_fwd, "serve": serve}, indent=1))
+    (out / "chip_smoke_attention.json").write_text(json.dumps(
+        {"card": smi, "build": builds["attention"], "cases": attn, "serve_botnet50": bot,
+         "large_crop": large, "mhsa_table": table}, indent=1))
     say(f"[k1] per ResNet-50 forward at batch {LADDER_BATCH} (49 launches, bf16 -> f32): "
         f"{per_fwd['ms']:.3f} ms, plain {per_fwd['plain_ms']:.3f} ms, F.batch_norm "
         f"{per_fwd['library_ms']:.3f} ms, bound {per_fwd['bound_ms']:.3f} ms, "
         f"{per_fwd['bytes'] / 1e9:.2f} GB")
-    say(smi)
-    say(json.dumps({"kernels": [{
+    kernels = [{
         "name": "K1 fused_conv_epilogue",
         "route": "cuda",
         "source": "distribuuuu_tpu_torch/ops/csrc/epilogue.cu",
         "replaces": "distribuuuu_tpu/ops/epilogue.py:153",
-        "launches": serve["launches"],
+        "launches": serve["launches"]["k1"],
         "equal": True,
         "max_abs_err": max_err,
         "ms": per_fwd["ms"],
@@ -449,7 +750,31 @@ def main() -> None:
         "library_ms": per_fwd["library_ms"],
         "per": f"one ResNet-50 forward at batch {LADDER_BATCH}, 224x224: the 49 launches "
                f"summed, x bf16 -> f32",
-    }]}))
+    }]
+    # (kernel, entry point, the Pallas kernel it stands in for, launches on its path)
+    for kname, entry, line, launches in (
+            ("K2", "fused_attention", 188, bot["launches"]["attention"]),
+            ("K3", "fused_attention_abs", 462, table["K3"]["launches"]),
+            ("K4", "fused_attention", 278, large["launches"]["attention"]),
+            ("K5", "fused_attention_abs", 311, table["K5"]["launches"])):
+        r = attn[kname]
+        kernels.append({
+            "name": f"{kname} {entry}",
+            "route": "cuda",
+            "source": "distribuuuu_tpu_torch/ops/csrc/attention.cu",
+            "replaces": f"distribuuuu_tpu/ops/attention.py:{line}",
+            "launches": launches,
+            "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],
+            "per": f"one launch: B*N {r['b'] * r['n']}, L {r['l']}, D {r['d']}, Dv {r['dv']}, "
+                   f"{r['dtype']} q/k/v, {'bf16 bias' if r['mode'] == 'bias' else '[L, D] table'}",
+        })
+    say(smi)
+    say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card, "count": torch.cuda.device_count()}}))
 

@@ -1,9 +1,10 @@
 """distribuuuu_tpu_torch: the PyTorch/CUDA port of distribuuuu_tpu for NVIDIA Hopper.
 
-This slice serves the ResNet family (``python -m distribuuuu_tpu_torch.serve``)
-with the fused conv epilogue running as a hand-written CUDA kernel. Entry
-points run on ``cuda`` unless the caller passes ``device="cpu"``; without a
-card and without that explicit choice they raise.
+It serves the ResNet family and BoTNet-50 (``python -m
+distribuuuu_tpu_torch.serve``), with the fused conv epilogue and BoTNet's
+attention running as hand-written CUDA kernels. Entry points run on
+``cuda`` unless the caller passes ``device="cpu"``; without a card and
+without that explicit choice they raise.
 """
 
 import torch

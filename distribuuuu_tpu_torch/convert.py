@@ -3,9 +3,10 @@
 - :func:`from_jax_variables` maps the JAX package's ``{"params",
   "batch_stats"}`` (nested dicts of numpy arrays) to the port's state_dict:
   HWIO -> OIHW convs, ``[in, out]`` -> ``[out, in]`` linears, ``layerS_I`` ->
-  ``layerS.I``, ``ds_conv``/``ds_bn`` -> ``downsample.0``/``downsample.1``.
-  The port's own copy of the ResNet part of ``distribuuuu_tpu.convert``'s
-  ``export_state_dict``.
+  ``layerS.I``, ``ds_conv``/``ds_bn`` -> ``downsample.0``/``downsample.1``;
+  for botnet50 the reference's Sequential numbering, with the position
+  tables carried verbatim. The port's own copy of the ResNet and BoTNet
+  parts of ``distribuuuu_tpu.convert``'s ``export_state_dict``.
 - :func:`load_weights` reads a torch ``.pt``/``.pth`` state_dict in
   torchvision naming.
 
@@ -33,7 +34,7 @@ def _flatten(tree: Mapping, prefix=()):
             yield prefix + (k,), v
 
 
-def _module_name(mod: list[str]) -> str:
+def _resnet_module_name(mod: list[str]) -> str:
     parts = []
     for p in mod:
         m = re.fullmatch(r"(layer\d+)_(\d+)", p)
@@ -48,16 +49,55 @@ def _module_name(mod: list[str]) -> str:
     return ".".join(parts)
 
 
+# BoTBlock submodules -> slots of the reference's shortcut / net Sequentials
+_BOT_SLOTS = {
+    "sc_conv": "shortcut.0",
+    "sc_bn": "shortcut.1",
+    "conv_in": "net.0",
+    "bn_in": "net.1",
+    "bn_mid": "net.5",
+    "conv_out": "net.7",
+    "bn_out": "net.8",
+}
+_BOT_TOP = {"conv1": "0", "bn1": "1", "fc": "10"}
+
+
+def _botnet_module_name(mod: list[str]) -> str:
+    """The reference's Sequential numbering: 0 conv1, 1 bn1, 4-6 layer1-3,
+    7.net.{i} the BoTBlocks, 10 fc."""
+    head = mod[0]
+    if head in _BOT_TOP:
+        return _BOT_TOP[head]
+    m = re.fullmatch(r"layer(\d+)_(\d+)", head)
+    if m:
+        rest = _resnet_module_name(mod[1:])
+        return f"{int(m.group(1)) + 3}.{m.group(2)}" + (f".{rest}" if rest else "")
+    b = re.fullmatch(r"bot_(\d+)", head)
+    if not b:
+        raise KeyError(f"unmapped botnet module path {mod}")
+    prefix = f"7.net.{b.group(1)}"
+    if mod[1] == "mhsa":  # to_qk, to_v or pos_emb
+        return ".".join([prefix, "net.3", *mod[2:]])
+    return f"{prefix}.{_BOT_SLOTS[mod[1]]}"
+
+
+# leaves stored verbatim on both sides (BoTNet's position tables)
+_RAW_LEAVES = {"rel_height", "rel_width", "height", "width"}
+
+
 def from_jax_variables(variables: Mapping, arch: str) -> dict[str, torch.Tensor]:
     """The port's state_dict for ``arch`` from JAX ``{"params", "batch_stats"}``."""
     if arch not in list_models():
         raise KeyError(f"{arch!r} is not a model of the port; it has: {', '.join(list_models())}")
+    module_name = _botnet_module_name if arch == "botnet50" else _resnet_module_name
     sd: dict[str, torch.Tensor] = {}
     for col in ("params", "batch_stats"):
         for path, leaf in _flatten(variables.get(col, {})):
-            val = np.asarray(leaf, dtype=np.float32)
-            prefix, leaf_name = _module_name(list(path[:-1])), path[-1]
-            if col == "batch_stats":
+            val = np.array(leaf, dtype=np.float32)  # a writable copy
+            prefix, leaf_name = module_name(list(path[:-1])), path[-1]
+            if leaf_name in _RAW_LEAVES:
+                key = f"{prefix}.{leaf_name}"
+            elif col == "batch_stats":
                 key, val = f"{prefix}.running_{'mean' if leaf_name == 'mean' else 'var'}", val
             elif leaf_name == "kernel":
                 key = f"{prefix}.weight"

@@ -76,6 +76,24 @@ class Bottleneck(nn.Module):
         return bn_epilogue(out, self.bn3, identity)
 
 
+def resnet_stages(block, stage_sizes, groups=1, width_per_group=64, *, dtype, bn_dtype):
+    """The residual stages with v1.5 stride placement (``resnet_stages`` of
+    the JAX package): a list of ``nn.Sequential`` and their output width.
+    Shared by ResNet and BoTNet's trunk."""
+    stages, inplanes = [], 64
+    for stage, num_blocks in enumerate(stage_sizes):
+        planes = 64 * 2**stage
+        blocks = []
+        for i in range(num_blocks):
+            stride = 2 if (stage > 0 and i == 0) else 1
+            downsample = stride != 1 or inplanes != planes * block.expansion
+            blocks.append(block(inplanes, planes, stride, downsample, groups,
+                                width_per_group, dtype=dtype, bn_dtype=bn_dtype))
+            inplanes = planes * block.expansion
+        stages.append(nn.Sequential(*blocks))
+    return stages, inplanes
+
+
 class ResNet(nn.Module):
     """Stem -> 4 stages -> global average pool -> fc."""
 
@@ -84,17 +102,10 @@ class ResNet(nn.Module):
         super().__init__()
         self.conv1 = conv(3, 64, 7, 2, padding=3, dtype=dtype)
         self.bn1 = BatchNorm(64, bn_dtype=bn_dtype)
-        inplanes = 64
-        for stage, num_blocks in enumerate(stage_sizes):
-            planes = 64 * 2**stage
-            blocks = []
-            for i in range(num_blocks):
-                stride = 2 if (stage > 0 and i == 0) else 1
-                downsample = stride != 1 or inplanes != planes * block.expansion
-                blocks.append(block(inplanes, planes, stride, downsample, groups,
-                                    width_per_group, dtype=dtype, bn_dtype=bn_dtype))
-                inplanes = planes * block.expansion
-            self.add_module(f"layer{stage + 1}", nn.Sequential(*blocks))
+        stages, inplanes = resnet_stages(block, stage_sizes, groups, width_per_group,
+                                         dtype=dtype, bn_dtype=bn_dtype)
+        for stage, layer in enumerate(stages):
+            self.add_module(f"layer{stage + 1}", layer)
         self.num_stages = len(stage_sizes)
         self.fc = nn.Linear(inplanes, num_classes)
 

@@ -40,7 +40,8 @@ class BuildInfo:
     ptxas: str
 
 
-_lock = threading.Lock()
+_lock = threading.Lock()  # guards the two dicts below
+_name_locks: dict[str, threading.Lock] = {}  # one per source: different sources build at once
 _loaded: dict[str, tuple[ctypes.CDLL, BuildInfo]] = {}
 
 
@@ -82,9 +83,16 @@ def build(name: str) -> BuildInfo:
 
 
 def load(name: str) -> tuple[ctypes.CDLL, BuildInfo]:
-    """The loaded library for ``csrc/<name>.cu``, built on first call."""
+    """The loaded library for ``csrc/<name>.cu``, built on first call.
+    Calls for different sources from different threads build in parallel."""
     with _lock:
-        if name not in _loaded:
-            info = build(name)
-            _loaded[name] = (ctypes.CDLL(str(info.path)), info)
-        return _loaded[name]
+        name_lock = _name_locks.setdefault(name, threading.Lock())
+    with name_lock:
+        with _lock:
+            if name in _loaded:
+                return _loaded[name]
+        info = build(name)
+        loaded = (ctypes.CDLL(str(info.path)), info)
+        with _lock:
+            _loaded[name] = loaded
+        return loaded

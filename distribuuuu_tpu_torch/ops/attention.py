@@ -1,0 +1,156 @@
+"""Fused biased attention: ``softmax(q·kᵀ + bias)·v`` in one pass.
+
+The port's counterpart of ``distribuuuu_tpu/ops/attention.py``, for
+BoTNet's MHSA. On a CUDA tensor, :func:`fused_attention` (bias tensor) and
+:func:`fused_attention_abs` (bias ``q·embᵀ`` formed in the kernel from the
+shared ``[L, D]`` table) launch the hand-written Hopper kernel in
+``csrc/attention.cu``, which replaces all four Pallas kernels (K2-K5: the
+single-tile and blockwise variants of both modes). On a CPU tensor they
+compute :func:`attention_reference` / :func:`attention_table_reference`,
+the plain PyTorch versions. There is no other route: a CUDA tensor the
+kernel does not take raises, and nothing falls back.
+
+Layout as in the JAX package: ``[B, N, L, D]`` with q pre-scaled. The
+kernel takes any strides of B, N and L as long as the last axis is
+contiguous, so the head-split views of MHSA reach it without a copy. The
+output is a contiguous ``[B, N, L, Dv]`` in q's dtype.
+
+Forward only: serving needs no backward. The training slice adds an
+``autograd.Function`` around it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+
+import torch
+
+# Launches of the CUDA kernel since the last reset, per entry point (bias
+# tensor: K2/K4; table: K3/K5). chip_smoke.py zeroes them before driving a
+# path and reads them after, to show the path went through the kernel.
+LAUNCHES = 0
+TABLE_LAUNCHES = 0
+_count_lock = threading.Lock()
+
+_DT_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_TABLE = -1
+MAX_HEAD_DIM = 128  # the kernel's register and shared-memory tiles hold D, Dv <= 128
+
+
+def attention_reference(q, k, v, bias):
+    """``softmax(q·kᵀ + bias)·v`` term for term as ``xla_attention``:
+    logits accumulated in f32 plus the bias in f32, softmax in f32, the
+    weights cast to ``v.dtype``, the product accumulated in f32 and cast to
+    ``q.dtype``."""
+    logits = torch.einsum("bnxd,bnyd->bnxy", q.float(), k.float()) + bias.float()
+    weights = torch.softmax(logits, dim=-1).to(v.dtype)
+    return torch.einsum("bnxy,bnyd->bnxd", weights.float(), v.float()).to(q.dtype)
+
+
+def attention_table_reference(q, k, v, emb):
+    """:func:`attention_reference` with ``bias = q·embᵀ`` (f32) from the
+    ``[L, D]`` table."""
+    return attention_reference(q, k, v, torch.einsum("bnxd,yd->bnxy", q.float(), emb.float()))
+
+
+def _check(q, k, v, last, *, table: bool) -> None:
+    if q.dim() != 4:
+        raise ValueError(f"q must be [B, N, L, D], got {tuple(q.shape)}")
+    b, n, l, d = q.shape
+    if k.shape != q.shape:
+        raise ValueError(f"k {tuple(k.shape)} must match q {tuple(q.shape)}")
+    if v.dim() != 4 or v.shape[:3] != q.shape[:3]:
+        raise ValueError(f"v must be [{b}, {n}, {l}, Dv], got {tuple(v.shape)}")
+    if q.dtype not in _DT_CODE:
+        raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q, k, v must share one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if table:
+        if last.shape != (l, d):
+            raise ValueError(f"emb must be [L, D] = [{l}, {d}], got {tuple(last.shape)}")
+        if last.dtype != q.dtype:
+            raise TypeError(f"emb must be in q's dtype {q.dtype}, got {last.dtype}")
+    else:
+        if last.shape != (b, n, l, l):
+            raise ValueError(f"bias must be [{b}, {n}, {l}, {l}], got {tuple(last.shape)}")
+        if last.dtype not in _DT_CODE:
+            raise TypeError(f"bias must be float32 or bfloat16, got {last.dtype}")
+    for name, t in (("k", k), ("v", v), ("bias/emb", last)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+
+
+def fused_attention(q, k, v, bias):
+    """``softmax(q·kᵀ + bias)·v`` with a ``[B, N, L, L]`` bias (f32 or bf16);
+    q pre-scaled. A CPU tensor gets :func:`attention_reference`; a CUDA
+    tensor launches the kernel."""
+    _check(q, k, v, bias, table=False)
+    if q.device.type == "cpu":
+        return attention_reference(q, k, v, bias)
+    return _launch(q, k, v, bias, table=False)
+
+
+def fused_attention_abs(q, k, v, emb):
+    """``softmax(q·kᵀ + q·embᵀ)·v`` with the ``[L, D]`` table in q's dtype;
+    the ``[B, N, L, L]`` bias is never formed in device memory. A CPU tensor
+    gets :func:`attention_table_reference`; a CUDA tensor launches the
+    kernel."""
+    _check(q, k, v, emb, table=True)
+    if q.device.type == "cpu":
+        return attention_table_reference(q, k, v, emb)
+    return _launch(q, k, v, emb, table=True)
+
+
+def _launch(q, k, v, last, *, table: bool):
+    if q.device.type != "cuda":
+        raise ValueError(f"fused attention runs on cuda or cpu tensors, got {q.device}")
+    b, n, l, d = q.shape
+    dv = v.shape[-1]
+    if d > MAX_HEAD_DIM or dv > MAX_HEAD_DIM:
+        raise ValueError(f"the CUDA kernel takes D, Dv <= {MAX_HEAD_DIM}, got D={d}, Dv={dv}")
+    for name, t in (("q", q), ("k", k), ("v", v), ("bias/emb", last)):
+        if t.stride(-1) != 1:
+            raise ValueError(
+                f"{name} must have a contiguous last axis for the CUDA kernel "
+                f"(shape {tuple(t.shape)}, strides {t.stride()})"
+            )
+    out = torch.empty((b, n, l, dv), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    if table:
+        bias_args = (None, 0, 0, 0, _TABLE, last.data_ptr(), last.stride(0))
+    else:
+        bias_args = (last.data_ptr(), *last.stride()[:3], _DT_CODE[last.dtype], None, 0)
+    lib = _library()
+    with torch.cuda.device(q.device):
+        err = lib.dtpu_attention_launch(
+            q.data_ptr(), *q.stride()[:3],
+            k.data_ptr(), *k.stride()[:3],
+            v.data_ptr(), *v.stride()[:3],
+            *bias_args,
+            out.data_ptr(), _DT_CODE[q.dtype], b, n, l, d, dv,
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"attention kernel launch failed: cudaError {err}")
+    global LAUNCHES, TABLE_LAUNCHES
+    with _count_lock:
+        if table:
+            TABLE_LAUNCHES += 1
+        else:
+            LAUNCHES += 1
+    return out
+
+
+def _library() -> ctypes.CDLL:
+    from distribuuuu_tpu_torch.ops import _build
+
+    lib, _ = _build.load("attention")
+    fn = lib.dtpu_attention_launch
+    if fn.argtypes is None:  # without them ctypes passes pointers as 32-bit ints
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        strided = [p, ll, ll, ll]
+        fn.argtypes = (strided * 3 + [p, ll, ll, ll, i, p, ll, p, i, i, i, i, i, i, p])
+        fn.restype = ctypes.c_int
+    return lib

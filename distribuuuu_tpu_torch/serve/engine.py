@@ -1,9 +1,10 @@
 """Multi-model inference engine: the compute half of the port's serving path.
 
 Counterpart of ``distribuuuu_tpu/serve/engine.py``. Each hosted model is a
-zoo ResNet loaded from a torch state_dict onto one device, channels-last,
-in eval mode. The JAX engine's ahead-of-time ladder becomes eager execution
-plus a :meth:`InferenceEngine.warmup` over every ladder size; the forward
+zoo model (a ResNet or BoTNet-50, built for ``SERVE.IM_SIZE`` crops) loaded
+from a torch state_dict onto one device, channels-last, in eval mode. The
+JAX engine's ahead-of-time ladder becomes eager execution plus a
+:meth:`InferenceEngine.warmup` over every ladder size; the forward
 contract is the same: exactly-ladder-sized batches of the wire dtype in,
 float32 logits as numpy out, anything else refused loudly.
 
@@ -128,7 +129,8 @@ class InferenceEngine:
             if spec.name in self.models:
                 raise ValueError(f"model {spec.name!r} already hosted")
         tic = time.time()
-        module = build_model(spec.arch, num_classes=self.num_classes, dtype=self.compute_dtype)
+        module = build_model(spec.arch, num_classes=self.num_classes, dtype=self.compute_dtype,
+                             im_size=self.im_size)
         module.load_state_dict(load_weights(spec.weights), strict=True)
         module = module.to(self.device, memory_format=torch.channels_last).eval()
         hosted = HostedModel(spec, module, time.time() - tic)

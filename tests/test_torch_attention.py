@@ -1,0 +1,115 @@
+"""Fused attention of the PyTorch port (distribuuuu_tpu_torch/ops/attention.py).
+
+On the CPU the port's wrappers compute their plain versions. Those are held
+against the four JAX Pallas kernels run in the Pallas interpreter, on the
+same numpy-seeded inputs cast identically on both sides:
+
+- K2 ``fused_attention`` (single tile) and K4 ``_fused_attention_blk``
+  (blockwise online softmax), bias tensor;
+- K3 ``fused_attention_abs`` and K5 ``_fused_attention_abs_blk``, the bias
+  ``q·embᵀ`` formed from the ``[L, D]`` table;
+
+in float32 within 2e-5 (only summation order differs) and in bfloat16
+within 2e-2 (the weights are cast to bf16 before ``p·v``: K2 and the plain
+version after normalising, K4/K5 before, so the two round differently by
+up to a bf16 ulp of the output; tests/test_ops_attention.py uses the same
+bounds). L is ragged against the CUDA kernel's 64-row tiles and Dv != D.
+
+The card-only kernel tests are in tests/test_torch_gpu.py.
+"""
+
+import numpy as np
+import pytest
+
+import jax.numpy as jnp
+import torch
+
+from distribuuuu_tpu.ops import attention as jax_attention
+from distribuuuu_tpu_torch.ops import attention as att
+
+torch.set_num_threads(2)
+
+_JNP = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
+_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def _inputs(b, n, l, d, dv, dtype, seed):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, n, l, d)).astype(np.float32) * 0.3
+    k = rng.standard_normal((b, n, l, d)).astype(np.float32) * 0.3
+    v = rng.standard_normal((b, n, l, dv)).astype(np.float32)
+    bias = rng.standard_normal((b, n, l, l)).astype(np.float32) * 0.5
+    emb = rng.standard_normal((l, d)).astype(np.float32) * 0.5
+    t = [torch.from_numpy(a).to(dtype) for a in (q, k, v, bias, emb)]
+    j = [jnp.asarray(a, _JNP[dtype]) for a in (q, k, v, bias, emb)]
+    return t, j
+
+
+def _jax_kernel(kernel, q, k, v, last, block):
+    if kernel == "K2":
+        return jax_attention.fused_attention(q, k, v, last, interpret=True)
+    if kernel == "K3":
+        return jax_attention.fused_attention_abs(q, k, v, last, interpret=True)
+    if kernel == "K4":
+        return jax_attention._fused_attention_blk(q, k, v, last, block, True)
+    return jax_attention._fused_attention_abs_blk(q, k, v, last, block, True)
+
+
+# (kernel, L, D, Dv, block): K2/K3 at the single-tile L of the JAX tests,
+# K4/K5 at an L of three 16-blocks; L is never a multiple of 64
+_CASES = [("K2", 20, 16, 8, None), ("K3", 20, 16, 8, None),
+          ("K4", 48, 16, 8, 16), ("K5", 48, 16, 8, 16)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("kernel,l,d,dv,block", _CASES, ids=[c[0] for c in _CASES])
+def test_plain_versions_match_the_jax_kernels(kernel, l, d, dv, block, dtype):
+    (q, k, v, bias, emb), (jq, jk, jv, jbias, jemb) = _inputs(2, 3, l, d, dv, dtype, seed=l + d)
+    table = kernel in ("K3", "K5")
+    ref = np.asarray(
+        _jax_kernel(kernel, jq, jk, jv, jemb if table else jbias, block), np.float32)
+    before = (att.LAUNCHES, att.TABLE_LAUNCHES)
+    got = (att.fused_attention_abs(q, k, v, emb) if table
+           else att.fused_attention(q, k, v, bias))
+    assert (att.LAUNCHES, att.TABLE_LAUNCHES) == before  # the CPU never launches
+    assert got.dtype == dtype and got.shape == (2, 3, l, dv)
+    tol = _TOL[dtype] * max(1.0, float(np.abs(ref).max()))
+    assert float(np.abs(got.float().numpy() - ref).max()) <= tol
+
+
+def test_table_mode_equals_bias_mode_on_the_materialised_product():
+    (q, k, v, _, emb), _ = _inputs(1, 2, 30, 8, 8, torch.float32, seed=4)
+    bias = torch.einsum("bnxd,yd->bnxy", q, emb)
+    torch.testing.assert_close(att.fused_attention_abs(q, k, v, emb),
+                               att.fused_attention(q, k, v, bias), rtol=1e-6, atol=1e-6)
+
+
+def test_softmax_is_stable_under_a_huge_uniform_bias():
+    (q, k, v, bias, _), _ = _inputs(1, 1, 8, 8, 8, torch.float32, seed=5)
+    out = att.fused_attention(q, k, v, bias + 1e4)
+    assert torch.isfinite(out).all()
+
+
+def test_wrapper_refusals():
+    (q, k, v, bias, emb), _ = _inputs(1, 2, 6, 4, 4, torch.float32, seed=6)
+    with pytest.raises(ValueError, match=r"\[B, N, L, D\]"):
+        att.fused_attention(q[0], k, v, bias)
+    with pytest.raises(ValueError, match="must match q"):
+        att.fused_attention(q, k[:, :, :5], v, bias)
+    with pytest.raises(ValueError, match="v must be"):
+        att.fused_attention(q, k, v[:, :1], bias)
+    with pytest.raises(TypeError, match="one dtype"):
+        att.fused_attention(q, k.bfloat16(), v, bias)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        att.fused_attention(q.half(), k.half(), v.half(), bias)
+    with pytest.raises(ValueError, match="bias must be"):
+        att.fused_attention(q, k, v, bias[..., :5])
+    with pytest.raises(TypeError, match="bias must be float32 or bfloat16"):
+        att.fused_attention(q, k, v, bias.double())
+    with pytest.raises(ValueError, match=r"emb must be \[L, D\]"):
+        att.fused_attention_abs(q, k, v, emb[:5])
+    with pytest.raises(TypeError, match="q's dtype"):
+        att.fused_attention_abs(q, k, v, emb.bfloat16())
+    meta = [t.to("meta") for t in (q, k, v, bias)]
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        att.fused_attention(*meta)

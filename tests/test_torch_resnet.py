@@ -125,9 +125,11 @@ def test_epilogue_sites_are_channels_last_and_49_for_resnet50(monkeypatch, varia
 
 
 def test_all_nine_factories_registered_with_torchvision_names():
+    """The nine ResNets, plus botnet50 (tests/test_torch_botnet.py)."""
     assert set(list_models()) == {
         "resnet18", "resnet34", "resnet50", "resnet101", "resnet152",
         "resnext50_32x4d", "resnext101_32x8d", "wide_resnet50_2", "wide_resnet101_2",
+        "botnet50",
     }
     keys = build_model("resnext50_32x4d", num_classes=5).state_dict().keys()
     assert {"conv1.weight", "bn1.running_var", "layer1.0.downsample.0.weight",
