@@ -30,7 +30,21 @@ Phases (any failure exits non-zero):
    card vs f32 CPU on 2 images and bf16 vs f32; ``MHSA(rel_pos_emb=False)``
    at full width (batch 128, fmap 14x14) and at fmap 32x32, card vs CPU
    (the K3/K5 route);
-8. the ``{"kernels": [...]}`` line; 9. the ``{"ok": true, ...}`` last line.
+8. [moe-kernels] the switch-MoE dispatch (K6) and combine (K7) kernels
+   (``ops/csrc/moe.cu``) against their plain versions on the card: the soak's
+   per-device shard (N 8192, D 128, E 8, C 1280) and the Switch-Transformer-
+   Base width (D 768), x f32 and bf16, the shard ``switch_moe`` gets in
+   phase 9, a ragged N, one and two route tiles, capacity 1 and the forced
+   overflow boundary; bitwise on dyadic inputs, near-ties only on continuous
+   ones; gradients of the soak's loss against autograd through the plain
+   versions; timed beside the plain versions, an eager index-op composition
+   and the bytes bound;
+9. [moe-dist] ``switch_moe`` forward and backward on 8 ranks (one expert
+   each) sharing the card in a ``gloo`` group, N 4096 tokens per rank, D 128,
+   C 640, then the same ranks on the CPU (plain versions): loss, aux, out,
+   routing and gradients must agree, and every rank's forward must launch
+   K6 and K7 once each;
+10. the ``{"kernels": [...]}`` line; 11. the ``{"ok": true, ...}`` last line.
 
 Each path is driven with the launch counts set to 0 just before it and read
 just after. Per-shape numbers are also written to ``smoke_out/``.
@@ -39,6 +53,7 @@ just after. Per-shape numbers are also written to ``smoke_out/``.
 from __future__ import annotations
 
 import base64
+import importlib.util
 import json
 import re
 import statistics
@@ -134,7 +149,7 @@ def cuda_ms(fn, runs: int = 25, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def phase_build(names=("epilogue", "attention")) -> dict:
+def phase_build(names=("epilogue", "attention", "moe")) -> dict:
     """Build every kernel library at once (one nvcc each, in parallel)."""
     from distribuuuu_tpu_torch.ops import _build
 
@@ -693,13 +708,365 @@ def phase_mhsa_table() -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# switch MoE: K6 (dispatch) and K7 (combine)
+# ---------------------------------------------------------------------------
+
+# (label, N, D, E, C, x dtype). The soak's per-device shard
+# (scripts/soak_fused_attn.py --moe: N 8192, D 128, E 8, C = 1.25 N / E)
+# and the Switch-Transformer-Base width (d_model 768, arXiv 2101.03961) at
+# the same N, E and C; the shard switch_moe gets in [moe-dist]; a ragged N;
+# one route tile (N < 64) and N 100 (one TPU tile, two here); capacity 1;
+# every token to expert 0 with C = N - 1, so exactly the last one drops.
+MOE_CASES = [
+    ("soak", 8192, 128, 8, 1280, "float32"),
+    ("soak", 8192, 128, 8, 1280, "bfloat16"),
+    ("switch-base", 8192, 768, 8, 1280, "float32"),
+    ("switch-base", 8192, 768, 8, 1280, "bfloat16"),
+    ("moe-dist shard", 4096, 128, 8, 640, "float32"),
+    ("ragged", 8191, 128, 8, 1280, "float32"),
+    ("one tile", 60, 128, 8, 10, "bfloat16"),
+    ("N 100", 100, 128, 8, 16, "float32"),
+    ("capacity 1", 8192, 128, 8, 1, "float32"),
+    ("overflow", 4096, 128, 8, 4095, "bfloat16"),
+]
+MOE_TIMED = ("soak", "switch-base", "moe-dist shard")
+# w and fp_sum[1] pass through exp, whose CUDA and eager versions may differ
+# by an ulp, and fp_sum[1] sums N probabilities in another order than the
+# plain version; everything else is exact on the same routing
+MOE_W_RTOL = 1e-6
+MOE_FP_RTOL = 1e-5
+# gradients against autograd through the plain versions, relative to
+# max|grad|: the same math in another summation order (f32, ~1e-7)
+MOE_GRAD_RTOL = 1e-5
+# on continuous inputs a token may route differently only where the plain
+# version's top-2 logit gap is below this times max|logit|: the kernel sums
+# the logits in another order, a few ulps apart
+MOE_NEAR_TIE = 1e-5
+# [moe-dist]: 8 ranks, N 4096 tokens each, D 128, the dry run's expert
+# tanh(h @ w) @ v with H = 2D, C = ceil(1.25 * 4096 / 8) = 640
+MOE_DIST = dict(world=8, n_local=4096, d=128, hidden=256, capacity=640)
+MOE_DIST_RTOL = 1e-5
+MOE_DIST_DEADLINE_S = 300
+MOE_WORKER = ROOT / "tests" / "_torch_moe_worker.py"
+
+
+def dyadic(shape, k: int, den: int, gen):
+    """Integers in [-k, k] over ``den``, on the card. With x in k/8 (|k| <=
+    16) and the gate in m/64 (|m| <= 32) every product is a multiple of 2^-9
+    of size <= 1, so a sum of D <= 768 of them fits in 19 bits: every f32
+    logit is exact in any summation order, and only exact ties can tie."""
+    import torch
+
+    return torch.randint(-k, k + 1, shape, generator=gen, device="cuda").float() / den
+
+
+def moe_inputs(n, d, e, dtype, gen, *, continuous=False, overflow=False):
+    """(x in ``dtype``, gate f32): dyadic, or the soak's continuous scales;
+    ``overflow``: positive tokens and only expert 0's gate column set."""
+    import torch
+
+    if continuous:
+        x = torch.randn(n, d, generator=gen, device="cuda") * 0.5
+        g = torch.randn(d, e, generator=gen, device="cuda") * 0.1
+    else:
+        x, g = dyadic((n, d), 16, 8, gen), dyadic((d, e), 32, 64, gen)
+    if overflow:
+        x = x.abs() + 0.125
+        g = torch.zeros(d, e, device="cuda")
+        g[:, 0] = 0.5
+    return x.to(getattr(torch, dtype)), g
+
+
+def library_dispatch(x, g, c):
+    """The same function from eager index ops, no [n, E, C] mask: softmax,
+    argmax, an int32 cumsum over the transposed ``[E, n]`` one-hot (a scan
+    along dim 0 of ``[n, E]`` runs one thread per column and takes ~1.4 ms
+    at n 8192 on the H100), a gather and one ``index_copy_`` (dropped
+    tokens go to a spare row, so nothing waits on the host). A yardstick
+    only."""
+    import torch
+
+    n, d = x.shape
+    e = g.shape[1]
+    x32 = x.float()
+    probs = torch.softmax(x32 @ g, dim=-1)
+    top = probs.argmax(dim=-1)
+    top_p = probs.gather(-1, top[:, None])[:, 0]
+    oh_t = (top[None, :] == torch.arange(e, device=x.device)[:, None]).int()  # [E, n]
+    pos = oh_t.cumsum(1, dtype=torch.int32).gather(0, top[None, :])[0] - 1
+    keep = pos < c
+    send = torch.zeros(e * c + 1, d, device=x.device)
+    send.index_copy_(0, torch.where(keep, top * c + pos, e * c), x32)
+    return (send[: e * c].view(e, c, d), top.int(), pos.clamp(max=c - 1), top_p * keep,
+            torch.stack([oh_t.sum(1).float(), probs.sum(0)]))
+
+
+def moe_profile(mk, x, g, c, back, runs: int = 20) -> dict:
+    """Device time per call of each K6/K7 launch (torch.profiler), and the
+    host's time per call of the wrappers from an idle stream."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def call():
+        _, top, pos, w, _ = mk.fused_moe_dispatch(x, g, capacity=c)
+        mk.fused_moe_combine(back, top, pos, w)
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            call()
+        torch.cuda.synchronize()
+    by_name: Counter = Counter()
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA and ev.time_range.end > 0:
+            name = next((k for k in ("route", "scan", "scatter", "combine") if f"moe_{k}_kernel" in ev.name),
+                        "other")
+            by_name[name] += ev.time_range.end - ev.time_range.start
+    tic = time.perf_counter()
+    for _ in range(runs):
+        call()
+    torch.cuda.synchronize()
+    host_us = 1e6 * (time.perf_counter() - tic) / runs
+    return {"device_us": {k: v / runs for k, v in by_name.items()}, "host_us_per_call": host_us}
+
+
+def library_combine(back, top, pos, w):
+    """``w · back[top, pos]`` as one ``index_select`` and a multiply."""
+    e, c, d = back.shape
+    return w[:, None] * back.view(e * c, d).index_select(0, top.long() * c + pos.long())
+
+
+def moe_bound(n, d, e, c, item, kept, bw) -> dict:
+    """Bytes bounds (ms) of one call, each input read once and each output
+    written once. Dispatch: x, the gate, the whole send buffer (zeros too),
+    top/pos/w and fp_sum; its 2nDE flops are ~1e4 times below the bytes.
+    Combine: the kept tokens' rows of back (a dropped token needs none),
+    top/pos/w and out."""
+    d_bytes = n * d * item + d * e * 4 + e * c * d * 4 + 3 * n * 4 + 2 * e * 4
+    c_bytes = kept * d * 4 + 3 * n * 4 + n * d * 4
+    by = {}
+    for key, nbytes, flops in (("dispatch", d_bytes, 2.0 * n * d * e), ("combine", c_bytes, n * d)):
+        by[key] = dict(bytes=nbytes, bound_ms=1e3 * max(nbytes / bw, flops / F32_PEAK_FLOPS),
+                       bound_by="bytes" if nbytes / bw >= flops / F32_PEAK_FLOPS else "operations")
+    return by
+
+
+def _rel_ok(got, want, rtol) -> bool:
+    return bool(((got - want).abs() <= rtol * want.abs()).all())
+
+
+def moe_case(mk, label, n, d, e, c, dtype, gen, bw) -> dict:
+    """K6 and K7 vs their plain versions on dyadic inputs, timed if ``label``
+    is one of MOE_TIMED."""
+    import torch
+
+    x, g = moe_inputs(n, d, e, dtype, gen, overflow=label == "overflow")
+    with torch.no_grad():
+        got = mk.fused_moe_dispatch(x, g, capacity=c)
+        want = mk.oracle_dispatch(x, g, c)
+    torch.cuda.synchronize()
+    send, top, pos, w, fp = got
+    for name, a, b in zip(("send", "top", "pos", "w", "fp_sum"), got, want):
+        if a.dtype != b.dtype or a.shape != b.shape:
+            fail(f"K6 {label} {dtype}: {name} is {a.dtype} {tuple(a.shape)}, plain {b.dtype} "
+                 f"{tuple(b.shape)}")
+    for name, a, b in (("send", send, want[0]), ("top", top, want[1]), ("pos", pos, want[2]),
+                       ("fp_sum[0]", fp[0], want[4][0])):
+        if not torch.equal(a, b):
+            fail(f"K6 {label} {dtype}: {name} != plain on dyadic inputs "
+                 f"({int((a != b).sum())} entries differ)")
+    if not (_rel_ok(w, want[3], MOE_W_RTOL) and _rel_ok(fp[1], want[4][1], MOE_FP_RTOL)):
+        fail(f"K6 {label} {dtype}: w or fp_sum[1] outside {MOE_W_RTOL} / {MOE_FP_RTOL} relative")
+    dropped = w == 0
+    if label == "overflow" and dropped.nonzero().flatten().tolist() != [n - 1]:
+        fail(f"K6 overflow: dropped tokens {dropped.nonzero().flatten().tolist()[:8]}, want [{n - 1}]")
+    k6_err = max(float((a - b).abs().max()) for a, b in zip((send, w, fp), (want[0], want[3], want[4])))
+    back = torch.randn(e, c, d, generator=gen, device="cuda")
+    with torch.no_grad():
+        out = mk.fused_moe_combine(back, top, pos, w)
+        out_plain = mk.oracle_combine(back, top, pos, w)
+    torch.cuda.synchronize()
+    if not torch.equal(out, out_plain):
+        fail(f"K7 {label} {dtype}: out != plain (max|d| {float((out - out_plain).abs().max())})")
+    if bool((out[dropped] != 0).any()):
+        fail(f"K7 {label} {dtype}: a dropped token did not combine to zeros")
+    kept = n - int(dropped.sum())
+    row = dict(label=label, n=n, d=d, e=e, c=c, dtype=dtype, kept=kept, k6_max_abs_err=k6_err,
+               k7_max_abs_err=float((out - out_plain).abs().max()))
+    note = ""
+    if label in MOE_TIMED:
+        lib = library_dispatch(x, g, c)
+        lib_ok = all(torch.equal(a, b) for a, b in zip(lib[:3], want[:3]))
+        bounds = moe_bound(n, d, e, c, x.element_size(), kept, bw)
+        with torch.no_grad():
+            row["dispatch"] = dict(
+                ms=cuda_ms(lambda: mk.fused_moe_dispatch(x, g, capacity=c)),
+                plain_ms=cuda_ms(lambda: mk.oracle_dispatch(x, g, c)),
+                library_ms=cuda_ms(lambda: library_dispatch(x, g, c)), library_equal=lib_ok,
+                **bounds["dispatch"])
+            if dtype == "float32":
+                row["profile"] = moe_profile(mk, x, g, c, back)
+                say(f"[moe-kernels] {label} profile per call: device " + ", ".join(
+                    f"{k} {v:.2f} us" for k, v in row["profile"]["device_us"].items())
+                    + f"; host {row['profile']['host_us_per_call']:.1f} us per dispatch + combine")
+            row["combine"] = dict(
+                ms=cuda_ms(lambda: mk.fused_moe_combine(back, top, pos, w)),
+                plain_ms=cuda_ms(lambda: mk.oracle_combine(back, top, pos, w)),
+                library_ms=cuda_ms(lambda: library_combine(back, top, pos, w)),
+                **bounds["combine"])
+        note = "; " + "; ".join(
+            f"{k} {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, index ops {r['library_ms']:.4f}, "
+            f"bound {r['bound_ms']:.4f} by {r['bound_by']}, {100 * r['bound_ms'] / r['ms']:.0f}% "
+            f"of bound)" for k, r in (("K6", row["dispatch"]), ("K7", row["combine"])))
+    say(f"[moe-kernels] {label}: N {n}, D {d}, E {e}, C {c}, x {dtype}: top/pos/send/fp[0] and "
+        f"K7 out equal plain, w/fp[1] within {MOE_W_RTOL}/{MOE_FP_RTOL}, {n - kept} dropped{note}")
+    return row
+
+
+def moe_near_tie(mk, label, n, d, e, c, dtype, gen) -> dict:
+    """Continuous inputs: routing may differ only at near-ties, and send must
+    stay bitwise on the experts no differing token touches."""
+    import torch
+
+    x, g = moe_inputs(n, d, e, dtype, gen, continuous=True)
+    with torch.no_grad():
+        send, top, pos, _, _ = mk.fused_moe_dispatch(x, g, capacity=c)
+        psend, ptop, ppos, _, _ = mk.oracle_dispatch(x, g, c)
+        logits = x.float() @ g
+    diff = top != ptop
+    n_diff = int(diff.sum())
+    top2 = logits.topk(2, dim=-1).values
+    gap = top2[:, 0] - top2[:, 1]
+    limit = MOE_NEAR_TIE * float(logits.abs().max())
+    if n_diff and not bool((gap[diff] < limit).all()):
+        fail(f"K6 {label} {dtype}: {n_diff} tokens route differently from plain, and not all at "
+             f"near-ties (gaps {gap[diff].tolist()[:8]}, limit {limit:.3e})")
+    touched = set(top[diff].tolist()) | set(ptop[diff].tolist())
+    untouched = [j for j in range(e) if j not in touched]
+    mine = torch.isin(ptop, torch.tensor(untouched, dtype=ptop.dtype, device=ptop.device))
+    if not (torch.equal(send[untouched], psend[untouched]) and torch.equal(top[mine], ptop[mine])
+            and torch.equal(pos[mine], ppos[mine])):
+        fail(f"K6 {label} {dtype}: send/top/pos differ on experts no near-tie touched")
+    say(f"[moe-kernels] continuous {label} x {dtype}: {n_diff} of {n} tokens route differently "
+        f"(near-ties: gap < {limit:.3e}; smallest gap {float(gap.min()):.3e}); send equal on "
+        f"{len(untouched)} of {e} experts")
+    return dict(label=label, dtype=dtype, differing=n_diff, min_gap=float(gap.min()), limit=limit,
+                experts_equal=len(untouched))
+
+
+def moe_grads(mk, n, d, e, c, gen) -> dict:
+    """The soak's loss, sum(out^2) + 0.01 sum(fp[0] fp[1]) through dispatch ->
+    tanh(send) + b0 -> combine, f32: value and gradients (x, gate, b0) of
+    the kernels' path vs autograd through the plain versions; both timed."""
+    import torch
+
+    x, g = moe_inputs(n, d, e, "float32", gen)
+    x.requires_grad_()
+    g.requires_grad_()
+    b0 = torch.randn(e, c, d, generator=gen, device="cuda").requires_grad_()
+
+    def loss_grads(dispatch, combine):
+        send, top, pos, w, fp = dispatch(x, g)
+        out = combine(torch.tanh(send) + b0, top, pos, w)
+        loss = (out**2).sum() + 0.01 * (fp[0] * fp[1]).sum()
+        return loss.detach(), torch.autograd.grad(loss, (x, g, b0))
+
+    kernel = lambda: loss_grads(lambda a, b: mk.fused_moe_dispatch(a, b, capacity=c),  # noqa: E731
+                                mk.fused_moe_combine)
+    plain = lambda: loss_grads(lambda a, b: mk.oracle_dispatch(a, b, c), mk.oracle_combine)  # noqa: E731
+    (lk, gk), (lp, gp) = kernel(), plain()
+    errs = {"loss": float((lk - lp).abs() / lp.abs())}
+    for name, a, b in zip(("x", "gate", "b0"), gk, gp):
+        errs[name] = float((a - b).abs().max() / b.abs().max())
+    if not all(v <= MOE_GRAD_RTOL for v in errs.values()):
+        fail(f"K6/K7 gradients at N {n}, D {d}: {errs} (limit {MOE_GRAD_RTOL} relative)")
+    ms, plain_ms = cuda_ms(kernel, runs=10), cuda_ms(plain, runs=10)
+    say(f"[moe-kernels] gradients N {n}, D {d}, E {e}, C {c}: relative to max|grad| " + ", ".join(
+        f"{k} {v:.2e}" for k, v in errs.items()) + f" (limit {MOE_GRAD_RTOL}); forward + backward "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
+    return dict(n=n, d=d, e=e, c=c, rel_err=errs, fwd_bwd_ms=ms, plain_fwd_bwd_ms=plain_ms)
+
+
+def phase_moe_kernels(card: str) -> dict:
+    """[moe-kernels]: K6 and K7 against their plain versions on the card."""
+    import torch
+
+    from distribuuuu_tpu_torch.ops import moe_kernel as mk
+
+    bw = hbm_bytes_per_s(card)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    cases = [moe_case(mk, *case, gen, bw) for case in MOE_CASES]
+    near = [moe_near_tie(mk, *case, gen) for case in MOE_CASES[:4]]
+    grads = [moe_grads(mk, n, d, e, c, gen) for label, n, d, e, c, dt in MOE_CASES[:3:2]]
+    torch.cuda.empty_cache()
+    return dict(cases=cases, near_tie=near, grads=grads,
+                max_abs_err=dict(dispatch=max(r["k6_max_abs_err"] for r in cases),
+                                 combine=max(r["k7_max_abs_err"] for r in cases)))
+
+
+def phase_moe_dist(tmp: Path) -> dict:
+    """[moe-dist]: switch_moe on 8 ranks sharing the card (gloo; NCCL
+    refuses two ranks on one device), then the same ranks on the CPU."""
+    import numpy as np
+
+    spec = importlib.util.spec_from_file_location("_torch_moe_worker", MOE_WORKER)
+    worker = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(worker)
+    e, n, d, h, c = (MOE_DIST[k] for k in ("world", "n_local", "d", "hidden", "capacity"))
+    rng = np.random.default_rng(8)
+    inputs = tmp / "moe_dist.npz"
+    np.savez(inputs, x=(rng.integers(-16, 17, (e, n, d)) / 8).astype(np.float32),
+             y=rng.standard_normal((e, n, d)).astype(np.float32),
+             gate=(rng.integers(-32, 33, (d, e)) / 64).astype(np.float32),
+             w=(rng.standard_normal((e, d, h)) / np.sqrt(d)).astype(np.float32),
+             v=(rng.standard_normal((e, h, d)) / np.sqrt(h)).astype(np.float32))
+    cases = [dict(name=dev, inputs=str(inputs), device=dev, dtype="float32", capacity=c,
+                  residual=True, timed_steps=5 if dev == "cuda" else 0) for dev in ("cuda", "cpu")]
+    tic = time.perf_counter()
+    try:
+        ranks = worker.run_ranks(dict(world=e, threads=1, timeout_s=MOE_DIST_DEADLINE_S, cases=cases),
+                                 tmp / "moe_dist", MOE_DIST_DEADLINE_S)
+    except RuntimeError as exc:
+        fail(f"[moe-dist] {exc}")
+    wall = time.perf_counter() - tic
+    step_ms = statistics.median(float(np.max([r["cuda/step_ms"][i] for r in ranks]))
+                                for i in range(len(ranks[0]["cuda/step_ms"])))
+    worst: dict = {}
+    for r, res in enumerate(ranks):
+        if res["cuda/launches"].tolist() != [1, 1] or res["cpu/launches"].tolist() != [0, 0]:
+            fail(f"[moe-dist] rank {r}: K6/K7 launches {res['cuda/launches'].tolist()} on the card "
+                 f"and {res['cpu/launches'].tolist()} on the CPU; want [1, 1] and [0, 0]")
+        for k in ("top", "pos"):
+            if not np.array_equal(res[f"cuda/{k}"], res[f"cpu/{k}"]):
+                fail(f"[moe-dist] rank {r}: {k} differs between the card and the CPU")
+        for k in ("loss", "aux", "out", "gate_grad", "w_grad", "v_grad"):
+            a, b = res[f"cuda/{k}"], res[f"cpu/{k}"]
+            err = float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+            worst[k] = max(worst.get(k, 0.0), err)
+            if not np.isfinite(a).all() or not err <= MOE_DIST_RTOL:
+                fail(f"[moe-dist] rank {r}: {k} card vs CPU {err:.3e} (limit {MOE_DIST_RTOL})")
+    say(f"[moe-dist] switch_moe on {e} ranks sharing the card (gloo), N {n} per rank, D {d}, "
+        f"C {c}, expert tanh(h@w)@v H {h}: loss {float(ranks[0]['cuda/loss']):.6f}; card vs CPU, "
+        f"relative to max|.|: " + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+        + f" (limit {MOE_DIST_RTOL}); top/pos equal; K6 and K7 launched once per rank; "
+        f"forward + backward step {step_ms:.2f} ms (median of 5, slowest rank, gloo through "
+        f"the host); {wall:.1f} s for both runs, process start included")
+    return dict(world=e, n_local=n, d=d, c=c, hidden=h, rel_err=worst, wall_s=wall, step_ms=step_ms,
+                launches=dict(dispatch=sum(int(r["cuda/launches"][0]) for r in ranks),
+                              combine=sum(int(r["cuda/launches"][1]) for r in ranks)),
+                loss=float(ranks[0]["cuda/loss"]))
+
+
 def main() -> None:
     import torch
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a CUDA GPU")
-    if not (ROOT / "distribuuuu_tpu_torch").is_dir() or not SERVE_CFG.exists():
-        fail(f"run from a checkout of the repository: {ROOT} lacks the port or {SERVE_CFG.name}")
+    if not (ROOT / "distribuuuu_tpu_torch").is_dir() or not SERVE_CFG.exists() or not MOE_WORKER.exists():
+        fail(f"run from a checkout of the repository: {ROOT} lacks the port, {SERVE_CFG.name} "
+             f"or {MOE_WORKER.name}")
     sys.path.insert(0, str(ROOT))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -718,6 +1085,9 @@ def main() -> None:
         bot = phase_serve(card, Path(tmp), "botnet50")
         large = phase_large_crop(card, Path(tmp))
     table = phase_mhsa_table()
+    moe = phase_moe_kernels(card)
+    with tempfile.TemporaryDirectory() as tmp:
+        moe_dist = phase_moe_dist(Path(tmp))
 
     serving = [r for r in rows if r["combo"] == "bf16->f32"]
     per_fwd = {k: sum(r[k] * r["launches_per_forward"] for r in serving)
@@ -731,6 +1101,8 @@ def main() -> None:
     (out / "chip_smoke_attention.json").write_text(json.dumps(
         {"card": smi, "build": builds["attention"], "cases": attn, "serve_botnet50": bot,
          "large_crop": large, "mhsa_table": table}, indent=1))
+    (out / "chip_smoke_moe.json").write_text(json.dumps(
+        {"card": smi, "build": builds["moe"], "kernels": moe, "dist": moe_dist}, indent=1))
     say(f"[k1] per ResNet-50 forward at batch {LADDER_BATCH} (49 launches, bf16 -> f32): "
         f"{per_fwd['ms']:.3f} ms, plain {per_fwd['plain_ms']:.3f} ms, F.batch_norm "
         f"{per_fwd['library_ms']:.3f} ms, bound {per_fwd['bound_ms']:.3f} ms, "
@@ -772,6 +1144,26 @@ def main() -> None:
             "library_ms": r["library_ms"],
             "per": f"one launch: B*N {r['b'] * r['n']}, L {r['l']}, D {r['d']}, Dv {r['dv']}, "
                    f"{r['dtype']} q/k/v, {'bf16 bias' if r['mode'] == 'bias' else '[L, D] table'}",
+        })
+    soak = next(r for r in moe["cases"] if r["label"] == "soak" and r["dtype"] == "float32")
+    for kname, key, line in (("K6 fused_moe_dispatch", "dispatch", 154),
+                             ("K7 fused_moe_combine", "combine", 312)):
+        r = soak[key]
+        kernels.append({
+            "name": kname,
+            "route": "cuda",
+            "source": "distribuuuu_tpu_torch/ops/csrc/moe.cu",
+            "replaces": f"distribuuuu_tpu/ops/moe_kernel.py:{line}",
+            "launches": moe_dist["launches"][key],
+            "max_abs_err": moe["max_abs_err"][key],
+            "ms": r["ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],
+            "per": f"one call at N {soak['n']}, D {soak['d']}, E {soak['e']}, C {soak['c']}, x f32 "
+                   f"(the soak's shard); launches: {moe_dist['world']} ranks x one switch_moe "
+                   f"forward in [moe-dist]",
         })
     say(smi)
     say(json.dumps({"kernels": kernels}))

@@ -9,6 +9,8 @@
   parts of ``distribuuuu_tpu.convert``'s ``export_state_dict``.
 - :func:`load_weights` reads a torch ``.pt``/``.pth`` state_dict in
   torchvision naming.
+- :func:`moe_from_jax` takes the JAX package's switch-MoE parameters and
+  returns what one rank of the port's ``switch_moe`` holds.
 
 Orbax directories cannot be read without JAX: a weights directory written
 by the JAX package reaches the port through ``export_state_dict`` and
@@ -128,3 +130,20 @@ def load_weights(path: str) -> dict[str, torch.Tensor]:
         for k, v in sd.items()
         if not k.endswith(".num_batches_tracked")
     }
+
+
+def moe_from_jax(params: Mapping, rank: int) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """``(gate [D, E], {name: rank's expert leaf})`` from the JAX switch-MoE
+    layout ``{"gate": [D, E], "experts": {"w": [E, D, H], "v": [E, H, D]}}``
+    (numpy arrays; the layout of the dry run, the tutorial and the JAX tests).
+    The gate is replicated on every rank; each expert leaf is its row
+    ``rank``. Leaves keep their layout (``expert_fn`` computes ``h @ w`` on
+    both sides), as float32 copies."""
+    experts = params["experts"]
+    n_experts = {np.shape(v)[0] for v in experts.values()}
+    if len(n_experts) != 1 or not 0 <= rank < next(iter(n_experts)):
+        raise ValueError(f"rank {rank} is not an expert of leaves shaped "
+                         f"{ {k: np.shape(v) for k, v in experts.items()} }")
+    gate = torch.from_numpy(np.array(params["gate"], dtype=np.float32))
+    return gate, {k: torch.from_numpy(np.array(v[rank], dtype=np.float32))
+                  for k, v in experts.items()}

@@ -12,6 +12,7 @@ import torch
 from distribuuuu_tpu_torch.models import build_model, layers
 from distribuuuu_tpu_torch.ops import attention as att
 from distribuuuu_tpu_torch.ops import epilogue as ep
+from distribuuuu_tpu_torch.ops import moe_kernel as moe
 
 
 @pytest.fixture()
@@ -129,3 +130,82 @@ def test_botnet50_forward_at_224_launches_attention_3_and_k1_40_times(cuda, monk
         want = cpu(x)
     assert (att.LAUNCHES - before[0], ep.LAUNCHES - before[1]) == (3, 40)
     assert float((got - want).abs().max()) <= 1e-3 * float(want.abs().max())
+
+
+def _dyadic(shape, k, den, gen, device):
+    """Integers in [-k, k] over den: with x in k/8 and the gate in m/64 every
+    f32 logit is exact in any summation order (see chip_smoke.dyadic)."""
+    return torch.randint(-k, k + 1, shape, generator=gen, device=device).float() / den
+
+
+@pytest.mark.gpu
+def test_cuda_moe_dispatch_and_combine_equal_plain_on_dyadic_inputs(cuda):
+    """K6/K7 vs their plain versions: top, pos, send, fp_sum[0] and the
+    combined out bitwise, w within 1e-6 and fp_sum[1] within 1e-5 relative
+    (exp, and the order of the probability sums, may differ by an ulp).
+    Both x dtypes; the soak's shard, a ragged N, capacity 1, E 4/16/32, D
+    that takes the 16-byte path and D that does not."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    for n, d, e, c in [(8192, 128, 8, 1280), (8191, 128, 8, 1280), (300, 768, 8, 48),
+                       (64, 128, 4, 1), (100, 30, 16, 10), (1000, 64, 32, 40)]:
+        for dt in (torch.float32, torch.bfloat16):
+            x = _dyadic((n, d), 16, 8, gen, cuda).to(dt)
+            g = _dyadic((d, e), 32, 64, gen, cuda)
+            back = torch.randn(e, c, d, generator=gen, device=cuda)
+            before = (moe.DISPATCH_LAUNCHES, moe.COMBINE_LAUNCHES)
+            send, top, pos, w, fp = moe.fused_moe_dispatch(x, g, capacity=c)
+            out = moe.fused_moe_combine(back, top, pos, w)
+            torch.cuda.synchronize()
+            assert (moe.DISPATCH_LAUNCHES - before[0], moe.COMBINE_LAUNCHES - before[1]) == (1, 1)
+            want = moe.oracle_dispatch(x, g, c)
+            case = (n, d, e, c, dt)
+            for a, b in ((send, want[0]), (top, want[1]), (pos, want[2]), (fp[0], want[4][0])):
+                assert a.dtype == b.dtype and torch.equal(a, b), case
+            assert bool(((w - want[3]).abs() <= 1e-6 * want[3].abs()).all()), case
+            assert bool(((fp[1] - want[4][1]).abs() <= 1e-5 * want[4][1].abs()).all()), case
+            assert torch.equal(out, moe.oracle_combine(back, top, pos, w)), case
+            assert not bool(out[w == 0].any()), case
+    # contiguous views 4 bytes past an allocation: the kernels take the scalar path
+    n, d, e, c = 500, 128, 8, 80
+    x = _dyadic((n * d + 1,), 16, 8, gen, cuda)[1:].view(n, d)
+    g = _dyadic((d, e), 32, 64, gen, cuda)
+    back = torch.randn(e * c * d + 1, generator=gen, device=cuda)[1:].view(e, c, d)
+    send, top, pos, w, _ = moe.fused_moe_dispatch(x, g, capacity=c)
+    want = moe.oracle_dispatch(x, g, c)
+    assert torch.equal(send, want[0]) and torch.equal(top, want[1]) and torch.equal(pos, want[2])
+    assert torch.equal(moe.fused_moe_combine(back, top, pos, w), moe.oracle_combine(back, top, pos, w))
+    x = torch.zeros(16, 8, device=cuda)
+    with pytest.raises(ValueError, match="at most 32 experts"):
+        moe.fused_moe_dispatch(x, torch.zeros(8, 33, device=cuda), capacity=2)
+    with pytest.raises(ValueError, match="contiguous"):
+        moe.fused_moe_dispatch(torch.zeros(8, 16, device=cuda).t(), torch.zeros(8, 4, device=cuda),
+                               capacity=2)
+
+
+@pytest.mark.gpu
+def test_cuda_moe_gradients_match_autograd_through_plain(cuda):
+    """The soak's loss through dispatch -> tanh(send) + b0 -> combine: value
+    and gradients of the kernels' path (index-op backward) against autograd
+    through the plain versions, within 1e-5 of each gradient's max (f32; a
+    bf16 x's gradient is rounded to bf16, 2^-8)."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    n, d, e, c = 2048, 128, 8, 320
+    for dt in (torch.float32, torch.bfloat16):
+        x0 = _dyadic((n, d), 16, 8, gen, cuda).to(dt)
+        g0 = _dyadic((d, e), 32, 64, gen, cuda)
+        b00 = torch.randn(e, c, d, generator=gen, device=cuda)
+        results = []
+        for dispatch, combine in (
+                (lambda a, b: moe.fused_moe_dispatch(a, b, capacity=c), moe.fused_moe_combine),
+                (lambda a, b: moe.oracle_dispatch(a, b, c), moe.oracle_combine)):
+            x, g, b0 = (t.clone().requires_grad_() for t in (x0, g0, b00))
+            send, top, pos, w, fp = dispatch(x, g)
+            out = combine(torch.tanh(send) + b0, top, pos, w)
+            loss = (out**2).sum() + 0.01 * (fp[0] * fp[1]).sum()
+            loss.backward()
+            results.append((loss.detach(), x.grad.float(), g.grad, b0.grad))
+        (lk, *gk), (lp, *gp) = results
+        assert float((lk - lp).abs()) <= 1e-5 * float(lp.abs())
+        for name, a, b in zip(("x", "gate", "b0"), gk, gp):
+            tol = (2.0**-8 if name == "x" and dt == torch.bfloat16 else 1e-5) * float(b.abs().max())
+            assert float((a - b).abs().max()) <= tol, (dt, name)
