@@ -5,10 +5,12 @@ BoTNet's MHSA. On a CUDA tensor, :func:`fused_attention` (bias tensor) and
 :func:`fused_attention_abs` (bias ``q·embᵀ`` formed in the kernel from the
 shared ``[L, D]`` table) launch the hand-written Hopper kernel in
 ``csrc/attention.cu``, which replaces all four Pallas kernels (K2-K5: the
-single-tile and blockwise variants of both modes). On a CPU tensor they
-compute :func:`attention_reference` / :func:`attention_table_reference`,
-the plain PyTorch versions. There is no other route: a CUDA tensor the
-kernel does not take raises, and nothing falls back.
+single-tile and blockwise variants of both modes): bf16 q/k/v on the
+tensor cores, f32 on scalar FMAs. On a CPU tensor they compute
+:func:`attention_reference` / :func:`attention_table_reference`, the plain
+PyTorch versions. There is no other route: a CUDA tensor the kernel does
+not take raises, and nothing falls back. :func:`attention_blockwise_reference`
+repeats the kernel's blockwise rounding in PyTorch, for the checks.
 
 Layout as in the JAX package: ``[B, N, L, D]`` with q pre-scaled. The
 kernel takes any strides of B, N and L as long as the last axis is
@@ -52,6 +54,35 @@ def attention_table_reference(q, k, v, emb):
     """:func:`attention_reference` with ``bias = q·embᵀ`` (f32) from the
     ``[L, D]`` table."""
     return attention_reference(q, k, v, torch.einsum("bnxd,yd->bnxy", q.float(), emb.float()))
+
+
+def attention_blockwise_reference(q, k, v, bias_or_emb, *, table: bool, block: int = 64):
+    """The blockwise plain version: K4/K5's online softmax over ``block``-key
+    tiles, as the CUDA kernel computes it. Per tile the logits are ``q·kᵀ``
+    (f32) plus the bias in f32, or plus ``q·embᵀ`` formed in f32 from the
+    ``[L, D]`` table; ``p = exp(s − m)`` is summed into ``l`` unrounded and
+    cast to ``v.dtype`` for ``p·v`` (f32 accumulate); the output is
+    ``round(acc / l)`` in ``q.dtype``. For tests and ``chip_smoke.py``."""
+    l = q.shape[-2]
+    qf = q.float()
+    m = torch.full((*q.shape[:-1], 1), float("-inf"), device=q.device)
+    lsum = torch.zeros_like(m)
+    acc = torch.zeros((*q.shape[:-1], v.shape[-1]), device=q.device)
+    for k0 in range(0, l, block):
+        keys = slice(k0, min(k0 + block, l))
+        s = torch.einsum("bnxd,bnyd->bnxy", qf, k[..., keys, :].float())
+        if table:
+            s = s + torch.einsum("bnxd,yd->bnxy", qf, bias_or_emb[keys].float())
+        else:
+            s = s + bias_or_emb[..., keys].float()
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        alpha = torch.exp(m - m_new)  # first tile: exp(-inf) = 0
+        lsum = lsum * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + torch.einsum("bnxy,bnyd->bnxd", p.to(v.dtype).float(),
+                                         v[..., keys, :].float())
+        m = m_new
+    return (acc / lsum).to(q.dtype)
 
 
 def _check(q, k, v, last, *, table: bool) -> None:

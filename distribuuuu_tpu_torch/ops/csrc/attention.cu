@@ -12,35 +12,84 @@
 //
 // Per (query row r, key tile):
 //     s   = q_r . k_c (f32 accumulate)  + bias[r, c]       (bias mode)
-//     s   = q_r . (k_c + emb_c)         (f32)              (table mode: = q.k + q.emb)
+//     s   = q_r . k_c + q_r . emb_c     (f32 accumulate)   (table mode)
 //     m'  = max(m, max_c s);  p_c = exp(s - m');  alpha = exp(m - m')
 //     l   = l * alpha + sum_c p_c
 //     acc = acc * alpha + sum_c round_to(T, p_c) * v_c    (f32 accumulate)
 // and at the end out_r = round_to(T, acc / l). This is K4's rounding: p is
-// cast to the value dtype before it is normalised. K2 normalises first; the
-// two differ by one rounding of p, which the tests' tolerances cover.
+// cast to the value dtype before it is normalised, and l sums the unrounded p.
+// K2 normalises first; the two differ by one rounding of p, which the tests'
+// tolerances cover. No fast-math: exp (expf in f32, exp2f(x log2 e) in bf16)
+// and the division are the accurate ones.
 //
-// What bounds it on this card: the function moves q, k, v, the bias and the
-// output once (at batch 128, 224^2: 102.8 MB of bf16 q/k/v/out plus a 39.3 MB
-// bf16 bias) and does 10.1 GFLOP, which the tensor cores would finish in about
-// a quarter of the bytes' time: the function is bound by bytes. What the
-// design does about the bytes: the logits and p never leave shared memory; the
-// bias is read in the dtype the model produced (bf16 widens exactly to f32,
-// half the bytes of widening it first, as the TPU path did); in table mode the
-// [B, N, L, L] product is never formed in device memory at all. This first
-// version runs its products as scalar f32 FMAs on CUDA cores (register tiles of
-// 4 x 4 logits and 4 x 8 outputs per thread, operands from shared memory), so
-// it is bound by those FMAs (>= 150 us at the shape above), not by bytes.
-// Tiles of q, k, v go from device to shared memory as 16-byte loads where the
-// rows allow (the MHSA shapes), a batch of them in flight per thread before
-// any is stored, so that load latency is not paid once per element.
-// Tensor cores (mma.sync / wgmma), TMA loads and a pipelined key loop are
-// later work. No fast-math: expf and the division are the accurate ones.
+// Two kernels, chosen by the dtype of q/k/v:
+//
+// bf16 (serving): attention_mma_kernel, on the tensor cores. What bounds it at
+// the MHSA shapes (4 heads of 128; H100 SXM, 3.35 TB/s, 989 TFLOP/s bf16):
+//   K2  bias, B*N 512,  L 196:  142 MB (q, k, v, out and a 39 MB bf16 bias)
+//       = 42 us of bytes against 10.1 GFLOP = 10 us of products: bytes.
+//   K3  table, B*N 512, L 196:  103 MB = 31 us against 10 us (15 with the
+//       table product): bytes.
+//   K4  bias, B*N 32,   L 1024: 101 MB = 30 us against 17 us: bytes.
+//   K5  table, B*N 32,  L 1024:  34 MB = 10 us against 17 us (26 with the
+//       table product): operations.
+// What the design does about it:
+//   - Four warps own 16 query rows each. Q.K^T and P.V are
+//     mma.sync.m16n8k16 bf16 -> f32, fed by ldmatrix (ldmatrix.trans for V)
+//     from bf16 tiles whose 16-byte chunks are XOR-swizzled by row, so the
+//     8 rows an ldmatrix reads hit 8 different bank groups. Q stays in
+//     registers as A fragments. The logits, the running max and sum stay in
+//     registers; a row max is two __shfl_xor in the quad that shares a row.
+//     p is rounded to bf16 in registers and is the A fragment of P.V
+//     directly: the m16n8 accumulator layout of two key blocks is the A
+//     layout of one k-step (the FlashAttention-2 arrangement). Every bf16 x
+//     bf16 product is exact in f32, so against the plain version only the
+//     order of summation differs.
+//   - Table mode runs a second mma pass of the same Q fragments over the emb
+//     tile into the same f32 logits: q.emb is never rounded to bf16, and the
+//     [B, N, L, L] product is never formed in device memory. K5 pays the
+//     second pass (it is bound by operations).
+//   - K, V and the bias (or emb) tile go to shared memory by cp.async into a
+//     two-stage ring: tile j + 1 is in flight while tile j computes, with one
+//     cp.async.wait_group and one __syncthreads per tile. The copy width is
+//     the widest of 16, 8 and 4 bytes that the base, strides and row length
+//     allow (computed per launch from the wrapper's strides): 16 for q/k/v in
+//     the MHSA layout and for the bias at L 1024 or in f32, 8 for a bf16 bias
+//     row of 196 (392 bytes); an odd bf16 row length takes a 2-byte synchronous
+//     path inside the same kernel. Bytes past D (or Dv) up to 128 values, and
+//     rows past L, are zero-filled (src-size 0). The bias tile is read in its
+//     own dtype (a bf16 bias is half the bytes).
+//   - The products run every k-step of a 128-wide row, so their loops have
+//     fixed trip counts: a bound checked between an ldmatrix and its mma
+//     splits them into basic blocks, and each mma then waits out its load
+//     (about 1.5x slower at the MHSA shapes). A key tile is
+//     compiled twice, full and ragged, and only the ragged one (the last tile
+//     when L is not a multiple of 64) checks bounds: its keys >= L are -inf
+//     before the row max, and it skips 8-key blocks (Q.K^T) and 16-key steps
+//     (P.V) that hold no valid key.
+//   - Query rows >= L are computed but not stored; a warp whose 16 rows all
+//     lie past L skips the products. At L 196 the query tiles are 64, 64, 64,
+//     4: 13 warps of 16 rows compute 208 rows for 196 (6 % wasted), and the
+//     last key tile computes 16 keys for 4.
+//   - The output goes through shared memory (a free stage of the ring) so
+//     that each warp writes its rows with 16-byte stores.
+//   Shared memory: two stages of K, V (16 KB each) and the bias (9 KB bf16,
+//   18 KB f32) or emb (16 KB) tile; Q is staged once in the second stage
+//   before the ring starts. 82-100 KB, two blocks per SM. Registers (nvcc
+//   -Xptxas -v, the [build] line of chip_smoke.py): 204-215 per thread, no
+//   spills.
+//
+// f32 (the card-against-CPU checks): attention_kernel, scalar f32 FMAs on CUDA
+// cores (register tiles of 4 x 4 logits and 4 x 8 outputs per thread, operands
+// from f32 shared-memory tiles; 16-byte staging loads where rows allow).
+// Tensor cores would round f32 to TF32, outside those checks' 2e-5.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <initializer_list>
 
 namespace {
 
@@ -64,10 +113,6 @@ template <typename T>
 __device__ __forceinline__ T from_f32(float v);
 template <>
 __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 // round_to(T, x) kept in f32: the value p takes after p.astype(v.dtype)
 template <typename T>
@@ -86,6 +131,9 @@ struct Params {
   long long e_sl;
   void* out;         // contiguous [B, N, L, Dv]
   int heads, L, D, Dv;
+  // bf16 kernel only: copy width in bytes (16, 8, 4 or 2) of q, k, v, the
+  // bias or table, and the output
+  int wq, wk, wv, wx, wo;
 };
 
 __device__ __forceinline__ float warp_max(float x) {
@@ -100,16 +148,16 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// ===========================================================================
+// f32 q/k/v: scalar FMAs on the CUDA cores
+// ===========================================================================
+
 // Elements of T in one 16-byte load.
 template <typename T>
 struct Chunk;
 template <>
 struct Chunk<float> {
   static constexpr int N = 4;
-};
-template <>
-struct Chunk<__nv_bfloat16> {
-  static constexpr int N = 8;
 };
 
 template <typename T>
@@ -120,16 +168,6 @@ __device__ __forceinline__ void unpack<float>(const uint4& raw, float (&out)[4])
   out[1] = __uint_as_float(raw.y);
   out[2] = __uint_as_float(raw.z);
   out[3] = __uint_as_float(raw.w);
-}
-template <>
-__device__ __forceinline__ void unpack<__nv_bfloat16>(const uint4& raw, float (&out)[8]) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
-  }
 }
 
 // Stage rows [0, nrows) x cols [0, ncols) of a row-major tile of T (row stride
@@ -421,12 +459,453 @@ cudaError_t dispatch_vec(const Params& p, int bias_dt, int bn, cudaStream_t s) {
   return vec ? dispatch_bias<T, true>(p, bias_dt, bn, s) : dispatch_bias<T, false>(p, bias_dt, bn, s);
 }
 
+// ===========================================================================
+// bf16 q/k/v: mma.sync on the tensor cores, cp.async ring
+// ===========================================================================
+
+constexpr int MMA_THREADS = 128;  // 4 warps x 16 query rows
+constexpr int MBK = 64;           // keys per tile
+constexpr int STAGES = 2;         // tiles in the cp.async ring
+constexpr int ROW_BYTES = 256;    // a Q/K/V/emb row in shared memory: 128 bf16
+
+// Row stride in shared memory of the bias tile: MBK values plus 16 (bf16) or
+// 32 (f32) bytes, so the 8 rows x 4 column pairs that one accumulator read of
+// a warp touches fall in 32 different banks.
+template <typename BT>
+struct BiasRow {
+  static constexpr int BYTES = (MBK + 8) * (int)sizeof(BT);
+};
+
+template <typename BT, bool TABLE>
+struct MmaSmem {
+  static constexpr int KV = MBK * ROW_BYTES;  // one K or V tile
+  static constexpr int X = TABLE ? KV : BQ * BiasRow<BT>::BYTES;
+  static constexpr int STAGE = 2 * KV + X;  // K, V, then the bias or emb tile
+  static constexpr int BYTES = STAGES * STAGE;
+  static_assert(2 * KV >= BQ * ROW_BYTES, "Q and the output are staged in a stage's K and V");
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+// Byte offset within a swizzled 256-byte row: 16-byte chunk c of row r lives
+// at chunk c ^ (r & 7).
+__device__ __forceinline__ int swz(int r, int byte) {
+  return (((byte >> 4) ^ (r & 7)) << 4) | (byte & 15);
+}
+
+template <int W>
+__device__ __forceinline__ void copy_unit(uint32_t s, const unsigned char* g, bool valid) {
+  const int n = valid ? W : 0;
+  if (W == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(g), "r"(n)
+                 : "memory");
+  else if (W == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s), "l"(g), "r"(n)
+                 : "memory");
+  else if (W == 4)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(g), "r"(n)
+                 : "memory");
+  else
+    asm volatile("{\n .reg .pred p;\n .reg .b16 h;\n setp.ne.b32 p, %2, 0;\n mov.b16 h, 0;\n"
+                 " @p ld.global.b16 h, [%1];\n st.shared.b16 [%0], h;\n}\n" ::"r"(s), "l"(g),
+                 "r"((int)valid)
+                 : "memory");
+}
+
+// Thread tid copies W-byte unit u = tid % 16 (+ 16, ...) of rows tid / 16,
+// + 8, ...: the swizzled column is the same down its rows (they step by 8).
+template <int W, bool SWZ>
+__device__ __forceinline__ void copy_rows(uint32_t dst, const unsigned char* src, long long gs,
+                                          int rows, int nrows, int nbytes, int pbytes, int rb,
+                                          int tid) {
+  const int r0 = tid >> 4;
+  for (int byte = (tid & 15) * W; byte < pbytes; byte += 16 * W) {
+    const bool col = byte < nbytes;
+    uint32_t s = dst + r0 * rb + (SWZ ? swz(r0, byte) : byte);
+    const unsigned char* g = src + r0 * gs + byte;
+    for (int r = r0; r < rows; r += 8, s += 8 * rb, g += 8 * gs) {
+      const bool valid = col && r < nrows;
+      copy_unit<W>(s, valid ? g : src, valid);
+    }
+  }
+}
+
+// Stage rows [0, nrows) x bytes [0, nbytes) of a row-major global tile (row
+// stride gs bytes) into a `rows`-row shared tile (row stride rb bytes; SWZ:
+// chunks swizzled by swz) in units of w bytes: 16, 8 or 4 by cp.async, 2 by
+// a synchronous load and store. Bytes [nbytes, pbytes) of each row and rows
+// [nrows, rows) are zero-filled (cp.async with src-size 0). The base, gs and
+// nbytes are multiples of w; pbytes is a multiple of 16.
+template <bool SWZ>
+__device__ __forceinline__ void stage_rows(unsigned char* dst, const unsigned char* src,
+                                           long long gs, int rows, int nrows, int nbytes,
+                                           int pbytes, int rb, int w, int tid) {
+  const uint32_t d = smem_u32(dst);
+  switch (w) {
+    case 16:
+      return copy_rows<16, SWZ>(d, src, gs, rows, nrows, nbytes, pbytes, rb, tid);
+    case 8:
+      return copy_rows<8, SWZ>(d, src, gs, rows, nrows, nbytes, pbytes, rb, tid);
+    case 4:
+      return copy_rows<4, SWZ>(d, src, gs, rows, nrows, nbytes, pbytes, rb, tid);
+    default:
+      return copy_rows<2, SWZ>(d, src, gs, rows, nrows, nbytes, pbytes, rb, tid);
+  }
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// c += a . b for one m16n8k16 tile, bf16 in, f32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+__device__ __forceinline__ float2 bias_pair(const unsigned char* row, int c, float) {
+  return *reinterpret_cast<const float2*>(row + 4 * c);
+}
+__device__ __forceinline__ float2 bias_pair(const unsigned char* row, int c, __nv_bfloat16) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(row + 2 * c));
+}
+
+// exp(x) as exp2f(x log2 e): the accurate exp2f (not the fast-math
+// intrinsic), a few instructions shorter than expf
+__device__ __forceinline__ float exp_of(float x) { return exp2f(x * 1.4426950408889634f); }
+
+// c += rows [16 w, 16 w + 16) of Q times the MBK-row tile at `tile`: key
+// blocks of 8, 8 k-steps of 16 (D is zero-padded to 128 in shared memory).
+// FULL: every key is valid, and the loops have fixed trip counts so that the
+// ldmatrix loads run ahead of the mma that use them; otherwise key blocks from
+// nsb on hold no valid key and are skipped.
+template <bool FULL>
+__device__ __forceinline__ void qk_pass(float (&s)[MBK / 8][4], const uint32_t (&qf)[8][4],
+                                        uint32_t tile, int nsb, int lane) {
+  const int mi = lane >> 3;
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+#pragma unroll
+    for (int jp = 0; jp < MBK / 16; ++jp) {
+      if (!FULL && 2 * jp >= nsb) break;
+      const int row = (2 * jp + (mi >> 1)) * 8 + (lane & 7);
+      uint32_t b[4];
+      ldsm_x4(b, tile + row * ROW_BYTES + swz(row, (2 * kk + (mi & 1)) * 16));
+      mma_bf16(s[2 * jp], qf[kk], b[0], b[1]);
+      mma_bf16(s[2 * jp + 1], qf[kk], b[2], b[3]);
+    }
+  }
+}
+
+// One key tile of the online softmax for this warp's 16 rows: the stage at
+// `st` holds K, V and the bias or emb tile; kn keys are valid (all of them
+// when FULL).
+template <typename BT, bool TABLE, bool FULL>
+__device__ __forceinline__ void tile_step(const unsigned char* st, const uint32_t (&qf)[8][4],
+                                          float (&acc)[16][4], float& m0, float& m1, float& l0,
+                                          float& l1, int kn, int warp, int lane) {
+  using Smem = MmaSmem<BT, TABLE>;
+  constexpr int NB = MBK / 8;  // key blocks of 8 per tile
+  const int g = lane >> 2, t4 = lane & 3;
+  const int nsb = FULL ? NB : (kn + 7) >> 3;  // key blocks of 8 holding a valid key
+  const uint32_t sk = smem_u32(st);
+
+  // ---- logits -------------------------------------------------------------
+  float s[NB][4];
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+  qk_pass<FULL>(s, qf, sk, nsb, lane);
+  if (TABLE) qk_pass<FULL>(s, qf, sk + 2 * Smem::KV, nsb, lane);
+  if (!TABLE) {
+    const unsigned char* r0 = st + 2 * Smem::KV + (warp * 16 + g) * BiasRow<BT>::BYTES;
+    const unsigned char* r1 = r0 + 8 * BiasRow<BT>::BYTES;
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      if (!FULL && j >= nsb) break;
+      const float2 b0 = bias_pair(r0, 8 * j + 2 * t4, BT());
+      const float2 b1 = bias_pair(r1, 8 * j + 2 * t4, BT());
+      s[j][0] += b0.x;
+      s[j][1] += b0.y;
+      s[j][2] += b1.x;
+      s[j][3] += b1.y;
+    }
+  }
+  if (!FULL) {  // keys >= L
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (8 * j + 2 * t4 + (e & 1) >= kn) s[j][e] = -INFINITY;
+  }
+
+  // ---- online softmax in registers ------------------------------------------
+  float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < NB; ++j) {
+    mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+    mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+  }
+#pragma unroll
+  for (int o = 1; o <= 2; o <<= 1) {  // the quad that shares rows g and g + 8
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o));
+  }
+  const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+  const float a0 = exp_of(m0 - mn0), a1 = exp_of(m1 - mn1);  // first tile: exp(-inf) = 0
+  m0 = mn0;
+  m1 = mn1;
+  uint32_t pa[NB / 2][4];  // p in bf16 as the A fragments of the key steps of P.V
+  float ls0 = 0.f, ls1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < NB; ++j) {
+    float e0 = 0.f, e1 = 0.f, e2 = 0.f, e3 = 0.f;
+    if (FULL || j < nsb) {
+      e0 = exp_of(s[j][0] - mn0);
+      e1 = exp_of(s[j][1] - mn0);
+      e2 = exp_of(s[j][2] - mn1);
+      e3 = exp_of(s[j][3] - mn1);
+    }
+    ls0 += e0 + e1;
+    ls1 += e2 + e3;
+    pa[j >> 1][2 * (j & 1)] = pack_bf16(e0, e1);      // row g, keys 8 j + 2 t4, +1
+    pa[j >> 1][2 * (j & 1) + 1] = pack_bf16(e2, e3);  // row g + 8
+  }
+  l0 = l0 * a0 + ls0;
+  l1 = l1 * a1 + ls1;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    acc[j][0] *= a0;
+    acc[j][1] *= a0;
+    acc[j][2] *= a1;
+    acc[j][3] *= a1;
+  }
+
+  // ---- acc += p . V (Dv zero-padded to 128) -----------------------------------
+  const int nks = FULL ? NB / 2 : (kn + 15) >> 4;  // key steps of 16 holding a valid key
+  const uint32_t sv = sk + Smem::KV;
+  const int mi = lane >> 3;
+#pragma unroll
+  for (int kj = 0; kj < NB / 2; ++kj) {
+    if (!FULL && kj >= nks) break;
+    const int row = kj * 16 + (mi & 1) * 8 + (lane & 7);
+#pragma unroll
+    for (int hp = 0; hp < 8; ++hp) {
+      uint32_t bv[4];
+      ldsm_x4_trans(bv, sv + row * ROW_BYTES + swz(row, (2 * hp + (mi >> 1)) * 16));
+      mma_bf16(acc[2 * hp], pa[kj], bv[0], bv[1]);
+      mma_bf16(acc[2 * hp + 1], pa[kj], bv[2], bv[3]);
+    }
+  }
+}
+
+// BT: bias dtype (unused in table mode).
+template <typename BT, bool TABLE>
+__global__ void __launch_bounds__(MMA_THREADS, 2) attention_mma_kernel(const Params p) {
+  using Smem = MmaSmem<BT, TABLE>;
+  extern __shared__ __align__(128) unsigned char smem[];
+
+  const int nq = (p.L + BQ - 1) / BQ;
+  const int bh = blockIdx.x / nq, qt = blockIdx.x - bh * nq;  // a head's query tiles run
+  const int b = bh / p.heads, n = bh - b * p.heads;           // together: K, V stay in L2
+  const int q0 = qt * BQ, qn = min(BQ, p.L - q0);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;  // accumulator row g (and g + 8), columns 2 t4, +1
+  const bool active = warp * 16 < qn;      // the warp holds a valid query row
+  const int nt = (p.L + MBK - 1) / MBK;
+
+  const unsigned char* q = static_cast<const unsigned char*>(p.q) +
+                           2 * (b * p.q_sb + n * p.q_sn + (long long)q0 * p.q_sl);
+  const unsigned char* k = static_cast<const unsigned char*>(p.k) + 2 * (b * p.k_sb + n * p.k_sn);
+  const unsigned char* v = static_cast<const unsigned char*>(p.v) + 2 * (b * p.v_sb + n * p.v_sn);
+  const unsigned char* x;  // the bias rows of this query tile, or the table
+  long long xs;            // its row stride in bytes
+  if (TABLE) {
+    x = static_cast<const unsigned char*>(p.emb);
+    xs = 2 * p.e_sl;
+  } else {
+    x = static_cast<const unsigned char*>(p.bias) +
+        sizeof(BT) * (b * p.b_sb + n * p.b_sn + (long long)q0 * p.b_sl);
+    xs = sizeof(BT) * p.b_sl;
+  }
+
+  // stage s: K at s * STAGE, V at + KV, the bias or emb tile at + 2 KV; each
+  // tile is one cp.async group (an empty one past the last tile). Rows are
+  // zero-filled past D or Dv up to 128 values and past L.
+  auto load_tile = [&](int t) {
+    if (t < nt) {
+      const int k0 = t * MBK, kn = min(MBK, p.L - k0);
+      unsigned char* st = smem + (t % STAGES) * Smem::STAGE;
+      stage_rows<true>(st, k + 2 * k0 * p.k_sl, 2 * p.k_sl, MBK, kn, 2 * p.D, ROW_BYTES,
+                       ROW_BYTES, p.wk, tid);
+      stage_rows<true>(st + Smem::KV, v + 2 * k0 * p.v_sl, 2 * p.v_sl, MBK, kn, 2 * p.Dv,
+                       ROW_BYTES, ROW_BYTES, p.wv, tid);
+      if (TABLE)
+        stage_rows<true>(st + 2 * Smem::KV, x + k0 * xs, xs, MBK, kn, 2 * p.D, ROW_BYTES,
+                         ROW_BYTES, p.wx, tid);
+      else
+        stage_rows<false>(st + 2 * Smem::KV, x + sizeof(BT) * k0, xs, BQ, qn,
+                          (int)sizeof(BT) * kn, (int)sizeof(BT) * MBK, BiasRow<BT>::BYTES, p.wx,
+                          tid);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+
+  // Q goes to the last stage's K and V slots; it is read into registers
+  // before a tile is loaded there
+  unsigned char* sq = smem + (STAGES - 1) * Smem::STAGE;
+  stage_rows<true>(sq, q, 2 * p.q_sl, BQ, qn, 2 * p.D, ROW_BYTES, ROW_BYTES, p.wq, tid);
+#pragma unroll
+  for (int t = 0; t < STAGES - 1; ++t) load_tile(t);
+
+  uint32_t qf[8][4];  // A fragments of this warp's 16 query rows, k-step kk
+  float acc[16][4];   // out rows g, g + 8; values 8 j + 2 t4, +1
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY;  // running max of rows g and g + 8
+  float l0 = 0.f, l1 = 0.f;              // this thread's share of their running sums
+
+  for (int t = 0; t < nt; ++t) {
+    // tile t has landed (the STAGES - 2 newer groups may be in flight) and
+    // every warp is done with tile t - 1's stage
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(STAGES - 2) : "memory");
+    __syncthreads();
+    if (t == 0) {
+      if (active) {
+        const uint32_t a = smem_u32(sq);
+        const int row = warp * 16 + (lane & 15);
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk)
+          ldsm_x4(qf[kk], a + row * ROW_BYTES + swz(row, (2 * kk + (lane >> 4)) * 16));
+      }
+      if (nt >= STAGES) __syncthreads();  // Q is in registers: its slots may take a tile
+    }
+    load_tile(t + STAGES - 1);
+    if (!active) continue;
+    const int kn = min(MBK, p.L - t * MBK);
+    const unsigned char* st = smem + (t % STAGES) * Smem::STAGE;
+    if (kn == MBK)
+      tile_step<BT, TABLE, true>(st, qf, acc, m0, m1, l0, l1, kn, warp, lane);
+    else
+      tile_step<BT, TABLE, false>(st, qf, acc, m0, m1, l0, l1, kn, warp, lane);
+  }
+  if (!active) return;
+
+  // ---- out = acc / l, through a free stage to 16-byte stores ----------------
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  // the stage of tile nt - 2 (every warp finished it before the last barrier,
+  // and no copy is in flight), or for nt == 1 the Q slots; either way this
+  // warp writes only its own rows
+  unsigned char* so = smem + ((nt - 2 + STAGES) % STAGES) * Smem::STAGE;
+  const int r0 = warp * 16 + g, r1 = r0 + 8;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int byte = 2 * (8 * j + 2 * t4);
+    *reinterpret_cast<__nv_bfloat162*>(so + r0 * ROW_BYTES + swz(r0, byte)) =
+        __floats2bfloat162_rn(acc[j][0] / l0, acc[j][1] / l0);
+    *reinterpret_cast<__nv_bfloat162*>(so + r1 * ROW_BYTES + swz(r1, byte)) =
+        __floats2bfloat162_rn(acc[j][2] / l1, acc[j][3] / l1);
+  }
+  __syncwarp();
+  const int ob = 2 * p.Dv, units = ob / p.wo;
+  unsigned char* out = static_cast<unsigned char*>(p.out) + ((long long)bh * p.L + q0) * ob;
+  for (int i = lane; i < 16 * units; i += 32) {
+    const int rr = i / units, r = warp * 16 + rr, byte = (i - rr * units) * p.wo;
+    if (r >= qn) break;  // rows ascend with i
+    const unsigned char* src = so + r * ROW_BYTES + swz(r, byte);
+    unsigned char* dst = out + (long long)r * ob + byte;
+    switch (p.wo) {
+      case 16:
+        *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+        break;
+      case 8:
+        *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(src);
+        break;
+      case 4:
+        *reinterpret_cast<uint32_t*>(dst) = *reinterpret_cast<const uint32_t*>(src);
+        break;
+      default:
+        *reinterpret_cast<uint16_t*>(dst) = *reinterpret_cast<const uint16_t*>(src);
+    }
+  }
+}
+
+template <typename BT, bool TABLE>
+cudaError_t launch_mma(const Params& p, int bn, cudaStream_t stream) {
+  constexpr int bytes = MmaSmem<BT, TABLE>::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(attention_mma_kernel<BT, TABLE>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  const long long blocks = (long long)bn * ((p.L + BQ - 1) / BQ);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  attention_mma_kernel<BT, TABLE><<<(unsigned)blocks, MMA_THREADS, bytes, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// The widest copy (16, 8, 4 or 2 bytes) that starts every row on its own
+// width: it divides the base address and every byte stride and row length.
+int copy_width(const void* ptr, std::initializer_list<long long> bytes) {
+  for (int w : {16, 8, 4}) {
+    bool ok = reinterpret_cast<uintptr_t>(ptr) % w == 0;
+    for (long long n : bytes) ok = ok && n % w == 0;
+    if (ok) return w;
+  }
+  return 2;
+}
+
+cudaError_t dispatch_mma(Params p, int bias_dt, int bn, cudaStream_t s) {
+  p.wq = copy_width(p.q, {2 * p.q_sb, 2 * p.q_sn, 2 * p.q_sl, 2LL * p.D});
+  p.wk = copy_width(p.k, {2 * p.k_sb, 2 * p.k_sn, 2 * p.k_sl, 2LL * p.D});
+  p.wv = copy_width(p.v, {2 * p.v_sb, 2 * p.v_sn, 2 * p.v_sl, 2LL * p.Dv});
+  p.wo = copy_width(p.out, {2LL * p.Dv});
+  switch (bias_dt) {
+    case kTable:
+      p.wx = copy_width(p.emb, {2 * p.e_sl, 2LL * p.D});
+      return launch_mma<__nv_bfloat16, true>(p, bn, s);
+    case kF32:
+      p.wx = copy_width(p.bias, {4 * p.b_sb, 4 * p.b_sn, 4 * p.b_sl, 4LL * p.L});
+      return launch_mma<float, false>(p, bn, s);
+    case kBF16:
+      p.wx = copy_width(p.bias, {2 * p.b_sb, 2 * p.b_sn, 2 * p.b_sl, 2LL * p.L});
+      return launch_mma<__nv_bfloat16, false>(p, bn, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // Plain C entry point for ctypes. q/k/v/bias are [B, N, L, *] with the last
 // axis contiguous and the given element strides of B, N and L; emb is [L, D]
 // with row stride e_sl. dt: 0 = float32, 1 = bfloat16 for q, k, v, emb and
 // out; bias_dt: the same codes, or -1 for table mode (bias = q . emb^T).
+// bf16 takes the tensor-core kernel, f32 the scalar one.
 // Returns cudaGetLastError() after the launch (0 = ok).
 extern "C" int dtpu_attention_launch(
     const void* q, long long q_sb, long long q_sn, long long q_sl,
@@ -438,14 +917,14 @@ extern "C" int dtpu_attention_launch(
   if (batch <= 0 || heads <= 0 || L <= 0 || D <= 0 || D > DMAX || Dv <= 0 || Dv > DMAX ||
       (long long)batch * heads > 0x7fffffffLL || (L + BQ - 1) / BQ > 65535)
     return (int)cudaErrorInvalidValue;
-  const Params p{q,    q_sb, q_sn, q_sl, k,   k_sb,  k_sn, k_sl, v, v_sb, v_sn,
-                 v_sl, bias, b_sb, b_sn, b_sl, emb, e_sl, out,  heads, L, D,  Dv};
+  const Params p{q,    q_sb, q_sn, q_sl, k,   k_sb, k_sn, k_sl, v,     v_sb, v_sn, v_sl, bias, b_sb,
+                 b_sn, b_sl, emb,  e_sl, out, heads, L,   D,    Dv,    0,    0,    0,    0,    0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dt) {
     case kF32:
       return (int)dispatch_vec<float>(p, bias_dt, batch * heads, s);
     case kBF16:
-      return (int)dispatch_vec<__nv_bfloat16>(p, bias_dt, batch * heads, s);
+      return (int)dispatch_mma(p, bias_dt, batch * heads, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -77,6 +77,41 @@ def test_plain_versions_match_the_jax_kernels(kernel, l, d, dv, block, dtype):
     assert float(np.abs(got.float().numpy() - ref).max()) <= tol
 
 
+# The blockwise plain version against the JAX blockwise kernels at its own
+# tiling (block 64, two key tiles): both round where the CUDA kernel does (p
+# cast to v's dtype before normalising, l summed unrounded), so in f32 only
+# summation order differs (2e-5) and in bf16 an output lands at most one bf16
+# ulp away (2^-7 of max(1, max|out|)) where the two f32 values straddle a
+# rounding boundary, plus a rare flip of one p's rounding: 1e-2.
+_BLOCKWISE_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("kernel", ["K4", "K5"])
+def test_blockwise_reference_matches_the_jax_blockwise_kernels(kernel, dtype):
+    (q, k, v, bias, emb), (jq, jk, jv, jbias, jemb) = _inputs(2, 3, 128, 16, 8, dtype, seed=7)
+    table = kernel == "K5"
+    ref = np.asarray(_jax_kernel(kernel, jq, jk, jv, jemb if table else jbias, 64), np.float32)
+    got = att.attention_blockwise_reference(q, k, v, emb if table else bias, table=table)
+    assert got.dtype == dtype and got.shape == (2, 3, 128, 8)
+    tol = _BLOCKWISE_TOL[dtype] * max(1.0, float(np.abs(ref).max()))
+    assert float(np.abs(got.float().numpy() - ref).max()) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("table", [False, True], ids=["bias", "table"])
+def test_blockwise_reference_matches_the_plain_version_at_a_ragged_l(table, dtype):
+    """L 70 = 64 + 6: a ragged last key tile; bf16 within the single-tile
+    bound (the two round p on either side of normalising)."""
+    (q, k, v, bias, emb), _ = _inputs(2, 3, 70, 40, 24, dtype, seed=8)
+    last = emb if table else bias
+    want = (att.attention_table_reference if table else att.attention_reference)(q, k, v, last)
+    got = att.attention_blockwise_reference(q, k, v, last, table=table)
+    assert got.dtype == dtype and got.shape == want.shape
+    tol = _TOL[dtype] * max(1.0, float(want.float().abs().max()))
+    assert float((got.float() - want.float()).abs().max()) <= tol
+
+
 def test_table_mode_equals_bias_mode_on_the_materialised_product():
     (q, k, v, _, emb), _ = _inputs(1, 2, 30, 8, 8, torch.float32, seed=4)
     bias = torch.einsum("bnxd,yd->bnxy", q, emb)

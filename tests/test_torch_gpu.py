@@ -73,15 +73,26 @@ def _heads_first(t, heads):
     return t.view(b, l, heads, c // heads).transpose(1, 2)
 
 
+# bf16 kernel vs the blockwise plain version, which rounds where the kernel
+# does: one bf16 ulp of the output (2^-7 of max(1, max|out|)) where the two
+# f32 sums straddle a rounding boundary, plus a rare flip of one p's rounding
+# (chip_smoke.ATTN_BLOCKWISE_TOL)
+BLOCKWISE_BF16_TOL = 1e-2
+
+
 @pytest.mark.gpu
 def test_cuda_attention_matches_plain(cuda):
     """Both modes, both dtypes, both bias dtypes; head-split (strided) views;
-    L ragged against the 64-row tiles, Dv != D, D not a multiple of 4. The
-    bf16 tolerance covers the kernel casting p before normalising (the
-    plain version casts after)."""
+    L ragged against the 64-row tiles and at 63, 64, 65, Dv != D, D not a
+    multiple of 4 or 16, odd row lengths (the kernel's 2-byte copies). The
+    bf16 tolerance against the single-tile plain version covers the kernel
+    casting p before normalising (the plain version casts after); against
+    the blockwise plain version, which casts where the kernel does, it is
+    BLOCKWISE_BF16_TOL."""
     gen = torch.Generator(device=cuda).manual_seed(1)
     for (b, n, l, d, dv) in [(2, 4, 196, 128, 128), (1, 2, 70, 32, 24), (1, 1, 5, 7, 3),
-                             (1, 2, 1024, 128, 128)]:
+                             (1, 2, 1024, 128, 128), (1, 2, 63, 128, 128), (1, 2, 64, 128, 128),
+                             (1, 2, 65, 128, 128), (2, 3, 196, 40, 24)]:
         for dt in (torch.float32, torch.bfloat16):
             q = _heads_first(torch.randn(b, l, n * d, generator=gen, device=cuda) * 0.3, n).to(dt)
             k = _heads_first(torch.randn(b, l, n * d, generator=gen, device=cuda) * 0.3, n).to(dt)
@@ -103,6 +114,20 @@ def test_cuda_attention_matches_plain(cuda):
                 tol = (2e-5 if dt == torch.float32 else 2e-2) * max(1.0, want.abs().max().item())
                 err = (got.float() - want.float()).abs().max().item()
                 assert err <= tol, ((b, n, l, d, dv), dt, mode, err)
+                blk = att.attention_blockwise_reference(
+                    q, k, v, emb if mode == "table" else bb, table=mode == "table")
+                tol = (2e-5 if dt == torch.float32 else BLOCKWISE_BF16_TOL) * max(
+                    1.0, blk.float().abs().max().item())
+                err = (got.float() - blk.float()).abs().max().item()
+                assert err <= tol, ((b, n, l, d, dv), dt, mode, "blockwise", err)
+            # a huge uniform bias: the online softmax subtracts the running max
+            huge = bias.to(dt) + 1e4
+            got = att.fused_attention(q, k, v, huge)
+            assert torch.isfinite(got).all(), ((b, n, l, d, dv), dt)
+            if dt == torch.bfloat16:  # f32 logits near 1e4 keep 2^-10 absolute: bf16 only
+                want = att.attention_reference(q, k, v, huge)
+                err = (got.float() - want.float()).abs().max().item()
+                assert err <= 2e-2 * max(1.0, want.abs().max().item()), ((b, n, l, d, dv), "1e4")
     q = torch.zeros(1, 1, 8, 129, device=cuda)
     with pytest.raises(ValueError, match="D, Dv <= 128"):
         att.fused_attention(q, q, q, torch.zeros(1, 1, 8, 8, device=cuda))
