@@ -2,17 +2,31 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --profile-only   # build, then phase 5/6's latency and profile only
+
+``--profile-only`` exists to compare two trees in one call: copied into an
+older checkout and run from its root, it profiles that checkout's serving
+path beside this one's on the same card.
 
 Phases (any failure exits non-zero):
 
 1. device: the card's name and power limit (``nvidia-smi``); no CUDA -> fail;
-2. build: the fused conv-epilogue kernel (K1, ``ops/csrc/epilogue.cu``) and
-   the fused attention kernel (K2-K5, ``ops/csrc/attention.cu``), one nvcc
-   each, started together, with nvcc's register and spill report;
-3. K1 against its plain PyTorch version at every distinct epilogue shape of
-   a ResNet-50 forward at batch 128, 224x224 (bitwise, ``torch.equal``),
-   x bf16 -> f32 (serving) and bf16 -> bf16, timed with CUDA events beside
-   the plain version, a ``F.batch_norm`` composition and the HBM bound;
+2. build: the fused conv-epilogue kernel (K1, ``ops/csrc/epilogue.cu``),
+   the fused attention kernel (K2-K5, ``ops/csrc/attention.cu``) and the MoE
+   kernels (K6/K7, ``ops/csrc/moe.cu``), one nvcc each, started together,
+   with nvcc's register and spill report;
+3. [k1] K1 against its plain PyTorch version (bitwise, ``torch.equal``) at
+   every K1 site of a ResNet-50 and of a BoTNet-50 forward at batch 128,
+   224x224 (recorded from the models on the meta device,
+   :func:`epilogue_sites`; the downsample BNs and BoTNet's 14x14x2048 BoT
+   blocks included), x bf16 -> f32 in each mode (a: the f32 boundary, b:
+   the next conv's bf16 input, c: both) and bf16 -> bf16, timed with CUDA
+   events as device time (at least 10 calls replayed from a CUDA graph,
+   cycling through enough input sets that a replay moves 128 MiB, beyond
+   the L2), over 10 back-to-back calls and over one call from an idle
+   stream, beside the plain version, the ``F.batch_norm`` composition of
+   the same outputs and the bytes bound of the mode; the scalar route (C
+   36, a misaligned view);
 4. the attention kernel (bf16: tensor cores; f32: scalar) against its
    single-tile and its blockwise plain version at the shapes the BoTNet
    paths give it (K2: B*N 512, L 196; K4: B*N 32, L 1024; the table mode
@@ -23,11 +37,13 @@ Phases (any failure exits non-zero):
 5. serve ResNet-50: ``config/serve_resnet50.yaml`` at full width (224, 1000
    classes, bf16, uint8 wire, ladder [1, 8, 32, 128]) on seeded random
    weights; mixed-size concurrent requests through ``ServeReplica.handle``
-   plus one HTTP round trip; every forward must launch K1 49 times; each
-   response must equal the direct forward of its images; f32 card vs f32
-   CPU and bf16 serve vs f32 tolerances; per-ladder-size latency; profile;
+   plus one HTTP round trip; every forward must launch K1 53 times (every
+   BN), none on the scalar route; each response must equal the direct
+   forward of its images; f32 card vs f32 CPU and bf16 serve vs f32
+   tolerances; per-ladder-size latency;
+   profile by kernel class (K1 against its bound, copy/cast, convs, ...);
 6. serve BoTNet-50: the same config with ``MODEL.ARCH botnet50``; every
-   forward must launch the attention kernel 3 times and K1 40 times; the
+   forward must launch the attention kernel 3 times and K1 53 times; the
    same checks, and a profile with an attention class;
 7. large crop: botnet50 at 512x512, batch 8 (L 1024, the K4 route), f32
    card vs f32 CPU on 2 images and bf16 vs f32; ``MHSA(rel_pos_emb=False)``
@@ -57,6 +73,7 @@ from __future__ import annotations
 
 import base64
 import importlib.util
+import itertools
 import json
 import re
 import statistics
@@ -98,9 +115,10 @@ MHSA_F32_REL_TOL = 1e-4
 # |v| / l): 1e-2, half the single-tile bound.
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 ATTN_BLOCKWISE_TOL = {"float32": 2e-5, "bfloat16": 1e-2}
-# the served models and the launches each of their forwards must make
-SERVED = {"resnet50": dict(name="rn50", k1=49, attention=0),
-          "botnet50": dict(name="bot", k1=40, attention=3)}
+# the served models and the launches each of their forwards must make (K1:
+# every BN)
+SERVED = {"resnet50": dict(name="rn50", k1=53, attention=0),
+          "botnet50": dict(name="bot", k1=53, attention=3)}
 
 
 def fail(msg: str) -> None:
@@ -125,21 +143,224 @@ F32_PEAK_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
 BF16_PEAK_FLOPS = 989e12  # H100 SXM, dense bf16 on the tensor cores
 
 
-def resnet50_epilogue_shapes(n: int, im: int) -> Counter:
-    """(N, H, W, C, residual) -> launches, for one ResNet-50 forward."""
-    shapes: Counter = Counter()
-    h = im // 2
-    shapes[(n, h, h, 64, False)] += 1  # stem bn1
-    h //= 2  # max-pool
-    for stage, blocks in enumerate([3, 4, 6, 3]):
-        planes = 64 * 2**stage
-        for i in range(blocks):
-            stride = 2 if stage > 0 and i == 0 else 1
-            shapes[(n, h, h, planes, False)] += 1  # bn1, before the strided 3x3
-            h //= stride
-            shapes[(n, h, h, planes, False)] += 1  # bn2
-            shapes[(n, h, h, planes * 4, True)] += 1  # bn3 + residual
-    return shapes
+def epilogue_sites(arch: str, n: int, im: int = IM) -> Counter:
+    """(N, H, W, C, residual, relu, mode) -> K1 calls in one bf16 forward of
+    ``arch`` at batch ``n``, recorded by a spy on K1 while the model runs on
+    the meta device (shapes only, no data; the attention returns an empty
+    tensor of its shape). mode: a (the BN boundary), b (the next conv's
+    input), c (both)."""
+    import torch
+
+    from distribuuuu_tpu_torch.models import botnet, build_model, layers
+    from distribuuuu_tpu_torch.ops import epilogue as ep
+
+    sites: Counter = Counter()
+
+    def k1(x, mean, mul, bias, identity=None, **kw):
+        mode = "a" if kw.get("cast_to") is None else "c" if kw.get("keep_boundary", True) else "b"
+        b, c, h, w = x.shape
+        sites[(b, h, w, c, identity is not None, kw["relu"], mode)] += 1
+        return ep.epilogue_reference(x, mean, mul, bias, identity, **kw)
+
+    def attention(q, k, v, bias):
+        return q.new_empty((*q.shape[:-1], v.shape[-1]))
+
+    real = layers.fused_conv_epilogue, botnet.fused_attention
+    with torch.device("meta"):
+        model = build_model(arch, num_classes=1000, dtype=torch.bfloat16, im_size=im)
+    layers.fused_conv_epilogue, botnet.fused_attention = k1, attention
+    try:
+        with torch.inference_mode():
+            model.eval()(torch.empty(n, im, im, 3, device="meta"))
+    finally:
+        layers.fused_conv_epilogue, botnet.fused_attention = real
+    return sites
+
+
+# K1's modes as keyword arguments of fused_conv_epilogue (cast_to added per call)
+K1_MODES = {"a": {}, "b": dict(keep_boundary=False), "c": {}}
+K1_BATCH = 10  # calls per timing, at least (graph_ms, cuda_ms)
+# Bytes one timed replay of K1 touches at least: 2.5 x the H100's 50 MB L2,
+# so no call finds in the L2 what an earlier call of the replay left there
+# and the time is that of HBM streaming (k1_rotation).
+K1_ROTATE_BYTES = 128 << 20
+
+
+def k1_kwargs(mode: str, relu: bool, bn_dtype, cast_to) -> dict:
+    return dict(K1_MODES[mode], relu=relu, bn_dtype=bn_dtype,
+                cast_to=None if mode == "a" else cast_to)
+
+
+def k1_bound(site, bw: float, items=(2, 4, 4, 2)) -> tuple[float, int, str]:
+    """(bound ms, bytes, what bounds it) of one K1 call at ``site``: x and
+    the residual read once, the boundary (modes a, c) and the cast (modes b,
+    c) written once, the three f32 [C] vectors; 3-5 f32 operations per
+    element. ``items``: bytes per element of x, residual, boundary and cast
+    (serving: bf16, f32, f32, bf16)."""
+    n, h, w, c, res, relu, mode = site
+    elems = n * h * w * c
+    x_b, res_b, out_b, cast_b = items
+    nbytes = elems * (x_b + (res_b if res else 0) + (out_b if mode != "b" else 0)
+                      + (cast_b if mode != "a" else 0)) + 3 * c * 4
+    flops = elems * (3 + int(relu) + int(res))
+    by = "bytes" if nbytes / bw >= flops / F32_PEAK_FLOPS else "operations"
+    return 1e3 * max(nbytes / bw, flops / F32_PEAK_FLOPS), nbytes, by
+
+
+def k1_rotation(nbytes: int) -> tuple[int, int]:
+    """(input sets, calls) for timing a K1 call that moves ``nbytes``: the
+    calls cycle through the sets, each writes outputs of its own, and a
+    set comes round again only after K1_ROTATE_BYTES of other traffic."""
+    sets = -(-K1_ROTATE_BYTES // nbytes)
+    return sets, max(K1_BATCH, sets)
+
+
+def k1_inputs(n, h, w, c, res, bn_dtype, gen, offset: int = 0):
+    """Seeded K1 arguments on the card: bf16 x and a ``bn_dtype`` residual
+    as channels-last NCHW views of NHWC tensors ``offset`` elements into
+    their allocation, and the three f32 vectors."""
+    import torch
+
+    def nhwc(dtype):
+        t = torch.randn(n * h * w * c + offset, generator=gen, device="cuda").to(dtype)
+        return t[offset:].view(n, h, w, c).permute(0, 3, 1, 2)
+
+    x = nhwc(torch.bfloat16)
+    mean = torch.randn(c, generator=gen, device="cuda") * 0.1
+    mul = torch.rand(c, generator=gen, device="cuda") + 0.5
+    bias = torch.randn(c, generator=gen, device="cuda") * 0.1
+    return x, mean, mul, bias, nhwc(bn_dtype) if res else None
+
+
+def k1_check(ep, args, kw, what: str) -> float:
+    """One K1 call against its plain version: dtype, layout and bits of
+    every output. Returns max|kernel - plain| over the outputs."""
+    import torch
+
+    got, want = ep.fused_conv_epilogue(*args, **kw), ep.epilogue_reference(*args, **kw)
+    torch.cuda.synchronize()
+    pairs = list(zip(got, want)) if isinstance(want, tuple) else [(got, want)]
+    err = 0.0
+    for g, w in pairs:
+        if g.dtype != w.dtype or not g.is_contiguous(memory_format=torch.channels_last):
+            fail(f"K1 output dtype/layout wrong at {what}")
+        d = (g.float() - w.float()).abs().max().item()
+        if not torch.equal(g, w):
+            fail(f"K1 != plain at {what}: max|d|={d}")
+        err = max(err, d)
+    return err
+
+
+def cycling(fns):
+    """A zero-argument callable that calls ``fns`` in turn, one per call."""
+    it = itertools.cycle(fns)
+    return lambda: next(it)()
+
+
+def phase_k1(card: str, sites: dict):
+    """K1 vs plain at every site of the served models' forwards at batch
+    128 (``sites``: arch -> Counter, from :func:`epilogue_sites`), in every
+    mode, timed three ways: device time (the calls replayed from a CUDA
+    graph), 10 calls back to back, and one call from an idle stream (the
+    last two carry the wrapper's host cost, which sets them where the kernel
+    is shorter); beside the device times of the plain version and of the
+    ``F.batch_norm`` composition of the same outputs, and the bytes bound.
+    Every timing cycles through enough input sets that a replay outruns the
+    L2 (:func:`k1_rotation`). Then the scalar route. Returns (rows, scalar
+    route, max|kernel - plain| over every call checked)."""
+    import torch
+    import torch.nn.functional as F
+
+    from distribuuuu_tpu_torch.ops import epilogue as ep
+
+    bw = hbm_bytes_per_s(card)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows, err = [], 0.0
+    combos = [("bf16->f32", torch.float32, "abc", (2, 4, 4, 2)),
+              ("bf16->bf16", torch.bfloat16, "a", (2, 2, 2, 2))]
+    shapes = sorted({s[:6] for by_site in sites.values() for s in by_site})
+    for n, h, w, c, res, relu in shapes:
+        for label, bn_dtype, modes, items in combos:
+            # sized by mode b, which moves the least: every mode's replay, and the
+            # plain version's and F.batch_norm's, then moves K1_ROTATE_BYTES or more
+            sets, calls = k1_rotation(k1_bound((n, h, w, c, res, relu, "b"), bw, items)[1])
+            inputs = [k1_inputs(n, h, w, c, res, bn_dtype, gen) for _ in range(sets)]
+            # yardstick only: var + eps ~ 1, so F.batch_norm applies ~mul
+            var = torch.full((c,), 1.0 - 1e-5, device="cuda")
+            for mode in modes:
+                site = (n, h, w, c, res, relu, mode)
+                kw = k1_kwargs(mode, relu, bn_dtype, torch.bfloat16)
+                err = max(err, k1_check(ep, inputs[0], kw, f"{site} {label}"))
+
+                def library(x, mean, mul, bias, identity, mode=mode):
+                    y = F.batch_norm(x.float(), mean, var, mul, bias, False, 0.0, 1e-5)
+                    y = y.to(bn_dtype)
+                    if identity is not None:
+                        y = y + identity
+                    if relu:
+                        y = y.relu_()
+                    if mode == "a":
+                        return y
+                    cast = y.to(torch.bfloat16)
+                    return (y, cast) if mode == "c" else cast
+
+                def calls_of(fn, kw=kw):
+                    return [lambda a=inputs[i % sets]: fn(*a, **kw) for i in range(calls)]
+
+                kernel = calls_of(ep.fused_conv_epilogue)
+                device_ms = graph_ms(kernel)
+                ms = cuda_ms(cycling(kernel), batch=K1_BATCH)
+                single_ms = cuda_ms(cycling(kernel))
+                plain_ms = graph_ms(calls_of(ep.epilogue_reference), runs=5)
+                lib_ms = graph_ms(calls_of(library, {}), runs=10)
+                bound_ms, nbytes, bound_by = k1_bound(site, bw, items)
+                mult = {arch: by_site[site] if label == "bf16->f32" else 0
+                        for arch, by_site in sites.items()}
+                rows.append(dict(
+                    n=n, h=h, w=w, c=c, residual=res, relu=relu, mode=mode, combo=label,
+                    launches_per_forward=mult, input_sets=sets, calls=calls, device_ms=device_ms,
+                    ms=ms, single_call_ms=single_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                    bytes=nbytes, bound_ms=bound_ms, bound_by=bound_by))
+                say(f"[k1] N{n} {h}x{w} C{c} res={int(res)} relu={int(relu)} {label} mode {mode} "
+                    f"per forward {mult}: equal; device {device_ms:.4f} ms "
+                    f"({100 * bound_ms / device_ms:.0f}% of bound {bound_ms:.4f}; {calls} calls over "
+                    f"{sets} input sets), back-to-back {ms:.4f}, single call {single_ms:.4f}; "
+                    f"plain {plain_ms:.4f}, F.batch_norm {lib_ms:.4f}")
+            del inputs
+    scalar, scalar_err = phase_k1_scalar(ep, gen, bw)
+    torch.cuda.empty_cache()
+    return rows, scalar, max(err, scalar_err)
+
+
+def phase_k1_scalar(ep, gen, bw) -> tuple[dict, float]:
+    """K1's scalar route, bitwise in every mode: C 36 (C % 8 != 0), and a
+    ResNet-50 site's tensors 2 elements off a 16-byte boundary, timed.
+    Returns the times and max|kernel - plain|."""
+    import torch
+
+    res, err = {}, 0.0
+    for n, h, w, c, offset in ((8, 14, 14, 36, 0), (LADDER_BATCH, 7, 7, 2048, 2)):
+        site = (n, h, w, c, True, True, "c")
+        bound_ms, nbytes, _ = k1_bound(site, bw)
+        sets, calls = k1_rotation(nbytes)
+        inputs = [k1_inputs(n, h, w, c, True, torch.float32, gen, offset) for _ in range(sets)]
+        for mode in K1_MODES:
+            kw = k1_kwargs(mode, True, torch.float32, torch.bfloat16)
+            before = ep.SCALAR_LAUNCHES
+            err = max(err, k1_check(ep, inputs[0], kw,
+                                    f"scalar route N{n} {h}x{w} C{c} offset {offset} mode {mode}"))
+            if ep.SCALAR_LAUNCHES != before + 1:
+                fail(f"K1 at C {c}, offset {offset} did not take the scalar route")
+        kw = k1_kwargs("c", True, torch.float32, torch.bfloat16)
+        ms = graph_ms([lambda a=inputs[i % sets]: ep.fused_conv_epilogue(*a, **kw)
+                       for i in range(calls)])
+        res[f"N{n} {h}x{w} C{c} offset {offset}"] = dict(device_ms=ms, bound_ms=bound_ms,
+                                                         input_sets=sets, calls=calls)
+        say(f"[k1] scalar route N{n} {h}x{w} C{c} offset {offset}: modes a/b/c equal plain; mode c "
+            f"device {ms:.4f} ms (bound {bound_ms:.4f}, {100 * bound_ms / ms:.0f}% of bound; "
+            f"{calls} calls over {sets} input sets)")
+        del inputs
+    return res, err
 
 
 def cuda_ms(fn, runs: int = 25, warmup: int = 3, batch: int = 1) -> float:
@@ -162,6 +383,29 @@ def cuda_ms(fn, runs: int = 25, warmup: int = 3, batch: int = 1) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / batch)
     return statistics.median(times)
+
+
+def graph_ms(fns, runs: int = 20) -> float:
+    """Device time per call of the zero-argument callables ``fns``, captured
+    in order in one CUDA graph and replayed (median over ``runs`` replays):
+    back to back with no host cost between the launches. Every call's
+    output stays allocated until the graph goes, so each writes memory of
+    its own; inputs a caller repeats within the L2's 50 MB are read from
+    there on a replay (:func:`k1_rotation` avoids that)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # capture wants its warm-up off the default stream
+        for fn in (list(fns) * 3)[:3]:
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [fn() for fn in fns]
+    ms = cuda_ms(graph.replay, runs=runs) / len(fns)
+    del graph, outs
+    return ms
 
 
 def phase_build(names=("epilogue", "attention", "moe")) -> dict:
@@ -195,70 +439,6 @@ def phase_build(names=("epilogue", "attention", "moe")) -> dict:
             f"{min(regs)}-{max(regs)} registers/thread, spills: {spills or 'none'}")
         out[name] = dict(build_s=info.wall_s, registers=regs, spills=spills)
     return out
-
-
-def phase_k1(card: str):
-    """K1 vs plain at every ResNet-50 epilogue shape; returns per-shape rows."""
-    import torch
-    import torch.nn.functional as F
-
-    from distribuuuu_tpu_torch.ops import epilogue as ep
-
-    bw = hbm_bytes_per_s(card)
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    rows = []
-    max_err = 0.0
-    combos = [("bf16->f32", torch.float32), ("bf16->bf16", torch.bfloat16)]
-    for (n, h, w, c, res), mult in sorted(resnet50_epilogue_shapes(LADDER_BATCH, IM).items()):
-        for label, bn_dtype in combos:
-            def nhwc(dtype):
-                t = torch.randn(n, h, w, c, generator=gen, device="cuda")
-                return t.to(dtype).permute(0, 3, 1, 2)  # channels-last NCHW view
-
-            x = nhwc(torch.bfloat16)
-            mean = torch.randn(c, generator=gen, device="cuda") * 0.1
-            mul = torch.rand(c, generator=gen, device="cuda") + 0.5
-            bias = torch.randn(c, generator=gen, device="cuda") * 0.1
-            identity = nhwc(bn_dtype) if res else None
-            args = (x, mean, mul, bias, identity)
-            got = ep.fused_conv_epilogue(*args, relu=True, bn_dtype=bn_dtype)
-            want = ep.epilogue_reference(*args, relu=True, bn_dtype=bn_dtype)
-            torch.cuda.synchronize()
-            if got.dtype != want.dtype or not got.is_contiguous(memory_format=torch.channels_last):
-                fail(f"K1 output dtype/layout wrong at {(n, h, w, c, res)} {label}")
-            err = (got.float() - want.float()).abs().max().item()
-            max_err = max(max_err, err)
-            if not torch.equal(got, want):
-                fail(f"K1 != plain at (N,H,W,C,res)={(n, h, w, c, res)} {label}: max|d|={err}")
-            # yardstick only: var + eps ~ 1, so F.batch_norm applies ~mul
-            var = torch.full((c,), 1.0 - 1e-5, device="cuda")
-
-            def library():
-                y = F.batch_norm(x.float(), mean, var, mul, bias, False, 0.0, 1e-5)
-                y = y.to(bn_dtype)
-                if identity is not None:
-                    y = y + identity
-                return y.relu_()
-
-            ms = cuda_ms(lambda: ep.fused_conv_epilogue(*args, relu=True, bn_dtype=bn_dtype))
-            plain_ms = cuda_ms(lambda: ep.epilogue_reference(*args, relu=True, bn_dtype=bn_dtype))
-            lib_ms = cuda_ms(library)
-            elems = n * h * w * c
-            nbytes = elems * (x.element_size() + got.element_size()
-                              + (identity.element_size() if res else 0)) + 3 * c * 4
-            flops = elems * (5 if res else 4)
-            bound_ms = 1e3 * max(nbytes / bw, flops / F32_PEAK_FLOPS)
-            rows.append(dict(
-                n=n, h=h, w=w, c=c, residual=res, combo=label, launches_per_forward=mult,
-                ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bytes=nbytes, bound_ms=bound_ms,
-                bound_by="bytes" if nbytes / bw >= flops / F32_PEAK_FLOPS else "operations",
-            ))
-            say(f"[k1] N{n} {h}x{w} C{c} res={int(res)} {label} x{mult}: equal, "
-                f"{ms:.4f} ms (plain {plain_ms:.4f}, F.batch_norm {lib_ms:.4f}, "
-                f"bound {bound_ms:.4f}, {100 * bound_ms / ms:.0f}% of bound)")
-            del x, identity, got, want
-    torch.cuda.empty_cache()
-    return rows, max_err
 
 
 # (name, B, N, L, D, Dv, dtype, mode): the shapes the BoTNet paths give the
@@ -443,33 +623,31 @@ def calibrate_bn(sd: dict, arch: str, im: int, batch: int = 16) -> dict:
            for bn in (blk.net[1], *([blk.shortcut[1]] if isinstance(blk.shortcut, torch.nn.Sequential)
                                     else []))]
     by_mean = {id(bn.running_mean): bn for bn in bns}
-    real = {fn: getattr(layers, fn) for fn in ("fused_conv_epilogue", "epilogue_reference")}
+    real = layers.fused_conv_epilogue
 
-    def recalibrating(fn):
-        def call(x, mean, mul, bias, *args, **kw):
-            bn = by_mean.get(id(mean))
-            if bn is None:
-                return fn(x, mean, mul, bias, *args, **kw)
-            bn.running_mean.copy_(x.float().mean((0, 2, 3)))
-            bn.running_var.copy_(x.float().var((0, 2, 3), unbiased=False))
-            return fn(x, *bn.affine(), *args, **kw)
-        return call
+    def recalibrating(x, mean, mul, bias, *args, **kw):
+        bn = by_mean.get(id(mean))
+        if bn is None:
+            return real(x, mean, mul, bias, *args, **kw)
+        bn.running_mean.copy_(x.float().mean((0, 2, 3)))
+        bn.running_var.copy_(x.float().var((0, 2, 3), unbiased=False))
+        return real(x, *bn.affine(), *args, **kw)
 
     imgs = np.random.default_rng(5).integers(0, 256, size=(batch, im, im, 3), dtype=np.uint8)
     try:
-        for name, fn in real.items():
-            setattr(layers, name, recalibrating(fn))
+        layers.fused_conv_epilogue = recalibrating
         with torch.no_grad():
             model(device_normalize(torch.from_numpy(imgs).cuda()))
     finally:
-        for name, fn in real.items():
-            setattr(layers, name, fn)
+        layers.fused_conv_epilogue = real
     return {k: v.cpu() for k, v in model.state_dict().items()}
 
 
-def phase_serve(card: str, tmp: Path, arch: str):
+def phase_serve(card: str, tmp: Path, arch: str, k1_bound_us: dict):
     """Serve ``arch`` from config/serve_resnet50.yaml with ``MODEL.ARCH`` and
-    ``SERVE.MODELS`` overridden: the user's entry point at full width."""
+    ``SERVE.MODELS`` overridden: the user's entry point at full width.
+    ``k1_bound_us``: K1's bound per forward at batch 1 and 128, for the
+    profile."""
     import numpy as np
     import torch
 
@@ -500,7 +678,7 @@ def phase_serve(card: str, tmp: Path, arch: str):
         fail(f"{SERVE_CFG} no longer describes the full-width serving config")
 
     # --- the main path: counts zeroed just before, read just after ---------
-    ep.LAUNCHES = att.LAUNCHES = att.TABLE_LAUNCHES = 0
+    ep.LAUNCHES = ep.SCALAR_LAUNCHES = att.LAUNCHES = att.TABLE_LAUNCHES = 0
     tic = time.perf_counter()
     replica = ServeReplica(parse_model_specs(list(s.MODELS)))
     startup_s = time.perf_counter() - tic
@@ -543,7 +721,8 @@ def phase_serve(card: str, tmp: Path, arch: str):
             http_resp = json.loads(r.read())
         with urllib.request.urlopen(url + "/healthz", timeout=10) as r:
             health = json.loads(r.read())
-        launches = dict(k1=ep.LAUNCHES, attention=att.LAUNCHES, table=att.TABLE_LAUNCHES)
+        launches = dict(k1=ep.LAUNCHES, k1_scalar=ep.SCALAR_LAUNCHES, attention=att.LAUNCHES,
+                        table=att.TABLE_LAUNCHES)
         forwards = engine.forwards
     finally:
         stop.set()
@@ -552,7 +731,10 @@ def phase_serve(card: str, tmp: Path, arch: str):
     # -----------------------------------------------------------------------
     say(f"[serve {name}] startup {startup_s:.2f}s (load + warmup of every ladder size); "
         f"{forwards} forwards, launches {launches}; /healthz {health}")
-    expected = dict(k1=want["k1"] * forwards, attention=want["attention"] * forwards, table=0)
+    # every K1 launch on the vector route: the scalar one would mean a model
+    # tensor lost its 16-byte alignment or C % 8 == 0
+    expected = dict(k1=want["k1"] * forwards, k1_scalar=0, attention=want["attention"] * forwards,
+                    table=0)
     if forwards < len(engine.batch_sizes) + 2 or launches != expected:
         fail(f"{arch}: launches {launches} != {expected} for {forwards} forwards")
     batch_sizes = [r["batch_size"] for r in responses] + [http_resp["batch_size"]]
@@ -573,16 +755,7 @@ def phase_serve(card: str, tmp: Path, arch: str):
     if float(np.std(all_resp[-2])) == 0.0:
         fail("logits have no spread")
 
-    # per-ladder-size latency through engine.forward (host clock, result fetch included)
-    latency = {}
-    for b in engine.batch_sizes:
-        batch = rng.integers(0, 256, size=(b, IM, IM, 3), dtype=np.uint8)
-        times = [engine.forward_timed(name, batch)[1] for _ in range(15)]
-        latency[b] = statistics.median(times)
-        say(f"[serve {name}] batch {b}: median forward {latency[b]:.3f} ms, "
-            f"{1000.0 * b / latency[b]:.1f} images/s ({card})")
-
-    profile = {b: profile_forward(engine, name, rng, b) for b in (1, LADDER_BATCH)}
+    latency, profile = latency_and_profile(engine, name, rng, card, k1_bound_us)
 
     # (a) f32 on the card (kernels) vs f32 on the CPU (plain versions)
     imgs = torch.from_numpy(reqs[2])  # the 8-image request, served at bf16
@@ -613,11 +786,49 @@ def phase_serve(card: str, tmp: Path, arch: str):
                 f32_ratio=d_a / scale, bf16_ratio=d_b, top1=top1, startup_s=startup_s)
 
 
-def profile_forward(engine, name: str, rng, b: int, runs: int = 3) -> dict:
+def latency_and_profile(engine, name: str, rng, card: str, k1_bound_us: dict | None = None):
+    """Per-ladder-size latency through ``engine.forward`` (host clock, result
+    fetch included, median of 15), and the profile at batch 1 and 128."""
+    import numpy as np
+
+    latency = {}
+    for b in engine.batch_sizes:
+        batch = rng.integers(0, 256, size=(b, IM, IM, 3), dtype=np.uint8)
+        times = [engine.forward_timed(name, batch)[1] for _ in range(15)]
+        latency[b] = statistics.median(times)
+        say(f"[serve {name}] batch {b}: median forward {latency[b]:.3f} ms, "
+            f"{1000.0 * b / latency[b]:.1f} images/s ({card})")
+    profile = {b: profile_forward(engine, name, rng, b, (k1_bound_us or {}).get(b))
+               for b in (1, LADDER_BATCH)}
+    return latency, profile
+
+
+def kernel_class(name: str) -> str:
+    """The class of a device event in [profile]. copy/cast: PyTorch's copy
+    kernels (``direct_copy_kernel_cuda`` and kin: dtype casts and strided
+    copies); memcpy/memset: the copy engines' transfers and fills."""
+    low = name.lower()
+    if re.search(r"epilogue_(vec_|scalar_)?kernel", low):
+        return "K1"
+    if "attention_kernel" in low or "attention_mma_kernel" in low:
+        return "attention"
+    if "copy_kernel" in low:
+        return "copy/cast"
+    if "memcpy" in low or "memset" in low:
+        return "memcpy/memset"
+    if any(k in low for k in ("xmma", "conv", "gemm", "cutlass", "cudnn")):
+        return "conv/gemm"
+    return "other"
+
+
+def profile_forward(engine, name: str, rng, b: int, k1_bound_us: float | None = None,
+                    runs: int = 3) -> dict:
     """Device time of ``runs`` forwards of model ``name`` at batch ``b`` (the
-    engine's crop) by kernel class, from a torch.profiler trace, and the
-    device's idle share over the window from the first kernel's start to the
-    last kernel's end."""
+    engine's crop) by kernel class (:func:`kernel_class`), with each class's
+    events per forward, from a torch.profiler trace, and the device's idle
+    share over the window from the first kernel's start to the last
+    kernel's end. ``k1_bound_us``: K1's bound per forward, printed beside
+    its time."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -633,14 +844,12 @@ def profile_forward(engine, name: str, rng, b: int, runs: int = 3) -> dict:
         say(f"[profile {name}] batch {b}: the profiler recorded no device time (not measured)")
         return {}
     by_class: Counter = Counter()
+    count: Counter = Counter()
     by_name: Counter = Counter()
     for kname, start, end in spans:
-        low = kname.lower()
-        cls = ("K1" if "epilogue_kernel" in low else
-               "attention" if "attention_kernel" in low or "attention_mma_kernel" in low else
-               "conv/gemm" if any(k in low for k in ("xmma", "conv", "gemm", "cutlass", "cudnn"))
-               else "other")
+        cls = kernel_class(kname)
         by_class[cls] += end - start
+        count[cls] += 1
         by_name[kname[:60]] += end - start
     busy, last = 0.0, None
     for _, start, end in sorted(spans, key=lambda s: s[1]):
@@ -652,16 +861,41 @@ def profile_forward(engine, name: str, rng, b: int, runs: int = 3) -> dict:
             last = end
     window = max(e for _, _, e in spans) - min(s for _, s, _ in spans)
     res = {"per_forward_us": {k: v / runs for k, v in by_class.items()},
+           "events_per_forward": {k: v / runs for k, v in count.items()},
            "busy_per_forward_us": busy / runs, "idle_share": 1.0 - busy / window,
-           "kernels_per_forward": len(spans) / runs,
+           "kernels_per_forward": len(spans) / runs, "k1_bound_us": k1_bound_us,
            "top": [(n, t / runs) for n, t in by_name.most_common(8)]}
+    k1 = res["per_forward_us"].get("K1", 0.0)
+    bound = "" if not k1_bound_us or not k1 else (
+        f" (K1 bound {k1_bound_us:.0f} us, {100 * k1_bound_us / k1:.0f}% of bound)")
     say(f"[profile {name}] batch {b} per forward: " + ", ".join(
-        f"{k} {v:.0f} us" for k, v in sorted(res["per_forward_us"].items()))
+        f"{k} {v:.0f} us in {res['events_per_forward'][k]:.0f}"
+        for k, v in sorted(res["per_forward_us"].items()))
         + f"; device busy {res['busy_per_forward_us']:.0f} us, idle share "
-        f"{100 * res['idle_share']:.1f}%, {res['kernels_per_forward']:.0f} kernels")
+        f"{100 * res['idle_share']:.1f}%, {res['kernels_per_forward']:.0f} kernels" + bound)
     say(f"[profile {name}] batch {b} top kernels: " + "; ".join(
         f"{n} {t:.0f} us" for n, t in res["top"]))
     return res
+
+
+def phase_profile_only(card: str, tmp: Path, arch: str) -> None:
+    """``--profile-only``: ``arch`` on seeded weights through the serving
+    engine at the config's ladder: latency and profile, no checks. A copy of
+    this script run from another checkout's root measures that checkout's
+    port, so two trees compare in one call."""
+    import numpy as np
+    import torch
+
+    from distribuuuu_tpu_torch.serve.engine import InferenceEngine, ModelSpec
+
+    name = SERVED[arch]["name"]
+    weights = tmp / f"{name}.pt"
+    torch.save(synthetic_state_dict(arch, 0), weights)
+    engine = InferenceEngine(batch_sizes=[1, 8, 32, LADDER_BATCH], im_size=IM, num_classes=1000,
+                             compute_dtype="bfloat16")
+    engine.load(ModelSpec(name, arch, str(weights)))
+    engine.warmup()
+    latency_and_profile(engine, name, np.random.default_rng(1), card)
 
 
 def phase_large_crop(card: str, tmp: Path, im: int = 512, batch: int = 8, n_cpu: int = 2):
@@ -688,14 +922,17 @@ def phase_large_crop(card: str, tmp: Path, im: int = 512, batch: int = 8, n_cpu:
         return e
 
     # --- this path: counts zeroed just before, read just after -------------
-    ep.LAUNCHES = att.LAUNCHES = att.TABLE_LAUNCHES = 0
+    ep.LAUNCHES = ep.SCALAR_LAUNCHES = att.LAUNCHES = att.TABLE_LAUNCHES = 0
     bf16, f32 = engine("bfloat16", [batch]), engine("float32", [batch])
     served = bf16.forward("bot512", imgs)
     f32_card = f32.forward("bot512", imgs)
-    launches = dict(k1=ep.LAUNCHES, attention=att.LAUNCHES, table=att.TABLE_LAUNCHES)
+    launches = dict(k1=ep.LAUNCHES, k1_scalar=ep.SCALAR_LAUNCHES, attention=att.LAUNCHES,
+                    table=att.TABLE_LAUNCHES)
     # -----------------------------------------------------------------------
-    if launches != dict(k1=80, attention=6, table=0):
-        fail(f"botnet50 at {im}^2: launches {launches} != 40 K1 and 3 attention per forward")
+    want = SERVED["botnet50"]
+    if launches != dict(k1=2 * want["k1"], k1_scalar=0, attention=2 * want["attention"], table=0):
+        fail(f"botnet50 at {im}^2: launches {launches} != {want['k1']} K1 (all on the vector "
+             f"route) and {want['attention']} attention per forward")
     ms = statistics.median(bf16.forward_timed("bot512", imgs)[1] for _ in range(5))
     f32_cpu = engine("float32", [n_cpu], device="cpu").forward("bot512", imgs[:n_cpu])
     scale = float(np.abs(f32_cpu).max())
@@ -1106,6 +1343,9 @@ def phase_moe_dist(tmp: Path) -> dict:
 def main() -> None:
     import torch
 
+    args = sys.argv[1:]
+    if args not in ([], ["--profile-only"]):
+        fail(f"usage: python3 chip_smoke.py [--profile-only]; got {args}")
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a CUDA GPU")
     if not (ROOT / "distribuuuu_tpu_torch").is_dir() or not SERVE_CFG.exists() or not MOE_WORKER.exists():
@@ -1122,50 +1362,89 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
 
     builds = phase_build()
-    rows, max_err = phase_k1(card)
+    if args:
+        with tempfile.TemporaryDirectory() as tmp:
+            for arch in SERVED:
+                phase_profile_only(card, Path(tmp), arch)
+        say("[profile-only] latency and profile only; nothing was checked")
+        return
+    bw = hbm_bytes_per_s(card)
+    sites = {arch: {b: epilogue_sites(arch, b) for b in (1, LADDER_BATCH)} for arch in SERVED}
+    k1_bound_us = {arch: {b: 1e3 * sum(k1_bound(site, bw)[0] * m for site, m in by_b[b].items())
+                          for b in by_b} for arch, by_b in sites.items()}
+    for arch, by_b in sites.items():
+        if sum(by_b[LADDER_BATCH].values()) != SERVED[arch]["k1"]:
+            fail(f"{arch}: {sum(by_b[LADDER_BATCH].values())} K1 sites, want {SERVED[arch]['k1']}")
+    rows, scalar, k1_err = phase_k1(card, {arch: by_b[LADDER_BATCH] for arch, by_b in sites.items()})
     attn = phase_attention(card)
     with tempfile.TemporaryDirectory() as tmp:
-        serve = phase_serve(card, Path(tmp), "resnet50")
-        bot = phase_serve(card, Path(tmp), "botnet50")
+        serve = phase_serve(card, Path(tmp), "resnet50", k1_bound_us["resnet50"])
+        bot = phase_serve(card, Path(tmp), "botnet50", k1_bound_us["botnet50"])
         large = phase_large_crop(card, Path(tmp))
     table = phase_mhsa_table()
     moe = phase_moe_kernels(card)
     with tempfile.TemporaryDirectory() as tmp:
         moe_dist = phase_moe_dist(Path(tmp))
 
-    serving = [r for r in rows if r["combo"] == "bf16->f32"]
-    per_fwd = {k: sum(r[k] * r["launches_per_forward"] for r in serving)
-               for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes")}
+    # K1 per batch-128 forward of each served model: its sites' rows summed
+    per_fwd, modes = {}, {}
+    for arch in SERVED:
+        per_fwd[arch] = {k: sum(r[k] * r["launches_per_forward"][arch] for r in rows)
+                         for k in ("device_ms", "ms", "single_call_ms", "plain_ms", "library_ms",
+                                   "bound_ms", "bytes")}
+        modes[arch] = Counter()
+        for site, m in sites[arch][LADDER_BATCH].items():
+            modes[arch][site[-1]] += m
     out = ROOT / "smoke_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke_k1.json").write_text(json.dumps(
-        {"card": smi, "build_s": builds["epilogue"]["build_s"],
-         "spills": builds["epilogue"]["spills"], "rows": rows,
-         "per_forward_b128": per_fwd, "serve": serve}, indent=1))
+        {"card": smi, "build": builds["epilogue"], "rows": rows, "scalar_route": scalar,
+         "max_abs_err": k1_err, "per_forward_b128": per_fwd, "modes_per_forward": modes,
+         "k1_bound_us": k1_bound_us, "serve": serve}, indent=1))
     (out / "chip_smoke_attention.json").write_text(json.dumps(
         {"card": smi, "build": builds["attention"], "cases": attn, "serve_botnet50": bot,
          "large_crop": large, "mhsa_table": table}, indent=1))
     (out / "chip_smoke_moe.json").write_text(json.dumps(
         {"card": smi, "build": builds["moe"], "kernels": moe, "dist": moe_dist}, indent=1))
-    say(f"[k1] per ResNet-50 forward at batch {LADDER_BATCH} (49 launches, bf16 -> f32): "
-        f"{per_fwd['ms']:.3f} ms, plain {per_fwd['plain_ms']:.3f} ms, F.batch_norm "
-        f"{per_fwd['library_ms']:.3f} ms, bound {per_fwd['bound_ms']:.3f} ms, "
-        f"{per_fwd['bytes'] / 1e9:.2f} GB")
+    for arch, f in per_fwd.items():
+        say(f"[k1] per {arch} forward at batch {LADDER_BATCH} "
+            f"({sum(sites[arch][LADDER_BATCH].values())} launches, modes "
+            f"{dict(sorted(modes[arch].items()))}; x bf16, boundary f32, cast bf16): device "
+            f"{f['device_ms']:.3f} ms ({100 * f['bound_ms'] / f['device_ms']:.0f}% of bound), "
+            f"{f['ms']:.3f} ms back-to-back, {f['single_call_ms']:.3f} ms single calls, "
+            f"plain {f['plain_ms']:.3f} ms, F.batch_norm {f['library_ms']:.3f} ms, "
+            f"bound {f['bound_ms']:.3f} ms, {f['bytes'] / 1e9:.2f} GB")
+    rn50, bot50 = per_fwd["resnet50"], per_fwd["botnet50"]
     kernels = [{
         "name": "K1 fused_conv_epilogue",
         "route": "cuda",
         "source": "distribuuuu_tpu_torch/ops/csrc/epilogue.cu",
         "replaces": "distribuuuu_tpu/ops/epilogue.py:153",
         "launches": serve["launches"]["k1"],
-        "equal": True,
-        "max_abs_err": max_err,
-        "ms": per_fwd["ms"],
-        "plain_ms": per_fwd["plain_ms"],
-        "bound_ms": per_fwd["bound_ms"],
+        "max_abs_err": k1_err,
+        "ms": rn50["device_ms"],
+        "plain_ms": rn50["plain_ms"],
+        "bound_ms": rn50["bound_ms"],
         "bound_by": "bytes",
-        "library_ms": per_fwd["library_ms"],
-        "per": f"one ResNet-50 forward at batch {LADDER_BATCH}, 224x224: the 49 launches "
-               f"summed, x bf16 -> f32",
+        "library_ms": rn50["library_ms"],
+        "per": f"one ResNet-50 forward at batch {LADDER_BATCH}, 224x224: the "
+               f"{sum(sites['resnet50'][LADDER_BATCH].values())} launches summed in the modes the "
+               f"model runs them (x bf16, boundary f32, cast bf16); ms, plain_ms, library_ms: "
+               f"device time, calls replayed from a CUDA graph over input sets of at least "
+               f"{K1_ROTATE_BYTES >> 20} MiB a replay; launches: the ResNet-50 serving run",
+        "back_to_back_ms": rn50["ms"],
+        "single_call_ms": rn50["single_call_ms"],
+        "botnet50_forward": {
+            "launches": bot["launches"]["k1"],
+            "ms": bot50["device_ms"],
+            "plain_ms": bot50["plain_ms"],
+            "bound_ms": bot50["bound_ms"],
+            "library_ms": bot50["library_ms"],
+            "back_to_back_ms": bot50["ms"],
+            "single_call_ms": bot50["single_call_ms"],
+            "per": f"one BoTNet-50 forward at batch {LADDER_BATCH}, 224x224, timed as above; "
+                   f"launches: the BoTNet-50 serving run",
+        },
     }]
     # (kernel, entry point, the Pallas kernel it stands in for, launches on its path)
     for kname, entry, line, launches in (

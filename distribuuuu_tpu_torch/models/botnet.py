@@ -8,8 +8,11 @@ before the position bias is formed from it; the relative-position bias is
 built in that dtype; the attention itself is
 :func:`~distribuuuu_tpu_torch.ops.attention.fused_attention` (or
 ``fused_attention_abs`` with the absolute table), which launches the CUDA
-kernel on the card. The BoTBlocks keep plain BN + ReLU, as in JAX; only the
-trunk's stem and Bottlenecks go through the K1 epilogue (40 sites).
+kernel on the card. Every BN runs through K1 (53 per forward): the trunk's
+as in ResNet-50 (43), and in each BoTBlock ``bn_in`` + ReLU and ``bn_mid``
++ ReLU (writing their convs' input in the compute dtype), the shortcut's
+BN + ReLU, and ``bn_out`` fused with ``relu(net + shortcut)`` (10). That is
+the JAX block's function term for term: f32 BN outputs, an f32 add, ReLU.
 
 Module names give the reference's ``nn.Sequential`` numbering, exactly the
 keys ``distribuuuu_tpu.convert.export_state_dict(v, "botnet50")`` emits:
@@ -27,7 +30,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from distribuuuu_tpu_torch.models.layers import BatchNorm, bn_epilogue, classifier_head, conv
+from distribuuuu_tpu_torch.models.layers import (
+    BatchNorm,
+    bn_epilogue,
+    boundary,
+    classifier_head,
+    conv,
+    link_handoffs,
+    max_pool,
+)
 from distribuuuu_tpu_torch.models.registry import register_model
 from distribuuuu_tpu_torch.models.resnet import Bottleneck, resnet_stages
 from distribuuuu_tpu_torch.ops.attention import fused_attention, fused_attention_abs
@@ -106,8 +117,9 @@ class MHSA(nn.Module):
         self.to_qk = conv(dim, 2 * heads * dim_qk, 1, dtype=dtype)
         self.to_v = conv(dim, heads * dim_v, 1, dtype=dtype)
         self.pos_emb = (RelPosEmb if rel_pos_emb else AbsPosEmb)(*self.fmap_size, dim_qk)
-        # the q scale as a value of the compute dtype (jnp rounds a weak-typed scalar so)
-        self.scale = torch.tensor(dim_qk**-0.5, dtype=dtype).item()
+        # the q scale as a value of the compute dtype (jnp rounds a weak-typed scalar so);
+        # on the CPU, so the model can also be built on the meta device
+        self.scale = torch.tensor(dim_qk**-0.5, dtype=dtype, device="cpu").item()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, _, h, w = x.shape
@@ -132,7 +144,9 @@ class BoTBlock(nn.Module):
     """MHSA bottleneck: ``net`` is the reference's Sequential (0 conv_in,
     1 bn_in, 2 ReLU, 3 MHSA, 4 avg-pool or identity, 5 bn_mid, 6 ReLU,
     7 conv_out, 8 bn_out with zero-γ at init); ``shortcut`` is conv -> BN ->
-    ReLU on a shape change, else the identity. Output ``relu(net + shortcut)``."""
+    ReLU on a shape change, else the identity. Output ``relu(net + shortcut)``.
+    The ReLU and pooling slots are kept for the numbering; ``forward`` runs
+    each BN with its ReLU (and the residual add) as one K1 pass."""
 
     def __init__(self, dim: int, fmap_size, dim_out: int, stride: int = 1, heads: int = 4,
                  proj_factor: int = 4, dim_qk: int = 128, dim_v: int = 128,
@@ -156,9 +170,21 @@ class BoTBlock(nn.Module):
             BatchNorm(dim_out, bn_dtype=bn_dtype),
         )
         nn.init.zeros_(self.net[8].weight)
+        self.compute_dtype = dtype
+        self.handoff: dict = {}  # the K1 mode of bn_out (link_handoffs)
+
+    @property
+    def projects(self) -> bool:
+        return not isinstance(self.shortcut, nn.Identity)
 
     def forward(self, x):
-        return torch.relu(self.net(x) + self.shortcut(x))
+        net = self.net
+        to_conv = dict(cast_to=self.compute_dtype, keep_boundary=False)
+        h = bn_epilogue(net[0](x), net[1], **to_conv)  # read by MHSA's to_qk and to_v
+        h = bn_epilogue(net[4](net[3](h)), net[5], **to_conv)  # read by conv_out
+        shortcut = (bn_epilogue(self.shortcut[0](x), self.shortcut[1]) if self.projects
+                    else boundary(x))
+        return bn_epilogue(net[7](h), net[8], shortcut, **self.handoff)
 
 
 class BoTStack(nn.Module):
@@ -190,13 +216,14 @@ class BoTNet50(nn.Module):
             for i in range(3)
         ]))
         self.add_module("10", nn.Linear(2048, num_classes))
+        blocks = [b for layer in (*stages, self._modules["7"].net) for b in layer]
+        self.stem_handoff = link_handoffs(blocks, dtype)
 
     def forward(self, x):
         """``x``: NHWC images (float); returns ``[N, num_classes]`` float32 logits."""
         m = self._modules
         x = x.permute(0, 3, 1, 2)  # a view: NCHW-logical, channels-last in memory
-        x = bn_epilogue(m["0"](x), m["1"])
-        x = F.max_pool2d(x, 3, 2, 1)
+        x = max_pool(bn_epilogue(m["0"](x), m["1"], **self.stem_handoff))
         for slot in ("4", "5", "6", "7"):
             x = m[slot](x)
         return classifier_head(x, m["10"])

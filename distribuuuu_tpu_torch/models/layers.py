@@ -10,26 +10,48 @@ Serving numerics, as the JAX engine runs them:
   epilogue takes the conv's bf16 output and emits f32, and residuals are f32;
 - the head is an f32 mean over H and W followed by an f32 linear.
 
+Every BN runs through K1, which also writes the next conv's input in the
+compute dtype from the same pass (``cast_to``), so no activation is cast
+in a pass of its own: where only convs read a result, K1 writes it in the
+compute dtype alone; where a residual or the head reads it too, K1 writes
+both as a :class:`Pair`. Each block's ``handoff`` (set by
+:func:`link_handoffs`) says which its last BN writes.
+
 Tensors are NCHW-logical and stored channels-last, so C is contiguous.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from distribuuuu_tpu_torch.ops.epilogue import epilogue_reference, fused_conv_epilogue
+from distribuuuu_tpu_torch.ops.epilogue import fused_conv_epilogue
+
+
+class Pair(NamedTuple):
+    """One activation in both forms its readers take, from one K1 pass:
+    ``boundary`` in the BN dtype (a residual's identity, the head) and
+    ``cast`` in the compute dtype (the next convs' input)."""
+
+    boundary: torch.Tensor
+    cast: torch.Tensor
 
 
 class Conv2d(nn.Conv2d):
-    """Bias-free conv with explicit symmetric padding, computed in ``dtype``."""
+    """Bias-free conv with explicit symmetric padding, computed in ``dtype``.
+    A :class:`Pair` gives its ``cast``; any other input is cast here (the
+    stem's image, or an input already in ``dtype``, which costs nothing)."""
 
     def __init__(self, in_ch, out_ch, kernel, stride=1, *, padding, groups, dtype):
         super().__init__(in_ch, out_ch, kernel, stride, padding, groups=groups, bias=False)
         self.compute_dtype = dtype
 
     def forward(self, x):
+        if isinstance(x, Pair):
+            x = x.cast
         return F.conv2d(
             x.to(self.compute_dtype), self.weight.to(self.compute_dtype), None,
             self.stride, self.padding, self.dilation, self.groups,
@@ -48,8 +70,9 @@ class BatchNorm(nn.Module):
 
     It registers no ``num_batches_tracked``, so the JAX package's
     ``export_state_dict`` output loads with ``strict=True``. Called as a
-    module it is a plain BN (the downsample path); :func:`bn_epilogue` runs
-    it fused with the residual add and ReLU.
+    module it is BN alone, no ReLU, in ``bn_dtype`` (the downsample path);
+    :func:`bn_epilogue` runs it fused with the residual add and ReLU. Both
+    go through K1.
     """
 
     def __init__(self, channels: int, *, bn_dtype=torch.float32, eps: float = 1e-5):
@@ -68,14 +91,41 @@ class BatchNorm(nn.Module):
         return self.running_mean, mul, self.bias
 
     def forward(self, x):
-        # flax's _normalize order, as the plain epilogue computes it
-        return epilogue_reference(x, *self.affine(), relu=False, bn_dtype=self.bn_dtype)
+        return fused_conv_epilogue(x, *self.affine(), relu=False, bn_dtype=self.bn_dtype)
 
 
-def bn_epilogue(x, bn: BatchNorm, identity=None, *, relu: bool = True):
-    """BN -> (+``identity``) -> ReLU through the fused epilogue kernel."""
-    mean, mul, bias = bn.affine()
-    return fused_conv_epilogue(x, mean, mul, bias, identity, relu=relu, bn_dtype=bn.bn_dtype)
+def bn_epilogue(x, bn: BatchNorm, identity=None, *, relu: bool = True, cast_to=None,
+                keep_boundary: bool = True):
+    """BN -> (+``identity``) -> ReLU through K1. With ``cast_to`` the result
+    comes in that dtype too: as a :class:`Pair` when ``keep_boundary``, else
+    the cast tensor alone."""
+    out = fused_conv_epilogue(x, *bn.affine(), identity, relu=relu, bn_dtype=bn.bn_dtype,
+                              cast_to=cast_to, keep_boundary=keep_boundary)
+    return Pair(*out) if isinstance(out, tuple) else out
+
+
+def boundary(x):
+    """The BN-dtype form of a block input (its identity)."""
+    return x.boundary if isinstance(x, Pair) else x
+
+
+def max_pool(x):
+    """The stem's 3x3/2 max-pool (implicit -inf padding) on each form of a
+    :class:`Pair`: rounding is monotone, so the pooled bf16 equals the
+    pooled f32 rounded to bf16."""
+    if isinstance(x, Pair):
+        return Pair(*(F.max_pool2d(t, 3, 2, 1) for t in x))
+    return F.max_pool2d(x, 3, 2, 1)
+
+
+def link_handoffs(blocks, dtype) -> dict:
+    """Set each block's ``handoff``, the K1 mode of its last BN, from what
+    reads its output: the next block's convs read ``dtype``; the next
+    block's identity (when it has no projection shortcut) and, after the
+    last block, the f32 head read the BN boundary. Returns the stem's."""
+    for block, nxt in zip(blocks, [*blocks[1:], None]):
+        block.handoff = {} if nxt is None else dict(cast_to=dtype, keep_boundary=not nxt.projects)
+    return dict(cast_to=dtype, keep_boundary=not blocks[0].projects)
 
 
 def classifier_head(x, fc: nn.Linear):

@@ -2,8 +2,11 @@
 
 v1.5: the stride of a Bottleneck sits on its 3x3 conv. The stem is a
 7x7/2 conv -> BN -> ReLU -> 3x3/2 max-pool (implicit -inf padding, as
-``nn.max_pool``). The stem ``bn1`` and each block's ``bn1/bn2/bn3`` run
-through :func:`bn_epilogue`; the downsample BN stays a plain BN, as in JAX.
+``nn.max_pool``). Every BN runs through K1: the stem ``bn1`` and each
+block's ``bn1/bn2/bn3`` fused with the residual add and ReLU
+(:func:`bn_epilogue`), the downsample BN alone, as in JAX. ``bn1``/``bn2``
+write the next conv's input in the compute dtype; ``bn3`` and the stem write
+what the next block reads (:func:`link_handoffs`).
 Module names follow torchvision (``layer1.0.conv1``, ``layer1.0.downsample.0/1``,
 ``fc``), so torchvision-layout state_dicts load directly.
 
@@ -14,10 +17,17 @@ permuted view is NCHW-logical and channels-last in memory.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
-from distribuuuu_tpu_torch.models.layers import BatchNorm, bn_epilogue, classifier_head, conv
+from distribuuuu_tpu_torch.models.layers import (
+    BatchNorm,
+    bn_epilogue,
+    boundary,
+    classifier_head,
+    conv,
+    link_handoffs,
+    max_pool,
+)
 from distribuuuu_tpu_torch.models.registry import register_model
 
 
@@ -38,12 +48,18 @@ class BasicBlock(nn.Module):
                           BatchNorm(planes, bn_dtype=bn_dtype))
             if downsample else None
         )
+        self.compute_dtype = dtype
+        self.handoff: dict = {}  # the K1 mode of bn2 (link_handoffs)
+
+    @property
+    def projects(self) -> bool:
+        return self.downsample is not None
 
     def forward(self, x):
-        out = bn_epilogue(self.conv1(x), self.bn1)
+        out = bn_epilogue(self.conv1(x), self.bn1, cast_to=self.compute_dtype, keep_boundary=False)
         out = self.conv2(out)
-        identity = x if self.downsample is None else self.downsample(x)
-        return bn_epilogue(out, self.bn2, identity)
+        identity = boundary(x) if self.downsample is None else self.downsample(x)
+        return bn_epilogue(out, self.bn2, identity, **self.handoff)
 
 
 class Bottleneck(nn.Module):
@@ -67,13 +83,20 @@ class Bottleneck(nn.Module):
                           BatchNorm(out, bn_dtype=bn_dtype))
             if downsample else None
         )
+        self.compute_dtype = dtype
+        self.handoff: dict = {}  # the K1 mode of bn3 (link_handoffs)
+
+    @property
+    def projects(self) -> bool:
+        return self.downsample is not None
 
     def forward(self, x):
-        out = bn_epilogue(self.conv1(x), self.bn1)
-        out = bn_epilogue(self.conv2(out), self.bn2)
+        to_conv = dict(cast_to=self.compute_dtype, keep_boundary=False)
+        out = bn_epilogue(self.conv1(x), self.bn1, **to_conv)
+        out = bn_epilogue(self.conv2(out), self.bn2, **to_conv)
         out = self.conv3(out)
-        identity = x if self.downsample is None else self.downsample(x)
-        return bn_epilogue(out, self.bn3, identity)
+        identity = boundary(x) if self.downsample is None else self.downsample(x)
+        return bn_epilogue(out, self.bn3, identity, **self.handoff)
 
 
 def resnet_stages(block, stage_sizes, groups=1, width_per_group=64, *, dtype, bn_dtype):
@@ -108,12 +131,12 @@ class ResNet(nn.Module):
             self.add_module(f"layer{stage + 1}", layer)
         self.num_stages = len(stage_sizes)
         self.fc = nn.Linear(inplanes, num_classes)
+        self.stem_handoff = link_handoffs([b for layer in stages for b in layer], dtype)
 
     def forward(self, x):
         """``x``: NHWC images (float); returns ``[N, num_classes]`` float32 logits."""
         x = x.permute(0, 3, 1, 2)  # a view: NCHW-logical, channels-last in memory
-        x = bn_epilogue(self.conv1(x), self.bn1)
-        x = F.max_pool2d(x, 3, 2, 1)
+        x = max_pool(bn_epilogue(self.conv1(x), self.bn1, **self.stem_handoff))
         for stage in range(self.num_stages):
             x = getattr(self, f"layer{stage + 1}")(x)
         return classifier_head(x, self.fc)

@@ -1,4 +1,5 @@
-// Fused conv epilogue for Hopper (sm_90a): BN-apply -> cast -> (+residual) -> ReLU.
+// Fused conv epilogue for Hopper (sm_90a): BN-apply -> cast -> (+residual) -> ReLU,
+// written in the BN dtype, in the next conv's dtype, or in both from one pass.
 //
 // Replaces distribuuuu_tpu/ops/epilogue.py::_epilogue_kernel (the Pallas TPU
 // kernel behind fused_conv_epilogue). Per element of a channels-last [R, C]
@@ -6,20 +7,36 @@
 //
 //     y = ((x - mean[c]) * mul[c]) + bias[c]     in f32, mul = rsqrt(var+eps)*scale
 //     y = round_to(bn_dtype, y)
-//     y = y + residual                           in f32, rounded once to the out dtype
+//     y = y + residual                           in f32
 //     y = max(y, 0)                              when relu
+//     out  = round_to(out_dtype, y)              the BN boundary (a residual, the head)
+//     cast = round_to(cast_dtype, out)           the next conv's input
 //
-// What bounds it on this card: HBM bytes. The op is elementwise with about
-// five flops per element, far below the H100's ~20 flops per byte at f32,
-// so its least time is (bytes of x + residual + out) / HBM bandwidth.
+// Either output may be left out. In eager PyTorch the next conv's bf16 input
+// would otherwise be a separate cast pass over the f32 boundary (XLA folds
+// that convert into the conv; here only this pass can absorb it).
 //
-// Design (simple first): one element per thread in a grid-stride loop over
-// the flattened [R, C] view; the channel index is carried incrementally
-// instead of a 64-bit modulo per element. The three per-channel vectors are
-// a few KB and stay in L1 / the read-only cache, so no shared memory is
-// used. Templated on x dtype, BN dtype and residual dtype; relu is a flag.
-// 16-byte vector loads, a tuned block size, and fusion into the conv are
-// left for later work.
+// What bounds it on this card: HBM bytes. About five flops per element
+// against 2-12 bytes, far below the H100's ~20 f32 flops per byte, so the
+// least time is (bytes of x + residual + outputs) / 3.35 TB/s.
+//
+// Design. Vector route: each thread owns one group of 8 contiguous channels
+// for its whole life and keeps that group's mean/mul/bias in 24 registers;
+// no per-element channel index, no modulo. Thread t of the grid handles
+// group t % G (G = C / 8) of rows t / G, t / G + S, ... with S = (threads in
+// the grid) / G, so one pass of the grid covers one contiguous chunk of
+// memory and every access is a 16-byte load or store, neighbouring threads
+// on neighbouring addresses. A thread issues the loads of kUnroll rows
+// before it uses the first (memory-level parallelism). The host sizes the
+// grid from the rows, capped at one wave of resident blocks (SM count x
+// occupancy), in a multiple of G / gcd(G, kThreads) blocks so that every
+// thread's group stays fixed. Block size 256, fixed: a sweep of 128, 256
+// and 512 threads on the H100 while the kernel was designed timed them
+// alike at the widest, a middle and the narrowest ResNet-50 site; 2 or 8
+// rows in flight, streaming loads and stores, or a launch bound of 4
+// blocks an SM timed no better. Scalar route, same file: one element per
+// thread in a grid-stride loop, for C % 8 != 0 or a pointer not aligned to
+// 16 bytes; the wrapper picks the route and counts it.
 //
 // Bitwise equality with the plain PyTorch version: nvcc would contract
 // (x - mean) * mul + bias into an FMA, which rounds once where the plain
@@ -34,92 +51,228 @@
 namespace {
 
 enum DType : int { kF32 = 0, kBF16 = 1, kNone = -1 };
+using bf16 = __nv_bfloat16;
+
+constexpr int kUnroll = 4;       // rows in flight per thread (vector route)
+constexpr int kThreads = 256;   // block size of both routes
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float v);
 template <>
 __device__ __forceinline__ float from_f32<float>(float v) { return v; }
 template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
+__device__ __forceinline__ bf16 from_f32<bf16>(float v) { return __float2bfloat16_rn(v); }
+
+// One element, up to the out dtype's rounding, returned as f32 (exact in
+// either output type that is at least as wide).
+template <typename BT, typename OT, bool HAS_RES>
+__device__ __forceinline__ float epilogue_value(float x, float m, float k, float b, float r,
+                                                int relu) {
+  float y = __fadd_rn(__fmul_rn(__fsub_rn(x, m), k), b);
+  y = to_f32(from_f32<BT>(y));
+  if constexpr (HAS_RES) y = __fadd_rn(y, r);
+  if (relu && y < 0.f) y = 0.f;  // NaN passes through, as torch.relu
+  return to_f32(from_f32<OT>(y));
 }
 
-// RT is ignored when HAS_RES is false.
-template <typename XT, typename BT, typename RT, typename OT, bool HAS_RES>
-__global__ void epilogue_kernel(const XT* __restrict__ x, const float* __restrict__ mean,
-                                const float* __restrict__ mul, const float* __restrict__ bias,
-                                const RT* __restrict__ res, OT* __restrict__ out, int64_t n,
-                                int c, int relu) {
+// 8 consecutive values at a 16-byte-aligned p, as f32
+__device__ __forceinline__ void load8(const float* p, float v[8]) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+  const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+__device__ __forceinline__ void load8(const bf16* p, float v[8]) {
+  const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {  // little-endian: element 2i is the low half of word i
+    v[2 * i] = __uint_as_float(w[i] << 16);
+    v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+__device__ __forceinline__ void store8(float* p, const float v[8]) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
+  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+__device__ __forceinline__ void store8(bf16* p, const float v[8]) {
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    w[i] = (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(v[2 * i])) |
+           ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(v[2 * i + 1])) << 16);
+  *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// RT is ignored when HAS_RES is false; out or cast may be null (not both).
+template <typename XT, typename BT, typename RT, typename OT, typename CT, bool HAS_RES>
+__global__ void __launch_bounds__(kThreads)
+    epilogue_vec_kernel(const XT* __restrict__ x, const float* __restrict__ mean,
+                        const float* __restrict__ mul, const float* __restrict__ bias,
+                        const RT* __restrict__ res, OT* __restrict__ out, CT* __restrict__ cast,
+                        int64_t rows, int groups, int relu) {
+  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t step = (int64_t)gridDim.x * blockDim.x / groups;  // exact: see launch()
+  const int g = (int)(tid % groups);
+  const int64_t c = 8LL * groups;
+  float m[8], k[8], b[8];
+  load8(mean + 8 * g, m);
+  load8(mul + 8 * g, k);
+  load8(bias + 8 * g, b);
+  for (int64_t row = tid / groups; row < rows; row += kUnroll * step) {
+    float v[kUnroll][8], r[kUnroll][8];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int64_t ru = row + u * step;
+      if (ru < rows) {
+        load8(x + ru * c + 8 * g, v[u]);
+        if constexpr (HAS_RES) load8(res + ru * c + 8 * g, r[u]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int64_t ru = row + u * step;
+      if (ru >= rows) break;
+      float o[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        o[e] = epilogue_value<BT, OT, HAS_RES>(v[u][e], m[e], k[e], b[e],
+                                               HAS_RES ? r[u][e] : 0.f, relu);
+      if (out) store8(out + ru * c + 8 * g, o);
+      if (cast) store8(cast + ru * c + 8 * g, o);
+    }
+  }
+}
+
+template <typename XT, typename BT, typename RT, typename OT, typename CT, bool HAS_RES>
+__global__ void __launch_bounds__(kThreads)
+    epilogue_scalar_kernel(const XT* __restrict__ x, const float* __restrict__ mean,
+                           const float* __restrict__ mul, const float* __restrict__ bias,
+                           const RT* __restrict__ res, OT* __restrict__ out,
+                           CT* __restrict__ cast, int64_t n, int c, int relu) {
   const int64_t start = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   const int cstep = (int)(stride % c);
-  int ch = (int)(start % c);
+  int ch = (int)(start % c);  // carried incrementally, no modulo per element
   for (int64_t i = start; i < n; i += stride) {
-    float y = __fsub_rn(to_f32(x[i]), __ldg(mean + ch));
-    y = __fmul_rn(y, __ldg(mul + ch));
-    y = __fadd_rn(y, __ldg(bias + ch));
-    float v = to_f32(from_f32<BT>(y));
-    if (HAS_RES) v = __fadd_rn(v, to_f32(res[i]));
-    if (relu && v < 0.f) v = 0.f;  // NaN passes through, as torch.relu
-    out[i] = from_f32<OT>(v);
+    float r = 0.f;
+    if constexpr (HAS_RES) r = to_f32(res[i]);
+    const float o = epilogue_value<BT, OT, HAS_RES>(to_f32(x[i]), __ldg(mean + ch),
+                                                    __ldg(mul + ch), __ldg(bias + ch), r, relu);
+    if (out) out[i] = from_f32<OT>(o);
+    if (cast) cast[i] = from_f32<CT>(o);
     ch += cstep;
     if (ch >= c) ch -= c;
   }
 }
 
-template <typename XT, typename BT, typename RT, typename OT, bool HAS_RES>
-cudaError_t launch(const void* x, const void* mean, const void* mul, const void* bias,
-                   const void* res, void* out, int64_t n, int c, int relu,
-                   cudaStream_t stream) {
-  const int threads = 256;
+int64_t gcd64(int64_t a, int64_t b) {
+  while (b) {
+    const int64_t t = a % b;
+    a = b;
+    b = t;
+  }
+  return a;
+}
+
+// Blocks the card holds at once: SMs x blocks per SM. `per_sm` caches the
+// occupancy query (it costs more than a launch); each kernel instantiation
+// passes its own cache.
+template <typename Kernel>
+int64_t resident_blocks(Kernel kernel, int* per_sm) {
   int device = 0, sms = 0;
   cudaGetDevice(&device);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  int64_t blocks = (n + threads - 1) / threads;
-  const int64_t cap = (int64_t)sms * 8;  // 8 x 256 threads fill an SM
-  if (blocks > cap) blocks = cap;
-  if (blocks < 1) blocks = 1;
-  epilogue_kernel<XT, BT, RT, OT, HAS_RES><<<(unsigned)blocks, threads, 0, stream>>>(
-      static_cast<const XT*>(x), static_cast<const float*>(mean),
-      static_cast<const float*>(mul), static_cast<const float*>(bias),
-      static_cast<const RT*>(res), static_cast<OT*>(out), n, c, relu);
+  if (*per_sm <= 0 &&
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel, kThreads, 0) != cudaSuccess)
+    *per_sm = 0;
+  return (int64_t)sms * (*per_sm > 0 ? *per_sm : 1);
+}
+
+struct Args {
+  const void *x, *mean, *mul, *bias, *res;
+  void *out, *cast;
+  int64_t rows;
+  int c, relu, vec;
+  cudaStream_t stream;
+};
+
+template <typename XT, typename BT, typename RT, typename OT, typename CT, bool HAS_RES>
+cudaError_t launch(const Args& a) {
+  const XT* x = static_cast<const XT*>(a.x);
+  const float* mean = static_cast<const float*>(a.mean);
+  const float* mul = static_cast<const float*>(a.mul);
+  const float* bias = static_cast<const float*>(a.bias);
+  const RT* res = static_cast<const RT*>(a.res);
+  OT* out = static_cast<OT*>(a.out);
+  CT* cast = static_cast<CT*>(a.cast);
+  static int vec_per_sm = 0, scalar_per_sm = 0;
+  if (a.vec) {
+    auto kernel = epilogue_vec_kernel<XT, BT, RT, OT, CT, HAS_RES>;
+    const int groups = a.c / 8;
+    const int64_t units = a.rows * groups;  // 8-channel vectors
+    int64_t blocks = (units + kThreads * kUnroll - 1) / (kThreads * kUnroll);
+    const int64_t cap = resident_blocks(kernel, &vec_per_sm);  // one wave
+    if (blocks > cap) blocks = cap;
+    // the grid's thread count a multiple of groups: each thread keeps one group
+    const int64_t m = groups / gcd64(groups, kThreads);
+    blocks = (blocks + m - 1) / m * m;
+    kernel<<<(unsigned)blocks, kThreads, 0, a.stream>>>(x, mean, mul, bias, res, out, cast,
+                                                        a.rows, groups, a.relu);
+  } else {
+    auto kernel = epilogue_scalar_kernel<XT, BT, RT, OT, CT, HAS_RES>;
+    const int64_t n = a.rows * a.c;
+    int64_t blocks = (n + kThreads - 1) / kThreads;
+    const int64_t cap = resident_blocks(kernel, &scalar_per_sm);
+    if (blocks > cap) blocks = cap;
+    kernel<<<(unsigned)blocks, kThreads, 0, a.stream>>>(x, mean, mul, bias, res, out, cast, n,
+                                                        a.c, a.relu);
+  }
   return cudaGetLastError();
 }
 
+template <typename XT, typename BT, typename RT, typename OT, bool HAS_RES>
+cudaError_t dispatch_cast(const Args& a, int cast_dt) {
+  switch (cast_dt) {
+    case kF32:
+      return launch<XT, BT, RT, OT, float, HAS_RES>(a);
+    case kBF16:
+      return launch<XT, BT, RT, OT, bf16, HAS_RES>(a);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 template <typename XT, typename BT>
-cudaError_t dispatch_res(const void* x, const void* mean, const void* mul, const void* bias,
-                         const void* res, int res_dt, void* out, int64_t n, int c, int relu,
-                         cudaStream_t s) {
-  using bf16 = __nv_bfloat16;
+cudaError_t dispatch_res(const Args& a, int res_dt, int cast_dt) {
   // out dtype = result_type(bn_dtype, residual dtype): f32 unless both are bf16
   constexpr bool kBnF32 = sizeof(BT) == 4;
+  constexpr int kBnDt = kBnF32 ? kF32 : kBF16;
   switch (res_dt) {
-    case kNone:
-      return launch<XT, BT, BT, BT, false>(x, mean, mul, bias, nullptr, out, n, c, relu, s);
+    case kNone:  // no cast output: its type is the out type, unused
+      return dispatch_cast<XT, BT, BT, BT, false>(a, cast_dt == kNone ? kBnDt : cast_dt);
     case kF32:
-      return launch<XT, BT, float, float, true>(x, mean, mul, bias, res, out, n, c, relu, s);
+      return dispatch_cast<XT, BT, float, float, true>(a, cast_dt == kNone ? kF32 : cast_dt);
     case kBF16:
       if (kBnF32)
-        return launch<XT, BT, bf16, float, true>(x, mean, mul, bias, res, out, n, c, relu, s);
-      return launch<XT, BT, bf16, bf16, true>(x, mean, mul, bias, res, out, n, c, relu, s);
+        return dispatch_cast<XT, BT, bf16, float, true>(a, cast_dt == kNone ? kF32 : cast_dt);
+      return dispatch_cast<XT, BT, bf16, bf16, true>(a, cast_dt == kNone ? kBF16 : cast_dt);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
 template <typename XT>
-cudaError_t dispatch_bn(const void* x, const void* mean, const void* mul, const void* bias,
-                        const void* res, int res_dt, void* out, int bn_dt, int64_t n, int c,
-                        int relu, cudaStream_t s) {
+cudaError_t dispatch_bn(const Args& a, int bn_dt, int res_dt, int cast_dt) {
   switch (bn_dt) {
     case kF32:
-      return dispatch_res<XT, float>(x, mean, mul, bias, res, res_dt, out, n, c, relu, s);
+      return dispatch_res<XT, float>(a, res_dt, cast_dt);
     case kBF16:
-      return dispatch_res<XT, __nv_bfloat16>(x, mean, mul, bias, res, res_dt, out, n, c, relu,
-                                             s);
+      return dispatch_res<XT, bf16>(a, res_dt, cast_dt);
     default:
       return cudaErrorInvalidValue;
   }
@@ -128,18 +281,25 @@ cudaError_t dispatch_bn(const void* x, const void* mean, const void* mul, const 
 }  // namespace
 
 // Plain C entry point for ctypes. dtype codes: 0 = float32, 1 = bfloat16,
-// -1 = no residual. Returns cudaGetLastError() after the launch (0 = ok).
+// -1 = none (no residual / no cast output). `out` (the out dtype) or `cast`
+// (cast_dt) may be null, not both. vec = 1 takes the vector route (the
+// caller guarantees c % 8 == 0 and 16-byte-aligned pointers), 0 the scalar
+// one. Returns cudaGetLastError() after the launch (0 = ok).
 extern "C" int dtpu_epilogue_launch(const void* x, int x_dt, const void* mean, const void* mul,
                                     const void* bias, const void* res, int res_dt, void* out,
-                                    int bn_dt, long long n, int c, int relu, void* stream) {
-  if (n <= 0 || c <= 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+                                    void* cast, int cast_dt, int bn_dt, long long rows, int c,
+                                    int relu, int vec, void* stream) {
+  if (rows <= 0 || c <= 0 || (out == nullptr && cast == nullptr) ||
+      (cast != nullptr) != (cast_dt != kNone) || (res != nullptr) != (res_dt != kNone) ||
+      (vec && c % 8 != 0))
+    return (int)cudaErrorInvalidValue;
+  const Args a{x, mean, mul, bias, res, out, cast, rows, c, relu, vec,
+               static_cast<cudaStream_t>(stream)};
   switch (x_dt) {
     case kF32:
-      return (int)dispatch_bn<float>(x, mean, mul, bias, res, res_dt, out, bn_dt, n, c, relu, s);
+      return (int)dispatch_bn<float>(a, bn_dt, res_dt, cast_dt);
     case kBF16:
-      return (int)dispatch_bn<__nv_bfloat16>(x, mean, mul, bias, res, res_dt, out, bn_dt, n, c,
-                                             relu, s);
+      return (int)dispatch_bn<bf16>(a, bn_dt, res_dt, cast_dt);
     default:
       return (int)cudaErrorInvalidValue;
   }

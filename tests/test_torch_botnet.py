@@ -11,9 +11,10 @@ port's attention wrappers compute their plain versions):
   from ``perturbed_variables`` (every BN scale drawn away from 0, ``bn_out``
   included, so the attention branch reaches the logits);
 - ``export_state_dict(v, "botnet50")`` loads with ``strict=True`` and
-  equals ``from_jax_variables``; a forward makes 3 attention and 40 K1
-  calls; a CPU ``InferenceEngine`` hosts botnet50 and answers with the JAX
-  serving forward's logits.
+  equals ``from_jax_variables``; a forward makes 3 attention and 53 K1
+  calls (every BN); with a bf16 model, K1 handing each conv its bf16 input
+  changes no logit bit; a CPU ``InferenceEngine`` hosts botnet50 and
+  answers with the JAX serving forward's logits.
 """
 
 from collections import Counter
@@ -32,7 +33,7 @@ from distribuuuu_tpu.models import build_model as jax_build_model
 from distribuuuu_tpu_torch.convert import from_jax_variables
 from distribuuuu_tpu_torch.models import botnet, build_model, layers
 from distribuuuu_tpu_torch.serve.engine import InferenceEngine, ModelSpec
-from test_torch_resnet import perturbed_variables
+from test_torch_resnet import _mode, conv_input_dtypes, ignoring_cast_to, perturbed_variables
 
 torch.set_num_threads(2)
 
@@ -110,7 +111,9 @@ def test_export_state_dict_loads_strict_and_equals_from_jax_variables(variables)
     port_botnet(exported)  # strict=True inside
 
 
-def test_a_forward_makes_3_attention_and_40_k1_calls(monkeypatch, variables):
+def test_a_forward_makes_3_attention_and_53_k1_calls(monkeypatch, variables):
+    """Every BN is a K1 call: the trunk's 43 (stem, 13 x 3, 3 downsample) and
+    10 in the BoTBlocks (3 x bn_in/bn_mid/bn_out, one shortcut BN)."""
     calls = Counter()
     real_attn, real_k1 = botnet.fused_attention, layers.fused_conv_epilogue
 
@@ -121,6 +124,7 @@ def test_a_forward_makes_3_attention_and_40_k1_calls(monkeypatch, variables):
 
     def k1_spy(*a, **kw):
         calls["K1"] += 1
+        calls[f"mode {_mode(kw)}"] += 1
         return real_k1(*a, **kw)
 
     monkeypatch.setattr(botnet, "fused_attention", attn_spy)
@@ -129,7 +133,24 @@ def test_a_forward_makes_3_attention_and_40_k1_calls(monkeypatch, variables):
     with torch.inference_mode():
         out = m(torch.randn(2, IM, IM, 3))
     assert out.dtype == torch.float32 and torch.isfinite(out).all()
-    assert calls == Counter({"attention": 3, "K1": 40})
+    # (a): 3 trunk downsample BNs, the BoTStack's shortcut BN, the last bn_out;
+    # (c): trunk bn3 before a block without projection (10), BoTBlocks 0 and 1
+    assert calls == Counter({"attention": 3, "K1": 53, "mode a": 5, "mode b": 36, "mode c": 12})
+
+
+def test_bf16_handoff_changes_no_logit_bit(monkeypatch, variables):
+    """As for ResNet (tests/test_torch_resnet.py): bitwise the logits of the
+    parent's composition, and only the stem's conv casts its input."""
+    m = port_botnet(from_jax_variables(variables, "botnet50"), dtype=torch.bfloat16)
+    x = torch.randn(2, IM, IM, 3, generator=torch.Generator().manual_seed(4))
+    with torch.inference_mode(), monkeypatch.context() as mp:
+        seen = conv_input_dtypes(mp)
+        got = m(x)
+    assert seen[0] == torch.float32 and set(seen[1:]) == {torch.bfloat16}
+    with torch.inference_mode(), monkeypatch.context() as mp:
+        mp.setattr(layers, "fused_conv_epilogue", ignoring_cast_to(layers.fused_conv_epilogue))
+        want = m(x)
+    assert torch.equal(got, want)
 
 
 def test_cpu_engine_hosts_botnet50(variables, tmp_path):

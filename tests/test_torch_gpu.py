@@ -22,49 +22,104 @@ def cuda():
     return torch.device("cuda")
 
 
+# K1's three modes: (a) the boundary, (b) the next conv's input, (c) both
+_K1_MODES = {"a": {}, "b": dict(keep_boundary=False), "c": {}}
+
+
 @pytest.mark.gpu
 def test_cuda_epilogue_equals_plain_bitwise(cuda):
+    """K1 vs its plain version, bitwise, in every mode at every dtype
+    combination (x, BN, residual, cast). Shapes: a ResNet-50 site, the stem's
+    width, C 40 (five 8-channel groups: the vector route with a grid that is
+    not a power of two), C 36 and views 2 elements off a 16-byte boundary (the
+    scalar route), and a 2-D [R, C] tensor."""
     gen = torch.Generator(device=cuda).manual_seed(0)
 
-    def nchw(n, h, w, c, dtype):  # channels-last NCHW view of an NHWC tensor
-        return torch.randn(n, h, w, c, generator=gen, device=cuda).to(dtype).permute(0, 3, 1, 2)
+    def nchw(n, h, w, c, dtype, offset=0):  # channels-last NCHW view of an NHWC tensor
+        t = torch.randn(n * h * w * c + offset, generator=gen, device=cuda).to(dtype)
+        return t[offset:].view(n, h, w, c).permute(0, 3, 1, 2)
 
-    for (n, h, w, c) in [(2, 7, 7, 2048), (4, 56, 56, 64), (3, 5, 9, 24)]:
+    cases = [((2, 7, 7, 2048), 0, False), ((4, 56, 56, 64), 0, False), ((3, 5, 9, 40), 0, False),
+             ((3, 5, 9, 36), 0, True), ((2, 6, 6, 64), 2, True), ((37, 1, 1, 96), 0, False)]
+    for (n, h, w, c), offset, scalar in cases:
         for x_dt in (torch.float32, torch.bfloat16):
             for bn_dt in (torch.float32, torch.bfloat16):
                 for res_dt in (None, torch.float32, torch.bfloat16):
-                    for relu in (False, True):
-                        x = nchw(n, h, w, c, x_dt)
-                        ident = None if res_dt is None else nchw(n, h, w, c, res_dt)
+                    for cast_dt in (torch.float32, torch.bfloat16):
+                        x = nchw(n, h, w, c, x_dt, offset)
+                        ident = None if res_dt is None else nchw(n, h, w, c, res_dt, offset)
+                        if n == 37:  # the 2-D [R, C] form
+                            x = x.reshape(n, c)
+                            ident = None if ident is None else ident.reshape(n, c)
                         vecs = [torch.randn(c, generator=gen, device=cuda) for _ in range(3)]
-                        before = ep.LAUNCHES
-                        got = ep.fused_conv_epilogue(x, *vecs, ident, relu=relu, bn_dtype=bn_dt)
-                        assert ep.LAUNCHES == before + 1
-                        want = ep.epilogue_reference(x, *vecs, ident, relu=relu, bn_dtype=bn_dt)
-                        torch.cuda.synchronize()
-                        assert got.dtype == want.dtype
-                        assert torch.equal(got, want), (n, h, w, c, x_dt, bn_dt, res_dt, relu)
+                        for relu in (False, True):
+                            for mode, kw in _K1_MODES.items():
+                                kw = dict(kw, relu=relu, bn_dtype=bn_dt,
+                                          cast_to=None if mode == "a" else cast_dt)
+                                before = (ep.LAUNCHES, ep.SCALAR_LAUNCHES)
+                                got = ep.fused_conv_epilogue(x, *vecs, ident, **kw)
+                                assert (ep.LAUNCHES, ep.SCALAR_LAUNCHES) == (
+                                    before[0] + 1, before[1] + scalar)
+                                want = ep.epilogue_reference(x, *vecs, ident, **kw)
+                                torch.cuda.synchronize()
+                                case = ((n, h, w, c), offset, x_dt, bn_dt, res_dt, cast_dt, relu, mode)
+                                pairs = zip(got, want) if mode == "c" else [(got, want)]
+                                for g, wt in pairs:
+                                    assert g.dtype == wt.dtype and g.shape == wt.shape, case
+                                    assert torch.equal(g, wt), case
+                                    if g.dim() == 4:
+                                        assert g.is_contiguous(memory_format=torch.channels_last)
     contiguous_nchw = torch.randn(2, 8, 3, 3, device=cuda)
     with pytest.raises(ValueError, match="channels-last"):
         ep.fused_conv_epilogue(contiguous_nchw, *[torch.zeros(8, device=cuda)] * 3,
                                bn_dtype=torch.float32)
 
 
-@pytest.mark.gpu
-def test_resnet50_forward_at_224_launches_kernel_49_times(cuda, monkeypatch):
+def _k1_forward(arch, cuda, monkeypatch, im=224, **kw):
+    """A seeded ``arch`` on the CPU and its copy on the card, f32 (TF32 off)."""
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)  # full f32 convs
-    cpu = build_model("resnet50", num_classes=1000, dtype=torch.float32)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cpu = build_model(arch, num_classes=1000, dtype=torch.float32, im_size=im)
+    for m in cpu.modules():  # bn_out starts at zero-γ: draw every BN scale away from 0
+        if isinstance(m, layers.BatchNorm):
+            torch.nn.init.uniform_(m.weight, 0.5, 1.5)
     cpu = cpu.to(memory_format=torch.channels_last).eval()
-    gpu = build_model("resnet50", num_classes=1000, dtype=torch.float32)
+    gpu = build_model(arch, num_classes=1000, dtype=torch.float32, im_size=im)
     gpu.load_state_dict(cpu.state_dict())
     gpu = gpu.to(cuda, memory_format=torch.channels_last).eval()
+    bf16 = build_model(arch, num_classes=1000, dtype=torch.bfloat16, im_size=im)
+    bf16.load_state_dict(cpu.state_dict())
+    return cpu, gpu, bf16.to(cuda, memory_format=torch.channels_last).eval()
+
+
+def _bf16_handoff_is_bitwise(model, x, monkeypatch):
+    """The bf16 model's logits with K1 writing each conv's input equal those
+    with K1 writing the f32 boundary and each conv casting it."""
+    real = layers.fused_conv_epilogue
+
+    def boundary_only(*args, cast_to=None, keep_boundary=True, **kw):
+        out = real(*args, **kw)
+        return (out, out) if cast_to is not None and keep_boundary else out
+
+    with torch.inference_mode():
+        got = model(x)
+        with monkeypatch.context() as mp:
+            mp.setattr(layers, "fused_conv_epilogue", boundary_only)
+            want = model(x)
+    return torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_resnet50_forward_at_224_launches_kernel_53_times(cuda, monkeypatch):
+    cpu, gpu, bf16 = _k1_forward("resnet50", cuda, monkeypatch)
     x = torch.randn(2, 224, 224, 3)
     before = ep.LAUNCHES
     with torch.inference_mode():
         got = gpu(x.to(cuda)).cpu()
         want = cpu(x)
-    assert ep.LAUNCHES - before == 49
+    assert ep.LAUNCHES - before == 53
     assert float((got - want).abs().max()) <= 1e-3 * float(want.abs().max())
+    assert _bf16_handoff_is_bitwise(bf16, x.to(cuda), monkeypatch)
 
 
 def _heads_first(t, heads):
@@ -137,24 +192,16 @@ def test_cuda_attention_matches_plain(cuda):
 
 
 @pytest.mark.gpu
-def test_botnet50_forward_at_224_launches_attention_3_and_k1_40_times(cuda, monkeypatch):
-    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)  # full f32 convs
-    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
-    cpu = build_model("botnet50", num_classes=1000, dtype=torch.float32, im_size=224)
-    for m in cpu.modules():  # bn_out starts at zero-γ: draw every BN scale away from 0
-        if isinstance(m, layers.BatchNorm):
-            torch.nn.init.uniform_(m.weight, 0.5, 1.5)
-    cpu = cpu.to(memory_format=torch.channels_last).eval()
-    gpu = build_model("botnet50", num_classes=1000, dtype=torch.float32, im_size=224)
-    gpu.load_state_dict(cpu.state_dict())
-    gpu = gpu.to(cuda, memory_format=torch.channels_last).eval()
+def test_botnet50_forward_at_224_launches_attention_3_and_k1_53_times(cuda, monkeypatch):
+    cpu, gpu, bf16 = _k1_forward("botnet50", cuda, monkeypatch)
     x = torch.randn(2, 224, 224, 3)
     before = (att.LAUNCHES, ep.LAUNCHES)
     with torch.inference_mode():
         got = gpu(x.to(cuda)).cpu()
         want = cpu(x)
-    assert (att.LAUNCHES - before[0], ep.LAUNCHES - before[1]) == (3, 40)
+    assert (att.LAUNCHES - before[0], ep.LAUNCHES - before[1]) == (3, 53)
     assert float((got - want).abs().max()) <= 1e-3 * float(want.abs().max())
+    assert _bf16_handoff_is_bitwise(bf16, x.to(cuda), monkeypatch)
 
 
 def _dyadic(shape, k, den, gen, device):

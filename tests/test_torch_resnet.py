@@ -15,6 +15,7 @@ import pytest
 
 import jax.numpy as jnp
 import torch
+import torch.nn.functional as F
 
 from distribuuuu_tpu.convert import export_state_dict, golden_inputs, synthetic_variables
 from distribuuuu_tpu.models import build_model as jax_build_model
@@ -100,9 +101,28 @@ def test_load_weights_unwraps_torchvision_layout(tmp_path, variables):
     port_model("resnet18", loaded)
 
 
-def test_epilogue_sites_are_channels_last_and_49_for_resnet50(monkeypatch, variables):
+def _mode(kw) -> str:
+    """K1's mode: (a) the BN boundary, (b) the next conv's input, (c) both."""
+    if kw.get("cast_to") is None:
+        return "a"
+    return "c" if kw.get("keep_boundary", True) else "b"
+
+
+# arch -> (launches, by residual, by relu, by mode, the stem's mode): every BN
+# is a K1 call; bn3 (bn2) writes both forms only where the next block has no
+# projection, the compute dtype alone where it has one, the boundary alone
+# before the head; the downsample BNs write the boundary, without ReLU
+K1_SITES = {
+    "resnet50": (53, {False: 37, True: 16}, {True: 49, False: 4}, {"a": 5, "b": 36, "c": 12}, "b"),
+    "resnet18": (20, {False: 12, True: 8}, {True: 17, False: 3}, {"a": 4, "b": 11, "c": 5}, "c"),
+}
+
+
+@pytest.mark.parametrize("arch", ["resnet50", "resnet18"])
+def test_epilogue_sites_are_channels_last_and_53_for_resnet50(arch, monkeypatch, variables):
     """Every K1 call site gets a dense channels-last conv output (what the
-    CUDA kernel requires), and ResNet-50 makes 49 of them: stem + 16 x 3."""
+    CUDA kernel requires). Every BN is one: ResNet-50 makes 53 (stem + 16 x 3
+    + 4 downsample BNs), ResNet-18 20 (stem + 8 x 2 + 3)."""
     calls = []
     real = layers.fused_conv_epilogue
 
@@ -110,18 +130,78 @@ def test_epilogue_sites_are_channels_last_and_49_for_resnet50(monkeypatch, varia
         assert x.is_contiguous(memory_format=torch.channels_last), (x.shape, x.stride())
         if identity is not None:
             assert identity.is_contiguous(memory_format=torch.channels_last)
-        calls.append((tuple(x.shape), identity is not None))
+            assert identity.dtype == torch.float32  # the boundary, never the bf16 form
+        calls.append((tuple(x.shape), identity is not None, kw["relu"], _mode(kw)))
         return real(x, mean, mul, bias, identity, **kw)
 
     monkeypatch.setattr(layers, "fused_conv_epilogue", spy)
-    m = port_model("resnet50", from_jax_variables(variables["resnet50"], "resnet50"),
-                   dtype=torch.bfloat16)
+    m = port_model(arch, from_jax_variables(variables[arch], arch), dtype=torch.bfloat16)
     with torch.inference_mode():
         out = m(torch.randn(2, 64, 64, 3))
     assert out.dtype == torch.float32 and torch.isfinite(out).all()
-    assert len(calls) == 49
-    assert Counter(res for _, res in calls) == Counter({False: 33, True: 16})
-    assert calls[0] == ((2, 64, 32, 32), False)  # the stem, before the max-pool
+    n, by_res, by_relu, by_mode, stem = K1_SITES[arch]
+    assert len(calls) == n
+    assert Counter(c[1] for c in calls) == Counter(by_res)
+    assert Counter(c[2] for c in calls) == Counter(by_relu)
+    assert Counter(c[3] for c in calls) == Counter(by_mode)
+    assert calls[0] == ((2, 64, 32, 32), False, True, stem)  # the stem, before the max-pool
+    assert calls[-1][1:] == (True, True, "a")  # the last block feeds the f32 head
+
+
+def ignoring_cast_to(real):
+    """K1 as the model called it before the hand-off: the BN boundary only,
+    each conv casting its input itself (mode (c) gets the boundary twice)."""
+
+    def k1(*args, cast_to=None, keep_boundary=True, **kw):
+        out = real(*args, **kw)
+        return (out, out) if cast_to is not None and keep_boundary else out
+
+    return k1
+
+
+def conv_input_dtypes(monkeypatch) -> list:
+    """Spy on every conv's input dtype (a Pair's ``cast``) for one forward."""
+    seen = []
+    real = layers.Conv2d.forward
+
+    def spy(self, x):
+        seen.append((x.cast if isinstance(x, layers.Pair) else x).dtype)
+        return real(self, x)
+
+    monkeypatch.setattr(layers.Conv2d, "forward", spy)
+    return seen
+
+
+@pytest.mark.parametrize("arch", ["resnet18", "resnet50"])
+def test_bf16_handoff_changes_no_logit_bit(arch, monkeypatch, variables):
+    """K1 writing each conv's bf16 input (modes b/c) gives bitwise the
+    logits of casting the f32 boundary in the conv (the parent's
+    composition), and leaves no conv but the stem's to cast its input."""
+    m = port_model(arch, from_jax_variables(variables[arch], arch), dtype=torch.bfloat16)
+    x = torch.randn(2, 64, 64, 3, generator=torch.Generator().manual_seed(4))
+    with torch.inference_mode(), monkeypatch.context() as mp:
+        seen = conv_input_dtypes(mp)
+        got = m(x)
+    assert seen[0] == torch.float32 and set(seen[1:]) == {torch.bfloat16}
+    with torch.inference_mode(), monkeypatch.context() as mp:
+        mp.setattr(layers, "fused_conv_epilogue", ignoring_cast_to(layers.fused_conv_epilogue))
+        seen = conv_input_dtypes(mp)
+        want = m(x)
+    assert set(seen) == {torch.float32}  # the parent's composition: every conv casts
+    assert torch.equal(got, want)
+
+
+def test_bf16_max_pool_commutes_with_the_cast():
+    """The stem pools its bf16 form: max commutes with a monotone rounding,
+    and the implicit -inf padding never wins, even where a window's values
+    are all negative."""
+    x = torch.randn(2, 64, 17, 17, generator=torch.Generator().manual_seed(5)) * 3
+    x[:, :, 0, :] = -torch.rand(2, 64, 17) - 1  # all-negative border windows
+    x = x.to(memory_format=torch.channels_last)
+    pooled = layers.max_pool(layers.Pair(x, x.bfloat16()))
+    assert pooled.cast.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(pooled.cast, pooled.boundary.bfloat16())
+    assert torch.equal(pooled.boundary, F.max_pool2d(x, 3, 2, 1))
 
 
 def test_all_nine_factories_registered_with_torchvision_names():
