@@ -2,11 +2,13 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --profile-only   # build, then phase 5/6's latency and profile only
+    python3 chip_smoke.py --profile-only   # build, then phase 5/6's latency and profile
+                                           # and phase 8's K6/K7 timings only
 
-``--profile-only`` exists to compare two trees in one call: copied into an
-older checkout and run from its root, it profiles that checkout's serving
-path beside this one's on the same card.
+The option exists to compare two trees in one call: copied into an older
+checkout and run from its root, the file profiles that checkout's serving
+path and times its MoE kernels through their public entry points, beside
+this one's on the same card.
 
 Phases (any failure exits non-zero):
 
@@ -53,16 +55,23 @@ Phases (any failure exits non-zero):
    (``ops/csrc/moe.cu``) against their plain versions on the card: the soak's
    per-device shard (N 8192, D 128, E 8, C 1280) and the Switch-Transformer-
    Base width (D 768), x f32 and bf16, the shard ``switch_moe`` gets in
-   phase 9, a ragged N, one and two route tiles, capacity 1 and the forced
+   phase 9, a ragged N, one and two tiles, capacity 1 and the forced
    overflow boundary; bitwise on dyadic inputs, near-ties only on continuous
-   ones; gradients of the soak's loss against autograd through the plain
-   versions; timed beside the plain versions, an eager index-op composition
-   and the bytes bound;
+   ones; at the timed shards their backward kernels against the plain
+   backward (d_back bitwise, the rest within 1e-5 of max|grad|), gradients
+   of the soak's loss against autograd through the plain versions, one
+   launch of each kernel per forward + backward (the profiler's kernel
+   names), dispatch + combine captured in a CUDA graph and replayed bitwise
+   equal to eager, two dispatches of one input bitwise equal; each kernel
+   timed as device time (a CUDA-graph replay cycling through input sets
+   past the L2), back to back and as a single call, with the wrappers' host
+   µs, beside the plain versions, an eager index-op composition and the
+   bytes bound;
 9. [moe-dist] ``switch_moe`` forward and backward on 8 ranks (one expert
    each) sharing the card in a ``gloo`` group, N 4096 tokens per rank, D 128,
    C 640, then the same ranks on the CPU (plain versions): loss, aux, out,
-   routing and gradients must agree, and every rank's forward must launch
-   K6 and K7 once each;
+   routing and gradients must agree, and every rank must launch K6, K7 and
+   their backward kernels once each;
 10. the ``{"kernels": [...]}`` line; 11. the ``{"ok": true, ...}`` last line.
 
 Each path is driven with the launch counts set to 0 just before it and read
@@ -1083,34 +1092,139 @@ def library_dispatch(x, g, c):
             torch.stack([oh_t.sum(1).float(), probs.sum(0)]))
 
 
-def moe_profile(mk, x, g, c, back, runs: int = 20) -> dict:
-    """Device time per call of each K6/K7 launch (torch.profiler), and the
-    host's time per call of the wrappers from an idle stream."""
+def moe_profile(mk, x, g, c, runs: int = 20) -> dict:
+    """One forward + backward through K6 -> K7 (the kernels' autograd path,
+    cotangents given) ``runs`` times under ``torch.profiler``: device µs per
+    call of each kernel by name, and the launches of each, which must be
+    one of each kernel per call (K6 is one kernel; its scratch reset is a
+    memset)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    def call():
-        _, top, pos, w, _ = mk.fused_moe_dispatch(x, g, capacity=c)
-        mk.fused_moe_combine(back, top, pos, w)
-
-    call()
+    fwd_bwd = moe_fwd_bwd(mk, x, g, c)
+    fwd_bwd()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(runs):
-            call()
+            fwd_bwd()
         torch.cuda.synchronize()
-    by_name: Counter = Counter()
+    us: Counter = Counter()
+    count: Counter = Counter()
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA and ev.time_range.end > 0:
-            name = next((k for k in ("route", "scan", "scatter", "combine") if f"moe_{k}_kernel" in ev.name),
-                        "other")
-            by_name[name] += ev.time_range.end - ev.time_range.start
-    tic = time.perf_counter()
-    for _ in range(runs):
-        call()
+            name = next((k for k in ("dispatch_bwd", "combine_bwd", "dispatch", "combine")
+                         if f"moe_{k}_kernel" in ev.name),
+                        "memset" if "memset" in ev.name.lower() else "other")
+            us[name] += ev.time_range.end - ev.time_range.start
+            count[name] += 1
+    for k in ("dispatch", "combine", "dispatch_bwd", "combine_bwd"):
+        if count[k] != runs:
+            fail(f"[moe-kernels] profile: {count[k]} moe_{k}_kernel launches in {runs} forward + "
+                 f"backward calls; want one each ({dict(count)})")
+    return {"device_us": {k: v / runs for k, v in us.items()},
+            "events_per_call": {k: v / runs for k, v in count.items()}}
+
+
+def moe_fwd_bwd(mk, x, g, c):
+    """A zero-argument forward + backward through the kernels' autograd path:
+    dispatch -> combine(send) -> the gradients of x and the gate for fixed
+    cotangents of out and fp_sum (no loss kernels of its own)."""
+    import torch
+
+    x, g = x.detach().requires_grad_(), g.detach().requires_grad_()
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    g_out = torch.randn(x.shape[0], x.shape[1], generator=gen, device="cuda")
+    g_fp = torch.randn(2, g.shape[1], generator=gen, device="cuda")
+
+    def call():
+        send, top, pos, w, fp = mk.fused_moe_dispatch(x, g, capacity=c)
+        out = mk.fused_moe_combine(send, top, pos, w)
+        return torch.autograd.grad([out, fp], [x, g], [g_out, g_fp])
+
+    return call
+
+
+def host_us(fn, runs: int = 20, batches: int = 5) -> float:
+    """Host µs per call of ``fn``: the median over ``batches`` of ``runs``
+    calls enqueued back to back from an idle stream (no synchronize between
+    calls: the wrapper's cost, not the device's)."""
+    import torch
+
+    fn()
     torch.cuda.synchronize()
-    host_us = 1e6 * (time.perf_counter() - tic) / runs
-    return {"device_us": {k: v / runs for k, v in by_name.items()}, "host_us_per_call": host_us}
+    times = []
+    for _ in range(batches):
+        tic = time.perf_counter()
+        for _ in range(runs):
+            fn()
+        times.append(1e6 * (time.perf_counter() - tic) / runs)
+        torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def fresh(t, gen):
+    """Another input set for a timing: ``t``'s shape and dtype, other values."""
+    import torch
+
+    return torch.randn(t.shape, generator=gen, device="cuda").to(t.dtype)
+
+
+def moe_forward_times(mk, x, g, c, back, top, pos, w, bounds, gen) -> dict:
+    """K6 and K7 through the public entry points only (so the same code
+    times an older checkout's wrappers, ``--profile-only``): each as
+    :func:`rotated_timings` and host µs a call (no grad); and a forward +
+    backward (:func:`moe_fwd_bwd`): host µs and ms back to back."""
+    import torch
+
+    n, d = x.shape
+    e = g.shape[1]
+    x_sets = lambda i: (x if i == 0 else moe_inputs(n, d, e, str(x.dtype)[6:], gen)[0], g)  # noqa: E731
+    with torch.no_grad():
+        times = dict(
+            dispatch=dict(**rotated_timings(lambda a, b: mk.fused_moe_dispatch(a, b, capacity=c),
+                                            x_sets, bounds["dispatch"]["bytes"]),
+                          host_us=host_us(lambda: mk.fused_moe_dispatch(x, g, capacity=c))),
+            combine=dict(**rotated_timings(mk.fused_moe_combine,
+                                           lambda i: (back if i == 0 else fresh(back, gen), top, pos,
+                                                      w),
+                                           bounds["combine"]["bytes"]),
+                         host_us=host_us(lambda: mk.fused_moe_combine(back, top, pos, w))))
+    fwd_bwd = moe_fwd_bwd(mk, x, g, c)
+    times["fwd_bwd"] = dict(host_us=host_us(fwd_bwd), back_to_back_ms=cuda_ms(fwd_bwd, batch=K1_BATCH))
+    return times
+
+
+def phase_moe_times(card: str) -> dict:
+    """[moe-times] (``--profile-only``): K6/K7 timed by
+    :func:`moe_forward_times` at each MOE_TIMED shard on dyadic inputs,
+    beside the bytes bound."""
+    import torch
+
+    from distribuuuu_tpu_torch.ops import moe_kernel as mk
+
+    bw = hbm_bytes_per_s(card)
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    out = []
+    for label, n, d, e, c, dtype in MOE_CASES:
+        if label not in MOE_TIMED:
+            continue
+        x, g = moe_inputs(n, d, e, dtype, gen)
+        back = torch.randn(e, c, d, generator=gen, device="cuda")
+        with torch.no_grad():
+            _, top, pos, w, _ = mk.fused_moe_dispatch(x, g, capacity=c)
+        bounds = moe_bound(n, d, e, c, x.element_size(), int((w != 0).sum()), bw)
+        t = moe_forward_times(mk, x, g, c, back, top, pos, w, bounds, gen)
+        out.append(dict(label=label, n=n, d=d, e=e, c=c, dtype=dtype, **t,
+                        bound_ms={k: bounds[k]["bound_ms"] for k in ("dispatch", "combine")}))
+        say(f"[moe-times] {label} (N {n}, D {d}, E {e}, C {c}, x {dtype}): " + "; ".join(
+            f"{k} device {t[key]['device_ms'] * 1e3:.2f} us "
+            f"({100 * bounds[key]['bound_ms'] / t[key]['device_ms']:.0f}% of "
+            f"{bounds[key]['bound_ms'] * 1e3:.2f}), back-to-back "
+            f"{t[key]['back_to_back_ms'] * 1e3:.2f}, single call {t[key]['single_call_ms'] * 1e3:.2f}, "
+            f"host {t[key]['host_us']:.1f}" for k, key in (("K6", "dispatch"), ("K7", "combine")))
+            + f"; forward + backward host {t['fwd_bwd']['host_us']:.1f} us, back-to-back "
+            f"{t['fwd_bwd']['back_to_back_ms'] * 1e3:.1f} us")
+    return out
 
 
 def library_combine(back, top, pos, w):
@@ -1120,15 +1234,24 @@ def library_combine(back, top, pos, w):
 
 
 def moe_bound(n, d, e, c, item, kept, bw) -> dict:
-    """Bytes bounds (ms) of one call, each input read once and each output
-    written once. Dispatch: x, the gate, the whole send buffer (zeros too),
-    top/pos/w and fp_sum; its 2nDE flops are ~1e4 times below the bytes.
-    Combine: the kept tokens' rows of back (a dropped token needs none),
-    top/pos/w and out."""
-    d_bytes = n * d * item + d * e * 4 + e * c * d * 4 + 3 * n * 4 + 2 * e * 4
-    c_bytes = kept * d * 4 + 3 * n * 4 + n * d * 4
+    """Bytes bounds (ms) of one call of each kernel, each input read once and
+    each output written once (``item``: bytes of one of x's values; ``kept``:
+    tokens this run keeps). Dispatch: x, the gate, the whole send buffer
+    (zeros too), top/pos/w and fp_sum; its 2nDE f32 flops take ~10 % of the
+    bytes' time at D 768. Combine: the kept tokens' rows of back, top/pos/w
+    and out.
+    Dispatch backward: probs, top/pos/w, d_w, d_fp[1], the gate, the kept
+    tokens' rows of d_send; d_x and d_logits. Combine backward: g, every
+    token's row of back (d_w), top/pos/w; all of d_back, and d_w."""
+    sizes = {
+        "dispatch": (n * d * item + d * e * 4 + e * c * d * 4 + 3 * n * 4 + 2 * e * 4, 2.0 * n * d * e),
+        "combine": (kept * d * 4 + 3 * n * 4 + n * d * 4, n * d),
+        "dispatch_bwd": (n * e * 4 + 4 * n * 4 + e * 4 + d * e * 4 + kept * d * 4 + n * d * item
+                         + n * e * 4, 2.0 * n * d * e + 6.0 * n * e),
+        "combine_bwd": (2 * n * d * 4 + 3 * n * 4 + e * c * d * 4 + n * 4, 3.0 * n * d),
+    }
     by = {}
-    for key, nbytes, flops in (("dispatch", d_bytes, 2.0 * n * d * e), ("combine", c_bytes, n * d)):
+    for key, (nbytes, flops) in sizes.items():
         by[key] = dict(bytes=nbytes, bound_ms=1e3 * max(nbytes / bw, flops / F32_PEAK_FLOPS),
                        bound_by="bytes" if nbytes / bw >= flops / F32_PEAK_FLOPS else "operations")
     return by
@@ -1138,9 +1261,62 @@ def _rel_ok(got, want, rtol) -> bool:
     return bool(((got - want).abs() <= rtol * want.abs()).all())
 
 
+def rotated_timings(fn, make_inputs, nbytes: int) -> dict:
+    """``fn(*inputs)`` timed three ways, each cycling through enough input
+    sets (``make_inputs(i)``) that a set comes round again only after
+    K1_ROTATE_BYTES of other traffic (:func:`k1_rotation`): device time
+    (the calls replayed from a CUDA graph), back to back and a single call
+    from an idle stream (both with the wrapper's host cost)."""
+    sets, calls = k1_rotation(nbytes)
+    inputs = [make_inputs(i) for i in range(sets)]
+    fns = [lambda a=inputs[i % sets]: fn(*a) for i in range(calls)]
+    return dict(device_ms=graph_ms(fns), back_to_back_ms=cuda_ms(cycling(fns), batch=K1_BATCH),
+                single_call_ms=cuda_ms(cycling(fns)), input_sets=sets, calls=calls)
+
+
+def moe_backward_check(mk, label, x, g, c, gen) -> tuple[dict, tuple]:
+    """K6's and K7's backward kernels against their plain versions on the
+    routing of dyadic ``x``: d_back bitwise; d_x, d_gate and d_w within
+    MOE_GRAD_RTOL of each max|grad| (a bf16 d_x within 2^-8, one rounding).
+    Returns the errors and the arguments each kernel was checked with."""
+    import torch
+
+    n, d = x.shape
+    e = g.shape[1]
+    _, top, pos, w, _, probs = mk._dispatch_cuda(x, g, c, want_probs=True)
+    d_send = torch.randn(e, c, d, generator=gen, device="cuda")
+    d_w = torch.randn(n, generator=gen, device="cuda")
+    d_fp = torch.randn(2, e, generator=gen, device="cuda")
+    back = torch.randn(e, c, d, generator=gen, device="cuda")
+    out_g = torch.randn(n, d, generator=gen, device="cuda")
+    d_x, d_logits = mk._dispatch_bwd_cuda(x, g, probs, top, pos, w, d_send, d_w, d_fp, c, True)
+    d_gate = x.float().t() @ d_logits
+    want_x, want_gate = mk.dispatch_backward_reference(x, g, top, pos, w, d_send, d_w, d_fp, c)
+    d_back, d_wc = mk._combine_bwd_cuda(back, top, pos, w, out_g, True, True)
+    want_back, want_wc = mk.combine_backward_reference(back, top, pos, w, out_g)
+    torch.cuda.synchronize()
+    if d_x.dtype != x.dtype or not torch.equal(d_back, want_back):
+        fail(f"[moe-kernels] {label} {x.dtype}: d_x dtype {d_x.dtype} or d_back != plain "
+             f"(max|d| {float((d_back - want_back).abs().max())})")
+    errs = {}
+    x_tol = 2.0**-8 if x.dtype == torch.bfloat16 else MOE_GRAD_RTOL
+    for name, a, b, tol in (("d_x", d_x, want_x, x_tol), ("d_gate", d_gate, want_gate, MOE_GRAD_RTOL),
+                            ("d_w", d_wc, want_wc, MOE_GRAD_RTOL)):
+        errs[name] = float((a.float() - b.float()).abs().max() / b.float().abs().max())
+        if not errs[name] <= tol:
+            fail(f"[moe-kernels] {label} {x.dtype}: backward {name} {errs[name]:.3e} relative to "
+                 f"max|grad| (limit {tol})")
+    errs["max_abs"] = dict(dispatch_bwd=float((d_x.float() - want_x.float()).abs().max()),
+                           combine_bwd=max(float((d_wc - want_wc).abs().max()),
+                                           float((d_back - want_back).abs().max())))
+    return errs, ((x, g, probs, top, pos, w, d_send, d_w, d_fp), (back, top, pos, w, out_g))
+
+
 def moe_case(mk, label, n, d, e, c, dtype, gen, bw) -> dict:
-    """K6 and K7 vs their plain versions on dyadic inputs, timed if ``label``
-    is one of MOE_TIMED."""
+    """K6 and K7 vs their plain versions on dyadic inputs; at a MOE_TIMED
+    label also the backward kernels, and every kernel timed: device time
+    past the L2, back to back, a single call, host µs, beside the plain
+    version, the eager index ops and the bytes bound."""
     import torch
 
     x, g = moe_inputs(n, d, e, dtype, gen, overflow=label == "overflow")
@@ -1178,29 +1354,61 @@ def moe_case(mk, label, n, d, e, c, dtype, gen, bw) -> dict:
                k7_max_abs_err=float((out - out_plain).abs().max()))
     note = ""
     if label in MOE_TIMED:
-        lib = library_dispatch(x, g, c)
-        lib_ok = all(torch.equal(a, b) for a, b in zip(lib[:3], want[:3]))
+        bwd_err, (db_args, cb_args) = moe_backward_check(mk, label, x, g, c, gen)
+        row["backward_rel_err"] = {k: v for k, v in bwd_err.items() if k != "max_abs"}
+        row["k6_bwd_max_abs_err"] = bwd_err["max_abs"]["dispatch_bwd"]
+        row["k7_bwd_max_abs_err"] = bwd_err["max_abs"]["combine_bwd"]
         bounds = moe_bound(n, d, e, c, x.element_size(), kept, bw)
+        db_fn = lambda *a: mk._dispatch_bwd_cuda(*a, c, True)  # noqa: E731
+        cb_fn = lambda *a: mk._combine_bwd_cuda(*a, True, True)  # noqa: E731
+        lib = library_dispatch(x, g, c)
+        times = moe_forward_times(mk, x, g, c, back, top, pos, w, bounds, gen)
         with torch.no_grad():
             row["dispatch"] = dict(
-                ms=cuda_ms(lambda: mk.fused_moe_dispatch(x, g, capacity=c)),
-                plain_ms=cuda_ms(lambda: mk.oracle_dispatch(x, g, c)),
-                library_ms=cuda_ms(lambda: library_dispatch(x, g, c)), library_equal=lib_ok,
+                **times["dispatch"],
+                plain_ms=cuda_ms(lambda: mk.oracle_dispatch(x, g, c), runs=5, warmup=1, batch=2),
+                library_ms=cuda_ms(lambda: library_dispatch(x, g, c), runs=10, batch=K1_BATCH),
+                library_equal=all(torch.equal(a, b) for a, b in zip(lib[:3], want[:3])),
                 **bounds["dispatch"])
-            if dtype == "float32":
-                row["profile"] = moe_profile(mk, x, g, c, back)
-                say(f"[moe-kernels] {label} profile per call: device " + ", ".join(
-                    f"{k} {v:.2f} us" for k, v in row["profile"]["device_us"].items())
-                    + f"; host {row['profile']['host_us_per_call']:.1f} us per dispatch + combine")
             row["combine"] = dict(
-                ms=cuda_ms(lambda: mk.fused_moe_combine(back, top, pos, w)),
-                plain_ms=cuda_ms(lambda: mk.oracle_combine(back, top, pos, w)),
-                library_ms=cuda_ms(lambda: library_combine(back, top, pos, w)),
+                **times["combine"],
+                plain_ms=cuda_ms(lambda: mk.oracle_combine(back, top, pos, w), runs=5, warmup=1,
+                                 batch=2),
+                library_ms=cuda_ms(lambda: library_combine(back, top, pos, w), runs=10,
+                                   batch=K1_BATCH),
                 **bounds["combine"])
+            row["dispatch_bwd"] = dict(
+                **rotated_timings(db_fn, lambda i: db_args if i == 0 else
+                                  db_args[:6] + (fresh(db_args[6], gen),) + db_args[7:],
+                                  bounds["dispatch_bwd"]["bytes"]),
+                plain_ms=cuda_ms(lambda: mk.dispatch_backward_reference(
+                    *db_args[:2], *db_args[3:], c), runs=10, batch=K1_BATCH),
+                library_ms=None, **bounds["dispatch_bwd"])
+            row["combine_bwd"] = dict(
+                **rotated_timings(cb_fn, lambda i: cb_args if i == 0 else
+                                  (fresh(cb_args[0], gen),) + cb_args[1:4] + (fresh(cb_args[4], gen),),
+                                  bounds["combine_bwd"]["bytes"]),
+                plain_ms=cuda_ms(lambda: mk.combine_backward_reference(*cb_args), runs=10,
+                                 batch=K1_BATCH),
+                library_ms=None, **bounds["combine_bwd"])
+        row["host_us"] = dict(dispatch=row["dispatch"]["host_us"], combine=row["combine"]["host_us"],
+                              fwd_bwd=times["fwd_bwd"]["host_us"])
+        if dtype == "float32":
+            row["profile"] = moe_profile(mk, x, g, c)
+            say(f"[moe-kernels] {label} forward + backward profile per call: device " + ", ".join(
+                f"{k} {v:.2f} us" for k, v in sorted(row["profile"]["device_us"].items()))
+                + "; one launch of each kernel per call")
         note = "; " + "; ".join(
-            f"{k} {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, index ops {r['library_ms']:.4f}, "
-            f"bound {r['bound_ms']:.4f} by {r['bound_by']}, {100 * r['bound_ms'] / r['ms']:.0f}% "
-            f"of bound)" for k, r in (("K6", row["dispatch"]), ("K7", row["combine"])))
+            f"{k} device {r['device_ms'] * 1e3:.2f} us ({100 * r['bound_ms'] / r['device_ms']:.0f}% of "
+            f"bound {r['bound_ms'] * 1e3:.2f} by {r['bound_by']}; {r['calls']} calls over "
+            f"{r['input_sets']} input sets), back-to-back {r['back_to_back_ms'] * 1e3:.2f}, single "
+            f"call {r['single_call_ms'] * 1e3:.2f}, plain {r['plain_ms'] * 1e3:.1f}"
+            + ("" if r["library_ms"] is None else f", index ops {r['library_ms'] * 1e3:.1f}")
+            for k, r in (("K6", row["dispatch"]), ("K7", row["combine"]),
+                         ("K6 bwd", row["dispatch_bwd"]), ("K7 bwd", row["combine_bwd"])))
+        note += ("; host us per call: dispatch {dispatch:.1f}, combine {combine:.1f}, forward + "
+                 "backward {fwd_bwd:.1f}; backward vs plain, relative to max|grad|: ").format(
+            **row["host_us"]) + ", ".join(f"{k} {v:.2e}" for k, v in row["backward_rel_err"].items())
     say(f"[moe-kernels] {label}: N {n}, D {d}, E {e}, C {c}, x {dtype}: top/pos/send/fp[0] and "
         f"K7 out equal plain, w/fp[1] within {MOE_W_RTOL}/{MOE_FP_RTOL}, {n - kept} dropped{note}")
     return row
@@ -1237,10 +1445,13 @@ def moe_near_tie(mk, label, n, d, e, c, dtype, gen) -> dict:
                 experts_equal=len(untouched))
 
 
+
+
 def moe_grads(mk, n, d, e, c, gen) -> dict:
     """The soak's loss, sum(out^2) + 0.01 sum(fp[0] fp[1]) through dispatch ->
     tanh(send) + b0 -> combine, f32: value and gradients (x, gate, b0) of
-    the kernels' path vs autograd through the plain versions; both timed."""
+    the kernels' path (one launch of each backward kernel) vs autograd
+    through the plain versions; both timed."""
     import torch
 
     x, g = moe_inputs(n, d, e, "float32", gen)
@@ -1257,7 +1468,11 @@ def moe_grads(mk, n, d, e, c, gen) -> dict:
     kernel = lambda: loss_grads(lambda a, b: mk.fused_moe_dispatch(a, b, capacity=c),  # noqa: E731
                                 mk.fused_moe_combine)
     plain = lambda: loss_grads(lambda a, b: mk.oracle_dispatch(a, b, c), mk.oracle_combine)  # noqa: E731
+    before = (mk.DISPATCH_BWD_LAUNCHES, mk.COMBINE_BWD_LAUNCHES)
     (lk, gk), (lp, gp) = kernel(), plain()
+    if (mk.DISPATCH_BWD_LAUNCHES - before[0], mk.COMBINE_BWD_LAUNCHES - before[1]) != (1, 1):
+        fail(f"K6/K7 gradients at N {n}, D {d}: the backward did not launch each backward kernel "
+             f"once")
     errs = {"loss": float((lk - lp).abs() / lp.abs())}
     for name, a, b in zip(("x", "gate", "b0"), gk, gp):
         errs[name] = float((a - b).abs().max() / b.abs().max())
@@ -1270,8 +1485,55 @@ def moe_grads(mk, n, d, e, c, gen) -> dict:
     return dict(n=n, d=d, e=e, c=c, rel_err=errs, fwd_bwd_ms=ms, plain_fwd_bwd_ms=plain_ms)
 
 
+def moe_graph_and_repeat(mk, label, n, d, e, c, gen) -> dict:
+    """Dispatch + combine (forward, no grad) captured in one CUDA graph: one
+    K6 and one K7 launch counted at capture, and each replay bitwise equal
+    to the eager calls, also after new inputs are copied into the captured
+    ones; and two eager dispatches of one input bitwise equal, fp_sum[1]
+    (summed across tiles) included. Continuous inputs, f32 and bf16."""
+    import torch
+
+    for dtype in ("float32", "bfloat16"):
+        x, g = moe_inputs(n, d, e, dtype, gen, continuous=True)
+        back = torch.randn(e, c, d, generator=gen, device="cuda")
+
+        def step():
+            send, top, pos, w, fp = mk.fused_moe_dispatch(x, g, capacity=c)
+            return send, top, pos, w, fp, mk.fused_moe_combine(back, top, pos, w)
+
+        with torch.no_grad():
+            first, second = mk.fused_moe_dispatch(x, g, capacity=c), mk.fused_moe_dispatch(x, g, capacity=c)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(first, second)):
+                fail(f"[moe-kernels] {label} {dtype}: two dispatches of one input differ")
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                step()
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            before = (mk.DISPATCH_LAUNCHES, mk.COMBINE_LAUNCHES)
+            with torch.cuda.graph(graph):
+                captured = step()
+            if (mk.DISPATCH_LAUNCHES - before[0], mk.COMBINE_LAUNCHES - before[1]) != (1, 1):
+                fail(f"[moe-kernels] {label}: capture did not count one K6 and one K7 launch")
+            for replay in range(2):
+                graph.replay()
+                eager = step()
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip(captured, eager)):
+                    fail(f"[moe-kernels] {label} {dtype}: graph replay {replay} != eager")
+                x.copy_(moe_inputs(n, d, e, dtype, gen, continuous=True)[0])
+        del graph, captured
+    say(f"[moe-kernels] {label}: dispatch + combine captured in one CUDA graph, 2 replays (the "
+        f"second on new inputs) bitwise equal to eager; two dispatches of one input bitwise "
+        f"equal, fp_sum included (f32 and bf16)")
+    return dict(label=label, graph_replays_equal=2, repeat_equal=True)
+
+
 def phase_moe_kernels(card: str) -> dict:
-    """[moe-kernels]: K6 and K7 against their plain versions on the card."""
+    """[moe-kernels]: K6, K7 and their backward kernels against their plain
+    versions on the card; graph capture and run-to-run determinism."""
     import torch
 
     from distribuuuu_tpu_torch.ops import moe_kernel as mk
@@ -1281,10 +1543,15 @@ def phase_moe_kernels(card: str) -> dict:
     cases = [moe_case(mk, *case, gen, bw) for case in MOE_CASES]
     near = [moe_near_tie(mk, *case, gen) for case in MOE_CASES[:4]]
     grads = [moe_grads(mk, n, d, e, c, gen) for label, n, d, e, c, dt in MOE_CASES[:3:2]]
+    graph = [moe_graph_and_repeat(mk, label, n, d, e, c, gen)
+             for label, n, d, e, c, dt in MOE_CASES[:3:2]]
     torch.cuda.empty_cache()
-    return dict(cases=cases, near_tie=near, grads=grads,
+    timed = [r for r in cases if "dispatch_bwd" in r]
+    return dict(cases=cases, near_tie=near, grads=grads, graph=graph,
                 max_abs_err=dict(dispatch=max(r["k6_max_abs_err"] for r in cases),
-                                 combine=max(r["k7_max_abs_err"] for r in cases)))
+                                 combine=max(r["k7_max_abs_err"] for r in cases),
+                                 dispatch_bwd=max(r["k6_bwd_max_abs_err"] for r in timed),
+                                 combine_bwd=max(r["k7_bwd_max_abs_err"] for r in timed)))
 
 
 def phase_moe_dist(tmp: Path) -> dict:
@@ -1316,9 +1583,10 @@ def phase_moe_dist(tmp: Path) -> dict:
                                 for i in range(len(ranks[0]["cuda/step_ms"])))
     worst: dict = {}
     for r, res in enumerate(ranks):
-        if res["cuda/launches"].tolist() != [1, 1] or res["cpu/launches"].tolist() != [0, 0]:
-            fail(f"[moe-dist] rank {r}: K6/K7 launches {res['cuda/launches'].tolist()} on the card "
-                 f"and {res['cpu/launches'].tolist()} on the CPU; want [1, 1] and [0, 0]")
+        for key, what in (("launches", "K6/K7"), ("bwd_launches", "K6/K7 backward")):
+            if res[f"cuda/{key}"].tolist() != [1, 1] or res[f"cpu/{key}"].tolist() != [0, 0]:
+                fail(f"[moe-dist] rank {r}: {what} launches {res[f'cuda/{key}'].tolist()} on the "
+                     f"card and {res[f'cpu/{key}'].tolist()} on the CPU; want [1, 1] and [0, 0]")
         for k in ("top", "pos"):
             if not np.array_equal(res[f"cuda/{k}"], res[f"cpu/{k}"]):
                 fail(f"[moe-dist] rank {r}: {k} differs between the card and the CPU")
@@ -1331,12 +1599,15 @@ def phase_moe_dist(tmp: Path) -> dict:
     say(f"[moe-dist] switch_moe on {e} ranks sharing the card (gloo), N {n} per rank, D {d}, "
         f"C {c}, expert tanh(h@w)@v H {h}: loss {float(ranks[0]['cuda/loss']):.6f}; card vs CPU, "
         f"relative to max|.|: " + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
-        + f" (limit {MOE_DIST_RTOL}); top/pos equal; K6 and K7 launched once per rank; "
+        + f" (limit {MOE_DIST_RTOL}); top/pos equal; K6, K7 and their backward kernels launched "
+        f"once per rank; "
         f"forward + backward step {step_ms:.2f} ms (median of 5, slowest rank, gloo through "
         f"the host); {wall:.1f} s for both runs, process start included")
     return dict(world=e, n_local=n, d=d, c=c, hidden=h, rel_err=worst, wall_s=wall, step_ms=step_ms,
                 launches=dict(dispatch=sum(int(r["cuda/launches"][0]) for r in ranks),
-                              combine=sum(int(r["cuda/launches"][1]) for r in ranks)),
+                              combine=sum(int(r["cuda/launches"][1]) for r in ranks),
+                              dispatch_bwd=sum(int(r["cuda/bwd_launches"][0]) for r in ranks),
+                              combine_bwd=sum(int(r["cuda/bwd_launches"][1]) for r in ranks)),
                 loss=float(ranks[0]["cuda/loss"]))
 
 
@@ -1366,7 +1637,8 @@ def main() -> None:
         with tempfile.TemporaryDirectory() as tmp:
             for arch in SERVED:
                 phase_profile_only(card, Path(tmp), arch)
-        say("[profile-only] latency and profile only; nothing was checked")
+        phase_moe_times(card)
+        say("[profile-only] latency, profile and MoE timings only; nothing was checked")
         return
     bw = hbm_bytes_per_s(card)
     sites = {arch: {b: epilogue_sites(arch, b) for b in (1, LADDER_BATCH)} for arch in SERVED}
@@ -1472,8 +1744,18 @@ def main() -> None:
             "tflops": r["tflops"],
         })
     soak = next(r for r in moe["cases"] if r["label"] == "soak" and r["dtype"] == "float32")
-    for kname, key, line in (("K6 fused_moe_dispatch", "dispatch", 154),
-                             ("K7 fused_moe_combine", "combine", 312)):
+    base = {dt: next(r for r in moe["cases"] if r["label"] == "switch-base" and r["dtype"] == dt)
+            for dt in ("float32", "bfloat16")}
+    timing = (f"ms, plain_ms, library_ms: device time (ms: the calls replayed from a CUDA graph, "
+              f"cycling through input sets of at least {K1_ROTATE_BYTES >> 20} MiB a replay; "
+              f"plain and library back to back)")
+    for kname, key, line, what in (
+            ("K6 fused_moe_dispatch", "dispatch", 154, "one switch_moe forward"),
+            ("K7 fused_moe_combine", "combine", 312, "one switch_moe forward"),
+            ("K6 backward", "dispatch_bwd", 269, "one switch_moe backward; it stands in for the "
+             "XLA recompute of the Pallas kernel's custom_vjp"),
+            ("K7 backward", "combine_bwd", 361, "one switch_moe backward; it stands in for the "
+             "XLA recompute of the Pallas kernel's custom_vjp")):
         r = soak[key]
         kernels.append({
             "name": kname,
@@ -1482,14 +1764,20 @@ def main() -> None:
             "replaces": f"distribuuuu_tpu/ops/moe_kernel.py:{line}",
             "launches": moe_dist["launches"][key],
             "max_abs_err": moe["max_abs_err"][key],
-            "ms": r["ms"],
+            "ms": r["device_ms"],
             "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
             "per": f"one call at N {soak['n']}, D {soak['d']}, E {soak['e']}, C {soak['c']}, x f32 "
-                   f"(the soak's shard); launches: {moe_dist['world']} ranks x one switch_moe "
-                   f"forward in [moe-dist]",
+                   f"(the soak's shard); {timing}; launches: {moe_dist['world']} ranks x {what} in "
+                   f"[moe-dist]",
+            "back_to_back_ms": r["back_to_back_ms"],
+            "single_call_ms": r["single_call_ms"],
+            "switch_base": {dt: {k: b[key][k] for k in ("device_ms", "back_to_back_ms",
+                                                         "single_call_ms", "plain_ms",
+                                                         "library_ms", "bound_ms")}
+                            for dt, b in base.items()},
         })
     say(smi)
     say(json.dumps({"kernels": kernels}))

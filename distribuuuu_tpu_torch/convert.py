@@ -20,6 +20,7 @@ by the JAX package reaches the port through ``export_state_dict`` and
 from __future__ import annotations
 
 import re
+from pathlib import Path
 from typing import Mapping
 
 import numpy as np
@@ -120,8 +121,16 @@ def load_weights(path: str) -> dict[str, torch.Tensor]:
     Loaded with ``weights_only=True`` (no arbitrary unpickling). A
     ``{"state_dict": ...}`` wrapper and ``module.`` prefixes are unwrapped,
     and torchvision's ``num_batches_tracked`` buffers are dropped: the
-    port's BN has none.
+    port's BN has none. A directory (an Orbax checkpoint of the JAX package)
+    raises a ValueError that names the export route.
     """
+    if Path(path).is_dir():
+        raise ValueError(
+            f"{path} is a directory: an Orbax checkpoint of the JAX package, which the port "
+            "cannot read without JAX. Export it where JAX is installed: "
+            "distribuuuu_tpu.convert.export_state_dict(variables, arch), then torch.save the "
+            "result to a .pt file and serve that"
+        )
     sd = torch.load(path, map_location="cpu", weights_only=True)
     if isinstance(sd.get("state_dict"), Mapping):
         sd = sd["state_dict"]

@@ -14,8 +14,9 @@ number of ``timed_steps`` to run after the checked one. The rank
 runs each case forward and backward, applies the gradient contract (gate
 grad all-reduce mean, expert grads / E) and writes ``rank<R>.npz`` beside
 the spec: per case the mean loss, its aux, out, top/pos, the grads, the
-K6/K7 launches its forward made and the timed steps' ms. :func:`run_ranks` spawns the E
-ranks for ``tests/test_torch_moe.py`` and ``chip_smoke.py``.
+K6/K7 launches its forward made, those of their backward kernels, and the
+timed steps' ms. :func:`run_ranks` spawns the E ranks for
+``tests/test_torch_moe.py`` and ``chip_smoke.py``.
 """
 
 from __future__ import annotations
@@ -59,12 +60,14 @@ def run_case(case: dict, rank: int, world: int) -> dict:
 
     # --- the main path: counts zeroed just before, read just after ---------
     mk.DISPATCH_LAUNCHES = mk.COMBINE_LAUNCHES = 0
+    mk.DISPATCH_BWD_LAUNCHES = mk.COMBINE_BWD_LAUNCHES = 0
     out, aux = switch_moe(xin, gate, experts, expert_fn, capacity=cap)
     launches = np.array([mk.DISPATCH_LAUNCHES, mk.COMBINE_LAUNCHES])
-    # -----------------------------------------------------------------------
     pred = out.float() + x if case["residual"] else out.float()
     loss = torch.mean((pred - y) ** 2) + 0.01 * aux
     loss.backward()
+    bwd_launches = np.array([mk.DISPATCH_BWD_LAUNCHES, mk.COMBINE_BWD_LAUNCHES])
+    # -----------------------------------------------------------------------
     g_gate = gate.grad.clone()
     dist.all_reduce(g_gate)
     mean_loss = loss.detach().clone()
@@ -76,6 +79,7 @@ def run_case(case: dict, rank: int, world: int) -> dict:
     res.update({f"{k}_grad": v.grad / world for k, v in experts.items()})
     res = {k: v.cpu().numpy() for k, v in res.items()}
     res["launches"] = launches
+    res["bwd_launches"] = bwd_launches
     steps = []  # optional: host-clock forward + backward steps after the checked one
     for _ in range(int(case.get("timed_steps", 0))):
         dist.barrier()

@@ -281,3 +281,157 @@ def test_cuda_moe_gradients_match_autograd_through_plain(cuda):
         for name, a, b in zip(("x", "gate", "b0"), gk, gp):
             tol = (2.0**-8 if name == "x" and dt == torch.bfloat16 else 1e-5) * float(b.abs().max())
             assert float((a - b).abs().max()) <= tol, (dt, name)
+
+
+@pytest.mark.gpu
+def test_cuda_moe_dispatch_is_one_kernel_per_call(cuda):
+    """K6 is one kernel launch per fused_moe_dispatch (the profiler's kernel
+    names; the scratch reset is a memset, not a kernel), K7 one per combine."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    n, d, e, c = 8192, 128, 8, 1280
+    x, g = _dyadic((n, d), 16, 8, gen, cuda), _dyadic((d, e), 32, 64, gen, cuda)
+    back = torch.randn(e, c, d, generator=gen, device=cuda)
+    with torch.no_grad():
+        _, top, pos, w, _ = moe.fused_moe_dispatch(x, g, capacity=c)
+        torch.cuda.synchronize()
+        calls = 4
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                moe.fused_moe_dispatch(x, g, capacity=c)
+                moe.fused_moe_combine(back, top, pos, w)
+            torch.cuda.synchronize()
+    names = [ev.name for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA
+             and "memset" not in ev.name.lower()]
+    assert sum("moe_dispatch_kernel" in k for k in names) == calls, names
+    assert sum("moe_combine_kernel" in k for k in names) == calls, names
+    assert len(names) == 2 * calls, names
+
+
+@pytest.mark.gpu
+def test_cuda_moe_graph_capture_replays_bitwise(cuda):
+    """Dispatch + combine (forward, no grad) captured in one CUDA graph: each
+    replay equals the eager calls bitwise, also after new inputs are copied
+    into the captured ones (the look-back scratch is reset on the stream)."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    n, d, e, c = 8192, 768, 8, 1280
+    x = torch.randn(n, d, generator=gen, device=cuda) * 0.5
+    g = torch.randn(d, e, generator=gen, device=cuda) * 0.1
+    back = torch.randn(e, c, d, generator=gen, device=cuda)
+
+    def step():
+        send, top, pos, w, fp = moe.fused_moe_dispatch(x, g, capacity=c)
+        return send, top, pos, w, fp, moe.fused_moe_combine(back, top, pos, w)
+
+    with torch.no_grad():
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            step()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        before = (moe.DISPATCH_LAUNCHES, moe.COMBINE_LAUNCHES)
+        with torch.cuda.graph(graph):
+            captured = step()
+        assert (moe.DISPATCH_LAUNCHES - before[0], moe.COMBINE_LAUNCHES - before[1]) == (1, 1)
+        for _ in range(2):
+            graph.replay()
+            eager = step()
+            torch.cuda.synchronize()
+            for a, b in zip(captured, eager):
+                assert torch.equal(a, b)
+            x.copy_(torch.randn(n, d, generator=gen, device=cuda) * 0.5)
+
+
+@pytest.mark.gpu
+def test_cuda_moe_dispatch_is_deterministic(cuda):
+    """Two dispatches of the same continuous input are bitwise equal,
+    fp_sum[1] (summed across tiles) included, for both x dtypes; n 0 gives
+    an all-zero send."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    for n, d, e, c in [(8192, 128, 8, 1280), (8191, 768, 16, 640)]:
+        for dt in (torch.float32, torch.bfloat16):
+            x = (torch.randn(n, d, generator=gen, device=cuda) * 0.5).to(dt)
+            g = torch.randn(d, e, generator=gen, device=cuda) * 0.1
+            first = moe.fused_moe_dispatch(x, g, capacity=c)
+            second = moe.fused_moe_dispatch(x, g, capacity=c)
+            torch.cuda.synchronize()
+            for a, b in zip(first, second):
+                assert torch.equal(a, b), (n, d, e, c, dt)
+    send, top, _, _, fp = moe.fused_moe_dispatch(torch.zeros(0, 64, device=cuda),
+                                                 torch.zeros(64, 4, device=cuda), capacity=3)
+    assert top.shape == (0,) and not bool(send.any()) and not bool(fp.any())
+
+
+@pytest.mark.gpu
+def test_cuda_moe_backward_kernels_match_plain(cuda):
+    """K6's and K7's backward kernels against their plain versions on dyadic
+    inputs and seeded cotangents: d_back bitwise (w·g into each kept slot,
+    zeros elsewhere); d_w, d_x and d_gate within 1e-5 of each max|grad| (a
+    bf16 d_x within one bf16 rounding, 2^-8); one launch each."""
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    for n, d, e, c in [(8192, 128, 8, 1280), (8192, 768, 8, 1280), (1000, 30, 16, 40),
+                       (4096, 128, 8, 300)]:
+        for dt in (torch.float32, torch.bfloat16):
+            x = _dyadic((n, d), 16, 8, gen, cuda).to(dt)
+            g = _dyadic((d, e), 32, 64, gen, cuda)
+            send, top, pos, w, fp, probs = moe._dispatch_cuda(x, g, c, want_probs=True)
+            d_send = torch.randn(e, c, d, generator=gen, device=cuda)
+            d_w = torch.randn(n, generator=gen, device=cuda)
+            d_fp = torch.randn(2, e, generator=gen, device=cuda)
+            before = (moe.DISPATCH_BWD_LAUNCHES, moe.COMBINE_BWD_LAUNCHES)
+            d_x, d_logits = moe._dispatch_bwd_cuda(x, g, probs, top, pos, w, d_send, d_w, d_fp, c,
+                                                   True)
+            d_gate = x.float().t() @ d_logits
+            want_x, want_gate = moe.dispatch_backward_reference(x, g, top, pos, w, d_send, d_w,
+                                                                d_fp, c)
+            back = torch.randn(e, c, d, generator=gen, device=cuda)
+            out_g = torch.randn(n, d, generator=gen, device=cuda)
+            d_back, d_wc = moe._combine_bwd_cuda(back, top, pos, w, out_g, True, True)
+            want_back, want_wc = moe.combine_backward_reference(back, top, pos, w, out_g)
+            torch.cuda.synchronize()
+            assert (moe.DISPATCH_BWD_LAUNCHES - before[0], moe.COMBINE_BWD_LAUNCHES - before[1]) == (1, 1)
+            case = (n, d, e, c, dt, int((w == 0).sum()))
+            assert d_x.dtype == dt and torch.equal(d_back, want_back), case
+            x_tol = 2.0**-8 if dt == torch.bfloat16 else 1e-5
+            for name, a, b, tol in (("d_x", d_x, want_x, x_tol), ("d_gate", d_gate, want_gate, 1e-5),
+                                    ("d_w", d_wc, want_wc, 1e-5)):
+                err = float((a.float() - b.float()).abs().max())
+                assert err <= tol * float(b.float().abs().max()), (case, name, err)
+
+
+@pytest.mark.gpu
+def test_cuda_moe_combine_backward_takes_any_routing(cuda):
+    """K7's backward kernel on routings fused_moe_dispatch does not produce,
+    against the plain version on the CPU: kept tokens whose w is 0 (their
+    slots zeros, not left unwritten), two tokens with w != 0 in one slot
+    (their sum, within 1e-6 of its max), and drops; d_back starts from
+    memory the allocator last filled with NaN. d_w within 1e-5 of its max;
+    vector (D 128) and scalar (D 30) routes."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    for n, d, e, c in [(4096, 128, 8, 300), (1000, 30, 8, 100)]:
+        x, g = _dyadic((n, d), 16, 8, gen, cuda), _dyadic((d, e), 32, 64, gen, cuda)
+        _, top, pos, w, _ = moe.fused_moe_dispatch(x, g, capacity=c)
+        kept = (w != 0).nonzero()[:, 0]
+        w = w.clone()
+        w[kept[::7]] = 0.0
+        top, pos = top.clone(), pos.clone()
+        i, j = kept[1], kept[2]
+        top[j], pos[j] = top[i], pos[i]
+        back = torch.randn(e, c, d, generator=gen, device=cuda)
+        out_g = torch.randn(n, d, generator=gen, device=cuda)
+        del x
+        torch.full((e, c, d), float("nan"), device=cuda)  # freed: empty_like may reuse it
+        d_back, d_w = moe._combine_bwd_cuda(back, top, pos, w, out_g, True, True)
+        want_back, want_w = moe.combine_backward_reference(back.cpu(), top.cpu(), pos.cpu(),
+                                                           w.cpu(), out_g.cpu())
+        got = d_back.cpu()
+        shared = (int(top[i]), int(pos[i]))
+        assert torch.allclose(got[shared], want_back[shared], rtol=0, atol=1e-6 * float(
+            want_back[shared].abs().max())), (n, d)
+        got[shared] = want_back[shared]
+        assert torch.equal(got, want_back), (n, d, int((got != want_back).sum()))
+        err = float((d_w.cpu() - want_w).abs().max())
+        assert err <= 1e-5 * float(want_w.abs().max()), (n, d, err)
+

@@ -3,7 +3,10 @@
 - CPU: the port's dispatch/combine (their plain versions on a CPU tensor)
   equal the JAX Pallas kernels (interpreter) and the JAX oracles on the
   same seeded inputs, including a ragged tile, a single tile, capacity 1
-  and tied probabilities; the port's index-op backward equals
+  and tied probabilities; the plain backward of each kernel
+  (``dispatch_backward_reference``, ``combine_backward_reference``) equals
+  ``jax.vjp`` through the JAX oracles, with and without ties and drops; the
+  port's index-op backward equals
   ``jax.value_and_grad`` through the JAX fused path and autograd through
   the port's own oracle; ``switch_moe`` over a 4-rank ``gloo`` group equals
   the JAX ``switch_moe(fused=True)`` on a 4-device expert mesh (loss, out,
@@ -156,6 +159,97 @@ def test_index_op_backward_matches_autograd_through_the_oracle():
             np.testing.assert_allclose(a, b, rtol=rtol, atol=1e-6)
 
 
+# (tied gate columns, capacity) at n 41, E 8: capacity 16 keeps every token,
+# capacity 3 drops some; tied: every token's first two probabilities tie
+BWD_CASES = [(False, 16), (False, 3), (True, 16), (True, 3)]
+BWD_N = 41
+
+
+def _bwd_routing(tied, capacity):
+    """Seeded (x, gate) and the JAX oracle's routing; the case drops tokens
+    exactly when it says it does."""
+    x, gate = _inputs(BWD_N, seed=13, tied=tied)
+    _, top, pos, w, _ = jmk.oracle_dispatch(jnp.asarray(x), jnp.asarray(gate), capacity)
+    top, pos, w = (np.array(a) for a in (top, pos, w))
+    assert bool((w == 0).any()) == (capacity == 3), "the case does not drop as it says"
+    if tied:
+        assert (top != 1).all()  # the lower expert won every tied token
+    return x, gate, top, pos, w
+
+
+def _close(got, want):
+    """rtol 1e-5 as tests/test_moe_kernel.py; XLA and torch sum in other
+    orders, so an entry that cancels keeps the rounding of its larger terms:
+    atol 1e-6 of the gradient's scale."""
+    want = np.asarray(want)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5,
+                               atol=1e-6 * max(1.0, float(np.abs(want).max())))
+
+
+@pytest.mark.parametrize("tied,capacity", BWD_CASES)
+def test_dispatch_backward_reference_matches_jax_vjp(tied, capacity):
+    """K6's plain backward against jax.vjp through the JAX oracle_dispatch,
+    for seeded cotangents of send, w and fp_sum (fp_sum[0] is a count: its
+    cotangent must carry nothing)."""
+    x, gate, top, pos, w = _bwd_routing(tied, capacity)
+    rng = np.random.default_rng(14)
+    d_send = rng.standard_normal((E, capacity, D)).astype(np.float32)
+    d_w = rng.standard_normal(BWD_N).astype(np.float32)
+    d_fp = rng.standard_normal((2, E)).astype(np.float32)
+
+    def diff_outputs(x_, g_):
+        send, _top, _pos, w_, fp = jmk.oracle_dispatch(x_, g_, capacity)
+        return send, w_, fp
+
+    _, pull = jax.vjp(diff_outputs, jnp.asarray(x), jnp.asarray(gate))
+    want_x, want_gate = pull((jnp.asarray(d_send), jnp.asarray(d_w), jnp.asarray(d_fp)))
+    d_x, d_gate = mk.dispatch_backward_reference(
+        torch.from_numpy(x), torch.from_numpy(gate), torch.from_numpy(top), torch.from_numpy(pos),
+        torch.from_numpy(w), torch.from_numpy(d_send), torch.from_numpy(d_w),
+        torch.from_numpy(d_fp), capacity)
+    _close(d_x, want_x)
+    _close(d_gate, want_gate)
+    only_x, none = mk.dispatch_backward_reference(
+        torch.from_numpy(x), torch.from_numpy(gate), torch.from_numpy(top), torch.from_numpy(pos),
+        torch.from_numpy(w), torch.from_numpy(d_send), torch.from_numpy(d_w),
+        torch.from_numpy(d_fp), capacity, need_gate=False)
+    assert none is None and torch.equal(only_x, d_x)
+
+
+@pytest.mark.parametrize("tied,capacity,reroute",
+                         [(t, c, False) for t, c in BWD_CASES] + [(False, 3, True)])
+def test_combine_backward_reference_matches_jax_vjp(tied, capacity, reroute):
+    """K7's plain backward against jax.vjp through the JAX oracle_combine on
+    the oracle's routing: d_back (zeros in every slot no kept token fills)
+    and d_w (dropped tokens included). ``reroute``: a routing dispatch does
+    not make, with a kept token's w set to 0 (its slot gets zeros) and a
+    second token with w != 0 moved into a kept token's slot (the slot gets
+    both w·g)."""
+    _, _, top, pos, w = _bwd_routing(tied, capacity)
+    kept = np.flatnonzero(w != 0)
+    if reroute:
+        w, top, pos = w.copy(), top.copy(), pos.copy()
+        w[kept[0]] = 0.0
+        top[kept[2]], pos[kept[2]] = top[kept[1]], pos[kept[1]]
+    rng = np.random.default_rng(15)
+    back = rng.standard_normal((E, capacity, D)).astype(np.float32)
+    g = rng.standard_normal((BWD_N, D)).astype(np.float32)
+    _, pull = jax.vjp(lambda b_, w_: jmk.oracle_combine(b_, jnp.asarray(top), jnp.asarray(pos), w_),
+                      jnp.asarray(back), jnp.asarray(w))
+    want_back, want_w = pull(jnp.asarray(g))
+    d_back, d_w = mk.combine_backward_reference(
+        torch.from_numpy(back), torch.from_numpy(top), torch.from_numpy(pos), torch.from_numpy(w),
+        torch.from_numpy(g))
+    _close(d_back, want_back)
+    _close(d_w, want_w)
+    filled = np.zeros((E, capacity), bool)
+    filled[top[w != 0], pos[w != 0]] = True
+    assert (d_back.numpy()[~filled] == 0).all()
+    if reroute:
+        np.testing.assert_allclose(d_back.numpy()[top[kept[1]], pos[kept[1]]],
+                                   w[kept[1]] * g[kept[1]] + w[kept[2]] * g[kept[2]], rtol=1e-6)
+
+
 def test_token_slot_positions_is_int32_and_matches_jax():
     top = np.random.default_rng(9).integers(0, E, 97)
     onehot = np.eye(E, dtype=np.float32)[top]
@@ -287,6 +381,7 @@ def test_switch_moe_over_gloo_matches_jax_expert_mesh(torch_ranks, name):
     want = _jax_switch_moe(data[name], capacity, getattr(jnp, dtype))
     for r, res in enumerate(ranks):
         assert res[f"{name}/launches"].tolist() == [0, 0]  # CPU tensors: the plain versions
+        assert res[f"{name}/bwd_launches"].tolist() == [0, 0]
         np.testing.assert_allclose(float(res[f"{name}/loss"]), want["loss"], rtol=loss_rtol)
         np.testing.assert_allclose(res[f"{name}/gate_grad"], want["gate_grad"], rtol=grad_rtol,
                                    atol=grad_atol)

@@ -25,6 +25,7 @@ from distribuuuu_tpu.data.transforms import device_normalize as jax_device_norma
 from distribuuuu_tpu.convert import export_state_dict
 from distribuuuu_tpu.models import build_model as jax_build_model
 from distribuuuu_tpu_torch import config as port_config
+from distribuuuu_tpu_torch.convert import load_weights
 from distribuuuu_tpu_torch.serve.batcher import MicroBatcher, QueueFullError
 from distribuuuu_tpu_torch.serve.engine import InferenceEngine, ModelSpec, parse_model_specs
 from distribuuuu_tpu_torch.serve.frontend import BadRequest, ServeReplica, serve_main
@@ -118,6 +119,22 @@ def test_engine_refuses_off_ladder_and_wrong_dtype(rn18):
         engine.load(ModelSpec("q", "resnet18", weights, quant="int8"))
     with pytest.raises(NotImplementedError):
         engine.stage("rn18", weights)
+
+
+def test_load_weights_on_a_directory_names_the_export_route(tmp_path):
+    """The shipped serve YAML names an Orbax directory (``rn50=resnet50@./w_rn50``),
+    which the port cannot read without JAX: load_weights, and an engine whose
+    spec points at a directory, raise a message that names the export route."""
+    orbax = tmp_path / "w_rn50"
+    orbax.mkdir()
+    (orbax / "checkpoint").write_bytes(b"")
+    with pytest.raises(ValueError, match="export_state_dict.*torch.save"):
+        load_weights(str(orbax))
+    engine = InferenceEngine(batch_sizes=LADDER, im_size=IM, num_classes=CLASSES,
+                             compute_dtype="float32", device="cpu")
+    with pytest.raises(ValueError, match="is a directory"):
+        engine.load(ModelSpec("rn50", "resnet18", str(orbax)))
+    assert not engine.models
 
 
 def test_spec_parsing_and_batcher_shed():
