@@ -72,7 +72,22 @@ Phases (any failure exits non-zero):
    C 640, then the same ranks on the CPU (plain versions): loss, aux, out,
    routing and gradients must agree, and every rank must launch K6, K7 and
    their backward kernels once each;
-10. the ``{"kernels": [...]}`` line; 11. the ``{"ok": true, ...}`` last line.
+10. [k1-bwd] (after [k1]) K1's backward kernel against its plain version
+   (autograd through ``epilogue_reference``) at every K1 site of a ResNet-50
+   training step at batch 128, 224^2 (bf16 boundaries: the training modes,
+   from :func:`epilogue_sites`) and at the served model's sites with f32
+   boundaries in their modes: d_x and d_identity bitwise, the per-channel
+   sums within K1_BWD_SUM_RTOL of sum|terms|, two calls bitwise equal; timed
+   at the training sites as [k1] is, beside the plain version, autograd
+   through the ``F.batch_norm`` composition and the bytes bound;
+11. [train] ``python -m distribuuuu_tpu_torch.train_net --cfg
+   config/resnet50.yaml MODEL.DUMMY_INPUT True TRAIN.BATCH_SIZE 128`` for 40
+   steps as a subprocess: the loss finite and falling, 53 K1 and 53 K1-bwd
+   launches a step (none on the scalar route), a checkpoint verified against
+   its manifest, ``test_net`` on it, a relaunch that resumes from it; step ms,
+   images/s and the profile of 3 steps by kernel class; then one f32
+   ResNet-18 step at 64^2, card vs CPU;
+12. the ``{"kernels": [...]}`` line; 13. the ``{"ok": true, ...}`` last line.
 
 Each path is driven with the launch counts set to 0 just before it and read
 just after. Per-shape numbers are also written to ``smoke_out/``.
@@ -84,6 +99,7 @@ import base64
 import importlib.util
 import itertools
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -152,12 +168,13 @@ F32_PEAK_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
 BF16_PEAK_FLOPS = 989e12  # H100 SXM, dense bf16 on the tensor cores
 
 
-def epilogue_sites(arch: str, n: int, im: int = IM) -> Counter:
+def epilogue_sites(arch: str, n: int, im: int = IM, bn_dtype=None) -> Counter:
     """(N, H, W, C, residual, relu, mode) -> K1 calls in one bf16 forward of
     ``arch`` at batch ``n``, recorded by a spy on K1 while the model runs on
     the meta device (shapes only, no data; the attention returns an empty
     tensor of its shape). mode: a (the BN boundary), b (the next conv's
-    input), c (both)."""
+    input), c (both). ``bn_dtype``: the boundaries' dtype (None: f32, as
+    served; bf16: as trained, where b and c are one tensor)."""
     import torch
 
     from distribuuuu_tpu_torch.models import botnet, build_model, layers
@@ -176,7 +193,8 @@ def epilogue_sites(arch: str, n: int, im: int = IM) -> Counter:
 
     real = layers.fused_conv_epilogue, botnet.fused_attention
     with torch.device("meta"):
-        model = build_model(arch, num_classes=1000, dtype=torch.bfloat16, im_size=im)
+        model = build_model(arch, num_classes=1000, dtype=torch.bfloat16, im_size=im,
+                            bn_dtype=bn_dtype or torch.float32)
     layers.fused_conv_epilogue, botnet.fused_attention = k1, attention
     try:
         with torch.inference_mode():
@@ -370,6 +388,354 @@ def phase_k1_scalar(ep, gen, bw) -> tuple[dict, float]:
             f"{calls} calls over {sets} input sets)")
         del inputs
     return res, err
+
+
+# K1-bwd's per-channel sums against the plain version's, relative to an upper
+# bound of the sum of |terms| per channel (k1_bwd_scales): both are f32 sums of
+# the same rounded products in different orders (the kernel: per-thread runs,
+# a block tree, a fixed-order pass over the blocks; PyTorch: its reduction
+# tree), each within a few hundred roundings (2^-24) of the sum of |terms| at
+# every ResNet-50 site; 1e-5 is above that and far below a wrong term.
+K1_BWD_SUM_RTOL = 1e-5
+TRAIN_K1 = 53  # K1 launches per ResNet-50 training step, forward; as many K1-bwd backward
+
+
+def k1_bwd_bound(site, bw: float, x_b: int = 2, res_b: int = 2, g_b: int = 2,
+                 cast_b: int = 0) -> tuple[float, int, str]:
+    """(bound ms, bytes, what bounds it) of one K1-bwd call at ``site``
+    (N, H, W, C, residual, relu, mode): read g (``g_b`` bytes an element;
+    ``cast_b`` more for a second gradient, mode c), x, and the residual
+    where ReLU needs it for the mask; write d_x and d_identity (a
+    residual); the per-channel vectors: mean, mul, bias read, d_mean, d_mul,
+    d_bias written (6 x C x 4). The kernel's own block partials are
+    scratch, not counted. About 10 f32 operations an element."""
+    n, h, w, c, res, relu, _mode = site
+    elems = n * h * w * c
+    nbytes = elems * (g_b + cast_b + x_b + (res_b if res and relu else 0) + x_b
+                      + (res_b if res else 0)) + 6 * c * 4
+    flops = 10 * elems
+    by = "bytes" if nbytes / bw >= flops / F32_PEAK_FLOPS else "operations"
+    return 1e3 * max(nbytes / bw, flops / F32_PEAK_FLOPS), nbytes, by
+
+
+def k1_bwd_scales(ep, args, grads, kw):
+    """Per channel, upper bounds of sum|terms| of d_mean, d_mul and d_bias:
+    the plain backward fed |g| gives sum|g1| (the ReLU mask and the
+    roundings keep |.|), times |mul| and max|x - mean|."""
+    x, mean, mul = args[:3]
+    s = ep.epilogue_backward_reference(*args, *[None if g is None else g.abs() for g in grads],
+                                       **kw)[3]
+    spread = (x.float() - mean.view(1, -1, 1, 1)).abs().amax((0, 2, 3))
+    return s * mul.abs(), s * spread, s
+
+
+def k1_bwd_check(ep, args, grads, kw, what: str) -> tuple[float, float]:
+    """K1-bwd against its plain version: d_x and d_identity bitwise, the
+    sums within K1_BWD_SUM_RTOL; two calls bitwise equal. Returns (max|kernel
+    - plain| over every output, worst sum error relative to its bound)."""
+    import torch
+
+    got = ep.fused_conv_epilogue_backward(*args, *grads, **kw)
+    again = ep.fused_conv_epilogue_backward(*args, *grads, **kw)
+    want = ep.epilogue_backward_reference(*args, *grads, **kw)
+    torch.cuda.synchronize()
+    for g, a in zip(got, again):
+        if (g is None) != (a is None) or (g is not None and not torch.equal(g, a)):
+            fail(f"K1-bwd: two calls differ at {what}")
+    err = 0.0
+    for name, g, w in (("d_x", got[0], want[0]), ("d_identity", got[4], want[4])):
+        if (g is None) != (w is None):
+            fail(f"K1-bwd {name} missing at {what}")
+        if g is None:
+            continue
+        if g.dtype != w.dtype or not g.is_contiguous(memory_format=torch.channels_last):
+            fail(f"K1-bwd {name} dtype/layout wrong at {what}")
+        if not torch.equal(g, w):
+            fail(f"K1-bwd {name} != plain at {what}: max|d|={(g.float() - w.float()).abs().max()}")
+    worst = 0.0
+    for name, g, w, sc in zip(("d_mean", "d_mul", "d_bias"), got[1:4], want[1:4],
+                              k1_bwd_scales(ep, args, grads, kw)):
+        err = max(err, (g - w).abs().max().item())
+        rel = ((g - w).abs() / sc.clamp_min(1e-30)).max().item()
+        if not rel <= K1_BWD_SUM_RTOL:
+            fail(f"K1-bwd {name} at {what}: {rel:.3e} of sum|terms| (limit {K1_BWD_SUM_RTOL})")
+        worst = max(worst, rel)
+    return err, worst
+
+
+def phase_k1_bwd(card: str, train_sites: Counter, serve_sites: Counter):
+    """K1-bwd against its plain version at every K1 site of a ResNet-50
+    training step at batch 128 (bf16 boundaries: ``train_sites``) and, as
+    the f32-boundary case, at the served model's sites in their modes
+    (``serve_sites``), timed at the training sites three ways as [k1] does
+    (device time from a CUDA-graph replay over >= 128 MiB of input sets, 10
+    calls back to back, one call from an idle stream), beside the plain
+    version (autograd through epilogue_reference), autograd through the
+    ``F.batch_norm`` composition of the same outputs (d_x, d_mul, d_bias,
+    d_identity; it has no gradient for a running mean) and the bytes bound.
+    Returns (rows, per-step sums, max|kernel - plain|, worst sum error)."""
+    import torch
+    import torch.nn.functional as F
+
+    from distribuuuu_tpu_torch.ops import epilogue as ep
+
+    bw = hbm_bytes_per_s(card)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    rows, err, worst = [], 0.0, 0.0
+
+    def grad_like(x, dtype):
+        return torch.randn(x.shape, generator=gen, device="cuda").to(dtype).contiguous(
+            memory_format=torch.channels_last)
+
+    # the f32-boundary case: x bf16, f32 boundary and residual, the cast bf16
+    for site in sorted(serve_sites):
+        n, h, w, c, res, relu, mode = site
+        args = k1_inputs(n, h, w, c, res, torch.float32, gen)
+        kw = k1_kwargs(mode, relu, torch.float32, torch.bfloat16)
+        grads = (None if mode == "b" else grad_like(args[0], torch.float32),
+                 None if mode == "a" else grad_like(args[0], torch.bfloat16))
+        e, r = k1_bwd_check(ep, args, grads, kw, f"{site} f32 boundary")
+        err, worst = max(err, e), max(worst, r)
+        del args, grads
+    say(f"[k1-bwd] f32 boundaries, x bf16, cast bf16: {len(serve_sites)} sites of the served "
+        f"ResNet-50 in their modes: d_x, d_identity equal plain, sums within "
+        f"{worst:.2e} of sum|terms| (limit {K1_BWD_SUM_RTOL}), two calls equal")
+    shapes: Counter = Counter()  # with bf16 boundaries every mode is one output: by shape
+    for site, m in train_sites.items():
+        shapes[(*site[:6], "a")] += m
+    for site in sorted(shapes):
+        n, h, w, c, res, relu, _mode = site
+        kw = dict(relu=relu, bn_dtype=torch.bfloat16)
+        bound_ms, nbytes, bound_by = k1_bwd_bound(site, bw)
+        sets, calls = k1_rotation(nbytes)
+        inputs = []
+        for _ in range(sets):
+            args = k1_inputs(n, h, w, c, res, torch.bfloat16, gen)
+            inputs.append((args, (grad_like(args[0], torch.bfloat16), None)))
+        e, r = k1_bwd_check(ep, *inputs[0], kw, f"{site} bf16")
+        err, worst = max(err, e), max(worst, r)
+
+        def calls_of(fn):
+            return [lambda a=inputs[i % sets]: fn(*a[0], *a[1], **kw) for i in range(calls)]
+
+        kernel = calls_of(ep.fused_conv_epilogue_backward)
+        device_ms = graph_ms(kernel)
+        ms = cuda_ms(cycling(kernel), batch=K1_BATCH)
+        single_ms = cuda_ms(cycling(kernel))
+        plain_ms = cuda_ms(cycling(calls_of(ep.epilogue_backward_reference)), runs=5,
+                           batch=K1_BATCH)
+        # yardstick: autograd through F.batch_norm (var + eps ~ 1, so it applies ~mul)
+        var = torch.full((c,), 1.0 - 1e-5, device="cuda")
+        graphs = []
+        for (x, mean, mul, bias, ident), (g, _) in inputs[:min(sets, 4)]:
+            xl, ml, bl = (t.detach().requires_grad_() for t in (x, mul, bias))
+            il = None if ident is None else ident.detach().requires_grad_()
+            y = F.batch_norm(xl.float(), mean, var, ml, bl, False, 0.0, 1e-5).to(torch.bfloat16)
+            if il is not None:
+                y = y + il
+            if relu:
+                y = torch.relu(y)
+            leaves = [t for t in (xl, ml, bl, il) if t is not None]
+            graphs.append((y, leaves, g))
+        lib_ms = cuda_ms(cycling([lambda t=t: torch.autograd.grad(t[0], t[1], t[2], retain_graph=True)
+                                  for t in graphs]), runs=10, batch=K1_BATCH)
+        del graphs
+        mult = shapes[site]
+        rows.append(dict(n=n, h=h, w=w, c=c, residual=res, relu=relu, per_step=mult,
+                         input_sets=sets, calls=calls, device_ms=device_ms, ms=ms,
+                         single_call_ms=single_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bytes=nbytes, bound_ms=bound_ms, bound_by=bound_by))
+        say(f"[k1-bwd] N{n} {h}x{w} C{c} res={int(res)} relu={int(relu)} bf16, {mult} a step: "
+            f"equal; device {device_ms:.4f} ms ({100 * bound_ms / device_ms:.0f}% of bound "
+            f"{bound_ms:.4f} = {nbytes / 1e6:.1f} MB / {bw / 1e12:.2f} TB/s; {calls} calls over "
+            f"{sets} input sets), back-to-back {ms:.4f}, single call {single_ms:.4f}; plain "
+            f"{plain_ms:.4f}, autograd through F.batch_norm {lib_ms:.4f}")
+        del inputs
+    torch.cuda.empty_cache()
+    per_step = {k: sum(r[k] * r["per_step"] for r in rows)
+                for k in ("device_ms", "ms", "single_call_ms", "plain_ms", "library_ms",
+                          "bound_ms", "bytes")}
+    say(f"[k1-bwd] per ResNet-50 training step at batch {LADDER_BATCH} "
+        f"({sum(train_sites.values())} launches; x, g, residual, d_x, d_identity bf16): device "
+        f"{per_step['device_ms']:.3f} ms ({100 * per_step['bound_ms'] / per_step['device_ms']:.0f}%"
+        f" of bound {per_step['bound_ms']:.3f} ms, {per_step['bytes'] / 1e9:.2f} GB), "
+        f"{per_step['ms']:.3f} back-to-back, {per_step['single_call_ms']:.3f} single calls; plain "
+        f"{per_step['plain_ms']:.3f}, autograd through F.batch_norm {per_step['library_ms']:.3f}; "
+        f"max|kernel - plain| {err:.3e}, sums within {worst:.2e} of sum|terms|")
+    return rows, per_step, err, worst
+
+
+# [train]: ResNet-50 steps at full width through the training CLI
+TRAIN_STEPS = 40  # steps of the counted epoch
+TRAIN_PRINT = 5  # TRAIN.PRINT_FREQ: a progress line (and a window time) every 5 steps
+TRAIN_PROFILE = (30, 3)  # TRAIN.PROFILE_START, TRAIN.PROFILE_STEPS
+# one f32 step of ResNet-18 at 64^2 (TF32 off), card vs CPU, within this of
+# each tensor's max|.|: summation order in the convs and the statistics,
+# through one SGD step
+TRAIN_F32_REL_TOL = 1e-3
+
+
+def run_cli(args: list, what: str, timeout: int = 600) -> str:
+    """``python -m <args>`` from the repository's root; its log (stderr)."""
+    proc = subprocess.run([sys.executable, "-m", *args], cwd=ROOT, capture_output=True,
+                          text=True, timeout=timeout)
+    if proc.returncode != 0:
+        fail(f"{what} exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    return proc.stderr
+
+
+def train_profile(path: Path, steps: int, bound_ms: dict) -> dict:
+    """Device time per training step by kernel class from the trainer's
+    TRAIN.PROFILE window (``OUT_DIR/profile/train_steps.json``), the idle
+    share between the window's first kernel start and last kernel end."""
+    data = json.loads(path.read_text())
+    spans = data["events"]
+    if not spans:
+        say("[train] the profiler recorded no device time (not measured)")
+        return {}
+    by_class: Counter = Counter()
+    count: Counter = Counter()
+    by_name: Counter = Counter()
+    for name, start, end in spans:
+        cls = kernel_class(name)
+        by_class[cls] += end - start
+        count[cls] += 1
+        by_name[name[:70]] += end - start
+    busy, last = 0.0, None
+    for _, start, end in sorted(spans, key=lambda e: e[1]):
+        if last is None or start >= last:
+            busy += end - start
+            last = end
+        elif end > last:
+            busy += end - last
+            last = end
+    window = max(e for _, _, e in spans) - min(s for _, s, _ in spans)
+    res = {"per_step_us": {k: v / steps for k, v in by_class.items()},
+           "events_per_step": {k: v / steps for k, v in count.items()},
+           "busy_per_step_us": busy / steps, "idle_share": 1.0 - busy / window,
+           "window_wall_ms": data["wall_ms"], "kernels_per_step": len(spans) / steps,
+           "top": [(n, t / steps) for n, t in by_name.most_common(12)]}
+    say(f"[train profile] ResNet-50 batch {data['batch']}, per step over {steps} steps: " + ", ".join(
+        f"{k} {v:.0f} us in {res['events_per_step'][k]:.0f}"
+        for k, v in sorted(res["per_step_us"].items()))
+        + f"; device busy {res['busy_per_step_us']:.0f} us, idle share "
+        f"{100 * res['idle_share']:.1f}%, {res['kernels_per_step']:.0f} kernels; K1 bound "
+        f"{1e3 * bound_ms['k1']:.0f} us, K1-bwd bound {1e3 * bound_ms['k1_bwd']:.0f} us")
+    say("[train profile] top kernels per step: " + "; ".join(
+        f"{n} {t:.0f} us" for n, t in res["top"]))
+    return res
+
+
+def phase_train(card: str, tmp: Path, bound_ms: dict) -> dict:
+    """The port's training path at full width: ``python -m
+    distribuuuu_tpu_torch.train_net --cfg config/resnet50.yaml
+    MODEL.DUMMY_INPUT True TRAIN.BATCH_SIZE 128 OPTIM.MAX_EPOCH 1`` over
+    TRAIN_STEPS steps into a temporary OUT_DIR, as a subprocess: the loss
+    finite and falling; 53 K1 and 53 K1-bwd launches a step, none on the
+    scalar route (the trainer counts them over the epoch's steps, its
+    counts set to 0 just before the first step and read just after the
+    last); a checkpoint and its manifest; ``test_net`` on it reporting
+    Acc@1; a relaunch with ``OPTIM.MAX_EPOCH 2`` resuming from it. Step ms
+    and images/s from the progress lines before the profiler window; the
+    profile by kernel class. Then one f32 ResNet-18 step card vs CPU."""
+    from distribuuuu_tpu_torch import checkpoint as ckpt
+
+    out = tmp / "train"
+    common = ["--cfg", "config/resnet50.yaml", "MODEL.DUMMY_INPUT", "True",
+              "TRAIN.BATCH_SIZE", str(LADDER_BATCH), "TEST.BATCH_SIZE", str(LADDER_BATCH),
+              "TRAIN.PRINT_FREQ", str(TRAIN_PRINT), "RNG_SEED", "0", "OUT_DIR", str(out)]
+    tic = time.perf_counter()
+    log = run_cli(["distribuuuu_tpu_torch.train_net", *common, "OPTIM.MAX_EPOCH", "1",
+                   "TRAIN.DUMMY_EPOCH_SAMPLES", str(LADDER_BATCH * TRAIN_STEPS),
+                   "TRAIN.PROFILE", "True", "TRAIN.PROFILE_START", str(TRAIN_PROFILE[0]),
+                   "TRAIN.PROFILE_STEPS", str(TRAIN_PROFILE[1])], "train_net")
+    wall = time.perf_counter() - tic
+    prog = [(int(m[1]), float(m[2]), float(m[3])) for m in re.finditer(
+        r"Epoch\[0\] \[\s*(\d+)/\d+\]\s+Time (\S+) \(\S+\).*?Loss (\S+) \(", log)]
+    m = re.search(r"K1 launches: (\d+) forward \(\S+ a step\), (\d+) backward \(\S+ a step\), "
+                  r"scalar route (\d+) forward, (\d+) backward", log)
+    if not prog or m is None:
+        fail(f"train_net printed no progress or launch counts:\n{log[-3000:]}")
+    fwd, bwd, fwd_s, bwd_s = (int(v) for v in m.groups())
+    losses = [p[2] for p in prog]
+    say(f"[train] train_net ResNet-50 224^2 batch {LADDER_BATCH}, {TRAIN_STEPS} steps in "
+        f"{wall:.1f} s (process start, cuDNN autotuning, eval and checkpoint included); loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}; K1 {fwd} forward, K1-bwd {bwd} backward, scalar "
+        f"route {fwd_s}/{bwd_s}")
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        fail(f"training loss not finite or not falling: {losses}")
+    want = TRAIN_K1 * TRAIN_STEPS
+    if (fwd, bwd, fwd_s, bwd_s) != (want, want, 0, 0):
+        fail(f"launches over {TRAIN_STEPS} steps: K1 {fwd}, K1-bwd {bwd}, scalar {fwd_s}/{bwd_s}; "
+             f"want {want}, {want}, 0, 0")
+    steady = [t for it, t, _ in prog if TRAIN_PRINT * 2 <= it <= TRAIN_PROFILE[0] - TRAIN_PRINT]
+    step_ms = 1e3 * statistics.median(steady)
+    say(f"[train] step {step_ms:.2f} ms (median of the {len(steady)} windows of {TRAIN_PRINT} "
+        f"steps from step {TRAIN_PRINT * 2} to {TRAIN_PROFILE[0] - TRAIN_PRINT}), "
+        f"{1e3 * LADDER_BATCH / step_ms:.0f} images/s ({card})")
+    path = ckpt.get_checkpoint_path(str(out), 1)
+    status, errors = ckpt.verify_checkpoint(path)
+    if status != "ok":
+        fail(f"checkpoint {path}: {status} {errors}")
+    profile = train_profile(out / "profile" / "train_steps.json", TRAIN_PROFILE[1], bound_ms)
+    ev = run_cli(["distribuuuu_tpu_torch.test_net", "--cfg", "config/resnet50.yaml",
+                  "MODEL.DUMMY_INPUT", "True", "TEST.BATCH_SIZE", str(LADDER_BATCH),
+                  "TRAIN.DUMMY_EPOCH_SAMPLES", str(LADDER_BATCH * 4), "MODEL.WEIGHTS", path,
+                  "OUT_DIR", str(tmp / "eval")], "test_net")
+    acc = re.search(r"\* Acc@1 (\S+) Acc@5 (\S+)", ev)
+    if acc is None:
+        fail(f"test_net reported no Acc@1:\n{ev[-2000:]}")
+    log2 = run_cli(["distribuuuu_tpu_torch.train_net", *common, "OPTIM.MAX_EPOCH", "2",
+                    "TRAIN.DUMMY_EPOCH_SAMPLES", str(LADDER_BATCH * 4)], "train_net relaunch")
+    resumed = re.search(r"Resumed from (\S+) \(epoch (\d+)", log2)
+    if resumed is None or not resumed[1].endswith("ckpt_ep_001") or resumed[2] != "1" or \
+            ckpt.verify_checkpoint(ckpt.get_checkpoint_path(str(out), 2))[0] != "ok":
+        fail(f"the relaunch did not resume from ckpt_ep_001 and write ckpt_ep_002:\n{log2[-3000:]}")
+    say(f"[train] {path} verified against its manifest; test_net on it: Acc@1 {acc[1]}, "
+        f"Acc@5 {acc[2]}; the relaunch with OPTIM.MAX_EPOCH 2 logged 'Resumed from "
+        f"{resumed[1]} (epoch {resumed[2]}' and wrote ckpt_ep_002")
+    f32 = train_f32_check()
+    return dict(steps=TRAIN_STEPS, launches=dict(k1=fwd, k1_bwd=bwd, scalar=fwd_s + bwd_s),
+                losses=losses, step_ms=step_ms, images_per_s=1e3 * LADDER_BATCH / step_ms,
+                windows=prog, wall_s=wall, profile=profile, acc1=float(acc[1]),
+                acc5=float(acc[2]), f32_check=f32)
+
+
+def train_f32_check() -> dict:
+    """One f32 training step (TF32 off) of ResNet-18 at 64^2, 10 classes,
+    batch 8, on the card against the same step on the CPU: loss, parameters
+    and BN statistics within TRAIN_F32_REL_TOL of each one's max|.|."""
+    import torch
+
+    from distribuuuu_tpu_torch.config import cfg, reset_cfg
+    from distribuuuu_tpu_torch.ops import epilogue as ep
+    from distribuuuu_tpu_torch.trainer import TrainState, build_cfg_model, train_step
+
+    torch.backends.cudnn.allow_tf32 = False  # f32 convs and products in full f32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    reset_cfg()
+    cfg.MODEL.ARCH, cfg.MODEL.NUM_CLASSES, cfg.MODEL.DTYPE = "resnet18", 10, "float32"
+    cfg.TRAIN.IM_SIZE = 64
+    gen = torch.Generator().manual_seed(0)
+    imgs = torch.randint(0, 256, (8, 64, 64, 3), dtype=torch.uint8, generator=gen)
+    labels = torch.randint(0, 10, (8,), generator=gen)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        st = TrainState(build_cfg_model(torch.Generator().manual_seed(1)).to(dev))
+        before = (ep.LAUNCHES, ep.BWD_LAUNCHES)
+        m = train_step(st, {"image": imgs.to(dev), "label": labels.to(dev)}, 0.1)
+        res[dev] = (m["loss_sum"].item() / 8, st.params.cpu(), st.stats.cpu(),
+                    (ep.LAUNCHES - before[0], ep.BWD_LAUNCHES - before[1]))
+    reset_cfg()
+    (lc, pc, sc, _), (lg, pg, sg, launches) = res["cpu"], res["cuda"]
+    d = dict(loss=abs(lc - lg) / abs(lc), params=float((pc - pg).abs().max() / pc.abs().max()),
+             stats=float((sc - sg).abs().max() / sc.abs().max()))
+    say(f"[train f32] ResNet-18 64^2 batch 8, one step card vs CPU: loss {lg:.6f} / {lc:.6f}; "
+        f"relative to max|.|: " + ", ".join(f"{k} {v:.2e}" for k, v in d.items())
+        + f" (limit {TRAIN_F32_REL_TOL}); card launches K1 {launches[0]}, K1-bwd {launches[1]}")
+    if not all(v <= TRAIN_F32_REL_TOL for v in d.values()) or launches != (20, 20):
+        fail("the f32 ResNet-18 step on the card is outside the stated tolerance of the CPU's")
+    return d
 
 
 def cuda_ms(fn, runs: int = 25, warmup: int = 3, batch: int = 1) -> float:
@@ -817,6 +1183,8 @@ def kernel_class(name: str) -> str:
     kernels (``direct_copy_kernel_cuda`` and kin: dtype casts and strided
     copies); memcpy/memset: the copy engines' transfers and fills."""
     low = name.lower()
+    if "epilogue_bwd" in low:
+        return "K1-bwd"
     if re.search(r"epilogue_(vec_|scalar_)?kernel", low):
         return "K1"
     if "attention_kernel" in low or "attention_mma_kernel" in low:
@@ -1648,6 +2016,16 @@ def main() -> None:
         if sum(by_b[LADDER_BATCH].values()) != SERVED[arch]["k1"]:
             fail(f"{arch}: {sum(by_b[LADDER_BATCH].values())} K1 sites, want {SERVED[arch]['k1']}")
     rows, scalar, k1_err = phase_k1(card, {arch: by_b[LADDER_BATCH] for arch, by_b in sites.items()})
+    train_sites = epilogue_sites("resnet50", LADDER_BATCH, bn_dtype=torch.bfloat16)
+    if sum(train_sites.values()) != TRAIN_K1:
+        fail(f"resnet50 training: {sum(train_sites.values())} K1 sites, want {TRAIN_K1}")
+    # bf16 boundaries: modes b and c are the one bf16 tensor of mode a
+    train_bound_ms = {
+        "k1": sum(k1_bound((*site[:6], "a"), bw, (2, 2, 2, 2))[0] * m
+                  for site, m in train_sites.items()),
+        "k1_bwd": sum(k1_bwd_bound(site, bw)[0] * m for site, m in train_sites.items())}
+    bwd_rows, bwd_step, bwd_err, bwd_worst = phase_k1_bwd(card, train_sites,
+                                                          sites["resnet50"][LADDER_BATCH])
     attn = phase_attention(card)
     with tempfile.TemporaryDirectory() as tmp:
         serve = phase_serve(card, Path(tmp), "resnet50", k1_bound_us["resnet50"])
@@ -1657,6 +2035,8 @@ def main() -> None:
     moe = phase_moe_kernels(card)
     with tempfile.TemporaryDirectory() as tmp:
         moe_dist = phase_moe_dist(Path(tmp))
+    with tempfile.TemporaryDirectory() as tmp:
+        train = phase_train(card, Path(tmp), train_bound_ms)
 
     # K1 per batch-128 forward of each served model: its sites' rows summed
     per_fwd, modes = {}, {}
@@ -1676,6 +2056,11 @@ def main() -> None:
     (out / "chip_smoke_attention.json").write_text(json.dumps(
         {"card": smi, "build": builds["attention"], "cases": attn, "serve_botnet50": bot,
          "large_crop": large, "mhsa_table": table}, indent=1))
+    (out / "chip_smoke_train.json").write_text(json.dumps(
+        {"card": smi, "k1_bwd_rows": bwd_rows, "k1_bwd_per_step": bwd_step,
+         "k1_bwd_max_abs_err": bwd_err, "k1_bwd_sum_rel_err": bwd_worst,
+         "train_sites": [[*site, m] for site, m in sorted(train_sites.items())],
+         "train_bound_ms": train_bound_ms, "train": train}, indent=1))
     (out / "chip_smoke_moe.json").write_text(json.dumps(
         {"card": smi, "build": builds["moe"], "kernels": moe, "dist": moe_dist}, indent=1))
     for arch, f in per_fwd.items():
@@ -1779,6 +2164,31 @@ def main() -> None:
                                                          "library_ms", "bound_ms")}
                             for dt, b in base.items()},
         })
+    kernels.insert(1, {
+        "name": "K1 backward",
+        "route": "cuda",
+        "source": "distribuuuu_tpu_torch/ops/csrc/epilogue.cu",
+        "replaces": "distribuuuu_tpu/ops/epilogue.py:222",
+        "launches": train["launches"]["k1_bwd"],
+        "max_abs_err": bwd_err,
+        "ms": bwd_step["device_ms"],
+        "plain_ms": bwd_step["plain_ms"],
+        "bound_ms": bwd_step["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": bwd_step["library_ms"],
+        "per": f"one ResNet-50 training step at batch {LADDER_BATCH}, 224x224: the "
+               f"{TRAIN_K1} launches summed (x, g, residual, d_x, d_identity bf16); ms: device "
+               f"time, calls replayed from a CUDA graph over input sets of at least "
+               f"{K1_ROTATE_BYTES >> 20} MiB a replay; plain_ms (autograd through "
+               f"epilogue_reference) and library_ms (autograd through F.batch_norm + cast + add "
+               f"+ relu): back to back; launches: the {TRAIN_STEPS} steps of [train]; "
+               f"max_abs_err: over d_x, d_identity (bitwise) and the per-channel sums (within "
+               f"{K1_BWD_SUM_RTOL} of sum|terms|)",
+        "back_to_back_ms": bwd_step["ms"],
+        "single_call_ms": bwd_step["single_call_ms"],
+        "sum_rel_err": bwd_worst,
+    })
+    kernels[0]["train_launches"] = train["launches"]["k1"]
     say(smi)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

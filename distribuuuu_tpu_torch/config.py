@@ -1,11 +1,13 @@
-"""Config tree + CLI loading for the port's serving slice.
+"""Config tree + CLI loading for the port's serving and training slices.
 
-The keys the slice reads, with ``distribuuuu_tpu/config.py``'s defaults and
+The keys the port reads, with ``distribuuuu_tpu/config.py``'s defaults and
 precedence (defaults < ``--cfg`` YAML < trailing ``KEY VALUE`` overrides),
-plus every key ``config/serve_resnet50.yaml`` sets, so the shipped YAML
-merges unchanged. Keys marked "not yet ported" are accepted and not acted
-on. The ``SERVE.DEPLOY`` and ``SERVE.INGRESS`` subtrees (rollout watcher,
-multi-pod router) are not part of this slice and are absent.
+plus every key the repository's training and serving YAMLs set, so they
+merge unchanged. Keys marked "not yet ported" are accepted and checked by
+the trainer: a non-default value raises with the ROADMAP item that ports
+it. The ``DATA`` (dataplane), ``OBS``, ``QUANT``, ``FLEET`` subtrees and
+``SERVE.DEPLOY``/``SERVE.INGRESS`` are not part of these slices and are
+absent.
 """
 
 from __future__ import annotations
@@ -20,22 +22,143 @@ cfg = _C
 
 _C.MODEL = CN()
 _C.MODEL.ARCH = "resnet18"
+# comma-separated modules imported before MODEL.ARCH is resolved, so an
+# out-of-tree package can register archs with @register_model
+_C.MODEL.MODULE = ""
 _C.MODEL.NUM_CLASSES = 1000
-# single-model host when SERVE.MODELS is empty: a torch .pt/.pth state_dict
+# torchvision-pretrained init: not yet ported (ROADMAP Queue 1 item 11)
+_C.MODEL.PRETRAINED = False
+# batch statistics averaged over the process group (one all-reduce per BN)
+_C.MODEL.SYNCBN = False
+# serving: a torch .pt/.pth state_dict when SERVE.MODELS is empty;
+# training/eval: a checkpoint directory (or its .pt) to warm-start from
 _C.MODEL.WEIGHTS = None
-# compute dtype of convs and linears; params and BN stay float32
+# random uint8 images with label 0 in place of a dataset (the only input
+# the training slice has; the image loaders are ROADMAP Queue 1 item 1)
+_C.MODEL.DUMMY_INPUT = False
+# compute dtype of convs and linears; params, optimizer state and BN
+# statistics stay float32
 _C.MODEL.DTYPE = "bfloat16"
-# the space-to-depth stem is the plain 7x7/2 stem by construction; the
-# port always computes the plain stem, so this key changes nothing
+# activation checkpointing: not yet ported
+_C.MODEL.REMAT = False
+# the space-to-depth stem is the plain 7x7/2 stem by construction (the same
+# function and the same (7,7,3,64) parameter); the port always computes the
+# plain stem, so this key changes nothing
 _C.MODEL.STEM_S2D = False
 # accepted so JAX-side YAMLs merge; on the card the epilogue kernel always runs
 _C.MODEL.FUSED_EPILOGUE = None
-# BN boundary dtype for training; serving keeps float32 boundaries, as the
-# JAX engine does. Not yet ported (the training slice reads it)
+_C.MODEL.FUSED_MOE = None
+# sequence-parallel attention and masked-autoencoder knobs: not yet ported
+_C.MODEL.SEQ_ATTN = "none"
+_C.MODEL.MAE_MASK_RATIO = 0.25
+_C.MODEL.MAE_DECODER_DIM = 512
+# dtype BN emits between conv stages: "auto" tracks MODEL.DTYPE in
+# training (bf16 training: bf16 boundaries); serving keeps float32
+# boundaries, as the JAX engine does. Statistics are float32 either way.
 _C.MODEL.BN_DTYPE = "auto"
 
+_C.TRAIN = CN()
+_C.TRAIN.BATCH_SIZE = 32  # per process (per GPU); global = BATCH_SIZE x world
+_C.TRAIN.IM_SIZE = 224
+_C.TRAIN.DATASET = "./data/ILSVRC/"
+_C.TRAIN.SPLIT = "train"
+_C.TRAIN.AUTO_RESUME = True
+_C.TRAIN.LOAD_OPT = True
+_C.TRAIN.WORKERS = 4
+_C.TRAIN.PIN_MEMORY = True  # the device prefetch always stages in pinned memory
+_C.TRAIN.PRINT_FREQ = 30
+_C.TRAIN.TOPK = 5
+# "classify" only; "mae" is not yet ported
+_C.TRAIN.TASK = "classify"
+_C.TRAIN.PREFETCH = 2  # batches staged on the device ahead of compute
+_C.TRAIN.DUMMY_EPOCH_SAMPLES = 1000  # samples per DUMMY_INPUT epoch
+_C.TRAIN.LABEL_SMOOTH = 0.0
+# gradients averaged over ACCUM_STEPS micro-batches of BATCH_SIZE per step
+_C.TRAIN.ACCUM_STEPS = 1
+# XLA compile cache: nothing to cache in eager PyTorch; accepted
+_C.TRAIN.COMPILE_CACHE = True
+_C.TRAIN.COMPILE_CACHE_DIR = ""
+# torch.profiler window of PROFILE_STEPS steps from PROFILE_START (epoch of
+# the run's first step); its device events go to OUT_DIR/profile/
+_C.TRAIN.PROFILE = False
+_C.TRAIN.PROFILE_START = 10
+_C.TRAIN.PROFILE_STEPS = 5
+
 _C.TEST = CN()
+_C.TEST.DATASET = "./data/ILSVRC/"
+_C.TEST.SPLIT = "val"
+_C.TEST.BATCH_SIZE = 200
+_C.TEST.IM_SIZE = 256
+_C.TEST.PRINT_FREQ = 10
 _C.TEST.CROP_SIZE = 224
+
+# BENCHMARK -> torch.backends.cudnn.benchmark; DETERMINISTIC ->
+# cudnn.deterministic and torch.use_deterministic_algorithms
+_C.CUDNN = CN()
+_C.CUDNN.BENCHMARK = True
+_C.CUDNN.DETERMINISTIC = False
+
+_C.OPTIM = CN()
+# "sgd" (torch-exact momentum, coupled weight decay on every parameter) or
+# "lamb" (BETA1/BETA2/EPS apply to lamb only)
+_C.OPTIM.OPTIMIZER = "sgd"
+_C.OPTIM.BETA1 = 0.9
+_C.OPTIM.BETA2 = 0.999
+_C.OPTIM.EPS = 1e-6
+# learning-rate policy: "cos" or "steps", constant within an epoch
+_C.OPTIM.MAX_EPOCH = 100
+_C.OPTIM.LR_POLICY = "cos"
+_C.OPTIM.BASE_LR = 0.2
+_C.OPTIM.MIN_LR = 0.0
+_C.OPTIM.STEPS = []
+_C.OPTIM.LR_MULT = 0.1
+_C.OPTIM.MOMENTUM = 0.9
+_C.OPTIM.DAMPENING = 0.0
+_C.OPTIM.NESTEROV = True
+_C.OPTIM.WARMUP_FACTOR = 0.1
+_C.OPTIM.WARMUP_EPOCHS = 5
+_C.OPTIM.WEIGHT_DECAY = 5e-5
+
+# device mesh: the port is data-parallel over the process group (one GPU a
+# process); DATA -1 means every process. FSDP and SEQ > 1: not yet ported
+# (ROADMAP Queue 1 item 12)
+_C.MESH = CN()
+_C.MESH.DATA = -1
+_C.MESH.FSDP = 1
+_C.MESH.FSDP_MIN_SIZE = 16384
+_C.MESH.SEQ = 1
+
+_C.FAULT = CN()
+# a step with a non-finite loss or gradient leaves parameters, optimizer
+# state (its step counter too) and BN statistics as they were
+_C.FAULT.NONFINITE_GUARD = True
+# abort after this many consecutive skipped steps (checked at PRINT_FREQ)
+_C.FAULT.MAX_CONSECUTIVE_SKIPS = 10
+# fault injection: INJECT_NAN_STEPS (NaN images at those global steps) and
+# INJECT_KILL_STEP (SIGKILL at that global step) are ported; retries,
+# graceful degradation, preemption signals, the watchdog and the other
+# injections are not yet (accepted)
+_C.FAULT.RETRY_ATTEMPTS = 3
+_C.FAULT.RETRY_BASE_DELAY = 0.1
+_C.FAULT.RETRY_MAX_DELAY = 2.0
+_C.FAULT.DEGRADE = True
+_C.FAULT.HANDLE_SIGNALS = True
+_C.FAULT.HANG_TIMEOUT_S = 0.0
+_C.FAULT.INJECT_IO_INDICES = []
+_C.FAULT.INJECT_IO_FAILURES = 1
+_C.FAULT.INJECT_NAN_STEPS = []
+_C.FAULT.INJECT_PREEMPT_STEP = -1
+_C.FAULT.INJECT_HANG_STEP = -1
+_C.FAULT.INJECT_KILL_STEP = -1
+
+# resume: epoch checkpoints are verified against their sha256 manifest
+# (VERIFY_INTEGRITY); a corrupt one is skipped (SKIP_CORRUPT). Mid-epoch
+# checkpoints and rollback: not yet ported
+_C.RESUME = CN()
+_C.RESUME.STEP_GRANULAR = True
+_C.RESUME.SKIP_CORRUPT = True
+_C.RESUME.VERIFY_INTEGRITY = True
+_C.RESUME.ROLLBACK = 0
 
 # agent supervision: not yet ported (accepted for serve_resnet50.yaml)
 _C.AGENT = CN()
@@ -73,6 +196,8 @@ _C.SERVE.JOURNAL_REQUESTS = True
 _C.SERVE.TRACE_SPANS = True
 
 _C.OUT_DIR = "./exp"
+_C.CFG_DEST = "config.yaml"
+_C.RNG_SEED = None
 
 _CFG_DEFAULT = _C.clone()
 _CFG_DEFAULT.freeze()
@@ -86,11 +211,22 @@ def reset_cfg() -> None:
         _C[k] = v
 
 
+def dump_cfg() -> None:
+    """Write the config to OUT_DIR/CFG_DEST (the run's provenance)."""
+    import os
+
+    os.makedirs(_C.OUT_DIR, exist_ok=True)
+    with open(os.path.join(_C.OUT_DIR, _C.CFG_DEST), "w") as f:
+        _C.dump(stream=f)
+
+
 def load_cfg_fom_args(description: str = "Config file options.", argv=None) -> None:
     """``--cfg FILE`` then trailing ``KEY VALUE`` overrides (the JAX CLI
     contract, including its spelling)."""
     parser = argparse.ArgumentParser(description=description)
     parser.add_argument("--cfg", dest="cfg_file", default=None, type=str)
+    # accepted for launcher compatibility; the trainer reads LOCAL_RANK
+    parser.add_argument("--local_rank", "--local-rank", default=None)
     parser.add_argument("opts", default=None, nargs=argparse.REMAINDER)
     args = parser.parse_args(sys.argv[1:] if argv is None else argv)
     if args.cfg_file is not None:

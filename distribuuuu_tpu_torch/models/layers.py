@@ -17,14 +17,25 @@ compute dtype alone; where a residual or the head reads it too, K1 writes
 both as a :class:`Pair`. Each block's ``handoff`` (set by
 :func:`link_handoffs`) says which its last BN writes.
 
+Training (``model.train()``): each BN takes float32 batch statistics of
+its input, flax ``nn.BatchNorm``'s way (the fast variance ``max(0, E[x^2]
+- E[x]^2)``; under SyncBN ``[mean, E[x^2]]`` averaged over the process
+group in one all-reduce), updates its running statistics in place with
+flax's momentum 0.9 on the biased variance, and hands K1 the folded
+affine; gradients reach the statistics through autograd on those ops, and
+K1's own backward is a kernel (``ops/epilogue.py``). ``bn_dtype`` is then
+the model's compute dtype unless the config says otherwise.
+
 Tensors are NCHW-logical and stored channels-last, so C is contiguous.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -66,32 +77,64 @@ def conv(in_ch, out_ch, kernel, stride=1, *, padding=None, groups=1, dtype=torch
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm: ``weight``/``bias`` and ``running_mean``/``running_var``.
+    """BatchNorm through K1: ``weight``/``bias`` and ``running_mean``/``running_var``.
 
     It registers no ``num_batches_tracked``, so the JAX package's
     ``export_state_dict`` output loads with ``strict=True``. Called as a
     module it is BN alone, no ReLU, in ``bn_dtype`` (the downsample path);
     :func:`bn_epilogue` runs it fused with the residual add and ReLU. Both
-    go through K1.
+    go through K1. In eval mode it folds the running statistics; in train
+    mode the batch's (module docstring). ``momentum`` is flax's: ``running
+    = momentum * running + (1 - momentum) * batch``. ``sync_group``: the
+    process group SyncBN averages over (None: this process's batch alone).
+    ``zero_scale`` starts ``weight`` at zero (a block's last BN under
+    zero-init-residual).
     """
 
-    def __init__(self, channels: int, *, bn_dtype=torch.float32, eps: float = 1e-5):
+    def __init__(self, channels: int, *, bn_dtype=torch.float32, eps: float = 1e-5,
+                 momentum: float = 0.9, zero_scale: bool = False):
         super().__init__()
-        self.weight = nn.Parameter(torch.ones(channels))
+        self.weight = nn.Parameter(torch.zeros(channels) if zero_scale else torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
         self.bn_dtype = bn_dtype
         self.eps = eps
+        self.momentum = momentum
+        self.zero_scale = zero_scale
+        self.sync_group = None
 
-    def affine(self):
+    def batch_stats(self, x):
+        """f32 ``(mean, var)`` of ``x`` over all but the channel axis, as
+        flax's ``_compute_stats``: ``var = max(0, E[x^2] - E[x]^2)``, with
+        ``[E[x], E[x^2]]`` averaged over ``sync_group`` when it is set."""
+        dims = (0, 2, 3) if x.dim() == 4 else (0,)
+        xf = x.float()
+        stats = torch.stack([xf.mean(dims), xf.square().mean(dims)])
+        if self.sync_group is not None:
+            from torch.distributed.nn.functional import all_reduce
+
+            stats = all_reduce(stats, group=self.sync_group) / dist.get_world_size(self.sync_group)
+        mean, mean2 = stats
+        return mean, torch.clamp_min(mean2 - mean * mean, 0.0)
+
+    def affine(self, x=None):
         """``(mean, mul, bias)`` in flax's order: rsqrt first, then the scale
-        multiply (the association changes bits)."""
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return self.running_mean, mul, self.bias
+        multiply (the association changes bits). Eval mode: the running
+        statistics. Train mode: the statistics of ``x``, and the running
+        ones updated in place."""
+        if not self.training:
+            mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+            return self.running_mean, mul, self.bias
+        mean, var = self.batch_stats(x)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+            self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        return mean, torch.rsqrt(var + self.eps) * self.weight, self.bias
 
     def forward(self, x):
-        return fused_conv_epilogue(x, *self.affine(), relu=False, bn_dtype=self.bn_dtype)
+        return fused_conv_epilogue(x, *self.affine(x), relu=False, bn_dtype=self.bn_dtype)
 
 
 def bn_epilogue(x, bn: BatchNorm, identity=None, *, relu: bool = True, cast_to=None,
@@ -99,7 +142,7 @@ def bn_epilogue(x, bn: BatchNorm, identity=None, *, relu: bool = True, cast_to=N
     """BN -> (+``identity``) -> ReLU through K1. With ``cast_to`` the result
     comes in that dtype too: as a :class:`Pair` when ``keep_boundary``, else
     the cast tensor alone."""
-    out = fused_conv_epilogue(x, *bn.affine(), identity, relu=relu, bn_dtype=bn.bn_dtype,
+    out = fused_conv_epilogue(x, *bn.affine(x), identity, relu=relu, bn_dtype=bn.bn_dtype,
                               cast_to=cast_to, keep_boundary=keep_boundary)
     return Pair(*out) if isinstance(out, tuple) else out
 
@@ -132,3 +175,26 @@ def classifier_head(x, fc: nn.Linear):
     """Global average pool over H and W in float32, then a float32 linear."""
     x = x.float().mean(dim=(2, 3))
     return F.linear(x, fc.weight.float(), fc.bias.float())
+
+
+def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """The JAX zoo's initialisers, drawn from ``generator`` in module order:
+    convs kaiming-normal fan-out ``N(0, 2 / (out * kh * kw))``, linears
+    ``U(-1/sqrt(fan_in), 1/sqrt(fan_in))`` with a zero bias, BN scale one
+    (zero under ``zero_scale``) and bias zero, running statistics zero and
+    one. Returns ``model``."""
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, nn.Conv2d):
+                fan_out = m.out_channels * m.kernel_size[0] * m.kernel_size[1]
+                m.weight.normal_(0.0, math.sqrt(2.0 / fan_out), generator=generator)
+            elif isinstance(m, nn.Linear):
+                bound = 1.0 / math.sqrt(m.in_features)
+                m.weight.uniform_(-bound, bound, generator=generator)
+                m.bias.zero_()
+            elif isinstance(m, BatchNorm):
+                m.weight.fill_(0.0 if m.zero_scale else 1.0)
+                m.bias.zero_()
+                m.running_mean.zero_()
+                m.running_var.fill_(1.0)
+    return model

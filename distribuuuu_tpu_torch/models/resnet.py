@@ -37,12 +37,12 @@ class BasicBlock(nn.Module):
     expansion = 1
 
     def __init__(self, inplanes, planes, stride=1, downsample=False, groups=1, base_width=64,
-                 *, dtype, bn_dtype):
+                 *, dtype, bn_dtype, zero_init_residual=False):
         super().__init__()
         self.conv1 = conv(inplanes, planes, 3, stride, dtype=dtype)
         self.bn1 = BatchNorm(planes, bn_dtype=bn_dtype)
         self.conv2 = conv(planes, planes, 3, dtype=dtype)
-        self.bn2 = BatchNorm(planes, bn_dtype=bn_dtype)
+        self.bn2 = BatchNorm(planes, bn_dtype=bn_dtype, zero_scale=zero_init_residual)
         self.downsample = (
             nn.Sequential(conv(inplanes, planes, 1, stride, dtype=dtype),
                           BatchNorm(planes, bn_dtype=bn_dtype))
@@ -68,7 +68,7 @@ class Bottleneck(nn.Module):
     expansion = 4
 
     def __init__(self, inplanes, planes, stride=1, downsample=False, groups=1, base_width=64,
-                 *, dtype, bn_dtype):
+                 *, dtype, bn_dtype, zero_init_residual=False):
         super().__init__()
         width = int(planes * (base_width / 64.0)) * groups
         out = planes * self.expansion
@@ -77,7 +77,7 @@ class Bottleneck(nn.Module):
         self.conv2 = conv(width, width, 3, stride, groups=groups, dtype=dtype)
         self.bn2 = BatchNorm(width, bn_dtype=bn_dtype)
         self.conv3 = conv(width, out, 1, dtype=dtype)
-        self.bn3 = BatchNorm(out, bn_dtype=bn_dtype)
+        self.bn3 = BatchNorm(out, bn_dtype=bn_dtype, zero_scale=zero_init_residual)
         self.downsample = (
             nn.Sequential(conv(inplanes, out, 1, stride, dtype=dtype),
                           BatchNorm(out, bn_dtype=bn_dtype))
@@ -99,10 +99,12 @@ class Bottleneck(nn.Module):
         return bn_epilogue(out, self.bn3, identity, **self.handoff)
 
 
-def resnet_stages(block, stage_sizes, groups=1, width_per_group=64, *, dtype, bn_dtype):
+def resnet_stages(block, stage_sizes, groups=1, width_per_group=64, *, dtype, bn_dtype,
+                  zero_init_residual=False):
     """The residual stages with v1.5 stride placement (``resnet_stages`` of
     the JAX package): a list of ``nn.Sequential`` and their output width.
-    Shared by ResNet and BoTNet's trunk."""
+    Shared by ResNet and BoTNet's trunk. ``zero_init_residual`` starts each
+    block's last BN scale at zero."""
     stages, inplanes = [], 64
     for stage, num_blocks in enumerate(stage_sizes):
         planes = 64 * 2**stage
@@ -111,7 +113,8 @@ def resnet_stages(block, stage_sizes, groups=1, width_per_group=64, *, dtype, bn
             stride = 2 if (stage > 0 and i == 0) else 1
             downsample = stride != 1 or inplanes != planes * block.expansion
             blocks.append(block(inplanes, planes, stride, downsample, groups,
-                                width_per_group, dtype=dtype, bn_dtype=bn_dtype))
+                                width_per_group, dtype=dtype, bn_dtype=bn_dtype,
+                                zero_init_residual=zero_init_residual))
             inplanes = planes * block.expansion
         stages.append(nn.Sequential(*blocks))
     return stages, inplanes
@@ -121,12 +124,13 @@ class ResNet(nn.Module):
     """Stem -> 4 stages -> global average pool -> fc."""
 
     def __init__(self, block, stage_sizes, num_classes=1000, groups=1, width_per_group=64,
-                 dtype=torch.bfloat16, bn_dtype=torch.float32):
+                 dtype=torch.bfloat16, bn_dtype=torch.float32, zero_init_residual=False):
         super().__init__()
         self.conv1 = conv(3, 64, 7, 2, padding=3, dtype=dtype)
         self.bn1 = BatchNorm(64, bn_dtype=bn_dtype)
         stages, inplanes = resnet_stages(block, stage_sizes, groups, width_per_group,
-                                         dtype=dtype, bn_dtype=bn_dtype)
+                                         dtype=dtype, bn_dtype=bn_dtype,
+                                         zero_init_residual=zero_init_residual)
         for stage, layer in enumerate(stages):
             self.add_module(f"layer{stage + 1}", layer)
         self.num_stages = len(stage_sizes)

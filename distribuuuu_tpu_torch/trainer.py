@@ -1,0 +1,453 @@
+"""Training and evaluation loops of the port (counterpart of ``trainer.py``).
+
+One process a GPU, data-parallel over the process group:
+
+| JAX (shard_map over Mesh('data'))        | here                                        |
+|------------------------------------------|---------------------------------------------|
+| ``pmean(grads, 'data')``                  | one all-reduce of the flat gradient buffer (the loss rides in its last slot), divided by the world |
+| ``pmean(new_stats)`` after every step     | one all-reduce of the flat BN-statistics buffer |
+| SyncBN: BN ``axis_name='data'``           | ``BatchNorm.sync_group``: ``[E[x], E[x^2]]`` all-reduced in the forward |
+| non-finite guard (``jnp.where(keep, ..)``) | the same selection on the flat buffers, ``keep`` a device bool |
+| metric psums, fetched at PRINT_FREQ      | device sums per step, all-reduced and fetched at PRINT_FREQ |
+
+:class:`TrainState` keeps every parameter as a view into one float32
+buffer, its gradient as a view into a second and every BN running
+statistic as a view into a third, so the collectives, the guard and the
+optimizer each act on one tensor. On the card every BN runs K1 forward and
+K1-bwd backward (53 of each per ResNet-50 step); on the CPU their plain
+versions.
+"""
+
+from __future__ import annotations
+
+import importlib
+import json
+import os
+import signal
+import time
+
+import torch
+import torch.distributed as dist
+
+from distribuuuu_tpu_torch import checkpoint as ckpt
+from distribuuuu_tpu_torch import optim
+from distribuuuu_tpu_torch.config import cfg, dump_cfg
+from distribuuuu_tpu_torch.data.loader import (
+    DevicePrefetcher,
+    construct_train_loader,
+    construct_val_loader,
+)
+from distribuuuu_tpu_torch.data.transforms import device_normalize
+from distribuuuu_tpu_torch.logging import logger, setup_logger
+from distribuuuu_tpu_torch.metrics import (
+    construct_meters,
+    count_parameters,
+    cross_entropy_loss,
+    per_example_nll,
+    topk_correct,
+    topk_correct_weighted,
+)
+from distribuuuu_tpu_torch.models import build_model, layers
+from distribuuuu_tpu_torch.ops import epilogue as ep
+from distribuuuu_tpu_torch.runtime.dist import setup_distributed
+from distribuuuu_tpu_torch.runtime.seeding import configure_determinism, setup_seed
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+class TrainState:
+    """A model, its flat parameter/gradient/statistics buffers and the
+    optimizer. ``grads`` has one slot more than ``params``: the step's loss,
+    all-reduced with the gradients."""
+
+    def __init__(self, model: torch.nn.Module, group=None):
+        self.model, self.group = model, group
+        named = list(model.named_parameters())
+        self.names = [n for n, _ in named]
+        self.params = torch.cat([p.detach().reshape(-1).float() for _, p in named])
+        self.grads = torch.zeros(self.params.numel() + 1, device=self.params.device)
+        self.segments, o = [], 0
+        for _, p in named:
+            k = p.numel()
+            p.data = self.params[o:o + k].view(p.shape)
+            p.grad = self.grads[o:o + k].view(p.shape)
+            self.segments.append((o, k, p.dim()))
+            o += k
+        bufs = [b for _, b in model.named_buffers()]
+        self.stats = torch.cat([b.reshape(-1).float() for b in bufs]) if bufs else \
+            torch.zeros(0, device=self.params.device)
+        o = 0
+        for b in bufs:
+            b.data = self.stats[o:o + b.numel()].view(b.shape)
+            o += b.numel()
+        self.optimizer = optim.construct_optimizer(self.params, self.segments)
+
+    @property
+    def world(self) -> int:
+        return 1 if self.group is None else dist.get_world_size(self.group)
+
+    def unflatten(self, flat: torch.Tensor) -> dict:
+        """A flat parameter-shaped buffer (the momentum, say) by parameter name."""
+        shapes = dict(self.model.named_parameters())
+        return {n: flat[o:o + k].view(shapes[n].shape)
+                for n, (o, k, _) in zip(self.names, self.segments)}
+
+
+def train_step(state: TrainState, batch: dict, lr: float, *, accum_steps: int = 1,
+               topk: int = 5, label_smooth: float = 0.0, guard: bool = True) -> dict:
+    """One optimizer step on the local batch (``image`` uint8 or float NHWC,
+    ``label``), on the batch's device. Forward and backward per micro-batch
+    (BN statistics updated in order), gradients and loss averaged over the
+    micro-batches and over the group, the running statistics averaged over
+    the group, then the update. With ``guard``, a non-finite loss or
+    gradient leaves parameters, optimizer state and statistics as they
+    were. Returns this rank's metric sums as 0-d device tensors (no sync)."""
+    model = state.model.train()
+    images, labels = batch["image"], batch["label"]
+    n = images.shape[0]
+    if n % accum_steps:
+        raise ValueError(f"batch {n} does not split into {accum_steps} micro-batches")
+    mb = n // accum_steps
+    state.grads.zero_()
+    stats_before = state.stats.clone() if guard else None
+    loss_sum, correct = 0.0, {1: 0.0, topk: 0.0}
+    for i in range(accum_steps):
+        sl = slice(i * mb, (i + 1) * mb)
+        logits = model(device_normalize(images[sl]))
+        loss = cross_entropy_loss(logits, labels[sl], label_smooth)
+        loss.backward()
+        loss_sum = loss_sum + loss.detach()
+        for k, v in topk_correct(logits.detach(), labels[sl], ks=(1, topk)).items():
+            correct[k] = correct[k] + v
+    loss = loss_sum / accum_steps
+    grads = state.grads[:-1]
+    if accum_steps > 1:
+        grads.div_(accum_steps)
+    state.grads[-1:].copy_(loss.reshape(1))
+    if state.world > 1:
+        dist.all_reduce(state.grads, group=state.group)
+        state.grads.div_(state.world)
+        if state.stats.numel():
+            dist.all_reduce(state.stats, group=state.group)
+            state.stats.div_(state.world)
+    n_t = torch.full((), float(n), device=loss.device)
+    keep = None
+    if guard:
+        keep = torch.isfinite(state.grads[-1]) & torch.isfinite(grads).all()
+    state.optimizer.step(state.params, grads, lr, keep)
+    metrics = {"loss_sum": loss * n_t, "n": n_t, "correct1": correct[1],
+               f"correct{topk}": correct[topk]}
+    if guard:
+        state.stats.copy_(torch.where(keep, state.stats, stats_before))
+        zero = torch.zeros((), device=loss.device)
+        metrics = {k: torch.where(keep, v, zero) for k, v in metrics.items()}
+        metrics["skipped"] = (~keep).float()
+    return metrics
+
+
+@torch.no_grad()
+def eval_step(model, batch: dict, totals: torch.Tensor, topk: int = 5) -> torch.Tensor:
+    """Add the batch's ``[sum(nll * w), sum(w), correct@1, correct@k]`` to
+    ``totals`` (a 4-vector on the device) and return it."""
+    model.eval()
+    logits = model(device_normalize(batch["image"])).float()
+    w = batch["weight"]
+    nll = per_example_nll(logits, batch["label"])
+    c = topk_correct_weighted(logits, batch["label"], w, ks=(1, topk))
+    return totals + torch.stack([(nll * w).sum(), w.sum(), c[1], c[topk]])
+
+
+def _check_supported() -> None:
+    """Raise on a config value whose subsystem the port does not have yet."""
+    todo = (("MESH.FSDP", cfg.MESH.FSDP in (0, 1), "item 12"),
+            ("MESH.SEQ", cfg.MESH.SEQ == 1, "item 12"),
+            ("TRAIN.TASK", cfg.TRAIN.TASK == "classify", "item 11 (mae)"),
+            ("MODEL.REMAT", not cfg.MODEL.REMAT, "item 12"),
+            ("MODEL.PRETRAINED", not cfg.MODEL.PRETRAINED, "item 11"),
+            ("MODEL.ARCH", cfg.MODEL.ARCH != "botnet50", "item 10 (BoTNet-50 training)"))
+    for key, ok, item in todo:
+        if not ok:
+            raise NotImplementedError(f"this {key} is not ported yet (ROADMAP Queue 1 {item})")
+    if cfg.MODEL.DTYPE not in _DTYPES:
+        raise ValueError(f"MODEL.DTYPE must be 'float32' or 'bfloat16', got {cfg.MODEL.DTYPE!r}")
+    if cfg.MODEL.BN_DTYPE not in ("auto", *_DTYPES):
+        raise ValueError(f"MODEL.BN_DTYPE must be 'auto', 'float32' or 'bfloat16', "
+                         f"got {cfg.MODEL.BN_DTYPE!r}")
+
+
+def build_cfg_model(generator: torch.Generator | None = None) -> torch.nn.Module:
+    """``MODEL.ARCH`` with the config's classes, compute dtype and BN
+    boundary dtype (``auto`` follows ``MODEL.DTYPE``), weights drawn from
+    ``generator`` with the JAX initialisers (:func:`layers.init_weights`)."""
+    for mod in filter(None, (m.strip() for m in cfg.MODEL.MODULE.split(","))):
+        importlib.import_module(mod)
+    dtype = _DTYPES[cfg.MODEL.DTYPE]
+    bn = cfg.MODEL.BN_DTYPE
+    bn_dtype = dtype if bn == "auto" else _DTYPES[bn]
+    model = build_model(cfg.MODEL.ARCH, num_classes=cfg.MODEL.NUM_CLASSES, dtype=dtype,
+                        bn_dtype=bn_dtype, im_size=cfg.TRAIN.IM_SIZE)
+    if generator is not None:
+        layers.init_weights(model, generator)
+    return model
+
+
+def _launch_counts() -> tuple[int, int, int, int]:
+    return ep.LAUNCHES, ep.BWD_LAUNCHES, ep.SCALAR_LAUNCHES, ep.BWD_SCALAR_LAUNCHES
+
+
+def _poison(batch: dict) -> dict:
+    """The batch with NaN images (FAULT.INJECT_NAN_STEPS)."""
+    return dict(batch, image=torch.full(batch["image"].shape, float("nan"),
+                                        device=batch["image"].device))
+
+
+class _Profiler:
+    """TRAIN.PROFILE: a torch.profiler window over PROFILE_STEPS steps from
+    PROFILE_START; its device events go to OUT_DIR/profile/train_steps.json
+    with the window's wall time (the device synchronised at both ends)."""
+
+    def __init__(self, device):
+        self.device, self.prof, self.tic = device, None, 0.0
+
+    def before(self, it: int) -> None:
+        if it == cfg.TRAIN.PROFILE_START and self.prof is None:
+            from torch.profiler import ProfilerActivity, profile
+
+            acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                             if self.device.type == "cuda" else [])
+            self._sync()
+            self.prof = profile(activities=acts)
+            self.prof.__enter__()
+            self.tic = time.perf_counter()
+
+    def after(self, it: int) -> None:
+        if self.prof is None or it != cfg.TRAIN.PROFILE_START + cfg.TRAIN.PROFILE_STEPS - 1:
+            return
+        self._sync()
+        wall = time.perf_counter() - self.tic
+        self.prof.__exit__(None, None, None)
+        events = [(e.name, e.time_range.start, e.time_range.end) for e in self.prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA and e.time_range.end > 0]
+        out = os.path.join(cfg.OUT_DIR, "profile")
+        os.makedirs(out, exist_ok=True)
+        path = os.path.join(out, "train_steps.json")
+        with open(path, "w") as f:
+            json.dump({"steps": cfg.TRAIN.PROFILE_STEPS, "wall_ms": 1e3 * wall,
+                       "batch": cfg.TRAIN.BATCH_SIZE * cfg.TRAIN.ACCUM_STEPS,
+                       "events": events}, f)
+        logger.info(f"Profiled {cfg.TRAIN.PROFILE_STEPS} steps from step "
+                    f"{cfg.TRAIN.PROFILE_START}: {len(events)} device events -> {path}")
+        self.prof = None
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+
+def _fetch(window: list, state: TrainState) -> list[dict]:
+    """The window's per-step metric sums on the host, summed over the group."""
+    keys = list(window[0])
+    t = torch.stack([torch.stack([m[k] for k in keys]) for m in window])
+    if state.world > 1:
+        skipped = t[:, keys.index("skipped")].clone() if "skipped" in keys else None
+        dist.all_reduce(t, group=state.group)
+        if skipped is not None:  # identical on every rank: not summed
+            t[:, keys.index("skipped")] = skipped
+    return [dict(zip(keys, row)) for row in t.tolist()]
+
+
+def train_epoch(loader, state: TrainState, epoch: int, device, is_primary: bool, *,
+                start_epoch: int = 0, run_tic: float | None = None, profiler=None) -> None:
+    lr = optim.get_epoch_lr(epoch)
+    if is_primary:
+        logger.info(f"Epoch[{epoch}] current learning rate: {lr:.6f}")
+    loader.set_epoch(epoch)
+    topk = cfg.TRAIN.TOPK
+    batch_time, data_time, losses, top1, topk_m, progress = construct_meters(
+        len(loader), prefix=f"Epoch[{epoch}] ", topk=topk)
+    progress.configure_run_eta(tic=run_tic or time.time(), cur_epoch=epoch,
+                               start_epoch=start_epoch, max_epoch=cfg.OPTIM.MAX_EPOCH)
+    step_imgs = cfg.TRAIN.BATCH_SIZE * cfg.TRAIN.ACCUM_STEPS * state.world
+    nan_steps = set(cfg.FAULT.INJECT_NAN_STEPS)
+    epoch_skipped = consec = 0
+    window: list = []
+    first_window = True
+    launches0 = _launch_counts()
+    epoch_start = t_end = t_window = time.time()
+    for it, batch in enumerate(DevicePrefetcher(loader, device, cfg.TRAIN.PREFETCH)):
+        data_time.update(time.time() - t_end)
+        gstep = epoch * len(loader) + it
+        if gstep == cfg.FAULT.INJECT_KILL_STEP:
+            os.kill(os.getpid(), signal.SIGKILL)  # a hard death: no cleanup, no checkpoint
+        if gstep in nan_steps:
+            batch = _poison(batch)
+            if is_primary:
+                logger.warning(f"FAULT INJECTION: NaN batch at global step {gstep}")
+        if profiler is not None:
+            profiler.before(it)
+        window.append(train_step(state, batch, lr, accum_steps=cfg.TRAIN.ACCUM_STEPS,
+                                 topk=topk, label_smooth=cfg.TRAIN.LABEL_SMOOTH,
+                                 guard=cfg.FAULT.NONFINITE_GUARD))
+        if profiler is not None:
+            profiler.after(it)
+        if it % cfg.TRAIN.PRINT_FREQ == 0 or it == len(loader) - 1:
+            vals = _fetch(window, state)  # the sync point
+            now = time.time()
+            if first_window:  # the first window carries cuDNN's autotuning: shown, not averaged
+                batch_time.val = (now - t_window) / len(window)
+                first_window = False
+            else:
+                batch_time.update((now - t_window) / len(window), n=len(window))
+            t_window = now
+            for v in vals:
+                if v.get("skipped", 0.0) >= 0.5:
+                    epoch_skipped += 1
+                    consec += 1
+                    if consec >= cfg.FAULT.MAX_CONSECUTIVE_SKIPS:
+                        raise FloatingPointError(
+                            f"{consec} consecutive non-finite steps at epoch {epoch} step {it}: "
+                            f"aborting (FAULT.MAX_CONSECUTIVE_SKIPS="
+                            f"{cfg.FAULT.MAX_CONSECUTIVE_SKIPS})")
+                else:
+                    consec = 0
+            n = sum(v["n"] for v in vals)
+            if n > 0:
+                losses.update(sum(v["loss_sum"] for v in vals) / n, n=int(n))
+                top1.update(100.0 * sum(v["correct1"] for v in vals) / n, n=int(n))
+                topk_m.update(100.0 * sum(v[f"correct{topk}"] for v in vals) / n, n=int(n))
+            window.clear()
+            if is_primary:
+                progress.display(it)
+        t_end = time.time()
+    wall = time.time() - epoch_start
+    fwd, bwd, fwd_s, bwd_s = (b - a for a, b in zip(launches0, _launch_counts()))
+    steps = len(loader)
+    if is_primary:
+        logger.info(f"Epoch[{epoch}] K1 launches: {fwd} forward ({fwd / steps:.2f} a step), "
+                    f"{bwd} backward ({bwd / steps:.2f} a step), scalar route {fwd_s} forward, "
+                    f"{bwd_s} backward")
+        if epoch_skipped:
+            logger.warning(f"Epoch[{epoch}] skipped_steps: {epoch_skipped} non-finite step(s) "
+                           f"left parameters and optimizer state untouched")
+        logger.info(f"Epoch[{epoch}] done: {wall:.1f}s, {step_imgs * steps / wall:.0f} img/s; "
+                    f"steady state {1e3 * batch_time.avg:.2f} ms a step, "
+                    f"{step_imgs / max(batch_time.avg, 1e-9):.0f} img/s")
+
+
+def validate(loader, model, device, is_primary: bool, group=None, prefix="Test: "):
+    """Weighted top-1/top-k and loss over ``loader``; returns ``(acc1, acck)``."""
+    topk = cfg.TRAIN.TOPK
+    batch_time, data_time, losses, top1, topk_m, progress = construct_meters(
+        len(loader), prefix=prefix, topk=topk)
+    totals = torch.zeros(4, device=device)
+    t_end = t_window = time.time()
+    window_n = 0
+
+    def summed(t):
+        t = t.clone()
+        if group is not None:
+            dist.all_reduce(t, group=group)
+        return t.tolist()
+
+    for it, batch in enumerate(DevicePrefetcher(loader, device, cfg.TRAIN.PREFETCH)):
+        data_time.update(time.time() - t_end)
+        totals = eval_step(model, batch, totals, topk)
+        window_n += 1
+        if it % cfg.TEST.PRINT_FREQ == 0 or it == len(loader) - 1:
+            loss_s, n, c1, ck = summed(totals)
+            now = time.time()
+            if it == 0:
+                batch_time.val = (now - t_window) / window_n
+            else:
+                batch_time.update((now - t_window) / window_n, n=window_n)
+            t_window, window_n = now, 0
+            n = max(n, 1.0)
+            losses.avg = losses.val = loss_s / n
+            top1.avg = top1.val = 100.0 * c1 / n
+            topk_m.avg = topk_m.val = 100.0 * ck / n
+            if is_primary:
+                progress.display(it)
+        t_end = time.time()
+    loss_s, n, c1, ck = summed(totals)
+    n = max(n, 1.0)
+    acc1, acck = 100.0 * c1 / n, 100.0 * ck / n
+    if is_primary:
+        logger.info(f" * Acc@1 {acc1:.3f} Acc@{topk} {acck:.3f}")
+    return acc1, acck
+
+
+def _setup(device):
+    configure_determinism(cfg.CUDNN.DETERMINISTIC, cfg.CUDNN.BENCHMARK)
+    _check_supported()
+    info = setup_distributed(device)
+    if cfg.MESH.DATA not in (-1, info.world_size):
+        raise ValueError(f"MESH.DATA {cfg.MESH.DATA} != the {info.world_size} processes of the "
+                         f"run (the port is data-parallel over every process)")
+    setup_logger(cfg.OUT_DIR if info.is_primary else None)
+    if not info.is_primary:  # one progress log for the run: rank 0's
+        logger.setLevel("WARNING")
+    return info
+
+
+def _sync_bn(model, group) -> None:
+    if cfg.MODEL.SYNCBN and group is not None:
+        for m in model.modules():
+            if isinstance(m, layers.BatchNorm):
+                m.sync_group = group
+
+
+def train_model(device=None):
+    """A full training run on ``device`` (None: the card). Returns
+    ``(state, best_acc1)``."""
+    info = _setup(device)
+    gen = setup_seed(cfg.RNG_SEED, info.rank, info.group, info.device)
+    if info.is_primary:
+        dump_cfg()
+    model = build_cfg_model(gen).to(info.device)
+    _sync_bn(model, info.group)
+    state = TrainState(model, info.group)
+    logger.info(f"Processes: {info.world_size} (rank 0 on {info.device}), global batch "
+                f"{cfg.TRAIN.BATCH_SIZE * cfg.TRAIN.ACCUM_STEPS * info.world_size}")
+    logger.info(f"Model:\n{cfg.MODEL.ARCH}")
+    logger.info(f"Params(M): {count_parameters(model):.3f}")
+    train_loader = construct_train_loader(info.world_size)
+    val_loader = construct_val_loader(info.world_size)
+    start_epoch, best_acc1 = 0, 0.0
+    res = None
+    if cfg.TRAIN.AUTO_RESUME:
+        res = ckpt.restore_latest(cfg.OUT_DIR, state,
+                                  verify_integrity=cfg.RESUME.VERIFY_INTEGRITY,
+                                  skip_corrupt=cfg.RESUME.SKIP_CORRUPT)
+        if res is not None:
+            start_epoch, best_acc1, path = res
+            logger.info(f"Resumed from {path} (epoch {start_epoch}, best {best_acc1:.3f})")
+    if res is None and cfg.MODEL.WEIGHTS:
+        ckpt.load_checkpoint(cfg.MODEL.WEIGHTS, state, load_opt=cfg.TRAIN.LOAD_OPT)
+        logger.info(f"Warm-started weights from {cfg.MODEL.WEIGHTS}")
+    profiler = _Profiler(info.device) if cfg.TRAIN.PROFILE and info.is_primary else None
+    run_tic = time.time()
+    for epoch in range(start_epoch, cfg.OPTIM.MAX_EPOCH):
+        train_epoch(train_loader, state, epoch, info.device, info.is_primary,
+                    start_epoch=start_epoch, run_tic=run_tic,
+                    profiler=profiler if epoch == start_epoch else None)
+        acc1, _ = validate(val_loader, model, info.device, info.is_primary, info.group)
+        is_best = acc1 > best_acc1
+        best_acc1 = max(acc1, best_acc1)
+        if info.is_primary:
+            path = ckpt.save_checkpoint(cfg.OUT_DIR, epoch, state, best_acc1, is_best)
+            logger.info(f"Saving checkpoint: {path} (best Acc@1 {best_acc1:.3f})")
+    return state, best_acc1
+
+
+def test_model(device=None):
+    """Evaluate ``MODEL.WEIGHTS`` (a checkpoint) on the val loader; returns
+    ``(acc1, acck)``."""
+    info = _setup(device)
+    model = build_cfg_model(torch.Generator().manual_seed(0)).to(info.device)
+    state = TrainState(model, info.group)
+    logger.info(f"Params(M): {count_parameters(model):.3f}")
+    if cfg.MODEL.WEIGHTS:
+        ckpt.load_checkpoint(cfg.MODEL.WEIGHTS, state, load_opt=False)
+        logger.info(f"Loaded weights from {cfg.MODEL.WEIGHTS}")
+    val_loader = construct_val_loader(info.world_size)
+    return validate(val_loader, model, info.device, info.is_primary, info.group)

@@ -435,3 +435,178 @@ def test_cuda_moe_combine_backward_takes_any_routing(cuda):
         err = float((d_w.cpu() - want_w).abs().max())
         assert err <= 1e-5 * float(want_w.abs().max()), (n, d, err)
 
+
+
+# K1-bwd's per-channel sums against the plain version's, relative to an upper
+# bound of the sum of |terms| (bwd_scales): both are f32 sums of the same
+# rounded products in different orders (the kernel: per-thread runs, a block
+# tree, a fixed-order pass over the blocks), each within ~log2(R) + R /
+# threads roundings of the sum of |terms|; 1e-5 is above that for every
+# ResNet-50 site (a few hundred 2^-24 roundings) and far below a wrong term.
+BWD_SUM_RTOL = 1e-5
+
+
+def bwd_scales(x, mean, mul, bias, identity, g_out, g_cast, kw):
+    """Per channel, upper bounds of sum|terms| of d_mean, d_mul and d_bias:
+    the plain backward fed |g| gives sum|g1| (the ReLU mask and the roundings
+    keep |.|), times |mul| and max|x - mean|."""
+    abs_ = [None if g is None else g.abs() for g in (g_out, g_cast)]
+    s = ep.epilogue_backward_reference(x, mean, mul, bias, identity, *abs_, **kw)[3]
+    dims = (0, 2, 3) if x.dim() == 4 else (0,)
+    spread = (x.float() - mean.view(1, -1, *([1] * (x.dim() - 2)))).abs().amax(dims)
+    return s * mul.abs(), s * spread, s
+
+
+def bwd_check(x, mean, mul, bias, identity, g_out, g_cast, kw, what):
+    """K1-bwd against its plain version: d_x and d_identity bitwise, the
+    per-channel sums within BWD_SUM_RTOL; two calls bitwise equal."""
+    got = ep.fused_conv_epilogue_backward(x, mean, mul, bias, identity, g_out, g_cast, **kw)
+    again = ep.fused_conv_epilogue_backward(x, mean, mul, bias, identity, g_out, g_cast, **kw)
+    want = ep.epilogue_backward_reference(x, mean, mul, bias, identity, g_out, g_cast, **kw)
+    torch.cuda.synchronize()
+    for g, a in zip(got, again):
+        assert (g is None) == (a is None) and (g is None or torch.equal(g, a)), what
+    for name, g, w in (("d_x", got[0], want[0]), ("d_identity", got[4], want[4])):
+        assert (g is None) == (w is None), (what, name)
+        if g is not None:
+            assert g.dtype == w.dtype and g.shape == w.shape, (what, name)
+            assert torch.equal(g, w), (what, name, (g.float() - w.float()).abs().max().item())
+    worst = 0.0
+    for name, g, w, s in zip(("d_mean", "d_mul", "d_bias"), got[1:4], want[1:4],
+                             bwd_scales(x, mean, mul, bias, identity, g_out, g_cast, kw)):
+        rel = ((g - w).abs() / s.clamp_min(1e-30)).max().item()
+        assert rel <= BWD_SUM_RTOL, (what, name, rel)
+        worst = max(worst, rel)
+    return worst
+
+
+@pytest.mark.gpu
+def test_cuda_epilogue_backward_equals_plain(cuda):
+    """K1-bwd vs autograd through the plain version, at ResNet-50 training
+    widths and the scalar route's shapes (C 36, a misaligned view, 2-D), in
+    every mode, bf16 and f32 boundaries, with and without residual and ReLU;
+    the autograd Function around K1 gives the same gradients."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+
+    def nchw(n, h, w, c, dtype, offset=0):
+        t = torch.randn(n * h * w * c + offset, generator=gen, device=cuda).to(dtype)
+        return t[offset:].view(n, h, w, c).permute(0, 3, 1, 2)
+
+    cases = [((8, 56, 56, 64), 0, False), ((4, 7, 7, 2048), 0, False), ((3, 5, 9, 40), 0, False),
+             ((3, 5, 9, 36), 0, True), ((2, 6, 6, 64), 2, True), ((37, 1, 1, 96), 0, False)]
+    for (n, h, w, c), offset, scalar in cases:
+        for bn_dt, res_dt, cast_dt in ((torch.bfloat16, torch.bfloat16, torch.bfloat16),
+                                       (torch.float32, torch.float32, torch.bfloat16),
+                                       (torch.float32, torch.bfloat16, torch.bfloat16),
+                                       (torch.bfloat16, None, torch.float32)):
+            for res in (False, True):
+                x = nchw(n, h, w, c, torch.bfloat16, offset)
+                ident = nchw(n, h, w, c, res_dt or bn_dt, offset) if res else None
+                if n == 37:
+                    x = x.reshape(n, c)
+                    ident = None if ident is None else ident.reshape(n, c)
+                mean = torch.randn(c, generator=gen, device=cuda) * 0.1
+                mul = torch.rand(c, generator=gen, device=cuda) + 0.5
+                bias = torch.randn(c, generator=gen, device=cuda) * 0.1
+                out_dt = bn_dt if ident is None else torch.promote_types(bn_dt, ident.dtype)
+                for relu in (False, True):
+                    for mode in ("a", "b", "c"):
+                        kw = dict(relu=relu, bn_dtype=bn_dt, cast_to=None if mode == "a" else cast_dt,
+                                  keep_boundary=mode != "b")
+                        g_out = None if mode == "b" else torch.randn(
+                            x.shape, generator=gen, device=cuda).to(out_dt)
+                        g_cast = None if mode == "a" else torch.randn(
+                            x.shape, generator=gen, device=cuda).to(cast_dt)
+                        if g_out is not None and x.dim() == 4:
+                            g_out = g_out.contiguous(memory_format=torch.channels_last)
+                        if g_cast is not None and x.dim() == 4:
+                            g_cast = g_cast.contiguous(memory_format=torch.channels_last)
+                        what = ((n, h, w, c), offset, bn_dt, res_dt, cast_dt, res, relu, mode)
+                        before = (ep.BWD_LAUNCHES, ep.BWD_SCALAR_LAUNCHES)
+                        bwd_check(x, mean, mul, bias, ident, g_out, g_cast, kw, what)
+                        assert (ep.BWD_LAUNCHES, ep.BWD_SCALAR_LAUNCHES) == (
+                            before[0] + 2, before[1] + 2 * scalar), what
+                # through autograd: the Function around K1, mode c
+                leaves = [t.detach().requires_grad_() for t in (x, mean, mul, bias)]
+                idl = None if ident is None else ident.detach().requires_grad_()
+                kw = dict(relu=True, bn_dtype=bn_dt, cast_to=cast_dt)
+                outs = ep.fused_conv_epilogue(*leaves, idl, **kw)
+                outs = outs if isinstance(outs, tuple) else (outs,)
+                gs = [torch.randn(o.shape, generator=gen, device=cuda).to(o.dtype) for o in outs]
+                before = ep.BWD_LAUNCHES
+                torch.autograd.backward(outs, gs)
+                assert ep.BWD_LAUNCHES == before + 1
+                inputs = [t.detach() for t in (x, mean, mul, bias)] + [ident]
+                if outs[0] is outs[-1]:  # one tensor in both roles: autograd summed its grads
+                    want = ep.epilogue_backward_reference(
+                        *inputs, gs[0] + gs[-1] if len(gs) == 2 else gs[0], None, relu=True,
+                        bn_dtype=bn_dt)
+                else:
+                    want = ep.epilogue_backward_reference(*inputs, *gs, **kw)
+                assert torch.equal(leaves[0].grad, want[0]), ("autograd d_x", (n, h, w, c))
+                if idl is not None:
+                    assert torch.equal(idl.grad, want[4]), ("autograd d_identity", (n, h, w, c))
+                for t, wt in zip(leaves[1:], want[1:4]):
+                    assert torch.allclose(t.grad, wt, rtol=1e-4, atol=1e-3), (n, h, w, c)
+
+
+@pytest.mark.gpu
+def test_resnet18_train_step_card_equals_cpu(cuda, monkeypatch):
+    """One f32 training step (TF32 off) of ResNet-18 at 64^2 on the card
+    against the same step on the CPU: loss, parameters and BN statistics
+    within 1e-3 of each tensor's max|.| (summation order in the convs and
+    the statistics, amplified by one SGD step at lr 0.1)."""
+    from distribuuuu_tpu_torch.config import cfg, reset_cfg
+    from distribuuuu_tpu_torch.trainer import TrainState, build_cfg_model, train_step
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    reset_cfg()
+    cfg.MODEL.ARCH, cfg.MODEL.NUM_CLASSES, cfg.MODEL.DTYPE = "resnet18", 10, "float32"
+    cfg.TRAIN.IM_SIZE = 64
+    gen = torch.Generator().manual_seed(0)
+    imgs = torch.randint(0, 256, (8, 64, 64, 3), dtype=torch.uint8, generator=gen)
+    labels = torch.randint(0, 10, (8,), generator=gen)
+    states = {}
+    for dev in ("cpu", cuda):
+        model = build_cfg_model(torch.Generator().manual_seed(1)).to(dev)
+        st = TrainState(model)
+        before = ep.BWD_LAUNCHES
+        m = train_step(st, {"image": imgs.to(dev), "label": labels.to(dev)}, 0.1, topk=5)
+        states[str(dev)] = (m["loss_sum"].item(), st.params.cpu(), st.stats.cpu())
+        if dev == cuda:
+            assert ep.BWD_LAUNCHES - before == 20
+    reset_cfg()
+    (l_cpu, p_cpu, s_cpu), (l_gpu, p_gpu, s_gpu) = states["cpu"], states[str(cuda)]
+    assert abs(l_cpu - l_gpu) <= 1e-3 * abs(l_cpu)
+    assert (p_cpu - p_gpu).abs().max() <= 1e-3 * p_cpu.abs().max()
+    assert (s_cpu - s_gpu).abs().max() <= 1e-3 * s_cpu.abs().max()
+
+
+@pytest.mark.gpu
+def test_deterministic_training_steps_repeat_bitwise(cuda):
+    """CUDNN.DETERMINISTIC: two runs of two bf16 ResNet-18 training steps
+    from one seed end with bitwise-equal parameters, BN statistics and
+    gradients (K1-bwd sums in a fixed order, without float atomics)."""
+    from distribuuuu_tpu_torch.config import cfg, reset_cfg
+    from distribuuuu_tpu_torch.runtime.seeding import configure_determinism
+    from distribuuuu_tpu_torch.trainer import TrainState, build_cfg_model, train_step
+
+    before = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    configure_determinism(True, benchmark=False)
+    try:
+        runs = []
+        for _ in range(2):
+            reset_cfg()
+            cfg.MODEL.ARCH, cfg.MODEL.NUM_CLASSES, cfg.TRAIN.IM_SIZE = "resnet18", 10, 64
+            st = TrainState(build_cfg_model(torch.Generator().manual_seed(0)).to(cuda))
+            gen = torch.Generator().manual_seed(1)
+            for _ in range(2):
+                train_step(st, {"image": torch.randint(0, 256, (16, 64, 64, 3), dtype=torch.uint8,
+                                                       generator=gen).to(cuda),
+                                "label": torch.randint(0, 10, (16,), generator=gen).to(cuda)}, 0.1)
+            runs.append([t.cpu() for t in (st.params, st.stats, st.grads)])
+    finally:
+        reset_cfg()
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = before
+    assert all(torch.equal(a, b) for a, b in zip(*runs))

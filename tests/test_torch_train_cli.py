@@ -1,0 +1,144 @@
+"""The port's training entry points on the CPU: the CLI run, checkpoints and resume.
+
+- ``train_model(device="cpu")`` on ``config/resnet18.yaml`` with
+  ``MODEL.DUMMY_INPUT`` at 32^2, batch 4: the loss falls, the checkpoints
+  follow the JAX scheme (``checkpoints/ckpt_ep_001``, ``ckpt_ep_002``,
+  ``best``, each with a ``dtpu_manifest.json``), ``test_model`` evaluates
+  one;
+- a run killed (SIGKILL, ``FAULT.INJECT_KILL_STEP``) in epoch 2 and
+  relaunched on the same ``OUT_DIR`` resumes from ``ckpt_ep_001`` and ends
+  bitwise equal to an uninterrupted run: model, momentum, step counter;
+- ``verify_checkpoint`` flags a byte-flipped file and resume skips it;
+- a NaN step injected by ``FAULT.INJECT_NAN_STEPS`` is skipped and logged,
+  and ``FAULT.MAX_CONSECUTIVE_SKIPS`` of them in a row abort the run;
+- ``python -m distribuuuu_tpu_torch.train_net`` without a card exits
+  non-zero and names ``device='cpu'``.
+"""
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from distribuuuu_tpu_torch import checkpoint as ckpt
+from distribuuuu_tpu_torch.config import cfg, load_cfg_fom_args, reset_cfg
+from distribuuuu_tpu_torch.trainer import test_model as port_test_model
+from distribuuuu_tpu_torch.trainer import train_model
+
+torch.set_num_threads(2)  # the suite runs several test workers on one host
+
+ROOT = Path(__file__).resolve().parents[1]
+SMALL = ["MODEL.DUMMY_INPUT", "True", "MODEL.NUM_CLASSES", "10", "TRAIN.IM_SIZE", "32",
+         "TEST.IM_SIZE", "32", "TEST.CROP_SIZE", "32", "TRAIN.BATCH_SIZE", "4",
+         "TEST.BATCH_SIZE", "4", "TRAIN.DUMMY_EPOCH_SAMPLES", "24", "TRAIN.PRINT_FREQ", "1",
+         "RNG_SEED", "3", "OPTIM.BASE_LR", "0.05"]
+
+
+def _load(out_dir, *extra):
+    reset_cfg()
+    load_cfg_fom_args(argv=["--cfg", str(ROOT / "config" / "resnet18.yaml"), *SMALL,
+                            "OUT_DIR", str(out_dir), *extra])
+
+
+@pytest.fixture(autouse=True)
+def _fresh_cfg():
+    reset_cfg()
+    yield
+    reset_cfg()
+
+
+def test_cpu_training_run_loss_falls_and_checkpoints_follow_the_jax_scheme(tmp_path):
+    _load(tmp_path, "OPTIM.MAX_EPOCH", "2")
+    state, best = train_model(device="cpu")
+    log = next(tmp_path.glob("*.log")).read_text()
+    losses = [float(m) for m in re.findall(r"Epoch\[\d\] \[\s*\d+/\d+\].*?Loss (\S+) \(", log)]
+    assert len(losses) == 12 and losses[-1] < losses[0], losses
+    assert "K1 launches: 0 forward" in log  # the CPU runs the plain versions
+    names = sorted(p.name for p in (tmp_path / "checkpoints").iterdir())
+    assert names == ["best", "ckpt_ep_001", "ckpt_ep_002"]
+    for n in names:
+        assert ckpt.verify_checkpoint(str(tmp_path / "checkpoints" / n)) == ("ok", [])
+    _load(tmp_path / "eval", "MODEL.WEIGHTS", str(tmp_path / "checkpoints" / "ckpt_ep_002"))
+    acc1, acc5 = port_test_model(device="cpu")
+    assert 0.0 <= acc1 <= acc5 <= 100.0
+
+
+def _cpu_run(out_dir, *extra) -> list[str]:
+    code = ("import sys; sys.path.insert(0, %r)\n"
+            "from distribuuuu_tpu_torch.config import load_cfg_fom_args\n"
+            "from distribuuuu_tpu_torch.trainer import train_model\n"
+            "import torch; torch.set_num_threads(2)\n"
+            "load_cfg_fom_args(argv=sys.argv[1:]); train_model(device='cpu')\n" % str(ROOT))
+    return [sys.executable, "-c", code, "--cfg", str(ROOT / "config" / "resnet18.yaml"), *SMALL,
+            "OUT_DIR", str(out_dir), "OPTIM.MAX_EPOCH", "2", *extra]
+
+
+def _final(out_dir) -> dict:
+    return torch.load(Path(out_dir) / "checkpoints" / "ckpt_ep_002" / "checkpoint.pt",
+                      weights_only=True)
+
+
+def test_killed_run_resumes_bitwise_equal_to_an_uninterrupted_run(tmp_path):
+    whole, killed = tmp_path / "whole", tmp_path / "killed"
+    subprocess.run(_cpu_run(whole), check=True, capture_output=True, timeout=300)
+    # 6 steps an epoch: global step 8 is inside epoch 2, after ckpt_ep_001
+    proc = subprocess.run(_cpu_run(killed, "FAULT.INJECT_KILL_STEP", "8"), capture_output=True,
+                          timeout=300)
+    assert proc.returncode == -9, proc.stderr.decode()[-2000:]
+    assert sorted(p.name for p in (killed / "checkpoints").iterdir()) == ["best", "ckpt_ep_001"]
+    proc = subprocess.run(_cpu_run(killed), capture_output=True, timeout=300, check=True)
+    assert "Resumed from" in proc.stderr.decode() and "ckpt_ep_001" in proc.stderr.decode()
+    a, b = _final(whole), _final(killed)
+    assert a["epoch"] == b["epoch"] == 1
+    for part in ("model", "optimizer"):
+        assert a[part].keys() == b[part].keys()
+        for k in a[part]:
+            assert torch.equal(a[part][k], b[part][k]), (part, k)
+    assert int(b["optimizer"]["step"]) == 12
+
+
+def test_verify_flags_a_flipped_byte_and_resume_skips_the_checkpoint(tmp_path):
+    _load(tmp_path, "OPTIM.MAX_EPOCH", "2")
+    train_model(device="cpu")
+    newest = tmp_path / "checkpoints" / "ckpt_ep_002"
+    data = newest / "checkpoint.pt"
+    raw = bytearray(data.read_bytes())
+    raw[len(raw) // 2] ^= 0x01
+    data.write_bytes(bytes(raw))
+    status, errors = ckpt.verify_checkpoint(str(newest))
+    assert status == "corrupt" and "sha256 mismatch" in errors[0]
+    _load(tmp_path, "OPTIM.MAX_EPOCH", "2")
+    from distribuuuu_tpu_torch.trainer import TrainState, build_cfg_model
+
+    state = TrainState(build_cfg_model())
+    start_epoch, _, path = ckpt.restore_latest(str(tmp_path), state)
+    assert start_epoch == 1 and path.endswith("ckpt_ep_001")
+
+
+def test_train_net_without_a_card_names_the_cpu_option(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the entry point would train on it")
+    proc = subprocess.run([sys.executable, "-m", "distribuuuu_tpu_torch.train_net", "--cfg",
+                           str(ROOT / "config" / "resnet18.yaml"), *SMALL, "OUT_DIR",
+                           str(tmp_path)], cwd=ROOT, capture_output=True, timeout=120,
+                          env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    assert proc.returncode != 0 and "device='cpu'" in proc.stderr.decode()
+
+
+def test_injected_nan_step_is_skipped_and_consecutive_skips_abort(tmp_path):
+    """FAULT.INJECT_NAN_STEPS poisons a step's images: the guard skips it
+    (counted in the epoch's log line); MAX_CONSECUTIVE_SKIPS of them in a
+    row abort the run."""
+    _load(tmp_path, "OPTIM.MAX_EPOCH", "1", "FAULT.INJECT_NAN_STEPS", "[2]")
+    train_model(device="cpu")
+    log = next(tmp_path.glob("*.log")).read_text()
+    assert "FAULT INJECTION: NaN batch at global step 2" in log
+    assert "skipped_steps: 1 non-finite step(s)" in log
+    _load(tmp_path / "abort", "OPTIM.MAX_EPOCH", "1", "FAULT.INJECT_NAN_STEPS", "[1, 2, 3]",
+          "FAULT.MAX_CONSECUTIVE_SKIPS", "3")
+    with pytest.raises(FloatingPointError, match="3 consecutive non-finite steps"):
+        train_model(device="cpu")
