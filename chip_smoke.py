@@ -35,7 +35,15 @@ Phases (any failure exits non-zero):
    K3/K5 at both; K2's shape with an f32 bias; bf16 and f32 at a small
    ragged shape), timed (10 back-to-back calls, and one call from an idle
    stream) beside the plain version, ``F.scaled_dot_product_attention`` and
-   the bytes/FLOP bound, with the TFLOP/s reached;
+   the bytes/FLOP bound, with the TFLOP/s reached; then [attention-bwd]: the
+   attention backward kernel (dq, dk, dv, dbias; the custom_vjp of K2/K4)
+   against ``attention_backward_reference`` at BoTNet-50 training's shape
+   (B*N 128, L 196), at B*N 512, at K4's B*N 32, L 1024, with an f32 bias,
+   in f32, and at a small ragged shape; two calls bitwise equal; the
+   training shapes timed as device time past the L2, back to back and as a
+   single call, beside the plain version, the backward of
+   ``F.scaled_dot_product_attention`` with the bias needing a gradient and
+   the bytes/FLOP bound;
 5. serve ResNet-50: ``config/serve_resnet50.yaml`` at full width (224, 1000
    classes, bf16, uint8 wire, ladder [1, 8, 32, 128]) on seeded random
    weights; mixed-size concurrent requests through ``ServeReplica.handle``
@@ -87,7 +95,14 @@ Phases (any failure exits non-zero):
    its manifest, ``test_net`` on it, a relaunch that resumes from it; step ms,
    images/s and the profile of 3 steps by kernel class; then one f32
    ResNet-18 step at 64^2, card vs CPU;
-12. the ``{"kernels": [...]}`` line; 13. the ``{"ok": true, ...}`` last line.
+12. [train-bot] ``python -m distribuuuu_tpu_torch.train_net --cfg
+   config/botnet50.yaml MODEL.DUMMY_INPUT True`` (224^2, bf16, batch 32) for
+   35 steps as a subprocess: the loss finite and falling, 53 K1, 53 K1-bwd,
+   3 attention and 3 attention-backward calls a step (none scalar), the
+   checkpoint's manifest, ``test_net`` on it, step ms, images/s and the
+   profile of 3 steps by kernel class (attention and attention-bwd among
+   them); then one f32 BoTNet-50 step at 64^2, card vs CPU;
+13. the ``{"kernels": [...]}`` line; 14. the ``{"ok": true, ...}`` last line.
 
 Each path is driven with the launch counts set to 0 just before it and read
 just after. Per-shape numbers are also written to ``smoke_out/``.
@@ -584,14 +599,28 @@ def run_cli(args: list, what: str, timeout: int = 600) -> str:
     return proc.stderr
 
 
-def train_profile(path: Path, steps: int, bound_ms: dict) -> dict:
+def train_log(log: str) -> tuple[list, dict]:
+    """The progress lines ``(step, window s a step, loss)`` of epoch 0 and
+    the epoch's launch counts from a ``train_net`` log."""
+    prog = [(int(m[1]), float(m[2]), float(m[3])) for m in re.finditer(
+        r"Epoch\[0\] \[\s*(\d+)/\d+\]\s+Time (\S+) \(\S+\).*?Loss (\S+) \(", log)]
+    m = re.search(r"K1 launches: (\d+) forward \(\S+ a step\), (\d+) backward \(\S+ a step\), "
+                  r"scalar route (\d+) forward, (\d+) backward; attention (\d+) forward "
+                  r"\(\S+ a step\), (\d+) backward", log)
+    if not prog or m is None:
+        fail(f"train_net printed no progress or launch counts:\n{log[-3000:]}")
+    keys = ("k1", "k1_bwd", "k1_scalar", "k1_bwd_scalar", "attention", "attention_bwd")
+    return prog, dict(zip(keys, (int(v) for v in m.groups())))
+
+
+def train_profile(path: Path, steps: int, bound_ms: dict, what: str, tag: str) -> dict:
     """Device time per training step by kernel class from the trainer's
     TRAIN.PROFILE window (``OUT_DIR/profile/train_steps.json``), the idle
     share between the window's first kernel start and last kernel end."""
     data = json.loads(path.read_text())
     spans = data["events"]
     if not spans:
-        say("[train] the profiler recorded no device time (not measured)")
+        say(f"[{tag}] the profiler recorded no device time (not measured)")
         return {}
     by_class: Counter = Counter()
     count: Counter = Counter()
@@ -615,90 +644,101 @@ def train_profile(path: Path, steps: int, bound_ms: dict) -> dict:
            "busy_per_step_us": busy / steps, "idle_share": 1.0 - busy / window,
            "window_wall_ms": data["wall_ms"], "kernels_per_step": len(spans) / steps,
            "top": [(n, t / steps) for n, t in by_name.most_common(12)]}
-    say(f"[train profile] ResNet-50 batch {data['batch']}, per step over {steps} steps: " + ", ".join(
+    say(f"[{tag} profile] {what} batch {data['batch']}, per step over {steps} steps: " + ", ".join(
         f"{k} {v:.0f} us in {res['events_per_step'][k]:.0f}"
         for k, v in sorted(res["per_step_us"].items()))
         + f"; device busy {res['busy_per_step_us']:.0f} us, idle share "
-        f"{100 * res['idle_share']:.1f}%, {res['kernels_per_step']:.0f} kernels; K1 bound "
-        f"{1e3 * bound_ms['k1']:.0f} us, K1-bwd bound {1e3 * bound_ms['k1_bwd']:.0f} us")
-    say("[train profile] top kernels per step: " + "; ".join(
+        f"{100 * res['idle_share']:.1f}%, {res['kernels_per_step']:.0f} kernels; bounds " + ", ".join(
+            f"{k} {1e3 * v:.0f} us" for k, v in bound_ms.items()))
+    say(f"[{tag} profile] top kernels per step: " + "; ".join(
         f"{n} {t:.0f} us" for n, t in res["top"]))
     return res
 
 
-def phase_train(card: str, tmp: Path, bound_ms: dict) -> dict:
-    """The port's training path at full width: ``python -m
-    distribuuuu_tpu_torch.train_net --cfg config/resnet50.yaml
-    MODEL.DUMMY_INPUT True TRAIN.BATCH_SIZE 128 OPTIM.MAX_EPOCH 1`` over
-    TRAIN_STEPS steps into a temporary OUT_DIR, as a subprocess: the loss
-    finite and falling; 53 K1 and 53 K1-bwd launches a step, none on the
-    scalar route (the trainer counts them over the epoch's steps, its
-    counts set to 0 just before the first step and read just after the
-    last); a checkpoint and its manifest; ``test_net`` on it reporting
-    Acc@1; a relaunch with ``OPTIM.MAX_EPOCH 2`` resuming from it. Step ms
-    and images/s from the progress lines before the profiler window; the
-    profile by kernel class. Then one f32 ResNet-18 step card vs CPU."""
+def train_args(cfg_file: str, batch: int, out: Path) -> list:
+    """``train_net``'s arguments for ``cfg_file`` on dummy input at ``batch`` a GPU."""
+    return ["--cfg", cfg_file, "MODEL.DUMMY_INPUT", "True", "TRAIN.BATCH_SIZE", str(batch),
+            "TEST.BATCH_SIZE", str(batch), "TRAIN.PRINT_FREQ", str(TRAIN_PRINT), "RNG_SEED", "0",
+            "OUT_DIR", str(out)]
+
+
+def train_run(card: str, out: Path, tag: str, what: str, cfg_file: str, batch: int, steps: int,
+              window: tuple, attention: int, bound_ms: dict) -> dict:
+    """``python -m distribuuuu_tpu_torch.train_net --cfg <cfg_file>
+    MODEL.DUMMY_INPUT True`` at ``batch`` a GPU over ``steps`` steps into
+    ``out``, as a subprocess, with the TRAIN.PROFILE ``window`` (start,
+    steps): the loss finite and falling; TRAIN_K1 K1 and K1-bwd launches a
+    step and ``attention`` attention and attention-backward calls, none on
+    a scalar route (the trainer's counts, set to 0 just before the first
+    step and read just after the last); the checkpoint verified against its
+    manifest; ``test_net`` on it reporting Acc@1. Step ms and images/s from
+    the progress lines before the profiler window; the profile by kernel
+    class."""
     from distribuuuu_tpu_torch import checkpoint as ckpt
 
-    out = tmp / "train"
-    common = ["--cfg", "config/resnet50.yaml", "MODEL.DUMMY_INPUT", "True",
-              "TRAIN.BATCH_SIZE", str(LADDER_BATCH), "TEST.BATCH_SIZE", str(LADDER_BATCH),
-              "TRAIN.PRINT_FREQ", str(TRAIN_PRINT), "RNG_SEED", "0", "OUT_DIR", str(out)]
     tic = time.perf_counter()
-    log = run_cli(["distribuuuu_tpu_torch.train_net", *common, "OPTIM.MAX_EPOCH", "1",
-                   "TRAIN.DUMMY_EPOCH_SAMPLES", str(LADDER_BATCH * TRAIN_STEPS),
-                   "TRAIN.PROFILE", "True", "TRAIN.PROFILE_START", str(TRAIN_PROFILE[0]),
-                   "TRAIN.PROFILE_STEPS", str(TRAIN_PROFILE[1])], "train_net")
+    log = run_cli(["distribuuuu_tpu_torch.train_net", *train_args(cfg_file, batch, out),
+                   "OPTIM.MAX_EPOCH", "1", "TRAIN.DUMMY_EPOCH_SAMPLES", str(batch * steps),
+                   "TRAIN.PROFILE", "True", "TRAIN.PROFILE_START", str(window[0]),
+                   "TRAIN.PROFILE_STEPS", str(window[1])], f"train_net {what}")
     wall = time.perf_counter() - tic
-    prog = [(int(m[1]), float(m[2]), float(m[3])) for m in re.finditer(
-        r"Epoch\[0\] \[\s*(\d+)/\d+\]\s+Time (\S+) \(\S+\).*?Loss (\S+) \(", log)]
-    m = re.search(r"K1 launches: (\d+) forward \(\S+ a step\), (\d+) backward \(\S+ a step\), "
-                  r"scalar route (\d+) forward, (\d+) backward", log)
-    if not prog or m is None:
-        fail(f"train_net printed no progress or launch counts:\n{log[-3000:]}")
-    fwd, bwd, fwd_s, bwd_s = (int(v) for v in m.groups())
+    prog, counts = train_log(log)
     losses = [p[2] for p in prog]
-    say(f"[train] train_net ResNet-50 224^2 batch {LADDER_BATCH}, {TRAIN_STEPS} steps in "
-        f"{wall:.1f} s (process start, cuDNN autotuning, eval and checkpoint included); loss "
-        f"{losses[0]:.4f} -> {losses[-1]:.4f}; K1 {fwd} forward, K1-bwd {bwd} backward, scalar "
-        f"route {fwd_s}/{bwd_s}")
+    say(f"[{tag}] train_net {what} 224^2 batch {batch}, {steps} steps in {wall:.1f} s (process "
+        f"start, cuDNN autotuning, eval and checkpoint included); loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}; launches {counts}")
     if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
-        fail(f"training loss not finite or not falling: {losses}")
-    want = TRAIN_K1 * TRAIN_STEPS
-    if (fwd, bwd, fwd_s, bwd_s) != (want, want, 0, 0):
-        fail(f"launches over {TRAIN_STEPS} steps: K1 {fwd}, K1-bwd {bwd}, scalar {fwd_s}/{bwd_s}; "
-             f"want {want}, {want}, 0, 0")
-    steady = [t for it, t, _ in prog if TRAIN_PRINT * 2 <= it <= TRAIN_PROFILE[0] - TRAIN_PRINT]
+        fail(f"{what} training loss not finite or not falling: {losses}")
+    want = dict(k1=TRAIN_K1 * steps, k1_bwd=TRAIN_K1 * steps, k1_scalar=0, k1_bwd_scalar=0,
+                attention=attention * steps, attention_bwd=attention * steps)
+    if counts != want:
+        fail(f"{what} launches over {steps} steps: {counts}; want {want}")
+    steady = [t for it, t, _ in prog if TRAIN_PRINT * 2 <= it <= window[0] - TRAIN_PRINT]
     step_ms = 1e3 * statistics.median(steady)
-    say(f"[train] step {step_ms:.2f} ms (median of the {len(steady)} windows of {TRAIN_PRINT} "
-        f"steps from step {TRAIN_PRINT * 2} to {TRAIN_PROFILE[0] - TRAIN_PRINT}), "
-        f"{1e3 * LADDER_BATCH / step_ms:.0f} images/s ({card})")
+    say(f"[{tag}] step {step_ms:.2f} ms (median of the {len(steady)} windows of {TRAIN_PRINT} "
+        f"steps from step {TRAIN_PRINT * 2} to {window[0] - TRAIN_PRINT}), "
+        f"{1e3 * batch / step_ms:.0f} images/s ({card})")
     path = ckpt.get_checkpoint_path(str(out), 1)
     status, errors = ckpt.verify_checkpoint(path)
     if status != "ok":
         fail(f"checkpoint {path}: {status} {errors}")
-    profile = train_profile(out / "profile" / "train_steps.json", TRAIN_PROFILE[1], bound_ms)
-    ev = run_cli(["distribuuuu_tpu_torch.test_net", "--cfg", "config/resnet50.yaml",
-                  "MODEL.DUMMY_INPUT", "True", "TEST.BATCH_SIZE", str(LADDER_BATCH),
-                  "TRAIN.DUMMY_EPOCH_SAMPLES", str(LADDER_BATCH * 4), "MODEL.WEIGHTS", path,
-                  "OUT_DIR", str(tmp / "eval")], "test_net")
+    profile = train_profile(out / "profile" / "train_steps.json", window[1], bound_ms, what, tag)
+    ev = run_cli(["distribuuuu_tpu_torch.test_net", "--cfg", cfg_file, "MODEL.DUMMY_INPUT",
+                  "True", "TEST.BATCH_SIZE", str(batch), "TRAIN.DUMMY_EPOCH_SAMPLES",
+                  str(batch * 4), "MODEL.WEIGHTS", path, "OUT_DIR", f"{out}_eval"],
+                 f"test_net {what}")
     acc = re.search(r"\* Acc@1 (\S+) Acc@5 (\S+)", ev)
     if acc is None:
         fail(f"test_net reported no Acc@1:\n{ev[-2000:]}")
-    log2 = run_cli(["distribuuuu_tpu_torch.train_net", *common, "OPTIM.MAX_EPOCH", "2",
-                    "TRAIN.DUMMY_EPOCH_SAMPLES", str(LADDER_BATCH * 4)], "train_net relaunch")
-    resumed = re.search(r"Resumed from (\S+) \(epoch (\d+)", log2)
+    say(f"[{tag}] {path} verified against its manifest; test_net on it: Acc@1 {acc[1]}, "
+        f"Acc@5 {acc[2]}")
+    return dict(steps=steps, batch=batch, launches=counts, losses=losses, step_ms=step_ms,
+                images_per_s=1e3 * batch / step_ms, windows=prog, wall_s=wall, profile=profile,
+                acc1=float(acc[1]), acc5=float(acc[2]))
+
+
+def phase_train(card: str, tmp: Path, bound_ms: dict) -> dict:
+    """[train]: ResNet-50 training at full width, :func:`train_run` on
+    ``config/resnet50.yaml`` at batch LADDER_BATCH over TRAIN_STEPS steps;
+    then a relaunch with ``OPTIM.MAX_EPOCH 2`` that must resume from the
+    checkpoint and write the next; then one f32 ResNet-18 step card vs
+    CPU."""
+    from distribuuuu_tpu_torch import checkpoint as ckpt
+
+    out = tmp / "train"
+    res = train_run(card, out, "train", "ResNet-50", "config/resnet50.yaml", LADDER_BATCH,
+                    TRAIN_STEPS, TRAIN_PROFILE, 0, bound_ms)
+    log = run_cli(["distribuuuu_tpu_torch.train_net",
+                   *train_args("config/resnet50.yaml", LADDER_BATCH, out), "OPTIM.MAX_EPOCH", "2",
+                   "TRAIN.DUMMY_EPOCH_SAMPLES", str(LADDER_BATCH * 4)], "train_net relaunch")
+    resumed = re.search(r"Resumed from (\S+) \(epoch (\d+)", log)
     if resumed is None or not resumed[1].endswith("ckpt_ep_001") or resumed[2] != "1" or \
             ckpt.verify_checkpoint(ckpt.get_checkpoint_path(str(out), 2))[0] != "ok":
-        fail(f"the relaunch did not resume from ckpt_ep_001 and write ckpt_ep_002:\n{log2[-3000:]}")
-    say(f"[train] {path} verified against its manifest; test_net on it: Acc@1 {acc[1]}, "
-        f"Acc@5 {acc[2]}; the relaunch with OPTIM.MAX_EPOCH 2 logged 'Resumed from "
-        f"{resumed[1]} (epoch {resumed[2]}' and wrote ckpt_ep_002")
-    f32 = train_f32_check()
-    return dict(steps=TRAIN_STEPS, launches=dict(k1=fwd, k1_bwd=bwd, scalar=fwd_s + bwd_s),
-                losses=losses, step_ms=step_ms, images_per_s=1e3 * LADDER_BATCH / step_ms,
-                windows=prog, wall_s=wall, profile=profile, acc1=float(acc[1]),
-                acc5=float(acc[2]), f32_check=f32)
+        fail(f"the relaunch did not resume from ckpt_ep_001 and write ckpt_ep_002:\n{log[-3000:]}")
+    say(f"[train] the relaunch with OPTIM.MAX_EPOCH 2 logged 'Resumed from {resumed[1]} (epoch "
+        f"{resumed[2]}' and wrote ckpt_ep_002")
+    res["f32_check"] = train_f32_check()
+    return res
 
 
 def train_f32_check() -> dict:
@@ -735,6 +775,93 @@ def train_f32_check() -> dict:
         + f" (limit {TRAIN_F32_REL_TOL}); card launches K1 {launches[0]}, K1-bwd {launches[1]}")
     if not all(v <= TRAIN_F32_REL_TOL for v in d.values()) or launches != (20, 20):
         fail("the f32 ResNet-18 step on the card is outside the stated tolerance of the CPU's")
+    return d
+
+
+# [train-bot]: BoTNet-50 steps at full width through the training CLI, at
+# config/botnet50.yaml's batch of 32 a GPU
+BOT_STEPS = 35  # steps of the counted epoch
+BOT_BATCH = 32
+BOT_PROFILE = (25, 3)  # TRAIN.PROFILE_START, TRAIN.PROFILE_STEPS
+BOT_ATTENTION = 3  # attention forward calls a BoTNet-50 step; as many backward calls
+# One f32 botnet50 step at 64^2 (TF32 off), card vs CPU. Without zero-γ
+# residuals the ResNet-50 trunk's gradient grows from the head to the stem
+# at init, and f32 summation order alone moves it: on the CPU the JAX
+# package and the port, from one state, part by 8.8e-5 in the loss, 3.6e-2 in
+# the update's relative L2 and 3.3e-5 in the BN statistics'
+# (tests/test_torch_gpu.py holds the same limits).
+BOT_F32_LOSS_RTOL = 1e-3
+BOT_F32_UPDATE_RL2 = 1e-1
+BOT_F32_STATS_RL2 = 1e-3
+
+
+def phase_train_bot(card: str, tmp: Path, bound_ms: dict) -> dict:
+    """[train-bot]: BoTNet-50 training at full width, :func:`train_run` on
+    ``config/botnet50.yaml`` (224^2, bf16, batch 32 a GPU, SGD nesterov,
+    cosine) over BOT_STEPS steps, 3 attention and 3 attention-backward calls
+    a step beside K1's and K1-bwd's 53; then one f32 botnet50 step card vs
+    CPU."""
+    res = train_run(card, tmp / "train_bot", "train-bot", "BoTNet-50", "config/botnet50.yaml",
+                    BOT_BATCH, BOT_STEPS, BOT_PROFILE, BOT_ATTENTION, bound_ms)
+    res["f32_check"] = train_f32_botnet_check()
+    return res
+
+
+def train_f32_botnet_check() -> dict:
+    """One f32 training step (TF32 off) of botnet50 at 64^2, 10 classes,
+    batch 8, every BN scale drawn in [0.5, 1.5] (so MHSA trains in this
+    step), on the card against the same step on the CPU: the loss, the
+    update of all parameters and the MHSA parameters' gradient (relative
+    L2), the BN statistics (relative L2) within the BOT_F32_* limits; 3
+    attention backward calls on the card."""
+    import torch
+
+    from distribuuuu_tpu_torch.config import cfg, reset_cfg
+    from distribuuuu_tpu_torch.models import layers
+    from distribuuuu_tpu_torch.ops import attention as att
+    from distribuuuu_tpu_torch.trainer import TrainState, build_cfg_model, train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    reset_cfg()
+    cfg.MODEL.ARCH, cfg.MODEL.NUM_CLASSES, cfg.MODEL.DTYPE = "botnet50", 10, "float32"
+    cfg.TRAIN.IM_SIZE = 64
+    gen = torch.Generator().manual_seed(3)
+    imgs = torch.randint(0, 256, (8, 64, 64, 3), dtype=torch.uint8, generator=gen)
+    labels = torch.randint(0, 10, (8,), generator=gen)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        model = build_cfg_model(torch.Generator().manual_seed(0))
+        scales = torch.Generator().manual_seed(1)
+        with torch.no_grad():
+            for m in model.modules():
+                if isinstance(m, layers.BatchNorm):
+                    m.weight.uniform_(0.5, 1.5, generator=scales)
+        st = TrainState(model.to(dev))
+        start = st.params.cpu().clone()
+        before = att.BWD_LAUNCHES
+        m = train_step(st, {"image": imgs.to(dev), "label": labels.to(dev)}, 0.2 * 8 / 256)
+        mhsa = torch.cat([st.grads[o:o + k].cpu() for name, (o, k, _) in
+                          zip(st.names, st.segments) if ".net.3." in name])
+        res[dev] = (m["loss_sum"].item() / 8, st.params.cpu() - start, st.stats.cpu(), mhsa,
+                    att.BWD_LAUNCHES - before)
+    reset_cfg()
+
+    def rel_l2(a, b):
+        return float((a.double() - b.double()).norm() / b.double().norm())
+
+    (lc, uc, sc, ac, _), (lg, ug, sg, ag, launches) = res["cpu"], res["cuda"]
+    d = dict(loss=abs(lc - lg) / abs(lc), update=rel_l2(ug, uc), mhsa_grad=rel_l2(ag, ac),
+             stats=rel_l2(sg, sc))
+    say(f"[train-bot f32] BoTNet-50 64^2 batch 8, one step card vs CPU: loss {lg:.6f} / "
+        f"{lc:.6f}; " + ", ".join(f"{k} {v:.2e}" for k, v in d.items())
+        + f" (limits {BOT_F32_LOSS_RTOL}, {BOT_F32_UPDATE_RL2} relative L2 for the update and "
+        f"the MHSA gradient, {BOT_F32_STATS_RL2} for the statistics); card attention backward "
+        f"calls {launches}")
+    if not (d["loss"] <= BOT_F32_LOSS_RTOL and d["update"] <= BOT_F32_UPDATE_RL2
+            and d["mhsa_grad"] <= BOT_F32_UPDATE_RL2 and d["stats"] <= BOT_F32_STATS_RL2
+            and float(ac.abs().max()) > 0 and launches == BOT_ATTENTION):
+        fail("the f32 BoTNet-50 step on the card is outside the stated tolerance of the CPU's")
     return d
 
 
@@ -933,6 +1060,125 @@ def phase_attention(card: str):
             f"SDPA {lib_ms:.4f}, bound {bound_ms:.4f} by {bound_by}, "
             f"{100 * bound_ms / ms:.0f}% of bound, {tflops:.1f} TFLOP/s)")
         del q, k, v, last, got, want, blockwise
+    torch.cuda.empty_cache()
+    return rows
+
+
+# [attention-bwd]: (name, B, N, L, D, Dv, q/k/v/g dtype, bias dtype, timed): the
+# shapes BoTNet-50 training gives the backward (4 heads of 128: batch 32 at
+# 224^2, the [train-bot] run; batch 128; batch 8 at 512^2, L 1024, K4's
+# route), an f32 bias under bf16 q/k/v, an f32 model at both L, and a small
+# ragged shape in both dtypes (L, D, Dv not multiples of anything).
+ATTN_BWD_CASES = [
+    ("K2 train", 32, 4, 196, 128, 128, "bfloat16", "bfloat16", True),
+    ("K2 b128", 128, 4, 196, 128, 128, "bfloat16", "bfloat16", True),
+    ("K4", 8, 4, 1024, 128, 128, "bfloat16", "bfloat16", True),
+    ("K2 f32-bias", 32, 4, 196, 128, 128, "bfloat16", "float32", False),
+    ("K2 f32", 32, 4, 196, 128, 128, "float32", "float32", False),
+    ("K4 f32", 8, 4, 1024, 128, 128, "float32", "float32", False),
+    ("bf16 ragged", 2, 3, 70, 40, 24, "bfloat16", "bfloat16", False),
+    ("f32 ragged", 2, 3, 70, 40, 24, "float32", "bfloat16", False),
+]
+# The backward kernel vs attention_backward_reference, relative to
+# max(1, max|grad|) of each of dq, dk, dv, dbias, by that gradient's dtype
+# (dbias has the bias's): both compute every
+# intermediate in f32 and round each gradient once to its input's dtype, so
+# f32 differs in summation order only (the forward's 2e-5) and bf16 by at
+# most an ulp of the rounded gradient where the two f32 sums straddle a
+# rounding boundary (2^-7); 2e-2 is the forward's bf16 bound.
+ATTN_BWD_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+def attention_bwd_bound(bn, l, d, dv, dtype, bias_dtype, bw) -> tuple[float, str, float]:
+    """(bound ms, what bounds it, bytes) of one backward call: q, k, v, g
+    and the [B, N, L, L] bias read once, dq, dk, dv and dbias written once;
+    the five products (q.k^T, g.v^T, p^T.g, ds.k, ds^T.q) at the card's peak
+    for the inputs' type."""
+    item = 2 if dtype == "bfloat16" else 4
+    bias_item = 2 if bias_dtype == "bfloat16" else 4
+    nbytes = (bn * l * (2 * d + 2 * dv) * item + bn * l * (2 * d + dv) * item
+              + 2 * bn * l * l * bias_item)
+    flops = 2.0 * bn * l * l * (3 * d + 2 * dv)
+    peak = BF16_PEAK_FLOPS if dtype == "bfloat16" else F32_PEAK_FLOPS
+    by = "bytes" if nbytes / bw >= flops / peak else "operations"
+    return 1e3 * max(nbytes / bw, flops / peak), by, nbytes
+
+
+def phase_attention_bwd(card: str) -> dict:
+    """The attention backward kernel (``fused_attention_backward``) against
+    ``attention_backward_reference`` at ATTN_BWD_CASES: every gradient's
+    dtype, shape and error, two calls bitwise equal. The timed cases three
+    ways (device time from a CUDA-graph replay cycling through input sets
+    past the L2, back to back, a single call), beside the plain version,
+    the backward alone of ``F.scaled_dot_product_attention`` with the bias
+    needing a gradient, and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from distribuuuu_tpu_torch.ops import attention as att
+
+    bw = hbm_bytes_per_s(card)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    rows = {}
+    for name, b, n, l, d, dv, dtype, bias_dtype, timed in ATTN_BWD_CASES:
+        dt, bdt = getattr(torch, dtype), getattr(torch, bias_dtype)
+
+        def inputs(_=0):  # q, k, v and g as the head-split views MHSA and its backward give
+            def heads_first(width, scale=1.0):
+                t = torch.randn(b, l, n * width, generator=gen, device="cuda") * scale
+                return t.to(dt).view(b, l, n, width).transpose(1, 2)
+
+            bias = (torch.randn(b, n, l, l, generator=gen, device="cuda") * 0.5).to(bdt)
+            return heads_first(d, 0.3), heads_first(d, 0.3), heads_first(dv), bias, heads_first(dv)
+
+        args = inputs()
+        before = att.BWD_LAUNCHES
+        got = att.fused_attention_backward(*args)
+        again = att.fused_attention_backward(*args)
+        want = att.attention_backward_reference(*args)
+        torch.cuda.synchronize()
+        if att.BWD_LAUNCHES != before + 2:
+            fail(f"attention backward {name}: {att.BWD_LAUNCHES - before} launches for 2 calls")
+        errs, rel = {}, {}
+        for gname, x, y, z in zip(("dq", "dk", "dv", "dbias"), got, again, want):
+            if x.dtype != z.dtype or x.shape != z.shape or not x.is_contiguous():
+                fail(f"attention backward {name}: {gname} {x.dtype} {tuple(x.shape)}")
+            if not torch.equal(x, y):
+                fail(f"attention backward {name}: two calls differ in {gname}")
+            scale = max(1.0, z.float().abs().max().item())
+            errs[gname] = (x.float() - z.float()).abs().max().item()
+            rel[gname] = errs[gname] / scale
+            tol = ATTN_BWD_TOL[str(z.dtype).removeprefix("torch.")]
+            if not rel[gname] <= tol:
+                fail(f"attention backward {name} != plain in {gname}: max|d| {errs[gname]:.3e} "
+                     f"> {tol} x {scale:.3e}")
+        bound_ms, bound_by, nbytes = attention_bwd_bound(b * n, l, d, dv, dtype, bias_dtype, bw)
+        row = dict(b=b, n=n, l=l, d=d, dv=dv, dtype=dtype, bias_dtype=bias_dtype,
+                   max_abs_err=max(errs.values()), errors=errs, rel_errors=rel,
+                   bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes)
+        del got, again, want
+        msg = ""
+        if timed:
+            row.update(rotated_timings(att.fused_attention_backward,
+                                       lambda i: args if i == 0 else inputs(), nbytes))
+            row["plain_ms"] = cuda_ms(lambda: att.attention_backward_reference(*args), runs=10,
+                                      batch=2)
+            q, k, v, bias, g = args
+            leaves = [t.detach().requires_grad_() for t in (q, k, v, bias.to(dt))]
+            out = F.scaled_dot_product_attention(*leaves[:3], attn_mask=leaves[3], scale=1.0)
+            row["library_ms"] = cuda_ms(
+                lambda: torch.autograd.grad(out, leaves, g, retain_graph=True), batch=ATTN_BATCH)
+            del out, leaves
+            msg = (f"; device {row['device_ms']:.4f} ms ({100 * bound_ms / row['device_ms']:.0f}% "
+                   f"of bound {bound_ms:.4f} by {bound_by}, {nbytes / 1e6:.1f} MB), back to back "
+                   f"{row['back_to_back_ms']:.4f}, single call {row['single_call_ms']:.4f}; plain "
+                   f"{row['plain_ms']:.4f}, SDPA backward {row['library_ms']:.4f}")
+        rows[name] = row
+        say(f"[attention-bwd] {name}: B*N {b * n}, L {l}, D {d}, Dv {dv}, {dtype} q/k/v/g, "
+            f"{bias_dtype} bias: max|d|/max(1, max|grad|) " + ", ".join(
+                f"{k} {v:.2e}" for k, v in rel.items())
+            + f" (limits {ATTN_BWD_TOL}), two calls bitwise equal" + msg)
+        del args
     torch.cuda.empty_cache()
     return rows
 
@@ -1185,6 +1431,8 @@ def kernel_class(name: str) -> str:
     low = name.lower()
     if "epilogue_bwd" in low:
         return "K1-bwd"
+    if "attention_bwd" in low:
+        return "attention-bwd"
     if re.search(r"epilogue_(vec_|scalar_)?kernel", low):
         return "K1"
     if "attention_kernel" in low or "attention_mma_kernel" in low:
@@ -2027,6 +2275,7 @@ def main() -> None:
     bwd_rows, bwd_step, bwd_err, bwd_worst = phase_k1_bwd(card, train_sites,
                                                           sites["resnet50"][LADDER_BATCH])
     attn = phase_attention(card)
+    attn_bwd = phase_attention_bwd(card)
     with tempfile.TemporaryDirectory() as tmp:
         serve = phase_serve(card, Path(tmp), "resnet50", k1_bound_us["resnet50"])
         bot = phase_serve(card, Path(tmp), "botnet50", k1_bound_us["botnet50"])
@@ -2037,6 +2286,18 @@ def main() -> None:
         moe_dist = phase_moe_dist(Path(tmp))
     with tempfile.TemporaryDirectory() as tmp:
         train = phase_train(card, Path(tmp), train_bound_ms)
+    bot_sites = epilogue_sites("botnet50", BOT_BATCH, bn_dtype=torch.bfloat16)
+    if sum(bot_sites.values()) != TRAIN_K1:
+        fail(f"botnet50 training: {sum(bot_sites.values())} K1 sites, want {TRAIN_K1}")
+    bot_bound_ms = {
+        "k1": sum(k1_bound((*site[:6], "a"), bw, (2, 2, 2, 2))[0] * m
+                  for site, m in bot_sites.items()),
+        "k1_bwd": sum(k1_bwd_bound(site, bw)[0] * m for site, m in bot_sites.items()),
+        "attention": BOT_ATTENTION * attention_bound(BOT_BATCH * 4, 196, 128, 128, "bfloat16",
+                                                     "bias", bw)[0],
+        "attention_bwd": BOT_ATTENTION * attn_bwd["K2 train"]["bound_ms"]}
+    with tempfile.TemporaryDirectory() as tmp:
+        train_bot = phase_train_bot(card, Path(tmp), bot_bound_ms)
 
     # K1 per batch-128 forward of each served model: its sites' rows summed
     per_fwd, modes = {}, {}
@@ -2054,13 +2315,15 @@ def main() -> None:
          "max_abs_err": k1_err, "per_forward_b128": per_fwd, "modes_per_forward": modes,
          "k1_bound_us": k1_bound_us, "serve": serve}, indent=1))
     (out / "chip_smoke_attention.json").write_text(json.dumps(
-        {"card": smi, "build": builds["attention"], "cases": attn, "serve_botnet50": bot,
-         "large_crop": large, "mhsa_table": table}, indent=1))
+        {"card": smi, "build": builds["attention"], "cases": attn, "backward": attn_bwd,
+         "serve_botnet50": bot, "large_crop": large, "mhsa_table": table}, indent=1))
     (out / "chip_smoke_train.json").write_text(json.dumps(
         {"card": smi, "k1_bwd_rows": bwd_rows, "k1_bwd_per_step": bwd_step,
          "k1_bwd_max_abs_err": bwd_err, "k1_bwd_sum_rel_err": bwd_worst,
          "train_sites": [[*site, m] for site, m in sorted(train_sites.items())],
-         "train_bound_ms": train_bound_ms, "train": train}, indent=1))
+         "train_bound_ms": train_bound_ms, "train": train, "train_bot": train_bot,
+         "train_bot_bound_ms": bot_bound_ms,
+         "train_bot_sites": [[*site, m] for site, m in sorted(bot_sites.items())]}, indent=1))
     (out / "chip_smoke_moe.json").write_text(json.dumps(
         {"card": smi, "build": builds["moe"], "kernels": moe, "dist": moe_dist}, indent=1))
     for arch, f in per_fwd.items():
@@ -2189,6 +2452,38 @@ def main() -> None:
         "sum_rel_err": bwd_worst,
     })
     kernels[0]["train_launches"] = train["launches"]["k1"]
+    kernels[0]["botnet50_train_launches"] = train_bot["launches"]["k1"]
+    kernels[1]["botnet50_train_launches"] = train_bot["launches"]["k1_bwd"]
+    k2 = next(k for k in kernels if k["name"].startswith("K2 "))
+    k2["train_launches"] = train_bot["launches"]["attention"]
+    r = attn_bwd["K2 train"]
+    kernels.insert(kernels.index(k2) + 1, {
+        "name": "K2/K4 backward fused_attention_backward",
+        "route": "cuda",
+        "source": "distribuuuu_tpu_torch/ops/csrc/attention.cu",
+        "replaces": "distribuuuu_tpu/ops/attention.py:241",
+        "launches": train_bot["launches"]["attention_bwd"],
+        "max_abs_err": max(row["max_abs_err"] for row in attn_bwd.values()),
+        "ms": r["device_ms"],
+        "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"],
+        "library_ms": r["library_ms"],
+        "per": f"one call at B*N {r['b'] * r['n']}, L {r['l']}, D {r['d']}, Dv {r['dv']}, bf16 "
+               f"q/k/v/g and bias (BoTNet-50 training at 224x224, batch {BOT_BATCH}); ms: device "
+               f"time, calls replayed from a CUDA graph over input sets of at least "
+               f"{K1_ROTATE_BYTES >> 20} MiB a replay; plain_ms (attention_backward_reference) and "
+               f"library_ms (the backward of F.scaled_dot_product_attention with the bias needing "
+               f"a gradient): back to back; launches: calls in the {BOT_STEPS} steps of "
+               f"[train-bot] (each call is two CUDA launches); it stands in for the XLA recompute "
+               f"of the custom_vjp of K2 (:241) and K4 (:400); max_abs_err: over every case of "
+               f"[attention-bwd]",
+        "back_to_back_ms": r["back_to_back_ms"],
+        "single_call_ms": r["single_call_ms"],
+        "shapes": {name: {k: row[k] for k in ("device_ms", "back_to_back_ms", "single_call_ms",
+                                             "plain_ms", "library_ms", "bound_ms", "bound_by")}
+                   for name, row in attn_bwd.items() if "device_ms" in row},
+    })
     say(smi)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -9,6 +9,9 @@
   parts of ``distribuuuu_tpu.convert``'s ``export_state_dict``.
 - :func:`load_weights` reads a torch ``.pt``/``.pth`` state_dict in
   torchvision naming.
+- :func:`botnet50_trunk_from_resnet50` and :func:`merge_pretrained`: the
+  reference's ``botnet50(pretrained=True)``, a resnet50's stem and stages
+  1-3 under botnet50's numbering over a fresh botnet50.
 - :func:`moe_from_jax` takes the JAX package's switch-MoE parameters and
   returns what one rank of the port's ``switch_moe`` holds.
 
@@ -139,6 +142,45 @@ def load_weights(path: str) -> dict[str, torch.Tensor]:
         for k, v in sd.items()
         if not k.endswith(".num_batches_tracked")
     }
+
+
+# torchvision resnet50 trunk -> botnet50's Sequential slots
+_BOT_TRUNK = {"conv1": "0", "bn1": "1", "layer1": "4", "layer2": "5", "layer3": "6"}
+
+
+def botnet50_trunk_from_resnet50(state_dict: Mapping) -> dict[str, torch.Tensor]:
+    """The reference's ``botnet50(pretrained=True)``: a torchvision/reference
+    resnet50 state_dict's trunk (conv1, bn1, layer1-3) renamed onto botnet50's
+    numbering (``0``, ``1``, ``4``-``6``), as float32 copies. The BoTStack and
+    the classifier are not in it: lay it over a fresh botnet50's state_dict
+    with :func:`merge_pretrained`. A ``{"state_dict": ...}`` wrapper and
+    ``module.`` prefixes are unwrapped, ``num_batches_tracked`` dropped."""
+    if isinstance(state_dict.get("state_dict"), Mapping):
+        state_dict = state_dict["state_dict"]
+    out = {}
+    for key, val in state_dict.items():
+        key = key.removeprefix("module.")
+        head, _, rest = key.partition(".")
+        if head in _BOT_TRUNK and not key.endswith(".num_batches_tracked"):
+            out[f"{_BOT_TRUNK[head]}.{rest}"] = torch.tensor(np.asarray(val, dtype=np.float32))
+    if not out:
+        raise ValueError("state_dict has no resnet50 trunk keys (conv1/bn1/layer1-3): expected "
+                         f"a torchvision/reference resnet50 checkpoint, got keys like "
+                         f"{sorted(state_dict)[:3]}")
+    return out
+
+
+def merge_pretrained(state_dict: Mapping[str, torch.Tensor],
+                     partial: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """``state_dict`` with the entries of ``partial`` laid over it. Every key
+    of ``partial`` must be in ``state_dict`` with the same shape."""
+    out = dict(state_dict)
+    for key, val in partial.items():
+        if key not in out or tuple(out[key].shape) != tuple(val.shape):
+            raise KeyError(f"{key} {tuple(val.shape)} does not match the model's "
+                           f"{tuple(out[key].shape) if key in out else 'missing key'}")
+        out[key] = val
+    return out
 
 
 def moe_from_jax(params: Mapping, rank: int) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:

@@ -65,8 +65,24 @@ def relative_logits_1d(q: torch.Tensor, rel_k: torch.Tensor) -> torch.Tensor:
     return logits.permute(0, 1, 2, 4, 3, 5)
 
 
-class RelPosEmb(nn.Module):
+class _PosTables(nn.Module):
+    """Position tables drawn as the JAX params are, ``N(0, dim_head^-0.5)``:
+    at construction from the global RNG, and by :meth:`init_tables` (which
+    ``layers.init_weights`` calls in module order) from a generator."""
+
+    TABLES: tuple[str, ...] = ()
+
+    def init_tables(self, generator: torch.Generator) -> None:
+        with torch.no_grad():
+            for name in self.TABLES:
+                t = getattr(self, name)
+                t.normal_(0.0, t.shape[1] ** -0.5, generator=generator)
+
+
+class RelPosEmb(_PosTables):
     """2-D factorized relative position logits: the ``[B, N, L, L]`` bias."""
+
+    TABLES = ("rel_height", "rel_width")
 
     def __init__(self, height: int, width: int, dim_head: int):
         super().__init__()
@@ -86,9 +102,11 @@ class RelPosEmb(nn.Module):
         return (logits_w + logits_h).reshape(b, n, h * w, h * w)
 
 
-class AbsPosEmb(nn.Module):
+class AbsPosEmb(_PosTables):
     """Absolute position embedding: the shared ``[L, d]`` table, in q's
     dtype, that the kernel turns into the bias ``q·embᵀ`` itself."""
+
+    TABLES = ("height", "width")
 
     def __init__(self, height: int, width: int, dim_head: int):
         super().__init__()
@@ -167,9 +185,8 @@ class BoTBlock(nn.Module):
             BatchNorm(heads * dim_v, bn_dtype=bn_dtype),
             nn.ReLU(),
             conv(heads * dim_v, dim_out, 1, dtype=dtype),
-            BatchNorm(dim_out, bn_dtype=bn_dtype),
+            BatchNorm(dim_out, bn_dtype=bn_dtype, zero_scale=True),
         )
-        nn.init.zeros_(self.net[8].weight)
         self.compute_dtype = dtype
         self.handoff: dict = {}  # the K1 mode of bn_out (link_handoffs)
 

@@ -182,7 +182,8 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     convs kaiming-normal fan-out ``N(0, 2 / (out * kh * kw))``, linears
     ``U(-1/sqrt(fan_in), 1/sqrt(fan_in))`` with a zero bias, BN scale one
     (zero under ``zero_scale``) and bias zero, running statistics zero and
-    one. Returns ``model``."""
+    one, BoTNet's position tables ``N(0, dim_head^-0.5)`` (a module's
+    ``init_tables``). Returns ``model``."""
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, nn.Conv2d):
@@ -197,4 +198,6 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
                 m.bias.zero_()
                 m.running_mean.zero_()
                 m.running_var.fill_(1.0)
+            elif hasattr(m, "init_tables"):
+                m.init_tables(generator)
     return model

@@ -17,8 +17,17 @@ kernel takes any strides of B, N and L as long as the last axis is
 contiguous, so the head-split views of MHSA reach it without a copy. The
 output is a contiguous ``[B, N, L, Dv]`` in q's dtype.
 
-Forward only: serving needs no backward. The training slice adds an
-``autograd.Function`` around it.
+Gradients. :func:`fused_attention` is differentiable: where grad mode is on
+and an input needs a gradient it runs inside an ``autograd.Function`` (the
+JAX ``custom_vjp`` of K2/K4) that saves ``(q, k, v, bias)`` and whose
+backward is :func:`fused_attention_backward`: the backward kernel of
+``csrc/attention.cu`` on a CUDA tensor (two launches a call: the query-row
+pass, then the key-column pass; bf16 on the tensor cores, f32 on scalar
+FMAs), :func:`attention_backward_reference` on a CPU tensor. Otherwise
+(serving) no Function node is made and nothing is saved. The table mode
+has no backward kernel yet: on a CUDA tensor that needs a gradient
+:func:`fused_attention_abs` raises; on the CPU autograd differentiates its
+plain version.
 """
 
 from __future__ import annotations
@@ -33,6 +42,8 @@ import torch
 # path and reads them after, to show the path went through the kernel.
 LAUNCHES = 0
 TABLE_LAUNCHES = 0
+# calls of the backward kernel (each call is two CUDA launches)
+BWD_LAUNCHES = 0
 _count_lock = threading.Lock()
 
 _DT_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -85,6 +96,25 @@ def attention_blockwise_reference(q, k, v, bias_or_emb, *, table: bool, block: i
     return (acc / lsum).to(q.dtype)
 
 
+def attention_backward_reference(q, k, v, bias, g):
+    """``(dq, dk, dv, dbias)`` of :func:`attention_reference` for the output
+    gradient ``g``, term for term as the JAX ``custom_vjp`` backward
+    (``_bwd``): the logits recomputed in f32 (``q·kᵀ`` plus the bias), ``p``
+    their f32 softmax (not rounded to ``v.dtype``), ``dp = g·vᵀ``, ``dv =
+    pᵀ·g``, ``dsoft = p∘(dp − Σ_y dp∘p)``, ``dq = dsoft·k``, ``dk =
+    dsoftᵀ·q`` and ``dbias = dsoft``, all in f32, each cast to its input's
+    dtype."""
+    qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
+    logits = torch.einsum("bnxd,bnyd->bnxy", qf, kf) + bias.float()
+    p = torch.softmax(logits, dim=-1)
+    dp = torch.einsum("bnxd,bnyd->bnxy", gf, vf)
+    dv = torch.einsum("bnxy,bnxd->bnyd", p, gf).to(v.dtype)
+    dsoft = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    dq = torch.einsum("bnxy,bnyd->bnxd", dsoft, kf).to(q.dtype)
+    dk = torch.einsum("bnxy,bnxd->bnyd", dsoft, qf).to(k.dtype)
+    return dq, dk, dv, dsoft.to(bias.dtype)
+
+
 def _check(q, k, v, last, *, table: bool) -> None:
     if q.dim() != 4:
         raise ValueError(f"q must be [B, N, L, D], got {tuple(q.shape)}")
@@ -115,11 +145,47 @@ def _check(q, k, v, last, *, table: bool) -> None:
 def fused_attention(q, k, v, bias):
     """``softmax(q·kᵀ + bias)·v`` with a ``[B, N, L, L]`` bias (f32 or bf16);
     q pre-scaled. A CPU tensor gets :func:`attention_reference`; a CUDA
-    tensor launches the kernel."""
+    tensor launches the kernel. Differentiable in all four inputs (module
+    docstring)."""
     _check(q, k, v, bias, table=False)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, bias)):
+        return _Attention.apply(q, k, v, bias)
+    return _forward(q, k, v, bias)
+
+
+def _forward(q, k, v, bias):
     if q.device.type == "cpu":
         return attention_reference(q, k, v, bias)
     return _launch(q, k, v, bias, table=False)
+
+
+def fused_attention_backward(q, k, v, bias, g):
+    """``(dq, dk, dv, dbias)`` of :func:`fused_attention` for the output
+    gradient ``g`` (any strides with a contiguous last axis on the card).
+    A CPU tensor gets :func:`attention_backward_reference`; a CUDA tensor
+    launches the backward kernel. Each result is contiguous, in its input's
+    dtype."""
+    _check(q, k, v, bias, table=False)
+    if g.shape != v.shape or g.dtype != q.dtype or g.device != q.device:
+        raise ValueError(f"g must be {q.dtype} {tuple(v.shape)} on {q.device}, got {g.dtype} "
+                         f"{tuple(g.shape)} on {g.device}")
+    if q.device.type == "cpu":
+        return attention_backward_reference(q, k, v, bias, g)
+    return _launch_backward(q, k, v, bias, g)
+
+
+class _Attention(torch.autograd.Function):
+    """K2/K4 forward, their backward kernel (the JAX ``custom_vjp``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias):
+        ctx.save_for_backward(q, k, v, bias)
+        return _forward(q, k, v, bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = fused_attention_backward(*ctx.saved_tensors, g)
+        return tuple(t if need else None for t, need in zip(grads, ctx.needs_input_grad))
 
 
 def fused_attention_abs(q, k, v, emb):
@@ -130,22 +196,31 @@ def fused_attention_abs(q, k, v, emb):
     _check(q, k, v, emb, table=True)
     if q.device.type == "cpu":
         return attention_table_reference(q, k, v, emb)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, emb)):
+        raise NotImplementedError(
+            "fused_attention_abs has no backward kernel yet (K3/K5's backward, ROADMAP Queue 2): "
+            "train MHSA with rel_pos_emb=True, or run the table mode under torch.no_grad()")
     return _launch(q, k, v, emb, table=True)
 
 
-def _launch(q, k, v, last, *, table: bool):
+def _check_cuda(q, k, v, last, g=None) -> None:
     if q.device.type != "cuda":
         raise ValueError(f"fused attention runs on cuda or cpu tensors, got {q.device}")
-    b, n, l, d = q.shape
-    dv = v.shape[-1]
+    d, dv = q.shape[-1], v.shape[-1]
     if d > MAX_HEAD_DIM or dv > MAX_HEAD_DIM:
         raise ValueError(f"the CUDA kernel takes D, Dv <= {MAX_HEAD_DIM}, got D={d}, Dv={dv}")
-    for name, t in (("q", q), ("k", k), ("v", v), ("bias/emb", last)):
-        if t.stride(-1) != 1:
+    for name, t in (("q", q), ("k", k), ("v", v), ("bias/emb", last), ("g", g)):
+        if t is not None and t.stride(-1) != 1:
             raise ValueError(
                 f"{name} must have a contiguous last axis for the CUDA kernel "
                 f"(shape {tuple(t.shape)}, strides {t.stride()})"
             )
+
+
+def _launch(q, k, v, last, *, table: bool):
+    _check_cuda(q, k, v, last)
+    b, n, l, d = q.shape
+    dv = v.shape[-1]
     out = torch.empty((b, n, l, dv), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
@@ -174,14 +249,48 @@ def _launch(q, k, v, last, *, table: bool):
     return out
 
 
+def _launch_backward(q, k, v, bias, g):
+    _check_cuda(q, k, v, bias, g)
+    b, n, l, d = q.shape
+    dv = v.shape[-1]
+    dq, dk, dvv, dbias = (torch.empty_like(t, memory_format=torch.contiguous_format)
+                          for t in (q, k, v, bias))
+    if dbias.numel() == 0:  # B, N or L is 0: nothing to compute
+        return dq, dk, dvv, dbias
+    # per query row: the softmax max, its sum and delta = sum_y dp * p, f32
+    stats = torch.empty((3, b * n, l), dtype=torch.float32, device=q.device)
+    lib = _library()
+    with torch.cuda.device(q.device):
+        err = lib.dtpu_attention_backward_launch(
+            q.data_ptr(), *q.stride()[:3],
+            k.data_ptr(), *k.stride()[:3],
+            v.data_ptr(), *v.stride()[:3],
+            bias.data_ptr(), *bias.stride()[:3], _DT_CODE[bias.dtype],
+            g.data_ptr(), *g.stride()[:3],
+            dq.data_ptr(), dk.data_ptr(), dvv.data_ptr(), dbias.data_ptr(), stats.data_ptr(),
+            _DT_CODE[q.dtype], b, n, l, d, dv,
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"attention backward kernel launch failed: cudaError {err}")
+    global BWD_LAUNCHES
+    with _count_lock:
+        BWD_LAUNCHES += 1
+    return dq, dk, dvv, dbias
+
+
 def _library() -> ctypes.CDLL:
     from distribuuuu_tpu_torch.ops import _build
 
     lib, _ = _build.load("attention")
-    fn = lib.dtpu_attention_launch
-    if fn.argtypes is None:  # without them ctypes passes pointers as 32-bit ints
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        strided = [p, ll, ll, ll]
-        fn.argtypes = (strided * 3 + [p, ll, ll, ll, i, p, ll, p, i, i, i, i, i, i, p])
-        fn.restype = ctypes.c_int
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    strided = [p, ll, ll, ll]
+    for fn, args in (
+            (lib.dtpu_attention_launch,
+             strided * 3 + [p, ll, ll, ll, i, p, ll, p, i, i, i, i, i, i, p]),
+            (lib.dtpu_attention_backward_launch,
+             strided * 3 + [p, ll, ll, ll, i] + strided + [p, p, p, p, p, i, i, i, i, i, i, p])):
+        if fn.argtypes is None:  # without them ctypes passes pointers as 32-bit ints
+            fn.argtypes = args
+            fn.restype = ctypes.c_int
     return lib

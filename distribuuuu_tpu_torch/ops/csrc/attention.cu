@@ -113,6 +113,10 @@ template <typename T>
 __device__ __forceinline__ T from_f32(float v);
 template <>
 __device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
 
 // round_to(T, x) kept in f32: the value p takes after p.astype(v.dtype)
 template <typename T>
@@ -617,6 +621,27 @@ __device__ __forceinline__ void qk_pass(float (&s)[MBK / 8][4], const uint32_t (
   }
 }
 
+// acc += P.T over 128 columns, P the warp's 16 x 64 tile as bf16 A fragments
+// (pa[kj]: k-step kj of 16 rows of `tile`), T the 64-row tile at `tile`;
+// k-steps from nks on are skipped unless FULL.
+template <bool FULL>
+__device__ __forceinline__ void pv_pass(float (&acc)[16][4], const uint32_t (&pa)[4][4],
+                                        uint32_t tile, int nks, int lane) {
+  const int mi = lane >> 3;
+#pragma unroll
+  for (int kj = 0; kj < 4; ++kj) {
+    if (!FULL && kj >= nks) break;
+    const int row = kj * 16 + (mi & 1) * 8 + (lane & 7);
+#pragma unroll
+    for (int hp = 0; hp < 8; ++hp) {
+      uint32_t bv[4];
+      ldsm_x4_trans(bv, tile + row * ROW_BYTES + swz(row, (2 * hp + (mi >> 1)) * 16));
+      mma_bf16(acc[2 * hp], pa[kj], bv[0], bv[1]);
+      mma_bf16(acc[2 * hp + 1], pa[kj], bv[2], bv[3]);
+    }
+  }
+}
+
 // One key tile of the online softmax for this warp's 16 rows: the stage at
 // `st` holds K, V and the bias or emb tile; kn keys are valid (all of them
 // when FULL).
@@ -702,22 +727,8 @@ __device__ __forceinline__ void tile_step(const unsigned char* st, const uint32_
     acc[j][3] *= a1;
   }
 
-  // ---- acc += p . V (Dv zero-padded to 128) -----------------------------------
-  const int nks = FULL ? NB / 2 : (kn + 15) >> 4;  // key steps of 16 holding a valid key
-  const uint32_t sv = sk + Smem::KV;
-  const int mi = lane >> 3;
-#pragma unroll
-  for (int kj = 0; kj < NB / 2; ++kj) {
-    if (!FULL && kj >= nks) break;
-    const int row = kj * 16 + (mi & 1) * 8 + (lane & 7);
-#pragma unroll
-    for (int hp = 0; hp < 8; ++hp) {
-      uint32_t bv[4];
-      ldsm_x4_trans(bv, sv + row * ROW_BYTES + swz(row, (2 * hp + (mi >> 1)) * 16));
-      mma_bf16(acc[2 * hp], pa[kj], bv[0], bv[1]);
-      mma_bf16(acc[2 * hp + 1], pa[kj], bv[2], bv[3]);
-    }
-  }
+  // ---- acc += p . V (Dv zero-padded to 128; key steps of 16 holding a valid key)
+  pv_pass<FULL>(acc, pa, sk + Smem::KV, FULL ? NB / 2 : (kn + 15) >> 4, lane);
 }
 
 // BT: bias dtype (unused in table mode).
@@ -899,6 +910,640 @@ cudaError_t dispatch_mma(Params p, int bias_dt, int bn, cudaStream_t s) {
   }
 }
 
+// ===========================================================================
+// Backward: dq, dk, dv and dbias of softmax(q.k^T + bias).v (K2/K4's custom_vjp)
+// ===========================================================================
+//
+// What it computes is the JAX backward term for term (`_bwd`,
+// distribuuuu_tpu/ops/attention.py:241-258), with s, p, dp, ds and the softmax
+// statistics in f32:
+//     s = q.k^T + bias,  p = softmax_y(s),  dp = g.v^T,
+//     delta_x = sum_y dp * p,  ds = p * (dp - delta)
+//     dv = p^T.g,  dq = ds.k,  dk = ds^T.q,  dbias = ds
+// The delta is JAX's sum_y dp * p, not flash-attention's sum dO * O: the
+// forward rounds p and the output to the value dtype, so dO * O would differ
+// from JAX's value by those roundings.
+//
+// No float atomics: dq and dbias reduce over keys, dk and dv over query rows,
+// and each is summed in one fixed order by one thread or warp, so a call
+// repeats bitwise. Two launches, in order on the stream:
+//   rows:    per query row, sweep the keys once for the softmax's max m, its
+//            sum l and u = sum_y dp * exp(s - m) (online, rescaled as the max
+//            moves), so delta = u / l; write (m, l, delta) to the f32 stats;
+//            sweep again for p and ds, write the dbias row and accumulate dq.
+//   columns: per key row, walk the query rows, recompute s, p = exp(s - m_x) /
+//            l_x and ds from the stats, and accumulate dk and dv.
+// bf16 q/k/v/g (training) run both passes on the tensor cores (below); f32 q/k/v/g
+// (an f32 model, the card-against-CPU checks) on scalar FMAs, a warp a row:
+// a lane owns the head dimensions d = lane + 32 i (i < 4, so D, Dv <= 128); a
+// dot product is four FMAs a lane then a xor butterfly over the warp, which
+// leaves the same bits in every lane, and both passes form s and dp with the
+// same lanes, order and butterfly, so the p and ds of the columns pass are
+// bitwise those of the rows pass. The rows of q, k, v, g and the bias take
+// any strides with a contiguous last axis; dq, dk, dv and dbias are contiguous.
+//
+// What bounds it (H100 SXM, 3.35 TB/s, 989 TFLOP/s bf16): at BoTNet-50's
+// training shape (B*N 128, L 196, D = Dv = 128, bf16) the call must move 64.6
+// MB (19 us) and do 6.3 GFLOP of products (6.4 us): bytes. This design reads K,
+// V and the bias twice in the rows pass and Q, G once a key tile in the columns
+// pass (from the L2 mostly), and forms S and dP in both passes (8.8 GFLOP);
+// it is the simple one. The f32 route is bound by its scalar operations.
+
+struct BwdParams {
+  const void* q;
+  long long q_sb, q_sn, q_sl;
+  const void* k;
+  long long k_sb, k_sn, k_sl;
+  const void* v;
+  long long v_sb, v_sn, v_sl;
+  const void* bias;
+  long long b_sb, b_sn, b_sl;
+  const void* g;
+  long long g_sb, g_sn, g_sl;
+  void* dq;     // contiguous [B, N, L, D]
+  void* dk;     // contiguous [B, N, L, D]
+  void* dv;     // contiguous [B, N, L, Dv]
+  void* dbias;  // contiguous [B, N, L, L]
+  float* stats;  // [3][B*N][L]: m, l, delta of each query row
+  long long rows;  // B * N * L
+  int heads, L, D, Dv;
+};
+
+constexpr int BWD_WARPS = 8;  // warps (rows or key columns) a block
+
+// Row r of a [B, N, L, *] tensor with element strides (sb, sn, sl).
+template <typename T>
+__device__ __forceinline__ const T* row_ptr(const void* base, long long sb, long long sn,
+                                            long long sl, int b, int n, int r) {
+  return static_cast<const T*>(base) + b * sb + n * sn + (long long)r * sl;
+}
+
+// Elements d = lane + 32 i of a row of n values, as f32 (0 past n).
+template <typename T>
+__device__ __forceinline__ void load_lanes(float (&out)[4], const T* row, int n, int lane) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int d = lane + 32 * i;
+    out[i] = d < n ? to_f32(row[d]) : 0.f;
+  }
+}
+
+// sum_d a[d] b[d] over the warp: a then b in each FMA, the same in every lane.
+__device__ __forceinline__ float warp_dot(const float (&a)[4], const float (&b)[4]) {
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) s = fmaf(a[i], b[i], s);
+  return warp_sum(s);
+}
+
+// f32 q/k/v/g; BT: the bias dtype.
+template <typename BT>
+__global__ void __launch_bounds__(BWD_WARPS * 32) attention_bwd_rows_kernel(const BwdParams p) {
+  using T = float;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long row = (long long)blockIdx.x * BWD_WARPS + warp;  // over B * N * L
+  if (row >= p.rows) return;
+  const int bh = (int)(row / p.L), x = (int)(row - (long long)bh * p.L);
+  const int b = bh / p.heads, n = bh - b * p.heads;
+  float qv[4], gv[4], kr[4], vr[4];
+  load_lanes(qv, row_ptr<T>(p.q, p.q_sb, p.q_sn, p.q_sl, b, n, x), p.D, lane);
+  load_lanes(gv, row_ptr<T>(p.g, p.g_sb, p.g_sn, p.g_sl, b, n, x), p.Dv, lane);
+  const BT* bias = row_ptr<BT>(p.bias, p.b_sb, p.b_sn, p.b_sl, b, n, x);
+
+  // sweep 1: m, l and u = sum_y dp * exp(s - m), rescaled as m grows
+  float m = -INFINITY, l = 0.f, u = 0.f;
+  for (int y = 0; y < p.L; ++y) {
+    load_lanes(kr, row_ptr<T>(p.k, p.k_sb, p.k_sn, p.k_sl, b, n, y), p.D, lane);
+    load_lanes(vr, row_ptr<T>(p.v, p.v_sb, p.v_sn, p.v_sl, b, n, y), p.Dv, lane);
+    const float s = warp_dot(qv, kr) + to_f32(bias[y]);
+    const float dp = warp_dot(gv, vr);
+    const float mn = fmaxf(m, s);
+    const float a = expf(m - mn), e = expf(s - mn);  // first key: exp(-inf) = 0
+    l = l * a + e;
+    u = u * a + e * dp;
+    m = mn;
+  }
+  const float delta = u / l;
+  if (lane == 0) {
+    p.stats[row] = m;
+    p.stats[p.rows + row] = l;
+    p.stats[2 * p.rows + row] = delta;
+  }
+
+  // sweep 2: p, ds; the dbias row and dq
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  BT* dbias = static_cast<BT*>(p.dbias) + row * p.L;
+  for (int y = 0; y < p.L; ++y) {
+    load_lanes(kr, row_ptr<T>(p.k, p.k_sb, p.k_sn, p.k_sl, b, n, y), p.D, lane);
+    load_lanes(vr, row_ptr<T>(p.v, p.v_sb, p.v_sn, p.v_sl, b, n, y), p.Dv, lane);
+    const float s = warp_dot(qv, kr) + to_f32(bias[y]);
+    const float dp = warp_dot(gv, vr);
+    const float pr = expf(s - m) / l;
+    const float ds = pr * (dp - delta);
+    if (lane == (y & 31)) dbias[y] = from_f32<BT>(ds);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[i] = fmaf(ds, kr[i], acc[i]);
+  }
+  T* dq = static_cast<T*>(p.dq) + row * p.D;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    if (lane + 32 * i < p.D) dq[lane + 32 * i] = from_f32<T>(acc[i]);
+}
+
+template <typename BT>
+__global__ void __launch_bounds__(BWD_WARPS * 32) attention_bwd_cols_kernel(const BwdParams p) {
+  using T = float;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long col = (long long)blockIdx.x * BWD_WARPS + warp;  // key rows, over B * N * L
+  if (col >= p.rows) return;
+  const int bh = (int)(col / p.L), y = (int)(col - (long long)bh * p.L);
+  const int b = bh / p.heads, n = bh - b * p.heads;
+  float kr[4], vr[4], qx[4], gx[4];
+  load_lanes(kr, row_ptr<T>(p.k, p.k_sb, p.k_sn, p.k_sl, b, n, y), p.D, lane);
+  load_lanes(vr, row_ptr<T>(p.v, p.v_sb, p.v_sn, p.v_sl, b, n, y), p.Dv, lane);
+  const float* m = p.stats + (long long)bh * p.L;
+  const float* l = m + p.rows;
+  const float* delta = l + p.rows;
+  float dk[4] = {0.f, 0.f, 0.f, 0.f}, dv[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int x = 0; x < p.L; ++x) {
+    load_lanes(qx, row_ptr<T>(p.q, p.q_sb, p.q_sn, p.q_sl, b, n, x), p.D, lane);
+    load_lanes(gx, row_ptr<T>(p.g, p.g_sb, p.g_sn, p.g_sl, b, n, x), p.Dv, lane);
+    const float s = warp_dot(qx, kr) + to_f32(row_ptr<BT>(p.bias, p.b_sb, p.b_sn, p.b_sl,
+                                                           b, n, x)[y]);
+    const float dp = warp_dot(gx, vr);
+    const float pr = expf(s - m[x]) / l[x];
+    const float ds = pr * (dp - delta[x]);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      dv[i] = fmaf(pr, gx[i], dv[i]);
+      dk[i] = fmaf(ds, qx[i], dk[i]);
+    }
+  }
+  T* dkr = static_cast<T*>(p.dk) + col * p.D;
+  T* dvr = static_cast<T*>(p.dv) + col * p.Dv;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int d = lane + 32 * i;
+    if (d < p.D) dkr[d] = from_f32<T>(dk[i]);
+    if (d < p.Dv) dvr[d] = from_f32<T>(dv[i]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 q/k/v/g: the same two passes on the tensor cores
+// ---------------------------------------------------------------------------
+//
+// rows:    a block per (batch*head, 64-query tile), 4 warps of 16 query rows, as
+//          the forward. Q and G go to registers as A fragments once; the key
+//          tiles (K, V, the bias tile) are staged in shared memory by cp.async,
+//          zero-filled past L and past D or Dv up to 128 values, and swept
+//          twice: S = Q.K^T and dP = G.V^T on mma.sync.m16n8k16 (bf16 -> f32,
+//          exact products) into the same accumulator layout, the bias added
+//          in f32; the first sweep keeps the row max m, the sum l and u =
+//          sum dp * exp(s - m) (thread-partial, rescaled as m grows, reduced
+//          over the quad at the end); the second forms p = exp(s - m) / l and
+//          ds = p (dp - delta) in f32 registers, writes dbias, and adds
+//          ds.K into dq with ds rounded to bf16 as the A fragment (the
+//          accumulator layout of two 8-key blocks is the A layout of one
+//          16-key step) and K read by ldmatrix.trans.
+// columns: a block per (batch*head, 64-key tile), 4 warps of 16 keys. K and V
+//          stay in shared memory; each query tile stages Q, G, the bias tile
+//          and the rows' (m, l, delta). S^T = K.Q^T and dP^T = V.G^T (A
+//          fragments of K and V by ldmatrix, one k-step at a time), p and ds
+//          as above (a query past L has m = +inf, so p = ds = 0), dv += p^T.G
+//          and dk += ds^T.Q with p and ds rounded to bf16 as A fragments.
+// p and ds are f32 in JAX; as A fragments they are rounded to bf16 (2^-9
+// relative), the price of the tensor cores; dbias and the softmax statistics
+// stay f32 until their final rounding. No float atomics: every sum is in one
+// thread or one warp, in a fixed order.
+
+template <typename BT>
+struct BwdSmem {
+  static constexpr int KV = BK * ROW_BYTES;             // one 64-row bf16 tile
+  static constexpr int X = BQ * BiasRow<BT>::BYTES;     // the 64 x 64 bias tile
+  static constexpr int ROWS = 2 * KV + X;               // rows pass: K, V, bias
+  static constexpr int COLS = 4 * KV + X + 3 * BQ * 4;  // columns pass: K, V, Q, G, bias, stats
+};
+
+// c += A.B^T over D (zero-padded to 128) for this warp's 16 rows, with the A
+// fragments read from the 64-row tile at `a` (rows a_row0 + 0..15) one k-step
+// at a time, and B the 64-row tile at `b`; blocks of 8 B rows from nsb on are
+// skipped (hold no valid row) unless FULL, whose loops have fixed trip counts
+// (a bound checked between an ldmatrix and its mma stalls the mma).
+template <bool FULL>
+__device__ __forceinline__ void qk_pass_smem(float (&s)[8][4], uint32_t a, int a_row0, uint32_t b,
+                                             int nsb, int lane) {
+  const int mi = lane >> 3;
+  const int arow = a_row0 + (lane & 15);
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    uint32_t af[4];
+    ldsm_x4(af, a + arow * ROW_BYTES + swz(arow, (2 * kk + (lane >> 4)) * 16));
+#pragma unroll
+    for (int jp = 0; jp < 4; ++jp) {
+      if (!FULL && 2 * jp >= nsb) break;
+      const int row = (2 * jp + (mi >> 1)) * 8 + (lane & 7);
+      uint32_t bf[4];
+      ldsm_x4(bf, b + row * ROW_BYTES + swz(row, (2 * kk + (mi & 1)) * 16));
+      mma_bf16(s[2 * jp], af, bf[0], bf[1]);
+      mma_bf16(s[2 * jp + 1], af, bf[2], bf[3]);
+    }
+  }
+}
+
+// The A fragments of a 16 x 64 f32 tile in the accumulator layout, as bf16.
+__device__ __forceinline__ void pack_a(uint32_t (&pa)[4][4], const float (&x)[8][4]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    pa[j >> 1][2 * (j & 1)] = pack_bf16(x[j][0], x[j][1]);
+    pa[j >> 1][2 * (j & 1) + 1] = pack_bf16(x[j][2], x[j][3]);
+  }
+}
+
+// Rows r0 (g) and r1 (g + 8) of a 16 x 128 accumulator tile to a contiguous
+// bf16 [*, n] array at rows `row0` + 0 and + 8 (only rows < L, columns < n).
+__device__ __forceinline__ void store_rows(__nv_bfloat16* out, const float (&acc)[16][4],
+                                           long long row0, int rows_left, int n, int lane) {
+  const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (g + 8 * h >= rows_left) continue;
+    __nv_bfloat16* dst = out + (row0 + g + 8 * h) * n;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int c = 8 * j + 2 * t4;
+      if (c + 1 < n && (n & 1) == 0) {
+        *reinterpret_cast<__nv_bfloat162*>(dst + c) =
+            __floats2bfloat162_rn(acc[j][2 * h], acc[j][2 * h + 1]);
+      } else {
+        if (c < n) dst[c] = __float2bfloat16_rn(acc[j][2 * h]);
+        if (c + 1 < n) dst[c + 1] = __float2bfloat16_rn(acc[j][2 * h + 1]);
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void store_pair(float* dst, float a, float b) {
+  *reinterpret_cast<float2*>(dst) = make_float2(a, b);
+}
+__device__ __forceinline__ void store_pair(__nv_bfloat16* dst, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
+}
+
+__device__ __forceinline__ void commit_and_wait() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+struct BwdWidths {
+  int wq, wk, wv, wg, wx;  // copy widths (bytes) of q, k, v, g and the bias rows
+};
+
+template <typename BT>
+__global__ void __launch_bounds__(MMA_THREADS, 2)
+    attention_bwd_rows_mma_kernel(const BwdParams p, const BwdWidths w) {
+  using Smem = BwdSmem<BT>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* ks = smem;
+  unsigned char* vs = smem + Smem::KV;
+  unsigned char* xs = smem + 2 * Smem::KV;
+
+  const int nq = (p.L + BQ - 1) / BQ;
+  const int bh = blockIdx.x / nq, qt = blockIdx.x - bh * nq;
+  const int b = bh / p.heads, n = bh - b * p.heads;
+  const int q0 = qt * BQ, qn = min(BQ, p.L - q0);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const bool active = warp * 16 < qn;
+  const int nt = (p.L + BK - 1) / BK;
+  const unsigned char* q = static_cast<const unsigned char*>(p.q) +
+                           2 * (b * p.q_sb + n * p.q_sn + (long long)q0 * p.q_sl);
+  const unsigned char* gg = static_cast<const unsigned char*>(p.g) +
+                            2 * (b * p.g_sb + n * p.g_sn + (long long)q0 * p.g_sl);
+  const unsigned char* k = static_cast<const unsigned char*>(p.k) + 2 * (b * p.k_sb + n * p.k_sn);
+  const unsigned char* v = static_cast<const unsigned char*>(p.v) + 2 * (b * p.v_sb + n * p.v_sn);
+  const unsigned char* x = static_cast<const unsigned char*>(p.bias) +
+                           sizeof(BT) * (b * p.b_sb + n * p.b_sn + (long long)q0 * p.b_sl);
+  const long long xs_g = sizeof(BT) * p.b_sl;
+
+  stage_rows<true>(ks, q, 2 * p.q_sl, BQ, qn, 2 * p.D, ROW_BYTES, ROW_BYTES, w.wq, tid);
+  stage_rows<true>(vs, gg, 2 * p.g_sl, BQ, qn, 2 * p.Dv, ROW_BYTES, ROW_BYTES, w.wg, tid);
+  commit_and_wait();
+  __syncthreads();
+  uint32_t qf[8][4], gf[8][4];
+  if (active) {
+    const int row = warp * 16 + (lane & 15);
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      const int byte = swz(row, (2 * kk + (lane >> 4)) * 16);
+      ldsm_x4(qf[kk], smem_u32(ks) + row * ROW_BYTES + byte);
+      ldsm_x4(gf[kk], smem_u32(vs) + row * ROW_BYTES + byte);
+    }
+  }
+
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f, u0 = 0.f, u1 = 0.f;
+  float d0 = 0.f, d1 = 0.f;  // delta of rows g and g + 8 (after the first sweep)
+  float acc[16][4];
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  const long long r0 = (long long)bh * p.L + q0 + warp * 16 + g;  // global rows g, g + 8
+  const int rows_left = qn - warp * 16;
+
+  for (int t = 0; t < 2 * nt; ++t) {
+    const int tile = t < nt ? t : t - nt;
+    const int k0 = tile * BK, kn = min(BK, p.L - k0);
+    __syncthreads();  // every warp is done with the previous tile (and with Q, G)
+    stage_rows<true>(ks, k + 2 * k0 * p.k_sl, 2 * p.k_sl, BK, kn, 2 * p.D, ROW_BYTES, ROW_BYTES,
+                     w.wk, tid);
+    stage_rows<true>(vs, v + 2 * k0 * p.v_sl, 2 * p.v_sl, BK, kn, 2 * p.Dv, ROW_BYTES, ROW_BYTES,
+                     w.wv, tid);
+    stage_rows<false>(xs, x + sizeof(BT) * k0, xs_g, BQ, qn, (int)sizeof(BT) * kn,
+                      (int)sizeof(BT) * BK, BiasRow<BT>::BYTES, w.wx, tid);
+    commit_and_wait();
+    __syncthreads();
+    if (!active) continue;
+    const int nsb = (kn + 7) >> 3;
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    if (kn == BK) {
+      qk_pass<true>(s, qf, smem_u32(ks), nsb, lane);
+      qk_pass<true>(dp, gf, smem_u32(vs), nsb, lane);
+    } else {
+      qk_pass<false>(s, qf, smem_u32(ks), nsb, lane);
+      qk_pass<false>(dp, gf, smem_u32(vs), nsb, lane);
+    }
+    {
+      const unsigned char* x0 = xs + (warp * 16 + g) * BiasRow<BT>::BYTES;
+      const unsigned char* x1 = x0 + 8 * BiasRow<BT>::BYTES;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 b0 = bias_pair(x0, 8 * j + 2 * t4, BT());
+        const float2 b1 = bias_pair(x1, 8 * j + 2 * t4, BT());
+        s[j][0] += b0.x;
+        s[j][1] += b0.y;
+        s[j][2] += b1.x;
+        s[j][3] += b1.y;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (8 * j + 2 * t4 + (e & 1) >= kn) s[j][e] = -INFINITY;  // keys past L
+
+    if (t < nt) {  // sweep 1: m, l, u
+      float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+        mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+      }
+#pragma unroll
+      for (int o = 1; o <= 2; o <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o));
+      }
+      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+      const float a0 = expf(m0 - mn0), a1 = expf(m1 - mn1);  // first tile: exp(-inf) = 0
+      float ls0 = 0.f, ls1 = 0.f, us0 = 0.f, us1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float e0 = expf(s[j][0] - mn0), e1 = expf(s[j][1] - mn0);
+        const float e2 = expf(s[j][2] - mn1), e3 = expf(s[j][3] - mn1);
+        ls0 += e0 + e1;
+        ls1 += e2 + e3;
+        us0 += e0 * dp[j][0] + e1 * dp[j][1];
+        us1 += e2 * dp[j][2] + e3 * dp[j][3];
+      }
+      l0 = l0 * a0 + ls0;
+      l1 = l1 * a1 + ls1;
+      u0 = u0 * a0 + us0;
+      u1 = u1 * a1 + us1;
+      m0 = mn0;
+      m1 = mn1;
+      if (t == nt - 1) {  // the rows' statistics
+#pragma unroll
+        for (int o = 1; o <= 2; o <<= 1) {
+          l0 += __shfl_xor_sync(0xffffffffu, l0, o);
+          l1 += __shfl_xor_sync(0xffffffffu, l1, o);
+          u0 += __shfl_xor_sync(0xffffffffu, u0, o);
+          u1 += __shfl_xor_sync(0xffffffffu, u1, o);
+        }
+        d0 = u0 / l0;
+        d1 = u1 / l1;
+        if (t4 == 0) {
+          if (g < rows_left) {
+            p.stats[r0] = m0;
+            p.stats[p.rows + r0] = l0;
+            p.stats[2 * p.rows + r0] = d0;
+          }
+          if (g + 8 < rows_left) {
+            p.stats[r0 + 8] = m1;
+            p.stats[p.rows + r0 + 8] = l1;
+            p.stats[2 * p.rows + r0 + 8] = d1;
+          }
+        }
+      }
+      continue;
+    }
+
+    // sweep 2: p, ds; dbias; dq += ds.K
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float p0 = expf(s[j][0] - m0) / l0, p1 = expf(s[j][1] - m0) / l0;
+      const float p2 = expf(s[j][2] - m1) / l1, p3 = expf(s[j][3] - m1) / l1;
+      s[j][0] = p0 * (dp[j][0] - d0);
+      s[j][1] = p1 * (dp[j][1] - d0);
+      s[j][2] = p2 * (dp[j][2] - d1);
+      s[j][3] = p3 * (dp[j][3] - d1);
+    }
+    BT* db = static_cast<BT*>(p.dbias) + r0 * p.L + k0;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (g + 8 * h >= rows_left) continue;
+      BT* row = db + 8 * h * (long long)p.L;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = 8 * j + 2 * t4;
+        if (c + 1 < kn && (p.L & 1) == 0) {  // an even element index: an aligned pair
+          store_pair(row + c, s[j][2 * h], s[j][2 * h + 1]);
+        } else {
+          if (c < kn) row[c] = from_f32<BT>(s[j][2 * h]);
+          if (c + 1 < kn) row[c + 1] = from_f32<BT>(s[j][2 * h + 1]);
+        }
+      }
+    }
+    uint32_t pa[4][4];
+    pack_a(pa, s);
+    if (kn == BK)
+      pv_pass<true>(acc, pa, smem_u32(ks), 4, lane);
+    else
+      pv_pass<false>(acc, pa, smem_u32(ks), (kn + 15) >> 4, lane);
+  }
+  if (active)
+    store_rows(static_cast<__nv_bfloat16*>(p.dq), acc, r0 - g, rows_left, p.D, lane);
+}
+
+template <typename BT>
+__global__ void __launch_bounds__(MMA_THREADS, 2)
+    attention_bwd_cols_mma_kernel(const BwdParams p, const BwdWidths w) {
+  using Smem = BwdSmem<BT>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* ks = smem;
+  unsigned char* vs = smem + Smem::KV;
+  unsigned char* qs = smem + 2 * Smem::KV;
+  unsigned char* gs = smem + 3 * Smem::KV;
+  unsigned char* xs = smem + 4 * Smem::KV;
+  float* sm = reinterpret_cast<float*>(xs + Smem::X);  // m, l, delta of the 64 query rows
+  float* sl = sm + BQ;
+  float* sd = sl + BQ;
+
+  const int nk = (p.L + BK - 1) / BK;
+  const int bh = blockIdx.x / nk, kt = blockIdx.x - bh * nk;
+  const int b = bh / p.heads, n = bh - b * p.heads;
+  const int k0 = kt * BK, kn = min(BK, p.L - k0);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const bool active = warp * 16 < kn;
+  const int nq = (p.L + BQ - 1) / BQ;
+  const unsigned char* q = static_cast<const unsigned char*>(p.q) + 2 * (b * p.q_sb + n * p.q_sn);
+  const unsigned char* gg = static_cast<const unsigned char*>(p.g) + 2 * (b * p.g_sb + n * p.g_sn);
+  const unsigned char* x = static_cast<const unsigned char*>(p.bias) +
+                           sizeof(BT) * (b * p.b_sb + n * p.b_sn + k0);
+  const long long xs_g = sizeof(BT) * p.b_sl;
+  const float* stats = p.stats + (long long)bh * p.L;
+
+  stage_rows<true>(ks, static_cast<const unsigned char*>(p.k) +
+                           2 * (b * p.k_sb + n * p.k_sn + (long long)k0 * p.k_sl),
+                   2 * p.k_sl, BK, kn, 2 * p.D, ROW_BYTES, ROW_BYTES, w.wk, tid);
+  stage_rows<true>(vs, static_cast<const unsigned char*>(p.v) +
+                           2 * (b * p.v_sb + n * p.v_sn + (long long)k0 * p.v_sl),
+                   2 * p.v_sl, BK, kn, 2 * p.Dv, ROW_BYTES, ROW_BYTES, w.wv, tid);
+
+  float dk[16][4], dv[16][4];
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
+
+  for (int qt = 0; qt < nq; ++qt) {
+    const int x0 = qt * BQ, xn = min(BQ, p.L - x0);
+    __syncthreads();  // every warp is done with the previous query tile
+    stage_rows<true>(qs, q + 2 * (long long)x0 * p.q_sl, 2 * p.q_sl, BQ, xn, 2 * p.D, ROW_BYTES,
+                     ROW_BYTES, w.wq, tid);
+    stage_rows<true>(gs, gg + 2 * (long long)x0 * p.g_sl, 2 * p.g_sl, BQ, xn, 2 * p.Dv,
+                     ROW_BYTES, ROW_BYTES, w.wg, tid);
+    stage_rows<false>(xs, x + x0 * xs_g, xs_g, BQ, xn, (int)sizeof(BT) * kn,
+                      (int)sizeof(BT) * BK, BiasRow<BT>::BYTES, w.wx, tid);
+    if (tid < BQ) {  // a query past L: m = +inf, so p = ds = 0
+      const bool ok = tid < xn;
+      sm[tid] = ok ? stats[x0 + tid] : INFINITY;
+      sl[tid] = ok ? stats[p.rows + x0 + tid] : 1.f;
+      sd[tid] = ok ? stats[2 * p.rows + x0 + tid] : 0.f;
+    }
+    commit_and_wait();
+    __syncthreads();
+    if (!active) continue;
+    const int nsb = (xn + 7) >> 3;
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    const bool full = xn == BQ;
+    if (full)  // S^T: keys x queries
+      qk_pass_smem<true>(s, smem_u32(ks), warp * 16, smem_u32(qs), nsb, lane);
+    else
+      qk_pass_smem<false>(s, smem_u32(ks), warp * 16, smem_u32(qs), nsb, lane);
+    const int key0 = warp * 16 + g;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * j + 2 * t4 + (e & 1), key = key0 + 8 * (e >> 1);
+        const float bias = to_f32(*reinterpret_cast<const BT*>(
+            xs + c * BiasRow<BT>::BYTES + key * (int)sizeof(BT)));
+        s[j][e] = expf(s[j][e] + bias - sm[c]) / sl[c];  // p
+      }
+    uint32_t pa[4][4];
+    pack_a(pa, s);
+    if (full) {
+      pv_pass<true>(dv, pa, smem_u32(gs), 4, lane);
+      qk_pass_smem<true>(dp, smem_u32(vs), warp * 16, smem_u32(gs), nsb, lane);  // dP^T
+    } else {
+      pv_pass<false>(dv, pa, smem_u32(gs), (xn + 15) >> 4, lane);
+      qk_pass_smem<false>(dp, smem_u32(vs), warp * 16, smem_u32(gs), nsb, lane);
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * j + 2 * t4 + (e & 1);
+        s[j][e] = s[j][e] * (dp[j][e] - sd[c]);  // ds
+      }
+    pack_a(pa, s);
+    if (full)
+      pv_pass<true>(dk, pa, smem_u32(qs), 4, lane);
+    else
+      pv_pass<false>(dk, pa, smem_u32(qs), (xn + 15) >> 4, lane);
+  }
+  if (!active) return;
+  const long long row0 = (long long)bh * p.L + k0 + warp * 16;
+  store_rows(static_cast<__nv_bfloat16*>(p.dk), dk, row0, kn - warp * 16, p.D, lane);
+  store_rows(static_cast<__nv_bfloat16*>(p.dv), dv, row0, kn - warp * 16, p.Dv, lane);
+}
+
+template <typename BT>
+cudaError_t launch_bwd_mma(const BwdParams& p, cudaStream_t stream) {
+  using Smem = BwdSmem<BT>;
+  BwdWidths w;
+  w.wq = copy_width(p.q, {2 * p.q_sb, 2 * p.q_sn, 2 * p.q_sl, 2LL * p.D});
+  w.wk = copy_width(p.k, {2 * p.k_sb, 2 * p.k_sn, 2 * p.k_sl, 2LL * p.D});
+  w.wv = copy_width(p.v, {2 * p.v_sb, 2 * p.v_sn, 2 * p.v_sl, 2LL * p.Dv});
+  w.wg = copy_width(p.g, {2 * p.g_sb, 2 * p.g_sn, 2 * p.g_sl, 2LL * p.Dv});
+  constexpr long long e = sizeof(BT);
+  w.wx = copy_width(p.bias, {e * p.b_sb, e * p.b_sn, e * p.b_sl, e * p.L});
+  const long long tiles = (p.rows / p.L) * ((p.L + BQ - 1) / BQ);
+  if (tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(attention_bwd_rows_mma_kernel<BT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, Smem::ROWS);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(attention_bwd_cols_mma_kernel<BT>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, Smem::COLS);
+  if (err != cudaSuccess) return err;
+  attention_bwd_rows_mma_kernel<BT><<<(unsigned)tiles, MMA_THREADS, Smem::ROWS, stream>>>(p, w);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  attention_bwd_cols_mma_kernel<BT><<<(unsigned)tiles, MMA_THREADS, Smem::COLS, stream>>>(p, w);
+  return cudaGetLastError();
+}
+
+template <typename BT>
+cudaError_t launch_bwd(const BwdParams& p, cudaStream_t stream) {
+  const long long blocks = (p.rows + BWD_WARPS - 1) / BWD_WARPS;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  attention_bwd_rows_kernel<BT><<<(unsigned)blocks, BWD_WARPS * 32, 0, stream>>>(p);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  attention_bwd_cols_kernel<BT><<<(unsigned)blocks, BWD_WARPS * 32, 0, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// bf16 q/k/v/g take the tensor-core passes, f32 the scalar ones; either with
+// an f32 or a bf16 bias.
+cudaError_t dispatch_bwd(const BwdParams& p, int dt, int bias_dt, cudaStream_t s) {
+  if (dt == kBF16 && bias_dt == kF32) return launch_bwd_mma<float>(p, s);
+  if (dt == kBF16 && bias_dt == kBF16) return launch_bwd_mma<__nv_bfloat16>(p, s);
+  if (dt == kF32 && bias_dt == kF32) return launch_bwd<float>(p, s);
+  if (dt == kF32 && bias_dt == kBF16) return launch_bwd<__nv_bfloat16>(p, s);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // Plain C entry point for ctypes. q/k/v/bias are [B, N, L, *] with the last
@@ -928,4 +1573,26 @@ extern "C" int dtpu_attention_launch(
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// Plain C entry point of the backward for ctypes: q, k, v, g and the bias as
+// dtpu_attention_launch takes them (g is [B, N, L, Dv] like the output); dq,
+// dk, dv and dbias contiguous, in the dtype of q (dt) and of the bias
+// (bias_dt); stats an f32 scratch of 3 * B * N * L. Two launches on `stream`:
+// the rows pass, then the columns pass. Returns cudaGetLastError() (0 = ok).
+extern "C" int dtpu_attention_backward_launch(
+    const void* q, long long q_sb, long long q_sn, long long q_sl,
+    const void* k, long long k_sb, long long k_sn, long long k_sl,
+    const void* v, long long v_sb, long long v_sn, long long v_sl,
+    const void* bias, long long b_sb, long long b_sn, long long b_sl, int bias_dt,
+    const void* g, long long g_sb, long long g_sn, long long g_sl,
+    void* dq, void* dk, void* dv, void* dbias, void* stats, int dt, int batch, int heads,
+    int L, int D, int Dv, void* stream) {
+  if (batch <= 0 || heads <= 0 || L <= 0 || D <= 0 || D > DMAX || Dv <= 0 || Dv > DMAX)
+    return (int)cudaErrorInvalidValue;
+  const BwdParams p{q,    q_sb, q_sn, q_sl, k,  k_sb, k_sn, k_sl, v,     v_sb,
+                    v_sn, v_sl, bias, b_sb, b_sn, b_sl, g,    g_sb, g_sn,  g_sl,
+                    dq,   dk,   dv,   dbias, static_cast<float*>(stats),
+                    (long long)batch * heads * L, heads, L, D, Dv};
+  return (int)dispatch_bwd(p, dt, bias_dt, static_cast<cudaStream_t>(stream));
 }

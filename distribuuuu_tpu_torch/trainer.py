@@ -14,8 +14,9 @@ One process a GPU, data-parallel over the process group:
 buffer, its gradient as a view into a second and every BN running
 statistic as a view into a third, so the collectives, the guard and the
 optimizer each act on one tensor. On the card every BN runs K1 forward and
-K1-bwd backward (53 of each per ResNet-50 step); on the CPU their plain
-versions.
+K1-bwd backward (53 of each per ResNet-50 or BoTNet-50 step), and BoTNet's
+MHSA the attention kernel and its backward kernel (3 of each a step); on the
+CPU their plain versions.
 """
 
 from __future__ import annotations
@@ -48,6 +49,7 @@ from distribuuuu_tpu_torch.metrics import (
     topk_correct_weighted,
 )
 from distribuuuu_tpu_torch.models import build_model, layers
+from distribuuuu_tpu_torch.ops import attention as att
 from distribuuuu_tpu_torch.ops import epilogue as ep
 from distribuuuu_tpu_torch.runtime.dist import setup_distributed
 from distribuuuu_tpu_torch.runtime.seeding import configure_determinism, setup_seed
@@ -163,8 +165,7 @@ def _check_supported() -> None:
             ("MESH.SEQ", cfg.MESH.SEQ == 1, "item 12"),
             ("TRAIN.TASK", cfg.TRAIN.TASK == "classify", "item 11 (mae)"),
             ("MODEL.REMAT", not cfg.MODEL.REMAT, "item 12"),
-            ("MODEL.PRETRAINED", not cfg.MODEL.PRETRAINED, "item 11"),
-            ("MODEL.ARCH", cfg.MODEL.ARCH != "botnet50", "item 10 (BoTNet-50 training)"))
+            ("MODEL.PRETRAINED", not cfg.MODEL.PRETRAINED, "item 11"))
     for key, ok, item in todo:
         if not ok:
             raise NotImplementedError(f"this {key} is not ported yet (ROADMAP Queue 1 {item})")
@@ -191,8 +192,10 @@ def build_cfg_model(generator: torch.Generator | None = None) -> torch.nn.Module
     return model
 
 
-def _launch_counts() -> tuple[int, int, int, int]:
-    return ep.LAUNCHES, ep.BWD_LAUNCHES, ep.SCALAR_LAUNCHES, ep.BWD_SCALAR_LAUNCHES
+def _launch_counts() -> tuple[int, ...]:
+    """K1, K1-bwd, their scalar routes, the attention kernel and its backward."""
+    return (ep.LAUNCHES, ep.BWD_LAUNCHES, ep.SCALAR_LAUNCHES, ep.BWD_SCALAR_LAUNCHES,
+            att.LAUNCHES, att.BWD_LAUNCHES)
 
 
 def _poison(batch: dict) -> dict:
@@ -320,12 +323,13 @@ def train_epoch(loader, state: TrainState, epoch: int, device, is_primary: bool,
                 progress.display(it)
         t_end = time.time()
     wall = time.time() - epoch_start
-    fwd, bwd, fwd_s, bwd_s = (b - a for a, b in zip(launches0, _launch_counts()))
+    fwd, bwd, fwd_s, bwd_s, att_f, att_b = (b - a for a, b in zip(launches0, _launch_counts()))
     steps = len(loader)
     if is_primary:
         logger.info(f"Epoch[{epoch}] K1 launches: {fwd} forward ({fwd / steps:.2f} a step), "
                     f"{bwd} backward ({bwd / steps:.2f} a step), scalar route {fwd_s} forward, "
-                    f"{bwd_s} backward")
+                    f"{bwd_s} backward; attention {att_f} forward ({att_f / steps:.2f} a step), "
+                    f"{att_b} backward ({att_b / steps:.2f} a step)")
         if epoch_skipped:
             logger.warning(f"Epoch[{epoch}] skipped_steps: {epoch_skipped} non-finite step(s) "
                            f"left parameters and optimizer state untouched")

@@ -15,12 +15,22 @@ version after normalising, K4/K5 before, so the two round differently by
 up to a bf16 ulp of the output; tests/test_ops_attention.py uses the same
 bounds). L is ragged against the CUDA kernel's 64-row tiles and Dv != D.
 
+The backward (``attention_backward_reference``, and the autograd Function
+around ``fused_attention`` that calls it on the CPU) is held against
+``jax.vjp`` of the JAX ``custom_vjp`` kernels: K2 at a ragged single-tile L
+and K4's blockwise custom_vjp, in float32 within 1e-5 of max(1, max|grad|)
+(only the f32 summation order differs) and in bfloat16 within one bf16 ulp,
+2^-7 of max(1, max|grad|) (both sides compute in f32 and round each
+gradient once to bf16; an f32 sum that straddles a rounding boundary lands
+one ulp away).
+
 The card-only kernel tests are in tests/test_torch_gpu.py.
 """
 
 import numpy as np
 import pytest
 
+import jax
 import jax.numpy as jnp
 import torch
 
@@ -148,3 +158,61 @@ def test_wrapper_refusals():
     meta = [t.to("meta") for t in (q, k, v, bias)]
     with pytest.raises(ValueError, match="cuda or cpu"):
         att.fused_attention(*meta)
+
+
+# the backward against the JAX custom_vjp, relative to max(1, max|grad|):
+# f32 summation order only; in bf16 one ulp of the rounded gradient
+_BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0**-7}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("kernel,l,block", [("K2", 20, None), ("K4", 48, 16)], ids=["K2", "K4"])
+def test_backward_reference_matches_the_jax_custom_vjp(kernel, l, block, dtype):
+    (q, k, v, bias, _), (jq, jk, jv, jbias, _) = _inputs(2, 3, l, 16, 8, dtype, seed=l + 1)
+    g = np.random.default_rng(l).standard_normal((2, 3, l, 8)).astype(np.float32)
+    out, pull = jax.vjp(lambda *a: _jax_kernel(kernel, *a, block), jq, jk, jv, jbias)
+    want = pull(jnp.asarray(g, out.dtype))
+    got = att.attention_backward_reference(q, k, v, bias, torch.from_numpy(g).to(dtype))
+    for name, a, b in zip(("dq", "dk", "dv", "dbias"), got, want):
+        b = np.asarray(b, np.float32)
+        assert a.dtype == dtype and a.shape == b.shape, name
+        tol = _BWD_TOL[dtype] * max(1.0, float(np.abs(b).max()))
+        assert float(np.abs(a.float().numpy() - b).max()) <= tol, name
+
+
+@pytest.mark.parametrize("bias_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_function_gradients_on_the_cpu_equal_the_reference_bitwise(bias_dtype):
+    """Through ``fused_attention`` with every input needing a gradient: the
+    autograd Function's backward on a CPU tensor is the plain backward."""
+    dtype = torch.bfloat16
+    (q, k, v, bias, _), _ = _inputs(2, 2, 30, 16, 8, dtype, seed=12)
+    bias = bias.to(bias_dtype)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v, bias)]
+    out = att.fused_attention(*leaves)
+    assert type(out.grad_fn).__name__ == "_AttentionBackward"
+    assert torch.equal(out, att.attention_reference(q, k, v, bias))
+    g = torch.randn(out.shape, generator=torch.Generator().manual_seed(0)).to(dtype)
+    before = att.BWD_LAUNCHES
+    out.backward(g)
+    assert att.BWD_LAUNCHES == before  # the CPU never launches
+    for leaf, want in zip(leaves, att.attention_backward_reference(q, k, v, bias, g)):
+        assert leaf.grad.dtype == leaf.dtype and torch.equal(leaf.grad, want)
+    only_bias = bias.clone().requires_grad_()
+    (dbias,) = torch.autograd.grad(att.fused_attention(q, k, v, only_bias), only_bias, g)
+    assert torch.equal(dbias, att.attention_backward_reference(q, k, v, bias, g)[3])
+
+
+def test_no_function_node_without_a_gradient():
+    (q, k, v, bias, emb), _ = _inputs(1, 2, 12, 8, 8, torch.float32, seed=13)
+    assert att.fused_attention(q, k, v, bias).grad_fn is None
+    leaves = [t.clone().requires_grad_() for t in (q, k, v, bias)]
+    with torch.no_grad():
+        assert att.fused_attention(*leaves).grad_fn is None
+    with torch.inference_mode():
+        assert att.fused_attention(*leaves).grad_fn is None
+    # the table mode stays differentiable on the CPU (autograd through its plain version)
+    e = emb.clone().requires_grad_()
+    att.fused_attention_abs(q, k, v, e).sum().backward()
+    assert e.grad is not None and torch.isfinite(e.grad).all()
+    with pytest.raises(ValueError, match="g must be"):
+        att.fused_attention_backward(q, k, v, bias, torch.zeros(1, 2, 12, 4))

@@ -14,7 +14,16 @@ port's attention wrappers compute their plain versions):
   equals ``from_jax_variables``; a forward makes 3 attention and 53 K1
   calls (every BN); with a bf16 model, K1 handing each conv its bf16 input
   changes no logit bit; a CPU ``InferenceEngine`` hosts botnet50 and
-  answers with the JAX serving forward's logits.
+  answers with the JAX serving forward's logits;
+- gradients: ``MHSA(rel_pos_emb=True)`` (the port's attention Function,
+  whose CPU backward is ``attention_backward_reference``) against JAX
+  ``MHSA(fuse=True)`` (the K2 ``custom_vjp`` in interpret mode) at the 4x6
+  map for the input, ``to_qk``, ``to_v`` and both position tables, within
+  1e-5 of max(1, max|grad|); two BoTBlocks (projection, then identity
+  shortcut) in train mode for one SGD step against JAX, BN scales drawn
+  away from 0 so the attention branch gets a gradient;
+- ``botnet50_trunk_from_resnet50`` + ``merge_pretrained`` bitwise the JAX
+  functions' result on a seeded resnet50 state_dict.
 """
 
 from collections import Counter
@@ -26,10 +35,12 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from distribuuuu_tpu import convert as jax_convert
 from distribuuuu_tpu.convert import export_state_dict, golden_inputs
 from distribuuuu_tpu.data.transforms import device_normalize as jax_device_normalize
 from distribuuuu_tpu.models import botnet as jax_botnet
 from distribuuuu_tpu.models import build_model as jax_build_model
+from distribuuuu_tpu_torch import convert
 from distribuuuu_tpu_torch.convert import from_jax_variables
 from distribuuuu_tpu_torch.models import botnet, build_model, layers
 from distribuuuu_tpu_torch.serve.engine import InferenceEngine, ModelSpec
@@ -77,14 +88,151 @@ def test_mhsa_matches_jax_at_a_non_square_map(rel):
     def oihw(kernel):
         return torch.from_numpy(np.transpose(np.array(kernel), (3, 2, 0, 1)).copy())
 
-    sd = {"to_qk.weight": oihw(params["to_qk"]["kernel"]),
-          "to_v.weight": oihw(params["to_v"]["kernel"])}
-    sd.update({f"pos_emb.{k}": torch.from_numpy(np.array(a)) for k, a in params["pos_emb"].items()})
-    mhsa = botnet.MHSA(16, dtype=torch.float32, **kw)
-    mhsa.load_state_dict(sd, strict=True)
+    mhsa = port_mhsa(params, 16, kw)
     with torch.inference_mode():
         got = mhsa(torch.from_numpy(x).permute(0, 3, 1, 2)).permute(0, 2, 3, 1).numpy()
     _close(got, ref, 1e-5)
+
+
+def port_mhsa(params, dim, kw):
+    """The port's MHSA (f32) holding the JAX MHSA ``params``."""
+    def oihw(kernel):
+        return torch.from_numpy(np.transpose(np.array(kernel), (3, 2, 0, 1)).copy())
+
+    sd = {"to_qk.weight": oihw(params["to_qk"]["kernel"]),
+          "to_v.weight": oihw(params["to_v"]["kernel"])}
+    sd.update({f"pos_emb.{k}": torch.from_numpy(np.array(a)) for k, a in params["pos_emb"].items()})
+    mhsa = botnet.MHSA(dim, dtype=torch.float32, **kw)
+    mhsa.load_state_dict(sd, strict=True)
+    return mhsa
+
+
+def _hwio(t: torch.Tensor) -> np.ndarray:
+    return t.detach().permute(2, 3, 1, 0).numpy()
+
+
+def test_mhsa_gradients_match_the_jax_custom_vjp():
+    """f32: the two backward passes differ only in f32 summation order."""
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((2, 4, 6, 16)).astype(np.float32)
+    g = rng.standard_normal((2, 4, 6, 16)).astype(np.float32)
+    kw = dict(fmap_size=(4, 6), heads=2, dim_qk=8, dim_v=8, rel_pos_emb=True)
+    jax_mhsa = jax_botnet.MHSA(dtype=jnp.float32, fuse=True, **kw)
+    params = jax_mhsa.init(jax.random.PRNGKey(1), jnp.asarray(x))["params"]
+    _, pull = jax.vjp(lambda p, xx: jax_mhsa.apply({"params": p}, xx), params, jnp.asarray(x))
+    dparams, dx = pull(jnp.asarray(g))
+    mhsa = port_mhsa(params, 16, kw)
+    xt = torch.from_numpy(x).permute(0, 3, 1, 2).requires_grad_()
+    out = mhsa(xt)
+    assert type(out.grad_fn).__name__ != "NoneType"
+    out.permute(0, 2, 3, 1).backward(torch.from_numpy(g))
+    pos = mhsa.pos_emb
+    for name, got, want in (
+            ("x", xt.grad.permute(0, 2, 3, 1).numpy(), dx),
+            ("to_qk", _hwio(mhsa.to_qk.weight.grad), dparams["to_qk"]["kernel"]),
+            ("to_v", _hwio(mhsa.to_v.weight.grad), dparams["to_v"]["kernel"]),
+            ("rel_height", pos.rel_height.grad.numpy(), dparams["pos_emb"]["rel_height"]),
+            ("rel_width", pos.rel_width.grad.numpy(), dparams["pos_emb"]["rel_width"])):
+        want = np.asarray(want)
+        assert float(np.abs(want).max()) > 0, name
+        _close(got, want, 1e-5)
+
+
+class _JaxBoTPair(__import__("flax").linen.Module):
+    """Two BoTBlocks: a projection shortcut (32 -> 64), then the identity."""
+
+    @__import__("flax").linen.compact
+    def __call__(self, x, train: bool = True):
+        kw = dict(fmap_size=(4, 6), dim_out=64, heads=2, dim_qk=16, dim_v=16, rel_pos_emb=True,
+                  dtype=jnp.float32)
+        x = jax_botnet.BoTBlock(name="bot_0", **kw)(x, train)
+        return jax_botnet.BoTBlock(name="bot_1", **kw)(x, train)
+
+
+def test_botblock_pair_sgd_step_matches_jax():
+    """One SGD step (lr 0.1) of two BoTBlocks in train mode, f32, from the
+    same weights. Gradients within 5e-4 of each tensor's max|grad|: BN over
+    48 samples a channel amplifies f32 rounding, and JAX's own f32 gradients
+    here lie up to 2.7e-4 of max|grad| from its float64 ones (the port's
+    within 1.1e-4). After the step each parameter within that bound times
+    the learning rate, the BN running statistics within 1e-5 of
+    max(1, max|.|)."""
+    rng = np.random.default_rng(8)
+    x = rng.standard_normal((2, 4, 6, 32)).astype(np.float32)
+    g = rng.standard_normal((2, 4, 6, 64)).astype(np.float32)
+    model, lr, grad_rtol = _JaxBoTPair(), 0.1, 5e-4
+    v = model.init(jax.random.PRNGKey(2), jnp.asarray(x), False)
+    v = jax.tree.map(np.array, {"params": v["params"], "batch_stats": v["batch_stats"]})
+    for block in v["params"].values():  # every BN scale away from 0 (bn_out starts at zero-γ)
+        for mod in block.values():
+            if "scale" in mod:
+                mod["scale"] = rng.uniform(0.5, 1.5, mod["scale"].shape).astype(np.float32)
+
+    def loss(params):
+        out, upd = model.apply({"params": params, "batch_stats": v["batch_stats"]},
+                               jnp.asarray(x), True, mutable=["batch_stats"])
+        return jnp.sum(out * g), upd
+
+    (_, upd), grads = jax.value_and_grad(loss, has_aux=True)(v["params"])
+    new = {"params": jax.tree.map(lambda p, d: np.asarray(p - lr * d), v["params"], grads),
+           "batch_stats": jax.tree.map(np.asarray, upd["batch_stats"])}
+
+    blocks = [botnet.BoTBlock(dim, (4, 6), 64, heads=2, dim_qk=16, dim_v=16, rel_pos_emb=True,
+                              dtype=torch.float32, bn_dtype=torch.float32).train()
+              for dim in (32, 64)]
+
+    def block_sd(variables, i):
+        sd = from_jax_variables({c: {"bot_0": variables[c][f"bot_{i}"]} for c in variables},
+                                "botnet50")
+        return {k.removeprefix("7.net.0."): t for k, t in sd.items()}
+
+    for i, blk in enumerate(blocks):
+        blk.load_state_dict(block_sd(v, i), strict=True)
+        blk.to(memory_format=torch.channels_last)
+    out = blocks[1](blocks[0](torch.from_numpy(x).permute(0, 3, 1, 2)))
+    (out.permute(0, 2, 3, 1) * torch.from_numpy(g)).sum().backward()
+    for i, blk in enumerate(blocks):
+        want_grads = block_sd({"params": jax.tree.map(np.asarray, grads)}, i)
+        scale = {}
+        for name, prm in blk.named_parameters():
+            want = want_grads[name].numpy()
+            scale[name] = float(np.abs(want).max())
+            assert scale[name] > 0, name  # the attention branch gets a gradient
+            assert float(np.abs(prm.grad.numpy() - want).max()) <= grad_rtol * scale[name], name
+        with torch.no_grad():
+            for prm in blk.parameters():
+                prm -= lr * prm.grad
+        want = block_sd(new, i)
+        got = blk.state_dict()
+        assert sorted(got) == sorted(want)
+        for k in want:
+            tol = grad_rtol * lr * scale[k] if k in scale else 1e-5 * max(
+                1.0, float(want[k].abs().max()))
+            assert float((got[k] - want[k]).abs().max()) <= tol, k
+
+
+def test_botnet50_trunk_from_resnet50_equals_jax(variables):
+    """A seeded resnet50 state_dict in torchvision naming (with a ``module.``
+    prefix and ``num_batches_tracked``, as torch checkpoints carry them)
+    over a fresh botnet50: the trunk comes from resnet50, the BoTStack and
+    the head stay; bitwise the JAX functions' result."""
+    rn = export_state_dict(perturbed_variables("resnet50", 4, im=IM, classes=CLASSES), "resnet50")
+    sd = {f"module.{k}": torch.from_numpy(np.array(a)) for k, a in rn.items()}
+    sd["module.bn1.num_batches_tracked"] = torch.tensor(7)
+    want = from_jax_variables(jax_convert.merge_pretrained(
+        variables, jax_convert.botnet50_trunk_from_resnet50(sd)), "botnet50")
+    fresh = from_jax_variables(variables, "botnet50")
+    got = convert.merge_pretrained(fresh, convert.botnet50_trunk_from_resnet50(sd))
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    assert torch.equal(got["4.0.conv1.weight"], torch.from_numpy(np.array(rn["layer1.0.conv1.weight"])))
+    assert torch.equal(got["7.net.0.net.3.to_qk.weight"], fresh["7.net.0.net.3.to_qk.weight"])
+    port_botnet(got)  # strict=True inside
+    with pytest.raises(ValueError, match="no resnet50 trunk"):
+        convert.botnet50_trunk_from_resnet50({"fc.weight": torch.zeros(2, 2)})
+    with pytest.raises(KeyError, match="does not match"):
+        convert.merge_pretrained(fresh, {"0.weight": torch.zeros(1)})
 
 
 def test_eval_logits_match_jax(variables):

@@ -191,6 +191,164 @@ def test_cuda_attention_matches_plain(cuda):
         att.fused_attention(q, q, q, torch.zeros(1, 1, 16, 16, device=cuda).transpose(2, 3))
 
 
+# the backward kernel vs attention_backward_reference, relative to
+# max(1, max|grad|), by the gradient's dtype: f32 differs in summation order
+# only; bf16 rounds each gradient once to bf16 on both sides, with f32 sums
+# in different orders
+ATTN_BWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.gpu
+def test_cuda_attention_backward_matches_plain(cuda):
+    """dq, dk, dv and dbias of the backward kernel against the plain
+    backward, both dtypes and both bias dtypes; head-split (strided) views
+    of q, k, v and a transposed view of g, as MHSA hands them over; L ragged
+    against the kernel's tiles and at 1024, Dv != D, odd D. Two calls are
+    bitwise equal, and each call counts one backward launch."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    for (b, n, l, d, dv) in [(2, 4, 196, 128, 128), (1, 2, 70, 32, 24), (1, 1, 5, 7, 3),
+                             (1, 2, 1024, 128, 128), (1, 2, 65, 128, 128), (2, 3, 196, 40, 24)]:
+        for dt in (torch.float32, torch.bfloat16):
+            q = _heads_first(torch.randn(b, l, n * d, generator=gen, device=cuda) * 0.3, n).to(dt)
+            k = _heads_first(torch.randn(b, l, n * d, generator=gen, device=cuda) * 0.3, n).to(dt)
+            v = _heads_first(torch.randn(b, l, n * dv, generator=gen, device=cuda), n).to(dt)
+            g = _heads_first(torch.randn(b, l, n * dv, generator=gen, device=cuda), n).to(dt)
+            bias = torch.randn(b, n, l, l, generator=gen, device=cuda) * 0.5
+            for bias_dt in (torch.float32, torch.bfloat16):
+                bb = bias.to(bias_dt)
+                before = att.BWD_LAUNCHES
+                got = att.fused_attention_backward(q, k, v, bb, g)
+                again = att.fused_attention_backward(q, k, v, bb, g)
+                want = att.attention_backward_reference(q, k, v, bb, g)
+                torch.cuda.synchronize()
+                assert att.BWD_LAUNCHES == before + 2
+                case = ((b, n, l, d, dv), dt, bias_dt)
+                for name, x, y, z in zip(("dq", "dk", "dv", "dbias"), got, again, want):
+                    assert x.dtype == z.dtype and x.shape == z.shape and x.is_contiguous(), case
+                    assert torch.equal(x, y), (case, name, "two calls")
+                    tol = ATTN_BWD_TOL[z.dtype] * max(1.0, z.float().abs().max().item())
+                    err = (x.float() - z.float()).abs().max().item()
+                    assert err <= tol, (case, name, err)
+
+
+@pytest.mark.gpu
+def test_attention_gradients_flow_on_the_card(cuda):
+    """Through ``fused_attention`` on CUDA tensors the output has a grad_fn
+    and the gradients are the backward kernel's; without a gradient no
+    Function node is made and nothing launches backward; the table mode
+    raises where a gradient is needed and serves under no_grad."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    q, k, v, g = (torch.randn(2, 4, 196, 128, generator=gen, device=cuda).bfloat16()
+                  for _ in range(4))
+    bias = torch.randn(2, 4, 196, 196, generator=gen, device=cuda).bfloat16()
+    leaves = [t.clone().requires_grad_() for t in (q, k, v, bias)]
+    out = att.fused_attention(*leaves)
+    assert out.grad_fn is not None
+    before = (att.LAUNCHES, att.BWD_LAUNCHES)
+    out.backward(g)
+    assert (att.LAUNCHES, att.BWD_LAUNCHES) == (before[0], before[1] + 1)
+    for leaf, want in zip(leaves, att.fused_attention_backward(q, k, v, bias, g)):
+        assert torch.equal(leaf.grad, want)
+    with torch.inference_mode():
+        assert att.fused_attention(*leaves).grad_fn is None
+    emb = torch.randn(196, 128, generator=gen, device=cuda).bfloat16().requires_grad_()
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2"):
+        att.fused_attention_abs(q, k, v, emb)
+    with torch.no_grad():
+        assert att.fused_attention_abs(q, k, v, emb).shape == (2, 4, 196, 128)
+
+
+def _botnet_state(cuda, dtype, im, seed=0):
+    """A seeded botnet50 TrainState on the card with every BN scale drawn in
+    [0.5, 1.5] (bn_out starts at zero-γ, which would leave MHSA without a
+    gradient in the first step)."""
+    from distribuuuu_tpu_torch.config import cfg, reset_cfg
+    from distribuuuu_tpu_torch.trainer import TrainState, build_cfg_model
+
+    reset_cfg()
+    cfg.MODEL.ARCH, cfg.MODEL.NUM_CLASSES, cfg.MODEL.DTYPE = "botnet50", 10, dtype
+    cfg.TRAIN.IM_SIZE = im
+    model = build_cfg_model(torch.Generator().manual_seed(seed))
+    gen = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, layers.BatchNorm):
+                m.weight.uniform_(0.5, 1.5, generator=gen)
+    return TrainState(model.to(cuda))
+
+
+@pytest.mark.gpu
+def test_botnet50_bf16_training_step_launches_and_trains_mhsa(cuda):
+    """One bf16 botnet50 training step at 224^2: 3 attention forward and 3
+    backward calls, 53 K1 and 53 K1-bwd, none on a scalar route; every MHSA
+    parameter, and the conv before it, gets a non-zero gradient (before the
+    attention Function, the kernel's output had no grad_fn there)."""
+    from distribuuuu_tpu_torch.config import reset_cfg
+    from distribuuuu_tpu_torch.trainer import train_step
+
+    st = _botnet_state(cuda, "bfloat16", 224)
+    gen = torch.Generator().manual_seed(2)
+    batch = {"image": torch.randint(0, 256, (4, 224, 224, 3), dtype=torch.uint8,
+                                    generator=gen).to(cuda),
+             "label": torch.randint(0, 10, (4,), generator=gen).to(cuda)}
+    counts = (att.LAUNCHES, att.BWD_LAUNCHES, ep.LAUNCHES, ep.BWD_LAUNCHES, ep.SCALAR_LAUNCHES,
+              ep.BWD_SCALAR_LAUNCHES)
+    m = train_step(st, batch, 0.01)
+    torch.cuda.synchronize()
+    reset_cfg()
+    after = (att.LAUNCHES, att.BWD_LAUNCHES, ep.LAUNCHES, ep.BWD_LAUNCHES, ep.SCALAR_LAUNCHES,
+             ep.BWD_SCALAR_LAUNCHES)
+    assert tuple(b - a for a, b in zip(counts, after)) == (3, 3, 53, 53, 0, 0)
+    assert float(m["skipped"]) == 0.0 and torch.isfinite(m["loss_sum"])
+    for i in range(3):
+        block = st.model._modules["7"].net[i].net
+        for name, prm in [("net.0", block[0].weight), *block[3].named_parameters()]:
+            assert prm.grad is not None and float(prm.grad.abs().max()) > 0, (i, name)
+
+
+def _rel_l2(a, b) -> float:
+    return float((a.double() - b.double()).norm() / b.double().norm())
+
+
+@pytest.mark.gpu
+def test_botnet50_train_step_card_equals_cpu(cuda, monkeypatch):
+    """One f32 training step (TF32 off) of botnet50 at 64^2, batch 8, every
+    BN scale in [0.5, 1.5] so MHSA trains in this step, on the card against
+    the same step on the CPU. Without zero-γ residuals the ResNet-50 trunk's
+    gradient grows from the head to the stem at init, and f32 summation
+    order alone moves it: on the CPU the JAX package and the port, from one
+    state, part by 8.8e-5 in the loss, 3.6e-2 in the update's relative L2
+    and 3.3e-5 in the BN statistics'. So: the loss within 1e-3, the update
+    of all parameters and the MHSA parameters' gradient within a relative
+    L2 of 1e-1, the BN statistics within 1e-3; the card launches the
+    attention backward 3 times."""
+    from distribuuuu_tpu_torch.config import reset_cfg
+    from distribuuuu_tpu_torch.trainer import train_step
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    gen = torch.Generator().manual_seed(3)
+    imgs = torch.randint(0, 256, (8, 64, 64, 3), dtype=torch.uint8, generator=gen)
+    labels = torch.randint(0, 10, (8,), generator=gen)
+    res = {}
+    for dev in ("cpu", cuda):
+        st = _botnet_state(dev, "float32", 64)
+        start = st.params.cpu().clone()
+        before = att.BWD_LAUNCHES
+        m = train_step(st, {"image": imgs.to(dev), "label": labels.to(dev)}, 0.2 * 8 / 256)
+        mhsa = torch.cat([st.grads[o:o + n].cpu() for name, (o, n, _) in
+                          zip(st.names, st.segments) if ".net.3." in name])
+        res[str(dev)] = (m["loss_sum"].item(), st.params.cpu() - start, st.stats.cpu(), mhsa,
+                         att.BWD_LAUNCHES - before)
+    reset_cfg()
+    (l_cpu, u_cpu, s_cpu, a_cpu, n_cpu), (l_gpu, u_gpu, s_gpu, a_gpu, n_gpu) = (
+        res["cpu"], res[str(cuda)])
+    assert (n_cpu, n_gpu) == (0, 3)
+    assert abs(l_cpu - l_gpu) <= 1e-3 * abs(l_cpu)
+    assert _rel_l2(u_gpu, u_cpu) <= 1e-1 and _rel_l2(a_gpu, a_cpu) <= 1e-1
+    assert float(a_cpu.abs().max()) > 0 and _rel_l2(s_gpu, s_cpu) <= 1e-3
+
+
 @pytest.mark.gpu
 def test_botnet50_forward_at_224_launches_attention_3_and_k1_53_times(cuda, monkeypatch):
     cpu, gpu, bf16 = _k1_forward("botnet50", cuda, monkeypatch)
@@ -605,6 +763,34 @@ def test_deterministic_training_steps_repeat_bitwise(cuda):
                 train_step(st, {"image": torch.randint(0, 256, (16, 64, 64, 3), dtype=torch.uint8,
                                                        generator=gen).to(cuda),
                                 "label": torch.randint(0, 10, (16,), generator=gen).to(cuda)}, 0.1)
+            runs.append([t.cpu() for t in (st.params, st.stats, st.grads)])
+    finally:
+        reset_cfg()
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = before
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.gpu
+def test_deterministic_botnet50_training_steps_repeat_bitwise(cuda):
+    """CUDNN.DETERMINISTIC: two runs of two bf16 botnet50 training steps at
+    64^2 from one seed end with bitwise-equal parameters, BN statistics and
+    gradients (the attention backward sums in a fixed order, without float
+    atomics, as K1-bwd does)."""
+    from distribuuuu_tpu_torch.config import reset_cfg
+    from distribuuuu_tpu_torch.runtime.seeding import configure_determinism
+    from distribuuuu_tpu_torch.trainer import train_step
+
+    before = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    configure_determinism(True, benchmark=False)
+    try:
+        runs = []
+        for _ in range(2):
+            st = _botnet_state(cuda, "bfloat16", 64)
+            gen = torch.Generator().manual_seed(1)
+            for _ in range(2):
+                train_step(st, {"image": torch.randint(0, 256, (8, 64, 64, 3), dtype=torch.uint8,
+                                                       generator=gen).to(cuda),
+                                "label": torch.randint(0, 10, (8,), generator=gen).to(cuda)}, 0.01)
             runs.append([t.cpu() for t in (st.params, st.stats, st.grads)])
     finally:
         reset_cfg()

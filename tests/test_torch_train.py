@@ -20,6 +20,12 @@ Inputs are made from a seed with numpy and handed to both. Tolerances:
   against ``make_train_step`` on a 1-device CPU mesh, each step from JAX's
   parameters and statistics: losses within 1e-5, state within a relative L2
   of 1e-4, momentum 1e-3 (the test says why);
+- 2 steps of botnet50 (f32, 32^2, feature map 2x2, 10 classes, batch 4)
+  against ``make_train_step`` the same way (JAX's trajectory computed once
+  in a module-scoped fixture): the first step's zero-γ ``bn_out`` leaves the
+  attention branch without a gradient, the second trains it through the
+  attention Function's backward; limits set by how far JAX's own f32
+  gradient lies from its float64 one at this size (the test says);
 - the non-finite guard: a NaN batch leaves the state bitwise unchanged;
 - ``DummyLoader`` batches bitwise JAX's.
 """
@@ -321,6 +327,75 @@ def test_resnet18_k_step_train_equals_jax_make_train_step(port_cfg, fresh_cfg, a
     assert int(port.optimizer.state["step"]) == int(state.opt_state[1].step) == k
 
 
+BOT_STEPS, BOT_IM, BOT_CLASSES, BOT_BATCH = 2, 32, 10, 4
+BOT_LR = 0.2 * BOT_BATCH / 256  # config/botnet50.yaml's BASE_LR, linearly scaled from 256 to 4
+
+
+@pytest.fixture(scope="module")
+def jax_botnet_steps():
+    """JAX's botnet50 trajectory over BOT_STEPS steps of ``make_train_step``
+    on a 1-device CPU mesh: per step the variables before it, the batch, the
+    LR, the metrics and the variables after; then the momentum tree and the
+    step counter."""
+    from distribuuuu_tpu.models import layers as jax_layers
+
+    jax_config.reset_cfg()
+    jax_config.cfg.MODEL.DTYPE = "float32"
+    try:
+        mesh = data_mesh(1)
+        model = jax_build_model("botnet50", num_classes=BOT_CLASSES, dtype=jnp.float32)
+        state, tx = create_train_state(model, jax.random.PRNGKey(0), mesh, BOT_IM)
+        step = make_train_step(model, tx, mesh, topk=5, accum_steps=1)
+        steps = []
+        for i, b in enumerate(_batches(BOT_STEPS, BOT_BATCH, BOT_IM, BOT_CLASSES, seed=21)):
+            before, _ = _jax_state_tree(state)
+            lr = BOT_LR
+            state, m = step(state, {k: jnp.asarray(a) for k, a in b.items()}, jnp.float32(lr),
+                            jax.random.PRNGKey(0))
+            after, mom = _jax_state_tree(state)
+            steps.append((before, b, lr, {k: float(x) for k, x in m.items()}, after))
+        return steps, mom, int(state.opt_state[1].step)
+    finally:
+        jax_config.reset_cfg()
+        jax_layers.set_bn_compute_dtype(jnp.float32)
+
+
+def test_botnet50_train_steps_equal_jax_make_train_step(port_cfg, jax_botnet_steps):
+    """As the ResNet-18 test, for botnet50, each step from JAX's state. At
+    this size BN takes its statistics over 16 values a channel from stage 3
+    on, which makes the f32 gradient ill-conditioned: JAX's own f32
+    gradient at the first step lies 2.9 % (relative L2) from its float64
+    one, the port's 1.35 %. So: the loss within 1e-5; each step's parameter
+    update (SGD with nesterov momentum at the config's BASE_LR scaled to
+    batch 4) within a relative L2 of 5e-2 of JAX's, and the momentum after
+    the steps too (measured 1.7e-2 and 2.1e-2); the whole state (parameters
+    and BN statistics) within a relative L2 of 3e-4 (measured 1.0e-4 and
+    1.2e-4). In the second step the MHSA parameters get a gradient."""
+    steps, mom, count = jax_botnet_steps
+    port_cfg.MODEL.ARCH, port_cfg.MODEL.NUM_CLASSES = "botnet50", BOT_CLASSES
+    port_cfg.TRAIN.IM_SIZE, port_cfg.MODEL.DTYPE = BOT_IM, "float32"
+    port = TrainState(build_cfg_model())
+    mhsa = port.model._modules["7"].net[0].net[3]
+    names = set(port.names)
+    for i, (before, b, lr, m, after) in enumerate(steps):
+        start = from_jax_variables(before, "botnet50")
+        port.model.load_state_dict(start, strict=True)
+        pm = train_step(port, {"image": torch.from_numpy(b["image"]),
+                               "label": torch.from_numpy(b["label"]).long()}, lr, topk=5)
+        want_loss = m["loss_sum"] / m["n"]
+        assert abs(float(pm["loss_sum"] / pm["n"]) - want_loss) <= 1e-5 * max(1.0, want_loss)
+        assert float(pm["correct1"]) == m["correct1"]
+        got, want = port.model.state_dict(), from_jax_variables(after, "botnet50")
+        assert _rel_l2(got, want) <= 3e-4
+        assert _rel_l2({k: got[k] - start[k] for k in names},
+                       {k: want[k] - start[k] for k in names}) <= 5e-2
+        grads = [mhsa.to_qk.weight.grad, mhsa.pos_emb.rel_height.grad]
+        assert all(float(t.abs().max()) > 0 for t in grads) == (i > 0), i
+    mom_want = from_jax_variables({"params": mom}, "botnet50")
+    assert _rel_l2(port.unflatten(port.optimizer.state["momentum"]), mom_want) <= 5e-2
+    assert int(port.optimizer.state["step"]) == count == BOT_STEPS
+
+
 def test_nonfinite_guard_leaves_state_bitwise(port_cfg):
     port_cfg.MODEL.ARCH, port_cfg.MODEL.NUM_CLASSES, port_cfg.MODEL.DTYPE = "resnet18", 10, "float32"
     port = TrainState(build_cfg_model(torch.Generator().manual_seed(0)))
@@ -410,3 +485,33 @@ def test_init_follows_the_jax_initialisers(port_cfg):
                                                            jnp.zeros((1, 32, 32, 3)))["params"]
     jw = np.asarray(v["layer3_0"]["conv2"]["kernel"])
     assert abs(float(jw.std()) / float(w.std()) - 1.0) < 0.02
+
+
+def test_init_draws_botnet_position_tables_from_the_generator():
+    """The position tables come from the generator (two builds from one seed
+    are bitwise equal whatever the global RNG did in between) as JAX's
+    ``normal(dim_head**-0.5)`` params, and each BoTBlock's bn_out starts at
+    zero-γ as JAX's ``zero_scale=True``."""
+    from distribuuuu_tpu_torch.models import build_model
+
+    def build(seed, global_seed):
+        torch.manual_seed(global_seed)
+        return layers.init_weights(build_model("botnet50", num_classes=10, dtype=torch.float32,
+                                               im_size=112), torch.Generator().manual_seed(seed))
+
+    a, b, c = build(0, 1), build(0, 2), build(1, 1)
+    sa, sb, sc = a.state_dict(), b.state_dict(), c.state_dict()
+    tables = [k for k in sa if k.endswith(("rel_height", "rel_width"))]
+    assert len(tables) == 6 and all(torch.equal(sa[k], sb[k]) for k in sa)
+    assert not any(torch.equal(sa[k], sc[k]) for k in tables)
+    drawn = torch.cat([sa[k].reshape(-1) for k in tables])  # 6 x 13 x 128 draws
+    assert abs(float(drawn.std()) * 128**0.5 - 1.0) < 0.03 and abs(float(drawn.mean())) < 5e-3
+    from distribuuuu_tpu.models.botnet import RelPosEmb
+
+    jt = np.concatenate([np.asarray(a).reshape(-1) for i in range(3) for a in RelPosEmb(
+        7, 7, 128).init(jax.random.PRNGKey(i), jnp.zeros((1, 4, 49, 128)))["params"].values()])
+    assert jt.size == drawn.numel()
+    assert abs(float(jt.std()) / float(drawn.std()) - 1.0) < 0.05
+    for i in range(3):
+        assert float(sa[f"7.net.{i}.net.8.weight"].abs().max()) == 0.0
+        assert float(sa[f"7.net.{i}.net.1.weight"].min()) == 1.0

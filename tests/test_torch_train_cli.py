@@ -12,9 +12,13 @@
 - a NaN step injected by ``FAULT.INJECT_NAN_STEPS`` is skipped and logged,
   and ``FAULT.MAX_CONSECUTIVE_SKIPS`` of them in a row abort the run;
 - ``python -m distribuuuu_tpu_torch.train_net`` without a card exits
-  non-zero and names ``device='cpu'``.
+  non-zero and names ``device='cpu'``;
+- ``config/botnet50.yaml`` at 32^2 (feature map 2x2), batch 4, 2 steps:
+  the epoch's launch line counts no attention kernel on the CPU, the
+  checkpoint verifies, ``test_model`` evaluates it, a relaunch resumes.
 """
 
+import math
 import os
 import re
 import subprocess
@@ -38,9 +42,9 @@ SMALL = ["MODEL.DUMMY_INPUT", "True", "MODEL.NUM_CLASSES", "10", "TRAIN.IM_SIZE"
          "RNG_SEED", "3", "OPTIM.BASE_LR", "0.05"]
 
 
-def _load(out_dir, *extra):
+def _load(out_dir, *extra, arch="resnet18"):
     reset_cfg()
-    load_cfg_fom_args(argv=["--cfg", str(ROOT / "config" / "resnet18.yaml"), *SMALL,
+    load_cfg_fom_args(argv=["--cfg", str(ROOT / "config" / f"{arch}.yaml"), *SMALL,
                             "OUT_DIR", str(out_dir), *extra])
 
 
@@ -142,3 +146,25 @@ def test_injected_nan_step_is_skipped_and_consecutive_skips_abort(tmp_path):
           "FAULT.MAX_CONSECUTIVE_SKIPS", "3")
     with pytest.raises(FloatingPointError, match="3 consecutive non-finite steps"):
         train_model(device="cpu")
+
+
+def test_botnet50_trains_checkpoints_evaluates_and_resumes_on_the_cpu(tmp_path):
+    two_steps = ("TRAIN.DUMMY_EPOCH_SAMPLES", "8")
+    _load(tmp_path, *two_steps, "OPTIM.MAX_EPOCH", "1", arch="botnet50")
+    assert cfg.MODEL.ARCH == "botnet50" and cfg.OPTIM.NESTEROV
+    state, _ = train_model(device="cpu")
+    assert state.model._modules["7"].net[0].net[3].pos_emb.rel_height.shape == (3, 128)
+    log = "".join(p.read_text() for p in tmp_path.glob("*.log"))
+    losses = [float(m) for m in re.findall(r"Epoch\[0\] \[\s*\d+/2\].*?Loss (\S+) \(", log)]
+    assert len(losses) == 2 and all(map(math.isfinite, losses)), losses
+    assert "attention 0 forward (0.00 a step), 0 backward" in log  # the CPU runs the plain versions
+    first = tmp_path / "checkpoints" / "ckpt_ep_001"
+    assert ckpt.verify_checkpoint(str(first)) == ("ok", [])
+    _load(tmp_path / "eval", "MODEL.WEIGHTS", str(first), arch="botnet50")
+    acc1, acc5 = port_test_model(device="cpu")
+    assert 0.0 <= acc1 <= acc5 <= 100.0
+    _load(tmp_path, *two_steps, "OPTIM.MAX_EPOCH", "2", arch="botnet50")
+    train_model(device="cpu")
+    log = "".join(p.read_text() for p in tmp_path.glob("*.log"))
+    assert re.search(r"Resumed from \S+ckpt_ep_001 \(epoch 1", log), log[-2000:]
+    assert ckpt.verify_checkpoint(str(tmp_path / "checkpoints" / "ckpt_ep_002")) == ("ok", [])
