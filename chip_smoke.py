@@ -36,13 +36,18 @@ Phases (any failure exits non-zero):
    ragged shape), timed (10 back-to-back calls, and one call from an idle
    stream) beside the plain version, ``F.scaled_dot_product_attention`` and
    the bytes/FLOP bound, with the TFLOP/s reached; then [attention-bwd]: the
-   attention backward kernel (dq, dk, dv, dbias; the custom_vjp of K2/K4)
+   attention backward kernels (dq, dk, dv, dbias; the custom_vjp of K2/K4)
    against ``attention_backward_reference`` at BoTNet-50 training's shape
    (B*N 128, L 196), at B*N 512, at K4's B*N 32, L 1024, with an f32 bias,
-   in f32, and at a small ragged shape; two calls bitwise equal; the
-   training shapes timed as device time past the L2, back to back and as a
-   single call, beside the plain version, the backward of
-   ``F.scaled_dot_product_attention`` with the bias needing a gradient and
+   in f32, and at a small ragged shape; the table mode (dq, dk, dv, demb;
+   K3/K5's custom_vjp) against ``attention_table_backward_reference`` at
+   K3's training shapes (B*N 128 and 512, L 196), K5's (B*N 32, L 1024), in
+   f32 and ragged; two calls bitwise equal, each call's route (bf16 at
+   L <= 256: the one-launch cluster kernel; bf16 above: two-pass; f32:
+   scalar) and launches; the training shapes timed as device time past the
+   L2, back to back and as a single call, beside the plain version, the
+   backward of ``F.scaled_dot_product_attention`` with the bias needing a
+   gradient (table mode: autograd through ``einsum(q, emb)`` and SDPA) and
    the bytes/FLOP bound;
 5. serve ResNet-50: ``config/serve_resnet50.yaml`` at full width (224, 1000
    classes, bf16, uint8 wire, ladder [1, 8, 32, 128]) on seeded random
@@ -58,7 +63,9 @@ Phases (any failure exits non-zero):
 7. large crop: botnet50 at 512x512, batch 8 (L 1024, the K4 route), f32
    card vs f32 CPU on 2 images and bf16 vs f32; ``MHSA(rel_pos_emb=False)``
    at full width (batch 128, fmap 14x14) and at fmap 32x32, card vs CPU
-   (the K3/K5 route);
+   (the K3/K5 route), then its forward + backward at both: f32 card vs CPU
+   gradients, bf16 gradients of the tables and ``to_qk`` finite and non-zero,
+   the backward's launches by route;
 8. [moe-kernels] the switch-MoE dispatch (K6) and combine (K7) kernels
    (``ops/csrc/moe.cu``) against their plain versions on the card: the soak's
    per-device shard (N 8192, D 128, E 8, C 1280) and the Switch-Transformer-
@@ -98,7 +105,8 @@ Phases (any failure exits non-zero):
 12. [train-bot] ``python -m distribuuuu_tpu_torch.train_net --cfg
    config/botnet50.yaml MODEL.DUMMY_INPUT True`` (224^2, bf16, batch 32) for
    35 steps as a subprocess: the loss finite and falling, 53 K1, 53 K1-bwd,
-   3 attention and 3 attention-backward calls a step (none scalar), the
+   3 attention and 3 attention-backward calls a step (none scalar, every
+   backward call on the cluster route), the
    checkpoint's manifest, ``test_net`` on it, step ms, images/s and the
    profile of 3 steps by kernel class (attention and attention-bwd among
    them); then one f32 BoTNet-50 step at 64^2, card vs CPU;
@@ -606,10 +614,12 @@ def train_log(log: str) -> tuple[list, dict]:
         r"Epoch\[0\] \[\s*(\d+)/\d+\]\s+Time (\S+) \(\S+\).*?Loss (\S+) \(", log)]
     m = re.search(r"K1 launches: (\d+) forward \(\S+ a step\), (\d+) backward \(\S+ a step\), "
                   r"scalar route (\d+) forward, (\d+) backward; attention (\d+) forward "
-                  r"\(\S+ a step\), (\d+) backward", log)
+                  r"\(\S+ a step\), (\d+) backward \(\S+ a step\), (\d+) backward launches on "
+                  r"the cluster route", log)
     if not prog or m is None:
         fail(f"train_net printed no progress or launch counts:\n{log[-3000:]}")
-    keys = ("k1", "k1_bwd", "k1_scalar", "k1_bwd_scalar", "attention", "attention_bwd")
+    keys = ("k1", "k1_bwd", "k1_scalar", "k1_bwd_scalar", "attention", "attention_bwd",
+            "attention_bwd_cluster")
     return prog, dict(zip(keys, (int(v) for v in m.groups())))
 
 
@@ -669,7 +679,8 @@ def train_run(card: str, out: Path, tag: str, what: str, cfg_file: str, batch: i
     ``out``, as a subprocess, with the TRAIN.PROFILE ``window`` (start,
     steps): the loss finite and falling; TRAIN_K1 K1 and K1-bwd launches a
     step and ``attention`` attention and attention-backward calls, none on
-    a scalar route (the trainer's counts, set to 0 just before the first
+    a scalar route and every backward call on the cluster route (the
+    trainer's counts, set to 0 just before the first
     step and read just after the last); the checkpoint verified against its
     manifest; ``test_net`` on it reporting Acc@1. Step ms and images/s from
     the progress lines before the profiler window; the profile by kernel
@@ -689,8 +700,10 @@ def train_run(card: str, out: Path, tag: str, what: str, cfg_file: str, batch: i
         f"{losses[-1]:.4f}; launches {counts}")
     if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
         fail(f"{what} training loss not finite or not falling: {losses}")
+    # every attention backward call on the one-launch cluster route (L 196)
     want = dict(k1=TRAIN_K1 * steps, k1_bwd=TRAIN_K1 * steps, k1_scalar=0, k1_bwd_scalar=0,
-                attention=attention * steps, attention_bwd=attention * steps)
+                attention=attention * steps, attention_bwd=attention * steps,
+                attention_bwd_cluster=attention * steps)
     if counts != want:
         fail(f"{what} launches over {steps} steps: {counts}; want {want}")
     steady = [t for it, t, _ in prog if TRAIN_PRINT * 2 <= it <= window[0] - TRAIN_PRINT]
@@ -1064,11 +1077,15 @@ def phase_attention(card: str):
     return rows
 
 
-# [attention-bwd]: (name, B, N, L, D, Dv, q/k/v/g dtype, bias dtype, timed): the
-# shapes BoTNet-50 training gives the backward (4 heads of 128: batch 32 at
-# 224^2, the [train-bot] run; batch 128; batch 8 at 512^2, L 1024, K4's
-# route), an f32 bias under bf16 q/k/v, an f32 model at both L, and a small
-# ragged shape in both dtypes (L, D, Dv not multiples of anything).
+# [attention-bwd]: (name, B, N, L, D, Dv, q/k/v/g dtype, bias dtype or "table",
+# timed): the shapes BoTNet-50 training gives the backward (4 heads of 128:
+# batch 32 at 224^2, the [train-bot] run; batch 128; batch 8 at 512^2, L
+# 1024, K4's route), an f32 bias under bf16 q/k/v, an f32 model at both L, and
+# a small ragged shape in both dtypes (L, D, Dv not multiples of anything);
+# the table mode (K3/K5's backward, with demb) at K3's training shapes (B*N
+# 128 and 512, L 196), K5's (B*N 32, L 1024), in f32 and ragged. The route
+# follows from the dtype and L (ops/attention.backward_route): bf16 at L <= 256
+# the cluster kernel, bf16 above it the two-pass one, f32 the scalar one.
 ATTN_BWD_CASES = [
     ("K2 train", 32, 4, 196, 128, 128, "bfloat16", "bfloat16", True),
     ("K2 b128", 128, 4, 196, 128, 128, "bfloat16", "bfloat16", True),
@@ -1078,6 +1095,12 @@ ATTN_BWD_CASES = [
     ("K4 f32", 8, 4, 1024, 128, 128, "float32", "float32", False),
     ("bf16 ragged", 2, 3, 70, 40, 24, "bfloat16", "bfloat16", False),
     ("f32 ragged", 2, 3, 70, 40, 24, "float32", "bfloat16", False),
+    ("K3 train", 32, 4, 196, 128, 128, "bfloat16", "table", True),
+    ("K3 b128", 128, 4, 196, 128, 128, "bfloat16", "table", True),
+    ("K5", 8, 4, 1024, 128, 128, "bfloat16", "table", True),
+    ("K3 f32", 32, 4, 196, 128, 128, "float32", "table", False),
+    ("bf16 ragged table", 2, 3, 70, 40, 24, "bfloat16", "table", False),
+    ("f32 ragged table", 2, 3, 70, 40, 24, "float32", "table", False),
 ]
 # The backward kernel vs attention_backward_reference, relative to
 # max(1, max|grad|) of each of dq, dk, dv, dbias, by that gradient's dtype
@@ -1085,19 +1108,24 @@ ATTN_BWD_CASES = [
 # intermediate in f32 and round each gradient once to its input's dtype, so
 # f32 differs in summation order only (the forward's 2e-5) and bf16 by at
 # most an ulp of the rounded gradient where the two f32 sums straddle a
-# rounding boundary (2^-7); 2e-2 is the forward's bf16 bound.
+# rounding boundary (2^-7); 2e-2 is the forward's bf16 bound. The table
+# mode's demb the same, against attention_table_backward_reference.
 ATTN_BWD_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
 
 def attention_bwd_bound(bn, l, d, dv, dtype, bias_dtype, bw) -> tuple[float, str, float]:
     """(bound ms, what bounds it, bytes) of one backward call: q, k, v, g
-    and the [B, N, L, L] bias read once, dq, dk, dv and dbias written once;
-    the five products (q.k^T, g.v^T, p^T.g, ds.k, ds^T.q) at the card's peak
-    for the inputs' type."""
+    and the [B, N, L, L] bias (or the [L, D] table) read once, dq, dk, dv
+    and dbias (or demb) written once; the five products (q.k^T, g.v^T,
+    p^T.g, ds.k, ds^T.q) at the card's peak for the inputs' type. In table
+    mode the table folds into q.(k + emb)^T and ds.(k + emb), so the
+    products are the same five, and demb = sum over heads of dk adds none."""
     item = 2 if dtype == "bfloat16" else 4
-    bias_item = 2 if bias_dtype == "bfloat16" else 4
-    nbytes = (bn * l * (2 * d + 2 * dv) * item + bn * l * (2 * d + dv) * item
-              + 2 * bn * l * l * bias_item)
+    nbytes = bn * l * (2 * d + 2 * dv) * item + bn * l * (2 * d + dv) * item
+    if bias_dtype == "table":
+        nbytes += 2 * l * d * item
+    else:
+        nbytes += 2 * bn * l * l * (2 if bias_dtype == "bfloat16" else 4)
     flops = 2.0 * bn * l * l * (3 * d + 2 * dv)
     peak = BF16_PEAK_FLOPS if dtype == "bfloat16" else F32_PEAK_FLOPS
     by = "bytes" if nbytes / bw >= flops / peak else "operations"
@@ -1105,13 +1133,16 @@ def attention_bwd_bound(bn, l, d, dv, dtype, bias_dtype, bw) -> tuple[float, str
 
 
 def phase_attention_bwd(card: str) -> dict:
-    """The attention backward kernel (``fused_attention_backward``) against
-    ``attention_backward_reference`` at ATTN_BWD_CASES: every gradient's
-    dtype, shape and error, two calls bitwise equal. The timed cases three
-    ways (device time from a CUDA-graph replay cycling through input sets
-    past the L2, back to back, a single call), beside the plain version,
-    the backward alone of ``F.scaled_dot_product_attention`` with the bias
-    needing a gradient, and the bound."""
+    """The attention backward kernels (``fused_attention_backward``, and
+    ``fused_attention_abs_backward`` in table mode) against the plain
+    backward at ATTN_BWD_CASES: every gradient's dtype, shape and error, two
+    calls bitwise equal, the route each call took and its launches. The
+    timed cases three ways (device time from a CUDA-graph replay cycling
+    through input sets past the L2, back to back, a single call), beside the
+    plain version, a library yardstick that the port never calls (the
+    backward alone of ``F.scaled_dot_product_attention`` with the bias
+    needing a gradient; in table mode autograd through ``einsum(q, emb)``
+    and SDPA's backward), and the bound."""
     import torch
     import torch.nn.functional as F
 
@@ -1121,26 +1152,39 @@ def phase_attention_bwd(card: str) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(7)
     rows = {}
     for name, b, n, l, d, dv, dtype, bias_dtype, timed in ATTN_BWD_CASES:
-        dt, bdt = getattr(torch, dtype), getattr(torch, bias_dtype)
+        table = bias_dtype == "table"
+        dt = getattr(torch, dtype)
+        bdt = dt if table else getattr(torch, bias_dtype)
+        fn = att.fused_attention_abs_backward if table else att.fused_attention_backward
+        plain = att.attention_table_backward_reference if table else att.attention_backward_reference
 
         def inputs(_=0):  # q, k, v and g as the head-split views MHSA and its backward give
             def heads_first(width, scale=1.0):
                 t = torch.randn(b, l, n * width, generator=gen, device="cuda") * scale
                 return t.to(dt).view(b, l, n, width).transpose(1, 2)
 
-            bias = (torch.randn(b, n, l, l, generator=gen, device="cuda") * 0.5).to(bdt)
-            return heads_first(d, 0.3), heads_first(d, 0.3), heads_first(dv), bias, heads_first(dv)
+            shape = (l, d) if table else (b, n, l, l)
+            last = (torch.randn(*shape, generator=gen, device="cuda") * 0.5).to(bdt)
+            return heads_first(d, 0.3), heads_first(d, 0.3), heads_first(dv), last, heads_first(dv)
 
         args = inputs()
-        before = att.BWD_LAUNCHES
-        got = att.fused_attention_backward(*args)
-        again = att.fused_attention_backward(*args)
-        want = att.attention_backward_reference(*args)
+        route = att.backward_route(dt, l)
+        before = (att.BWD_LAUNCHES, att.TABLE_BWD_LAUNCHES, dict(att.BWD_ROUTE_LAUNCHES))
+        got = fn(*args)
+        again = fn(*args)
+        want = plain(*args)
         torch.cuda.synchronize()
-        if att.BWD_LAUNCHES != before + 2:
-            fail(f"attention backward {name}: {att.BWD_LAUNCHES - before} launches for 2 calls")
+        calls = (att.BWD_LAUNCHES - before[0], att.TABLE_BWD_LAUNCHES - before[1])
+        launched = {k: v - before[2][k] for k, v in att.BWD_ROUTE_LAUNCHES.items()
+                    if v != before[2][k]}
+        per_call = 1 if route == "cluster" else 2
+        expect = {route: 2 * per_call, **({"demb": 4} if table else {})}
+        if calls != ((0, 2) if table else (2, 0)) or launched != expect:
+            fail(f"attention backward {name}: calls {calls}, launches {launched} for 2 calls; "
+                 f"want {expect}")
         errs, rel = {}, {}
-        for gname, x, y, z in zip(("dq", "dk", "dv", "dbias"), got, again, want):
+        for gname, x, y, z in zip(("dq", "dk", "dv", "demb" if table else "dbias"), got, again,
+                                  want):
             if x.dtype != z.dtype or x.shape != z.shape or not x.is_contiguous():
                 fail(f"attention backward {name}: {gname} {x.dtype} {tuple(x.shape)}")
             if not torch.equal(x, y):
@@ -1153,30 +1197,36 @@ def phase_attention_bwd(card: str) -> dict:
                 fail(f"attention backward {name} != plain in {gname}: max|d| {errs[gname]:.3e} "
                      f"> {tol} x {scale:.3e}")
         bound_ms, bound_by, nbytes = attention_bwd_bound(b * n, l, d, dv, dtype, bias_dtype, bw)
-        row = dict(b=b, n=n, l=l, d=d, dv=dv, dtype=dtype, bias_dtype=bias_dtype,
+        row = dict(b=b, n=n, l=l, d=d, dv=dv, dtype=dtype, bias_dtype=bias_dtype, route=route,
+                   launches_per_call={k: v // 2 for k, v in launched.items()},
                    max_abs_err=max(errs.values()), errors=errs, rel_errors=rel,
                    bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes)
         del got, again, want
         msg = ""
         if timed:
-            row.update(rotated_timings(att.fused_attention_backward,
-                                       lambda i: args if i == 0 else inputs(), nbytes))
-            row["plain_ms"] = cuda_ms(lambda: att.attention_backward_reference(*args), runs=10,
-                                      batch=2)
-            q, k, v, bias, g = args
-            leaves = [t.detach().requires_grad_() for t in (q, k, v, bias.to(dt))]
-            out = F.scaled_dot_product_attention(*leaves[:3], attn_mask=leaves[3], scale=1.0)
+            row.update(rotated_timings(fn, lambda i: args if i == 0 else inputs(), nbytes))
+            row["plain_ms"] = cuda_ms(lambda: plain(*args), runs=10, batch=2)
+            q, k, v, last, g = args
+            if table:
+                leaves = [t.detach().requires_grad_() for t in (q, k, v, last)]
+                mask = torch.einsum("bnxd,yd->bnxy", leaves[0], leaves[3])
+            else:
+                leaves = [t.detach().requires_grad_() for t in (q, k, v, last.to(dt))]
+                mask = leaves[3]
+            out = F.scaled_dot_product_attention(*leaves[:3], attn_mask=mask, scale=1.0)
             row["library_ms"] = cuda_ms(
                 lambda: torch.autograd.grad(out, leaves, g, retain_graph=True), batch=ATTN_BATCH)
-            del out, leaves
+            del out, leaves, mask
             msg = (f"; device {row['device_ms']:.4f} ms ({100 * bound_ms / row['device_ms']:.0f}% "
                    f"of bound {bound_ms:.4f} by {bound_by}, {nbytes / 1e6:.1f} MB), back to back "
                    f"{row['back_to_back_ms']:.4f}, single call {row['single_call_ms']:.4f}; plain "
-                   f"{row['plain_ms']:.4f}, SDPA backward {row['library_ms']:.4f}")
+                   f"{row['plain_ms']:.4f}, " + ("einsum + SDPA backward" if table else
+                                                 "SDPA backward") + f" {row['library_ms']:.4f}")
         rows[name] = row
         say(f"[attention-bwd] {name}: B*N {b * n}, L {l}, D {d}, Dv {dv}, {dtype} q/k/v/g, "
-            f"{bias_dtype} bias: max|d|/max(1, max|grad|) " + ", ".join(
-                f"{k} {v:.2e}" for k, v in rel.items())
+            + ("[L, D] table" if table else f"{bias_dtype} bias")
+            + f", {route} route ({row['launches_per_call']} launches a call): "
+            f"max|d|/max(1, max|grad|) " + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
             + f" (limits {ATTN_BWD_TOL}), two calls bitwise equal" + msg)
         del args
     torch.cuda.empty_cache()
@@ -1574,8 +1624,13 @@ def phase_large_crop(card: str, tmp: Path, im: int = 512, batch: int = 8, n_cpu:
 def phase_mhsa_table() -> dict:
     """``MHSA(rel_pos_emb=False)`` at BoTNet-50's width (512 in, 4 heads of
     128): the table mode, at fmap 14x14 batch 128 (K3's shape) and fmap
-    32x32 batch 8 (K5's), f32 and bf16 on the card, f32 on the CPU for a
-    few of the images."""
+    32x32 batch 8 (K5's). Serving: f32 and bf16 on the card, f32 on the CPU
+    for a few of the images. Training: forward + backward of a seeded output
+    gradient, f32 on the card against f32 on the CPU on those images (every
+    parameter's gradient and the input's within MHSA_F32_GRAD_REL_TOL of its
+    max|.|), and bf16 on the card at the full batch (finite, non-zero
+    gradients of the position tables and ``to_qk``); one table backward a
+    step, on the route of its dtype and L."""
     import torch
 
     from distribuuuu_tpu_torch.models.botnet import MHSA
@@ -1611,7 +1666,66 @@ def phase_mhsa_table() -> dict:
         if not (d_a <= MHSA_F32_REL_TOL and d_b <= BF16_REL_TOL):
             fail(f"MHSA table mode at fmap {side} is outside the stated tolerances")
         res[kname] = dict(launches=launches["table"], f32_ratio=d_a, bf16_ratio=d_b)
+        res[kname].update(mhsa_table_train(ref, x, n_cpu, kname, side))
     return res
+
+
+# MHSA forward + backward, f32 card (TF32 off) vs f32 CPU, each gradient
+# within this of its max|.|: the attention backward (scalar route on the card)
+# and the convs' weight gradients differ in f32 summation order only
+MHSA_F32_GRAD_REL_TOL = 1e-4
+
+
+def mhsa_table_train(ref, x, n_cpu: int, kname: str, side: int) -> dict:
+    """Forward + backward of ``MHSA(rel_pos_emb=False)`` holding ``ref``'s
+    weights for a seeded output gradient: f32 on the CPU and on the card on
+    the first ``n_cpu`` images of ``x``, bf16 on the card on all of them.
+    The launch counts are zeroed just before the card's two steps and read
+    just after: one table forward and one table backward each, the f32 one
+    on the scalar route, the bf16 one on the route of its L."""
+    import torch
+
+    from distribuuuu_tpu_torch.models.botnet import MHSA
+    from distribuuuu_tpu_torch.ops import attention as att
+
+    gout = torch.randn(x.shape[0], 512, side, side, generator=torch.Generator().manual_seed(5))
+
+    def step(dev, dtype, n):
+        m = MHSA(512, (side, side), 4, 128, 128, rel_pos_emb=False, dtype=dtype)
+        m.load_state_dict(ref.state_dict())
+        m.to(dev)
+        xx = x[:n].to(dev, dtype).requires_grad_()
+        m(xx).backward(gout[:n].to(dev, dtype))
+        return {"x": xx.grad, **{k: t.grad for k, t in m.named_parameters()}}
+
+    cpu = step("cpu", torch.float32, n_cpu)
+    # --- this path: counts zeroed just before, read just after -------------
+    att.TABLE_LAUNCHES = att.TABLE_BWD_LAUNCHES = 0
+    att.BWD_ROUTE_LAUNCHES.update(dict.fromkeys(att.BWD_ROUTE_LAUNCHES, 0))
+    f32 = step("cuda", torch.float32, n_cpu)
+    bf16 = step("cuda", torch.bfloat16, x.shape[0])
+    torch.cuda.synchronize()
+    launches = dict(forward=att.TABLE_LAUNCHES, backward=att.TABLE_BWD_LAUNCHES,
+                    routes={k: v for k, v in att.BWD_ROUTE_LAUNCHES.items() if v})
+    # -------------------------------------------------------------------------
+    l = side * side
+    route = att.backward_route(torch.bfloat16, l)
+    want = dict(forward=2, backward=2, routes={"scalar": 2, "demb": 4})
+    want["routes"][route] = want["routes"].get(route, 0) + (1 if route == "cluster" else 2)
+    errs = {k: float((f32[k].cpu() - g).abs().max() / g.abs().max()) for k, g in cpu.items()}
+    bf16_ok = all(torch.isfinite(bf16[k]).all() and float(bf16[k].abs().max()) > 0
+                  for k in ("pos_emb.height", "pos_emb.width", "to_qk.weight"))
+    say(f"[mhsa table {kname} train] fmap {side}x{side}: forward + backward f32 card vs CPU on "
+        f"{n_cpu} images, max|d|/max|grad| " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+        + f" (limit {MHSA_F32_GRAD_REL_TOL}); bf16 batch {x.shape[0]}: tables and to_qk "
+        f"gradients finite and non-zero {bf16_ok}; launches {launches} (bf16 backward on the "
+        f"{route} route)")
+    if not (all(v <= MHSA_F32_GRAD_REL_TOL for v in errs.values()) and bf16_ok):
+        fail(f"MHSA table-mode training at fmap {side} is outside the stated tolerances")
+    if launches != want:
+        fail(f"MHSA table-mode training at fmap {side}: launches {launches}, want {want}")
+    return dict(train_grad_rel_err=errs, bwd_launches=launches["backward"],
+                bwd_route_launches=launches["routes"], bwd_route=route)
 
 
 # ---------------------------------------------------------------------------
@@ -2463,26 +2577,71 @@ def main() -> None:
         "source": "distribuuuu_tpu_torch/ops/csrc/attention.cu",
         "replaces": "distribuuuu_tpu/ops/attention.py:241",
         "launches": train_bot["launches"]["attention_bwd"],
-        "max_abs_err": max(row["max_abs_err"] for row in attn_bwd.values()),
+        "max_abs_err": max(row["max_abs_err"] for row in attn_bwd.values()
+                           if row["bias_dtype"] != "table"),
         "ms": r["device_ms"],
         "plain_ms": r["plain_ms"],
         "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"],
         "library_ms": r["library_ms"],
         "per": f"one call at B*N {r['b'] * r['n']}, L {r['l']}, D {r['d']}, Dv {r['dv']}, bf16 "
-               f"q/k/v/g and bias (BoTNet-50 training at 224x224, batch {BOT_BATCH}); ms: device "
+               f"q/k/v/g and bias (BoTNet-50 training at 224x224, batch {BOT_BATCH}), on the "
+               f"{r['route']} route ({r['launches_per_call']} CUDA launches a call); ms: device "
                f"time, calls replayed from a CUDA graph over input sets of at least "
                f"{K1_ROTATE_BYTES >> 20} MiB a replay; plain_ms (attention_backward_reference) and "
                f"library_ms (the backward of F.scaled_dot_product_attention with the bias needing "
                f"a gradient): back to back; launches: calls in the {BOT_STEPS} steps of "
-               f"[train-bot] (each call is two CUDA launches); it stands in for the XLA recompute "
-               f"of the custom_vjp of K2 (:241) and K4 (:400); max_abs_err: over every case of "
-               f"[attention-bwd]",
+               f"[train-bot], every one on the cluster route; it stands in for the XLA recompute "
+               f"of the custom_vjp of K2 (:241) and K4 (:400); max_abs_err: over every bias-mode "
+               f"case of [attention-bwd]",
+        "max_rel_err": max(max(row["rel_errors"].values()) for row in attn_bwd.values()
+                           if row["bias_dtype"] != "table"),
+        "kernel_route": f"{r['route']} (bf16, L <= 256: one launch, a thread-block cluster a head); "
+                        f"two_pass at L > 256 (K4: {attn_bwd['K4']['route']}); scalar in f32",
         "back_to_back_ms": r["back_to_back_ms"],
         "single_call_ms": r["single_call_ms"],
-        "shapes": {name: {k: row[k] for k in ("device_ms", "back_to_back_ms", "single_call_ms",
-                                             "plain_ms", "library_ms", "bound_ms", "bound_by")}
-                   for name, row in attn_bwd.items() if "device_ms" in row},
+        "shapes": {name: {k: row[k] for k in ("route", "device_ms", "back_to_back_ms",
+                                             "single_call_ms", "plain_ms", "library_ms",
+                                             "bound_ms", "bound_by")}
+                   for name, row in attn_bwd.items()
+                   if "device_ms" in row and row["bias_dtype"] != "table"},
+    })
+    r = attn_bwd["K3 train"]
+    kernels.insert(kernels.index(k2) + 2, {
+        "name": "K3/K5 backward fused_attention_abs_backward",
+        "route": "cuda",
+        "source": "distribuuuu_tpu_torch/ops/csrc/attention.cu",
+        "replaces": "distribuuuu_tpu/ops/attention.py:514",
+        "launches": table["K3"]["bwd_launches"] + table["K5"]["bwd_launches"],
+        "max_abs_err": max(row["max_abs_err"] for row in attn_bwd.values()
+                           if row["bias_dtype"] == "table"),
+        "ms": r["device_ms"],
+        "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"],
+        "library_ms": r["library_ms"],
+        "per": f"one call at B*N {r['b'] * r['n']}, L {r['l']}, D {r['d']}, Dv {r['dv']}, bf16 "
+               f"q/k/v/g and [L, D] table (MHSA(rel_pos_emb=False) training at 224x224, batch "
+               f"32), on the {r['route']} route plus the demb reduction "
+               f"({r['launches_per_call']} CUDA launches a call); ms: device time as the K2/K4 "
+               f"backward's; plain_ms (attention_table_backward_reference) and library_ms "
+               f"(autograd through einsum(q, emb) and the backward of "
+               f"F.scaled_dot_product_attention): back to back; launches: table-mode backward "
+               f"calls of the [mhsa table] training steps at fmap 14 and 32; it stands in for the "
+               f"XLA recompute of the custom_vjp of K3 (:514) and K5 (:419); max_abs_err (demb "
+               f"sums every head, so it is large in absolute terms) and max_rel_err (relative to "
+               f"max(1, max|grad|)): over every table-mode case of [attention-bwd]",
+        "max_rel_err": max(max(row["rel_errors"].values()) for row in attn_bwd.values()
+                           if row["bias_dtype"] == "table"),
+        "kernel_route": f"{r['route']} + demb at L <= 256; {attn_bwd['K5']['route']} + demb at "
+                        f"L 1024 (K5); scalar + demb in f32",
+        "back_to_back_ms": r["back_to_back_ms"],
+        "single_call_ms": r["single_call_ms"],
+        "shapes": {name: {k: row[k] for k in ("route", "device_ms", "back_to_back_ms",
+                                             "single_call_ms", "plain_ms", "library_ms",
+                                             "bound_ms", "bound_by")}
+                   for name, row in attn_bwd.items()
+                   if "device_ms" in row and row["bias_dtype"] == "table"},
     })
     say(smi)
     say(json.dumps({"kernels": kernels}))

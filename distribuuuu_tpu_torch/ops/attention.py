@@ -17,17 +17,19 @@ kernel takes any strides of B, N and L as long as the last axis is
 contiguous, so the head-split views of MHSA reach it without a copy. The
 output is a contiguous ``[B, N, L, Dv]`` in q's dtype.
 
-Gradients. :func:`fused_attention` is differentiable: where grad mode is on
-and an input needs a gradient it runs inside an ``autograd.Function`` (the
-JAX ``custom_vjp`` of K2/K4) that saves ``(q, k, v, bias)`` and whose
-backward is :func:`fused_attention_backward`: the backward kernel of
-``csrc/attention.cu`` on a CUDA tensor (two launches a call: the query-row
-pass, then the key-column pass; bf16 on the tensor cores, f32 on scalar
-FMAs), :func:`attention_backward_reference` on a CPU tensor. Otherwise
-(serving) no Function node is made and nothing is saved. The table mode
-has no backward kernel yet: on a CUDA tensor that needs a gradient
-:func:`fused_attention_abs` raises; on the CPU autograd differentiates its
-plain version.
+Gradients. Both entry points are differentiable: where grad mode is on and
+an input needs a gradient each runs inside an ``autograd.Function`` (the
+JAX ``custom_vjp`` of K2/K4, and of K3/K5) that saves ``(q, k, v, bias)``
+or ``(q, k, v, emb)`` and whose backward is :func:`fused_attention_backward`
+or :func:`fused_attention_abs_backward`. On a CUDA tensor these launch the
+backward kernels of ``csrc/attention.cu`` by one of three routes, chosen
+by the dtype and L alone (:func:`backward_route`): bf16 at L <= 256 the
+one-pass cluster kernel (one launch: a thread-block cluster a head), bf16
+above it the two-pass tensor-core kernels (a query-row pass, then a
+key-column pass), f32 the two-pass scalar kernels; the table mode then
+sums ``demb`` over heads in two more launches. On a CPU tensor they compute
+:func:`attention_backward_reference` / :func:`attention_table_backward_reference`.
+Otherwise (serving) no Function node is made and nothing is saved.
 """
 
 from __future__ import annotations
@@ -42,13 +44,21 @@ import torch
 # path and reads them after, to show the path went through the kernel.
 LAUNCHES = 0
 TABLE_LAUNCHES = 0
-# calls of the backward kernel (each call is two CUDA launches)
+# calls of the backward kernels, per entry point (bias tensor; table)
 BWD_LAUNCHES = 0
+TABLE_BWD_LAUNCHES = 0
+# CUDA launches of the backward, per route (one a call on the cluster route,
+# two on the others) and of the table mode's demb reduction (two a call)
+BWD_ROUTE_LAUNCHES = {"cluster": 0, "two_pass": 0, "scalar": 0, "demb": 0}
+_ROUTE_CODE = {"scalar": 0, "two_pass": 1, "cluster": 2}
 _count_lock = threading.Lock()
 
 _DT_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _TABLE = -1
 MAX_HEAD_DIM = 128  # the kernel's register and shared-memory tiles hold D, Dv <= 128
+CLUSTER_MAX_L = 256  # the cluster route holds a head's keys in at most 4 CTAs of 64
+_DEMB_CHUNK = 8  # heads the demb kernel's first pass sums a thread (csrc DEMB_CHUNK)
+_cluster_ok: set = set()  # (bias dtype code, ceil(L / 64)) whose occupancy was checked
 
 
 def attention_reference(q, k, v, bias):
@@ -115,6 +125,35 @@ def attention_backward_reference(q, k, v, bias, g):
     return dq, dk, dv, dsoft.to(bias.dtype)
 
 
+def attention_table_backward_reference(q, k, v, emb, g):
+    """``(dq, dk, dv, demb)`` of :func:`attention_table_reference` for the
+    output gradient ``g``, term for term as the JAX ``custom_vjp`` backward
+    of the table mode (``_abs_bwd``): the logits ``q·kᵀ + q·embᵀ`` in f32,
+    ``p``, ``dp``, ``dv`` and ``dsoft`` as :func:`attention_backward_reference`,
+    ``dq = dsoft·k + dsoft·emb``, ``dk = dsoftᵀ·q`` and ``demb =
+    Σ_{b,n} dsoftᵀ·q``, all in f32, each cast to its input's dtype."""
+    qf, kf, vf, ef, gf = (t.float() for t in (q, k, v, emb, g))
+    logits = torch.einsum("bnxd,bnyd->bnxy", qf, kf) + torch.einsum("bnxd,jd->bnxj", qf, ef)
+    p = torch.softmax(logits, dim=-1)
+    dp = torch.einsum("bnxd,bnyd->bnxy", gf, vf)
+    dv = torch.einsum("bnxy,bnxd->bnyd", p, gf).to(v.dtype)
+    dsoft = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    dq = (torch.einsum("bnxy,bnyd->bnxd", dsoft, kf)
+          + torch.einsum("bnxj,jd->bnxd", dsoft, ef)).to(q.dtype)
+    dk = torch.einsum("bnxy,bnxd->bnyd", dsoft, qf).to(k.dtype)
+    demb = torch.einsum("bnxj,bnxd->jd", dsoft, qf).to(emb.dtype)
+    return dq, dk, dv, demb
+
+
+def backward_route(dtype, l: int) -> str:
+    """The backward's route on the card, by the dtype and L alone: bf16 at
+    L <= CLUSTER_MAX_L ``"cluster"``, bf16 above it ``"two_pass"``, f32
+    ``"scalar"``."""
+    if dtype == torch.float32:
+        return "scalar"
+    return "cluster" if l <= CLUSTER_MAX_L else "two_pass"
+
+
 def _check(q, k, v, last, *, table: bool) -> None:
     if q.dim() != 4:
         raise ValueError(f"q must be [B, N, L, D], got {tuple(q.shape)}")
@@ -163,15 +202,32 @@ def fused_attention_backward(q, k, v, bias, g):
     """``(dq, dk, dv, dbias)`` of :func:`fused_attention` for the output
     gradient ``g`` (any strides with a contiguous last axis on the card).
     A CPU tensor gets :func:`attention_backward_reference`; a CUDA tensor
-    launches the backward kernel. Each result is contiguous, in its input's
-    dtype."""
+    launches the backward kernel of :func:`backward_route`. Each result is
+    contiguous, in its input's dtype."""
     _check(q, k, v, bias, table=False)
+    _check_g(q, v, g)
+    if q.device.type == "cpu":
+        return attention_backward_reference(q, k, v, bias, g)
+    return _launch_backward(q, k, v, bias, g, table=False)
+
+
+def fused_attention_abs_backward(q, k, v, emb, g):
+    """``(dq, dk, dv, demb)`` of :func:`fused_attention_abs` for the output
+    gradient ``g``. A CPU tensor gets :func:`attention_table_backward_reference`;
+    a CUDA tensor launches the backward kernel of :func:`backward_route` in
+    table mode, then the demb reduction over heads. Each result is
+    contiguous, in its input's dtype."""
+    _check(q, k, v, emb, table=True)
+    _check_g(q, v, g)
+    if q.device.type == "cpu":
+        return attention_table_backward_reference(q, k, v, emb, g)
+    return _launch_backward(q, k, v, emb, g, table=True)
+
+
+def _check_g(q, v, g) -> None:
     if g.shape != v.shape or g.dtype != q.dtype or g.device != q.device:
         raise ValueError(f"g must be {q.dtype} {tuple(v.shape)} on {q.device}, got {g.dtype} "
                          f"{tuple(g.shape)} on {g.device}")
-    if q.device.type == "cpu":
-        return attention_backward_reference(q, k, v, bias, g)
-    return _launch_backward(q, k, v, bias, g)
 
 
 class _Attention(torch.autograd.Function):
@@ -184,22 +240,45 @@ class _Attention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        grads = fused_attention_backward(*ctx.saved_tensors, g)
+        grads = fused_attention_backward(*ctx.saved_tensors, _last_axis_contiguous(g))
         return tuple(t if need else None for t, need in zip(grads, ctx.needs_input_grad))
+
+
+class _AttentionAbs(torch.autograd.Function):
+    """K3/K5 forward, their backward kernel (the JAX ``custom_vjp``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, emb):
+        ctx.save_for_backward(q, k, v, emb)
+        return _forward_abs(q, k, v, emb)
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = fused_attention_abs_backward(*ctx.saved_tensors, _last_axis_contiguous(g))
+        return tuple(t if need else None for t, need in zip(grads, ctx.needs_input_grad))
+
+
+def _last_axis_contiguous(g):
+    """The output gradient as the kernels read it: autograd may hand it over
+    in any layout (from an NCHW loss through MHSA's head merge, its last
+    axis is strided); one copy then, none otherwise."""
+    return g if g.stride(-1) == 1 else g.contiguous()
 
 
 def fused_attention_abs(q, k, v, emb):
     """``softmax(q·kᵀ + q·embᵀ)·v`` with the ``[L, D]`` table in q's dtype;
     the ``[B, N, L, L]`` bias is never formed in device memory. A CPU tensor
     gets :func:`attention_table_reference`; a CUDA tensor launches the
-    kernel."""
+    kernel. Differentiable in all four inputs (module docstring)."""
     _check(q, k, v, emb, table=True)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, emb)):
+        return _AttentionAbs.apply(q, k, v, emb)
+    return _forward_abs(q, k, v, emb)
+
+
+def _forward_abs(q, k, v, emb):
     if q.device.type == "cpu":
         return attention_table_reference(q, k, v, emb)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, emb)):
-        raise NotImplementedError(
-            "fused_attention_abs has no backward kernel yet (K3/K5's backward, ROADMAP Queue 2): "
-            "train MHSA with rel_pos_emb=True, or run the table mode under torch.no_grad()")
     return _launch(q, k, v, emb, table=True)
 
 
@@ -249,34 +328,71 @@ def _launch(q, k, v, last, *, table: bool):
     return out
 
 
-def _launch_backward(q, k, v, bias, g):
-    _check_cuda(q, k, v, bias, g)
+def _launch_backward(q, k, v, last, g, *, table: bool):
+    _check_cuda(q, k, v, last, g)
     b, n, l, d = q.shape
     dv = v.shape[-1]
-    dq, dk, dvv, dbias = (torch.empty_like(t, memory_format=torch.contiguous_format)
-                          for t in (q, k, v, bias))
-    if dbias.numel() == 0:  # B, N or L is 0: nothing to compute
-        return dq, dk, dvv, dbias
-    # per query row: the softmax max, its sum and delta = sum_y dp * p, f32
-    stats = torch.empty((3, b * n, l), dtype=torch.float32, device=q.device)
+    dq, dk, dvv, dlast = (torch.empty_like(t, memory_format=torch.contiguous_format)
+                          for t in (q, k, v, last))
+    if b * n * l == 0:  # nothing to compute; demb of no heads is 0
+        return dq, dk, dvv, dlast.zero_()
+    route = backward_route(q.dtype, l)
+    bias_code = _TABLE if table else _DT_CODE[last.dtype]
     lib = _library()
+    if route == "cluster":
+        _check_cluster_occupancy(lib, bias_code, l, q.device)
+    # f32 scratch, held until the launch is enqueued; none where the route takes none:
+    # per query row the softmax max, its sum and delta = sum_y dp * p (two-pass routes),
+    # each head's f32 dk and the demb reduction's first pass (table mode)
+    shapes = (None if route == "cluster" else (3, b * n, l),
+              (b * n, l, d) if table else None,
+              (-(-b * n // _DEMB_CHUNK), l, d) if table else None)
+    scratch = [None if sh is None else torch.empty(sh, dtype=torch.float32, device=q.device)
+               for sh in shapes]
+    if table:
+        bias_args = (None, 0, 0, 0, _TABLE, last.data_ptr(), last.stride(0))
+    else:
+        bias_args = (last.data_ptr(), *last.stride()[:3], bias_code, None, 0)
     with torch.cuda.device(q.device):
         err = lib.dtpu_attention_backward_launch(
             q.data_ptr(), *q.stride()[:3],
             k.data_ptr(), *k.stride()[:3],
             v.data_ptr(), *v.stride()[:3],
-            bias.data_ptr(), *bias.stride()[:3], _DT_CODE[bias.dtype],
+            *bias_args,
             g.data_ptr(), *g.stride()[:3],
-            dq.data_ptr(), dk.data_ptr(), dvv.data_ptr(), dbias.data_ptr(), stats.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dvv.data_ptr(), dlast.data_ptr(),
+            *(None if t is None else t.data_ptr() for t in scratch), _ROUTE_CODE[route],
             _DT_CODE[q.dtype], b, n, l, d, dv,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if err != 0:
-        raise RuntimeError(f"attention backward kernel launch failed: cudaError {err}")
-    global BWD_LAUNCHES
+        raise RuntimeError(f"attention backward kernel launch failed ({route} route): "
+                           f"cudaError {err}")
+    global BWD_LAUNCHES, TABLE_BWD_LAUNCHES
     with _count_lock:
-        BWD_LAUNCHES += 1
-    return dq, dk, dvv, dbias
+        if table:
+            TABLE_BWD_LAUNCHES += 1
+            BWD_ROUTE_LAUNCHES["demb"] += 2
+        else:
+            BWD_LAUNCHES += 1
+        BWD_ROUTE_LAUNCHES[route] += 1 if route == "cluster" else 2
+    return dq, dk, dvv, dlast
+
+
+def _check_cluster_occupancy(lib, bias_code: int, l: int, device) -> None:
+    """Before the first launch of a cluster shape: the card must hold at
+    least one of its clusters (``cudaOccupancyMaxActiveClusters`` > 0)."""
+    key = (bias_code, -(-l // 64))
+    if key in _cluster_ok:
+        return
+    clusters = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = lib.dtpu_attention_backward_cluster_occupancy(bias_code, l, ctypes.byref(clusters))
+    if err != 0 or clusters.value <= 0:
+        raise RuntimeError(
+            f"the attention backward's cluster route cannot run on {torch.cuda.get_device_name(device)}"
+            f" at L {l}: cudaError {err}, {clusters.value} resident clusters")
+    _cluster_ok.add(key)
 
 
 def _library() -> ctypes.CDLL:
@@ -289,7 +405,9 @@ def _library() -> ctypes.CDLL:
             (lib.dtpu_attention_launch,
              strided * 3 + [p, ll, ll, ll, i, p, ll, p, i, i, i, i, i, i, p]),
             (lib.dtpu_attention_backward_launch,
-             strided * 3 + [p, ll, ll, ll, i] + strided + [p, p, p, p, p, i, i, i, i, i, i, p])):
+             strided * 3 + [p, ll, ll, ll, i, p, ll] + strided
+             + [p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]),
+            (lib.dtpu_attention_backward_cluster_occupancy, [i, i, ctypes.POINTER(i)])):
         if fn.argtypes is None:  # without them ctypes passes pointers as 32-bit ints
             fn.argtypes = args
             fn.restype = ctypes.c_int

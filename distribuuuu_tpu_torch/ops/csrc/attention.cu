@@ -84,6 +84,7 @@
 // from f32 shared-memory tiles; 16-byte staging loads where rows allow).
 // Tensor cores would round f32 to TF32, outside those checks' 2e-5.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -518,18 +519,20 @@ __device__ __forceinline__ void copy_unit(uint32_t s, const unsigned char* g, bo
                  : "memory");
 }
 
-// Thread tid copies W-byte unit u = tid % 16 (+ 16, ...) of rows tid / 16,
-// + 8, ...: the swizzled column is the same down its rows (they step by 8).
-template <int W, bool SWZ>
+// Thread tid of NT copies W-byte unit u = tid % 16 (+ 16, ...) of rows
+// tid / 16, + NT / 16, ...: the swizzled column is the same down its rows
+// (they step by a multiple of 8).
+template <int W, bool SWZ, int NT>
 __device__ __forceinline__ void copy_rows(uint32_t dst, const unsigned char* src, long long gs,
                                           int rows, int nrows, int nbytes, int pbytes, int rb,
                                           int tid) {
+  constexpr int STEP = NT / 16;
   const int r0 = tid >> 4;
   for (int byte = (tid & 15) * W; byte < pbytes; byte += 16 * W) {
     const bool col = byte < nbytes;
     uint32_t s = dst + r0 * rb + (SWZ ? swz(r0, byte) : byte);
     const unsigned char* g = src + r0 * gs + byte;
-    for (int r = r0; r < rows; r += 8, s += 8 * rb, g += 8 * gs) {
+    for (int r = r0; r < rows; r += STEP, s += STEP * rb, g += STEP * gs) {
       const bool valid = col && r < nrows;
       copy_unit<W>(s, valid ? g : src, valid);
     }
@@ -541,21 +544,22 @@ __device__ __forceinline__ void copy_rows(uint32_t dst, const unsigned char* src
 // chunks swizzled by swz) in units of w bytes: 16, 8 or 4 by cp.async, 2 by
 // a synchronous load and store. Bytes [nbytes, pbytes) of each row and rows
 // [nrows, rows) are zero-filled (cp.async with src-size 0). The base, gs and
-// nbytes are multiples of w; pbytes is a multiple of 16.
-template <bool SWZ>
+// nbytes are multiples of w; pbytes is a multiple of 16. NT: the block's
+// threads, all of which take part.
+template <bool SWZ, int NT = MMA_THREADS>
 __device__ __forceinline__ void stage_rows(unsigned char* dst, const unsigned char* src,
                                            long long gs, int rows, int nrows, int nbytes,
                                            int pbytes, int rb, int w, int tid) {
   const uint32_t d = smem_u32(dst);
   switch (w) {
     case 16:
-      return copy_rows<16, SWZ>(d, src, gs, rows, nrows, nbytes, pbytes, rb, tid);
+      return copy_rows<16, SWZ, NT>(d, src, gs, rows, nrows, nbytes, pbytes, rb, tid);
     case 8:
-      return copy_rows<8, SWZ>(d, src, gs, rows, nrows, nbytes, pbytes, rb, tid);
+      return copy_rows<8, SWZ, NT>(d, src, gs, rows, nrows, nbytes, pbytes, rb, tid);
     case 4:
-      return copy_rows<4, SWZ>(d, src, gs, rows, nrows, nbytes, pbytes, rb, tid);
+      return copy_rows<4, SWZ, NT>(d, src, gs, rows, nrows, nbytes, pbytes, rb, tid);
     default:
-      return copy_rows<2, SWZ>(d, src, gs, rows, nrows, nbytes, pbytes, rb, tid);
+      return copy_rows<2, SWZ, NT>(d, src, gs, rows, nrows, nbytes, pbytes, rb, tid);
   }
 }
 
@@ -911,43 +915,53 @@ cudaError_t dispatch_mma(Params p, int bias_dt, int bn, cudaStream_t s) {
 }
 
 // ===========================================================================
-// Backward: dq, dk, dv and dbias of softmax(q.k^T + bias).v (K2/K4's custom_vjp)
+// Backward: dq, dk, dv and dbias (or demb) of softmax(q.k^T + bias).v
+// (the custom_vjp of K2/K4, and of K3/K5 in table mode)
 // ===========================================================================
 //
 // What it computes is the JAX backward term for term (`_bwd`,
-// distribuuuu_tpu/ops/attention.py:241-258), with s, p, dp, ds and the softmax
-// statistics in f32:
+// distribuuuu_tpu/ops/attention.py:241-258, and `_abs_bwd`, :514-535), with
+// s, p, dp, ds and the softmax statistics in f32:
 //     s = q.k^T + bias,  p = softmax_y(s),  dp = g.v^T,
 //     delta_x = sum_y dp * p,  ds = p * (dp - delta)
 //     dv = p^T.g,  dq = ds.k,  dk = ds^T.q,  dbias = ds
+// In table mode (bias = q.emb^T from the shared [L, D] table) s = q.k^T +
+// q.emb^T, dq = ds.k + ds.emb and demb = sum_{b,n} ds^T.q: the sum over heads
+// of each head's f32 dk before it is rounded. Every route writes that f32 dk
+// into a [B*N, L, D] partial, and the demb kernels below sum it over B*N.
 // The delta is JAX's sum_y dp * p, not flash-attention's sum dO * O: the
 // forward rounds p and the output to the value dtype, so dO * O would differ
 // from JAX's value by those roundings.
 //
-// No float atomics: dq and dbias reduce over keys, dk and dv over query rows,
-// and each is summed in one fixed order by one thread or warp, so a call
-// repeats bitwise. Two launches, in order on the stream:
-//   rows:    per query row, sweep the keys once for the softmax's max m, its
-//            sum l and u = sum_y dp * exp(s - m) (online, rescaled as the max
-//            moves), so delta = u / l; write (m, l, delta) to the f32 stats;
-//            sweep again for p and ds, write the dbias row and accumulate dq.
-//   columns: per key row, walk the query rows, recompute s, p = exp(s - m_x) /
-//            l_x and ds from the stats, and accumulate dk and dv.
-// bf16 q/k/v/g (training) run both passes on the tensor cores (below); f32 q/k/v/g
-// (an f32 model, the card-against-CPU checks) on scalar FMAs, a warp a row:
-// a lane owns the head dimensions d = lane + 32 i (i < 4, so D, Dv <= 128); a
-// dot product is four FMAs a lane then a xor butterfly over the warp, which
-// leaves the same bits in every lane, and both passes form s and dp with the
-// same lanes, order and butterfly, so the p and ds of the columns pass are
-// bitwise those of the rows pass. The rows of q, k, v, g and the bias take
-// any strides with a contiguous last axis; dq, dk, dv and dbias are contiguous.
+// No float atomics: every gradient is summed in one fixed order, so a call
+// repeats bitwise. Three routes, chosen by the dtype and L alone (the wrapper
+// names the route and the entry point refuses any other):
+//   cluster  (bf16, L <= 256): one launch, one thread-block cluster a head;
+//            below, after the two-pass route.
+//   two-pass (bf16, L > 256): two launches on the tensor cores:
+//     rows:    per query row, sweep the keys once for the softmax's max m, its
+//              sum l and u = sum_y dp * exp(s - m) (online, rescaled as the max
+//              moves), so delta = u / l; write (m, l, delta) to the f32 stats;
+//              sweep again for p and ds, write the dbias row and accumulate dq.
+//     columns: per key row, walk the query rows, recompute s, p = exp(s - m_x) /
+//              l_x and ds from the stats, and accumulate dk and dv.
+//   scalar   (f32: an f32 model, the card-against-CPU checks): the same two
+//            passes on scalar FMAs, a warp a row: a lane owns the head
+//            dimensions d = lane + 32 i (i < 4, so D, Dv <= 128); a dot product
+//            is four FMAs a lane then a xor butterfly over the warp, which
+//            leaves the same bits in every lane, and both passes form s and dp
+//            with the same lanes, order and butterfly, so the p and ds of the
+//            columns pass are bitwise those of the rows pass.
+// The rows of q, k, v, g, the bias and the table take any strides with a
+// contiguous last axis; dq, dk, dv, dbias and demb are contiguous.
 //
-// What bounds it (H100 SXM, 3.35 TB/s, 989 TFLOP/s bf16): at BoTNet-50's
-// training shape (B*N 128, L 196, D = Dv = 128, bf16) the call must move 64.6
-// MB (19 us) and do 6.3 GFLOP of products (6.4 us): bytes. This design reads K,
-// V and the bias twice in the rows pass and Q, G once a key tile in the columns
-// pass (from the L2 mostly), and forms S and dP in both passes (8.8 GFLOP);
-// it is the simple one. The f32 route is bound by its scalar operations.
+// What bounds the two-pass route (H100 SXM, 3.35 TB/s, 989 TFLOP/s bf16): at
+// K4's shape (B*N 32, L 1024, D = Dv = 128) the call must move 193 MB (58 us;
+// the bias and dbias are 134 MB of it) and do 43 GFLOP of products (43 us):
+// bytes. This design reads K, V and
+// the bias twice in the rows pass and Q, G once a key tile in the columns pass
+// (from the L2 mostly), and forms S and dP in both passes; it is the simple
+// one. The scalar route is bound by its scalar operations.
 
 struct BwdParams {
   const void* q;
@@ -956,15 +970,18 @@ struct BwdParams {
   long long k_sb, k_sn, k_sl;
   const void* v;
   long long v_sb, v_sn, v_sl;
-  const void* bias;
+  const void* bias;  // [B, N, L, L] (bias mode)
   long long b_sb, b_sn, b_sl;
+  const void* emb;   // [L, D] (table mode)
+  long long e_sl;
   const void* g;
   long long g_sb, g_sn, g_sl;
   void* dq;     // contiguous [B, N, L, D]
   void* dk;     // contiguous [B, N, L, D]
   void* dv;     // contiguous [B, N, L, Dv]
-  void* dbias;  // contiguous [B, N, L, L]
-  float* stats;  // [3][B*N][L]: m, l, delta of each query row
+  void* dbias;  // contiguous [B, N, L, L] (bias mode)
+  float* demb_part;  // contiguous [B*N, L, D]: each head's f32 dk (table mode)
+  float* stats;  // [3][B*N][L]: m, l, delta of each query row (two-pass and scalar routes)
   long long rows;  // B * N * L
   int heads, L, D, Dv;
 };
@@ -996,8 +1013,9 @@ __device__ __forceinline__ float warp_dot(const float (&a)[4], const float (&b)[
   return warp_sum(s);
 }
 
-// f32 q/k/v/g; BT: the bias dtype.
-template <typename BT>
+// f32 q/k/v/g; BT: the bias dtype (unused in table mode). Table mode: s = q.k
+// + q.emb (two warp dots), dq += ds k + ds emb, no dbias.
+template <typename BT, bool TABLE>
 __global__ void __launch_bounds__(BWD_WARPS * 32) attention_bwd_rows_kernel(const BwdParams p) {
   using T = float;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -1005,17 +1023,24 @@ __global__ void __launch_bounds__(BWD_WARPS * 32) attention_bwd_rows_kernel(cons
   if (row >= p.rows) return;
   const int bh = (int)(row / p.L), x = (int)(row - (long long)bh * p.L);
   const int b = bh / p.heads, n = bh - b * p.heads;
-  float qv[4], gv[4], kr[4], vr[4];
+  float qv[4], gv[4], kr[4], vr[4], er[4];
   load_lanes(qv, row_ptr<T>(p.q, p.q_sb, p.q_sn, p.q_sl, b, n, x), p.D, lane);
   load_lanes(gv, row_ptr<T>(p.g, p.g_sb, p.g_sn, p.g_sl, b, n, x), p.Dv, lane);
-  const BT* bias = row_ptr<BT>(p.bias, p.b_sb, p.b_sn, p.b_sl, b, n, x);
+  const BT* bias = TABLE ? nullptr : row_ptr<BT>(p.bias, p.b_sb, p.b_sn, p.b_sl, b, n, x);
+  auto logit = [&](int y) {  // s = q.k + bias (or + q.emb); loads k (and emb) row y
+    load_lanes(kr, row_ptr<T>(p.k, p.k_sb, p.k_sn, p.k_sl, b, n, y), p.D, lane);
+    if (TABLE) {
+      load_lanes(er, static_cast<const T*>(p.emb) + (long long)y * p.e_sl, p.D, lane);
+      return warp_dot(qv, kr) + warp_dot(qv, er);
+    }
+    return warp_dot(qv, kr) + to_f32(bias[y]);
+  };
 
   // sweep 1: m, l and u = sum_y dp * exp(s - m), rescaled as m grows
   float m = -INFINITY, l = 0.f, u = 0.f;
   for (int y = 0; y < p.L; ++y) {
-    load_lanes(kr, row_ptr<T>(p.k, p.k_sb, p.k_sn, p.k_sl, b, n, y), p.D, lane);
     load_lanes(vr, row_ptr<T>(p.v, p.v_sb, p.v_sn, p.v_sl, b, n, y), p.Dv, lane);
-    const float s = warp_dot(qv, kr) + to_f32(bias[y]);
+    const float s = logit(y);
     const float dp = warp_dot(gv, vr);
     const float mn = fmaxf(m, s);
     const float a = expf(m - mn), e = expf(s - mn);  // first key: exp(-inf) = 0
@@ -1032,17 +1057,19 @@ __global__ void __launch_bounds__(BWD_WARPS * 32) attention_bwd_rows_kernel(cons
 
   // sweep 2: p, ds; the dbias row and dq
   float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  BT* dbias = static_cast<BT*>(p.dbias) + row * p.L;
+  BT* dbias = TABLE ? nullptr : static_cast<BT*>(p.dbias) + row * p.L;
   for (int y = 0; y < p.L; ++y) {
-    load_lanes(kr, row_ptr<T>(p.k, p.k_sb, p.k_sn, p.k_sl, b, n, y), p.D, lane);
     load_lanes(vr, row_ptr<T>(p.v, p.v_sb, p.v_sn, p.v_sl, b, n, y), p.Dv, lane);
-    const float s = warp_dot(qv, kr) + to_f32(bias[y]);
+    const float s = logit(y);
     const float dp = warp_dot(gv, vr);
     const float pr = expf(s - m) / l;
     const float ds = pr * (dp - delta);
-    if (lane == (y & 31)) dbias[y] = from_f32<BT>(ds);
+    if (!TABLE && lane == (y & 31)) dbias[y] = from_f32<BT>(ds);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) acc[i] = fmaf(ds, kr[i], acc[i]);
+    for (int i = 0; i < 4; ++i) {
+      acc[i] = fmaf(ds, kr[i], acc[i]);
+      if (TABLE) acc[i] = fmaf(ds, er[i], acc[i]);
+    }
   }
   T* dq = static_cast<T*>(p.dq) + row * p.D;
 #pragma unroll
@@ -1050,7 +1077,7 @@ __global__ void __launch_bounds__(BWD_WARPS * 32) attention_bwd_rows_kernel(cons
     if (lane + 32 * i < p.D) dq[lane + 32 * i] = from_f32<T>(acc[i]);
 }
 
-template <typename BT>
+template <typename BT, bool TABLE>
 __global__ void __launch_bounds__(BWD_WARPS * 32) attention_bwd_cols_kernel(const BwdParams p) {
   using T = float;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -1058,9 +1085,10 @@ __global__ void __launch_bounds__(BWD_WARPS * 32) attention_bwd_cols_kernel(cons
   if (col >= p.rows) return;
   const int bh = (int)(col / p.L), y = (int)(col - (long long)bh * p.L);
   const int b = bh / p.heads, n = bh - b * p.heads;
-  float kr[4], vr[4], qx[4], gx[4];
+  float kr[4], vr[4], er[4], qx[4], gx[4];
   load_lanes(kr, row_ptr<T>(p.k, p.k_sb, p.k_sn, p.k_sl, b, n, y), p.D, lane);
   load_lanes(vr, row_ptr<T>(p.v, p.v_sb, p.v_sn, p.v_sl, b, n, y), p.Dv, lane);
+  if (TABLE) load_lanes(er, static_cast<const T*>(p.emb) + (long long)y * p.e_sl, p.D, lane);
   const float* m = p.stats + (long long)bh * p.L;
   const float* l = m + p.rows;
   const float* delta = l + p.rows;
@@ -1068,8 +1096,9 @@ __global__ void __launch_bounds__(BWD_WARPS * 32) attention_bwd_cols_kernel(cons
   for (int x = 0; x < p.L; ++x) {
     load_lanes(qx, row_ptr<T>(p.q, p.q_sb, p.q_sn, p.q_sl, b, n, x), p.D, lane);
     load_lanes(gx, row_ptr<T>(p.g, p.g_sb, p.g_sn, p.g_sl, b, n, x), p.Dv, lane);
-    const float s = warp_dot(qx, kr) + to_f32(row_ptr<BT>(p.bias, p.b_sb, p.b_sn, p.b_sl,
-                                                           b, n, x)[y]);
+    const float s = TABLE ? warp_dot(qx, kr) + warp_dot(qx, er)
+                          : warp_dot(qx, kr) + to_f32(row_ptr<BT>(p.bias, p.b_sb, p.b_sn, p.b_sl,
+                                                                  b, n, x)[y]);
     const float dp = warp_dot(gx, vr);
     const float pr = expf(s - m[x]) / l[x];
     const float ds = pr * (dp - delta[x]);
@@ -1081,48 +1110,55 @@ __global__ void __launch_bounds__(BWD_WARPS * 32) attention_bwd_cols_kernel(cons
   }
   T* dkr = static_cast<T*>(p.dk) + col * p.D;
   T* dvr = static_cast<T*>(p.dv) + col * p.Dv;
+  float* dpart = TABLE ? p.demb_part + col * p.D : nullptr;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int d = lane + 32 * i;
-    if (d < p.D) dkr[d] = from_f32<T>(dk[i]);
+    if (d < p.D) {
+      dkr[d] = from_f32<T>(dk[i]);
+      if (TABLE) dpart[d] = dk[i];
+    }
     if (d < p.Dv) dvr[d] = from_f32<T>(dv[i]);
   }
 }
 
 // ---------------------------------------------------------------------------
-// bf16 q/k/v/g: the same two passes on the tensor cores
+// bf16 q/k/v/g at L > 256: the same two passes on the tensor cores
 // ---------------------------------------------------------------------------
 //
 // rows:    a block per (batch*head, 64-query tile), 4 warps of 16 query rows, as
 //          the forward. Q and G go to registers as A fragments once; the key
-//          tiles (K, V, the bias tile) are staged in shared memory by cp.async,
-//          zero-filled past L and past D or Dv up to 128 values, and swept
-//          twice: S = Q.K^T and dP = G.V^T on mma.sync.m16n8k16 (bf16 -> f32,
-//          exact products) into the same accumulator layout, the bias added
-//          in f32; the first sweep keeps the row max m, the sum l and u =
-//          sum dp * exp(s - m) (thread-partial, rescaled as m grows, reduced
-//          over the quad at the end); the second forms p = exp(s - m) / l and
-//          ds = p (dp - delta) in f32 registers, writes dbias, and adds
-//          ds.K into dq with ds rounded to bf16 as the A fragment (the
-//          accumulator layout of two 8-key blocks is the A layout of one
-//          16-key step) and K read by ldmatrix.trans.
+//          tiles (K, V, the bias tile or the emb tile) are staged in shared
+//          memory by cp.async, zero-filled past L and past D or Dv up to 128
+//          values, and swept twice: S = Q.K^T and dP = G.V^T on
+//          mma.sync.m16n8k16 (bf16 -> f32, exact products) into the same
+//          accumulator layout, the bias added in f32 (table mode: Q.E^T into
+//          the same accumulator, as the forward forms it); the first sweep
+//          keeps the row max m, the sum l and u = sum dp * exp(s - m)
+//          (thread-partial, rescaled as m grows, reduced over the quad at the
+//          end); the second forms p = exp(s - m) / l and ds = p (dp - delta) in
+//          f32 registers, writes dbias, and adds ds.K (and ds.E) into dq with
+//          ds rounded to bf16 as the A fragment (the accumulator layout of two
+//          8-key blocks is the A layout of one 16-key step) and K read by
+//          ldmatrix.trans.
 // columns: a block per (batch*head, 64-key tile), 4 warps of 16 keys. K and V
-//          stay in shared memory; each query tile stages Q, G, the bias tile
-//          and the rows' (m, l, delta). S^T = K.Q^T and dP^T = V.G^T (A
-//          fragments of K and V by ldmatrix, one k-step at a time), p and ds
-//          as above (a query past L has m = +inf, so p = ds = 0), dv += p^T.G
-//          and dk += ds^T.Q with p and ds rounded to bf16 as A fragments.
+//          (and the emb tile) stay in shared memory; each query tile stages Q,
+//          G, the bias tile and the rows' (m, l, delta). S^T = K.Q^T (+ E.Q^T)
+//          and dP^T = V.G^T (A fragments of K, E and V by ldmatrix, one k-step
+//          at a time), p and ds as above (a query past L has m = +inf, so p =
+//          ds = 0), dv += p^T.G and dk += ds^T.Q with p and ds rounded to bf16
+//          as A fragments; in table mode dk also goes to the f32 partial.
 // p and ds are f32 in JAX; as A fragments they are rounded to bf16 (2^-9
 // relative), the price of the tensor cores; dbias and the softmax statistics
 // stay f32 until their final rounding. No float atomics: every sum is in one
 // thread or one warp, in a fixed order.
 
-template <typename BT>
+template <typename BT, bool TABLE>
 struct BwdSmem {
-  static constexpr int KV = BK * ROW_BYTES;             // one 64-row bf16 tile
-  static constexpr int X = BQ * BiasRow<BT>::BYTES;     // the 64 x 64 bias tile
-  static constexpr int ROWS = 2 * KV + X;               // rows pass: K, V, bias
-  static constexpr int COLS = 4 * KV + X + 3 * BQ * 4;  // columns pass: K, V, Q, G, bias, stats
+  static constexpr int KV = BK * ROW_BYTES;                        // one 64-row bf16 tile
+  static constexpr int X = TABLE ? KV : BQ * BiasRow<BT>::BYTES;   // the bias or emb tile
+  static constexpr int ROWS = 2 * KV + X;                          // rows pass: K, V, bias/emb
+  static constexpr int COLS = 4 * KV + X + 3 * BQ * 4;  // columns pass: K, V, Q, G, bias/emb, stats
 };
 
 // c += A.B^T over D (zero-padded to 128) for this warp's 16 rows, with the A
@@ -1160,34 +1196,35 @@ __device__ __forceinline__ void pack_a(uint32_t (&pa)[4][4], const float (&x)[8]
   }
 }
 
-// Rows r0 (g) and r1 (g + 8) of a 16 x 128 accumulator tile to a contiguous
-// bf16 [*, n] array at rows `row0` + 0 and + 8 (only rows < L, columns < n).
-__device__ __forceinline__ void store_rows(__nv_bfloat16* out, const float (&acc)[16][4],
-                                           long long row0, int rows_left, int n, int lane) {
-  const int g = lane >> 2, t4 = lane & 3;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    if (g + 8 * h >= rows_left) continue;
-    __nv_bfloat16* dst = out + (row0 + g + 8 * h) * n;
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const int c = 8 * j + 2 * t4;
-      if (c + 1 < n && (n & 1) == 0) {
-        *reinterpret_cast<__nv_bfloat162*>(dst + c) =
-            __floats2bfloat162_rn(acc[j][2 * h], acc[j][2 * h + 1]);
-      } else {
-        if (c < n) dst[c] = __float2bfloat16_rn(acc[j][2 * h]);
-        if (c + 1 < n) dst[c + 1] = __float2bfloat16_rn(acc[j][2 * h + 1]);
-      }
-    }
-  }
-}
-
 __device__ __forceinline__ void store_pair(float* dst, float a, float b) {
   *reinterpret_cast<float2*>(dst) = make_float2(a, b);
 }
 __device__ __forceinline__ void store_pair(__nv_bfloat16* dst, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
+}
+
+// Rows g and g + 8 of a 16 x (8 NJ) accumulator tile (columns col0 + 8 j +
+// 2 t4, +1) to a contiguous [*, n] array of T at rows `row0` + 0 and + 8
+// (only rows < rows_left, columns < n), rounded once to T.
+template <typename T, int NJ>
+__device__ __forceinline__ void store_tile(T* out, const float (&acc)[NJ][4], long long row0,
+                                           int rows_left, int col0, int n, int lane) {
+  const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (g + 8 * h >= rows_left) continue;
+    T* dst = out + (row0 + g + 8 * h) * n;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int c = col0 + 8 * j + 2 * t4;
+      if (c + 1 < n && (n & 1) == 0) {
+        store_pair(dst + c, acc[j][2 * h], acc[j][2 * h + 1]);
+      } else {
+        if (c < n) dst[c] = from_f32<T>(acc[j][2 * h]);
+        if (c + 1 < n) dst[c + 1] = from_f32<T>(acc[j][2 * h + 1]);
+      }
+    }
+  }
 }
 
 __device__ __forceinline__ void commit_and_wait() {
@@ -1196,13 +1233,13 @@ __device__ __forceinline__ void commit_and_wait() {
 }
 
 struct BwdWidths {
-  int wq, wk, wv, wg, wx;  // copy widths (bytes) of q, k, v, g and the bias rows
+  int wq, wk, wv, wg, wx;  // copy widths (bytes) of q, k, v, g and the bias or emb rows
 };
 
-template <typename BT>
+template <typename BT, bool TABLE>
 __global__ void __launch_bounds__(MMA_THREADS, 2)
     attention_bwd_rows_mma_kernel(const BwdParams p, const BwdWidths w) {
-  using Smem = BwdSmem<BT>;
+  using Smem = BwdSmem<BT, TABLE>;
   extern __shared__ __align__(128) unsigned char smem[];
   unsigned char* ks = smem;
   unsigned char* vs = smem + Smem::KV;
@@ -1222,9 +1259,12 @@ __global__ void __launch_bounds__(MMA_THREADS, 2)
                             2 * (b * p.g_sb + n * p.g_sn + (long long)q0 * p.g_sl);
   const unsigned char* k = static_cast<const unsigned char*>(p.k) + 2 * (b * p.k_sb + n * p.k_sn);
   const unsigned char* v = static_cast<const unsigned char*>(p.v) + 2 * (b * p.v_sb + n * p.v_sn);
-  const unsigned char* x = static_cast<const unsigned char*>(p.bias) +
-                           sizeof(BT) * (b * p.b_sb + n * p.b_sn + (long long)q0 * p.b_sl);
-  const long long xs_g = sizeof(BT) * p.b_sl;
+  // the bias rows of this query tile, or the table; their row stride in bytes
+  const unsigned char* x =
+      TABLE ? static_cast<const unsigned char*>(p.emb)
+            : static_cast<const unsigned char*>(p.bias) +
+                  sizeof(BT) * (b * p.b_sb + n * p.b_sn + (long long)q0 * p.b_sl);
+  const long long xs_g = TABLE ? 2 * p.e_sl : sizeof(BT) * p.b_sl;
 
   stage_rows<true>(ks, q, 2 * p.q_sl, BQ, qn, 2 * p.D, ROW_BYTES, ROW_BYTES, w.wq, tid);
   stage_rows<true>(vs, gg, 2 * p.g_sl, BQ, qn, 2 * p.Dv, ROW_BYTES, ROW_BYTES, w.wg, tid);
@@ -1259,8 +1299,11 @@ __global__ void __launch_bounds__(MMA_THREADS, 2)
                      w.wk, tid);
     stage_rows<true>(vs, v + 2 * k0 * p.v_sl, 2 * p.v_sl, BK, kn, 2 * p.Dv, ROW_BYTES, ROW_BYTES,
                      w.wv, tid);
-    stage_rows<false>(xs, x + sizeof(BT) * k0, xs_g, BQ, qn, (int)sizeof(BT) * kn,
-                      (int)sizeof(BT) * BK, BiasRow<BT>::BYTES, w.wx, tid);
+    if (TABLE)
+      stage_rows<true>(xs, x + k0 * xs_g, xs_g, BK, kn, 2 * p.D, ROW_BYTES, ROW_BYTES, w.wx, tid);
+    else
+      stage_rows<false>(xs, x + sizeof(BT) * k0, xs_g, BQ, qn, (int)sizeof(BT) * kn,
+                        (int)sizeof(BT) * BK, BiasRow<BT>::BYTES, w.wx, tid);
     commit_and_wait();
     __syncthreads();
     if (!active) continue;
@@ -1272,12 +1315,14 @@ __global__ void __launch_bounds__(MMA_THREADS, 2)
       for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
     if (kn == BK) {
       qk_pass<true>(s, qf, smem_u32(ks), nsb, lane);
+      if (TABLE) qk_pass<true>(s, qf, smem_u32(xs), nsb, lane);
       qk_pass<true>(dp, gf, smem_u32(vs), nsb, lane);
     } else {
       qk_pass<false>(s, qf, smem_u32(ks), nsb, lane);
+      if (TABLE) qk_pass<false>(s, qf, smem_u32(xs), nsb, lane);
       qk_pass<false>(dp, gf, smem_u32(vs), nsb, lane);
     }
-    {
+    if (!TABLE) {
       const unsigned char* x0 = xs + (warp * 16 + g) * BiasRow<BT>::BYTES;
       const unsigned char* x1 = x0 + 8 * BiasRow<BT>::BYTES;
 #pragma unroll
@@ -1352,7 +1397,7 @@ __global__ void __launch_bounds__(MMA_THREADS, 2)
       continue;
     }
 
-    // sweep 2: p, ds; dbias; dq += ds.K
+    // sweep 2: p, ds; dbias; dq += ds.K (+ ds.E)
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const float p0 = expf(s[j][0] - m0) / l0, p1 = expf(s[j][1] - m0) / l0;
@@ -1362,43 +1407,48 @@ __global__ void __launch_bounds__(MMA_THREADS, 2)
       s[j][2] = p2 * (dp[j][2] - d1);
       s[j][3] = p3 * (dp[j][3] - d1);
     }
-    BT* db = static_cast<BT*>(p.dbias) + r0 * p.L + k0;
+    if (!TABLE) {
+      BT* db = static_cast<BT*>(p.dbias) + r0 * p.L + k0;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      if (g + 8 * h >= rows_left) continue;
-      BT* row = db + 8 * h * (long long)p.L;
+      for (int h = 0; h < 2; ++h) {
+        if (g + 8 * h >= rows_left) continue;
+        BT* row = db + 8 * h * (long long)p.L;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = 8 * j + 2 * t4;
-        if (c + 1 < kn && (p.L & 1) == 0) {  // an even element index: an aligned pair
-          store_pair(row + c, s[j][2 * h], s[j][2 * h + 1]);
-        } else {
-          if (c < kn) row[c] = from_f32<BT>(s[j][2 * h]);
-          if (c + 1 < kn) row[c + 1] = from_f32<BT>(s[j][2 * h + 1]);
+        for (int j = 0; j < 8; ++j) {
+          const int c = 8 * j + 2 * t4;
+          if (c + 1 < kn && (p.L & 1) == 0) {  // an even element index: an aligned pair
+            store_pair(row + c, s[j][2 * h], s[j][2 * h + 1]);
+          } else {
+            if (c < kn) row[c] = from_f32<BT>(s[j][2 * h]);
+            if (c + 1 < kn) row[c + 1] = from_f32<BT>(s[j][2 * h + 1]);
+          }
         }
       }
     }
     uint32_t pa[4][4];
     pack_a(pa, s);
-    if (kn == BK)
+    if (kn == BK) {
       pv_pass<true>(acc, pa, smem_u32(ks), 4, lane);
-    else
+      if (TABLE) pv_pass<true>(acc, pa, smem_u32(xs), 4, lane);
+    } else {
       pv_pass<false>(acc, pa, smem_u32(ks), (kn + 15) >> 4, lane);
+      if (TABLE) pv_pass<false>(acc, pa, smem_u32(xs), (kn + 15) >> 4, lane);
+    }
   }
   if (active)
-    store_rows(static_cast<__nv_bfloat16*>(p.dq), acc, r0 - g, rows_left, p.D, lane);
+    store_tile(static_cast<__nv_bfloat16*>(p.dq), acc, r0 - g, rows_left, 0, p.D, lane);
 }
 
-template <typename BT>
+template <typename BT, bool TABLE>
 __global__ void __launch_bounds__(MMA_THREADS, 2)
     attention_bwd_cols_mma_kernel(const BwdParams p, const BwdWidths w) {
-  using Smem = BwdSmem<BT>;
+  using Smem = BwdSmem<BT, TABLE>;
   extern __shared__ __align__(128) unsigned char smem[];
   unsigned char* ks = smem;
   unsigned char* vs = smem + Smem::KV;
   unsigned char* qs = smem + 2 * Smem::KV;
   unsigned char* gs = smem + 3 * Smem::KV;
-  unsigned char* xs = smem + 4 * Smem::KV;
+  unsigned char* xs = smem + 4 * Smem::KV;  // the bias tile, or this key tile's emb rows
   float* sm = reinterpret_cast<float*>(xs + Smem::X);  // m, l, delta of the 64 query rows
   float* sl = sm + BQ;
   float* sd = sl + BQ;
@@ -1413,8 +1463,9 @@ __global__ void __launch_bounds__(MMA_THREADS, 2)
   const int nq = (p.L + BQ - 1) / BQ;
   const unsigned char* q = static_cast<const unsigned char*>(p.q) + 2 * (b * p.q_sb + n * p.q_sn);
   const unsigned char* gg = static_cast<const unsigned char*>(p.g) + 2 * (b * p.g_sb + n * p.g_sn);
-  const unsigned char* x = static_cast<const unsigned char*>(p.bias) +
-                           sizeof(BT) * (b * p.b_sb + n * p.b_sn + k0);
+  const unsigned char* x =
+      TABLE ? nullptr
+            : static_cast<const unsigned char*>(p.bias) + sizeof(BT) * (b * p.b_sb + n * p.b_sn + k0);
   const long long xs_g = sizeof(BT) * p.b_sl;
   const float* stats = p.stats + (long long)bh * p.L;
 
@@ -1424,6 +1475,9 @@ __global__ void __launch_bounds__(MMA_THREADS, 2)
   stage_rows<true>(vs, static_cast<const unsigned char*>(p.v) +
                            2 * (b * p.v_sb + n * p.v_sn + (long long)k0 * p.v_sl),
                    2 * p.v_sl, BK, kn, 2 * p.Dv, ROW_BYTES, ROW_BYTES, w.wv, tid);
+  if (TABLE)
+    stage_rows<true>(xs, static_cast<const unsigned char*>(p.emb) + 2 * (long long)k0 * p.e_sl,
+                     2 * p.e_sl, BK, kn, 2 * p.D, ROW_BYTES, ROW_BYTES, w.wx, tid);
 
   float dk[16][4], dv[16][4];
 #pragma unroll
@@ -1438,8 +1492,9 @@ __global__ void __launch_bounds__(MMA_THREADS, 2)
                      ROW_BYTES, w.wq, tid);
     stage_rows<true>(gs, gg + 2 * (long long)x0 * p.g_sl, 2 * p.g_sl, BQ, xn, 2 * p.Dv,
                      ROW_BYTES, ROW_BYTES, w.wg, tid);
-    stage_rows<false>(xs, x + x0 * xs_g, xs_g, BQ, xn, (int)sizeof(BT) * kn,
-                      (int)sizeof(BT) * BK, BiasRow<BT>::BYTES, w.wx, tid);
+    if (!TABLE)
+      stage_rows<false>(xs, x + x0 * xs_g, xs_g, BQ, xn, (int)sizeof(BT) * kn,
+                        (int)sizeof(BT) * BK, BiasRow<BT>::BYTES, w.wx, tid);
     if (tid < BQ) {  // a query past L: m = +inf, so p = ds = 0
       const bool ok = tid < xn;
       sm[tid] = ok ? stats[x0 + tid] : INFINITY;
@@ -1456,18 +1511,21 @@ __global__ void __launch_bounds__(MMA_THREADS, 2)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
     const bool full = xn == BQ;
-    if (full)  // S^T: keys x queries
+    if (full) {  // S^T: keys x queries
       qk_pass_smem<true>(s, smem_u32(ks), warp * 16, smem_u32(qs), nsb, lane);
-    else
+      if (TABLE) qk_pass_smem<true>(s, smem_u32(xs), warp * 16, smem_u32(qs), nsb, lane);
+    } else {
       qk_pass_smem<false>(s, smem_u32(ks), warp * 16, smem_u32(qs), nsb, lane);
+      if (TABLE) qk_pass_smem<false>(s, smem_u32(xs), warp * 16, smem_u32(qs), nsb, lane);
+    }
     const int key0 = warp * 16 + g;
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int c = 8 * j + 2 * t4 + (e & 1), key = key0 + 8 * (e >> 1);
-        const float bias = to_f32(*reinterpret_cast<const BT*>(
-            xs + c * BiasRow<BT>::BYTES + key * (int)sizeof(BT)));
+        const float bias = TABLE ? 0.f : to_f32(*reinterpret_cast<const BT*>(
+                                              xs + c * BiasRow<BT>::BYTES + key * (int)sizeof(BT)));
         s[j][e] = expf(s[j][e] + bias - sm[c]) / sl[c];  // p
       }
     uint32_t pa[4][4];
@@ -1494,54 +1552,668 @@ __global__ void __launch_bounds__(MMA_THREADS, 2)
   }
   if (!active) return;
   const long long row0 = (long long)bh * p.L + k0 + warp * 16;
-  store_rows(static_cast<__nv_bfloat16*>(p.dk), dk, row0, kn - warp * 16, p.D, lane);
-  store_rows(static_cast<__nv_bfloat16*>(p.dv), dv, row0, kn - warp * 16, p.Dv, lane);
+  store_tile(static_cast<__nv_bfloat16*>(p.dk), dk, row0, kn - warp * 16, 0, p.D, lane);
+  store_tile(static_cast<__nv_bfloat16*>(p.dv), dv, row0, kn - warp * 16, 0, p.Dv, lane);
+  if (TABLE) store_tile(p.demb_part, dk, row0, kn - warp * 16, 0, p.D, lane);
 }
 
-template <typename BT>
-cudaError_t launch_bwd_mma(const BwdParams& p, cudaStream_t stream) {
-  using Smem = BwdSmem<BT>;
+// ---------------------------------------------------------------------------
+// bf16 at L <= 256: one pass, a thread-block cluster a head
+// ---------------------------------------------------------------------------
+//
+// Replaces, for bf16 at L <= 256, the XLA recompute of the JAX custom_vjp of
+// K2 (`_bwd`, distribuuuu_tpu/ops/attention.py:241) and of K3 (`_abs_bwd`,
+// :514): BoTNet-50's MHSA at 224^2 (L 196) in training.
+//
+// What bounds it (H100 SXM, 3.35 TB/s, 989 TFLOP/s bf16): at BoTNet-50
+// training's shape (B*N 128, L 196, D = Dv = 128) the call must move 64.6 MB
+// in bias mode (19 us; q, k, v, g read once, dq, dk, dv written once, the
+// [B, N, L, L] bias read and dbias written once) and do 6.3 GFLOP of
+// products (6.4 us): bytes. In table mode the L^2 terms go: 45.1 MB (13.5
+// us), still bytes (the table folds into q.(k + emb)^T and ds.(k + emb), so
+// the products stay 6.3 GFLOP). The two-pass route forms S and dP three
+// times and reads K, V and the bias three times.
+// On the card this kernel is bound by neither: it is bound by latency.
+// Each query tile passes seven phases in turn, each behind a barrier (two
+// of them cluster-wide): S and dP, the statistics' exchange, p and ds, the
+// products, the dQ exchange. Timed with %globaltimer stamps
+// (scripts/torch_attention_bwd_phases.py) a CTA spends ~8 us a tile (S/dP
+// 1.75, products 1.25-1.5, each cluster barrier 0.75-1.0, the dQ sum and
+// the next tile's wait 1.25-2); 30 clusters of 4 are resident. Three variants were
+// timed against this one and were slower at L 196: two CTAs an SM (a
+// shared-memory diet to 98 KB, 128 registers, spills), 16 warps a CTA, and
+// pushing the partials into their owners' shared memory by remote stores
+// (the products phase then waits on the stores). The phases are held by
+// shared-memory bandwidth (ldmatrix) and the barriers' and remote reads'
+// latency, not by the length of a warp's chains. What would move it is
+// overlapping one tile's products with the next tile's S phase (warp
+// specialisation), not done here.
+//
+// The design:
+//   - A head's keys fit at most 4 tiles of 64, so one cluster of
+//     ceil(L / 64) CTAs (cudaLaunchKernelEx with a cluster dimension) holds
+//     them all: CTA j keeps key tile j's K and V (and emb rows) resident in
+//     its shared memory, accumulates its dK and dV in registers, and the
+//     cluster walks the query tiles of 64 together. Every input is read once
+//     from device memory (Q and G by each CTA of the cluster, from the L2
+//     after the first), and S = Q.K_j^T (+ bias | + Q.E_j^T) and dP = G.V_j^T
+//     are formed once, on mma.sync.m16n8k16 (bf16 -> f32) fed by ldmatrix.
+//   - Eight warps: in the S phase a warp owns 16 query rows x 32 keys; in the
+//     products phase 16 keys (or 16 query rows) x 64 columns, so the f32 dK
+//     and dV accumulators take 64 registers a thread. The logits are taken
+//     in log2 units and each warp keeps e = exp(s - m_warp) of its keys, so
+//     p = e exp(m_warp - m) / l costs one exponential and one division a
+//     row. p and ds go through shared memory as bf16 tiles (swizzled
+//     128-byte rows): the products read P^T and dS^T as A fragments by
+//     ldmatrix.trans, dS by ldmatrix.
+//   - Row statistics across the cluster: each warp writes the partial (m, l,
+//     u = sum dp exp(s - m)) of its 16 rows over its 32 keys to shared
+//     memory; after a cluster barrier 64 threads of each CTA read the 2 x
+//     ceil(L / 64) partials of their row through distributed shared memory
+//     and combine them in key order, so every CTA holds the same bits of m,
+//     l and JAX's delta = u / l. A query past L takes m = +inf: p = ds = 0.
+//   - dQ across the cluster: each CTA writes its f32 partial ds.K_j (+
+//     ds.E_j) of the query tile to shared memory; after a second cluster
+//     barrier each CTA sums, for its share of 16-row chunks, the partials of
+//     every CTA in key-tile order (all remote loads in flight at once) and
+//     stores the rows as bf16. No float atomics: a call repeats bitwise. A
+//     third cluster barrier at the end keeps every CTA's shared memory alive
+//     until the last remote read.
+//   - The next query tile's Q, G and bias tile are in flight (cp.async, a
+//     two-stage ring) while the current one computes. dbias goes to device
+//     memory from the S phase's registers. At the end of the walk dK and dV
+//     are rounded once and stored; in table mode the unrounded dK goes to
+//     the f32 partial that the demb kernels sum over heads.
+//   - Ragged L, D and Dv: rows past L and columns past D or Dv are
+//     zero-filled in shared memory; a warp whose rows or keys all lie past L
+//     skips its products, and k-steps past the last valid row are skipped.
+// Shared memory a CTA: K, V (16 KB each; + 16 KB emb), two stages of Q, G
+// (16 KB each) and the bias tile (9 KB bf16, 18 KB f32), P and dS (8 KB
+// each), the dQ partial (34 KB) and the statistics (2.3 KB): 166 KB (bf16
+// bias), 184 KB (f32 bias), 164 KB (table); one CTA an SM. Registers
+// (nvcc -Xptxas -v, the [build] line of chip_smoke.py): 197-214 a thread,
+// no spills. The wrapper checks cudaOccupancyMaxActiveClusters > 0 before
+// a shape's first launch (30 clusters of 4 on an H100 SXM).
+
+constexpr int CL_THREADS = 256;     // 8 warps
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int CL_MAX_L = 4 * BK;    // the route's largest L: a cluster of at most 4 CTAs
+constexpr int PS_ROW = 2 * BK;      // bytes of a P or dS row in shared memory (64 bf16)
+constexpr int DQ_STRIDE = DMAX + 8;  // f32 row stride of the dQ partial: 8 rows of a
+                                     // float2 store fall in two 128-byte wavefronts
+
+template <typename BT, bool TABLE>
+struct ClusterSmem {
+  static constexpr int KV = BK * ROW_BYTES;                      // a 64-row bf16 tile
+  static constexpr int X = TABLE ? 0 : BQ * BiasRow<BT>::BYTES;  // the bias tile
+  static constexpr int RES = (TABLE ? 3 : 2) * KV;               // K, V (and emb) of key tile j
+  static constexpr int STAGE = 2 * KV + X;                       // Q, G and the bias tile
+  static constexpr int PDS = 2 * BQ * PS_ROW;                    // P, dS
+  static constexpr int DQ = BQ * DQ_STRIDE * 4;                  // this CTA's dQ partial
+  static constexpr int XCH = 2 * 3 * BQ * 4;  // (m, l, u) of each row, per 32-key half
+  static constexpr int FIN = 3 * BQ * 4;      // (m, l, delta) of each row
+  static constexpr int BYTES = RES + 2 * STAGE + PDS + DQ + XCH + FIN;
+};
+
+// c += A.B^T (and + A.B2^T with TWO) over 128 columns: A the 16 rows from
+// a_row0 of the tile at `a`, B the 32 rows from b_row0 of the tile at `b`
+// (and `b2`); 256-byte swizzled rows, fixed trip counts.
+template <bool TWO>
+__device__ __forceinline__ void abt_32(float (&c)[4][4], uint32_t a, int a_row0, uint32_t b,
+                                       uint32_t b2, int b_row0, int lane) {
+  const int mi = lane >> 3;
+  const int arow = a_row0 + (lane & 15);
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    uint32_t af[4];
+    ldsm_x4(af, a + arow * ROW_BYTES + swz(arow, (2 * kk + (lane >> 4)) * 16));
+#pragma unroll
+    for (int jp = 0; jp < 2; ++jp) {
+      const int row = b_row0 + (2 * jp + (mi >> 1)) * 8 + (lane & 7);
+      const int off = row * ROW_BYTES + swz(row, (2 * kk + (mi & 1)) * 16);
+      uint32_t bf[4];
+      ldsm_x4(bf, b + off);
+      mma_bf16(c[2 * jp], af, bf[0], bf[1]);
+      mma_bf16(c[2 * jp + 1], af, bf[2], bf[3]);
+      if (TWO) {
+        ldsm_x4(bf, b2 + off);
+        mma_bf16(c[2 * jp], af, bf[0], bf[1]);
+        mma_bf16(c[2 * jp + 1], af, bf[2], bf[3]);
+      }
+    }
+  }
+}
+
+// c += A.B over 64 columns (col0 ..): A the 16 x 16 fragments `a` of k-step
+// kk, B the 256-byte swizzled tile at `b` (rows 16 kk .., read by
+// ldmatrix.trans).
+__device__ __forceinline__ void ab_64(float (&c)[8][4], const uint32_t (&a)[4], uint32_t b,
+                                      int kk, int col0, int lane) {
+  const int mi = lane >> 3;
+  const int row = kk * 16 + (mi & 1) * 8 + (lane & 7);
+#pragma unroll
+  for (int hp = 0; hp < 4; ++hp) {
+    uint32_t bv[4];
+    ldsm_x4_trans(bv, b + row * ROW_BYTES + swz(row, col0 * 2 + (2 * hp + (mi >> 1)) * 16));
+    mma_bf16(c[2 * hp], a, bv[0], bv[1]);
+    mma_bf16(c[2 * hp + 1], a, bv[2], bv[3]);
+  }
+}
+
+template <typename BT, bool TABLE>
+__global__ void __launch_bounds__(CL_THREADS, 1)
+    attention_bwd_cluster_kernel(const BwdParams p, const BwdWidths w) {
+  using Smem = ClusterSmem<BT, TABLE>;
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* ks = smem;
+  unsigned char* vs = ks + Smem::KV;
+  unsigned char* es = vs + Smem::KV;  // table mode
+  unsigned char* ring = smem + Smem::RES;
+  unsigned char* ps = ring + 2 * Smem::STAGE;
+  unsigned char* dss = ps + BQ * PS_ROW;
+  float* dqp = reinterpret_cast<float*>(ps + Smem::PDS);
+  float* xch = dqp + BQ * DQ_STRIDE;  // [half][m, l, u][row]
+  float* fin = xch + 2 * 3 * BQ;      // [m, l, delta][row]
+
+  const int nk = (p.L + BK - 1) / BK;  // the cluster's CTAs, = key tiles = query tiles
+  const int j = (int)cluster.block_rank();
+  const int bh = blockIdx.x / nk;
+  const int b = bh / p.heads, n = bh - b * p.heads;
+  const int k0 = j * BK, kn = min(BK, p.L - k0);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3, mi = lane >> 3;
+  // S phase: query rows 16 grp .. x keys 32 half ..; products: keys (dK, dV)
+  // or query rows (dQ) 16 grp .. x columns 64 half ..
+  const int grp = warp & 3, half = warp >> 2;
+
+  const unsigned char* q = static_cast<const unsigned char*>(p.q) + 2 * (b * p.q_sb + n * p.q_sn);
+  const unsigned char* gg = static_cast<const unsigned char*>(p.g) + 2 * (b * p.g_sb + n * p.g_sn);
+  const unsigned char* xb =
+      TABLE ? nullptr
+            : static_cast<const unsigned char*>(p.bias) + sizeof(BT) * (b * p.b_sb + n * p.b_sn + k0);
+  const long long xs_g = sizeof(BT) * p.b_sl;
+
+  stage_rows<true, CL_THREADS>(ks, static_cast<const unsigned char*>(p.k) +
+                                       2 * (b * p.k_sb + n * p.k_sn + (long long)k0 * p.k_sl),
+                               2 * p.k_sl, BK, kn, 2 * p.D, ROW_BYTES, ROW_BYTES, w.wk, tid);
+  stage_rows<true, CL_THREADS>(vs, static_cast<const unsigned char*>(p.v) +
+                                       2 * (b * p.v_sb + n * p.v_sn + (long long)k0 * p.v_sl),
+                               2 * p.v_sl, BK, kn, 2 * p.Dv, ROW_BYTES, ROW_BYTES, w.wv, tid);
+  if (TABLE)
+    stage_rows<true, CL_THREADS>(es, static_cast<const unsigned char*>(p.emb) +
+                                         2 * (long long)k0 * p.e_sl,
+                                 2 * p.e_sl, BK, kn, 2 * p.D, ROW_BYTES, ROW_BYTES, w.wx, tid);
+
+  // query tile i's Q, G and bias tile into stage i % 2: one cp.async group
+  // (an empty one past the last tile)
+  auto load_tile = [&](int i) {
+    if (i < nk) {
+      const int x0 = i * BQ, xn = min(BQ, p.L - x0);
+      unsigned char* st = ring + (i & 1) * Smem::STAGE;
+      stage_rows<true, CL_THREADS>(st, q + 2LL * x0 * p.q_sl, 2 * p.q_sl, BQ, xn, 2 * p.D,
+                                   ROW_BYTES, ROW_BYTES, w.wq, tid);
+      stage_rows<true, CL_THREADS>(st + Smem::KV, gg + 2LL * x0 * p.g_sl, 2 * p.g_sl, BQ, xn,
+                                   2 * p.Dv, ROW_BYTES, ROW_BYTES, w.wg, tid);
+      if (!TABLE)
+        stage_rows<false, CL_THREADS>(st + 2 * Smem::KV, xb + x0 * xs_g, xs_g, BQ, xn,
+                                      (int)sizeof(BT) * kn, (int)sizeof(BT) * BK,
+                                      BiasRow<BT>::BYTES, w.wx, tid);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+  load_tile(0);  // with the resident tiles
+  load_tile(1);
+
+  float dk[8][4], dv[8][4];
+#pragma unroll
+  for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[jj][e] = dv[jj][e] = 0.f;
+
+  for (int i = 0; i < nk; ++i) {
+    const int x0 = i * BQ, xn = min(BQ, p.L - x0);
+    const unsigned char* st = ring + (i & 1) * Smem::STAGE;
+    const uint32_t qs = smem_u32(st), gs = qs + Smem::KV;
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");  // tile i has landed
+    __syncthreads();
+
+    // ---- S and dP: rows r0 = 16 grp .., keys c0 = 32 half .. ------------------
+    const int r0 = grp * 16, c0 = half * 32;
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[jj][e] = dp[jj][e] = 0.f;
+    const bool live = r0 < xn && c0 < kn;
+    if (live) {
+      abt_32<TABLE>(s, qs, r0, smem_u32(ks), smem_u32(es), c0, lane);
+      abt_32<false>(dp, gs, r0, smem_u32(vs), 0, c0, lane);
+      if (!TABLE) {
+        const unsigned char* x0r = st + 2 * Smem::KV + (r0 + g) * BiasRow<BT>::BYTES;
+        const unsigned char* x1r = x0r + 8 * BiasRow<BT>::BYTES;
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const float2 b0 = bias_pair(x0r, c0 + 8 * jj + 2 * t4, BT());
+          const float2 b1 = bias_pair(x1r, c0 + 8 * jj + 2 * t4, BT());
+          s[jj][0] += b0.x;
+          s[jj][1] += b0.y;
+          s[jj][2] += b1.x;
+          s[jj][3] += b1.y;
+        }
+      }
+    }
+    // logits in log2 units (s log2 e, so exp2 is the exponential); keys past L: -inf
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[jj][e] = (!live || c0 + 8 * jj + 2 * t4 + (e & 1) >= kn) ? -INFINITY
+                                                                   : s[jj][e] * kLog2e;
+
+    // this warp's partial (m, l, u) of rows g and g + 8 over its 32 keys; s
+    // becomes e = exp(s - m_warp), which p rescales below
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      mx0 = fmaxf(mx0, fmaxf(s[jj][0], s[jj][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[jj][2], s[jj][3]));
+    }
+#pragma unroll
+    for (int o = 1; o <= 2; o <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o));
+    }
+    float l0 = 0.f, l1 = 0.f, u0 = 0.f, u1 = 0.f;
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {  // no valid key: m = -inf, e = l = u = 0
+      const float e0 = mx0 == -INFINITY ? 0.f : exp2f(s[jj][0] - mx0);
+      const float e1 = mx0 == -INFINITY ? 0.f : exp2f(s[jj][1] - mx0);
+      const float e2 = mx1 == -INFINITY ? 0.f : exp2f(s[jj][2] - mx1);
+      const float e3 = mx1 == -INFINITY ? 0.f : exp2f(s[jj][3] - mx1);
+      s[jj][0] = e0;
+      s[jj][1] = e1;
+      s[jj][2] = e2;
+      s[jj][3] = e3;
+      l0 += e0 + e1;
+      l1 += e2 + e3;
+      u0 += e0 * dp[jj][0] + e1 * dp[jj][1];
+      u1 += e2 * dp[jj][2] + e3 * dp[jj][3];
+    }
+#pragma unroll
+    for (int o = 1; o <= 2; o <<= 1) {  // a xor butterfly: the same bits in the quad
+      l0 += __shfl_xor_sync(0xffffffffu, l0, o);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, o);
+      u0 += __shfl_xor_sync(0xffffffffu, u0, o);
+      u1 += __shfl_xor_sync(0xffffffffu, u1, o);
+    }
+    if (t4 == 0) {
+      float* xh = xch + half * 3 * BQ;
+      xh[r0 + g] = mx0;
+      xh[BQ + r0 + g] = l0;
+      xh[2 * BQ + r0 + g] = u0;
+      xh[r0 + g + 8] = mx1;
+      xh[BQ + r0 + g + 8] = l1;
+      xh[2 * BQ + r0 + g + 8] = u1;
+    }
+    cluster.sync();  // every CTA's partials are written
+
+    // ---- the rows' statistics from the 2 nk partials, in key order ------------
+    if (tid < BQ) {
+      float m = INFINITY, l = 1.f, delta = 0.f;  // a query past L: p = ds = 0
+      if (tid < xn) {
+        float pm[8], pl[8], pu[8];
+#pragma unroll
+        for (int rk = 0; rk < 4; ++rk) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            pm[2 * rk + h] = -INFINITY;
+            pl[2 * rk + h] = pu[2 * rk + h] = 0.f;
+            if (rk < nk) {
+              const float* rx = cluster.map_shared_rank(xch, (unsigned)rk) + h * 3 * BQ;
+              pm[2 * rk + h] = rx[tid];
+              pl[2 * rk + h] = rx[BQ + tid];
+              pu[2 * rk + h] = rx[2 * BQ + tid];
+            }
+          }
+        }
+        m = -INFINITY;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) m = fmaxf(m, pm[e]);
+        float ls = 0.f, us = 0.f;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const float a = exp2f(pm[e] - m);  // a partial with no valid key: exp(-inf) = 0
+          ls += pl[e] * a;
+          us += pu[e] * a;
+        }
+        l = ls;
+        delta = us / ls;
+      }
+      fin[tid] = m;
+      fin[BQ + tid] = l;
+      fin[2 * BQ + tid] = delta;
+    }
+    __syncthreads();
+
+    // ---- p = e exp(m_warp - m) / l, ds; dbias; P and dS to shared memory as bf16
+    {
+      const int ra = r0 + g, rb = ra + 8;
+      // a row past L has m = +inf: the scale, so p and ds, is 0
+      const float ca = exp2f(mx0 - fin[ra]) / fin[BQ + ra], da = fin[2 * BQ + ra];
+      const float cb = exp2f(mx1 - fin[rb]) / fin[BQ + rb], db = fin[2 * BQ + rb];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const float p0 = s[jj][0] * ca, p1 = s[jj][1] * ca;
+        const float p2 = s[jj][2] * cb, p3 = s[jj][3] * cb;
+        dp[jj][0] = p0 * (dp[jj][0] - da);  // ds
+        dp[jj][1] = p1 * (dp[jj][1] - da);
+        dp[jj][2] = p2 * (dp[jj][2] - db);
+        dp[jj][3] = p3 * (dp[jj][3] - db);
+        const int byte = 2 * (c0 + 8 * jj + 2 * t4);
+        *reinterpret_cast<uint32_t*>(ps + ra * PS_ROW + swz(ra, byte)) = pack_bf16(p0, p1);
+        *reinterpret_cast<uint32_t*>(ps + rb * PS_ROW + swz(rb, byte)) = pack_bf16(p2, p3);
+        *reinterpret_cast<uint32_t*>(dss + ra * PS_ROW + swz(ra, byte)) =
+            pack_bf16(dp[jj][0], dp[jj][1]);
+        *reinterpret_cast<uint32_t*>(dss + rb * PS_ROW + swz(rb, byte)) =
+            pack_bf16(dp[jj][2], dp[jj][3]);
+      }
+      if (!TABLE && live) {
+        BT* dbr = static_cast<BT*>(p.dbias) + ((long long)bh * p.L + x0 + ra) * p.L + k0 + c0;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (ra + 8 * h >= xn) continue;
+          BT* row = dbr + 8 * h * (long long)p.L;
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            const int c = 8 * jj + 2 * t4, key = c0 + c;
+            if (key + 1 < kn && (p.L & 1) == 0) {  // an even element index: an aligned pair
+              store_pair(row + c, dp[jj][2 * h], dp[jj][2 * h + 1]);
+            } else {
+              if (key < kn) row[c] = from_f32<BT>(dp[jj][2 * h]);
+              if (key + 1 < kn) row[c + 1] = from_f32<BT>(dp[jj][2 * h + 1]);
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();
+
+    // ---- dV += P^T.G, dK += dS^T.Q: keys 16 grp .., columns 64 half .. ------------
+    if (grp * 16 < kn) {
+      const int nkq = (xn + 15) >> 4;  // query steps holding a valid row
+      const int prow0 = (mi >> 1) * 8 + (lane & 7);
+      const int pbyte = (2 * grp + (mi & 1)) * 16;
+#pragma unroll
+      for (int kq = 0; kq < 4; ++kq) {
+        if (kq >= nkq) break;
+        const int prow = kq * 16 + prow0;
+        uint32_t pa[4], da[4];
+        ldsm_x4_trans(pa, smem_u32(ps) + prow * PS_ROW + swz(prow, pbyte));
+        ldsm_x4_trans(da, smem_u32(dss) + prow * PS_ROW + swz(prow, pbyte));
+        ab_64(dv, pa, gs, kq, half * 64, lane);
+        ab_64(dk, da, qs, kq, half * 64, lane);
+      }
+    }
+
+    // ---- this CTA's dQ partial dS.K_j (+ dS.E_j): query rows 16 grp .., columns 64 half ..
+    if (grp * 16 < xn) {
+      float dq[8][4];
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dq[jj][e] = 0.f;
+      const int nks = (kn + 15) >> 4;  // key steps holding a valid key
+      const int arow = grp * 16 + (lane & 15);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        if (kk >= nks) break;
+        uint32_t a[4];
+        ldsm_x4(a, smem_u32(dss) + arow * PS_ROW + swz(arow, (2 * kk + (lane >> 4)) * 16));
+        ab_64(dq, a, smem_u32(ks), kk, half * 64, lane);
+        if (TABLE) ab_64(dq, a, smem_u32(es), kk, half * 64, lane);
+      }
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const int c = half * 64 + 8 * jj + 2 * t4;
+        store_pair(dqp + (r0 + g) * DQ_STRIDE + c, dq[jj][0], dq[jj][1]);
+        store_pair(dqp + (r0 + g + 8) * DQ_STRIDE + c, dq[jj][2], dq[jj][3]);
+      }
+    }
+    cluster.sync();  // every CTA's dQ partial is written, and stage i % 2 is free
+    load_tile(i + 2);
+
+    // ---- dQ rows: 16-row chunks c = j, j + nk, ... of the tile, summed in key-tile order
+    __nv_bfloat16* dqg = static_cast<__nv_bfloat16*>(p.dq) + ((long long)bh * p.L + x0) * p.D;
+    for (int c = j; c < 4; c += nk) {
+      if (c * 16 >= xn) break;
+#pragma unroll
+      for (int u0 = 0; u0 < 16 * (DMAX / 4); u0 += CL_THREADS) {
+        const int u = u0 + tid;
+        const int r = c * 16 + u / (DMAX / 4), col = 4 * (u % (DMAX / 4));
+        if (r >= xn || col >= p.D) continue;
+        float4 part[4];  // every remote load in flight at once
+#pragma unroll
+        for (int rk = 0; rk < 4; ++rk)
+          if (rk < nk)
+            part[rk] = *reinterpret_cast<const float4*>(
+                cluster.map_shared_rank(dqp, (unsigned)rk) + r * DQ_STRIDE + col);
+        float4 acc = part[0];
+#pragma unroll
+        for (int rk = 1; rk < 4; ++rk) {
+          if (rk >= nk) break;
+          acc.x += part[rk].x;
+          acc.y += part[rk].y;
+          acc.z += part[rk].z;
+          acc.w += part[rk].w;
+        }
+        __nv_bfloat16* dst = dqg + (long long)r * p.D + col;
+        if ((p.D & 3) == 0) {  // four bf16 on 8 bytes
+          uint2 packed;
+          packed.x = pack_bf16(acc.x, acc.y);
+          packed.y = pack_bf16(acc.z, acc.w);
+          *reinterpret_cast<uint2*>(dst) = packed;
+        } else {
+          const float vals[4] = {acc.x, acc.y, acc.z, acc.w};
+          for (int e = 0; e < 4 && col + e < p.D; ++e) dst[e] = __float2bfloat16_rn(vals[e]);
+        }
+      }
+    }
+  }
+  cluster.sync();  // no CTA leaves while another may still read its dQ partial
+
+  if (grp * 16 >= kn) return;
+  const long long row0 = (long long)bh * p.L + k0 + grp * 16;
+  store_tile(static_cast<__nv_bfloat16*>(p.dk), dk, row0, kn - grp * 16, half * 64, p.D, lane);
+  store_tile(static_cast<__nv_bfloat16*>(p.dv), dv, row0, kn - grp * 16, half * 64, p.Dv, lane);
+  if (TABLE) store_tile(p.demb_part, dk, row0, kn - grp * 16, half * 64, p.D, lane);
+}
+
+// ---------------------------------------------------------------------------
+// demb = sum over B*N of the f32 dk partials (table mode)
+// ---------------------------------------------------------------------------
+//
+// Two launches, no float atomics, a fixed order: the first sums the heads of
+// each chunk of DEMB_CHUNK in order into an f32 [chunks, L*D] scratch (a
+// thread an element, a block row of chunks along grid.y); the second sums
+// the chunks in order and rounds once to emb's dtype. Bound by the bytes of
+// the partial (B*N*L*D f32, read once).
+
+constexpr int DEMB_THREADS = 256;
+constexpr int DEMB_CHUNK = 8;  // heads a thread of the first pass sums
+
+__global__ void __launch_bounds__(DEMB_THREADS)
+    attention_bwd_demb_partial_kernel(const float* part, float* sums, long long heads,
+                                      long long n) {
+  const long long e = (long long)blockIdx.x * DEMB_THREADS + threadIdx.x;
+  if (e >= n) return;
+  const long long h0 = (long long)blockIdx.y * DEMB_CHUNK;
+  const long long h1 = h0 + DEMB_CHUNK < heads ? h0 + DEMB_CHUNK : heads;
+  float acc = 0.f;
+  for (long long h = h0; h < h1; ++h) acc += part[h * n + e];
+  sums[(long long)blockIdx.y * n + e] = acc;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(DEMB_THREADS)
+    attention_bwd_demb_kernel(const float* sums, T* demb, int chunks, long long n) {
+  const long long e = (long long)blockIdx.x * DEMB_THREADS + threadIdx.x;
+  if (e >= n) return;
+  float acc = 0.f;
+  for (int c = 0; c < chunks; ++c) acc += sums[c * n + e];
+  demb[e] = from_f32<T>(acc);
+}
+
+cudaError_t launch_demb(const BwdParams& p, float* sums, int dt, cudaStream_t stream) {
+  const long long n = (long long)p.L * p.D, heads = p.rows / p.L;
+  const long long chunks = (heads + DEMB_CHUNK - 1) / DEMB_CHUNK;
+  const long long blocks = (n + DEMB_THREADS - 1) / DEMB_THREADS;
+  if (chunks > 65535 || blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  attention_bwd_demb_partial_kernel<<<dim3((unsigned)blocks, (unsigned)chunks), DEMB_THREADS, 0,
+                                      stream>>>(p.demb_part, sums, heads, n);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if (dt == kBF16)
+    attention_bwd_demb_kernel<__nv_bfloat16><<<(unsigned)blocks, DEMB_THREADS, 0, stream>>>(
+        sums, static_cast<__nv_bfloat16*>(p.dbias), (int)chunks, n);
+  else
+    attention_bwd_demb_kernel<float><<<(unsigned)blocks, DEMB_THREADS, 0, stream>>>(
+        sums, static_cast<float*>(p.dbias), (int)chunks, n);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// launches
+// ---------------------------------------------------------------------------
+
+enum BwdRoute : int { kScalarRoute = 0, kTwoPass = 1, kCluster = 2 };
+
+// The route of a dtype and L: the cluster kernel for bf16 at L <= CL_MAX_L,
+// the two-pass tensor-core kernels for bf16 above it, the scalar ones for f32.
+int bwd_route(int dt, int L) {
+  if (dt == kF32) return kScalarRoute;
+  return L <= CL_MAX_L ? kCluster : kTwoPass;
+}
+
+BwdWidths bwd_widths(const BwdParams& p, int bias_dt) {
   BwdWidths w;
   w.wq = copy_width(p.q, {2 * p.q_sb, 2 * p.q_sn, 2 * p.q_sl, 2LL * p.D});
   w.wk = copy_width(p.k, {2 * p.k_sb, 2 * p.k_sn, 2 * p.k_sl, 2LL * p.D});
   w.wv = copy_width(p.v, {2 * p.v_sb, 2 * p.v_sn, 2 * p.v_sl, 2LL * p.Dv});
   w.wg = copy_width(p.g, {2 * p.g_sb, 2 * p.g_sn, 2 * p.g_sl, 2LL * p.Dv});
-  constexpr long long e = sizeof(BT);
-  w.wx = copy_width(p.bias, {e * p.b_sb, e * p.b_sn, e * p.b_sl, e * p.L});
+  const long long e = bias_dt == kF32 ? 4 : 2;
+  w.wx = bias_dt == kTable ? copy_width(p.emb, {2 * p.e_sl, 2LL * p.D})
+                           : copy_width(p.bias, {e * p.b_sb, e * p.b_sn, e * p.b_sl, e * p.L});
+  return w;
+}
+
+template <typename BT, bool TABLE>
+cudaError_t launch_bwd_mma(const BwdParams& p, const BwdWidths& w, cudaStream_t stream) {
+  using Smem = BwdSmem<BT, TABLE>;
   const long long tiles = (p.rows / p.L) * ((p.L + BQ - 1) / BQ);
   if (tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(attention_bwd_rows_mma_kernel<BT>,
+  cudaError_t err = cudaFuncSetAttribute(attention_bwd_rows_mma_kernel<BT, TABLE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, Smem::ROWS);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(attention_bwd_cols_mma_kernel<BT>,
+  err = cudaFuncSetAttribute(attention_bwd_cols_mma_kernel<BT, TABLE>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, Smem::COLS);
   if (err != cudaSuccess) return err;
-  attention_bwd_rows_mma_kernel<BT><<<(unsigned)tiles, MMA_THREADS, Smem::ROWS, stream>>>(p, w);
+  attention_bwd_rows_mma_kernel<BT, TABLE>
+      <<<(unsigned)tiles, MMA_THREADS, Smem::ROWS, stream>>>(p, w);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  attention_bwd_cols_mma_kernel<BT><<<(unsigned)tiles, MMA_THREADS, Smem::COLS, stream>>>(p, w);
+  attention_bwd_cols_mma_kernel<BT, TABLE>
+      <<<(unsigned)tiles, MMA_THREADS, Smem::COLS, stream>>>(p, w);
   return cudaGetLastError();
 }
 
-template <typename BT>
+template <typename BT, bool TABLE>
 cudaError_t launch_bwd(const BwdParams& p, cudaStream_t stream) {
   const long long blocks = (p.rows + BWD_WARPS - 1) / BWD_WARPS;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  attention_bwd_rows_kernel<BT><<<(unsigned)blocks, BWD_WARPS * 32, 0, stream>>>(p);
+  attention_bwd_rows_kernel<BT, TABLE><<<(unsigned)blocks, BWD_WARPS * 32, 0, stream>>>(p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  attention_bwd_cols_kernel<BT><<<(unsigned)blocks, BWD_WARPS * 32, 0, stream>>>(p);
+  attention_bwd_cols_kernel<BT, TABLE><<<(unsigned)blocks, BWD_WARPS * 32, 0, stream>>>(p);
   return cudaGetLastError();
 }
 
-// bf16 q/k/v/g take the tensor-core passes, f32 the scalar ones; either with
-// an f32 or a bf16 bias.
-cudaError_t dispatch_bwd(const BwdParams& p, int dt, int bias_dt, cudaStream_t s) {
-  if (dt == kBF16 && bias_dt == kF32) return launch_bwd_mma<float>(p, s);
-  if (dt == kBF16 && bias_dt == kBF16) return launch_bwd_mma<__nv_bfloat16>(p, s);
-  if (dt == kF32 && bias_dt == kF32) return launch_bwd<float>(p, s);
-  if (dt == kF32 && bias_dt == kBF16) return launch_bwd<__nv_bfloat16>(p, s);
-  return cudaErrorInvalidValue;
+// The cluster kernel's launch configuration for B*N heads at this L: a
+// cluster of ceil(L / 64) CTAs a head, after the opt-in to its shared memory.
+template <typename BT, bool TABLE>
+cudaError_t cluster_config(long long heads, int L, cudaStream_t stream, cudaLaunchConfig_t& cfg,
+                           cudaLaunchAttribute& attr) {
+  constexpr int bytes = ClusterSmem<BT, TABLE>::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(attention_bwd_cluster_kernel<BT, TABLE>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  const int nk = (L + BK - 1) / BK;
+  if (heads * nk > 0x7fffffffLL) return cudaErrorInvalidValue;
+  cfg = cudaLaunchConfig_t{};
+  cfg.gridDim = dim3((unsigned)(heads * nk));
+  cfg.blockDim = dim3(CL_THREADS);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = stream;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = (unsigned)nk;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaSuccess;
+}
+
+template <typename BT, bool TABLE>
+cudaError_t launch_bwd_cluster(const BwdParams& p, const BwdWidths& w, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = cluster_config<BT, TABLE>(p.rows / p.L, p.L, stream, cfg, attr);
+  if (err != cudaSuccess) return err;
+  err = cudaLaunchKernelEx(&cfg, attention_bwd_cluster_kernel<BT, TABLE>, p, w);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+template <typename BT, bool TABLE>
+cudaError_t cluster_occupancy(int L, int* clusters) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = cluster_config<BT, TABLE>(1, L, nullptr, cfg, attr);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveClusters(clusters, attention_bwd_cluster_kernel<BT, TABLE>, &cfg);
+}
+
+template <typename BT, bool TABLE>
+cudaError_t launch_route(const BwdParams& p, const BwdWidths& w, int route, cudaStream_t s) {
+  switch (route) {
+    case kCluster:
+      return launch_bwd_cluster<BT, TABLE>(p, w, s);
+    case kTwoPass:
+      return launch_bwd_mma<BT, TABLE>(p, w, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// bf16 q/k/v/g take the cluster or the two-pass route, f32 the scalar one;
+// either with an f32 or a bf16 bias, or the table (then the demb kernels).
+cudaError_t dispatch_bwd(const BwdParams& p, int dt, int bias_dt, int route, float* demb_sums,
+                         cudaStream_t s) {
+  if (route != bwd_route(dt, p.L)) return cudaErrorInvalidValue;
+  cudaError_t err = cudaErrorInvalidValue;
+  if (dt == kBF16) {
+    const BwdWidths w = bwd_widths(p, bias_dt);
+    if (bias_dt == kF32) err = launch_route<float, false>(p, w, route, s);
+    if (bias_dt == kBF16) err = launch_route<__nv_bfloat16, false>(p, w, route, s);
+    if (bias_dt == kTable) err = launch_route<__nv_bfloat16, true>(p, w, route, s);
+  } else if (dt == kF32) {
+    if (bias_dt == kF32) err = launch_bwd<float, false>(p, s);
+    if (bias_dt == kBF16) err = launch_bwd<__nv_bfloat16, false>(p, s);
+    if (bias_dt == kTable) err = launch_bwd<float, true>(p, s);
+  }
+  if (err != cudaSuccess || bias_dt != kTable) return err;
+  return launch_demb(p, demb_sums, dt, s);
 }
 
 }  // namespace
@@ -1575,24 +2247,48 @@ extern "C" int dtpu_attention_launch(
   }
 }
 
-// Plain C entry point of the backward for ctypes: q, k, v, g and the bias as
-// dtpu_attention_launch takes them (g is [B, N, L, Dv] like the output); dq,
-// dk, dv and dbias contiguous, in the dtype of q (dt) and of the bias
-// (bias_dt); stats an f32 scratch of 3 * B * N * L. Two launches on `stream`:
-// the rows pass, then the columns pass. Returns cudaGetLastError() (0 = ok).
+// Plain C entry point of the backward for ctypes: q, k, v, the bias (or emb)
+// and g as dtpu_attention_launch takes them (g is [B, N, L, Dv] like the
+// output); dq, dk, dv and dlast contiguous, in the dtype of q (dt) and of the
+// bias (bias_dt; -1: table mode, dlast is demb [L, D] in q's dtype). stats:
+// an f32 scratch of 3 * B * N * L (two-pass and scalar routes); demb_part and
+// demb_sums: f32 scratch of B * N * L * D and ceil(B * N / 8) * L * D (table
+// mode). route: 0 scalar, 1 two-pass, 2 cluster; it must be the route of dt
+// and L (bwd_route). Launches on `stream`: one (cluster) or two (rows pass,
+// then columns pass), then in table mode the two demb kernels. Returns
+// cudaGetLastError() (0 = ok).
 extern "C" int dtpu_attention_backward_launch(
     const void* q, long long q_sb, long long q_sn, long long q_sl,
     const void* k, long long k_sb, long long k_sn, long long k_sl,
     const void* v, long long v_sb, long long v_sn, long long v_sl,
     const void* bias, long long b_sb, long long b_sn, long long b_sl, int bias_dt,
+    const void* emb, long long e_sl,
     const void* g, long long g_sb, long long g_sn, long long g_sl,
-    void* dq, void* dk, void* dv, void* dbias, void* stats, int dt, int batch, int heads,
-    int L, int D, int Dv, void* stream) {
+    void* dq, void* dk, void* dv, void* dlast, void* stats, void* demb_part, void* demb_sums,
+    int route, int dt, int batch, int heads, int L, int D, int Dv, void* stream) {
   if (batch <= 0 || heads <= 0 || L <= 0 || D <= 0 || D > DMAX || Dv <= 0 || Dv > DMAX)
     return (int)cudaErrorInvalidValue;
-  const BwdParams p{q,    q_sb, q_sn, q_sl, k,  k_sb, k_sn, k_sl, v,     v_sb,
-                    v_sn, v_sl, bias, b_sb, b_sn, b_sl, g,    g_sb, g_sn,  g_sl,
-                    dq,   dk,   dv,   dbias, static_cast<float*>(stats),
-                    (long long)batch * heads * L, heads, L, D, Dv};
-  return (int)dispatch_bwd(p, dt, bias_dt, static_cast<cudaStream_t>(stream));
+  const BwdParams p{q,    q_sb, q_sn, q_sl, k,    k_sb, k_sn, k_sl, v,     v_sb,
+                    v_sn, v_sl, bias, b_sb, b_sn, b_sl, emb,  e_sl, g,     g_sb,
+                    g_sn, g_sl, dq,   dk,   dv,   dlast, static_cast<float*>(demb_part),
+                    static_cast<float*>(stats), (long long)batch * heads * L, heads, L, D, Dv};
+  return (int)dispatch_bwd(p, dt, bias_dt, route, static_cast<float*>(demb_sums),
+                           static_cast<cudaStream_t>(stream));
+}
+
+// How many clusters of the backward's cluster route can be resident at once
+// at this L (bias_dt as above; q/k/v bf16), into *clusters: 0 means the card
+// cannot run the route. Returns the CUDA error (0 = ok).
+extern "C" int dtpu_attention_backward_cluster_occupancy(int bias_dt, int L, int* clusters) {
+  if (L <= 0 || L > CL_MAX_L) return (int)cudaErrorInvalidValue;
+  switch (bias_dt) {
+    case kF32:
+      return (int)cluster_occupancy<float, false>(L, clusters);
+    case kBF16:
+      return (int)cluster_occupancy<__nv_bfloat16, false>(L, clusters);
+    case kTable:
+      return (int)cluster_occupancy<__nv_bfloat16, true>(L, clusters);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

@@ -15,8 +15,9 @@ buffer, its gradient as a view into a second and every BN running
 statistic as a view into a third, so the collectives, the guard and the
 optimizer each act on one tensor. On the card every BN runs K1 forward and
 K1-bwd backward (53 of each per ResNet-50 or BoTNet-50 step), and BoTNet's
-MHSA the attention kernel and its backward kernel (3 of each a step); on the
-CPU their plain versions.
+MHSA the attention kernel and its backward kernel (3 of each a step, the
+backward on its one-launch cluster route at 224^2); on the CPU their plain
+versions.
 """
 
 from __future__ import annotations
@@ -193,9 +194,10 @@ def build_cfg_model(generator: torch.Generator | None = None) -> torch.nn.Module
 
 
 def _launch_counts() -> tuple[int, ...]:
-    """K1, K1-bwd, their scalar routes, the attention kernel and its backward."""
+    """K1, K1-bwd, their scalar routes, the attention kernel, its backward
+    and the backward's launches on the cluster route."""
     return (ep.LAUNCHES, ep.BWD_LAUNCHES, ep.SCALAR_LAUNCHES, ep.BWD_SCALAR_LAUNCHES,
-            att.LAUNCHES, att.BWD_LAUNCHES)
+            att.LAUNCHES, att.BWD_LAUNCHES, att.BWD_ROUTE_LAUNCHES["cluster"])
 
 
 def _poison(batch: dict) -> dict:
@@ -323,13 +325,15 @@ def train_epoch(loader, state: TrainState, epoch: int, device, is_primary: bool,
                 progress.display(it)
         t_end = time.time()
     wall = time.time() - epoch_start
-    fwd, bwd, fwd_s, bwd_s, att_f, att_b = (b - a for a, b in zip(launches0, _launch_counts()))
+    fwd, bwd, fwd_s, bwd_s, att_f, att_b, att_c = (
+        b - a for a, b in zip(launches0, _launch_counts()))
     steps = len(loader)
     if is_primary:
         logger.info(f"Epoch[{epoch}] K1 launches: {fwd} forward ({fwd / steps:.2f} a step), "
                     f"{bwd} backward ({bwd / steps:.2f} a step), scalar route {fwd_s} forward, "
                     f"{bwd_s} backward; attention {att_f} forward ({att_f / steps:.2f} a step), "
-                    f"{att_b} backward ({att_b / steps:.2f} a step)")
+                    f"{att_b} backward ({att_b / steps:.2f} a step), {att_c} backward launches "
+                    f"on the cluster route")
         if epoch_skipped:
             logger.warning(f"Epoch[{epoch}] skipped_steps: {epoch_skipped} non-finite step(s) "
                            f"left parameters and optimizer state untouched")

@@ -15,10 +15,12 @@ version after normalising, K4/K5 before, so the two round differently by
 up to a bf16 ulp of the output; tests/test_ops_attention.py uses the same
 bounds). L is ragged against the CUDA kernel's 64-row tiles and Dv != D.
 
-The backward (``attention_backward_reference``, and the autograd Function
-around ``fused_attention`` that calls it on the CPU) is held against
-``jax.vjp`` of the JAX ``custom_vjp`` kernels: K2 at a ragged single-tile L
-and K4's blockwise custom_vjp, in float32 within 1e-5 of max(1, max|grad|)
+The backward (``attention_backward_reference`` and
+``attention_table_backward_reference``, and the autograd Functions around
+``fused_attention`` and ``fused_attention_abs`` that call them on the CPU)
+is held against ``jax.vjp`` of the JAX ``custom_vjp`` kernels: K2 and K3 at
+a ragged single-tile L and K4's and K5's blockwise custom_vjp (``demb``
+included), in float32 within 1e-5 of max(1, max|grad|)
 (only the f32 summation order differs) and in bfloat16 within one bf16 ulp,
 2^-7 of max(1, max|grad|) (both sides compute in f32 and round each
 gradient once to bf16; an f32 sum that straddles a rounding boundary lands
@@ -165,15 +167,22 @@ def test_wrapper_refusals():
 _BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0**-7}
 
 
+_BWD_CASES = [("K2", 20, None), ("K4", 48, 16), ("K3", 20, None), ("K5", 48, 16)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("kernel,l,block", [("K2", 20, None), ("K4", 48, 16)], ids=["K2", "K4"])
+@pytest.mark.parametrize("kernel,l,block", _BWD_CASES, ids=[c[0] for c in _BWD_CASES])
 def test_backward_reference_matches_the_jax_custom_vjp(kernel, l, block, dtype):
-    (q, k, v, bias, _), (jq, jk, jv, jbias, _) = _inputs(2, 3, l, 16, 8, dtype, seed=l + 1)
+    (q, k, v, bias, emb), (jq, jk, jv, jbias, jemb) = _inputs(2, 3, l, 16, 8, dtype, seed=l + 1)
+    table = kernel in ("K3", "K5")
     g = np.random.default_rng(l).standard_normal((2, 3, l, 8)).astype(np.float32)
-    out, pull = jax.vjp(lambda *a: _jax_kernel(kernel, *a, block), jq, jk, jv, jbias)
+    out, pull = jax.vjp(lambda *a: _jax_kernel(kernel, *a, block), jq, jk, jv,
+                        jemb if table else jbias)
     want = pull(jnp.asarray(g, out.dtype))
-    got = att.attention_backward_reference(q, k, v, bias, torch.from_numpy(g).to(dtype))
-    for name, a, b in zip(("dq", "dk", "dv", "dbias"), got, want):
+    gt = torch.from_numpy(g).to(dtype)
+    got = (att.attention_table_backward_reference(q, k, v, emb, gt) if table
+           else att.attention_backward_reference(q, k, v, bias, gt))
+    for name, a, b in zip(("dq", "dk", "dv", "demb" if table else "dbias"), got, want):
         b = np.asarray(b, np.float32)
         assert a.dtype == dtype and a.shape == b.shape, name
         tol = _BWD_TOL[dtype] * max(1.0, float(np.abs(b).max()))
@@ -202,6 +211,58 @@ def test_function_gradients_on_the_cpu_equal_the_reference_bitwise(bias_dtype):
     assert torch.equal(dbias, att.attention_backward_reference(q, k, v, bias, g)[3])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_table_function_gradients_on_the_cpu_equal_the_reference_bitwise(dtype):
+    """Through ``fused_attention_abs`` with every input needing a gradient:
+    the table mode's autograd Function, whose backward on a CPU tensor is
+    the plain table backward, demb included; one input at a time too."""
+    (q, k, v, _, emb), _ = _inputs(2, 2, 30, 16, 8, dtype, seed=14)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v, emb)]
+    out = att.fused_attention_abs(*leaves)
+    assert type(out.grad_fn).__name__ == "_AttentionAbsBackward"
+    assert torch.equal(out, att.attention_table_reference(q, k, v, emb))
+    g = torch.randn(out.shape, generator=torch.Generator().manual_seed(1)).to(dtype)
+    before = (att.BWD_LAUNCHES, att.TABLE_BWD_LAUNCHES, dict(att.BWD_ROUTE_LAUNCHES))
+    out.backward(g)
+    # the CPU never launches
+    assert (att.BWD_LAUNCHES, att.TABLE_BWD_LAUNCHES, att.BWD_ROUTE_LAUNCHES) == before
+    want = att.attention_table_backward_reference(q, k, v, emb, g)
+    for leaf, w in zip(leaves, want):
+        assert leaf.grad.dtype == leaf.dtype and leaf.grad.shape == leaf.shape
+        assert torch.equal(leaf.grad, w)
+    assert torch.equal(att.fused_attention_abs_backward(q, k, v, emb, g)[3], want[3])
+    only_emb = emb.clone().requires_grad_()
+    (demb,) = torch.autograd.grad(att.fused_attention_abs(q, k, v, only_emb), only_emb, g)
+    assert torch.equal(demb, want[3])
+
+
+def test_table_backward_reference_equals_bias_backward_on_the_materialised_product():
+    """f32: with bias = q·embᵀ formed outside, the bias mode's dk, dv and
+    dbias give the table mode's dk, dv, dq - dbias·emb and demb =
+    Σ_{b,n} dbiasᵀ·q."""
+    (q, k, v, _, emb), _ = _inputs(2, 3, 24, 8, 8, torch.float32, seed=15)
+    g = torch.randn(2, 3, 24, 8, generator=torch.Generator().manual_seed(2))
+    bias = torch.einsum("bnxd,yd->bnxy", q, emb)
+    dq, dk, dv, demb = att.attention_table_backward_reference(q, k, v, emb, g)
+    bq, bk, bv, dbias = att.attention_backward_reference(q, k, v, bias, g)
+    torch.testing.assert_close(dk, bk, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(dv, bv, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(dq, bq + torch.einsum("bnxy,yd->bnxd", dbias, emb),
+                               rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(demb, torch.einsum("bnxy,bnxd->yd", dbias, q),
+                               rtol=1e-5, atol=1e-6)
+
+
+def test_backward_route_is_chosen_by_dtype_and_l():
+    assert att.backward_route(torch.bfloat16, 64) == "cluster"
+    assert att.backward_route(torch.bfloat16, 196) == "cluster"
+    assert att.backward_route(torch.bfloat16, att.CLUSTER_MAX_L) == "cluster"
+    assert att.backward_route(torch.bfloat16, att.CLUSTER_MAX_L + 1) == "two_pass"
+    assert att.backward_route(torch.bfloat16, 1024) == "two_pass"
+    assert att.backward_route(torch.float32, 196) == "scalar"
+    assert att.backward_route(torch.float32, 1024) == "scalar"
+
+
 def test_no_function_node_without_a_gradient():
     (q, k, v, bias, emb), _ = _inputs(1, 2, 12, 8, 8, torch.float32, seed=13)
     assert att.fused_attention(q, k, v, bias).grad_fn is None
@@ -210,9 +271,16 @@ def test_no_function_node_without_a_gradient():
         assert att.fused_attention(*leaves).grad_fn is None
     with torch.inference_mode():
         assert att.fused_attention(*leaves).grad_fn is None
-    # the table mode stays differentiable on the CPU (autograd through its plain version)
+    # the table mode: a Function node only where a gradient is needed
+    assert att.fused_attention_abs(q, k, v, emb).grad_fn is None
     e = emb.clone().requires_grad_()
+    with torch.no_grad():
+        assert att.fused_attention_abs(q, k, v, e).grad_fn is None
+    with torch.inference_mode():
+        assert att.fused_attention_abs(q, k, v, e).grad_fn is None
     att.fused_attention_abs(q, k, v, e).sum().backward()
     assert e.grad is not None and torch.isfinite(e.grad).all()
     with pytest.raises(ValueError, match="g must be"):
         att.fused_attention_backward(q, k, v, bias, torch.zeros(1, 2, 12, 4))
+    with pytest.raises(ValueError, match="g must be"):
+        att.fused_attention_abs_backward(q, k, v, emb, torch.zeros(1, 2, 12, 4))

@@ -15,10 +15,12 @@ port's attention wrappers compute their plain versions):
   calls (every BN); with a bf16 model, K1 handing each conv its bf16 input
   changes no logit bit; a CPU ``InferenceEngine`` hosts botnet50 and
   answers with the JAX serving forward's logits;
-- gradients: ``MHSA(rel_pos_emb=True)`` (the port's attention Function,
-  whose CPU backward is ``attention_backward_reference``) against JAX
-  ``MHSA(fuse=True)`` (the K2 ``custom_vjp`` in interpret mode) at the 4x6
-  map for the input, ``to_qk``, ``to_v`` and both position tables, within
+- gradients: ``MHSA(rel_pos_emb=True)`` and ``MHSA(rel_pos_emb=False)``
+  (the port's attention Functions, whose CPU backward is
+  ``attention_backward_reference`` / ``attention_table_backward_reference``)
+  against JAX ``MHSA(fuse=True)`` (the K2 / K3 ``custom_vjp`` in interpret
+  mode) at the 4x6 map for the input, ``to_qk``, ``to_v`` and both position
+  tables, within
   1e-5 of max(1, max|grad|); two BoTBlocks (projection, then identity
   shortcut) in train mode for one SGD step against JAX, BN scales drawn
   away from 0 so the attention branch gets a gradient;
@@ -111,12 +113,15 @@ def _hwio(t: torch.Tensor) -> np.ndarray:
     return t.detach().permute(2, 3, 1, 0).numpy()
 
 
-def test_mhsa_gradients_match_the_jax_custom_vjp():
-    """f32: the two backward passes differ only in f32 summation order."""
+@pytest.mark.parametrize("rel", [True, False], ids=["rel_pos", "abs_table"])
+def test_mhsa_gradients_match_the_jax_custom_vjp(rel):
+    """f32: the two backward passes differ only in f32 summation order.
+    ``rel_pos_emb=False`` runs the table mode's Function (K3's custom_vjp
+    in JAX): the tables' gradients come through ``emb = height + width``."""
     rng = np.random.default_rng(7)
     x = rng.standard_normal((2, 4, 6, 16)).astype(np.float32)
     g = rng.standard_normal((2, 4, 6, 16)).astype(np.float32)
-    kw = dict(fmap_size=(4, 6), heads=2, dim_qk=8, dim_v=8, rel_pos_emb=True)
+    kw = dict(fmap_size=(4, 6), heads=2, dim_qk=8, dim_v=8, rel_pos_emb=rel)
     jax_mhsa = jax_botnet.MHSA(dtype=jnp.float32, fuse=True, **kw)
     params = jax_mhsa.init(jax.random.PRNGKey(1), jnp.asarray(x))["params"]
     _, pull = jax.vjp(lambda p, xx: jax_mhsa.apply({"params": p}, xx), params, jnp.asarray(x))
@@ -126,13 +131,12 @@ def test_mhsa_gradients_match_the_jax_custom_vjp():
     out = mhsa(xt)
     assert type(out.grad_fn).__name__ != "NoneType"
     out.permute(0, 2, 3, 1).backward(torch.from_numpy(g))
-    pos = mhsa.pos_emb
+    tables = ("rel_height", "rel_width") if rel else ("height", "width")
     for name, got, want in (
             ("x", xt.grad.permute(0, 2, 3, 1).numpy(), dx),
             ("to_qk", _hwio(mhsa.to_qk.weight.grad), dparams["to_qk"]["kernel"]),
             ("to_v", _hwio(mhsa.to_v.weight.grad), dparams["to_v"]["kernel"]),
-            ("rel_height", pos.rel_height.grad.numpy(), dparams["pos_emb"]["rel_height"]),
-            ("rel_width", pos.rel_width.grad.numpy(), dparams["pos_emb"]["rel_width"])):
+            *((t, getattr(mhsa.pos_emb, t).grad.numpy(), dparams["pos_emb"][t]) for t in tables)):
         want = np.asarray(want)
         assert float(np.abs(want).max()) > 0, name
         _close(got, want, 1e-5)

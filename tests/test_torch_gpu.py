@@ -203,11 +203,17 @@ def test_cuda_attention_backward_matches_plain(cuda):
     """dq, dk, dv and dbias of the backward kernel against the plain
     backward, both dtypes and both bias dtypes; head-split (strided) views
     of q, k, v and a transposed view of g, as MHSA hands them over; L ragged
-    against the kernel's tiles and at 1024, Dv != D, odd D. Two calls are
-    bitwise equal, and each call counts one backward launch."""
+    against the kernel's tiles and at 1024, Dv != D, odd D; the cluster
+    route's edges, one to four CTAs a cluster: L 64 (one full tile), 65 (a
+    1-key second tile), 130, 256 (four full tiles), and L 257 on the
+    two-pass route. Two calls are bitwise equal, each call counts one
+    backward call, and the route of ``backward_route`` its launches (one a
+    call on the cluster route, two on the others)."""
     gen = torch.Generator(device=cuda).manual_seed(5)
     for (b, n, l, d, dv) in [(2, 4, 196, 128, 128), (1, 2, 70, 32, 24), (1, 1, 5, 7, 3),
-                             (1, 2, 1024, 128, 128), (1, 2, 65, 128, 128), (2, 3, 196, 40, 24)]:
+                             (1, 2, 1024, 128, 128), (1, 2, 65, 128, 128), (2, 3, 196, 40, 24),
+                             (2, 3, 64, 128, 128), (2, 3, 130, 128, 128), (2, 3, 256, 128, 128),
+                             (2, 3, 257, 128, 128)]:
         for dt in (torch.float32, torch.bfloat16):
             q = _heads_first(torch.randn(b, l, n * d, generator=gen, device=cuda) * 0.3, n).to(dt)
             k = _heads_first(torch.randn(b, l, n * d, generator=gen, device=cuda) * 0.3, n).to(dt)
@@ -216,13 +222,15 @@ def test_cuda_attention_backward_matches_plain(cuda):
             bias = torch.randn(b, n, l, l, generator=gen, device=cuda) * 0.5
             for bias_dt in (torch.float32, torch.bfloat16):
                 bb = bias.to(bias_dt)
-                before = att.BWD_LAUNCHES
+                before = (att.BWD_LAUNCHES, dict(att.BWD_ROUTE_LAUNCHES))
                 got = att.fused_attention_backward(q, k, v, bb, g)
                 again = att.fused_attention_backward(q, k, v, bb, g)
                 want = att.attention_backward_reference(q, k, v, bb, g)
                 torch.cuda.synchronize()
-                assert att.BWD_LAUNCHES == before + 2
                 case = ((b, n, l, d, dv), dt, bias_dt)
+                route = att.backward_route(dt, l)
+                assert att.BWD_LAUNCHES == before[0] + 2, case
+                assert _launched(before[1]) == {route: 2 if route == "cluster" else 4}, case
                 for name, x, y, z in zip(("dq", "dk", "dv", "dbias"), got, again, want):
                     assert x.dtype == z.dtype and x.shape == z.shape and x.is_contiguous(), case
                     assert torch.equal(x, y), (case, name, "two calls")
@@ -231,12 +239,77 @@ def test_cuda_attention_backward_matches_plain(cuda):
                     assert err <= tol, (case, name, err)
 
 
+def _launched(before):
+    """The backward's CUDA launches per route since ``before``, nonzero only."""
+    return {k: v - before[k] for k, v in att.BWD_ROUTE_LAUNCHES.items() if v != before[k]}
+
+
+@pytest.mark.gpu
+def test_cuda_attention_table_backward_on_every_route(cuda):
+    """The table mode's backward (dq, dk, dv, demb) against
+    ``attention_table_backward_reference`` on the three routes: bf16 on the
+    cluster route (L 196, and a ragged L 70 with D 40, Dv 24), bf16 on the
+    two-pass route (L 1024, and L 300 ragged), f32 on the scalar route (L
+    196, L 70 ragged). Head-split views, a strided table; two calls bitwise
+    equal; one table-backward call and the route's launches plus the demb
+    reduction's two counted a call."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    for (b, n, l, d, dv) in [(8, 4, 196, 128, 128), (2, 3, 70, 40, 24), (2, 4, 1024, 128, 128),
+                             (1, 3, 300, 40, 24)]:
+        for dt in (torch.bfloat16, torch.float32):
+            q, k, v, g = (_heads_first(torch.randn(b, l, n * w, generator=gen, device=cuda) * sc, n)
+                          .to(dt) for w, sc in ((d, 0.3), (d, 0.3), (dv, 1.0), (dv, 1.0)))
+            emb = (torch.randn(l, 2 * d, generator=gen, device=cuda) * 0.5).to(dt)[:, :d]
+            route = att.backward_route(dt, l)
+            before = (att.TABLE_BWD_LAUNCHES, att.BWD_LAUNCHES, dict(att.BWD_ROUTE_LAUNCHES))
+            got = att.fused_attention_abs_backward(q, k, v, emb, g)
+            again = att.fused_attention_abs_backward(q, k, v, emb, g)
+            want = att.attention_table_backward_reference(q, k, v, emb, g)
+            torch.cuda.synchronize()
+            case = ((b, n, l, d, dv), dt, route)
+            assert (att.TABLE_BWD_LAUNCHES, att.BWD_LAUNCHES) == (before[0] + 2, before[1]), case
+            assert _launched(before[2]) == {route: 2 if route == "cluster" else 4, "demb": 4}, case
+            for name, x, y, z in zip(("dq", "dk", "dv", "demb"), got, again, want):
+                assert x.dtype == z.dtype and x.shape == z.shape and x.is_contiguous(), case
+                assert torch.equal(x, y), (case, name, "two calls")
+                tol = ATTN_BWD_TOL[z.dtype] * max(1.0, z.float().abs().max().item())
+                err = (x.float() - z.float()).abs().max().item()
+                assert err <= tol, (case, name, err)
+
+
+@pytest.mark.gpu
+def test_mhsa_table_mode_bf16_sgd_step_trains_on_the_card(cuda):
+    """``MHSA(rel_pos_emb=False)`` at BoTNet-50's width (512 in, 4 heads of
+    128, fmap 14x14), bf16, one SGD step on the card: one table-mode forward
+    and one table backward on the cluster route; the position tables and
+    ``to_qk`` get finite, non-zero gradients and move."""
+    from distribuuuu_tpu_torch.models.botnet import MHSA
+
+    torch.manual_seed(4)
+    m = MHSA(512, (14, 14), 4, 128, 128, rel_pos_emb=False, dtype=torch.bfloat16).to(cuda)
+    x = torch.relu(torch.randn(8, 512, 14, 14, device=cuda)).bfloat16()
+    x = x.contiguous(memory_format=torch.channels_last)
+    opt = torch.optim.SGD(m.parameters(), lr=0.1)
+    start = {k: t.detach().clone() for k, t in m.named_parameters()}
+    before = (att.TABLE_LAUNCHES, att.TABLE_BWD_LAUNCHES, dict(att.BWD_ROUTE_LAUNCHES))
+    m(x).float().square().mean().backward()
+    opt.step()
+    torch.cuda.synchronize()
+    assert (att.TABLE_LAUNCHES - before[0], att.TABLE_BWD_LAUNCHES - before[1]) == (1, 1)
+    assert _launched(before[2]) == {"cluster": 1, "demb": 2}
+    for name in ("pos_emb.height", "pos_emb.width", "to_qk.weight"):
+        grad = dict(m.named_parameters())[name].grad
+        assert grad is not None and torch.isfinite(grad).all(), name
+        assert float(grad.float().abs().max()) > 0, name
+        assert not torch.equal(dict(m.named_parameters())[name], start[name]), name
+
+
 @pytest.mark.gpu
 def test_attention_gradients_flow_on_the_card(cuda):
-    """Through ``fused_attention`` on CUDA tensors the output has a grad_fn
-    and the gradients are the backward kernel's; without a gradient no
-    Function node is made and nothing launches backward; the table mode
-    raises where a gradient is needed and serves under no_grad."""
+    """Through ``fused_attention`` and ``fused_attention_abs`` on CUDA
+    tensors the output has a grad_fn and the gradients are the backward
+    kernels'; without a gradient no Function node is made and nothing
+    launches backward."""
     gen = torch.Generator(device=cuda).manual_seed(6)
     q, k, v, g = (torch.randn(2, 4, 196, 128, generator=gen, device=cuda).bfloat16()
                   for _ in range(4))
@@ -251,11 +324,18 @@ def test_attention_gradients_flow_on_the_card(cuda):
         assert torch.equal(leaf.grad, want)
     with torch.inference_mode():
         assert att.fused_attention(*leaves).grad_fn is None
-    emb = torch.randn(196, 128, generator=gen, device=cuda).bfloat16().requires_grad_()
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2"):
-        att.fused_attention_abs(q, k, v, emb)
+    emb = torch.randn(196, 128, generator=gen, device=cuda).bfloat16()
+    leaves = [t.clone().requires_grad_() for t in (q, k, v, emb)]
+    out = att.fused_attention_abs(*leaves)
+    assert out.grad_fn is not None
+    before = (att.TABLE_LAUNCHES, att.TABLE_BWD_LAUNCHES)
+    out.backward(g)
+    assert (att.TABLE_LAUNCHES, att.TABLE_BWD_LAUNCHES) == (before[0], before[1] + 1)
+    for leaf, want in zip(leaves, att.fused_attention_abs_backward(q, k, v, emb, g)):
+        assert torch.equal(leaf.grad, want)
     with torch.no_grad():
-        assert att.fused_attention_abs(q, k, v, emb).shape == (2, 4, 196, 128)
+        out = att.fused_attention_abs(*leaves)
+    assert out.grad_fn is None and out.shape == (2, 4, 196, 128)
 
 
 def _botnet_state(cuda, dtype, im, seed=0):
