@@ -43,9 +43,11 @@ Phases (any failure exits non-zero):
    K3/K5's custom_vjp) against ``attention_table_backward_reference`` at
    K3's training shapes (B*N 128 and 512, L 196), K5's (B*N 32, L 1024), in
    f32 and ragged; two calls bitwise equal, each call's route (bf16 at
-   L <= 256: the one-launch cluster kernel; bf16 above: two-pass; f32:
-   scalar) and launches; the training shapes timed as device time past the
-   L2, back to back and as a single call, beside the plain version, the
+   L <= 256: the one-launch cluster kernel; bf16 above: the three-launch
+   blockwise kernels; f32: scalar) and launches; the training shapes (B*N
+   32 and 128 at L 196; B*N 32 and 128 at L 1024, the 512^2 step's) timed
+   as device time past the L2, back to back and as a single call, with each
+   CUDA kernel's device µs from the profiler, beside the plain version, the
    backward of ``F.scaled_dot_product_attention`` with the bias needing a
    gradient (table mode: autograd through ``einsum(q, emb)`` and SDPA) and
    the bytes/FLOP bound;
@@ -110,7 +112,18 @@ Phases (any failure exits non-zero):
    checkpoint's manifest, ``test_net`` on it, step ms, images/s and the
    profile of 3 steps by kernel class (attention and attention-bwd among
    them); then one f32 BoTNet-50 step at 64^2, card vs CPU;
-13. the ``{"kernels": [...]}`` line; 14. the ``{"ok": true, ...}`` last line.
+13. [train-bot-512] ``python -m distribuuuu_tpu_torch.train_net --cfg
+   config/botnet50.yaml MODEL.DUMMY_INPUT True TRAIN.IM_SIZE 512`` with the
+   eval crop at 512 too (``TEST.IM_SIZE 512 TEST.CROP_SIZE 512``: the
+   position tables are sized by the training crop, and the trainer refuses
+   another eval crop, as the JAX one does) for BOT512_STEPS steps at batch
+   BOT512_BATCH: L 1024 in the three BoT blocks, so 3 attention calls a step
+   on K4's route and 3 backward calls on the blockwise route, none scalar
+   and none on the cluster route, beside 53 K1 and 53 K1-bwd; the loss
+   finite and falling, the checkpoint, ``test_net`` on it, step ms,
+   images/s and the profile of 3 steps by kernel class, attention-bwd µs a
+   step against its bound;
+14. the ``{"kernels": [...]}`` line; 15. the ``{"ok": true, ...}`` last line.
 
 Each path is driven with the launch counts set to 0 just before it and read
 just after. Per-shape numbers are also written to ``smoke_out/``.
@@ -609,17 +622,18 @@ def run_cli(args: list, what: str, timeout: int = 600) -> str:
 
 def train_log(log: str) -> tuple[list, dict]:
     """The progress lines ``(step, window s a step, loss)`` of epoch 0 and
-    the epoch's launch counts from a ``train_net`` log."""
+    the epoch's launch counts (the attention backward's calls by route) from
+    a ``train_net`` log."""
     prog = [(int(m[1]), float(m[2]), float(m[3])) for m in re.finditer(
         r"Epoch\[0\] \[\s*(\d+)/\d+\]\s+Time (\S+) \(\S+\).*?Loss (\S+) \(", log)]
     m = re.search(r"K1 launches: (\d+) forward \(\S+ a step\), (\d+) backward \(\S+ a step\), "
                   r"scalar route (\d+) forward, (\d+) backward; attention (\d+) forward "
-                  r"\(\S+ a step\), (\d+) backward \(\S+ a step\), (\d+) backward launches on "
-                  r"the cluster route", log)
+                  r"\(\S+ a step\), (\d+) backward \(\S+ a step\); backward calls by route: "
+                  r"cluster (\d+), blockwise (\d+), scalar (\d+)", log)
     if not prog or m is None:
         fail(f"train_net printed no progress or launch counts:\n{log[-3000:]}")
     keys = ("k1", "k1_bwd", "k1_scalar", "k1_bwd_scalar", "attention", "attention_bwd",
-            "attention_bwd_cluster")
+            "attention_bwd_cluster", "attention_bwd_blockwise", "attention_bwd_scalar")
     return prog, dict(zip(keys, (int(v) for v in m.groups())))
 
 
@@ -665,21 +679,30 @@ def train_profile(path: Path, steps: int, bound_ms: dict, what: str, tag: str) -
     return res
 
 
-def train_args(cfg_file: str, batch: int, out: Path) -> list:
-    """``train_net``'s arguments for ``cfg_file`` on dummy input at ``batch`` a GPU."""
-    return ["--cfg", cfg_file, "MODEL.DUMMY_INPUT", "True", "TRAIN.BATCH_SIZE", str(batch),
-            "TEST.BATCH_SIZE", str(batch), "TRAIN.PRINT_FREQ", str(TRAIN_PRINT), "RNG_SEED", "0",
-            "OUT_DIR", str(out)]
+def crop_args(im: int) -> list:
+    """The training and eval crop ``im`` as ``train_net`` and ``test_net``
+    arguments (none at 224^2, the config's)."""
+    return [] if im == IM else ["TRAIN.IM_SIZE", str(im), "TEST.IM_SIZE", str(im),
+                                "TEST.CROP_SIZE", str(im)]
+
+
+def train_args(cfg_file: str, batch: int, out: Path, im: int = IM) -> list:
+    """``train_net``'s arguments for ``cfg_file`` on dummy input at ``batch`` a GPU
+    and crop ``im``."""
+    return ["--cfg", cfg_file, "MODEL.DUMMY_INPUT", "True", *crop_args(im), "TRAIN.BATCH_SIZE",
+            str(batch), "TEST.BATCH_SIZE", str(batch), "TRAIN.PRINT_FREQ", str(TRAIN_PRINT),
+            "RNG_SEED", "0", "OUT_DIR", str(out)]
 
 
 def train_run(card: str, out: Path, tag: str, what: str, cfg_file: str, batch: int, steps: int,
-              window: tuple, attention: int, bound_ms: dict) -> dict:
+              window: tuple, attention: int, bound_ms: dict, im: int = IM,
+              route: str = "cluster") -> dict:
     """``python -m distribuuuu_tpu_torch.train_net --cfg <cfg_file>
-    MODEL.DUMMY_INPUT True`` at ``batch`` a GPU over ``steps`` steps into
-    ``out``, as a subprocess, with the TRAIN.PROFILE ``window`` (start,
-    steps): the loss finite and falling; TRAIN_K1 K1 and K1-bwd launches a
-    step and ``attention`` attention and attention-backward calls, none on
-    a scalar route and every backward call on the cluster route (the
+    MODEL.DUMMY_INPUT True`` at ``batch`` a GPU and crop ``im`` over
+    ``steps`` steps into ``out``, as a subprocess, with the TRAIN.PROFILE
+    ``window`` (start, steps): the loss finite and falling; TRAIN_K1 K1 and
+    K1-bwd launches a step and ``attention`` attention and
+    attention-backward calls, every backward call on ``route`` (the
     trainer's counts, set to 0 just before the first
     step and read just after the last); the checkpoint verified against its
     manifest; ``test_net`` on it reporting Acc@1. Step ms and images/s from
@@ -688,22 +711,23 @@ def train_run(card: str, out: Path, tag: str, what: str, cfg_file: str, batch: i
     from distribuuuu_tpu_torch import checkpoint as ckpt
 
     tic = time.perf_counter()
-    log = run_cli(["distribuuuu_tpu_torch.train_net", *train_args(cfg_file, batch, out),
+    log = run_cli(["distribuuuu_tpu_torch.train_net", *train_args(cfg_file, batch, out, im),
                    "OPTIM.MAX_EPOCH", "1", "TRAIN.DUMMY_EPOCH_SAMPLES", str(batch * steps),
                    "TRAIN.PROFILE", "True", "TRAIN.PROFILE_START", str(window[0]),
                    "TRAIN.PROFILE_STEPS", str(window[1])], f"train_net {what}")
     wall = time.perf_counter() - tic
     prog, counts = train_log(log)
     losses = [p[2] for p in prog]
-    say(f"[{tag}] train_net {what} 224^2 batch {batch}, {steps} steps in {wall:.1f} s (process "
+    say(f"[{tag}] train_net {what} {im}^2 batch {batch}, {steps} steps in {wall:.1f} s (process "
         f"start, cuDNN autotuning, eval and checkpoint included); loss {losses[0]:.4f} -> "
         f"{losses[-1]:.4f}; launches {counts}")
     if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
         fail(f"{what} training loss not finite or not falling: {losses}")
-    # every attention backward call on the one-launch cluster route (L 196)
+    # every attention backward call on ``route`` (cluster at L 196, blockwise at L 1024)
     want = dict(k1=TRAIN_K1 * steps, k1_bwd=TRAIN_K1 * steps, k1_scalar=0, k1_bwd_scalar=0,
                 attention=attention * steps, attention_bwd=attention * steps,
-                attention_bwd_cluster=attention * steps)
+                attention_bwd_cluster=0, attention_bwd_blockwise=0, attention_bwd_scalar=0)
+    want[f"attention_bwd_{route}"] = attention * steps
     if counts != want:
         fail(f"{what} launches over {steps} steps: {counts}; want {want}")
     steady = [t for it, t, _ in prog if TRAIN_PRINT * 2 <= it <= window[0] - TRAIN_PRINT]
@@ -717,7 +741,8 @@ def train_run(card: str, out: Path, tag: str, what: str, cfg_file: str, batch: i
         fail(f"checkpoint {path}: {status} {errors}")
     profile = train_profile(out / "profile" / "train_steps.json", window[1], bound_ms, what, tag)
     ev = run_cli(["distribuuuu_tpu_torch.test_net", "--cfg", cfg_file, "MODEL.DUMMY_INPUT",
-                  "True", "TEST.BATCH_SIZE", str(batch), "TRAIN.DUMMY_EPOCH_SAMPLES",
+                  "True", *crop_args(im), "TEST.BATCH_SIZE", str(batch),
+                  "TRAIN.DUMMY_EPOCH_SAMPLES",
                   str(batch * 4), "MODEL.WEIGHTS", path, "OUT_DIR", f"{out}_eval"],
                  f"test_net {what}")
     acc = re.search(r"\* Acc@1 (\S+) Acc@5 (\S+)", ev)
@@ -725,7 +750,7 @@ def train_run(card: str, out: Path, tag: str, what: str, cfg_file: str, batch: i
         fail(f"test_net reported no Acc@1:\n{ev[-2000:]}")
     say(f"[{tag}] {path} verified against its manifest; test_net on it: Acc@1 {acc[1]}, "
         f"Acc@5 {acc[2]}")
-    return dict(steps=steps, batch=batch, launches=counts, losses=losses, step_ms=step_ms,
+    return dict(steps=steps, batch=batch, im=im, launches=counts, losses=losses, step_ms=step_ms,
                 images_per_s=1e3 * batch / step_ms, windows=prog, wall_s=wall, profile=profile,
                 acc1=float(acc[1]), acc5=float(acc[2]))
 
@@ -818,6 +843,25 @@ def phase_train_bot(card: str, tmp: Path, bound_ms: dict) -> dict:
                     BOT_BATCH, BOT_STEPS, BOT_PROFILE, BOT_ATTENTION, bound_ms)
     res["f32_check"] = train_f32_botnet_check()
     return res
+
+
+# [train-bot-512]: BoTNet-50 at a 512^2 crop through the training CLI (fmap
+# 32x32: L 1024 in the three BoT blocks, the attention backward's blockwise
+# route), at config/botnet50.yaml's batch of 32 a GPU
+BOT512_IM = 512
+BOT512_STEPS = 25  # steps of the counted epoch; [train-bot] keeps its 35
+BOT512_BATCH = 32
+BOT512_PROFILE = (20, 3)  # TRAIN.PROFILE_START, TRAIN.PROFILE_STEPS
+
+
+def phase_train_bot_512(card: str, tmp: Path, bound_ms: dict) -> dict:
+    """[train-bot-512]: :func:`train_run` on ``config/botnet50.yaml`` at a
+    BOT512_IM^2 crop (train and eval), bf16, batch BOT512_BATCH, over
+    BOT512_STEPS steps: 3 attention calls a step on K4's route and 3
+    backward calls on the blockwise route beside K1's and K1-bwd's 53."""
+    return train_run(card, tmp / "train_bot_512", "train-bot-512", "BoTNet-50",
+                     "config/botnet50.yaml", BOT512_BATCH, BOT512_STEPS, BOT512_PROFILE,
+                     BOT_ATTENTION, bound_ms, im=BOT512_IM, route="blockwise")
 
 
 def train_f32_botnet_check() -> dict:
@@ -1080,16 +1124,18 @@ def phase_attention(card: str):
 # [attention-bwd]: (name, B, N, L, D, Dv, q/k/v/g dtype, bias dtype or "table",
 # timed): the shapes BoTNet-50 training gives the backward (4 heads of 128:
 # batch 32 at 224^2, the [train-bot] run; batch 128; batch 8 at 512^2, L
-# 1024, K4's route), an f32 bias under bf16 q/k/v, an f32 model at both L, and
+# 1024, K4's shape; batch 32 at 512^2, the [train-bot-512] run), an f32 bias
+# under bf16 q/k/v, an f32 model at both L, and
 # a small ragged shape in both dtypes (L, D, Dv not multiples of anything);
 # the table mode (K3/K5's backward, with demb) at K3's training shapes (B*N
 # 128 and 512, L 196), K5's (B*N 32, L 1024), in f32 and ragged. The route
 # follows from the dtype and L (ops/attention.backward_route): bf16 at L <= 256
-# the cluster kernel, bf16 above it the two-pass one, f32 the scalar one.
+# the cluster kernel, bf16 above it the blockwise kernels, f32 the scalar ones.
 ATTN_BWD_CASES = [
     ("K2 train", 32, 4, 196, 128, 128, "bfloat16", "bfloat16", True),
     ("K2 b128", 128, 4, 196, 128, 128, "bfloat16", "bfloat16", True),
     ("K4", 8, 4, 1024, 128, 128, "bfloat16", "bfloat16", True),
+    ("K4 b32", 32, 4, 1024, 128, 128, "bfloat16", "bfloat16", True),
     ("K2 f32-bias", 32, 4, 196, 128, 128, "bfloat16", "float32", False),
     ("K2 f32", 32, 4, 196, 128, 128, "float32", "float32", False),
     ("K4 f32", 8, 4, 1024, 128, 128, "float32", "float32", False),
@@ -1111,6 +1157,73 @@ ATTN_BWD_CASES = [
 # rounding boundary (2^-7); 2e-2 is the forward's bf16 bound. The table
 # mode's demb the same, against attention_table_backward_reference.
 ATTN_BWD_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# And the error's L2 norm relative to the reference's, by the same dtype,
+# which scales with the data where the limit above does not: at L 1024 a
+# typical dbias (ds) entry is ~1e-2 and max(1, max|grad|) is 1, so that limit
+# alone would pass a ds wrong everywhere but at its few largest entries. bf16:
+# rounding each gradient once (2^-9 relative) and p and ds rounded to bf16 as
+# `mma` operands; f32: summation order.
+ATTN_BWD_REL_L2 = {"float32": 1e-5, "bfloat16": 1e-2}
+
+
+def grad_errors(x, z) -> tuple[float, float, float]:
+    """(max|x - z|, the same over max(1, max|z|), ||x - z||_2 / ||z||_2)."""
+    xf, zf = x.float(), z.float()
+    err = (xf - zf).abs().max().item()
+    return (err, err / max(1.0, zf.abs().max().item()),
+            ((xf - zf).norm() / zf.norm().clamp_min(1e-30)).item())
+
+
+def grads_pass(readings: dict, dtypes: dict) -> bool:
+    """Whether every gradient's (_, max-relative, L2-relative) reading is
+    within ATTN_BWD_TOL and ATTN_BWD_REL_L2 for its dtype."""
+    return all(r[1] <= ATTN_BWD_TOL[dtypes[k]] and r[2] <= ATTN_BWD_REL_L2[dtypes[k]]
+               for k, r in readings.items())
+
+
+def planted_faults(names, got, want, table: bool) -> dict:
+    """Two faults planted in the kernel's gradients, each read against the
+    plain version as the kernel's own are: ds scaled by 1.1 (dq, dk and
+    dbias or demb are linear in ds, so each scales by 1.1) and, in bias
+    mode, dbias with its entries below the median |dbias| (estimated from
+    every 101st entry) zeroed. Per fault: the largest max-relative and
+    L2-relative reading over the gradients, and whether the max check alone
+    passes it; fails if both checks together pass it."""
+    dtypes = {k: str(z.dtype).removeprefix("torch.") for k, z in zip(names, want)}
+    faults = {"ds x1.1": [x if i == 2 else x * 1.1 for i, x in enumerate(got)]}
+    if not table:
+        mag = got[3].abs()
+        median = mag.flatten()[::101].float().median()
+        faults["dbias zeroed below its median"] = [*got[:3], got[3].masked_fill(mag < median, 0)]
+    out = {}
+    for fault, xs in faults.items():
+        readings = {k: grad_errors(x, z) for k, x, z in zip(names, xs, want)}
+        out[fault] = dict(max_rel=max(r[1] for r in readings.values()),
+                          max_rel_l2=max(r[2] for r in readings.values()),
+                          passes_max_check=all(r[1] <= ATTN_BWD_TOL[dtypes[k]]
+                                               for k, r in readings.items()))
+        if grads_pass(readings, dtypes):
+            fail(f"attention backward: the planted fault '{fault}' passes the checks ({out[fault]})")
+    return out
+
+
+def attention_bwd_inputs(gen, b, n, l, d, dv, dtype, bias_dtype):
+    """q, k, v, the [B, N, L, L] bias (or the [L, D] table) and g of one
+    backward call, as the head-split views MHSA and its backward give them:
+    q and k N(0, 0.09), v and g N(0, 1), the bias N(0, 0.25)."""
+    import torch
+
+    dt = getattr(torch, dtype)
+    table = bias_dtype == "table"
+
+    def heads_first(width, scale=1.0):
+        t = torch.randn(b, l, n * width, generator=gen, device="cuda") * scale
+        return t.to(dt).view(b, l, n, width).transpose(1, 2)
+
+    shape = (l, d) if table else (b, n, l, l)
+    last = (torch.randn(*shape, generator=gen, device="cuda") * 0.5).to(
+        dt if table else getattr(torch, bias_dtype))
+    return heads_first(d, 0.3), heads_first(d, 0.3), heads_first(dv), last, heads_first(dv)
 
 
 def attention_bwd_bound(bn, l, d, dv, dtype, bias_dtype, bw) -> tuple[float, str, float]:
@@ -1154,57 +1267,52 @@ def phase_attention_bwd(card: str) -> dict:
     for name, b, n, l, d, dv, dtype, bias_dtype, timed in ATTN_BWD_CASES:
         table = bias_dtype == "table"
         dt = getattr(torch, dtype)
-        bdt = dt if table else getattr(torch, bias_dtype)
         fn = att.fused_attention_abs_backward if table else att.fused_attention_backward
         plain = att.attention_table_backward_reference if table else att.attention_backward_reference
 
-        def inputs(_=0):  # q, k, v and g as the head-split views MHSA and its backward give
-            def heads_first(width, scale=1.0):
-                t = torch.randn(b, l, n * width, generator=gen, device="cuda") * scale
-                return t.to(dt).view(b, l, n, width).transpose(1, 2)
-
-            shape = (l, d) if table else (b, n, l, l)
-            last = (torch.randn(*shape, generator=gen, device="cuda") * 0.5).to(bdt)
-            return heads_first(d, 0.3), heads_first(d, 0.3), heads_first(dv), last, heads_first(dv)
+        def inputs(_=0):
+            return attention_bwd_inputs(gen, b, n, l, d, dv, dtype, bias_dtype)
 
         args = inputs()
         route = att.backward_route(dt, l)
-        before = (att.BWD_LAUNCHES, att.TABLE_BWD_LAUNCHES, dict(att.BWD_ROUTE_LAUNCHES))
+        before = (att.BWD_LAUNCHES, att.TABLE_BWD_LAUNCHES, dict(att.BWD_ROUTE_CALLS))
         got = fn(*args)
         again = fn(*args)
         want = plain(*args)
         torch.cuda.synchronize()
         calls = (att.BWD_LAUNCHES - before[0], att.TABLE_BWD_LAUNCHES - before[1])
-        launched = {k: v - before[2][k] for k, v in att.BWD_ROUTE_LAUNCHES.items()
-                    if v != before[2][k]}
-        per_call = 1 if route == "cluster" else 2
-        expect = {route: 2 * per_call, **({"demb": 4} if table else {})}
-        if calls != ((0, 2) if table else (2, 0)) or launched != expect:
-            fail(f"attention backward {name}: calls {calls}, launches {launched} for 2 calls; "
-                 f"want {expect}")
-        errs, rel = {}, {}
-        for gname, x, y, z in zip(("dq", "dk", "dv", "demb" if table else "dbias"), got, again,
-                                  want):
+        routes = {k: v - before[2][k] for k, v in att.BWD_ROUTE_CALLS.items() if v != before[2][k]}
+        if calls != ((0, 2) if table else (2, 0)) or routes != {route: 2}:
+            fail(f"attention backward {name}: calls {calls}, by route {routes} for 2 calls; "
+                 f"want 2 on the {route} route")
+        names = ("dq", "dk", "dv", "demb" if table else "dbias")
+        readings, dtypes = {}, {}
+        for gname, x, y, z in zip(names, got, again, want):
             if x.dtype != z.dtype or x.shape != z.shape or not x.is_contiguous():
                 fail(f"attention backward {name}: {gname} {x.dtype} {tuple(x.shape)}")
             if not torch.equal(x, y):
                 fail(f"attention backward {name}: two calls differ in {gname}")
-            scale = max(1.0, z.float().abs().max().item())
-            errs[gname] = (x.float() - z.float()).abs().max().item()
-            rel[gname] = errs[gname] / scale
-            tol = ATTN_BWD_TOL[str(z.dtype).removeprefix("torch.")]
-            if not rel[gname] <= tol:
-                fail(f"attention backward {name} != plain in {gname}: max|d| {errs[gname]:.3e} "
-                     f"> {tol} x {scale:.3e}")
+            readings[gname] = grad_errors(x, z)
+            dtypes[gname] = str(z.dtype).removeprefix("torch.")
+        errs = {k: r[0] for k, r in readings.items()}
+        rel = {k: r[1] for k, r in readings.items()}
+        rel_l2 = {k: r[2] for k, r in readings.items()}
+        if not grads_pass(readings, dtypes):
+            fail(f"attention backward {name} != plain: max|d|/max(1, max|grad|) {rel}, "
+                 f"||d||/||grad|| {rel_l2}; limits {ATTN_BWD_TOL}, {ATTN_BWD_REL_L2} by dtype "
+                 f"{dtypes}")
+        faults = planted_faults(names, got, want, table)
+        launches = {route: att.ROUTE_LAUNCHES[route], **({"demb": 2} if table else {})}
         bound_ms, bound_by, nbytes = attention_bwd_bound(b * n, l, d, dv, dtype, bias_dtype, bw)
         row = dict(b=b, n=n, l=l, d=d, dv=dv, dtype=dtype, bias_dtype=bias_dtype, route=route,
-                   launches_per_call={k: v // 2 for k, v in launched.items()},
-                   max_abs_err=max(errs.values()), errors=errs, rel_errors=rel,
+                   launches_per_call=launches, max_abs_err=max(errs.values()), errors=errs,
+                   rel_errors=rel, rel_l2_errors=rel_l2, planted_faults=faults,
                    bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes)
         del got, again, want
         msg = ""
         if timed:
             row.update(rotated_timings(fn, lambda i: args if i == 0 else inputs(), nbytes))
+            row["kernels_us"] = kernel_split(lambda: fn(*args))
             row["plain_ms"] = cuda_ms(lambda: plain(*args), runs=10, batch=2)
             q, k, v, last, g = args
             if table:
@@ -1219,7 +1327,9 @@ def phase_attention_bwd(card: str) -> dict:
             del out, leaves, mask
             msg = (f"; device {row['device_ms']:.4f} ms ({100 * bound_ms / row['device_ms']:.0f}% "
                    f"of bound {bound_ms:.4f} by {bound_by}, {nbytes / 1e6:.1f} MB), back to back "
-                   f"{row['back_to_back_ms']:.4f}, single call {row['single_call_ms']:.4f}; plain "
+                   f"{row['back_to_back_ms']:.4f}, single call {row['single_call_ms']:.4f}; by "
+                   f"kernel (us a call) " + ", ".join(
+                       f"{k} {v:.1f}" for k, v in row["kernels_us"].items()) + "; plain "
                    f"{row['plain_ms']:.4f}, " + ("einsum + SDPA backward" if table else
                                                  "SDPA backward") + f" {row['library_ms']:.4f}")
         rows[name] = row
@@ -1227,10 +1337,37 @@ def phase_attention_bwd(card: str) -> dict:
             + ("[L, D] table" if table else f"{bias_dtype} bias")
             + f", {route} route ({row['launches_per_call']} launches a call): "
             f"max|d|/max(1, max|grad|) " + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
-            + f" (limits {ATTN_BWD_TOL}), two calls bitwise equal" + msg)
+            + f" (limits {ATTN_BWD_TOL}), ||d||/||grad|| "
+            + ", ".join(f"{k} {v:.2e}" for k, v in rel_l2.items())
+            + f" (limits {ATTN_BWD_REL_L2}); planted faults rejected: " + ", ".join(
+                f"{f} (max {r['max_rel']:.2e}, L2 {r['max_rel_l2']:.2e}; "
+                f"{'passes' if r['passes_max_check'] else 'fails'} the max check alone)"
+                for f, r in faults.items())
+            + "; two calls bitwise equal" + msg)
         del args
     torch.cuda.empty_cache()
     return rows
+
+
+def kernel_split(call, calls: int = 10) -> dict:
+    """Device µs a call of each CUDA kernel that ``call`` launches, from
+    ``torch.profiler`` over ``calls`` calls back to back (names shortened
+    to the kernel's own)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_time_total > 0:
+            name = re.sub(r"^void |\(anonymous namespace\)::|<.*$|\(.*$", "", e.key)
+            out[name] = out.get(name, 0.0) + e.device_time_total / calls
+    return out
 
 
 def synthetic_state_dict(arch: str = "resnet50", seed: int = 0, im: int = IM):
@@ -1701,17 +1838,16 @@ def mhsa_table_train(ref, x, n_cpu: int, kname: str, side: int) -> dict:
     cpu = step("cpu", torch.float32, n_cpu)
     # --- this path: counts zeroed just before, read just after -------------
     att.TABLE_LAUNCHES = att.TABLE_BWD_LAUNCHES = 0
-    att.BWD_ROUTE_LAUNCHES.update(dict.fromkeys(att.BWD_ROUTE_LAUNCHES, 0))
+    att.BWD_ROUTE_CALLS.update(dict.fromkeys(att.BWD_ROUTE_CALLS, 0))
     f32 = step("cuda", torch.float32, n_cpu)
     bf16 = step("cuda", torch.bfloat16, x.shape[0])
     torch.cuda.synchronize()
     launches = dict(forward=att.TABLE_LAUNCHES, backward=att.TABLE_BWD_LAUNCHES,
-                    routes={k: v for k, v in att.BWD_ROUTE_LAUNCHES.items() if v})
+                    routes={k: v for k, v in att.BWD_ROUTE_CALLS.items() if v})
     # -------------------------------------------------------------------------
     l = side * side
     route = att.backward_route(torch.bfloat16, l)
-    want = dict(forward=2, backward=2, routes={"scalar": 2, "demb": 4})
-    want["routes"][route] = want["routes"].get(route, 0) + (1 if route == "cluster" else 2)
+    want = dict(forward=2, backward=2, routes={"scalar": 1, route: 1})
     errs = {k: float((f32[k].cpu() - g).abs().max() / g.abs().max()) for k, g in cpu.items()}
     bf16_ok = all(torch.isfinite(bf16[k]).all() and float(bf16[k].abs().max()) > 0
                   for k in ("pos_emb.height", "pos_emb.width", "to_qk.weight"))
@@ -1725,7 +1861,7 @@ def mhsa_table_train(ref, x, n_cpu: int, kname: str, side: int) -> dict:
     if launches != want:
         fail(f"MHSA table-mode training at fmap {side}: launches {launches}, want {want}")
     return dict(train_grad_rel_err=errs, bwd_launches=launches["backward"],
-                bwd_route_launches=launches["routes"], bwd_route=route)
+                bwd_route_calls=launches["routes"], bwd_route=route)
 
 
 # ---------------------------------------------------------------------------
@@ -2412,6 +2548,22 @@ def main() -> None:
         "attention_bwd": BOT_ATTENTION * attn_bwd["K2 train"]["bound_ms"]}
     with tempfile.TemporaryDirectory() as tmp:
         train_bot = phase_train_bot(card, Path(tmp), bot_bound_ms)
+    l512 = (BOT512_IM // 16) ** 2
+    bot512_bound_ms = dict(
+        bot_bound_ms,
+        attention=BOT_ATTENTION * attention_bound(BOT512_BATCH * 4, l512, 128, 128, "bfloat16",
+                                                  "bias", bw)[0],
+        attention_bwd=BOT_ATTENTION * attention_bwd_bound(BOT512_BATCH * 4, l512, 128, 128,
+                                                          "bfloat16", "bfloat16", bw)[0])
+    bot512_sites = epilogue_sites("botnet50", BOT512_BATCH, im=BOT512_IM, bn_dtype=torch.bfloat16)
+    if sum(bot512_sites.values()) != TRAIN_K1:
+        fail(f"botnet50 at {BOT512_IM}^2: {sum(bot512_sites.values())} K1 sites, want {TRAIN_K1}")
+    bot512_bound_ms["k1"] = sum(k1_bound((*site[:6], "a"), bw, (2, 2, 2, 2))[0] * m
+                                for site, m in bot512_sites.items())
+    bot512_bound_ms["k1_bwd"] = sum(k1_bwd_bound(site, bw)[0] * m
+                                    for site, m in bot512_sites.items())
+    with tempfile.TemporaryDirectory() as tmp:
+        train_bot_512 = phase_train_bot_512(card, Path(tmp), bot512_bound_ms)
 
     # K1 per batch-128 forward of each served model: its sites' rows summed
     per_fwd, modes = {}, {}
@@ -2437,7 +2589,8 @@ def main() -> None:
          "train_sites": [[*site, m] for site, m in sorted(train_sites.items())],
          "train_bound_ms": train_bound_ms, "train": train, "train_bot": train_bot,
          "train_bot_bound_ms": bot_bound_ms,
-         "train_bot_sites": [[*site, m] for site, m in sorted(bot_sites.items())]}, indent=1))
+         "train_bot_sites": [[*site, m] for site, m in sorted(bot_sites.items())],
+         "train_bot_512": train_bot_512, "train_bot_512_bound_ms": bot512_bound_ms}, indent=1))
     (out / "chip_smoke_moe.json").write_text(json.dumps(
         {"card": smi, "build": builds["moe"], "kernels": moe, "dist": moe_dist}, indent=1))
     for arch, f in per_fwd.items():
@@ -2592,12 +2745,13 @@ def main() -> None:
                f"library_ms (the backward of F.scaled_dot_product_attention with the bias needing "
                f"a gradient): back to back; launches: calls in the {BOT_STEPS} steps of "
                f"[train-bot], every one on the cluster route; it stands in for the XLA recompute "
-               f"of the custom_vjp of K2 (:241) and K4 (:400); max_abs_err: over every bias-mode "
-               f"case of [attention-bwd]",
+               f"of the custom_vjp of K2 (:241); max_abs_err: over every bias-mode case of "
+               f"[attention-bwd]",
         "max_rel_err": max(max(row["rel_errors"].values()) for row in attn_bwd.values()
                            if row["bias_dtype"] != "table"),
         "kernel_route": f"{r['route']} (bf16, L <= 256: one launch, a thread-block cluster a head); "
-                        f"two_pass at L > 256 (K4: {attn_bwd['K4']['route']}); scalar in f32",
+                        f"blockwise at L > 256 (K4: {attn_bwd['K4']['route']}, the next entry); "
+                        f"scalar in f32",
         "back_to_back_ms": r["back_to_back_ms"],
         "single_call_ms": r["single_call_ms"],
         "shapes": {name: {k: row[k] for k in ("route", "device_ms", "back_to_back_ms",
@@ -2606,8 +2760,44 @@ def main() -> None:
                    for name, row in attn_bwd.items()
                    if "device_ms" in row and row["bias_dtype"] != "table"},
     })
-    r = attn_bwd["K3 train"]
+    r = attn_bwd["K4 b32"]
+    bw_rows = {name: row for name, row in attn_bwd.items() if row["route"] == "blockwise"}
     kernels.insert(kernels.index(k2) + 2, {
+        "name": "K4/K5 backward, blockwise route (fused_attention_backward at L > 256)",
+        "route": "cuda",
+        "source": "distribuuuu_tpu_torch/ops/csrc/attention.cu",
+        "replaces": "distribuuuu_tpu/ops/attention.py:400",
+        "launches": train_bot_512["launches"]["attention_bwd"],
+        "max_abs_err": max(row["max_abs_err"] for row in bw_rows.values()
+                           if row["bias_dtype"] != "table"),
+        "ms": r["device_ms"],
+        "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"],
+        "library_ms": r["library_ms"],
+        "per": f"one call at B*N {r['b'] * r['n']}, L {r['l']}, D {r['d']}, Dv {r['dv']}, bf16 "
+               f"q/k/v/g and bias (BoTNet-50 training at {BOT512_IM}x{BOT512_IM}, batch "
+               f"{BOT512_BATCH}), on the {r['route']} route ({r['launches_per_call']} CUDA "
+               f"launches a call: attention_bwd_stats_kernel, attention_bwd_kv_kernel, "
+               f"attention_bwd_dq_kernel); ms: device time, calls replayed from a CUDA graph over "
+               f"input sets of at least {K1_ROTATE_BYTES >> 20} MiB a replay; plain_ms "
+               f"(attention_backward_reference) and library_ms (the backward of "
+               f"F.scaled_dot_product_attention with the bias needing a gradient): back to back; "
+               f"launches: calls in the {BOT512_STEPS} steps of [train-bot-512], every one on the "
+               f"blockwise route; it stands in for the XLA recompute of the custom_vjp of K4 "
+               f"(:400, which is :241) and, in table mode, of K5 (:418, which is :514); "
+               f"max_abs_err: over the bias-mode cases on the blockwise route",
+        "max_rel_err": max(max(row["rel_errors"].values()) for row in bw_rows.values()),
+        "kernels_us": r["kernels_us"],
+        "back_to_back_ms": r["back_to_back_ms"],
+        "single_call_ms": r["single_call_ms"],
+        "shapes": {name: {k: row[k] for k in ("route", "device_ms", "back_to_back_ms",
+                                             "single_call_ms", "plain_ms", "library_ms",
+                                             "bound_ms", "bound_by", "kernels_us")}
+                   for name, row in bw_rows.items() if "device_ms" in row},
+    })
+    r = attn_bwd["K3 train"]
+    kernels.insert(kernels.index(k2) + 3, {
         "name": "K3/K5 backward fused_attention_abs_backward",
         "route": "cuda",
         "source": "distribuuuu_tpu_torch/ops/csrc/attention.cu",
@@ -2634,7 +2824,8 @@ def main() -> None:
         "max_rel_err": max(max(row["rel_errors"].values()) for row in attn_bwd.values()
                            if row["bias_dtype"] == "table"),
         "kernel_route": f"{r['route']} + demb at L <= 256; {attn_bwd['K5']['route']} + demb at "
-                        f"L 1024 (K5); scalar + demb in f32",
+                        f"L 1024 (K5: the previous entry's kernels in table mode); scalar + demb "
+                        f"in f32",
         "back_to_back_ms": r["back_to_back_ms"],
         "single_call_ms": r["single_call_ms"],
         "shapes": {name: {k: row[k] for k in ("route", "device_ms", "back_to_back_ms",

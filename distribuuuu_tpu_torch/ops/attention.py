@@ -25,8 +25,9 @@ or :func:`fused_attention_abs_backward`. On a CUDA tensor these launch the
 backward kernels of ``csrc/attention.cu`` by one of three routes, chosen
 by the dtype and L alone (:func:`backward_route`): bf16 at L <= 256 the
 one-pass cluster kernel (one launch: a thread-block cluster a head), bf16
-above it the two-pass tensor-core kernels (a query-row pass, then a
-key-column pass), f32 the two-pass scalar kernels; the table mode then
+above it the blockwise tensor-core kernels (three launches: the rows'
+softmax statistics, a key-column pass for dk, dv and dbias that writes ds,
+then dq from that ds), f32 the two-pass scalar kernels; the table mode then
 sums ``demb`` over heads in two more launches. On a CPU tensor they compute
 :func:`attention_backward_reference` / :func:`attention_table_backward_reference`.
 Otherwise (serving) no Function node is made and nothing is saved.
@@ -47,10 +48,12 @@ TABLE_LAUNCHES = 0
 # calls of the backward kernels, per entry point (bias tensor; table)
 BWD_LAUNCHES = 0
 TABLE_BWD_LAUNCHES = 0
-# CUDA launches of the backward, per route (one a call on the cluster route,
-# two on the others) and of the table mode's demb reduction (two a call)
-BWD_ROUTE_LAUNCHES = {"cluster": 0, "two_pass": 0, "scalar": 0, "demb": 0}
-_ROUTE_CODE = {"scalar": 0, "two_pass": 1, "cluster": 2}
+# calls of the backward kernels per route (both entry points); a call launches
+# ROUTE_LAUNCHES[route] CUDA kernels, and in table mode the two of the demb
+# reduction besides
+BWD_ROUTE_CALLS = {"cluster": 0, "blockwise": 0, "scalar": 0}
+ROUTE_LAUNCHES = {"cluster": 1, "blockwise": 3, "scalar": 2}
+_ROUTE_CODE = {"scalar": 0, "blockwise": 1, "cluster": 2}
 _count_lock = threading.Lock()
 
 _DT_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -147,11 +150,11 @@ def attention_table_backward_reference(q, k, v, emb, g):
 
 def backward_route(dtype, l: int) -> str:
     """The backward's route on the card, by the dtype and L alone: bf16 at
-    L <= CLUSTER_MAX_L ``"cluster"``, bf16 above it ``"two_pass"``, f32
+    L <= CLUSTER_MAX_L ``"cluster"``, bf16 above it ``"blockwise"``, f32
     ``"scalar"``."""
     if dtype == torch.float32:
         return "scalar"
-    return "cluster" if l <= CLUSTER_MAX_L else "two_pass"
+    return "cluster" if l <= CLUSTER_MAX_L else "blockwise"
 
 
 def _check(q, k, v, last, *, table: bool) -> None:
@@ -342,13 +345,20 @@ def _launch_backward(q, k, v, last, g, *, table: bool):
     if route == "cluster":
         _check_cluster_occupancy(lib, bias_code, l, q.device)
     # f32 scratch, held until the launch is enqueued; none where the route takes none:
-    # per query row the softmax max, its sum and delta = sum_y dp * p (two-pass routes),
-    # each head's f32 dk and the demb reduction's first pass (table mode)
+    # per query row the softmax max, its sum and delta = sum_y dp * p (blockwise and
+    # scalar routes), each head's f32 dk and the demb reduction's first pass (table mode)
     shapes = (None if route == "cluster" else (3, b * n, l),
               (b * n, l, d) if table else None,
               (-(-b * n // _DEMB_CHUNK), l, d) if table else None)
     scratch = [None if sh is None else torch.empty(sh, dtype=torch.float32, device=q.device)
                for sh in shapes]
+    # the blockwise route's bf16 ds, which its dq pass reads: dbias itself for a
+    # bf16 bias, a scratch otherwise
+    ds = None
+    if route == "blockwise":
+        ds = (dlast if not table and last.dtype == torch.bfloat16 else
+              torch.empty((b * n, l, l), dtype=torch.bfloat16, device=q.device))
+    scratch.insert(1, ds)
     if table:
         bias_args = (None, 0, 0, 0, _TABLE, last.data_ptr(), last.stride(0))
     else:
@@ -372,10 +382,9 @@ def _launch_backward(q, k, v, last, g, *, table: bool):
     with _count_lock:
         if table:
             TABLE_BWD_LAUNCHES += 1
-            BWD_ROUTE_LAUNCHES["demb"] += 2
         else:
             BWD_LAUNCHES += 1
-        BWD_ROUTE_LAUNCHES[route] += 1 if route == "cluster" else 2
+        BWD_ROUTE_CALLS[route] += 1
     return dq, dk, dvv, dlast
 
 
@@ -406,7 +415,7 @@ def _library() -> ctypes.CDLL:
              strided * 3 + [p, ll, ll, ll, i, p, ll, p, i, i, i, i, i, i, p]),
             (lib.dtpu_attention_backward_launch,
              strided * 3 + [p, ll, ll, ll, i, p, ll] + strided
-             + [p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]),
+             + [p] * 8 + [i, i, i, i, i, i, i, p]),
             (lib.dtpu_attention_backward_cluster_occupancy, [i, i, ctypes.POINTER(i)])):
         if fn.argtypes is None:  # without them ctypes passes pointers as 32-bit ints
             fn.argtypes = args

@@ -936,32 +936,29 @@ cudaError_t dispatch_mma(Params p, int bias_dt, int bn, cudaStream_t s) {
 // No float atomics: every gradient is summed in one fixed order, so a call
 // repeats bitwise. Three routes, chosen by the dtype and L alone (the wrapper
 // names the route and the entry point refuses any other):
-//   cluster  (bf16, L <= 256): one launch, one thread-block cluster a head;
-//            below, after the two-pass route.
-//   two-pass (bf16, L > 256): two launches on the tensor cores:
+//   cluster   (bf16, L <= 256): one launch, one thread-block cluster a head;
+//             below.
+//   blockwise (bf16, L > 256): three launches on the tensor cores (a
+//             statistics pass over the query rows, a key-column pass that
+//             forms every (query tile, key tile) pair once for dk, dv and
+//             dbias, and a dq pass over the ds it wrote); below, after the
+//             cluster route.
+//   scalar    (f32: an f32 model, the card-against-CPU checks): two passes
+//             on scalar FMAs, a warp a row:
 //     rows:    per query row, sweep the keys once for the softmax's max m, its
 //              sum l and u = sum_y dp * exp(s - m) (online, rescaled as the max
 //              moves), so delta = u / l; write (m, l, delta) to the f32 stats;
 //              sweep again for p and ds, write the dbias row and accumulate dq.
 //     columns: per key row, walk the query rows, recompute s, p = exp(s - m_x) /
 //              l_x and ds from the stats, and accumulate dk and dv.
-//   scalar   (f32: an f32 model, the card-against-CPU checks): the same two
-//            passes on scalar FMAs, a warp a row: a lane owns the head
-//            dimensions d = lane + 32 i (i < 4, so D, Dv <= 128); a dot product
-//            is four FMAs a lane then a xor butterfly over the warp, which
-//            leaves the same bits in every lane, and both passes form s and dp
-//            with the same lanes, order and butterfly, so the p and ds of the
-//            columns pass are bitwise those of the rows pass.
+//            A lane owns the head dimensions d = lane + 32 i (i < 4, so D, Dv
+//            <= 128); a dot product is four FMAs a lane then a xor butterfly
+//            over the warp, which leaves the same bits in every lane, and both
+//            passes form s and dp with the same lanes, order and butterfly, so
+//            the p and ds of the columns pass are bitwise those of the rows
+//            pass. It is bound by its scalar operations.
 // The rows of q, k, v, g, the bias and the table take any strides with a
 // contiguous last axis; dq, dk, dv, dbias and demb are contiguous.
-//
-// What bounds the two-pass route (H100 SXM, 3.35 TB/s, 989 TFLOP/s bf16): at
-// K4's shape (B*N 32, L 1024, D = Dv = 128) the call must move 193 MB (58 us;
-// the bias and dbias are 134 MB of it) and do 43 GFLOP of products (43 us):
-// bytes. This design reads K, V and
-// the bias twice in the rows pass and Q, G once a key tile in the columns pass
-// (from the L2 mostly), and forms S and dP in both passes; it is the simple
-// one. The scalar route is bound by its scalar operations.
 
 struct BwdParams {
   const void* q;
@@ -981,7 +978,9 @@ struct BwdParams {
   void* dv;     // contiguous [B, N, L, Dv]
   void* dbias;  // contiguous [B, N, L, L] (bias mode)
   float* demb_part;  // contiguous [B*N, L, D]: each head's f32 dk (table mode)
-  float* stats;  // [3][B*N][L]: m, l, delta of each query row (two-pass and scalar routes)
+  float* stats;  // [3][B*N][L]: m, l, delta of each query row (blockwise and scalar routes)
+  void* ds;      // [B*N, L, L] bf16: ds as the blockwise route's dq pass reads it (dbias
+                 // itself for a bf16 bias, else a scratch)
   long long rows;  // B * N * L
   int heads, L, D, Dv;
 };
@@ -1123,84 +1122,27 @@ __global__ void __launch_bounds__(BWD_WARPS * 32) attention_bwd_cols_kernel(cons
 }
 
 // ---------------------------------------------------------------------------
-// bf16 q/k/v/g at L > 256: the same two passes on the tensor cores
+// bf16 helpers of the cluster and blockwise routes
 // ---------------------------------------------------------------------------
-//
-// rows:    a block per (batch*head, 64-query tile), 4 warps of 16 query rows, as
-//          the forward. Q and G go to registers as A fragments once; the key
-//          tiles (K, V, the bias tile or the emb tile) are staged in shared
-//          memory by cp.async, zero-filled past L and past D or Dv up to 128
-//          values, and swept twice: S = Q.K^T and dP = G.V^T on
-//          mma.sync.m16n8k16 (bf16 -> f32, exact products) into the same
-//          accumulator layout, the bias added in f32 (table mode: Q.E^T into
-//          the same accumulator, as the forward forms it); the first sweep
-//          keeps the row max m, the sum l and u = sum dp * exp(s - m)
-//          (thread-partial, rescaled as m grows, reduced over the quad at the
-//          end); the second forms p = exp(s - m) / l and ds = p (dp - delta) in
-//          f32 registers, writes dbias, and adds ds.K (and ds.E) into dq with
-//          ds rounded to bf16 as the A fragment (the accumulator layout of two
-//          8-key blocks is the A layout of one 16-key step) and K read by
-//          ldmatrix.trans.
-// columns: a block per (batch*head, 64-key tile), 4 warps of 16 keys. K and V
-//          (and the emb tile) stay in shared memory; each query tile stages Q,
-//          G, the bias tile and the rows' (m, l, delta). S^T = K.Q^T (+ E.Q^T)
-//          and dP^T = V.G^T (A fragments of K, E and V by ldmatrix, one k-step
-//          at a time), p and ds as above (a query past L has m = +inf, so p =
-//          ds = 0), dv += p^T.G and dk += ds^T.Q with p and ds rounded to bf16
-//          as A fragments; in table mode dk also goes to the f32 partial.
-// p and ds are f32 in JAX; as A fragments they are rounded to bf16 (2^-9
-// relative), the price of the tensor cores; dbias and the softmax statistics
-// stay f32 until their final rounding. No float atomics: every sum is in one
-// thread or one warp, in a fixed order.
-
-template <typename BT, bool TABLE>
-struct BwdSmem {
-  static constexpr int KV = BK * ROW_BYTES;                        // one 64-row bf16 tile
-  static constexpr int X = TABLE ? KV : BQ * BiasRow<BT>::BYTES;   // the bias or emb tile
-  static constexpr int ROWS = 2 * KV + X;                          // rows pass: K, V, bias/emb
-  static constexpr int COLS = 4 * KV + X + 3 * BQ * 4;  // columns pass: K, V, Q, G, bias/emb, stats
-};
-
-// c += A.B^T over D (zero-padded to 128) for this warp's 16 rows, with the A
-// fragments read from the 64-row tile at `a` (rows a_row0 + 0..15) one k-step
-// at a time, and B the 64-row tile at `b`; blocks of 8 B rows from nsb on are
-// skipped (hold no valid row) unless FULL, whose loops have fixed trip counts
-// (a bound checked between an ldmatrix and its mma stalls the mma).
-template <bool FULL>
-__device__ __forceinline__ void qk_pass_smem(float (&s)[8][4], uint32_t a, int a_row0, uint32_t b,
-                                             int nsb, int lane) {
-  const int mi = lane >> 3;
-  const int arow = a_row0 + (lane & 15);
-#pragma unroll
-  for (int kk = 0; kk < 8; ++kk) {
-    uint32_t af[4];
-    ldsm_x4(af, a + arow * ROW_BYTES + swz(arow, (2 * kk + (lane >> 4)) * 16));
-#pragma unroll
-    for (int jp = 0; jp < 4; ++jp) {
-      if (!FULL && 2 * jp >= nsb) break;
-      const int row = (2 * jp + (mi >> 1)) * 8 + (lane & 7);
-      uint32_t bf[4];
-      ldsm_x4(bf, b + row * ROW_BYTES + swz(row, (2 * kk + (mi & 1)) * 16));
-      mma_bf16(s[2 * jp], af, bf[0], bf[1]);
-      mma_bf16(s[2 * jp + 1], af, bf[2], bf[3]);
-    }
-  }
-}
-
-// The A fragments of a 16 x 64 f32 tile in the accumulator layout, as bf16.
-__device__ __forceinline__ void pack_a(uint32_t (&pa)[4][4], const float (&x)[8][4]) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    pa[j >> 1][2 * (j & 1)] = pack_bf16(x[j][0], x[j][1]);
-    pa[j >> 1][2 * (j & 1) + 1] = pack_bf16(x[j][2], x[j][3]);
-  }
-}
 
 __device__ __forceinline__ void store_pair(float* dst, float a, float b) {
   *reinterpret_cast<float2*>(dst) = make_float2(a, b);
 }
 __device__ __forceinline__ void store_pair(__nv_bfloat16* dst, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
+}
+
+// a and b to dst[0] and dst[1] where ok0 and ok1 (ok1 implies ok0), one
+// store where the pair is aligned
+template <typename T>
+__device__ __forceinline__ void store_row_pair(T* dst, float a, float b, bool ok0, bool ok1,
+                                               bool aligned) {
+  if (aligned && ok1) {
+    store_pair(dst, a, b);
+  } else {
+    if (ok0) dst[0] = from_f32<T>(a);
+    if (ok1) dst[1] = from_f32<T>(b);
+  }
 }
 
 // Rows g and g + 8 of a 16 x (8 NJ) accumulator tile (columns col0 + 8 j +
@@ -1217,345 +1159,15 @@ __device__ __forceinline__ void store_tile(T* out, const float (&acc)[NJ][4], lo
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int c = col0 + 8 * j + 2 * t4;
-      if (c + 1 < n && (n & 1) == 0) {
-        store_pair(dst + c, acc[j][2 * h], acc[j][2 * h + 1]);
-      } else {
-        if (c < n) dst[c] = from_f32<T>(acc[j][2 * h]);
-        if (c + 1 < n) dst[c + 1] = from_f32<T>(acc[j][2 * h + 1]);
-      }
+      store_row_pair(dst + c, acc[j][2 * h], acc[j][2 * h + 1], c < n, c + 1 < n, (n & 1) == 0);
     }
   }
-}
-
-__device__ __forceinline__ void commit_and_wait() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 struct BwdWidths {
   int wq, wk, wv, wg, wx;  // copy widths (bytes) of q, k, v, g and the bias or emb rows
+  int wds;                 // of the rows of ds (blockwise route)
 };
-
-template <typename BT, bool TABLE>
-__global__ void __launch_bounds__(MMA_THREADS, 2)
-    attention_bwd_rows_mma_kernel(const BwdParams p, const BwdWidths w) {
-  using Smem = BwdSmem<BT, TABLE>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  unsigned char* ks = smem;
-  unsigned char* vs = smem + Smem::KV;
-  unsigned char* xs = smem + 2 * Smem::KV;
-
-  const int nq = (p.L + BQ - 1) / BQ;
-  const int bh = blockIdx.x / nq, qt = blockIdx.x - bh * nq;
-  const int b = bh / p.heads, n = bh - b * p.heads;
-  const int q0 = qt * BQ, qn = min(BQ, p.L - q0);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const bool active = warp * 16 < qn;
-  const int nt = (p.L + BK - 1) / BK;
-  const unsigned char* q = static_cast<const unsigned char*>(p.q) +
-                           2 * (b * p.q_sb + n * p.q_sn + (long long)q0 * p.q_sl);
-  const unsigned char* gg = static_cast<const unsigned char*>(p.g) +
-                            2 * (b * p.g_sb + n * p.g_sn + (long long)q0 * p.g_sl);
-  const unsigned char* k = static_cast<const unsigned char*>(p.k) + 2 * (b * p.k_sb + n * p.k_sn);
-  const unsigned char* v = static_cast<const unsigned char*>(p.v) + 2 * (b * p.v_sb + n * p.v_sn);
-  // the bias rows of this query tile, or the table; their row stride in bytes
-  const unsigned char* x =
-      TABLE ? static_cast<const unsigned char*>(p.emb)
-            : static_cast<const unsigned char*>(p.bias) +
-                  sizeof(BT) * (b * p.b_sb + n * p.b_sn + (long long)q0 * p.b_sl);
-  const long long xs_g = TABLE ? 2 * p.e_sl : sizeof(BT) * p.b_sl;
-
-  stage_rows<true>(ks, q, 2 * p.q_sl, BQ, qn, 2 * p.D, ROW_BYTES, ROW_BYTES, w.wq, tid);
-  stage_rows<true>(vs, gg, 2 * p.g_sl, BQ, qn, 2 * p.Dv, ROW_BYTES, ROW_BYTES, w.wg, tid);
-  commit_and_wait();
-  __syncthreads();
-  uint32_t qf[8][4], gf[8][4];
-  if (active) {
-    const int row = warp * 16 + (lane & 15);
-#pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
-      const int byte = swz(row, (2 * kk + (lane >> 4)) * 16);
-      ldsm_x4(qf[kk], smem_u32(ks) + row * ROW_BYTES + byte);
-      ldsm_x4(gf[kk], smem_u32(vs) + row * ROW_BYTES + byte);
-    }
-  }
-
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f, u0 = 0.f, u1 = 0.f;
-  float d0 = 0.f, d1 = 0.f;  // delta of rows g and g + 8 (after the first sweep)
-  float acc[16][4];
-#pragma unroll
-  for (int j = 0; j < 16; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-  const long long r0 = (long long)bh * p.L + q0 + warp * 16 + g;  // global rows g, g + 8
-  const int rows_left = qn - warp * 16;
-
-  for (int t = 0; t < 2 * nt; ++t) {
-    const int tile = t < nt ? t : t - nt;
-    const int k0 = tile * BK, kn = min(BK, p.L - k0);
-    __syncthreads();  // every warp is done with the previous tile (and with Q, G)
-    stage_rows<true>(ks, k + 2 * k0 * p.k_sl, 2 * p.k_sl, BK, kn, 2 * p.D, ROW_BYTES, ROW_BYTES,
-                     w.wk, tid);
-    stage_rows<true>(vs, v + 2 * k0 * p.v_sl, 2 * p.v_sl, BK, kn, 2 * p.Dv, ROW_BYTES, ROW_BYTES,
-                     w.wv, tid);
-    if (TABLE)
-      stage_rows<true>(xs, x + k0 * xs_g, xs_g, BK, kn, 2 * p.D, ROW_BYTES, ROW_BYTES, w.wx, tid);
-    else
-      stage_rows<false>(xs, x + sizeof(BT) * k0, xs_g, BQ, qn, (int)sizeof(BT) * kn,
-                        (int)sizeof(BT) * BK, BiasRow<BT>::BYTES, w.wx, tid);
-    commit_and_wait();
-    __syncthreads();
-    if (!active) continue;
-    const int nsb = (kn + 7) >> 3;
-    float s[8][4], dp[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-    if (kn == BK) {
-      qk_pass<true>(s, qf, smem_u32(ks), nsb, lane);
-      if (TABLE) qk_pass<true>(s, qf, smem_u32(xs), nsb, lane);
-      qk_pass<true>(dp, gf, smem_u32(vs), nsb, lane);
-    } else {
-      qk_pass<false>(s, qf, smem_u32(ks), nsb, lane);
-      if (TABLE) qk_pass<false>(s, qf, smem_u32(xs), nsb, lane);
-      qk_pass<false>(dp, gf, smem_u32(vs), nsb, lane);
-    }
-    if (!TABLE) {
-      const unsigned char* x0 = xs + (warp * 16 + g) * BiasRow<BT>::BYTES;
-      const unsigned char* x1 = x0 + 8 * BiasRow<BT>::BYTES;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float2 b0 = bias_pair(x0, 8 * j + 2 * t4, BT());
-        const float2 b1 = bias_pair(x1, 8 * j + 2 * t4, BT());
-        s[j][0] += b0.x;
-        s[j][1] += b0.y;
-        s[j][2] += b1.x;
-        s[j][3] += b1.y;
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        if (8 * j + 2 * t4 + (e & 1) >= kn) s[j][e] = -INFINITY;  // keys past L
-
-    if (t < nt) {  // sweep 1: m, l, u
-      float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
-        mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
-      }
-#pragma unroll
-      for (int o = 1; o <= 2; o <<= 1) {
-        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o));
-        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o));
-      }
-      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-      const float a0 = expf(m0 - mn0), a1 = expf(m1 - mn1);  // first tile: exp(-inf) = 0
-      float ls0 = 0.f, ls1 = 0.f, us0 = 0.f, us1 = 0.f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float e0 = expf(s[j][0] - mn0), e1 = expf(s[j][1] - mn0);
-        const float e2 = expf(s[j][2] - mn1), e3 = expf(s[j][3] - mn1);
-        ls0 += e0 + e1;
-        ls1 += e2 + e3;
-        us0 += e0 * dp[j][0] + e1 * dp[j][1];
-        us1 += e2 * dp[j][2] + e3 * dp[j][3];
-      }
-      l0 = l0 * a0 + ls0;
-      l1 = l1 * a1 + ls1;
-      u0 = u0 * a0 + us0;
-      u1 = u1 * a1 + us1;
-      m0 = mn0;
-      m1 = mn1;
-      if (t == nt - 1) {  // the rows' statistics
-#pragma unroll
-        for (int o = 1; o <= 2; o <<= 1) {
-          l0 += __shfl_xor_sync(0xffffffffu, l0, o);
-          l1 += __shfl_xor_sync(0xffffffffu, l1, o);
-          u0 += __shfl_xor_sync(0xffffffffu, u0, o);
-          u1 += __shfl_xor_sync(0xffffffffu, u1, o);
-        }
-        d0 = u0 / l0;
-        d1 = u1 / l1;
-        if (t4 == 0) {
-          if (g < rows_left) {
-            p.stats[r0] = m0;
-            p.stats[p.rows + r0] = l0;
-            p.stats[2 * p.rows + r0] = d0;
-          }
-          if (g + 8 < rows_left) {
-            p.stats[r0 + 8] = m1;
-            p.stats[p.rows + r0 + 8] = l1;
-            p.stats[2 * p.rows + r0 + 8] = d1;
-          }
-        }
-      }
-      continue;
-    }
-
-    // sweep 2: p, ds; dbias; dq += ds.K (+ ds.E)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float p0 = expf(s[j][0] - m0) / l0, p1 = expf(s[j][1] - m0) / l0;
-      const float p2 = expf(s[j][2] - m1) / l1, p3 = expf(s[j][3] - m1) / l1;
-      s[j][0] = p0 * (dp[j][0] - d0);
-      s[j][1] = p1 * (dp[j][1] - d0);
-      s[j][2] = p2 * (dp[j][2] - d1);
-      s[j][3] = p3 * (dp[j][3] - d1);
-    }
-    if (!TABLE) {
-      BT* db = static_cast<BT*>(p.dbias) + r0 * p.L + k0;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        if (g + 8 * h >= rows_left) continue;
-        BT* row = db + 8 * h * (long long)p.L;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int c = 8 * j + 2 * t4;
-          if (c + 1 < kn && (p.L & 1) == 0) {  // an even element index: an aligned pair
-            store_pair(row + c, s[j][2 * h], s[j][2 * h + 1]);
-          } else {
-            if (c < kn) row[c] = from_f32<BT>(s[j][2 * h]);
-            if (c + 1 < kn) row[c + 1] = from_f32<BT>(s[j][2 * h + 1]);
-          }
-        }
-      }
-    }
-    uint32_t pa[4][4];
-    pack_a(pa, s);
-    if (kn == BK) {
-      pv_pass<true>(acc, pa, smem_u32(ks), 4, lane);
-      if (TABLE) pv_pass<true>(acc, pa, smem_u32(xs), 4, lane);
-    } else {
-      pv_pass<false>(acc, pa, smem_u32(ks), (kn + 15) >> 4, lane);
-      if (TABLE) pv_pass<false>(acc, pa, smem_u32(xs), (kn + 15) >> 4, lane);
-    }
-  }
-  if (active)
-    store_tile(static_cast<__nv_bfloat16*>(p.dq), acc, r0 - g, rows_left, 0, p.D, lane);
-}
-
-template <typename BT, bool TABLE>
-__global__ void __launch_bounds__(MMA_THREADS, 2)
-    attention_bwd_cols_mma_kernel(const BwdParams p, const BwdWidths w) {
-  using Smem = BwdSmem<BT, TABLE>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  unsigned char* ks = smem;
-  unsigned char* vs = smem + Smem::KV;
-  unsigned char* qs = smem + 2 * Smem::KV;
-  unsigned char* gs = smem + 3 * Smem::KV;
-  unsigned char* xs = smem + 4 * Smem::KV;  // the bias tile, or this key tile's emb rows
-  float* sm = reinterpret_cast<float*>(xs + Smem::X);  // m, l, delta of the 64 query rows
-  float* sl = sm + BQ;
-  float* sd = sl + BQ;
-
-  const int nk = (p.L + BK - 1) / BK;
-  const int bh = blockIdx.x / nk, kt = blockIdx.x - bh * nk;
-  const int b = bh / p.heads, n = bh - b * p.heads;
-  const int k0 = kt * BK, kn = min(BK, p.L - k0);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const bool active = warp * 16 < kn;
-  const int nq = (p.L + BQ - 1) / BQ;
-  const unsigned char* q = static_cast<const unsigned char*>(p.q) + 2 * (b * p.q_sb + n * p.q_sn);
-  const unsigned char* gg = static_cast<const unsigned char*>(p.g) + 2 * (b * p.g_sb + n * p.g_sn);
-  const unsigned char* x =
-      TABLE ? nullptr
-            : static_cast<const unsigned char*>(p.bias) + sizeof(BT) * (b * p.b_sb + n * p.b_sn + k0);
-  const long long xs_g = sizeof(BT) * p.b_sl;
-  const float* stats = p.stats + (long long)bh * p.L;
-
-  stage_rows<true>(ks, static_cast<const unsigned char*>(p.k) +
-                           2 * (b * p.k_sb + n * p.k_sn + (long long)k0 * p.k_sl),
-                   2 * p.k_sl, BK, kn, 2 * p.D, ROW_BYTES, ROW_BYTES, w.wk, tid);
-  stage_rows<true>(vs, static_cast<const unsigned char*>(p.v) +
-                           2 * (b * p.v_sb + n * p.v_sn + (long long)k0 * p.v_sl),
-                   2 * p.v_sl, BK, kn, 2 * p.Dv, ROW_BYTES, ROW_BYTES, w.wv, tid);
-  if (TABLE)
-    stage_rows<true>(xs, static_cast<const unsigned char*>(p.emb) + 2 * (long long)k0 * p.e_sl,
-                     2 * p.e_sl, BK, kn, 2 * p.D, ROW_BYTES, ROW_BYTES, w.wx, tid);
-
-  float dk[16][4], dv[16][4];
-#pragma unroll
-  for (int j = 0; j < 16; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
-
-  for (int qt = 0; qt < nq; ++qt) {
-    const int x0 = qt * BQ, xn = min(BQ, p.L - x0);
-    __syncthreads();  // every warp is done with the previous query tile
-    stage_rows<true>(qs, q + 2 * (long long)x0 * p.q_sl, 2 * p.q_sl, BQ, xn, 2 * p.D, ROW_BYTES,
-                     ROW_BYTES, w.wq, tid);
-    stage_rows<true>(gs, gg + 2 * (long long)x0 * p.g_sl, 2 * p.g_sl, BQ, xn, 2 * p.Dv,
-                     ROW_BYTES, ROW_BYTES, w.wg, tid);
-    if (!TABLE)
-      stage_rows<false>(xs, x + x0 * xs_g, xs_g, BQ, xn, (int)sizeof(BT) * kn,
-                        (int)sizeof(BT) * BK, BiasRow<BT>::BYTES, w.wx, tid);
-    if (tid < BQ) {  // a query past L: m = +inf, so p = ds = 0
-      const bool ok = tid < xn;
-      sm[tid] = ok ? stats[x0 + tid] : INFINITY;
-      sl[tid] = ok ? stats[p.rows + x0 + tid] : 1.f;
-      sd[tid] = ok ? stats[2 * p.rows + x0 + tid] : 0.f;
-    }
-    commit_and_wait();
-    __syncthreads();
-    if (!active) continue;
-    const int nsb = (xn + 7) >> 3;
-    float s[8][4], dp[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-    const bool full = xn == BQ;
-    if (full) {  // S^T: keys x queries
-      qk_pass_smem<true>(s, smem_u32(ks), warp * 16, smem_u32(qs), nsb, lane);
-      if (TABLE) qk_pass_smem<true>(s, smem_u32(xs), warp * 16, smem_u32(qs), nsb, lane);
-    } else {
-      qk_pass_smem<false>(s, smem_u32(ks), warp * 16, smem_u32(qs), nsb, lane);
-      if (TABLE) qk_pass_smem<false>(s, smem_u32(xs), warp * 16, smem_u32(qs), nsb, lane);
-    }
-    const int key0 = warp * 16 + g;
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = 8 * j + 2 * t4 + (e & 1), key = key0 + 8 * (e >> 1);
-        const float bias = TABLE ? 0.f : to_f32(*reinterpret_cast<const BT*>(
-                                              xs + c * BiasRow<BT>::BYTES + key * (int)sizeof(BT)));
-        s[j][e] = expf(s[j][e] + bias - sm[c]) / sl[c];  // p
-      }
-    uint32_t pa[4][4];
-    pack_a(pa, s);
-    if (full) {
-      pv_pass<true>(dv, pa, smem_u32(gs), 4, lane);
-      qk_pass_smem<true>(dp, smem_u32(vs), warp * 16, smem_u32(gs), nsb, lane);  // dP^T
-    } else {
-      pv_pass<false>(dv, pa, smem_u32(gs), (xn + 15) >> 4, lane);
-      qk_pass_smem<false>(dp, smem_u32(vs), warp * 16, smem_u32(gs), nsb, lane);
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = 8 * j + 2 * t4 + (e & 1);
-        s[j][e] = s[j][e] * (dp[j][e] - sd[c]);  // ds
-      }
-    pack_a(pa, s);
-    if (full)
-      pv_pass<true>(dk, pa, smem_u32(qs), 4, lane);
-    else
-      pv_pass<false>(dk, pa, smem_u32(qs), (xn + 15) >> 4, lane);
-  }
-  if (!active) return;
-  const long long row0 = (long long)bh * p.L + k0 + warp * 16;
-  store_tile(static_cast<__nv_bfloat16*>(p.dk), dk, row0, kn - warp * 16, 0, p.D, lane);
-  store_tile(static_cast<__nv_bfloat16*>(p.dv), dv, row0, kn - warp * 16, 0, p.Dv, lane);
-  if (TABLE) store_tile(p.demb_part, dk, row0, kn - warp * 16, 0, p.D, lane);
-}
 
 // ---------------------------------------------------------------------------
 // bf16 at L <= 256: one pass, a thread-block cluster a head
@@ -1571,8 +1183,7 @@ __global__ void __launch_bounds__(MMA_THREADS, 2)
 // [B, N, L, L] bias read and dbias written once) and do 6.3 GFLOP of
 // products (6.4 us): bytes. In table mode the L^2 terms go: 45.1 MB (13.5
 // us), still bytes (the table folds into q.(k + emb)^T and ds.(k + emb), so
-// the products stay 6.3 GFLOP). The two-pass route forms S and dP three
-// times and reads K, V and the bias three times.
+// the products stay 6.3 GFLOP).
 // On the card this kernel is bound by neither: it is bound by latency.
 // Each query tile passes seven phases in turn, each behind a barrier (two
 // of them cluster-wide): S and dP, the statistics' exchange, p and ds, the
@@ -1656,11 +1267,11 @@ struct ClusterSmem {
 };
 
 // c += A.B^T (and + A.B2^T with TWO) over 128 columns: A the 16 rows from
-// a_row0 of the tile at `a`, B the 32 rows from b_row0 of the tile at `b`
+// a_row0 of the tile at `a`, B the 16 JP rows from b_row0 of the tile at `b`
 // (and `b2`); 256-byte swizzled rows, fixed trip counts.
-template <bool TWO>
-__device__ __forceinline__ void abt_32(float (&c)[4][4], uint32_t a, int a_row0, uint32_t b,
-                                       uint32_t b2, int b_row0, int lane) {
+template <int JP, bool TWO>
+__device__ __forceinline__ void abt(float (&c)[2 * JP][4], uint32_t a, int a_row0, uint32_t b,
+                                    uint32_t b2, int b_row0, int lane) {
   const int mi = lane >> 3;
   const int arow = a_row0 + (lane & 15);
 #pragma unroll
@@ -1668,7 +1279,7 @@ __device__ __forceinline__ void abt_32(float (&c)[4][4], uint32_t a, int a_row0,
     uint32_t af[4];
     ldsm_x4(af, a + arow * ROW_BYTES + swz(arow, (2 * kk + (lane >> 4)) * 16));
 #pragma unroll
-    for (int jp = 0; jp < 2; ++jp) {
+    for (int jp = 0; jp < JP; ++jp) {
       const int row = b_row0 + (2 * jp + (mi >> 1)) * 8 + (lane & 7);
       const int off = row * ROW_BYTES + swz(row, (2 * kk + (mi & 1)) * 16);
       uint32_t bf[4];
@@ -1684,15 +1295,16 @@ __device__ __forceinline__ void abt_32(float (&c)[4][4], uint32_t a, int a_row0,
   }
 }
 
-// c += A.B over 64 columns (col0 ..): A the 16 x 16 fragments `a` of k-step
-// kk, B the 256-byte swizzled tile at `b` (rows 16 kk .., read by
+// c += A.B over 16 HP columns (col0 ..): A the 16 x 16 fragments `a` of
+// k-step kk, B the 256-byte swizzled tile at `b` (rows 16 kk .., read by
 // ldmatrix.trans).
-__device__ __forceinline__ void ab_64(float (&c)[8][4], const uint32_t (&a)[4], uint32_t b,
-                                      int kk, int col0, int lane) {
+template <int HP>
+__device__ __forceinline__ void ab(float (&c)[2 * HP][4], const uint32_t (&a)[4], uint32_t b,
+                                   int kk, int col0, int lane) {
   const int mi = lane >> 3;
   const int row = kk * 16 + (mi & 1) * 8 + (lane & 7);
 #pragma unroll
-  for (int hp = 0; hp < 4; ++hp) {
+  for (int hp = 0; hp < HP; ++hp) {
     uint32_t bv[4];
     ldsm_x4_trans(bv, b + row * ROW_BYTES + swz(row, col0 * 2 + (2 * hp + (mi >> 1)) * 16));
     mma_bf16(c[2 * hp], a, bv[0], bv[1]);
@@ -1788,8 +1400,8 @@ __global__ void __launch_bounds__(CL_THREADS, 1)
       for (int e = 0; e < 4; ++e) s[jj][e] = dp[jj][e] = 0.f;
     const bool live = r0 < xn && c0 < kn;
     if (live) {
-      abt_32<TABLE>(s, qs, r0, smem_u32(ks), smem_u32(es), c0, lane);
-      abt_32<false>(dp, gs, r0, smem_u32(vs), 0, c0, lane);
+      abt<2, TABLE>(s, qs, r0, smem_u32(ks), smem_u32(es), c0, lane);
+      abt<2, false>(dp, gs, r0, smem_u32(vs), 0, c0, lane);
       if (!TABLE) {
         const unsigned char* x0r = st + 2 * Smem::KV + (r0 + g) * BiasRow<BT>::BYTES;
         const unsigned char* x1r = x0r + 8 * BiasRow<BT>::BYTES;
@@ -1927,13 +1539,9 @@ __global__ void __launch_bounds__(CL_THREADS, 1)
           BT* row = dbr + 8 * h * (long long)p.L;
 #pragma unroll
           for (int jj = 0; jj < 4; ++jj) {
-            const int c = 8 * jj + 2 * t4, key = c0 + c;
-            if (key + 1 < kn && (p.L & 1) == 0) {  // an even element index: an aligned pair
-              store_pair(row + c, dp[jj][2 * h], dp[jj][2 * h + 1]);
-            } else {
-              if (key < kn) row[c] = from_f32<BT>(dp[jj][2 * h]);
-              if (key + 1 < kn) row[c + 1] = from_f32<BT>(dp[jj][2 * h + 1]);
-            }
+            const int c = 8 * jj + 2 * t4, key = c0 + c;  // even: an even L aligns the pair
+            store_row_pair(row + c, dp[jj][2 * h], dp[jj][2 * h + 1], key < kn, key + 1 < kn,
+                           (p.L & 1) == 0);
           }
         }
       }
@@ -1952,8 +1560,8 @@ __global__ void __launch_bounds__(CL_THREADS, 1)
         uint32_t pa[4], da[4];
         ldsm_x4_trans(pa, smem_u32(ps) + prow * PS_ROW + swz(prow, pbyte));
         ldsm_x4_trans(da, smem_u32(dss) + prow * PS_ROW + swz(prow, pbyte));
-        ab_64(dv, pa, gs, kq, half * 64, lane);
-        ab_64(dk, da, qs, kq, half * 64, lane);
+        ab<4>(dv, pa, gs, kq, half * 64, lane);
+        ab<4>(dk, da, qs, kq, half * 64, lane);
       }
     }
 
@@ -1971,8 +1579,8 @@ __global__ void __launch_bounds__(CL_THREADS, 1)
         if (kk >= nks) break;
         uint32_t a[4];
         ldsm_x4(a, smem_u32(dss) + arow * PS_ROW + swz(arow, (2 * kk + (lane >> 4)) * 16));
-        ab_64(dq, a, smem_u32(ks), kk, half * 64, lane);
-        if (TABLE) ab_64(dq, a, smem_u32(es), kk, half * 64, lane);
+        ab<4>(dq, a, smem_u32(ks), kk, half * 64, lane);
+        if (TABLE) ab<4>(dq, a, smem_u32(es), kk, half * 64, lane);
       }
 #pragma unroll
       for (int jj = 0; jj < 8; ++jj) {
@@ -2028,6 +1636,561 @@ __global__ void __launch_bounds__(CL_THREADS, 1)
   store_tile(static_cast<__nv_bfloat16*>(p.dk), dk, row0, kn - grp * 16, half * 64, p.D, lane);
   store_tile(static_cast<__nv_bfloat16*>(p.dv), dv, row0, kn - grp * 16, half * 64, p.Dv, lane);
   if (TABLE) store_tile(p.demb_part, dk, row0, kn - grp * 16, half * 64, p.D, lane);
+}
+
+// ---------------------------------------------------------------------------
+// bf16 at L > 256: three launches (the blockwise route)
+// ---------------------------------------------------------------------------
+//
+// Replaces, for bf16 at L > 256, the XLA recompute of the JAX custom_vjp of
+// K4 (`_blk_bwd`, distribuuuu_tpu/ops/attention.py:400, which is `_bwd`,
+// :241) and of K5 (`_abs_blk_bwd`, :418, which is `_abs_bwd`, :514):
+// BoTNet-50's MHSA at a 512^2 crop (L 1024) in training.
+//
+// What bounds it (H100 SXM, 3.35 TB/s, 989 TFLOP/s bf16): at K4's shape
+// (B*N 32, L 1024, D = Dv = 128, bf16 bias) the call must move 193 MB (58 us;
+// the bias and dbias are 134 MB of it) and do 43 GFLOP of products (43 us):
+// bytes; the 512^2 training step (B*N 128) 4x both. In table mode the L^2
+// terms go: 59 MB against the same 43 GFLOP, operations.
+// The design: three kernels, no float atomics, one fixed order for every sum.
+//   stats  a block per (batch*head, 64-query tile), 4 warps of 16 rows, laid
+//          out as the forward kernel: Q and G stay in registers as A
+//          fragments; the key tiles (K, V and the bias or emb tile) come
+//          through the forward's two-stage cp.async ring; S = Q.K^T (+ bias |
+//          + Q.E^T) and dP = G.V^T on mma.sync; per row the max m, the sum l
+//          and u = sum dp exp(s - m), online in log2 units; writes (m, l,
+//          delta = u / l) of each row to the f32 stats. 203-221 registers,
+//          two blocks an SM.
+//   kv     a block per (batch*head, 64-key tile), 16 warps, one block an SM.
+//          K, V (and emb) of the key tile stay in shared memory; the walk
+//          over the query tiles brings Q and G through a two-stage cp.async
+//          ring (tile i + 1 in flight while tile i computes). Each (query
+//          tile, key tile) pair forms S and dP once (a warp: 16 query rows x
+//          16 keys), p = exp2(s - m) / l and ds = p (dp - delta) from the
+//          rows' statistics, writes dbias (bias mode) and the bf16 ds of the
+//          dq pass from registers, and puts P and dS in shared memory as
+//          bf16 for dV += P^T.G and dK += dS^T.Q (a warp: 16 keys x 32
+//          columns, summed in registers over the walk, in query order). The
+//          bias and the statistics go from device memory straight to
+//          registers, loaded before the tile's products hide their latency.
+//          125-128 registers, no spills, 112 KB (128 KB in table mode).
+//   dq     a block per (batch*head, 64-query tile), 4 warps of 16 rows: dq =
+//          sum over the key tiles, in key order, of dS.K (+ dS.E), with dS
+//          read back as bf16 (dbias itself under a bf16 bias, otherwise the
+//          scratch the kv pass wrote) and K through a two-stage ring; four
+//          blocks an SM (two in table mode).
+// S and dP are formed twice a tile pair (stats, kv; the first tensor-core
+// version formed them three times), so the products are 7 of L^2 D a head
+// where 5 are the least; dS makes one more round trip through device memory
+// in bf16 (67 MB at K4's shape, which is dbias itself under a bf16 bias). p
+// and ds are rounded to bf16 as MMA operands (2^-9 relative), dbias and the
+// statistics stay f32 until their final rounding. Ragged L, D and Dv as in
+// the other routes: zero-fill past L, D or Dv in shared memory; a query row
+// past L takes m = +inf (p = ds = 0), a key past L s = -inf.
+// On the card (H100 SXM, 700 W; chip_smoke.py [attention-bwd]) the kv pass
+// takes ~65 % of the call and runs at ~130 TFLOP/s, neither at its
+// shared-memory (ldmatrix) bound nor at the tensor cores': each query tile's
+// S phase and products sit between two block barriers, so the warps drain
+// at each. Three other shapes of the kv pass were built and timed against
+// this one: 8 warps at two blocks an SM (capped at 128 registers, it
+// spilled, and was slower), 8 warps at one block an SM (about as fast, at
+// 229 registers), and the bias tile through the cp.async ring instead of
+// registers (slower).
+
+// One key tile of the statistics sweep for this warp's 16 rows: the stage at
+// `st` holds K, V and the bias or emb tile (the forward's MmaSmem ring); kn
+// keys are valid (all of them when FULL). m0/m1 (log2 units), l0/l1 and
+// u0/u1 of rows g and g + 8 are this thread's running shares.
+template <typename BT, bool TABLE, bool FULL>
+__device__ __forceinline__ void stats_step(const unsigned char* st, const uint32_t (&qf)[8][4],
+                                           const uint32_t (&gf)[8][4], float& m0, float& m1,
+                                           float& l0, float& l1, float& u0, float& u1, int kn,
+                                           int warp, int lane) {
+  using Smem = MmaSmem<BT, TABLE>;
+  constexpr int NB = MBK / 8;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int nsb = FULL ? NB : (kn + 7) >> 3;
+  const uint32_t sk = smem_u32(st);
+  float s[NB][4], dp[NB][4];
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+  qk_pass<FULL>(s, qf, sk, nsb, lane);
+  if (TABLE) qk_pass<FULL>(s, qf, sk + 2 * Smem::KV, nsb, lane);
+  qk_pass<FULL>(dp, gf, sk + Smem::KV, nsb, lane);
+  if (!TABLE) {
+    const unsigned char* r0 = st + 2 * Smem::KV + (warp * 16 + g) * BiasRow<BT>::BYTES;
+    const unsigned char* r1 = r0 + 8 * BiasRow<BT>::BYTES;
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      const float2 b0 = bias_pair(r0, 8 * j + 2 * t4, BT());
+      const float2 b1 = bias_pair(r1, 8 * j + 2 * t4, BT());
+      s[j][0] += b0.x;
+      s[j][1] += b0.y;
+      s[j][2] += b1.x;
+      s[j][3] += b1.y;
+    }
+  }
+  // logits in log2 units; keys past L: -inf
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      s[j][e] = (!FULL && 8 * j + 2 * t4 + (e & 1) >= kn) ? -INFINITY : s[j][e] * kLog2e;
+  float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < NB; ++j) {
+    mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+    mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+  }
+#pragma unroll
+  for (int o = 1; o <= 2; o <<= 1) {  // the quad that shares rows g and g + 8
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o));
+  }
+  const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+  const float a0 = exp2f(m0 - mn0), a1 = exp2f(m1 - mn1);  // first tile: exp2(-inf) = 0
+  float ls0 = 0.f, ls1 = 0.f, us0 = 0.f, us1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < NB; ++j) {
+    const float e0 = exp2f(s[j][0] - mn0), e1 = exp2f(s[j][1] - mn0);
+    const float e2 = exp2f(s[j][2] - mn1), e3 = exp2f(s[j][3] - mn1);
+    ls0 += e0 + e1;
+    ls1 += e2 + e3;
+    us0 += e0 * dp[j][0] + e1 * dp[j][1];
+    us1 += e2 * dp[j][2] + e3 * dp[j][3];
+  }
+  l0 = l0 * a0 + ls0;
+  l1 = l1 * a1 + ls1;
+  u0 = u0 * a0 + us0;
+  u1 = u1 * a1 + us1;
+  m0 = mn0;
+  m1 = mn1;
+}
+
+template <typename BT, bool TABLE>
+__global__ void __launch_bounds__(MMA_THREADS, 2)
+    attention_bwd_stats_kernel(const BwdParams p, const BwdWidths w) {
+  using Smem = MmaSmem<BT, TABLE>;
+  extern __shared__ __align__(128) unsigned char smem[];
+
+  const int nq = (p.L + BQ - 1) / BQ;
+  const int bh = blockIdx.x / nq, qt = blockIdx.x - bh * nq;
+  const int b = bh / p.heads, n = bh - b * p.heads;
+  const int q0 = qt * BQ, qn = min(BQ, p.L - q0);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const bool active = warp * 16 < qn;
+  const int nt = (p.L + MBK - 1) / MBK;
+  const unsigned char* q = static_cast<const unsigned char*>(p.q) +
+                           2 * (b * p.q_sb + n * p.q_sn + (long long)q0 * p.q_sl);
+  const unsigned char* gg = static_cast<const unsigned char*>(p.g) +
+                            2 * (b * p.g_sb + n * p.g_sn + (long long)q0 * p.g_sl);
+  const unsigned char* k = static_cast<const unsigned char*>(p.k) + 2 * (b * p.k_sb + n * p.k_sn);
+  const unsigned char* v = static_cast<const unsigned char*>(p.v) + 2 * (b * p.v_sb + n * p.v_sn);
+  // the bias rows of this query tile, or the table; their row stride in bytes
+  const unsigned char* x =
+      TABLE ? static_cast<const unsigned char*>(p.emb)
+            : static_cast<const unsigned char*>(p.bias) +
+                  sizeof(BT) * (b * p.b_sb + n * p.b_sn + (long long)q0 * p.b_sl);
+  const long long xs = TABLE ? 2 * p.e_sl : sizeof(BT) * p.b_sl;
+
+  // key tile t's K, V and bias or emb tile into stage t % STAGES: one
+  // cp.async group (an empty one past the last tile)
+  auto load_tile = [&](int t) {
+    if (t < nt) {
+      const int k0 = t * MBK, kn = min(MBK, p.L - k0);
+      unsigned char* st = smem + (t % STAGES) * Smem::STAGE;
+      stage_rows<true>(st, k + 2 * k0 * p.k_sl, 2 * p.k_sl, MBK, kn, 2 * p.D, ROW_BYTES,
+                       ROW_BYTES, w.wk, tid);
+      stage_rows<true>(st + Smem::KV, v + 2 * k0 * p.v_sl, 2 * p.v_sl, MBK, kn, 2 * p.Dv,
+                       ROW_BYTES, ROW_BYTES, w.wv, tid);
+      if (TABLE)
+        stage_rows<true>(st + 2 * Smem::KV, x + k0 * xs, xs, MBK, kn, 2 * p.D, ROW_BYTES,
+                         ROW_BYTES, w.wx, tid);
+      else
+        stage_rows<false>(st + 2 * Smem::KV, x + sizeof(BT) * k0, xs, BQ, qn,
+                          (int)sizeof(BT) * kn, (int)sizeof(BT) * MBK, BiasRow<BT>::BYTES, w.wx,
+                          tid);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+
+  // Q and G go to the last stage's K and V slots; they are read into
+  // registers before a tile is loaded there
+  unsigned char* sq = smem + (STAGES - 1) * Smem::STAGE;
+  stage_rows<true>(sq, q, 2 * p.q_sl, BQ, qn, 2 * p.D, ROW_BYTES, ROW_BYTES, w.wq, tid);
+  stage_rows<true>(sq + Smem::KV, gg, 2 * p.g_sl, BQ, qn, 2 * p.Dv, ROW_BYTES, ROW_BYTES, w.wg,
+                   tid);
+#pragma unroll
+  for (int t = 0; t < STAGES - 1; ++t) load_tile(t);
+
+  uint32_t qf[8][4], gf[8][4];  // A fragments of this warp's 16 rows of Q and G
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f, u0 = 0.f, u1 = 0.f;
+  for (int t = 0; t < nt; ++t) {
+    // tile t has landed and every warp is done with tile t - 1's stage
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(STAGES - 2) : "memory");
+    __syncthreads();
+    if (t == 0) {
+      if (active) {
+        const int row = warp * 16 + (lane & 15);
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk) {
+          const int byte = row * ROW_BYTES + swz(row, (2 * kk + (lane >> 4)) * 16);
+          ldsm_x4(qf[kk], smem_u32(sq) + byte);
+          ldsm_x4(gf[kk], smem_u32(sq + Smem::KV) + byte);
+        }
+      }
+      if (nt >= STAGES) __syncthreads();  // Q and G are in registers: their slots may take a tile
+    }
+    load_tile(t + STAGES - 1);
+    if (!active) continue;
+    const int kn = min(MBK, p.L - t * MBK);
+    const unsigned char* st = smem + (t % STAGES) * Smem::STAGE;
+    if (kn == MBK)
+      stats_step<BT, TABLE, true>(st, qf, gf, m0, m1, l0, l1, u0, u1, kn, warp, lane);
+    else
+      stats_step<BT, TABLE, false>(st, qf, gf, m0, m1, l0, l1, u0, u1, kn, warp, lane);
+  }
+  if (!active) return;
+#pragma unroll
+  for (int o = 1; o <= 2; o <<= 1) {  // a xor butterfly: the same bits in the quad
+    l0 += __shfl_xor_sync(0xffffffffu, l0, o);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, o);
+    u0 += __shfl_xor_sync(0xffffffffu, u0, o);
+    u1 += __shfl_xor_sync(0xffffffffu, u1, o);
+  }
+  const long long r0 = (long long)bh * p.L + q0 + warp * 16 + g;  // rows g and g + 8
+  const int rows_left = qn - warp * 16;
+  if (t4 == 0) {
+    if (g < rows_left) {
+      p.stats[r0] = m0;
+      p.stats[p.rows + r0] = l0;
+      p.stats[2 * p.rows + r0] = u0 / l0;
+    }
+    if (g + 8 < rows_left) {
+      p.stats[r0 + 8] = m1;
+      p.stats[p.rows + r0 + 8] = l1;
+      p.stats[2 * p.rows + r0 + 8] = u1 / l1;
+    }
+  }
+}
+
+constexpr int KV_THREADS = 512;  // 16 warps
+// a warp's S block: 16 query rows x KV_SK keys; its products: 16 keys x KV_PC columns
+constexpr int KV_SK = 16, KV_PC = 32;
+
+template <bool TABLE>
+struct KvSmem {
+  static constexpr int KV = BK * ROW_BYTES;         // a 64-row bf16 tile
+  static constexpr int RES = (TABLE ? 3 : 2) * KV;  // K, V (and emb) of the key tile
+  static constexpr int STAGE = 2 * KV;              // Q and G of a query tile
+  static constexpr int PDS = 2 * BQ * PS_ROW;       // P, dS
+  static constexpr int BYTES = RES + 2 * STAGE + PDS;
+};
+
+// Two adjacent bias values as loaded, converted to f32 where they are added.
+template <typename BT>
+struct BiasPair;
+template <>
+struct BiasPair<float> {
+  using T = float2;
+};
+template <>
+struct BiasPair<__nv_bfloat16> {
+  using T = __nv_bfloat162;
+};
+__device__ __forceinline__ float2 pair_f32(float2 v) { return v; }
+__device__ __forceinline__ float2 pair_f32(__nv_bfloat162 v) { return __bfloat1622float2(v); }
+
+// src[0] and src[1] where v0 and v1 (0 elsewhere; v1 implies v0), one load
+// where the pair is aligned.
+template <typename BT>
+__device__ __forceinline__ typename BiasPair<BT>::T load_bias_pair(const BT* src, bool aligned,
+                                                                   bool v0, bool v1) {
+  using P = typename BiasPair<BT>::T;
+  if (aligned && v1) return __ldg(reinterpret_cast<const P*>(src));
+  P r;
+  r.x = v0 ? __ldg(src) : from_f32<BT>(0.f);
+  r.y = v1 ? __ldg(src + 1) : from_f32<BT>(0.f);
+  return r;
+}
+
+// dV += P^T.G and dK += dS^T.Q for keys 16 grp .. x columns 16 HP col ..,
+// over the query steps of 16 that hold a valid row (all 4 when FULL).
+template <bool FULL, int HP>
+__device__ __forceinline__ void kv_products(float (&dv)[2 * HP][4], float (&dk)[2 * HP][4],
+                                            uint32_t ps, uint32_t dss, uint32_t qs, uint32_t gs,
+                                            int nkq, int grp, int col, int lane) {
+  const int mi = lane >> 3;
+  const int prow0 = (mi >> 1) * 8 + (lane & 7);
+  const int pbyte = (2 * grp + (mi & 1)) * 16;
+#pragma unroll
+  for (int kq = 0; kq < 4; ++kq) {
+    if (!FULL && kq >= nkq) break;
+    const int prow = kq * 16 + prow0;
+    uint32_t pa[4], da[4];
+    ldsm_x4_trans(pa, ps + prow * PS_ROW + swz(prow, pbyte));
+    ldsm_x4_trans(da, dss + prow * PS_ROW + swz(prow, pbyte));
+    ab<HP>(dv, pa, gs, kq, col * 16 * HP, lane);
+    ab<HP>(dk, da, qs, kq, col * 16 * HP, lane);
+  }
+}
+
+template <typename BT, bool TABLE>
+__global__ void __launch_bounds__(KV_THREADS, 1)
+    attention_bwd_kv_kernel(const BwdParams p, const BwdWidths w) {
+  using Smem = KvSmem<TABLE>;
+  constexpr bool kOwnDs = TABLE || sizeof(BT) != 2;  // ds to its own scratch, not dbias
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* ks = smem;
+  unsigned char* vs = ks + Smem::KV;
+  unsigned char* es = vs + Smem::KV;  // table mode
+  unsigned char* ring = smem + Smem::RES;
+  unsigned char* ps = ring + 2 * Smem::STAGE;
+  unsigned char* dss = ps + BQ * PS_ROW;
+
+  const int nk = (p.L + BK - 1) / BK, nq = (p.L + BQ - 1) / BQ;
+  const int bh = blockIdx.x / nk, kt = blockIdx.x - bh * nk;
+  const int b = bh / p.heads, n = bh - b * p.heads;
+  const int k0 = kt * BK, kn = min(BK, p.L - k0);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  // S phase: query rows r0 = 16 grp .. x keys c0 = KV_SK part ..; products:
+  // keys 16 grp .. x columns KV_PC part ..
+  constexpr int JP = KV_SK / 16, HP = KV_PC / 16;
+  const int grp = warp & 3, part = warp >> 2;
+  const int r0 = grp * 16, c0 = part * KV_SK, ra = r0 + g, rb = ra + 8;
+
+  const unsigned char* q = static_cast<const unsigned char*>(p.q) + 2 * (b * p.q_sb + n * p.q_sn);
+  const unsigned char* gg = static_cast<const unsigned char*>(p.g) + 2 * (b * p.g_sb + n * p.g_sn);
+  // this thread's bias pairs: keys k0 + c0 + 8 jj + 2 t4, +1 of a row
+  const BT* bias = TABLE ? nullptr
+                         : static_cast<const BT*>(p.bias) + b * p.b_sb + n * p.b_sn + k0 + c0 +
+                               2 * t4;
+  const bool bias_aligned = w.wx >= 2 * (int)sizeof(BT);
+  const bool even = (p.L & 1) == 0;  // a pair of dbias / ds at an even index is aligned
+  const float* stats = p.stats + (long long)bh * p.L;
+
+  stage_rows<true, KV_THREADS>(ks, static_cast<const unsigned char*>(p.k) +
+                                       2 * (b * p.k_sb + n * p.k_sn + (long long)k0 * p.k_sl),
+                               2 * p.k_sl, BK, kn, 2 * p.D, ROW_BYTES, ROW_BYTES, w.wk, tid);
+  stage_rows<true, KV_THREADS>(vs, static_cast<const unsigned char*>(p.v) +
+                                       2 * (b * p.v_sb + n * p.v_sn + (long long)k0 * p.v_sl),
+                               2 * p.v_sl, BK, kn, 2 * p.Dv, ROW_BYTES, ROW_BYTES, w.wv, tid);
+  if (TABLE)
+    stage_rows<true, KV_THREADS>(es, static_cast<const unsigned char*>(p.emb) +
+                                         2 * (long long)k0 * p.e_sl,
+                                 2 * p.e_sl, BK, kn, 2 * p.D, ROW_BYTES, ROW_BYTES, w.wx, tid);
+
+  // query tile i's Q and G into stage i % 2: one cp.async group (an empty
+  // one past the last tile)
+  auto load_tile = [&](int i) {
+    if (i < nq) {
+      const int x0 = i * BQ, xn = min(BQ, p.L - x0);
+      unsigned char* st = ring + (i & 1) * Smem::STAGE;
+      stage_rows<true, KV_THREADS>(st, q + 2LL * x0 * p.q_sl, 2 * p.q_sl, BQ, xn, 2 * p.D,
+                                   ROW_BYTES, ROW_BYTES, w.wq, tid);
+      stage_rows<true, KV_THREADS>(st + Smem::KV, gg + 2LL * x0 * p.g_sl, 2 * p.g_sl, BQ, xn,
+                                   2 * p.Dv, ROW_BYTES, ROW_BYTES, w.wg, tid);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+  load_tile(0);  // with the resident tiles
+
+  float dk[2 * HP][4], dv[2 * HP][4];
+#pragma unroll
+  for (int jj = 0; jj < 2 * HP; ++jj)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[jj][e] = dv[jj][e] = 0.f;
+
+  for (int i = 0; i < nq; ++i) {
+    const int x0 = i * BQ, xn = min(BQ, p.L - x0);
+    const bool live = r0 < xn && c0 < kn;  // the warp's S block holds a valid row and key
+    const bool oka = ra < xn, okb = rb < xn;
+    // the rows' statistics (a query past L: m = +inf, so p = ds = 0) and the
+    // bias, loaded now so that their latency hides behind the products
+    const float ma = oka ? __ldg(stats + x0 + ra) : INFINITY;
+    const float la = oka ? __ldg(stats + p.rows + x0 + ra) : 1.f;
+    const float da = oka ? __ldg(stats + 2 * p.rows + x0 + ra) : 0.f;
+    const float mb = okb ? __ldg(stats + x0 + rb) : INFINITY;
+    const float lb = okb ? __ldg(stats + p.rows + x0 + rb) : 1.f;
+    const float db = okb ? __ldg(stats + 2 * p.rows + x0 + rb) : 0.f;
+    typename BiasPair<BT>::T bp[2][2 * JP];
+    if (!TABLE) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const bool ok = live && (h ? okb : oka);
+        const BT* row = bias + (long long)(x0 + (h ? rb : ra)) * p.b_sl;
+#pragma unroll
+        for (int jj = 0; jj < 2 * JP; ++jj) {
+          const int key = c0 + 8 * jj + 2 * t4;
+          bp[h][jj] = load_bias_pair<BT>(row + 8 * jj, bias_aligned, ok && key < kn,
+                                         ok && key + 1 < kn);
+        }
+      }
+    }
+    // tile i has landed, and every warp is done with tile i - 1 (its stage,
+    // P and dS)
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();
+    load_tile(i + 1);
+    const unsigned char* st = ring + (i & 1) * Smem::STAGE;
+    const uint32_t qs = smem_u32(st), gs = qs + Smem::KV;
+
+    // ---- S and dP: rows r0 .., keys c0 .. ------------------------------------
+    float s[2 * JP][4], dp[2 * JP][4];
+#pragma unroll
+    for (int jj = 0; jj < 2 * JP; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[jj][e] = dp[jj][e] = 0.f;
+    if (live) {
+      abt<JP, TABLE>(s, qs, r0, smem_u32(ks), smem_u32(es), c0, lane);
+      abt<JP, false>(dp, gs, r0, smem_u32(vs), 0, c0, lane);
+    }
+
+    // ---- p = exp2(s - m) / l and ds = p (dp - delta); P and dS to shared memory
+    const float ia = 1.f / la, ib = 1.f / lb;
+#pragma unroll
+    for (int jj = 0; jj < 2 * JP; ++jj) {
+      float2 b0 = make_float2(0.f, 0.f), b1 = b0;
+      if (!TABLE) {
+        b0 = pair_f32(bp[0][jj]);
+        b1 = pair_f32(bp[1][jj]);
+      }
+      const float bv[4] = {b0.x, b0.y, b1.x, b1.y};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool top = e < 2;  // row ra (else rb)
+        const int key = c0 + 8 * jj + 2 * t4 + (e & 1);
+        const float xl = (live && key < kn) ? (s[jj][e] + bv[e]) * kLog2e : -INFINITY;
+        const float pr = exp2f(xl - (top ? ma : mb)) * (top ? ia : ib);
+        dp[jj][e] = pr * (dp[jj][e] - (top ? da : db));
+        s[jj][e] = pr;
+      }
+      const int byte = 2 * (c0 + 8 * jj + 2 * t4);
+      *reinterpret_cast<uint32_t*>(ps + ra * PS_ROW + swz(ra, byte)) =
+          pack_bf16(s[jj][0], s[jj][1]);
+      *reinterpret_cast<uint32_t*>(ps + rb * PS_ROW + swz(rb, byte)) =
+          pack_bf16(s[jj][2], s[jj][3]);
+      *reinterpret_cast<uint32_t*>(dss + ra * PS_ROW + swz(ra, byte)) =
+          pack_bf16(dp[jj][0], dp[jj][1]);
+      *reinterpret_cast<uint32_t*>(dss + rb * PS_ROW + swz(rb, byte)) =
+          pack_bf16(dp[jj][2], dp[jj][3]);
+    }
+
+    // ---- dbias (bias mode) and the bf16 ds of the dq pass, from registers ---------
+    if (live) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (!(h ? okb : oka)) continue;
+        const long long off = ((long long)bh * p.L + x0 + (h ? rb : ra)) * p.L + k0 + c0;
+#pragma unroll
+        for (int jj = 0; jj < 2 * JP; ++jj) {
+          const int c = 8 * jj + 2 * t4;
+          const bool ok0 = c0 + c < kn, ok1 = c0 + c + 1 < kn;
+          const float a = dp[jj][2 * h], bb = dp[jj][2 * h + 1];
+          if (!TABLE)
+            store_row_pair(static_cast<BT*>(p.dbias) + off + c, a, bb, ok0, ok1, even);
+          if (kOwnDs)
+            store_row_pair(static_cast<__nv_bfloat16*>(p.ds) + off + c, a, bb, ok0, ok1, even);
+        }
+      }
+    }
+    __syncthreads();
+
+    // ---- dV += P^T.G, dK += dS^T.Q -------------------------------------------------
+    if (grp * 16 < kn) {
+      if (xn == BQ)
+        kv_products<true, HP>(dv, dk, smem_u32(ps), smem_u32(dss), qs, gs, 4, grp, part, lane);
+      else
+        kv_products<false, HP>(dv, dk, smem_u32(ps), smem_u32(dss), qs, gs, (xn + 15) >> 4, grp,
+                               part, lane);
+    }
+  }
+
+  if (grp * 16 >= kn) return;
+  const long long row0 = (long long)bh * p.L + k0 + grp * 16;
+  const int col0 = part * KV_PC;
+  store_tile(static_cast<__nv_bfloat16*>(p.dk), dk, row0, kn - grp * 16, col0, p.D, lane);
+  store_tile(static_cast<__nv_bfloat16*>(p.dv), dv, row0, kn - grp * 16, col0, p.Dv, lane);
+  if (TABLE) store_tile(p.demb_part, dk, row0, kn - grp * 16, col0, p.D, lane);
+}
+
+template <bool TABLE>
+struct DqSmem {
+  static constexpr int DS = BQ * PS_ROW;                   // 64 query rows x 64 keys of ds
+  static constexpr int KV = BK * ROW_BYTES;                // a 64-row bf16 tile
+  static constexpr int STAGE = DS + (TABLE ? 2 : 1) * KV;  // ds, K (and emb) of a key tile
+  static constexpr int BYTES = STAGES * STAGE;
+};
+
+template <bool TABLE>
+__global__ void __launch_bounds__(MMA_THREADS, TABLE ? 2 : 4)
+    attention_bwd_dq_kernel(const BwdParams p, const BwdWidths w) {
+  using Smem = DqSmem<TABLE>;
+  extern __shared__ __align__(128) unsigned char smem[];
+
+  const int nq = (p.L + BQ - 1) / BQ;
+  const int bh = blockIdx.x / nq, qt = blockIdx.x - bh * nq;
+  const int b = bh / p.heads, n = bh - b * p.heads;
+  const int q0 = qt * BQ, qn = min(BQ, p.L - q0);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const bool active = warp * 16 < qn;
+  const int nt = (p.L + BK - 1) / BK;
+  const unsigned char* ds =
+      static_cast<const unsigned char*>(p.ds) + 2 * ((long long)bh * p.L + q0) * p.L;
+  const unsigned char* k = static_cast<const unsigned char*>(p.k) + 2 * (b * p.k_sb + n * p.k_sn);
+  const unsigned char* emb = static_cast<const unsigned char*>(p.emb);
+
+  // key tile t's ds columns, K rows (and emb rows) into stage t % STAGES:
+  // one cp.async group (an empty one past the last tile)
+  auto load_tile = [&](int t) {
+    if (t < nt) {
+      const int k0 = t * BK, kn = min(BK, p.L - k0);
+      unsigned char* st = smem + (t % STAGES) * Smem::STAGE;
+      stage_rows<true>(st, ds + 2 * k0, 2LL * p.L, BQ, qn, 2 * kn, PS_ROW, PS_ROW, w.wds, tid);
+      stage_rows<true>(st + Smem::DS, k + 2LL * k0 * p.k_sl, 2 * p.k_sl, BK, kn, 2 * p.D,
+                       ROW_BYTES, ROW_BYTES, w.wk, tid);
+      if (TABLE)
+        stage_rows<true>(st + Smem::DS + Smem::KV, emb + 2LL * k0 * p.e_sl, 2 * p.e_sl, BK, kn,
+                         2 * p.D, ROW_BYTES, ROW_BYTES, w.wx, tid);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+  load_tile(0);
+
+  float acc[16][4];  // dq rows g, g + 8 of the warp; columns 8 j + 2 t4, +1
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  const int arow = warp * 16 + (lane & 15);
+  for (int t = 0; t < nt; ++t) {
+    // tile t has landed and every warp is done with tile t - 1's stage
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();
+    load_tile(t + 1);
+    if (!active) continue;
+    const int kn = min(BK, p.L - t * BK);
+    const unsigned char* st = smem + (t % STAGES) * Smem::STAGE;
+    uint32_t pa[4][4];  // dS as A fragments, key step kk (zero past L)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      ldsm_x4(pa[kk], smem_u32(st) + arow * PS_ROW + swz(arow, (2 * kk + (lane >> 4)) * 16));
+    const uint32_t kt = smem_u32(st + Smem::DS);
+    if (kn == BK) {
+      pv_pass<true>(acc, pa, kt, 4, lane);
+      if (TABLE) pv_pass<true>(acc, pa, kt + Smem::KV, 4, lane);
+    } else {
+      pv_pass<false>(acc, pa, kt, (kn + 15) >> 4, lane);
+      if (TABLE) pv_pass<false>(acc, pa, kt + Smem::KV, (kn + 15) >> 4, lane);
+    }
+  }
+  if (!active) return;
+  store_tile(static_cast<__nv_bfloat16*>(p.dq), acc, (long long)bh * p.L + q0 + warp * 16,
+             qn - warp * 16, 0, p.D, lane);
 }
 
 // ---------------------------------------------------------------------------
@@ -2087,13 +2250,13 @@ cudaError_t launch_demb(const BwdParams& p, float* sums, int dt, cudaStream_t st
 // launches
 // ---------------------------------------------------------------------------
 
-enum BwdRoute : int { kScalarRoute = 0, kTwoPass = 1, kCluster = 2 };
+enum BwdRoute : int { kScalarRoute = 0, kBlockwise = 1, kCluster = 2 };
 
 // The route of a dtype and L: the cluster kernel for bf16 at L <= CL_MAX_L,
-// the two-pass tensor-core kernels for bf16 above it, the scalar ones for f32.
+// the three blockwise kernels for bf16 above it, the scalar ones for f32.
 int bwd_route(int dt, int L) {
   if (dt == kF32) return kScalarRoute;
-  return L <= CL_MAX_L ? kCluster : kTwoPass;
+  return L <= CL_MAX_L ? kCluster : kBlockwise;
 }
 
 BwdWidths bwd_widths(const BwdParams& p, int bias_dt) {
@@ -2105,26 +2268,36 @@ BwdWidths bwd_widths(const BwdParams& p, int bias_dt) {
   const long long e = bias_dt == kF32 ? 4 : 2;
   w.wx = bias_dt == kTable ? copy_width(p.emb, {2 * p.e_sl, 2LL * p.D})
                            : copy_width(p.bias, {e * p.b_sb, e * p.b_sn, e * p.b_sl, e * p.L});
+  w.wds = p.ds ? copy_width(p.ds, {2LL * p.L}) : 2;
   return w;
 }
 
+// The blockwise route: the statistics, key-column and dq kernels, one grid
+// of B*N * ceil(L / 64) blocks each, after the opt-in to their shared memory.
 template <typename BT, bool TABLE>
-cudaError_t launch_bwd_mma(const BwdParams& p, const BwdWidths& w, cudaStream_t stream) {
-  using Smem = BwdSmem<BT, TABLE>;
+cudaError_t launch_bwd_blockwise(const BwdParams& p, const BwdWidths& w, cudaStream_t stream) {
+  constexpr int stats_bytes = MmaSmem<BT, TABLE>::BYTES;
+  constexpr int kv_bytes = KvSmem<TABLE>::BYTES;
+  constexpr int dq_bytes = DqSmem<TABLE>::BYTES;
   const long long tiles = (p.rows / p.L) * ((p.L + BQ - 1) / BQ);
-  if (tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(attention_bwd_rows_mma_kernel<BT, TABLE>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, Smem::ROWS);
+  if (tiles > 0x7fffffffLL || p.ds == nullptr) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(attention_bwd_stats_kernel<BT, TABLE>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, stats_bytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(attention_bwd_kv_kernel<BT, TABLE>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kv_bytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(attention_bwd_dq_kernel<TABLE>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, dq_bytes);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(attention_bwd_cols_mma_kernel<BT, TABLE>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, Smem::COLS);
-  if (err != cudaSuccess) return err;
-  attention_bwd_rows_mma_kernel<BT, TABLE>
-      <<<(unsigned)tiles, MMA_THREADS, Smem::ROWS, stream>>>(p, w);
+  attention_bwd_stats_kernel<BT, TABLE>
+      <<<(unsigned)tiles, MMA_THREADS, stats_bytes, stream>>>(p, w);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  attention_bwd_cols_mma_kernel<BT, TABLE>
-      <<<(unsigned)tiles, MMA_THREADS, Smem::COLS, stream>>>(p, w);
+  attention_bwd_kv_kernel<BT, TABLE><<<(unsigned)tiles, KV_THREADS, kv_bytes, stream>>>(p, w);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  attention_bwd_dq_kernel<TABLE><<<(unsigned)tiles, MMA_THREADS, dq_bytes, stream>>>(p, w);
   return cudaGetLastError();
 }
 
@@ -2189,14 +2362,14 @@ cudaError_t launch_route(const BwdParams& p, const BwdWidths& w, int route, cuda
   switch (route) {
     case kCluster:
       return launch_bwd_cluster<BT, TABLE>(p, w, s);
-    case kTwoPass:
-      return launch_bwd_mma<BT, TABLE>(p, w, s);
+    case kBlockwise:
+      return launch_bwd_blockwise<BT, TABLE>(p, w, s);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
-// bf16 q/k/v/g take the cluster or the two-pass route, f32 the scalar one;
+// bf16 q/k/v/g take the cluster or the blockwise route, f32 the scalar one;
 // either with an f32 or a bf16 bias, or the table (then the demb kernels).
 cudaError_t dispatch_bwd(const BwdParams& p, int dt, int bias_dt, int route, float* demb_sums,
                          cudaStream_t s) {
@@ -2251,12 +2424,15 @@ extern "C" int dtpu_attention_launch(
 // and g as dtpu_attention_launch takes them (g is [B, N, L, Dv] like the
 // output); dq, dk, dv and dlast contiguous, in the dtype of q (dt) and of the
 // bias (bias_dt; -1: table mode, dlast is demb [L, D] in q's dtype). stats:
-// an f32 scratch of 3 * B * N * L (two-pass and scalar routes); demb_part and
-// demb_sums: f32 scratch of B * N * L * D and ceil(B * N / 8) * L * D (table
-// mode). route: 0 scalar, 1 two-pass, 2 cluster; it must be the route of dt
-// and L (bwd_route). Launches on `stream`: one (cluster) or two (rows pass,
-// then columns pass), then in table mode the two demb kernels. Returns
-// cudaGetLastError() (0 = ok).
+// an f32 scratch of 3 * B * N * L (blockwise and scalar routes); ds: the
+// blockwise route's bf16 [B * N, L, L] ds (dlast itself for a bf16 bias, a
+// scratch otherwise; null on the other routes); demb_part and demb_sums: f32
+// scratch of B * N * L * D and ceil(B * N / 8) * L * D (table mode). route:
+// 0 scalar, 1 blockwise, 2 cluster; it must be the route of dt and L
+// (bwd_route). Launches on `stream`: one (cluster), three (blockwise:
+// statistics, key columns, dq) or two (scalar: rows pass, then columns pass),
+// then in table mode the two demb kernels. Returns cudaGetLastError() (0 =
+// ok).
 extern "C" int dtpu_attention_backward_launch(
     const void* q, long long q_sb, long long q_sn, long long q_sl,
     const void* k, long long k_sb, long long k_sn, long long k_sl,
@@ -2264,14 +2440,16 @@ extern "C" int dtpu_attention_backward_launch(
     const void* bias, long long b_sb, long long b_sn, long long b_sl, int bias_dt,
     const void* emb, long long e_sl,
     const void* g, long long g_sb, long long g_sn, long long g_sl,
-    void* dq, void* dk, void* dv, void* dlast, void* stats, void* demb_part, void* demb_sums,
-    int route, int dt, int batch, int heads, int L, int D, int Dv, void* stream) {
+    void* dq, void* dk, void* dv, void* dlast, void* stats, void* ds, void* demb_part,
+    void* demb_sums, int route, int dt, int batch, int heads, int L, int D, int Dv,
+    void* stream) {
   if (batch <= 0 || heads <= 0 || L <= 0 || D <= 0 || D > DMAX || Dv <= 0 || Dv > DMAX)
     return (int)cudaErrorInvalidValue;
   const BwdParams p{q,    q_sb, q_sn, q_sl, k,    k_sb, k_sn, k_sl, v,     v_sb,
                     v_sn, v_sl, bias, b_sb, b_sn, b_sl, emb,  e_sl, g,     g_sb,
                     g_sn, g_sl, dq,   dk,   dv,   dlast, static_cast<float*>(demb_part),
-                    static_cast<float*>(stats), (long long)batch * heads * L, heads, L, D, Dv};
+                    static_cast<float*>(stats), ds, (long long)batch * heads * L, heads, L, D,
+                    Dv};
   return (int)dispatch_bwd(p, dt, bias_dt, route, static_cast<float*>(demb_sums),
                            static_cast<cudaStream_t>(stream));
 }

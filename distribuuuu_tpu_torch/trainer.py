@@ -16,8 +16,8 @@ statistic as a view into a third, so the collectives, the guard and the
 optimizer each act on one tensor. On the card every BN runs K1 forward and
 K1-bwd backward (53 of each per ResNet-50 or BoTNet-50 step), and BoTNet's
 MHSA the attention kernel and its backward kernel (3 of each a step, the
-backward on its one-launch cluster route at 224^2); on the CPU their plain
-versions.
+backward on its one-launch cluster route at 224^2, on the blockwise route
+at 512^2); on the CPU their plain versions.
 """
 
 from __future__ import annotations
@@ -195,9 +195,13 @@ def build_cfg_model(generator: torch.Generator | None = None) -> torch.nn.Module
 
 def _launch_counts() -> tuple[int, ...]:
     """K1, K1-bwd, their scalar routes, the attention kernel, its backward
-    and the backward's launches on the cluster route."""
+    and the backward's calls on each route (cluster, blockwise, scalar)."""
     return (ep.LAUNCHES, ep.BWD_LAUNCHES, ep.SCALAR_LAUNCHES, ep.BWD_SCALAR_LAUNCHES,
-            att.LAUNCHES, att.BWD_LAUNCHES, att.BWD_ROUTE_LAUNCHES["cluster"])
+            att.LAUNCHES, att.BWD_LAUNCHES,
+            *(att.BWD_ROUTE_CALLS[r] for r in _ROUTES))
+
+
+_ROUTES = ("cluster", "blockwise", "scalar")  # the attention backward's routes
 
 
 def _poison(batch: dict) -> dict:
@@ -325,15 +329,15 @@ def train_epoch(loader, state: TrainState, epoch: int, device, is_primary: bool,
                 progress.display(it)
         t_end = time.time()
     wall = time.time() - epoch_start
-    fwd, bwd, fwd_s, bwd_s, att_f, att_b, att_c = (
+    fwd, bwd, fwd_s, bwd_s, att_f, att_b, *att_r = (
         b - a for a, b in zip(launches0, _launch_counts()))
     steps = len(loader)
     if is_primary:
         logger.info(f"Epoch[{epoch}] K1 launches: {fwd} forward ({fwd / steps:.2f} a step), "
                     f"{bwd} backward ({bwd / steps:.2f} a step), scalar route {fwd_s} forward, "
                     f"{bwd_s} backward; attention {att_f} forward ({att_f / steps:.2f} a step), "
-                    f"{att_b} backward ({att_b / steps:.2f} a step), {att_c} backward launches "
-                    f"on the cluster route")
+                    f"{att_b} backward ({att_b / steps:.2f} a step); backward calls by route: "
+                    + ", ".join(f"{r} {c}" for r, c in zip(_ROUTES, att_r)))
         if epoch_skipped:
             logger.warning(f"Epoch[{epoch}] skipped_steps: {epoch_skipped} non-finite step(s) "
                            f"left parameters and optimizer state untouched")
@@ -407,6 +411,12 @@ def _sync_bn(model, group) -> None:
 def train_model(device=None):
     """A full training run on ``device`` (None: the card). Returns
     ``(state, best_acc1)``."""
+    if cfg.MODEL.ARCH == "botnet50" and cfg.TRAIN.IM_SIZE != cfg.TEST.CROP_SIZE:
+        # as the JAX trainer: the position tables are sized by the training
+        # crop, so fail now rather than at the first validate() after an epoch
+        raise ValueError(f"botnet50 requires TRAIN.IM_SIZE == TEST.CROP_SIZE (got "
+                         f"{cfg.TRAIN.IM_SIZE} vs {cfg.TEST.CROP_SIZE}): the relative "
+                         f"position tables are sized by the training crop")
     info = _setup(device)
     gen = setup_seed(cfg.RNG_SEED, info.rank, info.group, info.device)
     if info.is_primary:

@@ -222,10 +222,10 @@ def test_table_function_gradients_on_the_cpu_equal_the_reference_bitwise(dtype):
     assert type(out.grad_fn).__name__ == "_AttentionAbsBackward"
     assert torch.equal(out, att.attention_table_reference(q, k, v, emb))
     g = torch.randn(out.shape, generator=torch.Generator().manual_seed(1)).to(dtype)
-    before = (att.BWD_LAUNCHES, att.TABLE_BWD_LAUNCHES, dict(att.BWD_ROUTE_LAUNCHES))
+    before = (att.BWD_LAUNCHES, att.TABLE_BWD_LAUNCHES, dict(att.BWD_ROUTE_CALLS))
     out.backward(g)
     # the CPU never launches
-    assert (att.BWD_LAUNCHES, att.TABLE_BWD_LAUNCHES, att.BWD_ROUTE_LAUNCHES) == before
+    assert (att.BWD_LAUNCHES, att.TABLE_BWD_LAUNCHES, att.BWD_ROUTE_CALLS) == before
     want = att.attention_table_backward_reference(q, k, v, emb, g)
     for leaf, w in zip(leaves, want):
         assert leaf.grad.dtype == leaf.dtype and leaf.grad.shape == leaf.shape
@@ -257,10 +257,13 @@ def test_backward_route_is_chosen_by_dtype_and_l():
     assert att.backward_route(torch.bfloat16, 64) == "cluster"
     assert att.backward_route(torch.bfloat16, 196) == "cluster"
     assert att.backward_route(torch.bfloat16, att.CLUSTER_MAX_L) == "cluster"
-    assert att.backward_route(torch.bfloat16, att.CLUSTER_MAX_L + 1) == "two_pass"
-    assert att.backward_route(torch.bfloat16, 1024) == "two_pass"
+    assert att.backward_route(torch.bfloat16, att.CLUSTER_MAX_L + 1) == "blockwise"
+    assert att.backward_route(torch.bfloat16, 1024) == "blockwise"
     assert att.backward_route(torch.float32, 196) == "scalar"
     assert att.backward_route(torch.float32, 1024) == "scalar"
+    # every route has its CUDA launches a call, its code for the C entry point and its count
+    assert set(att.ROUTE_LAUNCHES) == set(att._ROUTE_CODE) == set(att.BWD_ROUTE_CALLS)
+    assert att.ROUTE_LAUNCHES == {"cluster": 1, "blockwise": 3, "scalar": 2}
 
 
 def test_no_function_node_without_a_gradient():

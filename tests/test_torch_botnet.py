@@ -20,8 +20,8 @@ port's attention wrappers compute their plain versions):
   ``attention_backward_reference`` / ``attention_table_backward_reference``)
   against JAX ``MHSA(fuse=True)`` (the K2 / K3 ``custom_vjp`` in interpret
   mode) at the 4x6 map for the input, ``to_qk``, ``to_v`` and both position
-  tables, within
-  1e-5 of max(1, max|grad|); two BoTBlocks (projection, then identity
+  tables, and at the 512^2 crop's 32x32 map (L 1024: JAX's blockwise K4 /
+  K5), within 1e-5 of max(1, max|grad|); two BoTBlocks (projection, then identity
   shortcut) in train mode for one SGD step against JAX, BN scales drawn
   away from 0 so the attention branch gets a gradient;
 - ``botnet50_trunk_from_resnet50`` + ``merge_pretrained`` bitwise the JAX
@@ -118,10 +118,41 @@ def test_mhsa_gradients_match_the_jax_custom_vjp(rel):
     """f32: the two backward passes differ only in f32 summation order.
     ``rel_pos_emb=False`` runs the table mode's Function (K3's custom_vjp
     in JAX): the tables' gradients come through ``emb = height + width``."""
-    rng = np.random.default_rng(7)
-    x = rng.standard_normal((2, 4, 6, 16)).astype(np.float32)
-    g = rng.standard_normal((2, 4, 6, 16)).astype(np.float32)
-    kw = dict(fmap_size=(4, 6), heads=2, dim_qk=8, dim_v=8, rel_pos_emb=rel)
+    _mhsa_gradients_match_jax(rel, (4, 6), batch=2, seed=7)
+
+
+@pytest.mark.parametrize("rel", [True, False], ids=["rel_pos", "abs_table"])
+def test_mhsa_gradients_match_the_jax_blockwise_custom_vjp_at_fmap_32(rel, monkeypatch):
+    """The 512^2 crop's feature map, 32x32 (L 1024), batch 1, 2 heads of 8:
+    JAX's MHSA re-tiles to the blockwise kernels (K4, or K5 in table mode, in
+    interpret mode), whose custom_vjp is the one the port's blockwise route
+    computes; the port runs its plain backward. The same limit as at 4x6. At
+    these narrow widths the table mode's single tile fits JAX's default VMEM
+    budget, so the budget is set to 8 MB, below both single-tile estimates."""
+    from distribuuuu_tpu.ops import attention as jax_attention
+
+    monkeypatch.setenv("DTPU_ATTN_VMEM_BUDGET_MB", "8")
+    assert jax_attention._tile_vmem_bytes(1024, 8, 8, 4, rel) > \
+        jax_attention._VMEM_GUARD.budget_bytes()
+    calls = Counter()
+    for name in ("_fused_attention", "_fused_attention_abs", "_fused_attention_blk",
+                 "_fused_attention_abs_blk"):
+        def spy(*args, _real=getattr(jax_attention, name), _name=name):
+            calls[_name] += 1
+            return _real(*args)
+        monkeypatch.setattr(jax_attention, name, spy)
+    _mhsa_gradients_match_jax(rel, (32, 32), batch=1, seed=11)
+    assert set(calls) == {"_fused_attention_blk" if rel else "_fused_attention_abs_blk"}, calls
+
+
+def _mhsa_gradients_match_jax(rel, fmap, batch, seed):
+    """The port's MHSA gradients (input, ``to_qk``, ``to_v``, both position
+    tables) against ``jax.vjp`` of JAX ``MHSA(fuse=True)`` on its weights,
+    within 1e-5 of max(1, max|grad|)."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((batch, *fmap, 16)).astype(np.float32)
+    g = rng.standard_normal((batch, *fmap, 16)).astype(np.float32)
+    kw = dict(fmap_size=fmap, heads=2, dim_qk=8, dim_v=8, rel_pos_emb=rel)
     jax_mhsa = jax_botnet.MHSA(dtype=jnp.float32, fuse=True, **kw)
     params = jax_mhsa.init(jax.random.PRNGKey(1), jnp.asarray(x))["params"]
     _, pull = jax.vjp(lambda p, xx: jax_mhsa.apply({"params": p}, xx), params, jnp.asarray(x))

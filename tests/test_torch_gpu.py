@@ -196,6 +196,19 @@ def test_cuda_attention_matches_plain(cuda):
 # only; bf16 rounds each gradient once to bf16 on both sides, with f32 sums
 # in different orders
 ATTN_BWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# and the error's L2 norm relative to the reference's, which scales with the
+# data (a typical dbias entry at L 1024 is ~1e-2, far below max(1, max|grad|));
+# as chip_smoke.ATTN_BWD_REL_L2
+ATTN_BWD_REL_L2 = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+
+def _assert_grad_close(x, z, what):
+    """x within both limits of the plain version's z, by z's dtype."""
+    xf, zf = x.float(), z.float()
+    err = (xf - zf).abs().max().item()
+    assert err <= ATTN_BWD_TOL[z.dtype] * max(1.0, zf.abs().max().item()), (what, err)
+    rel = ((xf - zf).norm() / zf.norm().clamp_min(1e-30)).item()
+    assert rel <= ATTN_BWD_REL_L2[z.dtype], (what, rel)
 
 
 @pytest.mark.gpu
@@ -206,9 +219,10 @@ def test_cuda_attention_backward_matches_plain(cuda):
     against the kernel's tiles and at 1024, Dv != D, odd D; the cluster
     route's edges, one to four CTAs a cluster: L 64 (one full tile), 65 (a
     1-key second tile), 130, 256 (four full tiles), and L 257 on the
-    two-pass route. Two calls are bitwise equal, each call counts one
-    backward call, and the route of ``backward_route`` its launches (one a
-    call on the cluster route, two on the others)."""
+    blockwise route. Two calls are bitwise equal, and each call counts one
+    backward call, on the route of ``backward_route`` (which launches
+    ``att.ROUTE_LAUNCHES`` kernels a call: one on the cluster route, three on
+    the blockwise one, two on the scalar one)."""
     gen = torch.Generator(device=cuda).manual_seed(5)
     for (b, n, l, d, dv) in [(2, 4, 196, 128, 128), (1, 2, 70, 32, 24), (1, 1, 5, 7, 3),
                              (1, 2, 1024, 128, 128), (1, 2, 65, 128, 128), (2, 3, 196, 40, 24),
@@ -222,7 +236,7 @@ def test_cuda_attention_backward_matches_plain(cuda):
             bias = torch.randn(b, n, l, l, generator=gen, device=cuda) * 0.5
             for bias_dt in (torch.float32, torch.bfloat16):
                 bb = bias.to(bias_dt)
-                before = (att.BWD_LAUNCHES, dict(att.BWD_ROUTE_LAUNCHES))
+                before = (att.BWD_LAUNCHES, dict(att.BWD_ROUTE_CALLS))
                 got = att.fused_attention_backward(q, k, v, bb, g)
                 again = att.fused_attention_backward(q, k, v, bb, g)
                 want = att.attention_backward_reference(q, k, v, bb, g)
@@ -230,18 +244,16 @@ def test_cuda_attention_backward_matches_plain(cuda):
                 case = ((b, n, l, d, dv), dt, bias_dt)
                 route = att.backward_route(dt, l)
                 assert att.BWD_LAUNCHES == before[0] + 2, case
-                assert _launched(before[1]) == {route: 2 if route == "cluster" else 4}, case
+                assert _route_calls(before[1]) == {route: 2}, case
                 for name, x, y, z in zip(("dq", "dk", "dv", "dbias"), got, again, want):
                     assert x.dtype == z.dtype and x.shape == z.shape and x.is_contiguous(), case
                     assert torch.equal(x, y), (case, name, "two calls")
-                    tol = ATTN_BWD_TOL[z.dtype] * max(1.0, z.float().abs().max().item())
-                    err = (x.float() - z.float()).abs().max().item()
-                    assert err <= tol, (case, name, err)
+                    _assert_grad_close(x, z, (case, name))
 
 
-def _launched(before):
-    """The backward's CUDA launches per route since ``before``, nonzero only."""
-    return {k: v - before[k] for k, v in att.BWD_ROUTE_LAUNCHES.items() if v != before[k]}
+def _route_calls(before):
+    """The backward's calls per route since ``before``, nonzero only."""
+    return {k: v - before[k] for k, v in att.BWD_ROUTE_CALLS.items() if v != before[k]}
 
 
 @pytest.mark.gpu
@@ -249,10 +261,9 @@ def test_cuda_attention_table_backward_on_every_route(cuda):
     """The table mode's backward (dq, dk, dv, demb) against
     ``attention_table_backward_reference`` on the three routes: bf16 on the
     cluster route (L 196, and a ragged L 70 with D 40, Dv 24), bf16 on the
-    two-pass route (L 1024, and L 300 ragged), f32 on the scalar route (L
+    blockwise route (L 1024, and L 300 ragged), f32 on the scalar route (L
     196, L 70 ragged). Head-split views, a strided table; two calls bitwise
-    equal; one table-backward call and the route's launches plus the demb
-    reduction's two counted a call."""
+    equal; one table-backward call a call, on its route."""
     gen = torch.Generator(device=cuda).manual_seed(9)
     for (b, n, l, d, dv) in [(8, 4, 196, 128, 128), (2, 3, 70, 40, 24), (2, 4, 1024, 128, 128),
                              (1, 3, 300, 40, 24)]:
@@ -261,20 +272,57 @@ def test_cuda_attention_table_backward_on_every_route(cuda):
                           .to(dt) for w, sc in ((d, 0.3), (d, 0.3), (dv, 1.0), (dv, 1.0)))
             emb = (torch.randn(l, 2 * d, generator=gen, device=cuda) * 0.5).to(dt)[:, :d]
             route = att.backward_route(dt, l)
-            before = (att.TABLE_BWD_LAUNCHES, att.BWD_LAUNCHES, dict(att.BWD_ROUTE_LAUNCHES))
+            before = (att.TABLE_BWD_LAUNCHES, att.BWD_LAUNCHES, dict(att.BWD_ROUTE_CALLS))
             got = att.fused_attention_abs_backward(q, k, v, emb, g)
             again = att.fused_attention_abs_backward(q, k, v, emb, g)
             want = att.attention_table_backward_reference(q, k, v, emb, g)
             torch.cuda.synchronize()
             case = ((b, n, l, d, dv), dt, route)
             assert (att.TABLE_BWD_LAUNCHES, att.BWD_LAUNCHES) == (before[0] + 2, before[1]), case
-            assert _launched(before[2]) == {route: 2 if route == "cluster" else 4, "demb": 4}, case
+            assert _route_calls(before[2]) == {route: 2}, case
             for name, x, y, z in zip(("dq", "dk", "dv", "demb"), got, again, want):
                 assert x.dtype == z.dtype and x.shape == z.shape and x.is_contiguous(), case
                 assert torch.equal(x, y), (case, name, "two calls")
-                tol = ATTN_BWD_TOL[z.dtype] * max(1.0, z.float().abs().max().item())
-                err = (x.float() - z.float()).abs().max().item()
-                assert err <= tol, (case, name, err)
+                _assert_grad_close(x, z, (case, name))
+
+
+@pytest.mark.gpu
+def test_cuda_attention_blockwise_route_past_the_cluster_cut(cuda):
+    """The bf16 backward's blockwise route (L > 256) against the plain
+    backwards: L 257 (just past the cluster route's cut: a 1-key last tile),
+    L 1024 at B*N 128 (the 512^2 training step's shape) and a ragged L 300
+    with D 40, Dv 24; a bf16 bias (whose dbias is the ds the dq pass reads),
+    an f32 bias and the table mode. Head-split views and a transposed g; two
+    calls bitwise equal; each call one backward call on the blockwise route
+    (three launches, and the demb reduction's two in table mode); every
+    gradient within both limits, the L2-relative one included."""
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    for (b, n, l, d, dv) in [(2, 3, 257, 128, 128), (32, 4, 1024, 128, 128), (1, 3, 300, 40, 24)]:
+        q, k, v, g = (_heads_first(torch.randn(b, l, n * w, generator=gen, device=cuda) * sc, n)
+                      .bfloat16() for w, sc in ((d, 0.3), (d, 0.3), (dv, 1.0), (dv, 1.0)))
+        bias = torch.randn(b, n, l, l, generator=gen, device=cuda) * 0.5
+        emb = (torch.randn(l, d, generator=gen, device=cuda) * 0.5).bfloat16()
+        assert att.backward_route(torch.bfloat16, l) == "blockwise"
+        for mode in ("bf16 bias", "f32 bias", "table"):
+            last = emb if mode == "table" else bias.to(
+                torch.bfloat16 if mode == "bf16 bias" else torch.float32)
+            fn = (att.fused_attention_abs_backward if mode == "table"
+                  else att.fused_attention_backward)
+            plain = (att.attention_table_backward_reference if mode == "table"
+                     else att.attention_backward_reference)
+            before = (att.BWD_LAUNCHES + att.TABLE_BWD_LAUNCHES, dict(att.BWD_ROUTE_CALLS))
+            got = fn(q, k, v, last, g)
+            again = fn(q, k, v, last, g)
+            want = plain(q, k, v, last, g)
+            torch.cuda.synchronize()
+            case = ((b, n, l, d, dv), mode)
+            assert att.BWD_LAUNCHES + att.TABLE_BWD_LAUNCHES == before[0] + 2, case
+            assert _route_calls(before[1]) == {"blockwise": 2}, case
+            for name, x, y, z in zip(("dq", "dk", "dv", "dlast"), got, again, want):
+                assert x.dtype == z.dtype and x.shape == z.shape and x.is_contiguous(), case
+                assert torch.equal(x, y), (case, name, "two calls")
+                _assert_grad_close(x, z, (case, name))
+            del got, again, want
 
 
 @pytest.mark.gpu
@@ -291,12 +339,12 @@ def test_mhsa_table_mode_bf16_sgd_step_trains_on_the_card(cuda):
     x = x.contiguous(memory_format=torch.channels_last)
     opt = torch.optim.SGD(m.parameters(), lr=0.1)
     start = {k: t.detach().clone() for k, t in m.named_parameters()}
-    before = (att.TABLE_LAUNCHES, att.TABLE_BWD_LAUNCHES, dict(att.BWD_ROUTE_LAUNCHES))
+    before = (att.TABLE_LAUNCHES, att.TABLE_BWD_LAUNCHES, dict(att.BWD_ROUTE_CALLS))
     m(x).float().square().mean().backward()
     opt.step()
     torch.cuda.synchronize()
     assert (att.TABLE_LAUNCHES - before[0], att.TABLE_BWD_LAUNCHES - before[1]) == (1, 1)
-    assert _launched(before[2]) == {"cluster": 1, "demb": 2}
+    assert _route_calls(before[2]) == {"cluster": 1}
     for name in ("pos_emb.height", "pos_emb.width", "to_qk.weight"):
         grad = dict(m.named_parameters())[name].grad
         assert grad is not None and torch.isfinite(grad).all(), name

@@ -15,7 +15,8 @@
   non-zero and names ``device='cpu'``;
 - ``config/botnet50.yaml`` at 32^2 (feature map 2x2), batch 4, 2 steps:
   the epoch's launch line counts no attention kernel on the CPU, the
-  checkpoint verifies, ``test_model`` evaluates it, a relaunch resumes.
+  checkpoint verifies, ``test_model`` evaluates it, a relaunch resumes;
+  a train crop other than TEST.CROP_SIZE is refused before the first step.
 """
 
 import math
@@ -158,6 +159,7 @@ def test_botnet50_trains_checkpoints_evaluates_and_resumes_on_the_cpu(tmp_path):
     losses = [float(m) for m in re.findall(r"Epoch\[0\] \[\s*\d+/2\].*?Loss (\S+) \(", log)]
     assert len(losses) == 2 and all(map(math.isfinite, losses)), losses
     assert "attention 0 forward (0.00 a step), 0 backward" in log  # the CPU runs the plain versions
+    assert "backward calls by route: cluster 0, blockwise 0, scalar 0" in log
     first = tmp_path / "checkpoints" / "ckpt_ep_001"
     assert ckpt.verify_checkpoint(str(first)) == ("ok", [])
     _load(tmp_path / "eval", "MODEL.WEIGHTS", str(first), arch="botnet50")
@@ -168,3 +170,14 @@ def test_botnet50_trains_checkpoints_evaluates_and_resumes_on_the_cpu(tmp_path):
     log = "".join(p.read_text() for p in tmp_path.glob("*.log"))
     assert re.search(r"Resumed from \S+ckpt_ep_001 \(epoch 1", log), log[-2000:]
     assert ckpt.verify_checkpoint(str(tmp_path / "checkpoints" / "ckpt_ep_002")) == ("ok", [])
+
+
+def test_botnet50_refuses_a_train_crop_other_than_the_eval_crop(tmp_path):
+    """As the JAX trainer: BoTNet's position tables are sized by
+    TRAIN.IM_SIZE, so a TEST.CROP_SIZE that differs (the 512^2 crop with the
+    default 224 eval crop) fails before the first step, not at the first
+    validation after an epoch."""
+    _load(tmp_path, "TEST.CROP_SIZE", "16", arch="botnet50")
+    with pytest.raises(ValueError, match=r"TRAIN.IM_SIZE == TEST.CROP_SIZE \(got 32 vs 16\)"):
+        train_model(device="cpu")
+    assert not (tmp_path / "checkpoints").exists()
