@@ -123,7 +123,21 @@ Phases (any failure exits non-zero):
    finite and falling, the checkpoint, ``test_net`` on it, step ms,
    images/s and the profile of 3 steps by kernel class, attention-bwd µs a
    step against its bound;
-14. the ``{"kernels": [...]}`` line; 15. the ``{"ok": true, ...}`` last line.
+14. [input] a JPEG ImageFolder written from a seed (4096 train and 512 val
+   images over 100 classes, 500x375, quality 90, ~110 KB a file), then the
+   port's ``HostDataLoader`` alone: train-transform images/s at 224^2,
+   batch 128, pinned, at TRAIN.WORKERS 4 and min(32, cpu count), the
+   decoder backend, the time to pin a batch;
+15. [train-jpeg] ``python -m distribuuuu_tpu_torch.train_net --cfg
+   config/resnet50.yaml TRAIN.DATASET <that folder> TRAIN.BATCH_SIZE 128
+   OPTIM.MAX_EPOCH 1``: 32 steps on real JPEG decode, the loss finite, 53
+   K1 and 53 K1-bwd launches a step, the val pass over exactly the 512 val
+   images in padded batches of 200; step ms, images/s, the Data meter's
+   share, the profile of 3 steps beside [train]'s;
+16. [oracle] the digits recipe of ``tutorial/real_data_oracle.py`` through
+   ``train_net`` on ``config/resnet18.yaml`` (5 epochs, 1497 train and 300
+   val JPEGs): val Acc@1 and Acc@5 an epoch; fails below the band of 65;
+17. the ``{"kernels": [...]}`` line; 18. the ``{"ok": true, ...}`` last line.
 
 Each path is driven with the launch counts set to 0 just before it and read
 just after. Per-shape numbers are also written to ``smoke_out/``.
@@ -750,9 +764,11 @@ def train_run(card: str, out: Path, tag: str, what: str, cfg_file: str, batch: i
         fail(f"test_net reported no Acc@1:\n{ev[-2000:]}")
     say(f"[{tag}] {path} verified against its manifest; test_net on it: Acc@1 {acc[1]}, "
         f"Acc@5 {acc[2]}")
+    wait = re.search(r"data wait (\S+)% of the epoch", log)
     return dict(steps=steps, batch=batch, im=im, launches=counts, losses=losses, step_ms=step_ms,
                 images_per_s=1e3 * batch / step_ms, windows=prog, wall_s=wall, profile=profile,
-                acc1=float(acc[1]), acc5=float(acc[2]))
+                acc1=float(acc[1]), acc5=float(acc[2]),
+                data_wait_pct=float(wait[1]) if wait else float("nan"))
 
 
 def phase_train(card: str, tmp: Path, bound_ms: dict) -> dict:
@@ -920,6 +936,232 @@ def train_f32_botnet_check() -> dict:
             and float(ac.abs().max()) > 0 and launches == BOT_ATTENTION):
         fail("the f32 BoTNet-50 step on the card is outside the stated tolerance of the CPU's")
     return d
+
+
+# [input], [train-jpeg], [oracle]: the real-image input path. A JPEG
+# ImageFolder written from a seed: JPEG_SPLITS images over JPEG_CLASSES class
+# folders at ImageNet's most common size, each a seeded low-frequency pattern
+# (a JPEG_GRID of random colours, bicubic) plus uniform noise of +-JPEG_NOISE,
+# which lands the files near ImageNet's ~110 KB mean at quality 90
+JPEG_SPLITS = {"train": 4096, "val": 512}
+JPEG_CLASSES = 100
+JPEG_SIZE = (500, 375)  # (w, h)
+JPEG_QUALITY = 90
+JPEG_GRID, JPEG_NOISE = (24, 32), 36
+# TRAIN.PROFILE_START, TRAIN.PROFILE_STEPS of [train-jpeg]'s 32 steps: mid-epoch,
+# while the loader still decodes (it runs up to 6 batches ahead: a queue of
+# TRAIN.PREFETCH * 2 and the prefetcher's 2)
+JPEG_PROFILE = (16, 3)
+JPEG_VAL_BATCH = 200  # TEST.BATCH_SIZE's default: 512 = 2 x 200 + 112, a padded last batch
+# the digits oracle of tutorial/real_data_oracle.py:main as train_net
+# overrides on config/resnet18.yaml: 1497 train and 300 val images, 23 steps
+# an epoch, and the band its best val Acc@1 must reach (ORACLE_MIN_ACC1 at
+# tutorial/real_data_oracle.py:76; the JAX package's transcript: 76.7)
+ORACLE_ARGS = ["MODEL.NUM_CLASSES", "10", "MODEL.SYNCBN", "True", "TRAIN.IM_SIZE", "32",
+               "TEST.IM_SIZE", "36", "TEST.CROP_SIZE", "32", "TRAIN.BATCH_SIZE", "64",
+               "TEST.BATCH_SIZE", "64", "OPTIM.BASE_LR", "0.05", "OPTIM.WARMUP_EPOCHS", "1",
+               "OPTIM.MAX_EPOCH", "5", "RNG_SEED", "1", "TRAIN.AUTO_RESUME", "False"]
+ORACLE_EPOCHS, ORACLE_STEPS, ORACLE_VAL = 5, 23, 300
+ORACLE_MIN_ACC1 = 65.0
+ORACLE_K1 = 20  # K1 launches per ResNet-18 training step; as many K1-bwd
+
+
+def write_jpeg(path: Path, seed: int, index: int) -> int:
+    """One JPEG of the [input] folder, drawn from ``(seed, index)``; its bytes."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng([seed, index])
+    coarse = Image.fromarray(rng.integers(0, 256, (*JPEG_GRID, 3), dtype=np.uint8))
+    low = np.asarray(coarse.resize(JPEG_SIZE, Image.Resampling.BICUBIC), np.int16)
+    noise = rng.integers(-JPEG_NOISE, JPEG_NOISE + 1, low.shape, dtype=np.int16)
+    Image.fromarray(np.clip(low + noise, 0, 255).astype(np.uint8)).save(path, quality=JPEG_QUALITY)
+    return path.stat().st_size
+
+
+def write_jpeg_imagefolder(root: Path, seed: int = 0) -> dict:
+    """``root/{train,val}/c<k>/<i>.jpg`` (class ``i % JPEG_CLASSES``), one
+    thread a core (PIL's encoder releases the GIL)."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    jobs, first = [], 0
+    for split, n in JPEG_SPLITS.items():
+        for k in range(JPEG_CLASSES):
+            (root / split / f"c{k:03d}").mkdir(parents=True)
+        jobs += [(root / split / f"c{i % JPEG_CLASSES:03d}" / f"{i:05d}.jpg", first + i)
+                 for i in range(n)]
+        first += n
+    tic = time.perf_counter()
+    with ThreadPoolExecutor(os.cpu_count()) as pool:
+        sizes = list(pool.map(lambda job: write_jpeg(job[0], seed, job[1]), jobs))
+    return dict(files=len(sizes), mean_bytes=statistics.fmean(sizes),
+                wall_s=time.perf_counter() - tic)
+
+
+def phase_input(card: str, root: Path, smi: str) -> dict:
+    """[input]: the port's HostDataLoader alone, no model: the train
+    transform (RandomResizedCrop to 224^2 + flip) over JPEG_SPLITS["train"]
+    JPEGs in batches of LADDER_BATCH, decoded into pinned memory as the
+    trainer runs it, at TRAIN.WORKERS 4 (the config's default) and at
+    min(32, cpu count); then the time to pin a decoded batch, on the
+    consumer's side (``pin_memory()``, what the step paid before) and on
+    the producer's (a block from the caching host allocator + the copy)."""
+    import os
+
+    import torch
+
+    from distribuuuu_tpu_torch.data import loader, native
+    from distribuuuu_tpu_torch.data.dataset import open_image_dataset
+
+    ds = open_image_dataset(str(root / "train"))
+    cpus = os.cpu_count()
+    res = {"cpu_count": cpus, "images_per_s": {}}
+    for workers in sorted({4, min(32, cpus)}):
+        ld = loader.HostDataLoader(ds, host_batch=LADDER_BATCH, train=True, im_size=IM,
+                                   process_index=0, process_count=1, workers=workers, seed=0,
+                                   pin_device=torch.device("cuda"))
+        tic, n = time.perf_counter(), 0
+        for batch in ld:
+            n += batch["image"].shape[0]
+            if not batch["image"].is_pinned():
+                fail("[input] the loader's producer handed over an unpinned batch")
+        res["images_per_s"][workers] = n / (time.perf_counter() - tic)
+        res["decoder"] = ld.decoder
+    if n != JPEG_SPLITS["train"] // LADDER_BATCH * LADDER_BATCH:
+        fail(f"[input] the loader yielded {n} images, want {JPEG_SPLITS['train']}")
+    batch = ld.decode_batch(0)["image"]
+    pin, fresh = [], []
+    for _ in range(10):
+        tic = time.perf_counter()
+        torch.from_numpy(batch).pin_memory()
+        pin.append(time.perf_counter() - tic)
+        tic = time.perf_counter()
+        t = torch.empty(batch.shape, dtype=torch.uint8, pin_memory=True)
+        t.numpy()[...] = batch
+        fresh.append(time.perf_counter() - tic)
+        del t
+    res.update(pin_ms=1e3 * statistics.median(pin), producer_pin_ms=1e3 * statistics.median(fresh),
+               batch_mb=batch.nbytes / 1e6)
+    why = "" if res["decoder"] == "native" else f" (native: {native.unavailable_reason()})"
+    say(f"[input] HostDataLoader, train transform to {IM}^2, batch {LADDER_BATCH}, pinned, "
+        f"{JPEG_SPLITS['train']} JPEGs of {JPEG_SIZE[0]}x{JPEG_SIZE[1]}: decoder "
+        f"{res['decoder']}{why}; os.cpu_count() {cpus}; " + ", ".join(
+            f"{v:.0f} images/s at TRAIN.WORKERS {w}" for w, v in res["images_per_s"].items())
+        + f"; pinning a decoded {res['batch_mb']:.1f} MB batch: pin_memory() "
+        f"{res['pin_ms']:.2f} ms, a cached pinned block + copy {res['producer_pin_ms']:.2f} ms "
+        f"({card}; {smi})")
+    return res
+
+
+def phase_train_jpeg(card: str, tmp: Path, root: Path, bound_ms: dict, dummy: dict) -> dict:
+    """[train-jpeg]: ``python -m distribuuuu_tpu_torch.train_net --cfg
+    config/resnet50.yaml TRAIN.DATASET <root> TRAIN.BATCH_SIZE 128
+    OPTIM.MAX_EPOCH 1`` at the recipe's TRAIN.WORKERS: 32 steps on the
+    JPEGs, the loss finite, TRAIN_K1 K1 and K1-bwd launches a step (none
+    scalar), the val pass counting exactly the 512 val images in padded
+    batches of JPEG_VAL_BATCH; step ms, images/s, the Data meter's share of
+    the epoch and the profile of 3 steps, beside [train]'s (dummy input)."""
+    out = tmp / "train_jpeg"
+    steps = JPEG_SPLITS["train"] // LADDER_BATCH
+    tic = time.perf_counter()
+    log = run_cli(["distribuuuu_tpu_torch.train_net", "--cfg", "config/resnet50.yaml",
+                   "TRAIN.DATASET", str(root), "TRAIN.BATCH_SIZE", str(LADDER_BATCH),
+                   "OPTIM.MAX_EPOCH", "1", "TRAIN.PRINT_FREQ", str(TRAIN_PRINT), "RNG_SEED", "0",
+                   "OUT_DIR", str(out), "TRAIN.PROFILE", "True", "TRAIN.PROFILE_START",
+                   str(JPEG_PROFILE[0]), "TRAIN.PROFILE_STEPS", str(JPEG_PROFILE[1])],
+                  "train_net ResNet-50 on JPEGs")
+    wall = time.perf_counter() - tic
+    prog, counts = train_log(log)
+    losses = [p[2] for p in prog]
+    want = dict(k1=TRAIN_K1 * steps, k1_bwd=TRAIN_K1 * steps, k1_scalar=0, k1_bwd_scalar=0,
+                attention=0, attention_bwd=0, attention_bwd_cluster=0, attention_bwd_blockwise=0,
+                attention_bwd_scalar=0)
+    if counts != want or not all(math.isfinite(v) for v in losses):
+        fail(f"[train-jpeg] launches over {steps} steps {counts} (want {want}) or a loss not "
+             f"finite: {losses}")
+    inp = re.search(r"Input: train (\d+) images .*?decoder: (\w+); (\d+) workers; pinned: (\w+)",
+                    log)
+    val = re.search(r"Input: val (\d+) images \(\d+ in this process's shard, (\d+) batches of "
+                    r"(\d+)\)", log)
+    acc = re.search(r"\* Acc@1 (\S+) Acc@5 (\S+) over (\d+) images", log)
+    wait = re.search(r"Epoch\[0\] done: .*; data wait (\S+)% of the epoch", log)
+    if inp is None or int(inp[1]) != JPEG_SPLITS["train"] or val is None or acc is None \
+            or wait is None:
+        fail(f"[train-jpeg] the log lacks the input, val or epoch lines:\n{log[-3000:]}")
+    n_val, val_batches = JPEG_SPLITS["val"], -(-JPEG_SPLITS["val"] // JPEG_VAL_BATCH)
+    if (int(val[1]), int(val[2]), int(val[3]), int(acc[3])) != (n_val, val_batches,
+                                                                JPEG_VAL_BATCH, n_val):
+        fail(f"[train-jpeg] the val pass counted {acc[3]} images in {val[2]} batches of "
+             f"{val[3]}; want exactly {n_val} in {val_batches} padded batches of "
+             f"{JPEG_VAL_BATCH}")
+    steady = [t for it, t, _ in prog if TRAIN_PRINT * 2 <= it < JPEG_PROFILE[0]]
+    step_ms = 1e3 * statistics.median(steady)
+    profile = train_profile(out / "profile" / "train_steps.json", JPEG_PROFILE[1], bound_ms,
+                            "ResNet-50 on JPEGs", "train-jpeg")
+    res = dict(steps=steps, batch=LADDER_BATCH, launches=counts, losses=losses, step_ms=step_ms,
+               images_per_s=1e3 * LADDER_BATCH / step_ms, windows=prog, wall_s=wall,
+               data_wait_pct=float(wait[1]), decoder=inp[2], workers=int(inp[3]),
+               pinned=inp[4] == "True", val_images=int(acc[3]), acc1=float(acc[1]),
+               profile=profile)
+    say(f"[train-jpeg] train_net ResNet-50 {IM}^2 batch {LADDER_BATCH} on {JPEG_SPLITS['train']} "
+        f"JPEGs, {steps} steps in {wall:.1f} s (process start and the val pass included); "
+        f"decoder {res['decoder']}, TRAIN.WORKERS {res['workers']}, pinned {res['pinned']}; "
+        f"loss {losses[0]:.4f} -> {losses[-1]:.4f}; launches {counts}; step {step_ms:.2f} ms "
+        f"(median of the {len(steady)} windows of {TRAIN_PRINT} steps ending at steps "
+        f"{TRAIN_PRINT * 2} to {JPEG_PROFILE[0] - 1}), {res['images_per_s']:.0f} images/s, Data "
+        f"meter {res['data_wait_pct']:.1f}% of the epoch; ms a step by window (ending at step): "
+        + ", ".join(f"{1e3 * t:.0f} ({it})" for it, t, _ in prog)
+        + f"; val: {acc[3]} images in {val[2]} batches of {val[3]}, Acc@1 {acc[1]} ({card})")
+    dp, jp = dummy.get("profile", {}), profile
+    say("[train-jpeg] beside [train] (dummy input, this run): step "
+        f"{step_ms:.2f} / {dummy['step_ms']:.2f} ms, {res['images_per_s']:.0f} / "
+        f"{dummy['images_per_s']:.0f} images/s, Data meter {res['data_wait_pct']:.1f} / "
+        f"{dummy.get('data_wait_pct', float('nan')):.1f}% of the epoch; per step: "
+        + ", ".join(f"{k} {jp.get('per_step_us', {}).get(k, 0):.0f} / "
+                    f"{dp.get('per_step_us', {}).get(k, 0):.0f} us"
+                    for k in sorted(set(jp.get("per_step_us", {})) | set(dp.get("per_step_us", {}))))
+        + f"; busy {jp.get('busy_per_step_us', 0):.0f} / {dp.get('busy_per_step_us', 0):.0f} us, "
+        f"idle share {100 * jp.get('idle_share', 0):.1f} / {100 * dp.get('idle_share', 0):.1f}%")
+    return res
+
+
+def phase_oracle(card: str, tmp: Path) -> dict:
+    """[oracle]: the digits recipe of ``tutorial/real_data_oracle.py:main``
+    through ``train_net`` on the card (ORACLE_ARGS over
+    ``config/resnet18.yaml``; the port's ``digits_imagefolder``): val Acc@1
+    and Acc@5 an epoch over exactly ORACLE_VAL images, ORACLE_K1 K1 and
+    K1-bwd launches a step; fails below the band ORACLE_MIN_ACC1."""
+    from distribuuuu_tpu_torch.data.provision import digits_imagefolder
+
+    root = digits_imagefolder(str(tmp / "digits"))
+    tic = time.perf_counter()
+    log = run_cli(["distribuuuu_tpu_torch.train_net", "--cfg", "config/resnet18.yaml",
+                   "TRAIN.DATASET", root, *ORACLE_ARGS, "OUT_DIR", str(tmp / "oracle")],
+                  "train_net digits oracle")
+    wall = time.perf_counter() - tic
+    curve = [(float(a), float(b), int(n)) for a, b, n in
+             re.findall(r"\* Acc@1 (\S+) Acc@5 (\S+) over (\d+) images", log)]
+    _, counts = train_log(log)
+    dec = re.search(r"Input: train (\d+) images .*?(\d+) batches of \d+\) .*?decoder: (\w+)", log)
+    want = dict(k1=ORACLE_K1 * ORACLE_STEPS, k1_bwd=ORACLE_K1 * ORACLE_STEPS)
+    if len(curve) != ORACLE_EPOCHS or any(n != ORACLE_VAL for *_, n in curve) or dec is None \
+            or int(dec[2]) != ORACLE_STEPS \
+            or any(counts[k] != v for k, v in want.items()) or counts["k1_scalar"]:
+        fail(f"[oracle] want {ORACLE_EPOCHS} val passes over {ORACLE_VAL} images each and "
+             f"{want} launches in epoch 0 of {ORACLE_STEPS} steps; got {curve}, {counts}:\n"
+             f"{log[-3000:]}")
+    best = max(a for a, _, _ in curve)
+    say(f"[oracle] train_net ResNet-18 on the digits ImageFolder ({dec[1]} train JPEGs, "
+        f"{ORACLE_VAL} val; decoder {dec[3]}), {ORACLE_EPOCHS} epochs of {ORACLE_STEPS} steps in "
+        f"{wall:.1f} s: val Acc@1 / Acc@5 by epoch " + ", ".join(
+            f"{a:.3f} / {b:.3f}" for a, b, _ in curve)
+        + f"; best Acc@1 {best:.3f} (band >= {ORACLE_MIN_ACC1:.0f}); launches in epoch 0 "
+        f"{counts} ({card})")
+    if best < ORACLE_MIN_ACC1:
+        fail(f"[oracle] best val Acc@1 {best:.3f} is below the oracle's band of "
+             f"{ORACLE_MIN_ACC1:.0f}")
+    return dict(curve=curve, best_acc1=best, launches=counts, wall_s=wall, decoder=dec[3])
 
 
 def cuda_ms(fn, runs: int = 25, warmup: int = 3, batch: int = 1) -> float:
@@ -2564,6 +2806,14 @@ def main() -> None:
                                     for site, m in bot512_sites.items())
     with tempfile.TemporaryDirectory() as tmp:
         train_bot_512 = phase_train_bot_512(card, Path(tmp), bot512_bound_ms)
+    with tempfile.TemporaryDirectory() as tmp:
+        jpegs = write_jpeg_imagefolder(Path(tmp) / "jpeg")
+        say(f"[input] wrote {jpegs['files']} JPEGs ({JPEG_SPLITS}, {JPEG_CLASSES} classes, "
+            f"{JPEG_SIZE[0]}x{JPEG_SIZE[1]}, quality {JPEG_QUALITY}) in {jpegs['wall_s']:.1f} s: "
+            f"mean {jpegs['mean_bytes'] / 1e3:.1f} KB a file")
+        inp = dict(phase_input(card, Path(tmp) / "jpeg", smi), jpegs=jpegs)
+        train_jpeg = phase_train_jpeg(card, Path(tmp), Path(tmp) / "jpeg", train_bound_ms, train)
+        oracle = phase_oracle(card, Path(tmp))
 
     # K1 per batch-128 forward of each served model: its sites' rows summed
     per_fwd, modes = {}, {}
@@ -2590,7 +2840,8 @@ def main() -> None:
          "train_bound_ms": train_bound_ms, "train": train, "train_bot": train_bot,
          "train_bot_bound_ms": bot_bound_ms,
          "train_bot_sites": [[*site, m] for site, m in sorted(bot_sites.items())],
-         "train_bot_512": train_bot_512, "train_bot_512_bound_ms": bot512_bound_ms}, indent=1))
+         "train_bot_512": train_bot_512, "train_bot_512_bound_ms": bot512_bound_ms,
+         "input": inp, "train_jpeg": train_jpeg, "oracle": oracle}, indent=1))
     (out / "chip_smoke_moe.json").write_text(json.dumps(
         {"card": smi, "build": builds["moe"], "kernels": moe, "dist": moe_dist}, indent=1))
     for arch, f in per_fwd.items():
@@ -2721,6 +2972,9 @@ def main() -> None:
     kernels[0]["train_launches"] = train["launches"]["k1"]
     kernels[0]["botnet50_train_launches"] = train_bot["launches"]["k1"]
     kernels[1]["botnet50_train_launches"] = train_bot["launches"]["k1_bwd"]
+    for i, key in ((0, "k1"), (1, "k1_bwd")):  # the real-image paths
+        kernels[i]["train_jpeg_launches"] = train_jpeg["launches"][key]
+        kernels[i]["oracle_epoch0_launches"] = oracle["launches"][key]
     k2 = next(k for k in kernels if k["name"].startswith("K2 "))
     k2["train_launches"] = train_bot["launches"]["attention"]
     r = attn_bwd["K2 train"]

@@ -3,9 +3,9 @@
 It serves the ResNet family and BoTNet-50 (``python -m
 distribuuuu_tpu_torch.serve``), with the fused conv epilogue and BoTNet's
 attention running as hand-written CUDA kernels; trains and evaluates the
-ResNet family (``python -m distribuuuu_tpu_torch.train_net`` /
-``test_net``), every BN through the epilogue kernel forward and its
-backward kernel; and trains the expert-parallel switch-MoE layer
+ResNet family and BoTNet-50 (``python -m distribuuuu_tpu_torch.train_net``
+/ ``test_net``) on a JPEG ImageFolder or its tar shards, every BN through
+the epilogue kernel forward and its backward kernel; and trains the expert-parallel switch-MoE layer
 (``parallel.switch_moe``) over a ``torch.distributed`` group on
 hand-written dispatch and combine kernels.
 Entry points run on

@@ -4,8 +4,10 @@ The keys the port reads, with ``distribuuuu_tpu/config.py``'s defaults and
 precedence (defaults < ``--cfg`` YAML < trailing ``KEY VALUE`` overrides),
 plus every key the repository's training and serving YAMLs set, so they
 merge unchanged. Keys marked "not yet ported" are accepted and checked by
-the trainer: a non-default value raises with the ROADMAP item that ports
-it. The ``DATA`` (dataplane), ``OBS``, ``QUANT``, ``FLEET`` subtrees and
+the trainer (``trainer._check_supported``): a non-default value raises with
+the ROADMAP item that ports it. The few whose default turns a JAX
+subsystem on are gaps at their default, and say so below. The ``DATA``
+(dataplane), ``OBS``, ``QUANT``, ``FLEET`` subtrees and
 ``SERVE.DEPLOY``/``SERVE.INGRESS`` are not part of these slices and are
 absent.
 """
@@ -33,8 +35,8 @@ _C.MODEL.SYNCBN = False
 # serving: a torch .pt/.pth state_dict when SERVE.MODELS is empty;
 # training/eval: a checkpoint directory (or its .pt) to warm-start from
 _C.MODEL.WEIGHTS = None
-# random uint8 images with label 0 in place of a dataset (the only input
-# the training slice has; the image loaders are ROADMAP Queue 1 item 1)
+# random uint8 images with label 0 in place of TRAIN.DATASET (replayed:
+# measures the step without the input side)
 _C.MODEL.DUMMY_INPUT = False
 # compute dtype of convs and linears; params, optimizer state and BN
 # statistics stay float32
@@ -48,7 +50,8 @@ _C.MODEL.STEM_S2D = False
 # accepted so JAX-side YAMLs merge; on the card the epilogue kernel always runs
 _C.MODEL.FUSED_EPILOGUE = None
 _C.MODEL.FUSED_MOE = None
-# sequence-parallel attention and masked-autoencoder knobs: not yet ported
+# sequence-parallel attention (item 12) and masked-autoencoder knobs (item
+# 11): not yet ported
 _C.MODEL.SEQ_ATTN = "none"
 _C.MODEL.MAE_MASK_RATIO = 0.25
 _C.MODEL.MAE_DECODER_DIM = 512
@@ -60,17 +63,25 @@ _C.MODEL.BN_DTYPE = "auto"
 _C.TRAIN = CN()
 _C.TRAIN.BATCH_SIZE = 32  # per process (per GPU); global = BATCH_SIZE x world
 _C.TRAIN.IM_SIZE = 224
+# an ImageFolder (root/<split>/<class>/<image>) or a directory of tar
+# shards of one (root/<split>/*.tar)
 _C.TRAIN.DATASET = "./data/ILSVRC/"
 _C.TRAIN.SPLIT = "train"
 _C.TRAIN.AUTO_RESUME = True
 _C.TRAIN.LOAD_OPT = True
+# decode threads of a process's loader (PIL and the native decoder release
+# the GIL)
 _C.TRAIN.WORKERS = 4
-_C.TRAIN.PIN_MEMORY = True  # the device prefetch always stages in pinned memory
+# the loader's producer thread writes each batch into pinned memory, so the
+# H2D copy is asynchronous; False copies from pageable memory
+_C.TRAIN.PIN_MEMORY = True
 _C.TRAIN.PRINT_FREQ = 30
 _C.TRAIN.TOPK = 5
 # "classify" only; "mae" is not yet ported
 _C.TRAIN.TASK = "classify"
-_C.TRAIN.PREFETCH = 2  # batches staged on the device ahead of compute
+# batches staged on the device ahead of compute; the loader's queue holds
+# twice as many decoded host batches
+_C.TRAIN.PREFETCH = 2
 _C.TRAIN.DUMMY_EPOCH_SAMPLES = 1000  # samples per DUMMY_INPUT epoch
 _C.TRAIN.LABEL_SMOOTH = 0.0
 # gradients averaged over ACCUM_STEPS micro-batches of BATCH_SIZE per step
@@ -120,8 +131,8 @@ _C.OPTIM.WARMUP_EPOCHS = 5
 _C.OPTIM.WEIGHT_DECAY = 5e-5
 
 # device mesh: the port is data-parallel over the process group (one GPU a
-# process); DATA -1 means every process. FSDP and SEQ > 1: not yet ported
-# (ROADMAP Queue 1 item 12)
+# process); DATA -1 means every process. FSDP and SEQ > 1 and FSDP_MIN_SIZE:
+# not yet ported (ROADMAP Queue 1 item 12)
 _C.MESH = CN()
 _C.MESH.DATA = -1
 _C.MESH.FSDP = 1
@@ -135,13 +146,17 @@ _C.FAULT.NONFINITE_GUARD = True
 # abort after this many consecutive skipped steps (checked at PRINT_FREQ)
 _C.FAULT.MAX_CONSECUTIVE_SKIPS = 10
 # fault injection: INJECT_NAN_STEPS (NaN images at those global steps) and
-# INJECT_KILL_STEP (SIGKILL at that global step) are ported; retries,
-# graceful degradation, preemption signals, the watchdog and the other
-# injections are not yet (accepted)
+# INJECT_KILL_STEP (SIGKILL at that global step) are ported. IO retries
+# (RETRY_*), the watchdog (HANG_TIMEOUT_S) and the other injections are not
+# yet (ROADMAP Queue 1 item 2): a non-default value raises
 _C.FAULT.RETRY_ATTEMPTS = 3
 _C.FAULT.RETRY_BASE_DELAY = 0.1
 _C.FAULT.RETRY_MAX_DELAY = 2.0
+# gap of item 2 at its default: JAX substitutes a sample it cannot read; the
+# port's loader raises instead
 _C.FAULT.DEGRADE = True
+# gap of item 2 at its default: JAX turns SIGTERM into an emergency
+# checkpoint; the port has no handler (the signal ends the run)
 _C.FAULT.HANDLE_SIGNALS = True
 _C.FAULT.HANG_TIMEOUT_S = 0.0
 _C.FAULT.INJECT_IO_INDICES = []
@@ -152,8 +167,9 @@ _C.FAULT.INJECT_HANG_STEP = -1
 _C.FAULT.INJECT_KILL_STEP = -1
 
 # resume: epoch checkpoints are verified against their sha256 manifest
-# (VERIFY_INTEGRITY); a corrupt one is skipped (SKIP_CORRUPT). Mid-epoch
-# checkpoints and rollback: not yet ported
+# (VERIFY_INTEGRITY); a corrupt one is skipped (SKIP_CORRUPT). ROLLBACK is
+# not yet ported (item 2; a non-default value raises). STEP_GRANULAR is a
+# gap of item 2 at its default: the port writes no mid-epoch checkpoint
 _C.RESUME = CN()
 _C.RESUME.STEP_GRANULAR = True
 _C.RESUME.SKIP_CORRUPT = True
@@ -201,6 +217,19 @@ _C.RNG_SEED = None
 
 _CFG_DEFAULT = _C.clone()
 _CFG_DEFAULT.freeze()
+
+
+def lookup(key: str, node=None):
+    """The value of a dotted key (``"TEST.DATASET"``) in ``node``, by default
+    the live config."""
+    node = _C if node is None else node
+    for part in key.split("."):
+        node = node[part]
+    return node
+
+
+def get_default(key: str):
+    return lookup(key, _CFG_DEFAULT)
 
 
 def reset_cfg() -> None:

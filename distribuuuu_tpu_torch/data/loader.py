@@ -1,31 +1,296 @@
 """Host loaders and the device prefetch of the port (``data/loader.py``).
 
-Only the DUMMY_INPUT path is ported: :class:`DummyLoader` replays one
-pre-generated host batch, and ``construct_train_loader`` /
-``construct_val_loader`` size it with the JAX package's batch arithmetic.
-With ``MODEL.DUMMY_INPUT`` false they raise: the image loaders, their
-transforms and the native decoder are ROADMAP Queue 1 item 1.
+One process a GPU, so a process's loader reads the shard of its rank:
+``process_index = rank``, ``process_count = world_size``, and a host batch
+is ``TRAIN.BATCH_SIZE * ACCUM_STEPS`` samples (val: ``TEST.BATCH_SIZE``).
 
-:class:`DevicePrefetcher` is the counterpart of ``prefetch_to_device``: it
-stages each host batch in pinned memory and copies it to the card
-``non_blocking`` on a side stream, ``depth`` batches ahead, and the compute
-stream waits on the copy's event, so the H2D copy overlaps the step.
+- :func:`shard_indices` and :func:`aug_seed_base` are the JAX package's
+  functions, copied exactly: they fix which sample lands in which slot of
+  which batch and the seed of its crop, so the two packages' batches are
+  bitwise equal at the same seed, epoch and sharding (where they decode
+  with the same backend).
+- :class:`HostDataLoader` decodes a shard in a producer thread, a batch at a
+  time over a ``ThreadPoolExecutor`` of ``TRAIN.WORKERS`` threads (PIL and
+  the native decoder release the GIL), into a queue of ``TRAIN.PREFETCH * 2``
+  batches. Train drops the last incomplete batch; eval pads its last batch
+  and its shard with zero images of weight 0, which the metrics count
+  nowhere. With ``pin_device`` the producer writes each batch straight into
+  pinned tensors, fresh ones a batch from PyTorch's caching host allocator,
+  which records the H2D copy's event before it hands a block out again.
+- :class:`DummyLoader` replays one pre-generated batch (DUMMY_INPUT).
+- :class:`DevicePrefetcher` copies each host batch to the card
+  ``non_blocking`` on a side stream, ``depth`` batches ahead; the compute
+  stream waits on the copy's event.
+
+A sample that cannot be read or decoded fails the run: the port has no
+retries and substitutes no sample (ROADMAP Queue 1 item 2), and the
+dataplane service loader is Queue 1 item 13.
 """
 
 from __future__ import annotations
 
+import io
+import os
+import queue
+import random
+import threading
 from collections import deque
+from concurrent.futures import ThreadPoolExecutor
+from typing import Iterator
 
 import numpy as np
 import torch
+from PIL import Image
 
-from distribuuuu_tpu_torch.config import cfg
-from distribuuuu_tpu_torch.data.dataset import DummyDataset
+from distribuuuu_tpu_torch.config import cfg, get_default
+from distribuuuu_tpu_torch.data import native
+from distribuuuu_tpu_torch.data.dataset import DummyDataset, open_image_dataset
+from distribuuuu_tpu_torch.data.transforms import eval_transform_u8, train_transform_u8
 
 # Marker key: a loader that yields a batch with it promises the batch is
 # immutable and replayed verbatim, so the prefetcher may pin it once.
 REPLAY_CONST = "__dtpu_replay_const__"
 _KEYS = ("image", "label", "weight")
+_DTYPES = {"image": (np.uint8, torch.uint8), "label": (np.int32, torch.int32),
+           "weight": (np.float32, torch.float32)}
+
+
+def shard_indices(total: int, *, train: bool, seed: int, epoch: int, process_index: int,
+                  process_count: int) -> np.ndarray:
+    """The sample-index stream of one process for one (seed, epoch):
+    ``DistributedSampler``'s contract. Train: a permutation from
+    ``default_rng(seed + epoch)``, wrap-padded to equal shards; eval: the
+    natural order, padded with -1 (weight-0 slots). Round-robin over the
+    processes."""
+    shard_size = (total + process_count - 1) // process_count
+    if train:
+        g = np.random.default_rng(seed + epoch)
+        order = g.permutation(total)
+    else:
+        order = np.arange(total)
+    pad = shard_size * process_count - total
+    if pad > 0:
+        if train:
+            order = np.concatenate([order, order[:pad]])
+        else:
+            order = np.concatenate([order, np.full(pad, -1, dtype=order.dtype)])
+    return order[process_index::process_count]
+
+
+def aug_seed_base(seed: int, epoch: int, process_index: int) -> int:
+    """Base of a process's augmentation seeds for an epoch: slot
+    ``b * host_batch + i`` crops with ``base + b * host_batch + i``."""
+    return ((seed * 1_000_003 + epoch) * 7919 + process_index * 104_729) & 0x7FFFFFFF
+
+
+def _qput(out_q: queue.Queue, item, stop: threading.Event) -> bool:
+    """A bounded put that gives up once the consumer is gone."""
+    while not stop.is_set():
+        try:
+            out_q.put(item, timeout=0.2)
+            return True
+        except queue.Full:
+            continue
+    return False
+
+
+class HostDataLoader:
+    """The loader of one process's shard of an image dataset (any object
+    with ``samples`` and, for tar shards, ``read_bytes``)."""
+
+    def __init__(self, dataset, *, host_batch: int, train: bool, im_size: int,
+                 process_index: int, process_count: int, workers: int, seed: int,
+                 prefetch_batches: int = 4, crop_size: int = 224,
+                 pin_device: torch.device | None = None):
+        self.dataset = dataset
+        self.host_batch = host_batch
+        self.train = train
+        self.im_size = im_size
+        self.process_index = process_index
+        self.process_count = process_count
+        self.workers = max(1, workers)
+        self.seed = seed
+        self.prefetch_batches = max(1, prefetch_batches)
+        self.crop_size = crop_size
+        self.pin_device = pin_device
+        # chosen once: the two backends' pixels differ, so a run never mixes them
+        self.use_native = native.available()
+        self.epoch = 0
+        self.start_batch = 0
+        self._producer: threading.Thread | None = None
+        total = len(dataset)
+        self.shard_size = (total + process_count - 1) // process_count
+        if train:
+            self.num_batches = self.shard_size // host_batch  # drop_last
+            if self.num_batches == 0:
+                raise ValueError(
+                    f"Training dataset ({total} samples / {process_count} process(es) = "
+                    f"{self.shard_size} a shard) yields zero batches an epoch at "
+                    f"{host_batch} samples a step (BATCH_SIZE x ACCUM_STEPS) with drop_last; "
+                    f"reduce TRAIN.BATCH_SIZE or TRAIN.ACCUM_STEPS")
+        else:
+            self.num_batches = (self.shard_size + host_batch - 1) // host_batch
+
+    @property
+    def decoder(self) -> str:
+        return "native" if self.use_native else "pil"
+
+    def set_epoch(self, epoch: int, start_batch: int = 0) -> None:
+        """Reshuffle for ``epoch``, starting at batch ``start_batch`` (the
+        skipped batches are not decoded: the order and the seeds are pure
+        functions of (seed, epoch, slot)). Called between epochs only: the
+        producer thread that reads these is made per ``__iter__``."""
+        if not 0 <= start_batch <= self.num_batches:
+            raise ValueError(f"set_epoch(start_batch={start_batch}) outside the epoch's "
+                             f"{self.num_batches} batches")
+        self.epoch = epoch
+        self.start_batch = start_batch
+
+    def __len__(self) -> int:
+        return self.num_batches
+
+    def _shard_indices(self) -> np.ndarray:
+        return shard_indices(len(self.dataset), train=self.train, seed=self.seed,
+                             epoch=self.epoch, process_index=self.process_index,
+                             process_count=self.process_count)
+
+    def _load_one(self, idx: int, slot_seed: int):
+        """``(image, label, weight)`` of sample ``idx``; a zero image of
+        weight 0 for an eval padding slot (-1)."""
+        if idx < 0:
+            size = self.im_size if self.train else self.crop_size
+            return np.zeros((size, size, 3), dtype=np.uint8), 0, 0.0
+        name, label = self.dataset.samples[idx]
+        try:
+            return self._decode(idx, slot_seed), label, 1.0
+        except (OSError, ValueError) as exc:
+            raise OSError(f"sample {idx} ({name}) could not be read or decoded ({exc!r}); the "
+                          f"port neither retries a sample nor substitutes one (ROADMAP Queue 1 "
+                          f"item 2)") from exc
+
+    def _decode(self, idx: int, slot_seed: int) -> np.ndarray:
+        name = self.dataset.samples[idx][0]
+        data = None
+        if hasattr(self.dataset, "read_bytes"):  # tar shards: the member's bytes
+            data, name = self.dataset.read_bytes(idx)
+        src = name if data is None else data
+        if self.use_native and name.lower().endswith((".jpg", ".jpeg")):
+            arr = (native.decode_train_u8(src, self.im_size, slot_seed) if self.train
+                   else native.decode_eval_u8(src, self.im_size, self.crop_size))
+            if arr is not None:
+                return arr
+            # a JPEG the native decoder refuses (an odd colour space): PIL's turn
+        with Image.open(io.BytesIO(data) if data is not None else name) as im:
+            im = im.convert("RGB")
+            if self.train:
+                return train_transform_u8(im, self.im_size, rng=random.Random(slot_seed))
+            return eval_transform_u8(im, self.im_size, self.crop_size)
+
+    def decode_batch(self, b: int, *, indices=None, base=None, pool=None, out=None) -> dict:
+        """Batch ``b`` of the current (seed, epoch) stream as numpy arrays,
+        written into ``out`` (arrays of the batch's shapes) when given. An
+        eval batch is padded to ``host_batch`` with weight-0 zeros."""
+        if indices is None:
+            indices = self._shard_indices()
+        if base is None:
+            base = aug_seed_base(self.seed, self.epoch, self.process_index)
+        chunk = indices[b * self.host_batch:(b + 1) * self.host_batch]
+        seeds = [base + b * self.host_batch + i for i in range(len(chunk))]
+        if pool is not None:
+            results = list(pool.map(self._load_one, chunk, seeds))
+        else:
+            results = [self._load_one(i, s) for i, s in zip(chunk, seeds)]
+        n = len(results)
+        if out is None:
+            out = {k: np.empty(shape, _DTYPES[k][0]) for k, shape in self._shapes(n).items()}
+        np.stack([r[0] for r in results], out=out["image"][:n])
+        out["label"][:n] = [r[1] for r in results]
+        out["weight"][:n] = [r[2] for r in results]
+        for v in out.values():
+            v[n:] = 0
+        return out
+
+    def _shapes(self, n: int) -> dict:
+        rows = n if self.train else self.host_batch
+        size = self.im_size if self.train else self.crop_size
+        return {"image": (rows, size, size, 3), "label": (rows,), "weight": (rows,)}
+
+    def _host_batch(self, b: int, indices, base, pool) -> dict:
+        """Batch ``b`` as numpy arrays or, with ``pin_device``, decoded
+        straight into fresh pinned tensors (a whole batch: ``b`` is below
+        ``num_batches``)."""
+        if self.pin_device is None:
+            return self.decode_batch(b, indices=indices, base=base, pool=pool)
+        host = {k: torch.empty(shape, dtype=_DTYPES[k][1], pin_memory=True)
+                for k, shape in self._shapes(self.host_batch).items()}
+        self.decode_batch(b, indices=indices, base=base, pool=pool,
+                          out={k: t.numpy() for k, t in host.items()})
+        return host
+
+    def _produce(self, out_q: queue.Queue, stop: threading.Event, err_box: list) -> None:
+        try:
+            if self.pin_device is not None and self.pin_device.index is not None:
+                torch.cuda.set_device(self.pin_device)  # pin in the rank's device context
+            indices = self._shard_indices()
+            base = aug_seed_base(self.seed, self.epoch, self.process_index)
+            with ThreadPoolExecutor(self.workers) as pool:
+                for b in range(self.start_batch, self.num_batches):
+                    if stop.is_set():
+                        return
+                    if not _qput(out_q, self._host_batch(b, indices, base, pool), stop):
+                        return
+        except BaseException as exc:
+            # the side channel, not the bounded queue: a failure must not
+            # wait behind unconsumed batches; ``stop`` wakes the consumer
+            err_box.append(exc)
+            stop.set()
+        else:
+            _qput(out_q, None, stop)
+
+    @staticmethod
+    def _raise_producer_error(exc: BaseException) -> None:
+        if isinstance(exc, (KeyboardInterrupt, SystemExit)):
+            raise exc
+        raise RuntimeError("data loader worker failed") from exc
+
+    def __iter__(self) -> Iterator[dict]:
+        out_q: queue.Queue = queue.Queue(maxsize=self.prefetch_batches)
+        stop = threading.Event()
+        err_box: list = []
+        producer = threading.Thread(target=self._produce, args=(out_q, stop, err_box),
+                                    daemon=True, name="dtpu-host-loader")
+        self._producer = producer
+        producer.start()
+        try:
+            while True:
+                if err_box:  # a failure preempts the batches still queued
+                    self._raise_producer_error(err_box[0])
+                try:
+                    batch = out_q.get(timeout=0.2)
+                except queue.Empty:
+                    if err_box:
+                        self._raise_producer_error(err_box[0])
+                    if not producer.is_alive():
+                        # gone between its last put and the end marker: hand
+                        # over what it left (its error was appended before it died)
+                        if err_box:
+                            self._raise_producer_error(err_box[0])
+                        while True:
+                            try:
+                                batch = out_q.get_nowait()
+                            except queue.Empty:
+                                return
+                            if batch is None:
+                                return
+                            yield batch
+                    continue
+                if batch is None:
+                    return
+                yield batch
+        finally:
+            # an abandoned epoch too: stop the producer and reap it
+            stop.set()
+            producer.join(timeout=5.0)
 
 
 class DummyLoader:
@@ -48,44 +313,56 @@ class DummyLoader:
             yield self._batch
 
 
-def _not_ported(what: str):
-    raise NotImplementedError(
-        f"the {what} loader reads an image dataset, which the port does not read yet "
-        "(ROADMAP Queue 1 item 1: the host loader, transforms and native decoder); "
-        "set MODEL.DUMMY_INPUT True"
-    )
-
-
-def construct_train_loader(world_size: int = 1):
-    """Train loader: ``TRAIN.BATCH_SIZE * ACCUM_STEPS`` samples per process
-    a step, ``DUMMY_EPOCH_SAMPLES // (that * world)`` steps an epoch."""
+def construct_train_loader(world_size: int = 1, rank: int = 0,
+                           pin_device: torch.device | None = None):
+    """Train loader of process ``rank``: ``TRAIN.BATCH_SIZE * ACCUM_STEPS``
+    samples a step from ``TRAIN.DATASET/TRAIN.SPLIT``; with DUMMY_INPUT,
+    ``DUMMY_EPOCH_SAMPLES // (that * world)`` replayed steps an epoch."""
     step_batch = cfg.TRAIN.BATCH_SIZE * cfg.TRAIN.ACCUM_STEPS
-    if not cfg.MODEL.DUMMY_INPUT:
-        _not_ported("train")
-    return DummyLoader(step_batch, cfg.TRAIN.IM_SIZE,
-                       num_batches=cfg.TRAIN.DUMMY_EPOCH_SAMPLES // max(1, step_batch * world_size))
+    if cfg.MODEL.DUMMY_INPUT:
+        return DummyLoader(step_batch, cfg.TRAIN.IM_SIZE,
+                           num_batches=cfg.TRAIN.DUMMY_EPOCH_SAMPLES
+                           // max(1, step_batch * world_size))
+    return HostDataLoader(
+        open_image_dataset(os.path.join(cfg.TRAIN.DATASET, cfg.TRAIN.SPLIT)),
+        host_batch=step_batch, train=True, im_size=cfg.TRAIN.IM_SIZE, process_index=rank,
+        process_count=world_size, workers=cfg.TRAIN.WORKERS, seed=cfg.RNG_SEED or 0,
+        prefetch_batches=cfg.TRAIN.PREFETCH * 2, pin_device=pin_device)
 
 
-def construct_val_loader(world_size: int = 1):
-    """Val loader: ``TEST.BATCH_SIZE`` images of ``TEST.CROP_SIZE`` a batch."""
+def construct_val_loader(world_size: int = 1, rank: int = 0,
+                         pin_device: torch.device | None = None):
+    """Val loader of process ``rank``: ``TEST.BATCH_SIZE`` center crops of
+    ``TEST.CROP_SIZE`` a batch from ``TEST.SPLIT`` of ``TEST.DATASET``, which
+    follows ``TRAIN.DATASET`` unless it was set (the reference reads
+    ``TRAIN.DATASET`` there, and its users set only that)."""
     if cfg.TEST.CROP_SIZE > cfg.TEST.IM_SIZE:
         raise ValueError(f"TEST.CROP_SIZE ({cfg.TEST.CROP_SIZE}) must be <= TEST.IM_SIZE "
                          f"({cfg.TEST.IM_SIZE})")
-    if not cfg.MODEL.DUMMY_INPUT:
-        _not_ported("val")
-    return DummyLoader(cfg.TEST.BATCH_SIZE, cfg.TEST.CROP_SIZE,
-                       num_batches=cfg.TRAIN.DUMMY_EPOCH_SAMPLES
-                       // max(1, cfg.TEST.BATCH_SIZE * world_size))
+    if cfg.MODEL.DUMMY_INPUT:
+        return DummyLoader(cfg.TEST.BATCH_SIZE, cfg.TEST.CROP_SIZE,
+                           num_batches=cfg.TRAIN.DUMMY_EPOCH_SAMPLES
+                           // max(1, cfg.TEST.BATCH_SIZE * world_size))
+    val_root = (cfg.TEST.DATASET if cfg.TEST.DATASET != get_default("TEST.DATASET")
+                else cfg.TRAIN.DATASET)
+    return HostDataLoader(
+        open_image_dataset(os.path.join(val_root, cfg.TEST.SPLIT)),
+        host_batch=cfg.TEST.BATCH_SIZE, train=False, im_size=cfg.TEST.IM_SIZE,
+        process_index=rank, process_count=world_size, workers=cfg.TRAIN.WORKERS,
+        seed=cfg.RNG_SEED or 0, prefetch_batches=cfg.TRAIN.PREFETCH * 2,
+        crop_size=cfg.TEST.CROP_SIZE, pin_device=pin_device)
 
 
 class DevicePrefetcher:
-    """Iterate ``loader``'s numpy batches as tensors on ``device``: on a
-    card, pinned host copies sent ``non_blocking`` on a side stream,
-    ``depth`` batches ahead; on the CPU, the arrays as tensors."""
+    """Iterate ``loader``'s batches as tensors on ``device``: on a card,
+    copies sent ``non_blocking`` on a side stream, ``depth`` batches ahead,
+    from the pinned tensors the loader made (a replayed batch: pinned here,
+    once, when ``pin``; anything else: copied from pageable memory); on
+    the CPU, the arrays as tensors."""
 
-    def __init__(self, loader, device: torch.device, depth: int = 2):
-        self.loader, self.device, self.depth = loader, device, max(1, depth)
-        self._pinned: dict[int, dict] = {}  # replayed batches, pinned once
+    def __init__(self, loader, device: torch.device, depth: int = 2, pin: bool = True):
+        self.loader, self.device, self.depth, self.pin = loader, device, max(1, depth), pin
+        self._pinned: dict[int, dict] = {}  # the replayed batch, pinned once
 
     def __len__(self) -> int:
         return len(self.loader)
@@ -93,21 +370,29 @@ class DevicePrefetcher:
     def _host(self, batch) -> dict:
         if REPLAY_CONST in batch and id(batch) in self._pinned:
             return self._pinned[id(batch)]
-        host = {k: torch.from_numpy(np.ascontiguousarray(batch[k])) for k in _KEYS if k in batch}
-        if self.device.type == "cuda":
+        host = {k: v if isinstance(v, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(v))
+                for k, v in batch.items() if k in _KEYS}
+        if REPLAY_CONST in batch and self.pin and self.device.type == "cuda":
             host = {k: t.pin_memory() for k, t in host.items()}
-            if REPLAY_CONST in batch:
-                self._pinned = {id(batch): host}
+            self._pinned = {id(batch): host}
         return host
 
     def __iter__(self):
-        if self.device.type != "cuda":
-            for batch in self.loader:
-                yield self._host(batch)
-            return
+        it = iter(self.loader)
+        try:
+            if self.device.type != "cuda":
+                for batch in it:
+                    yield self._host(batch)
+                return
+            yield from self._to_card(it)
+        finally:  # an abandoned epoch stops the loader's producer too
+            close = getattr(it, "close", None)
+            if close is not None:
+                close()
+
+    def _to_card(self, it):
         side = torch.cuda.Stream(self.device)
         pending: deque = deque()
-        it = iter(self.loader)
 
         def stage() -> bool:
             batch = next(it, None)
@@ -118,14 +403,14 @@ class DevicePrefetcher:
                 dev = {k: t.to(self.device, non_blocking=True) for k, t in host.items()}
                 done = torch.cuda.Event()
                 done.record(side)
-            pending.append((dev, done, host))
+            pending.append((dev, done))
             return True
 
         while len(pending) < self.depth and stage():
             pass
         compute = torch.cuda.current_stream(self.device)
         while pending:
-            dev, done, _host = pending.popleft()
+            dev, done = pending.popleft()
             compute.wait_event(done)
             for t in dev.values():
                 t.record_stream(compute)  # the allocator must not reuse it before the step ends

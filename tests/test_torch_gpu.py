@@ -924,3 +924,44 @@ def test_deterministic_botnet50_training_steps_repeat_bitwise(cuda):
         reset_cfg()
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = before
     assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.gpu
+def test_producer_pinned_batches_reach_the_card_bitwise(cuda, tmp_path):
+    """TRAIN.PIN_MEMORY: the loader's producer thread decodes each batch into
+    fresh pinned tensors, which the caching host allocator recycles only
+    after their copy's event. 52 batches of a changing stream (13 epochs of
+    a train ImageFolder) through ``DevicePrefetcher`` at TRAIN.PREFETCH's
+    default depth 2, the compute stream kept busy a millisecond a batch,
+    arrive on the card bitwise equal to the same batches decoded on the
+    host, in order."""
+    import numpy as np
+    from PIL import Image
+
+    from distribuuuu_tpu_torch.data import dataset, loader
+
+    rng = np.random.default_rng(0)
+    for i in range(32):
+        (tmp_path / f"c{i % 4}").mkdir(exist_ok=True)
+        Image.fromarray(rng.integers(0, 256, (64, 80, 3), dtype=np.uint8)).save(
+            tmp_path / f"c{i % 4}" / f"{i}.jpg", quality=90)
+    kw = dict(host_batch=8, train=True, im_size=48, process_index=0, process_count=1,
+              workers=4, seed=3, prefetch_batches=4)
+    pinned = loader.HostDataLoader(dataset.ImageFolder(str(tmp_path)), pin_device=cuda, **kw)
+    host = loader.HostDataLoader(dataset.ImageFolder(str(tmp_path)), **kw)
+    host.use_native = pinned.use_native
+    got, want = [], []
+    for epoch in range(13):
+        pinned.set_epoch(epoch)
+        host.set_epoch(epoch)
+        for b, batch in enumerate(loader.DevicePrefetcher(pinned, cuda, depth=2)):
+            torch.cuda._sleep(2_000_000)  # ~1 ms of a busy compute stream
+            got.append({k: v.clone() for k, v in batch.items()})
+            want.append(host.decode_batch(b))
+    assert len(got) == 52
+    first = next(iter(pinned))
+    assert all(t.is_pinned() for t in first.values())
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        for k in ("image", "label", "weight"):
+            assert torch.equal(g[k].cpu(), torch.from_numpy(w[k])), k

@@ -27,7 +27,10 @@ Inputs are made from a seed with numpy and handed to both. Tolerances:
   attention Function's backward; limits set by how far JAX's own f32
   gradient lies from its float64 one at this size (the test says);
 - the non-finite guard: a NaN batch leaves the state bitwise unchanged;
-- ``DummyLoader`` batches bitwise JAX's.
+- ``DummyLoader`` batches bitwise JAX's;
+- the first real-image batch (the digits ImageFolder) bitwise from both
+  packages' loaders, and one f32 ResNet-18 step on it from JAX's state
+  within the K-step limits.
 """
 
 import numpy as np
@@ -429,9 +432,46 @@ def test_dummy_loader_batches_bitwise_jax(port_cfg, fresh_cfg):
             np.testing.assert_array_equal(a[key], b[key])
     batches = list(loader.DevicePrefetcher(loader.construct_train_loader(), torch.device("cpu")))
     assert len(batches) == 100 // 12 and batches[0]["image"].dtype == torch.uint8
-    port_cfg.MODEL.DUMMY_INPUT = False
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 1"):
+    port_cfg.MODEL.DUMMY_INPUT = False  # now the image loader: the default root is not there
+    with pytest.raises(FileNotFoundError, match="ILSVRC"):
         loader.construct_train_loader()
+
+
+def test_first_real_image_batch_and_one_f32_step_equal_jax(port_cfg, fresh_cfg, tmp_path):
+    """The first train batch of the digits ImageFolder from each package's
+    loader (PIL on both), bitwise; then one f32 ResNet-18 step on it from
+    JAX's state against ``make_train_step``, within the K-step test's
+    limits: loss 1e-5, state 1e-4 relative L2."""
+    from distribuuuu_tpu_torch.data.provision import digits_imagefolder
+
+    arch, im, classes, n = "resnet18", 32, 10, 8
+    root = digits_imagefolder(str(tmp_path / "digits"), train_per_class=8)
+    for c in (port_cfg, fresh_cfg):
+        c.TRAIN.DATASET, c.TRAIN.IM_SIZE, c.TRAIN.BATCH_SIZE, c.RNG_SEED = root, im, n, 1
+        c.MODEL.DTYPE = "float32"
+    port_cfg.MODEL.ARCH, port_cfg.MODEL.NUM_CLASSES = arch, classes
+    mesh = data_mesh(1)
+    ours, theirs = loader.construct_train_loader(), jax_loader.construct_train_loader(mesh)
+    ours.use_native = theirs.use_native = False
+    it = iter(ours)
+    got, batch = next(it), theirs.decode_batch(0)
+    it.close()
+    for key in ("image", "label", "weight"):
+        np.testing.assert_array_equal(got[key], batch[key])
+    assert len(set(batch["label"].tolist())) > 1
+    model = jax_build_model(arch, num_classes=classes, dtype=jnp.float32)
+    state, tx = create_train_state(model, jax.random.PRNGKey(0), mesh, im)
+    port = TrainState(build_cfg_model())
+    port.model.load_state_dict(from_jax_variables(_jax_state_tree(state)[0], arch), strict=True)
+    state, m = make_train_step(model, tx, mesh, topk=5)(
+        state, {k: jnp.asarray(a) for k, a in batch.items()}, jnp.float32(0.05),
+        jax.random.PRNGKey(0))
+    pm = train_step(port, {"image": torch.from_numpy(got["image"]),
+                           "label": torch.from_numpy(got["label"]).long()}, 0.05, topk=5)
+    want_loss = float(m["loss_sum"] / m["n"])
+    assert abs(float(pm["loss_sum"] / pm["n"]) - want_loss) <= 1e-5 * max(1.0, want_loss)
+    assert _rel_l2(port.model.state_dict(),
+                   from_jax_variables(_jax_state_tree(state)[0], arch)) <= 1e-4
 
 
 @pytest.mark.parametrize("name", sorted(p.name for p in (

@@ -16,7 +16,14 @@
 - ``config/botnet50.yaml`` at 32^2 (feature map 2x2), batch 4, 2 steps:
   the epoch's launch line counts no attention kernel on the CPU, the
   checkpoint verifies, ``test_model`` evaluates it, a relaunch resumes;
-  a train crop other than TEST.CROP_SIZE is refused before the first step.
+  a train crop other than TEST.CROP_SIZE is refused before the first step;
+- the digits ImageFolder (``digits_imagefolder(train_per_class=8)``: 80
+  train and 300 val JPEGs) through ``train_model(device="cpu")``, ResNet-18
+  at 32^2, batch 8, one epoch: the loss finite, the decoder named in the
+  log, the checkpoint verified, and the val pass and ``test_model`` each
+  counting exactly the 300 val images (the last batch padded at weight 0);
+- a non-default value of each key the port accepts but does not honour
+  yet raises ``NotImplementedError`` naming its ROADMAP item.
 """
 
 import math
@@ -31,6 +38,7 @@ import torch
 
 from distribuuuu_tpu_torch import checkpoint as ckpt
 from distribuuuu_tpu_torch.config import cfg, load_cfg_fom_args, reset_cfg
+from distribuuuu_tpu_torch.data.provision import digits_imagefolder
 from distribuuuu_tpu_torch.trainer import test_model as port_test_model
 from distribuuuu_tpu_torch.trainer import train_model
 
@@ -179,5 +187,50 @@ def test_botnet50_refuses_a_train_crop_other_than_the_eval_crop(tmp_path):
     validation after an epoch."""
     _load(tmp_path, "TEST.CROP_SIZE", "16", arch="botnet50")
     with pytest.raises(ValueError, match=r"TRAIN.IM_SIZE == TEST.CROP_SIZE \(got 32 vs 16\)"):
+        train_model(device="cpu")
+    assert not (tmp_path / "checkpoints").exists()
+
+
+def test_digits_imagefolder_trains_and_every_val_image_is_counted_once(tmp_path_factory):
+    root = digits_imagefolder(str(tmp_path_factory.mktemp("digits") / "digits"),
+                              train_per_class=8)
+    out = tmp_path_factory.mktemp("digits_run")
+    real = ["TRAIN.DATASET", root, "MODEL.NUM_CLASSES", "10", "TRAIN.IM_SIZE", "32",
+            "TEST.IM_SIZE", "36", "TEST.CROP_SIZE", "32", "TEST.BATCH_SIZE", "64", "RNG_SEED", "1"]
+    reset_cfg()
+    load_cfg_fom_args(argv=["--cfg", str(ROOT / "config" / "resnet18.yaml"), *real,
+                            "TRAIN.BATCH_SIZE", "8", "OPTIM.MAX_EPOCH", "1", "TRAIN.PRINT_FREQ",
+                            "1", "OUT_DIR", str(out)])
+    train_model(device="cpu")
+    log = "".join(p.read_text() for p in out.glob("*.log"))
+    losses = [float(m) for m in re.findall(r"Epoch\[0\] \[\s*\d+/10\].*?Loss (\S+) \(", log)]
+    assert len(losses) == 10 and all(map(math.isfinite, losses)), losses
+    assert re.search(r"Input: train 80 images .* decoder: (native|pil)", log)
+    assert "Input: val 300 images (300 in this process's shard, 5 batches of 64)" in log
+    assert " over 300 images" in log
+    path = out / "checkpoints" / "ckpt_ep_001"
+    assert ckpt.verify_checkpoint(str(path)) == ("ok", [])
+    reset_cfg()
+    load_cfg_fom_args(argv=["--cfg", str(ROOT / "config" / "resnet18.yaml"), *real,
+                            "MODEL.WEIGHTS", str(path), "OUT_DIR", str(out / "eval")])
+    acc1, acc5 = port_test_model(device="cpu")
+    assert 0.0 <= acc1 <= acc5 <= 100.0
+    assert " over 300 images" in "".join(p.read_text() for p in (out / "eval").glob("*.log"))
+
+
+@pytest.mark.parametrize("key,value,item", [
+    ("FAULT.HANG_TIMEOUT_S", "600", "item 2"), ("FAULT.INJECT_PREEMPT_STEP", "5", "item 2"),
+    ("FAULT.INJECT_HANG_STEP", "3", "item 2"), ("FAULT.INJECT_IO_INDICES", "[3]", "item 2"),
+    ("FAULT.INJECT_IO_FAILURES", "2", "item 2"), ("FAULT.RETRY_ATTEMPTS", "5", "item 2"),
+    ("FAULT.RETRY_BASE_DELAY", "0.5", "item 2"), ("FAULT.RETRY_MAX_DELAY", "4.0", "item 2"),
+    ("RESUME.ROLLBACK", "1", "item 2"), ("MESH.FSDP_MIN_SIZE", "1024", "item 12"),
+    ("MODEL.SEQ_ATTN", "ring", "item 12"), ("MODEL.MAE_MASK_RATIO", "0.5", "item 11"),
+    ("MODEL.MAE_DECODER_DIM", "256", "item 11"), ("MESH.FSDP", "2", "item 12"),
+    ("MESH.SEQ", "2", "item 12"), ("MODEL.REMAT", "True", "item 12"),
+    ("TRAIN.TASK", "mae", "item 11"), ("MODEL.PRETRAINED", "True", "item 11")])
+def test_an_unported_key_raises_naming_its_roadmap_item(tmp_path, key, value, item):
+    _load(tmp_path, key, value)
+    with pytest.raises(NotImplementedError, match=rf"{key} is not ported yet \(ROADMAP Queue 1 "
+                                                  rf"{item}\)"):
         train_model(device="cpu")
     assert not (tmp_path / "checkpoints").exists()
