@@ -134,10 +134,20 @@ Phases (any failure exits non-zero):
    K1 and 53 K1-bwd launches a step, the val pass over exactly the 512 val
    images in padded batches of 200; step ms, images/s, the Data meter's
    share, the profile of 3 steps beside [train]'s;
-16. [oracle] the digits recipe of ``tutorial/real_data_oracle.py`` through
+16. [train-dataplane] ``python -m distribuuuu_tpu_torch.dataplane`` (DP_POOL
+   decode worker processes x threads) beside [train-jpeg]'s command with
+   ``DATA.SERVICE 127.0.0.1:<port> DATA.FALLBACK False``: the same checks,
+   the val pass through the service, zero fallbacks, no CUDA context in the
+   service's processes, the first train batches through a ``ServiceLoader``
+   bitwise the local loader's, and the decode rate the service sustains
+   alone over uncached epochs (the step cannot show it: its windows read
+   the lead decoded while the trainer started); step ms, the profile and
+   the service's cache and lease counters beside [train-jpeg] and [train];
+   the service stopped and its workers reaped in any case;
+17. [oracle] the digits recipe of ``tutorial/real_data_oracle.py`` through
    ``train_net`` on ``config/resnet18.yaml`` (5 epochs, 1497 train and 300
    val JPEGs): val Acc@1 and Acc@5 an epoch; fails below the band of 65;
-17. the ``{"kernels": [...]}`` line; 18. the ``{"ok": true, ...}`` last line.
+18. the ``{"kernels": [...]}`` line; 19. the ``{"ok": true, ...}`` last line.
 
 Each path is driven with the launch counts set to 0 just before it and read
 just after. Per-shape numbers are also written to ``smoke_out/``.
@@ -1065,12 +1075,7 @@ def phase_train_jpeg(card: str, tmp: Path, root: Path, bound_ms: dict, dummy: di
     out = tmp / "train_jpeg"
     steps = JPEG_SPLITS["train"] // LADDER_BATCH
     tic = time.perf_counter()
-    log = run_cli(["distribuuuu_tpu_torch.train_net", "--cfg", "config/resnet50.yaml",
-                   "TRAIN.DATASET", str(root), "TRAIN.BATCH_SIZE", str(LADDER_BATCH),
-                   "OPTIM.MAX_EPOCH", "1", "TRAIN.PRINT_FREQ", str(TRAIN_PRINT), "RNG_SEED", "0",
-                   "OUT_DIR", str(out), "TRAIN.PROFILE", "True", "TRAIN.PROFILE_START",
-                   str(JPEG_PROFILE[0]), "TRAIN.PROFILE_STEPS", str(JPEG_PROFILE[1])],
-                  "train_net ResNet-50 on JPEGs")
+    log = run_cli(jpeg_train_args(root, out), "train_net ResNet-50 on JPEGs")
     wall = time.perf_counter() - tic
     prog, counts = train_log(log)
     losses = [p[2] for p in prog]
@@ -1123,6 +1128,341 @@ def phase_train_jpeg(card: str, tmp: Path, root: Path, bound_ms: dict, dummy: di
                     for k in sorted(set(jp.get("per_step_us", {})) | set(dp.get("per_step_us", {}))))
         + f"; busy {jp.get('busy_per_step_us', 0):.0f} / {dp.get('busy_per_step_us', 0):.0f} us, "
         f"idle share {100 * jp.get('idle_share', 0):.1f} / {100 * dp.get('idle_share', 0):.1f}%")
+    return res
+
+
+# [train-dataplane]: [train-jpeg]'s command fed by the dataplane service. The
+# pool (DATA.WORKERS processes x DATA.WORKER_THREADS threads; 0: cpu_count /
+# processes) is the layout whose decode rate alone read highest on the card's
+# 8 cores (`scripts/torch_input_workers.py --service` and `--rates-only`):
+# the config's default
+DP_POOL = (2, 0)
+DP_BITWISE_BATCHES = 4  # train batches held bitwise against the local loader
+DP_START_S = 60  # the service must print its address within this
+# The decode rate a loader sustains alone: train epochs the phase's run did
+# not decode (it trains epoch 0), so the service's cache holds none of
+# them; of each, the batches after the first DP_RATE_SKIP are timed
+DP_RATE_EPOCHS = (1, 2, 3)
+DP_RATE_SKIP = 8
+
+
+def loader_rate(ld, epochs=DP_RATE_EPOCHS, skip: int = DP_RATE_SKIP) -> dict:
+    """Images/s ``ld`` (a HostDataLoader or ServiceLoader) sustains alone,
+    each batch taken as it comes and dropped: per epoch of ``epochs``, the
+    batches after the first ``skip`` over the time from batch ``skip``'s
+    arrival to the last's. The untimed batches cover what was decoded
+    before the consumer's clock could see it (the dispatcher's DATA.WINDOW
+    lead at most); after them each arrival waits on the decode."""
+    images, secs = 0, 0.0
+    for epoch in epochs:
+        ld.set_epoch(epoch)
+        for b, batch in enumerate(ld):
+            if b == skip:
+                tic = time.perf_counter()
+            elif b > skip:
+                images += batch["image"].shape[0]
+        secs += time.perf_counter() - tic
+    return dict(images_per_s=images / secs, batches=images // ld.host_batch,
+                epochs=list(epochs), skip=skip)
+
+
+def start_dataplane(root: Path, log_path: Path, workers: int, threads: int):
+    """``python -m distribuuuu_tpu_torch.dataplane`` on a free port with a
+    pool of ``workers`` processes x ``threads`` threads, in a process group
+    of its own (so :func:`stop_dataplane` can reap the group), its output
+    in ``log_path``; returns ``(process, address)`` once it serves."""
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    log = open(log_path, "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "distribuuuu_tpu_torch.dataplane", "--cfg",
+         "config/resnet50.yaml", "TRAIN.DATASET", str(root), "DATA.PORT", str(port),
+         "DATA.WORKERS", str(workers), "DATA.WORKER_THREADS", str(threads)],
+        cwd=ROOT, stdout=log, stderr=subprocess.STDOUT, start_new_session=True)
+    log.close()
+    deadline = time.monotonic() + DP_START_S
+    while time.monotonic() < deadline:
+        m = re.search(r"serving at (\S+)", log_path.read_text())
+        if m:
+            return proc, m[1]
+        if proc.poll() is not None:
+            break
+        time.sleep(0.2)
+    stop_dataplane(proc, log_path)
+    fail(f"the dataplane service did not start:\n{log_path.read_text()[-3000:]}")
+
+
+def stop_dataplane(proc, log_path: Path, pids=()) -> tuple[str, list]:
+    """SIGTERM the service (it stops and reaps its workers), then SIGKILL
+    its process group, whatever is left of it; its log, and those of
+    ``pids`` (its processes) still running after the SIGTERM's 30 s."""
+    import os
+    import signal
+
+    if proc.poll() is None:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            pass
+
+    def running(pid):
+        try:
+            return Path(f"/proc/{pid}/stat").read_text().rsplit(")", 1)[1].split()[0] != "Z"
+        except OSError:
+            return False
+    left = sorted(p for p in pids if running(p))
+    try:
+        os.killpg(proc.pid, signal.SIGKILL)
+    except ProcessLookupError:
+        pass
+    proc.wait(timeout=30)
+    return log_path.read_text(), left
+
+
+def service_stats(address: str) -> dict:
+    """The dispatcher's counters (cache hits and misses, evictions, lease
+    re-issues), from its ``ping`` reply."""
+    from distribuuuu_tpu_torch.dataplane import protocol
+
+    sock, f = protocol.connect(address, timeout_s=30)
+    try:
+        protocol.send_msg(f, {"op": "ping"})
+        return protocol.recv_msg(f)[0]
+    finally:
+        f.close()
+        sock.close()
+
+
+def process_tree(pid: int) -> set:
+    """``pid`` and its descendants, from ``/proc``."""
+    import os
+
+    parents = {}
+    for d in os.listdir("/proc"):
+        if d.isdigit():
+            try:
+                stat = Path(f"/proc/{d}/stat").read_text()
+            except OSError:
+                continue
+            parents[int(d)] = int(stat.rsplit(")", 1)[1].split()[1])
+    tree, grew = {pid}, True
+    while grew:
+        new = {p for p, pp in parents.items() if pp in tree} - tree
+        tree |= new
+        grew = bool(new)
+    return tree
+
+
+def cuda_holders(pids: set) -> set:
+    """Those of ``pids`` with a ``/dev/nvidia*`` device open (a CUDA context
+    holds ``/dev/nvidiactl`` and the card's node)."""
+    import os
+
+    held = set()
+    for pid in pids:
+        try:
+            fds = os.listdir(f"/proc/{pid}/fd")
+        except OSError:
+            continue
+        for fd in fds:
+            try:
+                if os.readlink(f"/proc/{pid}/fd/{fd}").startswith("/dev/nvidia"):
+                    held.add(pid)
+                    break
+            except OSError:
+                continue
+    return held
+
+
+class CudaWatch(threading.Thread):
+    """While a training subprocess runs, every 2 s: which processes of the
+    service's tree, and of this process's other children (the trainer: the
+    control that shows the check sees a context), hold a ``/dev/nvidia*``
+    device. (``nvidia-smi --query-compute-apps`` is no use here: in a
+    container it lists the host namespace's pids.)"""
+
+    def __init__(self, service_pid: int):
+        super().__init__(daemon=True)
+        self.service_pid, self.done = service_pid, threading.Event()
+        self.service_pids, self.service_cuda, self.trainer_cuda = set(), set(), set()
+
+    def run(self) -> None:
+        import os
+
+        while not self.done.wait(2.0):
+            tree = process_tree(self.service_pid)
+            self.service_pids |= tree
+            self.service_cuda |= cuda_holders(tree)
+            self.trainer_cuda |= cuda_holders(process_tree(os.getpid()) - tree - {os.getpid()})
+
+
+def jpeg_train_args(root: Path, out: Path) -> list:
+    """[train-jpeg]'s ``train_net`` command on the JPEG folder ``root``."""
+    return ["distribuuuu_tpu_torch.train_net", "--cfg", "config/resnet50.yaml",
+            "TRAIN.DATASET", str(root), "TRAIN.BATCH_SIZE", str(LADDER_BATCH),
+            "OPTIM.MAX_EPOCH", "1", "TRAIN.PRINT_FREQ", str(TRAIN_PRINT), "RNG_SEED", "0",
+            "OUT_DIR", str(out), "TRAIN.PROFILE", "True", "TRAIN.PROFILE_START",
+            str(JPEG_PROFILE[0]), "TRAIN.PROFILE_STEPS", str(JPEG_PROFILE[1])]
+
+
+def dataplane_train(card: str, tmp: Path, root: Path, bound_ms: dict, pool: tuple,
+                    tag: str) -> dict:
+    """[train-jpeg]'s command with ``DATA.SERVICE`` on a service of ``pool``
+    (processes, threads) and ``DATA.FALLBACK False``: 53/53 launches a step,
+    none scalar, the loss finite, the val pass over exactly the 512 val
+    images in padded batches through the service, zero fallbacks, no CUDA
+    context in the service's processes (``nvidia-smi`` and their open
+    devices, polled while the trainer runs), then DP_BITWISE_BATCHES train
+    batches pulled through a ``ServiceLoader`` bitwise the local
+    ``HostDataLoader``'s, and the service's sustained decode rate
+    (:func:`loader_rate`, none of its batches a cache hit); step ms, the
+    Data meter, the profile, the service's cache and lease counters. The
+    step cannot show the decode rate: the service decodes the first ~16
+    batches (the dispatcher's window, the requests in flight and the two
+    queues) while the trainer starts, and the timed windows read that lead.
+    Stops the service and its workers in any case."""
+    import numpy as np
+    import torch
+
+    from distribuuuu_tpu_torch.data import loader
+    from distribuuuu_tpu_torch.data.dataset import open_image_dataset
+    from distribuuuu_tpu_torch.dataplane.client import ServiceLoader
+
+    out = tmp / f"train_dp_{pool[0]}x{pool[1]}"
+    svc_log = tmp / f"dataplane_{pool[0]}x{pool[1]}.log"
+    proc, address = start_dataplane(root, svc_log, *pool)
+    watch = CudaWatch(proc.pid)
+    try:
+        watch.start()
+        tic = time.perf_counter()
+        log = run_cli([*jpeg_train_args(root, out), "DATA.SERVICE", address, "DATA.FALLBACK",
+                       "False"], f"train_net ResNet-50 on JPEGs through the dataplane {pool}")
+        wall = time.perf_counter() - tic
+        watch.done.set()
+        watch.join(timeout=30)
+        prog, counts = train_log(log)
+        losses = [p[2] for p in prog]
+        steps = JPEG_SPLITS["train"] // LADDER_BATCH
+        want = dict(k1=TRAIN_K1 * steps, k1_bwd=TRAIN_K1 * steps, k1_scalar=0, k1_bwd_scalar=0,
+                    attention=0, attention_bwd=0, attention_bwd_cluster=0,
+                    attention_bwd_blockwise=0, attention_bwd_scalar=0)
+        if counts != want or not all(math.isfinite(v) for v in losses):
+            fail(f"[{tag}] launches over {steps} steps {counts} (want {want}) or a loss not "
+                 f"finite: {losses}")
+        n_val, val_batches = JPEG_SPLITS["val"], -(-JPEG_SPLITS["val"] // JPEG_VAL_BATCH)
+        svc = re.escape(f"service {address}")
+        inp = re.search(rf"Input: train (\d+) images .*?decoder: (\w+); {svc} \((\d+) "
+                        rf"DATA.WORKERS x (\d+) threads\); pinned: True", log)
+        val = re.search(rf"Input: val {n_val} images \(\d+ in this process's shard, "
+                        rf"{val_batches} batches of {JPEG_VAL_BATCH}\) .*{svc}", log)
+        acc = re.search(rf"\* Acc@1 (\S+) Acc@5 (\S+) over {n_val} images; input: {svc}, 0 "
+                        rf"fallback\(s\)", log)
+        wait = re.search(rf"Epoch\[0\] done: .*; data wait (\S+)% of the epoch; input: {svc}, "
+                         rf"0 fallback\(s\)", log)
+        if None in (inp, val, acc, wait) or int(inp[1]) != JPEG_SPLITS["train"] \
+                or "falling back" in log:
+            fail(f"[{tag}] the log lacks the service's input lines, the val pass over {n_val} "
+                 f"images in {val_batches} padded batches, or zero fallbacks:\n{log[-3000:]}")
+        if watch.service_cuda or not watch.trainer_cuda:
+            fail(f"[{tag}] the service's processes {sorted(watch.service_pids)} hold a CUDA "
+                 f"context (/dev/nvidia* open in {sorted(watch.service_cuda)}), or the check "
+                 f"saw none in the trainer ({sorted(watch.trainer_cuda)})")
+        # the first batches again, through a ServiceLoader, against local decode
+        train_root = str(root / "train")
+        kw = dict(host_batch=LADDER_BATCH, train=True, im_size=IM, process_index=0,
+                  process_count=1, seed=0)
+        remote = ServiceLoader(address, root=train_root, fallback=False, **kw)
+        local = loader.HostDataLoader(open_image_dataset(train_root), workers=8, **kw)
+        got = list(itertools.islice(remote, DP_BITWISE_BATCHES))
+        for b, batch in enumerate(got):
+            want_b = local.decode_batch(b)
+            for k in ("image", "label", "weight"):
+                if not np.array_equal(batch[k].numpy(), want_b[k]):
+                    fail(f"[{tag}] train batch {b} {k!r} through the service differs from the "
+                         f"local HostDataLoader's")
+        before = service_stats(address)
+        rate = loader_rate(ServiceLoader(address, root=train_root, fallback=False,
+                                         pin_device=torch.device("cuda"), **kw))
+        stats = service_stats(address)
+        if stats["hits"] != before["hits"] or stats["misses"] - before["misses"] < \
+                len(DP_RATE_EPOCHS) * steps:
+            fail(f"[{tag}] the rate pass over epochs {DP_RATE_EPOCHS} read the service's cache "
+                 f"(hits {before['hits']} -> {stats['hits']}, decodes {before['misses']} -> "
+                 f"{stats['misses']})")
+    finally:
+        watch.done.set()
+        svc_text, left = stop_dataplane(proc, svc_log, watch.service_pids)
+    if left:
+        fail(f"[{tag}] the service's processes {left} outlived its SIGTERM by 30 s")
+    if len(got) != DP_BITWISE_BATCHES or not isinstance(got[0]["image"], torch.Tensor):
+        fail(f"[{tag}] the ServiceLoader gave {len(got)} batches, want {DP_BITWISE_BATCHES}")
+    steady = [t for it, t, _ in prog if TRAIN_PRINT * 2 <= it < JPEG_PROFILE[0]]
+    step_ms = 1e3 * statistics.median(steady)
+    profile = train_profile(out / "profile" / "train_steps.json", JPEG_PROFILE[1], bound_ms,
+                            f"ResNet-50 on JPEGs through the dataplane {pool}", tag)
+    res = dict(pool=list(pool), address=address, steps=steps, batch=LADDER_BATCH,
+               launches=counts, losses=losses, step_ms=step_ms,
+               images_per_s=1e3 * LADDER_BATCH / step_ms, windows=prog, wall_s=wall,
+               data_wait_pct=float(wait[1]), decoder=inp[2], val_images=n_val,
+               acc1=float(acc[1]), profile=profile, fallbacks=0, bitwise_batches=len(got),
+               service_stats={k: stats[k] for k in ("hits", "misses", "evictions", "reissues")},
+               service_rate=rate,
+               service_pids=sorted(watch.service_pids), trainer_cuda=sorted(watch.trainer_cuda))
+    say(f"[{tag}] train_net ResNet-50 {IM}^2 batch {LADDER_BATCH} on {JPEG_SPLITS['train']} "
+        f"JPEGs through the dataplane at {address} (DATA.WORKERS {pool[0]} x DATA.WORKER_THREADS "
+        f"{pool[1]}, decoder {res['decoder']}, DATA.FALLBACK False), {steps} steps in "
+        f"{wall:.1f} s; loss {losses[0]:.4f} -> {losses[-1]:.4f}; launches {counts}; step "
+        f"{step_ms:.2f} ms (median of the {len(steady)} windows ending at steps "
+        f"{TRAIN_PRINT * 2} to {JPEG_PROFILE[0] - 1}), {res['images_per_s']:.0f} images/s, Data "
+        f"meter {res['data_wait_pct']:.1f}% of the epoch, idle share "
+        f"{100 * profile.get('idle_share', float('nan')):.1f}%; ms a step by window: "
+        + ", ".join(f"{1e3 * t:.0f} ({it})" for it, t, _ in prog)
+        + f"; val: {n_val} images in {val_batches} padded batches through the service, Acc@1 "
+        f"{acc[1]}; 0 fallbacks; service cache hits {stats['hits']}, decodes (misses) "
+        f"{stats['misses']}, evictions {stats['evictions']}, lease re-issues "
+        f"{stats['reissues']}; {len(got)} train batches bitwise the local HostDataLoader's; "
+        f"the service alone sustains {rate['images_per_s']:.0f} images/s ({rate['batches']} "
+        f"uncached batches of epochs {rate['epochs']}, each epoch's first {rate['skip']} "
+        f"untimed; the step above cannot show this rate, for its windows read the lead the "
+        f"service decoded while the trainer started); "
+        f"no CUDA context in the service's {len(watch.service_pids)} processes (no "
+        f"/dev/nvidia* open there, against the trainer's {sorted(watch.trainer_cuda)}) "
+        f"({card})")
+    stopped = re.search(r"stopped; (.*)", svc_text)
+    say(f"[{tag}] the service stopped and reaped its workers: "
+        f"{stopped[1] if stopped else svc_text[-300:]}")
+    return res
+
+
+def phase_train_dataplane(card: str, tmp: Path, root: Path, bound_ms: dict, jpeg: dict,
+                          dummy: dict, local: dict) -> dict:
+    """[train-dataplane]: :func:`dataplane_train` at DP_POOL, printed beside
+    [train-jpeg] and [train] (dummy input) of the same run, and its decode
+    rate beside [input]'s (``local``) and the rate [train] consumes."""
+    res = dataplane_train(card, tmp, root, bound_ms, DP_POOL, "train-dataplane")
+    rate = res["service_rate"]["images_per_s"]
+    say(f"[train-dataplane] decode rate: the service at {DP_POOL} sustains {rate:.0f} images/s "
+        f"alone, {rate / dummy['images_per_s']:.2f}x the {dummy['images_per_s']:.0f} images/s "
+        f"[train] consumes on the dummy batch; local HostDataLoader ([input], one epoch from a "
+        f"cold start) " + ", ".join(f"{v:.0f} images/s at TRAIN.WORKERS {w}"
+                                    for w, v in local["images_per_s"].items()) + f" ({card})")
+    rows = (("dataplane", res), ("jpeg", jpeg), ("dummy", dummy))
+    classes = sorted({k for _, r in rows for k in r.get("profile", {}).get("per_step_us", {})})
+    say("[train-dataplane] beside [train-jpeg] and [train] (this run), dataplane / jpeg / dummy: "
+        "step " + " / ".join(f"{r['step_ms']:.2f}" for _, r in rows) + " ms, "
+        + " / ".join(f"{r['images_per_s']:.0f}" for _, r in rows) + " images/s, Data meter "
+        + " / ".join(f"{r.get('data_wait_pct', float('nan')):.1f}" for _, r in rows)
+        + "% of the epoch; per step: " + ", ".join(
+            f"{k} " + " / ".join(f"{r.get('profile', {}).get('per_step_us', {}).get(k, 0):.0f}"
+                                 for _, r in rows) + " us" for k in classes)
+        + "; busy " + " / ".join(f"{r.get('profile', {}).get('busy_per_step_us', 0):.0f}"
+                                 for _, r in rows)
+        + " us, idle share " + " / ".join(
+            f"{100 * r.get('profile', {}).get('idle_share', 0):.1f}" for _, r in rows) + "%")
     return res
 
 
@@ -2813,6 +3153,8 @@ def main() -> None:
             f"mean {jpegs['mean_bytes'] / 1e3:.1f} KB a file")
         inp = dict(phase_input(card, Path(tmp) / "jpeg", smi), jpegs=jpegs)
         train_jpeg = phase_train_jpeg(card, Path(tmp), Path(tmp) / "jpeg", train_bound_ms, train)
+        train_dp = phase_train_dataplane(card, Path(tmp), Path(tmp) / "jpeg", train_bound_ms,
+                                         train_jpeg, train, inp)
         oracle = phase_oracle(card, Path(tmp))
 
     # K1 per batch-128 forward of each served model: its sites' rows summed
@@ -2841,7 +3183,8 @@ def main() -> None:
          "train_bot_bound_ms": bot_bound_ms,
          "train_bot_sites": [[*site, m] for site, m in sorted(bot_sites.items())],
          "train_bot_512": train_bot_512, "train_bot_512_bound_ms": bot512_bound_ms,
-         "input": inp, "train_jpeg": train_jpeg, "oracle": oracle}, indent=1))
+         "input": inp, "train_jpeg": train_jpeg, "train_dataplane": train_dp,
+         "oracle": oracle}, indent=1))
     (out / "chip_smoke_moe.json").write_text(json.dumps(
         {"card": smi, "build": builds["moe"], "kernels": moe, "dist": moe_dist}, indent=1))
     for arch, f in per_fwd.items():
@@ -2974,6 +3317,7 @@ def main() -> None:
     kernels[1]["botnet50_train_launches"] = train_bot["launches"]["k1_bwd"]
     for i, key in ((0, "k1"), (1, "k1_bwd")):  # the real-image paths
         kernels[i]["train_jpeg_launches"] = train_jpeg["launches"][key]
+        kernels[i]["train_dataplane_launches"] = train_dp["launches"][key]
         kernels[i]["oracle_epoch0_launches"] = oracle["launches"][key]
     k2 = next(k for k in kernels if k["name"].startswith("K2 "))
     k2["train_launches"] = train_bot["launches"]["attention"]

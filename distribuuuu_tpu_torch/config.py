@@ -6,10 +6,9 @@ plus every key the repository's training and serving YAMLs set, so they
 merge unchanged. Keys marked "not yet ported" are accepted and checked by
 the trainer (``trainer._check_supported``): a non-default value raises with
 the ROADMAP item that ports it. The few whose default turns a JAX
-subsystem on are gaps at their default, and say so below. The ``DATA``
-(dataplane), ``OBS``, ``QUANT``, ``FLEET`` subtrees and
-``SERVE.DEPLOY``/``SERVE.INGRESS`` are not part of these slices and are
-absent.
+subsystem on are gaps at their default, and say so below. The ``OBS``,
+``QUANT``, ``FLEET`` subtrees and ``SERVE.DEPLOY``/``SERVE.INGRESS`` are
+not part of these slices and are absent.
 """
 
 from __future__ import annotations
@@ -145,15 +144,18 @@ _C.FAULT = CN()
 _C.FAULT.NONFINITE_GUARD = True
 # abort after this many consecutive skipped steps (checked at PRINT_FREQ)
 _C.FAULT.MAX_CONSECUTIVE_SKIPS = 10
-# fault injection: INJECT_NAN_STEPS (NaN images at those global steps) and
-# INJECT_KILL_STEP (SIGKILL at that global step) are ported. IO retries
-# (RETRY_*), the watchdog (HANG_TIMEOUT_S) and the other injections are not
-# yet (ROADMAP Queue 1 item 2): a non-default value raises
+# retryable IO (resilience.retry: the loader's sample reads, every dataplane
+# socket exchange): attempts, and full-jitter exponential backoff from
+# RETRY_BASE_DELAY seconds capped at RETRY_MAX_DELAY.
+# Fault injection: INJECT_NAN_STEPS (NaN images at those global steps) and
+# INJECT_KILL_STEP (SIGKILL at that global step) are ported. The watchdog
+# (HANG_TIMEOUT_S) and the other injections are not yet (ROADMAP Queue 1
+# item 2): a non-default value raises
 _C.FAULT.RETRY_ATTEMPTS = 3
 _C.FAULT.RETRY_BASE_DELAY = 0.1
 _C.FAULT.RETRY_MAX_DELAY = 2.0
-# gap of item 2 at its default: JAX substitutes a sample it cannot read; the
-# port's loader raises instead
+# gap of item 2 at its default: JAX substitutes a sample it cannot read
+# after its retries; the port's loader raises instead
 _C.FAULT.DEGRADE = True
 # gap of item 2 at its default: JAX turns SIGTERM into an emergency
 # checkpoint; the port has no handler (the signal ends the run)
@@ -175,6 +177,43 @@ _C.RESUME.STEP_GRANULAR = True
 _C.RESUME.SKIP_CORRUPT = True
 _C.RESUME.VERIFY_INTEGRITY = True
 _C.RESUME.ROLLBACK = 0
+
+# Dataplane (``python -m distribuuuu_tpu_torch.dataplane --cfg ...``): a
+# dispatcher owning the seed+epoch-keyed sample permutation plus N decode
+# worker processes; trainers opt in per run, and the sample stream is
+# bitwise the local decode's either way.
+_C.DATA = CN()
+# Where this run's loaders get batches: "" or "local" = decode in this
+# process (HostDataLoader); "host:port" = stream from a running dataplane
+# dispatcher; "fleet" (a fleet-scheduled service) is not yet ported (ROADMAP
+# Queue 1 item 13). The DTPU_DATA_SERVICE env var overrides this key.
+_C.DATA.SERVICE = ""
+# Dispatcher bind. PORT 0 derives a stable port from OUT_DIR
+# (runtime/dist.derive_dataplane_port).
+_C.DATA.HOST = "127.0.0.1"
+_C.DATA.PORT = 0
+# The address clients are told to connect to ("" = DATA.HOST): a dispatcher
+# bound to 0.0.0.0 must advertise a routable address. Read by the fleet's
+# co-scheduling, which is not yet ported: a value raises (item 13).
+_C.DATA.ADVERTISE_HOST = ""
+# Decode worker pool: processes x threads (THREADS 0: cpu_count/WORKERS).
+_C.DATA.WORKERS = 2
+_C.DATA.WORKER_THREADS = 0
+# Decoded-batch LRU cache, keyed by (root, transform fingerprint, epoch
+# seed, batch): several jobs, eval re-reads and resumed epochs share one
+# decode.
+_C.DATA.CACHE_MB = 256
+# A lease not completed within this window re-issues to another worker (a
+# worker whose connection drops re-issues at once; this clock covers only
+# silently wedged workers).
+_C.DATA.LEASE_TIMEOUT_S = 30.0
+# How many batches ahead of the slowest consumer the dispatcher leases per
+# stream (the decode-ahead depth and the ready-buffer bound).
+_C.DATA.WINDOW = 8
+# Client behaviour when the dispatcher dies: finish the epoch with local
+# decode at the exact next undelivered batch (the same stream, logged and
+# counted), and return to the service at the next epoch. Off: fail the run.
+_C.DATA.FALLBACK = True
 
 # agent supervision: not yet ported (accepted for serve_resnet50.yaml)
 _C.AGENT = CN()

@@ -21,10 +21,14 @@ is ``TRAIN.BATCH_SIZE * ACCUM_STEPS`` samples (val: ``TEST.BATCH_SIZE``).
 - :class:`DevicePrefetcher` copies each host batch to the card
   ``non_blocking`` on a side stream, ``depth`` batches ahead; the compute
   stream waits on the copy's event.
+- With ``DATA.SERVICE`` set (or ``DTPU_DATA_SERVICE``), the construct
+  functions return the dataplane's ``ServiceLoader`` in place of the
+  ``HostDataLoader``: the same batches, decoded in the service's worker
+  processes (``distribuuuu_tpu_torch/dataplane``).
 
-A sample that cannot be read or decoded fails the run: the port has no
-retries and substitutes no sample (ROADMAP Queue 1 item 2), and the
-dataplane service loader is Queue 1 item 13.
+A sample read or decode that fails is retried (``resilience.retry``,
+``FAULT.RETRY_*``); one that fails every attempt fails the run: the port
+substitutes no sample (ROADMAP Queue 1 item 2).
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ import numpy as np
 import torch
 from PIL import Image
 
+from distribuuuu_tpu_torch import resilience
 from distribuuuu_tpu_torch.config import cfg, get_default
 from distribuuuu_tpu_torch.data import native
 from distribuuuu_tpu_torch.data.dataset import DummyDataset, open_image_dataset
@@ -81,6 +86,16 @@ def aug_seed_base(seed: int, epoch: int, process_index: int) -> int:
     """Base of a process's augmentation seeds for an epoch: slot
     ``b * host_batch + i`` crops with ``base + b * host_batch + i``."""
     return ((seed * 1_000_003 + epoch) * 7919 + process_index * 104_729) & 0x7FFFFFFF
+
+
+def transform_fingerprint(*, train: bool, im_size: int, crop_size: int) -> str:
+    """The identity of the decode and transform a batch went through, as the
+    JAX package spells it (``pil:train224``, ``native:eval256c224``): the
+    backend is part of it, since PIL's and the native decoder's pixels
+    differ."""
+    backend = "native" if native.available() else "pil"
+    mode = f"train{im_size}" if train else f"eval{im_size}c{crop_size}"
+    return f"{backend}:{mode}"
 
 
 def _qput(out_q: queue.Queue, item, stop: threading.Event) -> bool:
@@ -162,11 +177,12 @@ class HostDataLoader:
             return np.zeros((size, size, 3), dtype=np.uint8), 0, 0.0
         name, label = self.dataset.samples[idx]
         try:
-            return self._decode(idx, slot_seed), label, 1.0
+            return resilience.retry(self._decode, idx, slot_seed, retry_on=(OSError, ValueError),
+                                    desc=f"sample load idx={idx}"), label, 1.0
         except (OSError, ValueError) as exc:
-            raise OSError(f"sample {idx} ({name}) could not be read or decoded ({exc!r}); the "
-                          f"port neither retries a sample nor substitutes one (ROADMAP Queue 1 "
-                          f"item 2)") from exc
+            raise OSError(f"sample {idx} ({name}) could not be read or decoded in "
+                          f"{cfg.FAULT.RETRY_ATTEMPTS} attempts ({exc!r}); the port substitutes no "
+                          f"sample (ROADMAP Queue 1 item 2)") from exc
 
     def _decode(self, idx: int, slot_seed: int) -> np.ndarray:
         name = self.dataset.samples[idx][0]
@@ -227,70 +243,85 @@ class HostDataLoader:
                           out={k: t.numpy() for k, t in host.items()})
         return host
 
-    def _produce(self, out_q: queue.Queue, stop: threading.Event, err_box: list) -> None:
+    def _produce(self, emit) -> None:
+        set_pin_device(self.pin_device)
+        indices = self._shard_indices()
+        base = aug_seed_base(self.seed, self.epoch, self.process_index)
+        with ThreadPoolExecutor(self.workers) as pool:
+            for b in range(self.start_batch, self.num_batches):
+                if not emit(self._host_batch(b, indices, base, pool)):
+                    return
+
+    def __iter__(self) -> Iterator[dict]:
+        return produced(self, self._produce, self.prefetch_batches, "dtpu-host-loader")
+
+
+def set_pin_device(pin_device: torch.device | None) -> None:
+    """Make a producer thread pin in the rank's device context."""
+    if pin_device is not None and pin_device.index is not None:
+        torch.cuda.set_device(pin_device)
+
+
+def _raise_producer_error(exc: BaseException) -> None:
+    if isinstance(exc, (KeyboardInterrupt, SystemExit)):
+        raise exc
+    raise RuntimeError("data loader worker failed") from exc
+
+
+def produced(owner, produce, depth: int, name: str) -> Iterator:
+    """Iterate what ``produce(emit)`` emits from a producer thread, through
+    a queue of ``depth`` items (``emit`` returns False once the consumer is
+    gone: the producer should return). The producer's error is raised in
+    the consumer ahead of the items still queued; an abandoned iteration
+    stops the producer and reaps it. ``owner._producer`` is the thread."""
+    out_q: queue.Queue = queue.Queue(maxsize=depth)
+    stop = threading.Event()
+    err_box: list = []
+
+    def run() -> None:
         try:
-            if self.pin_device is not None and self.pin_device.index is not None:
-                torch.cuda.set_device(self.pin_device)  # pin in the rank's device context
-            indices = self._shard_indices()
-            base = aug_seed_base(self.seed, self.epoch, self.process_index)
-            with ThreadPoolExecutor(self.workers) as pool:
-                for b in range(self.start_batch, self.num_batches):
-                    if stop.is_set():
-                        return
-                    if not _qput(out_q, self._host_batch(b, indices, base, pool), stop):
-                        return
+            produce(lambda item: _qput(out_q, item, stop))
         except BaseException as exc:
             # the side channel, not the bounded queue: a failure must not
-            # wait behind unconsumed batches; ``stop`` wakes the consumer
+            # wait behind unconsumed items; ``stop`` wakes the consumer
             err_box.append(exc)
             stop.set()
         else:
             _qput(out_q, None, stop)
 
-    @staticmethod
-    def _raise_producer_error(exc: BaseException) -> None:
-        if isinstance(exc, (KeyboardInterrupt, SystemExit)):
-            raise exc
-        raise RuntimeError("data loader worker failed") from exc
-
-    def __iter__(self) -> Iterator[dict]:
-        out_q: queue.Queue = queue.Queue(maxsize=self.prefetch_batches)
-        stop = threading.Event()
-        err_box: list = []
-        producer = threading.Thread(target=self._produce, args=(out_q, stop, err_box),
-                                    daemon=True, name="dtpu-host-loader")
-        self._producer = producer
-        producer.start()
-        try:
-            while True:
-                if err_box:  # a failure preempts the batches still queued
-                    self._raise_producer_error(err_box[0])
-                try:
-                    batch = out_q.get(timeout=0.2)
-                except queue.Empty:
+    producer = threading.Thread(target=run, daemon=True, name=name)
+    owner._producer = producer
+    producer.start()
+    try:
+        while True:
+            if err_box:  # a failure preempts the items still queued
+                _raise_producer_error(err_box[0])
+            try:
+                item = out_q.get(timeout=0.2)
+            except queue.Empty:
+                if err_box:
+                    _raise_producer_error(err_box[0])
+                if not producer.is_alive():
+                    # gone between its last put and the end marker: hand
+                    # over what it left (its error was appended before it died)
                     if err_box:
-                        self._raise_producer_error(err_box[0])
-                    if not producer.is_alive():
-                        # gone between its last put and the end marker: hand
-                        # over what it left (its error was appended before it died)
-                        if err_box:
-                            self._raise_producer_error(err_box[0])
-                        while True:
-                            try:
-                                batch = out_q.get_nowait()
-                            except queue.Empty:
-                                return
-                            if batch is None:
-                                return
-                            yield batch
-                    continue
-                if batch is None:
-                    return
-                yield batch
-        finally:
-            # an abandoned epoch too: stop the producer and reap it
-            stop.set()
-            producer.join(timeout=5.0)
+                        _raise_producer_error(err_box[0])
+                    while True:
+                        try:
+                            item = out_q.get_nowait()
+                        except queue.Empty:
+                            return
+                        if item is None:
+                            return
+                        yield item
+                continue
+            if item is None:
+                return
+            yield item
+    finally:
+        # an abandoned epoch too: stop the producer and reap it
+        stop.set()
+        producer.join(timeout=5.0)
 
 
 class DummyLoader:
@@ -313,6 +344,28 @@ class DummyLoader:
             yield self._batch
 
 
+def service_address() -> str:
+    """The dataplane address this process streams from: ``DTPU_DATA_SERVICE``
+    over ``DATA.SERVICE``; ``""`` (or ``local``) means decode here."""
+    addr = os.environ.get("DTPU_DATA_SERVICE", "").strip() or str(cfg.DATA.SERVICE).strip()
+    return "" if addr.lower() in ("", "local") else addr
+
+
+def _service_loader(root: str, *, train: bool, host_batch: int, im_size: int, crop_size: int,
+                    rank: int, world_size: int, pin_device):
+    """The dataplane ``ServiceLoader`` of the resolved address, or None."""
+    address = service_address()
+    if not address:
+        return None
+    from distribuuuu_tpu_torch.dataplane.client import ServiceLoader
+
+    return ServiceLoader(address, root=root, train=train, host_batch=host_batch,
+                         im_size=im_size, crop_size=crop_size, process_index=rank,
+                         process_count=world_size, seed=cfg.RNG_SEED or 0,
+                         workers=cfg.TRAIN.WORKERS, prefetch_batches=cfg.TRAIN.PREFETCH * 2,
+                         pin_device=pin_device)
+
+
 def construct_train_loader(world_size: int = 1, rank: int = 0,
                            pin_device: torch.device | None = None):
     """Train loader of process ``rank``: ``TRAIN.BATCH_SIZE * ACCUM_STEPS``
@@ -323,8 +376,14 @@ def construct_train_loader(world_size: int = 1, rank: int = 0,
         return DummyLoader(step_batch, cfg.TRAIN.IM_SIZE,
                            num_batches=cfg.TRAIN.DUMMY_EPOCH_SAMPLES
                            // max(1, step_batch * world_size))
+    root = os.path.join(cfg.TRAIN.DATASET, cfg.TRAIN.SPLIT)
+    service = _service_loader(root, train=True, host_batch=step_batch, im_size=cfg.TRAIN.IM_SIZE,
+                              crop_size=cfg.TEST.CROP_SIZE, rank=rank, world_size=world_size,
+                              pin_device=pin_device)
+    if service is not None:
+        return service
     return HostDataLoader(
-        open_image_dataset(os.path.join(cfg.TRAIN.DATASET, cfg.TRAIN.SPLIT)),
+        open_image_dataset(root),
         host_batch=step_batch, train=True, im_size=cfg.TRAIN.IM_SIZE, process_index=rank,
         process_count=world_size, workers=cfg.TRAIN.WORKERS, seed=cfg.RNG_SEED or 0,
         prefetch_batches=cfg.TRAIN.PREFETCH * 2, pin_device=pin_device)
@@ -345,8 +404,14 @@ def construct_val_loader(world_size: int = 1, rank: int = 0,
                            // max(1, cfg.TEST.BATCH_SIZE * world_size))
     val_root = (cfg.TEST.DATASET if cfg.TEST.DATASET != get_default("TEST.DATASET")
                 else cfg.TRAIN.DATASET)
+    root = os.path.join(val_root, cfg.TEST.SPLIT)
+    service = _service_loader(root, train=False, host_batch=cfg.TEST.BATCH_SIZE,
+                              im_size=cfg.TEST.IM_SIZE, crop_size=cfg.TEST.CROP_SIZE, rank=rank,
+                              world_size=world_size, pin_device=pin_device)
+    if service is not None:
+        return service
     return HostDataLoader(
-        open_image_dataset(os.path.join(val_root, cfg.TEST.SPLIT)),
+        open_image_dataset(root),
         host_batch=cfg.TEST.BATCH_SIZE, train=False, im_size=cfg.TEST.IM_SIZE,
         process_index=rank, process_count=world_size, workers=cfg.TRAIN.WORKERS,
         seed=cfg.RNG_SEED or 0, prefetch_batches=cfg.TRAIN.PREFETCH * 2,

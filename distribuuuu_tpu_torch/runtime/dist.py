@@ -6,17 +6,29 @@ the caller or from the launcher's variables (``RANK``, ``WORLD_SIZE``,
 them); nothing on the card's machine says more. The backend is ``nccl`` on
 the card and ``gloo`` when the caller asked for the CPU. One process: no
 group.
+
+:func:`derive_rendezvous_port` and :func:`derive_dataplane_port` are the JAX
+package's, copied exactly: ``DATA.PORT 0`` hashes ``OUT_DIR`` to the same
+dataplane port in either package.
 """
 
 from __future__ import annotations
 
+import hashlib
 import os
+import socket
 from dataclasses import dataclass
+from typing import Iterable
 
 import torch
 import torch.distributed as dist
 
 from distribuuuu_tpu_torch import resolve_device
+
+
+# the JAX package's default rendezvous port: the derivation below skips it,
+# so both packages derive the same ports
+_DEFAULT_PORT = 29566
 
 
 @dataclass
@@ -56,3 +68,53 @@ def setup_distributed(device=None, *, init_method: str | None = None, rank: int 
                                     init_method=init_method, rank=rank, world_size=world_size)
         group = dist.group.WORLD
     return DistInfo(rank, world_size, local_rank, dev, group)
+
+
+def port_is_free(port: int, host: str = "127.0.0.1") -> bool:
+    """Can a server bind ``port`` on ``host`` right now?"""
+    with socket.socket() as s:
+        s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        try:
+            s.bind((host, int(port)))
+            return True
+        except OSError:
+            return False
+
+
+def pick_rendezvous_port(exclude: Iterable[int] = ()) -> int:
+    """A currently free ephemeral port outside ``exclude`` (best effort: the
+    probe socket is released before the caller binds)."""
+    excluded = {int(p) for p in exclude}
+    last = 0
+    for _ in range(64):
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            last = s.getsockname()[1]
+        if last not in excluded:
+            return last
+    raise OSError(f"could not find a free port outside the excluded set {sorted(excluded)} "
+                  f"(last OS offer: {last})")
+
+
+def derive_rendezvous_port(job_id: str, *, exclude: Iterable[int] = (), attempts: int = 32) -> int:
+    """A port derived from a job id: the first of the id's hashed candidates
+    in 20000-29499 that is outside ``exclude`` and bindable now, so two
+    processes deriving it independently agree without coordination; an
+    ephemeral pick after ``attempts`` candidates fail."""
+    excluded = {int(p) for p in exclude}
+    excluded.add(_DEFAULT_PORT)
+    for i in range(attempts):
+        digest = hashlib.sha256(f"{job_id}:{i}".encode()).digest()
+        port = 20000 + int.from_bytes(digest[:4], "big") % 9500
+        if port in excluded:
+            continue
+        if port_is_free(port):
+            return port
+    return pick_rendezvous_port(exclude=excluded)
+
+
+def derive_dataplane_port(job_id: str, *, exclude: Iterable[int] = ()) -> int:
+    """The dataplane dispatcher's port for a job id (``DATA.PORT 0``: the
+    absolute ``OUT_DIR``), in a hash namespace disjoint from the
+    rendezvous's."""
+    return derive_rendezvous_port(f"dataplane:{job_id}", exclude=exclude)

@@ -39,6 +39,7 @@ from distribuuuu_tpu_torch.data.loader import (
     HostDataLoader,
     construct_train_loader,
     construct_val_loader,
+    service_address,
 )
 from distribuuuu_tpu_torch.data.transforms import device_normalize
 from distribuuuu_tpu_torch.logging import logger, setup_logger
@@ -171,15 +172,18 @@ UNPORTED_KEYS = (
     ("MODEL.PRETRAINED", "item 11"), ("FAULT.HANG_TIMEOUT_S", "item 2"),
     ("FAULT.INJECT_PREEMPT_STEP", "item 2"), ("FAULT.INJECT_HANG_STEP", "item 2"),
     ("FAULT.INJECT_IO_INDICES", "item 2"), ("FAULT.INJECT_IO_FAILURES", "item 2"),
-    ("FAULT.RETRY_ATTEMPTS", "item 2"), ("FAULT.RETRY_BASE_DELAY", "item 2"),
-    ("FAULT.RETRY_MAX_DELAY", "item 2"), ("RESUME.ROLLBACK", "item 2"),
+    ("RESUME.ROLLBACK", "item 2"),
     ("MESH.FSDP_MIN_SIZE", "item 12"), ("MODEL.SEQ_ATTN", "item 12"),
-    ("MODEL.MAE_MASK_RATIO", "item 11"), ("MODEL.MAE_DECODER_DIM", "item 11"))
+    ("MODEL.MAE_MASK_RATIO", "item 11"), ("MODEL.MAE_DECODER_DIM", "item 11"),
+    ("DATA.ADVERTISE_HOST", "item 13"))
 
 
 def _check_supported() -> None:
     """Raise on a config value whose subsystem the port does not have yet."""
     todo = (("MESH.FSDP", cfg.MESH.FSDP in (0, 1), "item 12"),
+            # a fleet-scheduled dataplane (the key or DTPU_DATA_SERVICE); a
+            # host:port address is ported
+            ("DATA.SERVICE", service_address().lower() != "fleet", "item 13"),
             *((key, lookup(key) == get_default(key), item) for key, item in UNPORTED_KEYS))
     for key, ok, item in todo:
         if not ok:
@@ -359,7 +363,7 @@ def train_epoch(loader, state: TrainState, epoch: int, device, is_primary: bool,
         logger.info(f"Epoch[{epoch}] done: {wall:.1f}s, {step_imgs * steps / wall:.0f} img/s; "
                     f"steady state {1e3 * batch_time.avg:.2f} ms a step, "
                     f"{step_imgs / max(batch_time.avg, 1e-9):.0f} img/s; data wait "
-                    f"{100 * data_time.sum / wall:.1f}% of the epoch")
+                    f"{100 * data_time.sum / wall:.1f}% of the epoch{_input_tail(loader)}")
 
 
 def validate(loader, model, device, is_primary: bool, group=None, prefix="Test: "):
@@ -401,7 +405,8 @@ def validate(loader, model, device, is_primary: bool, group=None, prefix="Test: 
     n = max(n, 1.0)
     acc1, acck = 100.0 * c1 / n, 100.0 * ck / n
     if is_primary:
-        logger.info(f" * Acc@1 {acc1:.3f} Acc@{topk} {acck:.3f} over {n:.0f} images")
+        logger.info(f" * Acc@1 {acc1:.3f} Acc@{topk} {acck:.3f} over {n:.0f} images"
+                    f"{_input_tail(loader)}")
     return acc1, acck
 
 
@@ -432,13 +437,27 @@ def _pin_device(device: torch.device):
 
 
 def _log_input(*loaders) -> None:
-    """One line a loader: its images, batches and the decoder backend."""
+    """One line a loader: its images, batches, where it decodes (here, or
+    the dataplane service and its pool) and the decoder backend."""
     for ld in loaders:
-        if isinstance(ld, HostDataLoader):
+        if isinstance(ld, HostDataLoader) or hasattr(ld, "address"):
+            if hasattr(ld, "address"):  # a dataplane ServiceLoader
+                pool = ld.pool
+                where = (f"service {ld.address} ({pool.get('workers', '?')} DATA.WORKERS x "
+                         f"{pool.get('worker_threads', '?')} threads)")
+            else:
+                where = f"{ld.workers} workers"
             logger.info(f"Input: {'train' if ld.train else 'val'} {len(ld.dataset)} images "
                         f"({ld.shard_size} in this process's shard, {len(ld)} batches of "
-                        f"{ld.host_batch}) from {ld.dataset.root}; decoder: "
-                        f"{ld.decoder}; {ld.workers} workers; pinned: {ld.pin_device is not None}")
+                        f"{ld.host_batch}) from {ld.dataset.root}; decoder: {ld.decoder}; "
+                        f"{where}; pinned: {ld.pin_device is not None}")
+
+
+def _input_tail(loader) -> str:
+    """Where ``loader``'s batches came from, for the end of an epoch's line."""
+    if hasattr(loader, "address"):  # a dataplane ServiceLoader
+        return f"; input: service {loader.address}, {loader.fallbacks} fallback(s)"
+    return "; input: local"
 
 
 def train_model(device=None):

@@ -12,7 +12,8 @@ is bitwise:
   train and eval, on PIL (``use_native = False`` set on both instances) and,
   where the port's decoder builds, on the native decoder in both;
 - drop_last, eval padding at weight 0, a consumer that abandons the epoch,
-  a failing producer, a corrupt JPEG (it raises and names ROADMAP item 2);
+  a failing producer, a corrupt JPEG (it raises and names ROADMAP item 2),
+  a read retried (``FAULT.RETRY_*``) through two transient failures;
 - the committed ``digits.csv.gz`` against ``sklearn.datasets.load_digits``,
   and ``digits_imagefolder``'s files against the JAX package's.
 """
@@ -185,6 +186,25 @@ def test_corrupt_jpeg_raises_and_names_item_2(image_root, tmp_path, backend):
         list(ours)
     assert isinstance(exc.value.__cause__, OSError)
     assert "2.jpg" in str(exc.value.__cause__) and "item 2" in str(exc.value.__cause__)
+
+
+def test_load_one_retries_a_transient_read_and_raises_a_permanent_one(image_root, monkeypatch):
+    ours = _loaders(image_root, 0, True, False)[0]
+    decode, calls = ours._decode, []
+
+    def flaky(idx, seed):
+        calls.append(idx)
+        if len(calls) < 3:  # two transient failures, then the read succeeds
+            raise OSError("transient read")
+        return decode(idx, seed)
+    monkeypatch.setattr(ours, "_decode", flaky)
+    img, label, weight = ours._load_one(5, 11)
+    assert len(calls) == 3 and np.array_equal(img, decode(5, 11)) and weight == 1.0
+    calls.clear()
+    monkeypatch.setattr(ours, "_decode", lambda idx, seed: calls.append(idx) or int("x"))
+    with pytest.raises(OSError, match="in 3 attempts .*item 2"):
+        ours._load_one(5, 11)
+    assert len(calls) == 3
 
 
 def test_digits_csv_equals_sklearn_and_the_folder_equals_jax(tmp_path):

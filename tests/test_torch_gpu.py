@@ -926,30 +926,28 @@ def test_deterministic_botnet50_training_steps_repeat_bitwise(cuda):
     assert all(torch.equal(a, b) for a, b in zip(*runs))
 
 
-@pytest.mark.gpu
-def test_producer_pinned_batches_reach_the_card_bitwise(cuda, tmp_path):
-    """TRAIN.PIN_MEMORY: the loader's producer thread decodes each batch into
-    fresh pinned tensors, which the caching host allocator recycles only
-    after their copy's event. 52 batches of a changing stream (13 epochs of
-    a train ImageFolder) through ``DevicePrefetcher`` at TRAIN.PREFETCH's
-    default depth 2, the compute stream kept busy a millisecond a batch,
-    arrive on the card bitwise equal to the same batches decoded on the
-    host, in order."""
+def _jpeg_folder(path):
     import numpy as np
     from PIL import Image
 
-    from distribuuuu_tpu_torch.data import dataset, loader
-
     rng = np.random.default_rng(0)
     for i in range(32):
-        (tmp_path / f"c{i % 4}").mkdir(exist_ok=True)
+        (path / f"c{i % 4}").mkdir(exist_ok=True)
         Image.fromarray(rng.integers(0, 256, (64, 80, 3), dtype=np.uint8)).save(
-            tmp_path / f"c{i % 4}" / f"{i}.jpg", quality=90)
-    kw = dict(host_batch=8, train=True, im_size=48, process_index=0, process_count=1,
-              workers=4, seed=3, prefetch_batches=4)
-    pinned = loader.HostDataLoader(dataset.ImageFolder(str(tmp_path)), pin_device=cuda, **kw)
-    host = loader.HostDataLoader(dataset.ImageFolder(str(tmp_path)), **kw)
-    host.use_native = pinned.use_native
+            path / f"c{i % 4}" / f"{i}.jpg", quality=90)
+    return str(path)
+
+
+_PIN_KW = dict(host_batch=8, train=True, im_size=48, process_index=0, process_count=1, seed=3,
+               prefetch_batches=4)
+
+
+def _assert_prefetched_bitwise(pinned, host, cuda):
+    """13 epochs of ``pinned`` through ``DevicePrefetcher`` at depth 2, the
+    compute stream kept busy a millisecond a batch, against ``host``'s
+    batches decoded on the host, in order; ``pinned``'s batches pinned."""
+    from distribuuuu_tpu_torch.data import loader
+
     got, want = [], []
     for epoch in range(13):
         pinned.set_epoch(epoch)
@@ -965,3 +963,42 @@ def test_producer_pinned_batches_reach_the_card_bitwise(cuda, tmp_path):
     for g, w in zip(got, want):
         for k in ("image", "label", "weight"):
             assert torch.equal(g[k].cpu(), torch.from_numpy(w[k])), k
+
+
+@pytest.mark.gpu
+def test_producer_pinned_batches_reach_the_card_bitwise(cuda, tmp_path):
+    """TRAIN.PIN_MEMORY: the loader's producer thread decodes each batch into
+    fresh pinned tensors, which the caching host allocator recycles only
+    after their copy's event. 52 batches of a changing stream (13 epochs of
+    a train ImageFolder) through ``DevicePrefetcher`` at TRAIN.PREFETCH's
+    default depth 2, the compute stream kept busy a millisecond a batch,
+    arrive on the card bitwise equal to the same batches decoded on the
+    host, in order."""
+    from distribuuuu_tpu_torch.data import dataset, loader
+
+    root = _jpeg_folder(tmp_path)
+    kw = dict(_PIN_KW, workers=4)
+    pinned = loader.HostDataLoader(dataset.ImageFolder(root), pin_device=cuda, **kw)
+    host = loader.HostDataLoader(dataset.ImageFolder(root), **kw)
+    host.use_native = pinned.use_native
+    _assert_prefetched_bitwise(pinned, host, cuda)
+
+
+@pytest.mark.gpu
+def test_service_pinned_batches_reach_the_card_bitwise(cuda, tmp_path):
+    """DATA.SERVICE: the ``ServiceLoader``'s receiving thread reads each frame
+    into fresh pinned tensors; the same 52 batches as the local loader's
+    test reach the card bitwise equal to local decode."""
+    from distribuuuu_tpu_torch.data import dataset, loader
+    from distribuuuu_tpu_torch.dataplane import DataPlaneService, ServiceLoader
+
+    root = _jpeg_folder(tmp_path)
+    host = loader.HostDataLoader(dataset.ImageFolder(root), workers=4, **_PIN_KW)
+    svc = DataPlaneService(workers=2, worker_threads=2, in_process=True).start()
+    try:
+        pinned = ServiceLoader(svc.address, root=root, fallback=False, pin_device=cuda,
+                               **_PIN_KW)
+        _assert_prefetched_bitwise(pinned, host, cuda)
+        assert pinned.fallbacks == 0
+    finally:
+        svc.stop()

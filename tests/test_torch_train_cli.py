@@ -23,7 +23,8 @@
   log, the checkpoint verified, and the val pass and ``test_model`` each
   counting exactly the 300 val images (the last batch padded at weight 0);
 - a non-default value of each key the port accepts but does not honour
-  yet raises ``NotImplementedError`` naming its ROADMAP item.
+  yet raises ``NotImplementedError`` naming its ROADMAP item; each
+  ``FAULT.RETRY_*`` key is honoured by ``resilience.retry``.
 """
 
 import math
@@ -221,16 +222,51 @@ def test_digits_imagefolder_trains_and_every_val_image_is_counted_once(tmp_path_
 @pytest.mark.parametrize("key,value,item", [
     ("FAULT.HANG_TIMEOUT_S", "600", "item 2"), ("FAULT.INJECT_PREEMPT_STEP", "5", "item 2"),
     ("FAULT.INJECT_HANG_STEP", "3", "item 2"), ("FAULT.INJECT_IO_INDICES", "[3]", "item 2"),
-    ("FAULT.INJECT_IO_FAILURES", "2", "item 2"), ("FAULT.RETRY_ATTEMPTS", "5", "item 2"),
-    ("FAULT.RETRY_BASE_DELAY", "0.5", "item 2"), ("FAULT.RETRY_MAX_DELAY", "4.0", "item 2"),
+    ("FAULT.INJECT_IO_FAILURES", "2", "item 2"), ("DATA.SERVICE", "fleet", "item 13"),
     ("RESUME.ROLLBACK", "1", "item 2"), ("MESH.FSDP_MIN_SIZE", "1024", "item 12"),
     ("MODEL.SEQ_ATTN", "ring", "item 12"), ("MODEL.MAE_MASK_RATIO", "0.5", "item 11"),
     ("MODEL.MAE_DECODER_DIM", "256", "item 11"), ("MESH.FSDP", "2", "item 12"),
     ("MESH.SEQ", "2", "item 12"), ("MODEL.REMAT", "True", "item 12"),
-    ("TRAIN.TASK", "mae", "item 11"), ("MODEL.PRETRAINED", "True", "item 11")])
+    ("TRAIN.TASK", "mae", "item 11"), ("MODEL.PRETRAINED", "True", "item 11"),
+    ("DATA.ADVERTISE_HOST", "10.0.0.2", "item 13")])
 def test_an_unported_key_raises_naming_its_roadmap_item(tmp_path, key, value, item):
     _load(tmp_path, key, value)
     with pytest.raises(NotImplementedError, match=rf"{key} is not ported yet \(ROADMAP Queue 1 "
                                                   rf"{item}\)"):
         train_model(device="cpu")
     assert not (tmp_path / "checkpoints").exists()
+
+
+def test_a_fleet_service_from_the_env_raises(tmp_path, monkeypatch):
+    """DTPU_DATA_SERVICE outranks DATA.SERVICE, so its fleet is refused too."""
+    _load(tmp_path)
+    monkeypatch.setenv("DTPU_DATA_SERVICE", "fleet")
+    with pytest.raises(NotImplementedError, match=r"DATA.SERVICE is not ported yet \(ROADMAP "
+                                                  r"Queue 1 item 13\)"):
+        train_model(device="cpu")
+    assert not (tmp_path / "checkpoints").exists()
+
+
+@pytest.mark.parametrize("key,value", [("FAULT.RETRY_ATTEMPTS", "5"),
+                                       ("FAULT.RETRY_BASE_DELAY", "0.5"),
+                                       ("FAULT.RETRY_MAX_DELAY", "0.25")])
+def test_a_fault_retry_key_is_honoured(tmp_path, key, value):
+    """The retry keys configure ``resilience.retry`` (the loader's reads, the
+    dataplane's sockets), so the trainer accepts them."""
+    from distribuuuu_tpu_torch import resilience
+    from distribuuuu_tpu_torch.trainer import _check_supported
+
+    _load(tmp_path, key, value)
+    _check_supported()
+    delays = []
+
+    def failing():
+        raise OSError("down")
+
+    with pytest.raises(OSError, match="down"):
+        resilience.retry(failing, sleep=delays.append)
+    f = cfg.FAULT
+    assert len(delays) == f.RETRY_ATTEMPTS - 1 == (4 if key == "FAULT.RETRY_ATTEMPTS" else 2)
+    assert all(0 <= d <= min(f.RETRY_MAX_DELAY, f.RETRY_BASE_DELAY * 2 ** a)
+               for a, d in enumerate(delays))
+    assert float(value) == float(getattr(f, key.split(".")[1]))
