@@ -147,7 +147,19 @@ Phases (any failure exits non-zero):
 17. [oracle] the digits recipe of ``tutorial/real_data_oracle.py`` through
    ``train_net`` on ``config/resnet18.yaml`` (5 epochs, 1497 train and 300
    val JPEGs): val Acc@1 and Acc@5 an epoch; fails below the band of 65;
-18. the ``{"kernels": [...]}`` line; 19. the ``{"ok": true, ...}`` last line.
+18. [train-preempt] [train]'s command with ``CUDNN.DETERMINISTIC True`` over
+   2 epochs of PREEMPT_STEPS steps, each run a subprocess: one uninterrupted
+   run; one sent a real SIGTERM once its log shows a step of epoch 2, which
+   must exit 143 leaving a ``ckpt_mid_ep_001_it_*`` that verifies against
+   its manifest, after 53 K1 and 53 K1-bwd launches a step; its relaunch,
+   which must log ``Resumed from ... (epoch 1, step S`` and end with model
+   and optimizer tensors ``torch.equal`` to the uninterrupted run's; then
+   ``FAULT.INJECT_HANG_STEP 3`` under a ``FAULT.HANG_TIMEOUT_S`` just above
+   the first window, which must exit 124 within the timeout and a margin
+   of the hang, every thread's stack in the rank log. The emergency save's
+   ms and bytes, the relaunch's time to its first step and the steps run
+   after the signal, beside the card's name and power limit;
+19. the ``{"kernels": [...]}`` line; 20. the ``{"ok": true, ...}`` last line.
 
 Each path is driven with the launch counts set to 0 just before it and read
 just after. Per-shape numbers are also written to ``smoke_out/``.
@@ -161,6 +173,7 @@ import itertools
 import json
 import math
 import re
+import signal
 import statistics
 import subprocess
 import sys
@@ -1463,6 +1476,164 @@ def phase_train_dataplane(card: str, tmp: Path, root: Path, bound_ms: dict, jpeg
                                  for _, r in rows)
         + " us, idle share " + " / ".join(
             f"{100 * r.get('profile', {}).get('idle_share', 0):.1f}" for _, r in rows) + "%")
+    return res
+
+
+# [train-preempt]: SIGTERM -> emergency checkpoint -> bitwise resume, and
+# the watchdog, on [train]'s ResNet-50 command
+PREEMPT_STEPS = 16  # steps an epoch, 2 epochs
+PREEMPT_PRINT = 2  # TRAIN.PRINT_FREQ
+PREEMPT_MARGIN_S = 30  # the hang run's exit, past the hang and the timeout
+
+
+def preempt_args(out: Path, *extra) -> list:
+    return ["distribuuuu_tpu_torch.train_net", *train_args("config/resnet50.yaml", LADDER_BATCH,
+                                                           out),
+            "TRAIN.PRINT_FREQ", str(PREEMPT_PRINT), "CUDNN.DETERMINISTIC", "True",
+            "OPTIM.MAX_EPOCH", "2", "TRAIN.DUMMY_EPOCH_SAMPLES", str(LADDER_BATCH * PREEMPT_STEPS),
+            *extra]
+
+
+def watch_cli(args: list, what: str, until: str | None = None, timeout: int = 300):
+    """``python -m <args>`` as a subprocess, its stderr read line by line,
+    each line with the seconds since the start it was read at. With
+    ``until``, SIGTERM is sent on reading the first line that matches it.
+    Returns ``(exit code, [(s, line)], the matching line's index or None,
+    the seconds to the exit)``."""
+    tic = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", *args], cwd=ROOT, stderr=subprocess.PIPE,
+                            stdout=subprocess.DEVNULL, text=True)
+    lines, hit = [], None
+    killer = threading.Timer(timeout, proc.kill)
+    killer.start()
+    try:
+        for line in proc.stderr:
+            lines.append((time.perf_counter() - tic, line))
+            if until is not None and hit is None and re.search(until, line):
+                hit = len(lines) - 1
+                proc.send_signal(signal.SIGTERM)
+        proc.wait()
+        wall = time.perf_counter() - tic
+    finally:
+        killer.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode == -signal.SIGKILL:
+        fail(f"{what} passed its {timeout} s limit:\n{''.join(l for _, l in lines)[-3000:]}")
+    return proc.returncode, lines, hit, wall
+
+
+def launch_lines(log: str) -> dict:
+    """``{epoch: (K1, K1-bwd, steps-normalised K1 a step, K1-bwd a step)}`` of a log."""
+    return {int(m[1]): (int(m[2]), int(m[4]), float(m[3]), float(m[5])) for m in re.finditer(
+        r"Epoch\[(\d+)\] K1 launches: (\d+) forward \((\S+) a step\), (\d+) backward "
+        r"\((\S+) a step\)", log)}
+
+
+def final_tensors(out: Path) -> dict:
+    import torch
+
+    return torch.load(out / "checkpoints" / "ckpt_ep_002" / "checkpoint.pt", map_location="cpu",
+                      weights_only=True)
+
+
+def phase_train_preempt(card: str, tmp: Path, smi: str) -> dict:
+    """[train-preempt]: the uninterrupted run, the SIGTERM run, its
+    relaunch and the hang run (module docstring, item 18)."""
+    import torch
+
+    from distribuuuu_tpu_torch import checkpoint as ckpt
+
+    tic = time.perf_counter()
+    whole = tmp / "whole"
+    log = run_cli(preempt_args(whole), "train_net [train-preempt] uninterrupted")
+    prog = [(int(m[1]), float(m[2])) for m in re.finditer(
+        r"Epoch\[0\] \[\s*(\d+)/\d+\]\s+Time (\S+) \(", log)]
+    if not prog:
+        fail(f"[train-preempt] the uninterrupted run printed no progress:\n{log[-3000:]}")
+    first_window_s = prog[0][1]
+    counts = launch_lines(log)
+    want = (TRAIN_K1 * PREEMPT_STEPS, TRAIN_K1 * PREEMPT_STEPS, float(TRAIN_K1), float(TRAIN_K1))
+    if counts.get(0) != want or counts.get(1) != want:
+        fail(f"[train-preempt] uninterrupted launches {counts}; want {want} an epoch")
+
+    # SIGTERM once the log shows a step of epoch 2 (index 1)
+    out = tmp / "preempted"
+    rc, lines, hit, _ = watch_cli(preempt_args(out), "[train-preempt] SIGTERM run",
+                               until=r"Epoch\[1\] \[\s*\d+/")
+    text = "".join(l for _, l in lines)
+    if hit is None or rc != 143:
+        fail(f"[train-preempt] the SIGTERM run exited {rc} (want 143; signal sent: "
+             f"{hit is not None}):\n{text[-3000:]}")
+    seen_step = int(re.search(r"Epoch\[1\] \[\s*(\d+)/", lines[hit][1])[1])
+    m = re.search(r"Preempted at epoch 1 step (\d+): emergency checkpoint (\S+) committed in "
+                  r"(\S+) ms \((\d+) bytes\)", text)
+    if m is None:
+        fail(f"[train-preempt] no emergency checkpoint line:\n{text[-3000:]}")
+    stop, mid, save_ms, save_bytes = int(m[1]), m[2], float(m[3]), int(m[4])
+    status, errors = ckpt.verify_checkpoint(mid)
+    mids = sorted(p.name for p in (out / "checkpoints").iterdir() if p.name.startswith("ckpt_mid"))
+    if not Path(mid).name.startswith("ckpt_mid_ep_001_it_") or status != "ok" or \
+            mids != [Path(mid).name]:
+        fail(f"[train-preempt] emergency checkpoint {mid}: {status} {errors}; mids {mids}")
+    pre_counts = launch_lines(text)
+    if pre_counts.get(0) != want:
+        fail(f"[train-preempt] the SIGTERM run's epoch 0 launches {pre_counts}; want {want}")
+
+    # the relaunch on the same OUT_DIR
+    rc, lines, _, _ = watch_cli(preempt_args(out), "[train-preempt] relaunch")
+    text = "".join(l for _, l in lines)
+    resumed = re.search(rf"Resumed from \S+{Path(mid).name} \(epoch 1, step {stop},", text)
+    first = next((t for t, l in lines if re.search(r"Epoch\[1\] \[\s*\d+/", l)), None)
+    rest = PREEMPT_STEPS - stop
+    rel_counts = launch_lines(text).get(1)
+    if rc != 0 or resumed is None or first is None:
+        fail(f"[train-preempt] relaunch exited {rc}, resumed {resumed is not None}:\n"
+             f"{text[-3000:]}")
+    if rel_counts != (TRAIN_K1 * rest, TRAIN_K1 * rest, float(TRAIN_K1), float(TRAIN_K1)):
+        fail(f"[train-preempt] the relaunch's epoch 1 launches {rel_counts} over {rest} steps")
+    a, b = final_tensors(whole), final_tensors(out)
+    diffs = {}
+    for part in ("model", "optimizer"):
+        for k in a[part]:
+            x, y = a[part][k], b[part][k]
+            if not torch.equal(x, y):
+                diffs[f"{part}.{k}"] = float((x.double() - y.double()).abs().max())
+    if diffs:
+        worst = max(diffs, key=diffs.get)
+        fail(f"[train-preempt] the resumed run's final tensors differ from the uninterrupted "
+             f"run's in {len(diffs)} tensor(s), worst {worst} by {diffs[worst]:.3e}")
+
+    # the watchdog: a hang at global step 3 under a timeout just above the first window
+    hang_timeout = max(5, math.ceil(2 * first_window_s) + 2)
+    hang = tmp / "hang"
+    rc, lines, _, end_s = watch_cli(preempt_args(hang, "FAULT.INJECT_HANG_STEP", "3",
+                                                 "FAULT.HANG_TIMEOUT_S", str(hang_timeout)),
+                                    "[train-preempt] hang run")
+    hung_s = next((t for t, l in lines if "FAULT INJECTION: hanging" in l), None)
+    rank_log = "".join(p.read_text() for p in hang.glob("*.log"))
+    if rc != 124 or hung_s is None or end_s - hung_s > hang_timeout + PREEMPT_MARGIN_S or \
+            "stack dump (watchdog" not in rank_log or "in hang_now" not in rank_log:
+        fail(f"[train-preempt] the hang run exited {rc} (want 124) "
+             f"{end_s - (hung_s or 0):.1f} s after the hang (timeout {hang_timeout} s):\n"
+             f"{rank_log[-3000:]}")
+    # the SIGTERM run's epoch 0 and the relaunch's rest of epoch 1
+    launches = {"k1": pre_counts[0][0] + rel_counts[0], "k1_bwd": pre_counts[0][1] + rel_counts[1]}
+    res = dict(steps=PREEMPT_STEPS, batch=LADDER_BATCH, first_window_s=first_window_s,
+               launches=launches,
+               signal_seen_step=seen_step, stop_step=stop, steps_after_signal=stop - seen_step - 1,
+               save_ms=save_ms, save_bytes=save_bytes, relaunch_to_first_step_s=first,
+               bitwise=True, hang_timeout_s=hang_timeout, hang_exit_s=end_s - hung_s,
+               wall_s=time.perf_counter() - tic)
+    say(f"[train-preempt] ResNet-50 b{LADDER_BATCH}, CUDNN.DETERMINISTIC, {PREEMPT_STEPS} steps "
+        f"an epoch: SIGTERM on reading step {seen_step}'s line of epoch 1 -> stopped before step "
+        f"{stop} ({res['steps_after_signal']} step(s) after the signal), exit 143; emergency save "
+        f"{save_ms:.1f} ms, {save_bytes} bytes ({save_bytes / save_ms / 1e6:.2f} GB/s); relaunch "
+        f"to its first step {first:.1f} s; final model and optimizer tensors torch.equal to the "
+        f"uninterrupted run's; hang at step 3: exit 124 {end_s - hung_s:.1f} s after it "
+        f"(HANG_TIMEOUT_S {hang_timeout}, first window {first_window_s:.2f} s a step), stacks "
+        f"in the rank log; phase {res['wall_s']:.0f} s ({card}; {smi})")
     return res
 
 
@@ -3156,6 +3327,8 @@ def main() -> None:
         train_dp = phase_train_dataplane(card, Path(tmp), Path(tmp) / "jpeg", train_bound_ms,
                                          train_jpeg, train, inp)
         oracle = phase_oracle(card, Path(tmp))
+    with tempfile.TemporaryDirectory() as tmp:
+        train_preempt = phase_train_preempt(card, Path(tmp), smi)
 
     # K1 per batch-128 forward of each served model: its sites' rows summed
     per_fwd, modes = {}, {}
@@ -3184,7 +3357,7 @@ def main() -> None:
          "train_bot_sites": [[*site, m] for site, m in sorted(bot_sites.items())],
          "train_bot_512": train_bot_512, "train_bot_512_bound_ms": bot512_bound_ms,
          "input": inp, "train_jpeg": train_jpeg, "train_dataplane": train_dp,
-         "oracle": oracle}, indent=1))
+         "oracle": oracle, "train_preempt": train_preempt}, indent=1))
     (out / "chip_smoke_moe.json").write_text(json.dumps(
         {"card": smi, "build": builds["moe"], "kernels": moe, "dist": moe_dist}, indent=1))
     for arch, f in per_fwd.items():
@@ -3319,6 +3492,7 @@ def main() -> None:
         kernels[i]["train_jpeg_launches"] = train_jpeg["launches"][key]
         kernels[i]["train_dataplane_launches"] = train_dp["launches"][key]
         kernels[i]["oracle_epoch0_launches"] = oracle["launches"][key]
+        kernels[i]["train_preempt_launches"] = train_preempt["launches"][key]
     k2 = next(k for k in kernels if k["name"].startswith("K2 "))
     k2["train_launches"] = train_bot["launches"]["attention"]
     r = attn_bwd["K2 train"]

@@ -145,22 +145,25 @@ _C.FAULT.NONFINITE_GUARD = True
 # abort after this many consecutive skipped steps (checked at PRINT_FREQ)
 _C.FAULT.MAX_CONSECUTIVE_SKIPS = 10
 # retryable IO (resilience.retry: the loader's sample reads, every dataplane
-# socket exchange): attempts, and full-jitter exponential backoff from
-# RETRY_BASE_DELAY seconds capped at RETRY_MAX_DELAY.
-# Fault injection: INJECT_NAN_STEPS (NaN images at those global steps) and
-# INJECT_KILL_STEP (SIGKILL at that global step) are ported. The watchdog
-# (HANG_TIMEOUT_S) and the other injections are not yet (ROADMAP Queue 1
-# item 2): a non-default value raises
+# socket exchange, the emergency checkpoint's write): attempts, and
+# full-jitter exponential backoff from RETRY_BASE_DELAY seconds capped at
+# RETRY_MAX_DELAY
 _C.FAULT.RETRY_ATTEMPTS = 3
 _C.FAULT.RETRY_BASE_DELAY = 0.1
 _C.FAULT.RETRY_MAX_DELAY = 2.0
-# gap of item 2 at its default: JAX substitutes a sample it cannot read
-# after its retries; the port's loader raises instead
+# a sample that fails every retry is substituted: in eval by a zero image of
+# weight 0, in train by the first readable of the next three samples
 _C.FAULT.DEGRADE = True
-# gap of item 2 at its default: JAX turns SIGTERM into an emergency
-# checkpoint; the port has no handler (the signal ends the run)
+# the first SIGTERM/SIGINT writes a mid-epoch emergency checkpoint at the
+# next step boundary and exits 143/130
 _C.FAULT.HANDLE_SIGNALS = True
+# the watchdog: no step progress for this many seconds dumps every thread's
+# stack into the rank log and exits 124 (0 = off); it must cover the first
+# steps' cuDNN autotuning
 _C.FAULT.HANG_TIMEOUT_S = 0.0
+# fault injection (tests; DTPU_FAULT_* overrides each): I/O errors at these
+# sample indices, INJECT_IO_FAILURES times each (-1: always); NaN images at
+# these global steps; a preemption, a hang or a SIGKILL before that step
 _C.FAULT.INJECT_IO_INDICES = []
 _C.FAULT.INJECT_IO_FAILURES = 1
 _C.FAULT.INJECT_NAN_STEPS = []
@@ -168,10 +171,12 @@ _C.FAULT.INJECT_PREEMPT_STEP = -1
 _C.FAULT.INJECT_HANG_STEP = -1
 _C.FAULT.INJECT_KILL_STEP = -1
 
-# resume: epoch checkpoints are verified against their sha256 manifest
-# (VERIFY_INTEGRITY); a corrupt one is skipped (SKIP_CORRUPT). ROLLBACK is
-# not yet ported (item 2; a non-default value raises). STEP_GRANULAR is a
-# gap of item 2 at its default: the port writes no mid-epoch checkpoint
+# resume: from the most advanced checkpoint, an emergency mid-epoch one
+# included (STEP_GRANULAR; remapped by its sample offset on another world
+# size); each is verified against its sha256 manifest (VERIFY_INTEGRITY) and
+# a corrupt one quarantined as corrupt_*; one that fails to load anyway is
+# skipped (SKIP_CORRUPT); ROLLBACK (or DTPU_RESUME_ROLLBACK) skips that many
+# known-good checkpoints
 _C.RESUME = CN()
 _C.RESUME.STEP_GRANULAR = True
 _C.RESUME.SKIP_CORRUPT = True

@@ -27,8 +27,13 @@ is ``TRAIN.BATCH_SIZE * ACCUM_STEPS`` samples (val: ``TEST.BATCH_SIZE``).
   processes (``distribuuuu_tpu_torch/dataplane``).
 
 A sample read or decode that fails is retried (``resilience.retry``,
-``FAULT.RETRY_*``); one that fails every attempt fails the run: the port
-substitutes no sample (ROADMAP Queue 1 item 2).
+``FAULT.RETRY_*``). One that fails every attempt is substituted under
+``FAULT.DEGRADE``, as the JAX loader does: in eval by a zero image of
+weight 0 (a padding slot, which the metrics count nowhere), in train by
+the first readable of the next three samples (the train loss is
+unweighted, so a zero image would teach "black is class 0"); when those
+fail too, or without ``DEGRADE``, the error is raised. The fault
+injector's ``maybe_fail_io`` is the raw load's first act.
 """
 
 from __future__ import annotations
@@ -51,6 +56,7 @@ from distribuuuu_tpu_torch.config import cfg, get_default
 from distribuuuu_tpu_torch.data import native
 from distribuuuu_tpu_torch.data.dataset import DummyDataset, open_image_dataset
 from distribuuuu_tpu_torch.data.transforms import eval_transform_u8, train_transform_u8
+from distribuuuu_tpu_torch.logging import logger
 
 # Marker key: a loader that yields a batch with it promises the batch is
 # immutable and replayed verbatim, so the prefetcher may pin it once.
@@ -116,7 +122,8 @@ class HostDataLoader:
     def __init__(self, dataset, *, host_batch: int, train: bool, im_size: int,
                  process_index: int, process_count: int, workers: int, seed: int,
                  prefetch_batches: int = 4, crop_size: int = 224,
-                 pin_device: torch.device | None = None):
+                 pin_device: torch.device | None = None,
+                 injector: resilience.FaultInjector | None = None):
         self.dataset = dataset
         self.host_batch = host_batch
         self.train = train
@@ -128,6 +135,7 @@ class HostDataLoader:
         self.prefetch_batches = max(1, prefetch_batches)
         self.crop_size = crop_size
         self.pin_device = pin_device
+        self.injector = injector if injector is not None else resilience.FaultInjector()
         # chosen once: the two backends' pixels differ, so a run never mixes them
         self.use_native = native.available()
         self.epoch = 0
@@ -170,22 +178,46 @@ class HostDataLoader:
                              process_count=self.process_count)
 
     def _load_one(self, idx: int, slot_seed: int):
-        """``(image, label, weight)`` of sample ``idx``; a zero image of
-        weight 0 for an eval padding slot (-1)."""
+        """``(image, label, weight)`` of sample ``idx``, retried, and
+        substituted under ``FAULT.DEGRADE`` when every attempt fails (the
+        module's docstring says how); a zero image of weight 0 for an eval
+        padding slot (-1)."""
         if idx < 0:
             size = self.im_size if self.train else self.crop_size
             return np.zeros((size, size, 3), dtype=np.uint8), 0, 0.0
-        name, label = self.dataset.samples[idx]
         try:
-            return resilience.retry(self._decode, idx, slot_seed, retry_on=(OSError, ValueError),
-                                    desc=f"sample load idx={idx}"), label, 1.0
+            return resilience.retry(self._load_one_raw, idx, slot_seed,
+                                    retry_on=(OSError, ValueError), desc=f"sample load idx={idx}")
         except (OSError, ValueError) as exc:
-            raise OSError(f"sample {idx} ({name}) could not be read or decoded in "
-                          f"{cfg.FAULT.RETRY_ATTEMPTS} attempts ({exc!r}); the port substitutes no "
-                          f"sample (ROADMAP Queue 1 item 2)") from exc
+            if not cfg.FAULT.DEGRADE:
+                raise self._unreadable(idx, exc, "FAULT.DEGRADE is off") from exc
+            if self.train:
+                total = len(self.dataset.samples)
+                for off in (1, 2, 3):  # the next samples, one try each
+                    alt = (idx + off) % total
+                    try:
+                        arr, label, _ = self._load_one_raw(alt, slot_seed)
+                    except (OSError, ValueError):
+                        continue
+                    resilience.RUN_STATS.count_substitution()
+                    logger.warning(f"sample idx={idx} failed all retries ({exc!r}); substituted "
+                                   f"neighbouring sample idx={alt}")
+                    return arr, label, 1.0
+                # no masked substitute exists for the unweighted train loss
+                raise self._unreadable(idx, exc, "FAULT.DEGRADE found none of the next three "
+                                       "samples readable either") from exc
+            resilience.RUN_STATS.count_substitution()
+            logger.warning(f"sample idx={idx} failed all retries ({exc!r}); substituting a "
+                           f"masked zero sample")
+            return np.zeros((self.crop_size, self.crop_size, 3), dtype=np.uint8), 0, 0.0
 
-    def _decode(self, idx: int, slot_seed: int) -> np.ndarray:
-        name = self.dataset.samples[idx][0]
+    def _unreadable(self, idx: int, exc: BaseException, why: str) -> OSError:
+        return OSError(f"sample {idx} ({self.dataset.samples[idx][0]}) could not be read or "
+                       f"decoded in {cfg.FAULT.RETRY_ATTEMPTS} attempts ({exc!r}); {why}")
+
+    def _load_one_raw(self, idx: int, slot_seed: int):
+        self.injector.maybe_fail_io(idx)
+        name, label = self.dataset.samples[idx]
         data = None
         if hasattr(self.dataset, "read_bytes"):  # tar shards: the member's bytes
             data, name = self.dataset.read_bytes(idx)
@@ -194,13 +226,15 @@ class HostDataLoader:
             arr = (native.decode_train_u8(src, self.im_size, slot_seed) if self.train
                    else native.decode_eval_u8(src, self.im_size, self.crop_size))
             if arr is not None:
-                return arr
+                return arr, label, 1.0
             # a JPEG the native decoder refuses (an odd colour space): PIL's turn
         with Image.open(io.BytesIO(data) if data is not None else name) as im:
             im = im.convert("RGB")
             if self.train:
-                return train_transform_u8(im, self.im_size, rng=random.Random(slot_seed))
-            return eval_transform_u8(im, self.im_size, self.crop_size)
+                arr = train_transform_u8(im, self.im_size, rng=random.Random(slot_seed))
+            else:
+                arr = eval_transform_u8(im, self.im_size, self.crop_size)
+        return arr, label, 1.0
 
     def decode_batch(self, b: int, *, indices=None, base=None, pool=None, out=None) -> dict:
         """Batch ``b`` of the current (seed, epoch) stream as numpy arrays,

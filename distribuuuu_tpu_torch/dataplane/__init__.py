@@ -14,8 +14,9 @@ A port of ``distribuuuu_tpu/dataplane``, with its wire format:
 - ``service.DataPlaneService`` is the dispatcher plus worker processes,
   started by ``python -m distribuuuu_tpu_torch.dataplane``.
 
-Not ported (ROADMAP Queue 1): the journal and ``/metrics`` gauges (item
-7), the fault injector's hooks (item 2), ``DATA.SERVICE fleet`` and
+The fault injector reaches the workers' loaders and the client's batch
+requests, as in the JAX package. Not ported (ROADMAP Queue 1): the journal
+and ``/metrics`` gauges (item 7), ``DATA.SERVICE fleet`` and
 ``AGENT.DATAPLANE`` (item 13).
 """
 

@@ -70,7 +70,8 @@ class ServiceLoader:
     def __init__(self, address: str, *, root: str, train: bool, host_batch: int, im_size: int,
                  crop_size: int = 224, process_index: int, process_count: int, seed: int,
                  workers: int = 4, prefetch_batches: int = 4, fallback: bool | None = None,
-                 pin_device: torch.device | None = None):
+                 pin_device: torch.device | None = None,
+                 injector: resilience.FaultInjector | None = None):
         self.address = str(address)
         self.root = str(root)
         self.train = bool(train)
@@ -84,6 +85,9 @@ class ServiceLoader:
         self.prefetch_batches = max(1, int(prefetch_batches))
         self.fallback = bool(cfg.DATA.FALLBACK) if fallback is None else bool(fallback)
         self.pin_device = pin_device
+        # a configured index fails its batch's request too (a socket fault:
+        # reconnect and re-stream), and the local fallback loader's samples
+        self.injector = injector if injector is not None else resilience.FaultInjector()
         self.fingerprint = transform_fingerprint(train=self.train, im_size=self.im_size,
                                                  crop_size=self.crop_size)
         self.decoder = self.fingerprint.split(":")[0]
@@ -215,6 +219,7 @@ class ServiceLoader:
                         inflight: list[int] = []
                         next_req = delivered
                     while next_req < self.num_batches and len(inflight) < self.prefetch_batches:
+                        self.injector.maybe_fail_io(next_req)
                         protocol.send_msg(f, {"op": "next", "batch": next_req})
                         inflight.append(next_req)
                         next_req += 1
@@ -268,7 +273,7 @@ class ServiceLoader:
             im_size=self.im_size, process_index=self.process_index,
             process_count=self.process_count, workers=self.workers, seed=self.seed,
             prefetch_batches=self.prefetch_batches, crop_size=self.crop_size,
-            pin_device=self.pin_device)
+            pin_device=self.pin_device, injector=self.injector)
         self._local.set_epoch(self.epoch, start_batch)
 
     def _note_fallback(self, reason: str, batch: int, exc: BaseException) -> None:

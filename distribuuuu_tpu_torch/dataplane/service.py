@@ -28,11 +28,12 @@ class DataPlaneService:
     def __init__(self, *, host: str = "127.0.0.1", port: int = 0, workers: int = 2,
                  worker_threads: int = 4, in_process: bool = False, cache_bytes: int = 256 << 20,
                  lease_timeout_s: float = 30.0, window: int = 8,
-                 worker_argv: list[str] | None = None):
+                 worker_argv: list[str] | None = None, injector=None):
         self.n_workers = max(1, int(workers))
         self.worker_threads = max(1, int(worker_threads))
         self.in_process = bool(in_process)
         self._worker_argv = list(worker_argv or [])
+        self._injector = injector  # the in-process workers'; processes read DTPU_FAULT_*
         self._stop = threading.Event()
         # written by the monitor's restarts, read by stop() and worker_pids():
         # _spawn re-checks _stop under the lock and stop() sets _stop before
@@ -88,7 +89,8 @@ class DataPlaneService:
             from distribuuuu_tpu_torch.dataplane.worker import run_worker
 
             t = threading.Thread(target=run_worker, args=(self.address, f"w{slot}"),
-                                 kwargs=dict(threads=self.worker_threads, stop=self._stop),
+                                 kwargs=dict(threads=self.worker_threads, stop=self._stop,
+                                             injector=self._injector),
                                  daemon=True, name=f"dtpu-dataplane-w{slot}")
             t.start()
             self._threads.append(t)

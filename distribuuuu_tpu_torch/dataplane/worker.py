@@ -30,14 +30,17 @@ from distribuuuu_tpu_torch.logging import logger
 class _SpecLoaders:
     """A ``HostDataLoader`` per live spec, with its shard permutation and
     seed base computed once (not once a lease), and the dataset indexes
-    of recent roots."""
+    of recent roots. Each loader gets ``injector`` (None: one from the
+    worker's ``DTPU_FAULT_*`` and config), so a service-fed batch with
+    injected faults is the local loader's, substitutes and all."""
 
     MAX_SPECS = 64  # a spec per (process, epoch) in flight, eval included
     MAX_ROOTS = 8
 
-    def __init__(self):
+    def __init__(self, injector: resilience.FaultInjector | None = None):
         self._loaders: OrderedDict[tuple, tuple] = OrderedDict()
         self._datasets: OrderedDict[str, object] = OrderedDict()
+        self._injector = injector
 
     def loader_for(self, spec: StreamSpec) -> tuple:
         """``(loader, indices, base)`` of a spec. Refuses a spec whose
@@ -66,7 +69,7 @@ class _SpecLoaders:
         loader = HostDataLoader(dataset, host_batch=spec.host_batch, train=spec.train,
                                 im_size=spec.im_size, process_index=spec.process_index,
                                 process_count=spec.process_count, workers=1, seed=spec.seed,
-                                crop_size=spec.crop_size)
+                                crop_size=spec.crop_size, injector=self._injector)
         loader.set_epoch(spec.epoch)
         entry = (loader, loader._shard_indices(),
                  aug_seed_base(spec.seed, spec.epoch, spec.process_index))
@@ -77,13 +80,14 @@ class _SpecLoaders:
 
 
 def run_worker(address: str, worker_id: str, *, threads: int = 4,
+               injector: resilience.FaultInjector | None = None,
                stop: threading.Event | None = None, idle_sleep_s: float = 0.02) -> None:
     """The worker's loop; returns when ``stop`` is set, or when the
     dispatcher stays unreachable through ``resilience.retry`` (the service
     that supervises the worker restarts it). Decodes a batch over a pool of
     ``threads`` threads."""
     stop = stop or threading.Event()
-    loaders = _SpecLoaders()
+    loaders = _SpecLoaders(injector)
     pool = ThreadPoolExecutor(max(1, int(threads)))
     sock = f = None
 

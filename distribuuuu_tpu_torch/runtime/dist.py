@@ -1,6 +1,6 @@
 """The process group of a training run (the port's ``setup_distributed``).
 
-One process a GPU. Rank, world size and the rendezvous address come from
+One process a GPU; SIGUSR2 dumps every thread's stack. Rank, world size and the rendezvous address come from
 the caller or from the launcher's variables (``RANK``, ``WORLD_SIZE``,
 ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``, as ``torchrun`` sets
 them); nothing on the card's machine says more. The backend is ``nccl`` on
@@ -14,8 +14,10 @@ dataplane port in either package.
 
 from __future__ import annotations
 
+import faulthandler
 import hashlib
 import os
+import signal
 import socket
 from dataclasses import dataclass
 from typing import Iterable
@@ -49,6 +51,7 @@ def setup_distributed(device=None, *, init_method: str | None = None, rank: int 
     """Join (or reuse) the default process group when the world has more
     than one process; pick this process's device (``cuda:LOCAL_RANK`` on a
     multi-GPU run)."""
+    _install_stack_dump_signal()
     env = os.environ
     rank = int(env.get("RANK", 0)) if rank is None else rank
     world_size = int(env.get("WORLD_SIZE", 1)) if world_size is None else world_size
@@ -68,6 +71,17 @@ def setup_distributed(device=None, *, init_method: str | None = None, rank: int 
                                     init_method=init_method, rank=rank, world_size=world_size)
         group = dist.group.WORLD
     return DistInfo(rank, world_size, local_rank, dev, group)
+
+
+def _install_stack_dump_signal() -> None:
+    """SIGUSR2: every thread's stack to stderr (the rank log), the process
+    left running: ``kill -USR2 <pid>`` shows where a wedged rank waits even
+    with the watchdog off. ``chain`` stays False (SIGUSR2's default would
+    terminate). Best effort: not off the main thread or without SIGUSR2."""
+    try:
+        faulthandler.register(signal.SIGUSR2, all_threads=True, chain=False)
+    except (AttributeError, ValueError, OSError):
+        pass
 
 
 def port_is_free(port: int, host: str = "127.0.0.1") -> bool:

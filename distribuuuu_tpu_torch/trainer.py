@@ -18,6 +18,17 @@ K1-bwd backward (53 of each per ResNet-50 or BoTNet-50 step), and BoTNet's
 MHSA the attention kernel and its backward kernel (3 of each a step, the
 backward on its one-launch cluster route at 224^2, on the blockwise route
 at 512^2); on the CPU their plain versions.
+
+Fault tolerance, as the JAX trainer's (:mod:`distribuuuu_tpu_torch.resilience`):
+at every step boundary the watchdog is beaten, the fault injector may kill,
+hang or preempt, and a preemption (SIGTERM, SIGINT, an injected step)
+writes a mid-epoch checkpoint and raises ``Preempted``. One process reads
+its preemption flag at every step; with several, each rank's flag rides
+the all-reduce of the metric window (every ``TRAIN.PRINT_FREQ`` steps), so
+every rank reads the same sum after the same step and stops at the next
+boundary, with no added sync or collective a step. A resume re-enters the
+epoch at the checkpoint's step (remapped from its sample offset on another
+world size); non-finite steps back to back raise ``NonFiniteDivergence``.
 """
 
 from __future__ import annotations
@@ -25,14 +36,13 @@ from __future__ import annotations
 import importlib
 import json
 import os
-import signal
 import time
 
 import torch
 import torch.distributed as dist
 
 from distribuuuu_tpu_torch import checkpoint as ckpt
-from distribuuuu_tpu_torch import optim
+from distribuuuu_tpu_torch import optim, resilience
 from distribuuuu_tpu_torch.config import cfg, dump_cfg, get_default, lookup
 from distribuuuu_tpu_torch.data.loader import (
     DevicePrefetcher,
@@ -164,15 +174,10 @@ def eval_step(model, batch: dict, totals: torch.Tensor, topk: int = 5) -> torch.
 
 # Keys the port accepts, so that the JAX package's YAMLs and command lines
 # merge, but does not honour yet: any value other than the default raises
-# with the ROADMAP Queue 1 item that ports the subsystem. (FAULT.DEGRADE,
-# FAULT.HANDLE_SIGNALS and RESUME.STEP_GRANULAR turn a JAX subsystem on at
-# their default, so they cannot raise; config.py names them gaps of item 2.)
+# with the ROADMAP Queue 1 item that ports the subsystem.
 UNPORTED_KEYS = (
     ("MESH.SEQ", "item 12"), ("TRAIN.TASK", "item 11"), ("MODEL.REMAT", "item 12"),
-    ("MODEL.PRETRAINED", "item 11"), ("FAULT.HANG_TIMEOUT_S", "item 2"),
-    ("FAULT.INJECT_PREEMPT_STEP", "item 2"), ("FAULT.INJECT_HANG_STEP", "item 2"),
-    ("FAULT.INJECT_IO_INDICES", "item 2"), ("FAULT.INJECT_IO_FAILURES", "item 2"),
-    ("RESUME.ROLLBACK", "item 2"),
+    ("MODEL.PRETRAINED", "item 11"),
     ("MESH.FSDP_MIN_SIZE", "item 12"), ("MODEL.SEQ_ATTN", "item 12"),
     ("MODEL.MAE_MASK_RATIO", "item 11"), ("MODEL.MAE_DECODER_DIM", "item 11"),
     ("DATA.ADVERTISE_HOST", "item 13"))
@@ -222,12 +227,6 @@ def _launch_counts() -> tuple[int, ...]:
 _ROUTES = ("cluster", "blockwise", "scalar")  # the attention backward's routes
 
 
-def _poison(batch: dict) -> dict:
-    """The batch with NaN images (FAULT.INJECT_NAN_STEPS)."""
-    return dict(batch, image=torch.full(batch["image"].shape, float("nan"),
-                                        device=batch["image"].device))
-
-
 class _Profiler:
     """TRAIN.PROFILE: a torch.profiler window over PROFILE_STEPS steps from
     PROFILE_START; its device events go to OUT_DIR/profile/train_steps.json
@@ -271,44 +270,92 @@ class _Profiler:
             torch.cuda.synchronize(self.device)
 
 
-def _fetch(window: list, state: TrainState) -> list[dict]:
-    """The window's per-step metric sums on the host, summed over the group."""
+def _fetch(window: list, state: TrainState, stop: bool = False) -> tuple[list[dict], bool]:
+    """The window's per-step metric sums on the host, summed over the group,
+    and whether any rank asked to stop: with several processes this rank's
+    preemption flag ``stop`` rides the same all-reduce, so every rank gets
+    the same answer after the same step."""
     keys = list(window[0])
-    t = torch.stack([torch.stack([m[k] for k in keys]) for m in window])
+    t = torch.stack([torch.stack([m[k] for k in keys]) for m in window]).reshape(-1)
     if state.world > 1:
-        skipped = t[:, keys.index("skipped")].clone() if "skipped" in keys else None
+        t = torch.cat([t, torch.full((1,), float(stop), dtype=t.dtype, device=t.device)])
         dist.all_reduce(t, group=state.group)
-        if skipped is not None:  # identical on every rank: not summed
-            t[:, keys.index("skipped")] = skipped
-    return [dict(zip(keys, row)) for row in t.tolist()]
+    flat = t.tolist()  # the sync point
+    if state.world > 1:
+        stop = flat.pop() > 0
+    rows = [dict(zip(keys, flat[i:i + len(keys)])) for i in range(0, len(flat), len(keys))]
+    for v in rows:
+        if "skipped" in v:  # identical on every rank: summed world times
+            v["skipped"] /= state.world
+    return rows, stop
+
+
+def _preempt(state: TrainState, epoch: int, it: int, best_acc1: float, samples_per_step: int,
+             is_primary: bool) -> None:
+    """Write the emergency checkpoint before step ``it`` (rank 0; the other
+    ranks wait for it), log its wall time and bytes, raise ``Preempted``."""
+    if is_primary:
+        tic = time.perf_counter()
+        path = ckpt.save_mid_checkpoint(cfg.OUT_DIR, epoch, it, state, best_acc1,
+                                        samples_per_step=samples_per_step)
+        wall = time.perf_counter() - tic
+        size = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+        logger.warning(f"Preempted at epoch {epoch} step {it}: emergency checkpoint {path} "
+                       f"committed in {1e3 * wall:.1f} ms ({size} bytes); exiting")
+    if state.world > 1:  # no rank leaves before the checkpoint is durable
+        dist.barrier(group=state.group)
+        if not is_primary:
+            logger.warning(f"Preempted at epoch {epoch} step {it}: rank "
+                           f"{dist.get_rank(state.group)} exiting with rank 0's checkpoint")
+    resilience.RUN_STATS.preempted_at = (epoch, it)
+    raise resilience.Preempted(f"preempted at epoch {epoch} step {it}")
 
 
 def train_epoch(loader, state: TrainState, epoch: int, device, is_primary: bool, *,
-                start_epoch: int = 0, run_tic: float | None = None, profiler=None) -> None:
+                start_epoch: int = 0, run_tic: float | None = None, profiler=None,
+                start_step: int = 0, best_acc1: float = 0.0, injector=None) -> None:
+    """One epoch from batch ``start_step`` (a mid-epoch resume: the loader
+    skips the consumed batches unread)."""
     lr = optim.get_epoch_lr(epoch)
     if is_primary:
         logger.info(f"Epoch[{epoch}] current learning rate: {lr:.6f}")
-    loader.set_epoch(epoch)
+    loader.set_epoch(epoch, start_batch=start_step)
+    if start_step and is_primary:
+        logger.info(f"Epoch[{epoch}] resuming mid-epoch at step {start_step}/{len(loader)}")
     topk = cfg.TRAIN.TOPK
     batch_time, data_time, losses, top1, topk_m, progress = construct_meters(
         len(loader), prefix=f"Epoch[{epoch}] ", topk=topk)
     progress.configure_run_eta(tic=run_tic or time.time(), cur_epoch=epoch,
                                start_epoch=start_epoch, max_epoch=cfg.OPTIM.MAX_EPOCH)
     step_imgs = cfg.TRAIN.BATCH_SIZE * cfg.TRAIN.ACCUM_STEPS * state.world
-    nan_steps = set(cfg.FAULT.INJECT_NAN_STEPS)
+    steps_per_epoch = len(loader)
+    # the group's verdict on stopping, from the last window (one process:
+    # None, its own flag is read at every step)
+    agreed = None if state.world == 1 else False
     epoch_skipped = consec = 0
     window: list = []
     first_window = True
     launches0 = _launch_counts()
     epoch_start = t_end = t_window = time.time()
     for it, batch in enumerate(DevicePrefetcher(loader, device, cfg.TRAIN.PREFETCH,
-                                                 cfg.TRAIN.PIN_MEMORY)):
+                                                 cfg.TRAIN.PIN_MEMORY), start=start_step):
         data_time.update(time.time() - t_end)
-        gstep = epoch * len(loader) + it
-        if gstep == cfg.FAULT.INJECT_KILL_STEP:
-            os.kill(os.getpid(), signal.SIGKILL)  # a hard death: no cleanup, no checkpoint
-        if gstep in nan_steps:
-            batch = _poison(batch)
+        gstep = epoch * steps_per_epoch + it
+        resilience.watchdog_beat(gstep)
+        if injector is not None and injector.should_kill(gstep):
+            injector.kill_now()  # a hard death: no cleanup, no checkpoint
+        if injector is not None and injector.should_hang(gstep):
+            injector.hang_now()  # the watchdog's prey
+        if injector is not None and injector.should_preempt(gstep):
+            # gstep is the same on every rank: no agreement needed
+            resilience.request_preemption(f"injected at global step {gstep}")
+            stop_here = True
+        else:
+            stop_here = resilience.preemption_stop_requested(agreed)
+        if stop_here:
+            _preempt(state, epoch, it, best_acc1, step_imgs, is_primary)
+        if injector is not None and injector.is_nan_step(gstep):
+            batch = resilience.poison_batch_nan(batch)
             if is_primary:
                 logger.warning(f"FAULT INJECTION: NaN batch at global step {gstep}")
         if profiler is not None:
@@ -319,7 +366,9 @@ def train_epoch(loader, state: TrainState, epoch: int, device, is_primary: bool,
         if profiler is not None:
             profiler.after(it)
         if it % cfg.TRAIN.PRINT_FREQ == 0 or it == len(loader) - 1:
-            vals = _fetch(window, state)  # the sync point
+            vals, stop = _fetch(window, state, resilience.preemption_requested())
+            if agreed is not None:
+                agreed = stop
             now = time.time()
             if first_window:  # the first window carries cuDNN's autotuning: shown, not averaged
                 batch_time.val = (now - t_window) / len(window)
@@ -332,7 +381,7 @@ def train_epoch(loader, state: TrainState, epoch: int, device, is_primary: bool,
                     epoch_skipped += 1
                     consec += 1
                     if consec >= cfg.FAULT.MAX_CONSECUTIVE_SKIPS:
-                        raise FloatingPointError(
+                        raise resilience.NonFiniteDivergence(
                             f"{consec} consecutive non-finite steps at epoch {epoch} step {it}: "
                             f"aborting (FAULT.MAX_CONSECUTIVE_SKIPS="
                             f"{cfg.FAULT.MAX_CONSECUTIVE_SKIPS})")
@@ -348,9 +397,10 @@ def train_epoch(loader, state: TrainState, epoch: int, device, is_primary: bool,
                 progress.display(it)
         t_end = time.time()
     wall = time.time() - epoch_start
+    resilience.RUN_STATS.skipped_steps[epoch] = epoch_skipped
     fwd, bwd, fwd_s, bwd_s, att_f, att_b, *att_r = (
         b - a for a, b in zip(launches0, _launch_counts()))
-    steps = len(loader)
+    steps = max(1, len(loader) - start_step)  # the steps this run took
     if is_primary:
         logger.info(f"Epoch[{epoch}] K1 launches: {fwd} forward ({fwd / steps:.2f} a step), "
                     f"{bwd} backward ({bwd / steps:.2f} a step), scalar route {fwd_s} forward, "
@@ -384,6 +434,7 @@ def validate(loader, model, device, is_primary: bool, group=None, prefix="Test: 
     for it, batch in enumerate(DevicePrefetcher(loader, device, cfg.TRAIN.PREFETCH,
                                                  cfg.TRAIN.PIN_MEMORY)):
         data_time.update(time.time() - t_end)
+        resilience.watchdog_beat(it, phase="eval")
         totals = eval_step(model, batch, totals, topk)
         window_n += 1
         if it % cfg.TEST.PRINT_FREQ == 0 or it == len(loader) - 1:
@@ -473,40 +524,79 @@ def train_model(device=None):
     gen = setup_seed(cfg.RNG_SEED, info.rank, info.group, info.device)
     if info.is_primary:
         dump_cfg()
+    resilience.reset_run_stats()
+    # a flag left by an earlier preempted run in this process must not stop this one
+    resilience.clear_preemption()
+    if cfg.FAULT.HANDLE_SIGNALS:
+        resilience.install_preemption_handler()
+    try:
+        return _train(info, gen)
+    finally:
+        resilience.uninstall_preemption_handler()
+
+
+def _train(info, gen):
+    injector = resilience.FaultInjector()
+    if injector.active:
+        logger.warning(f"FAULT INJECTION active: io_indices={sorted(injector.io_indices)} "
+                       f"(failures={injector.io_failures}), nan_steps="
+                       f"{sorted(injector.nan_steps)}, preempt_step={injector.preempt_step}, "
+                       f"hang_step={injector.hang_step}, kill_step={injector.kill_step}")
     model = build_cfg_model(gen).to(info.device)
     _sync_bn(model, info.group)
     state = TrainState(model, info.group)
+    # the samples a step consumes over the group: the unit of the elastic remap
+    samples_per_step = cfg.TRAIN.BATCH_SIZE * cfg.TRAIN.ACCUM_STEPS * info.world_size
     logger.info(f"Processes: {info.world_size} (rank 0 on {info.device}), global batch "
-                f"{cfg.TRAIN.BATCH_SIZE * cfg.TRAIN.ACCUM_STEPS * info.world_size}")
+                f"{samples_per_step}")
     logger.info(f"Model:\n{cfg.MODEL.ARCH}")
     logger.info(f"Params(M): {count_parameters(model):.3f}")
     train_loader = construct_train_loader(info.world_size, info.rank, _pin_device(info.device))
     val_loader = construct_val_loader(info.world_size, info.rank, _pin_device(info.device))
     _log_input(train_loader, val_loader)
-    start_epoch, best_acc1 = 0, 0.0
+    start_epoch, start_step, best_acc1 = 0, 0, 0.0
     res = None
     if cfg.TRAIN.AUTO_RESUME:
-        res = ckpt.restore_latest(cfg.OUT_DIR, state,
+        # the supervisor's poison escalation rides the env var (it never edits YAMLs)
+        rollback = int(os.environ.get("DTPU_RESUME_ROLLBACK", cfg.RESUME.ROLLBACK))
+        if rollback > 0:
+            logger.warning(f"Auto-resume with rollback depth {rollback}: the {rollback} most "
+                           f"advanced known-good checkpoint(s) will be skipped")
+        res = ckpt.restore_latest(cfg.OUT_DIR, state, step_granular=cfg.RESUME.STEP_GRANULAR,
                                   verify_integrity=cfg.RESUME.VERIFY_INTEGRITY,
-                                  skip_corrupt=cfg.RESUME.SKIP_CORRUPT)
+                                  skip_corrupt=cfg.RESUME.SKIP_CORRUPT,
+                                  samples_per_step=samples_per_step, rollback=rollback)
         if res is not None:
-            start_epoch, best_acc1, path = res
-            logger.info(f"Resumed from {path} (epoch {start_epoch}, best {best_acc1:.3f})")
+            start_epoch, start_step, best_acc1, path = res
+            logger.info(f"Resumed from {path} (epoch {start_epoch}, step {start_step}, best "
+                        f"{best_acc1:.3f})")
     if res is None and cfg.MODEL.WEIGHTS:
         ckpt.load_checkpoint(cfg.MODEL.WEIGHTS, state, load_opt=cfg.TRAIN.LOAD_OPT)
         logger.info(f"Warm-started weights from {cfg.MODEL.WEIGHTS}")
     profiler = _Profiler(info.device) if cfg.TRAIN.PROFILE and info.is_primary else None
     run_tic = time.time()
-    for epoch in range(start_epoch, cfg.OPTIM.MAX_EPOCH):
-        train_epoch(train_loader, state, epoch, info.device, info.is_primary,
-                    start_epoch=start_epoch, run_tic=run_tic,
-                    profiler=profiler if epoch == start_epoch else None)
-        acc1, _ = validate(val_loader, model, info.device, info.is_primary, info.group)
-        is_best = acc1 > best_acc1
-        best_acc1 = max(acc1, best_acc1)
-        if info.is_primary:
-            path = ckpt.save_checkpoint(cfg.OUT_DIR, epoch, state, best_acc1, is_best)
-            logger.info(f"Saving checkpoint: {path} (best Acc@1 {best_acc1:.3f})")
+    # armed over train and eval (both hang when a peer dies); its first beat
+    # window holds the first steps' cuDNN autotuning: HANG_TIMEOUT_S must cover it
+    resilience.start_watchdog(cfg.FAULT.HANG_TIMEOUT_S)
+    try:
+        for epoch in range(start_epoch, cfg.OPTIM.MAX_EPOCH):
+            train_epoch(train_loader, state, epoch, info.device, info.is_primary,
+                        start_epoch=start_epoch, run_tic=run_tic,
+                        profiler=profiler if epoch == start_epoch else None,
+                        start_step=start_step if epoch == start_epoch else 0,
+                        best_acc1=best_acc1, injector=injector)
+            acc1, _ = validate(val_loader, model, info.device, info.is_primary, info.group)
+            is_best = acc1 > best_acc1
+            best_acc1 = max(acc1, best_acc1)
+            resilience.watchdog_beat(phase="checkpoint")
+            if info.is_primary:
+                path = ckpt.save_checkpoint(cfg.OUT_DIR, epoch, state, best_acc1, is_best)
+                logger.info(f"Saving checkpoint: {path} (best Acc@1 {best_acc1:.3f})")
+    finally:
+        # disarmed first: a finished or failing run must not be killed by its own watchdog
+        resilience.stop_watchdog()
+    if info.is_primary:  # every epoch checkpoint written: the emergency ones are dominated
+        ckpt.prune_mid_checkpoints(cfg.OUT_DIR, before_epoch=cfg.OPTIM.MAX_EPOCH)
     return state, best_acc1
 
 

@@ -13,13 +13,16 @@ all-reduced over the group, SyncBN when asked) and writes ``rank<R>.npz``
 beside the spec: per step the loss over the whole batch, the state after
 the step (``p{k}`` flat parameters, ``b{k}`` flat statistics), the final
 momentum and step counter. :func:`run_ranks` spawns the ranks for
-``tests/test_torch_train_dist.py``.
+``tests/test_torch_train_dist.py``. :func:`launch_train_net` starts the
+ranks of a whole ``train_net`` run on the CPU instead (the launcher's
+``RANK``/``WORLD_SIZE``/``MASTER_*`` variables, a ``gloo`` group).
 """
 
 from __future__ import annotations
 
 import datetime
 import json
+import os
 import subprocess
 import sys
 import time
@@ -61,7 +64,7 @@ def main() -> None:
             m = train_step(state, {"image": torch.from_numpy(images[k, rows]),
                                    "label": torch.from_numpy(labels[k, rows]).long()},
                            float(data["lr"][k]), accum_steps=int(spec["accum"]), topk=5)
-            v = _fetch([m], state)[0]
+            v = _fetch([m], state)[0][0]
             out[f"loss{k}"] = np.array(v["loss_sum"] / v["n"])
             out[f"p{k}"] = state.params.numpy().copy()
             out[f"b{k}"] = state.stats.numpy().copy()
@@ -104,6 +107,42 @@ def run_ranks(spec: dict, workdir: Path, deadline_s: float) -> list[dict]:
         raise RuntimeError(f"train ranks failed or passed the {deadline_s:.0f} s deadline "
                            f"(rcs {rcs}):\n{tails}")
     return [dict(np.load(workdir / f"rank{r}.npz")) for r in range(world)]
+
+
+_TRAIN_NET = ("import sys; sys.path.insert(0, %r)\n"
+              "import torch; torch.set_num_threads(1)\n"
+              "from distribuuuu_tpu_torch.train_net import main\n"
+              "main(sys.argv[1:], device='cpu')\n")
+
+
+def launch_train_net(world: int, argv: list, logs: Path, port: int) -> list:
+    """Start ``world`` ranks of ``train_net`` on the CPU (``argv`` after
+    ``--cfg``...), each logging to ``logs/rank<R>.log``; returns the
+    ``Popen`` objects (the caller reaps them)."""
+    logs.mkdir(parents=True, exist_ok=True)
+    code = _TRAIN_NET % str(Path(__file__).resolve().parents[1])
+    procs = []
+    for r in range(world):
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world), LOCAL_RANK=str(r),
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        with open(logs / f"rank{r}.log", "w") as log:
+            procs.append(subprocess.Popen([sys.executable, "-c", code, *argv], env=env,
+                                          stdout=log, stderr=subprocess.STDOUT))
+    return procs
+
+
+def reap(procs: list, deadline_s: float) -> list:
+    """The ranks' exit codes; a rank still running after ``deadline_s`` is killed."""
+    end = time.monotonic() + deadline_s
+    try:
+        while any(p.poll() is None for p in procs) and time.monotonic() < end:
+            time.sleep(0.1)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    return [p.returncode for p in procs]
 
 
 if __name__ == "__main__":

@@ -12,7 +12,8 @@ is bitwise:
   train and eval, on PIL (``use_native = False`` set on both instances) and,
   where the port's decoder builds, on the native decoder in both;
 - drop_last, eval padding at weight 0, a consumer that abandons the epoch,
-  a failing producer, a corrupt JPEG (it raises and names ROADMAP item 2),
+  a failing producer, a corrupt JPEG (substituted by the next sample under
+  ``FAULT.DEGRADE``, raised without it),
   a read retried (``FAULT.RETRY_*``) through two transient failures;
 - the committed ``digits.csv.gz`` against ``sklearn.datasets.load_digits``,
   and ``digits_imagefolder``'s files against the JAX package's.
@@ -170,41 +171,59 @@ def test_producer_error_surfaces_in_the_consumer(image_root, monkeypatch):
 
 @pytest.mark.parametrize("backend", ["pil", "native"])
 def test_corrupt_jpeg_raises_and_names_item_2(image_root, tmp_path, backend):
+    """A corrupt JPEG is ROADMAP item 2's FAULT.DEGRADE path: under the
+    default the train batch takes the next sample in its slot (same crop
+    seed); with DEGRADE off the loader raises, naming the file."""
     if backend == "native" and not native.available():
         pytest.skip(f"the native decoder does not build here: {native.unavailable_reason()}")
+    from distribuuuu_tpu_torch.config import cfg, reset_cfg
+
     root = tmp_path / "bad"
     (root / "cat").mkdir(parents=True)
     for i in range(4):
         _image(np.random.default_rng(i), 20, 20).save(root / "cat" / f"{i}.jpg")
     data = (root / "cat" / "2.jpg").read_bytes()
     (root / "cat" / "2.jpg").write_bytes(data[:40] + b"\0" * 10)
-    ours = loader.HostDataLoader(dataset.ImageFolder(str(root)), host_batch=4, train=True,
-                                 im_size=16, process_index=0, process_count=1, workers=2,
-                                 seed=0)
-    ours.use_native = backend == "native"
-    with pytest.raises(RuntimeError, match="data loader worker failed") as exc:
-        list(ours)
-    assert isinstance(exc.value.__cause__, OSError)
-    assert "2.jpg" in str(exc.value.__cause__) and "item 2" in str(exc.value.__cause__)
+    reset_cfg()
+    cfg.FAULT.RETRY_BASE_DELAY = 0.001
+    try:
+        ours = loader.HostDataLoader(dataset.ImageFolder(str(root)), host_batch=4, train=True,
+                                     im_size=16, process_index=0, process_count=1, workers=2,
+                                     seed=0)
+        ours.use_native = backend == "native"
+        (batch,) = list(ours)
+        order = list(ours._shard_indices())
+        slot = order.index(2)
+        seed = loader.aug_seed_base(0, 0, 0) + slot
+        assert np.array_equal(batch["image"][slot], ours._load_one_raw(3, seed)[0])
+        cfg.FAULT.DEGRADE = False
+        with pytest.raises(RuntimeError, match="data loader worker failed") as exc:
+            list(ours)
+        assert isinstance(exc.value.__cause__, OSError)
+        assert "2.jpg" in str(exc.value.__cause__)
+        assert "FAULT.DEGRADE is off" in str(exc.value.__cause__)
+    finally:
+        reset_cfg()
 
 
 def test_load_one_retries_a_transient_read_and_raises_a_permanent_one(image_root, monkeypatch):
     ours = _loaders(image_root, 0, True, False)[0]
-    decode, calls = ours._decode, []
+    load, calls = ours._load_one_raw, []
 
     def flaky(idx, seed):
         calls.append(idx)
         if len(calls) < 3:  # two transient failures, then the read succeeds
             raise OSError("transient read")
-        return decode(idx, seed)
-    monkeypatch.setattr(ours, "_decode", flaky)
+        return load(idx, seed)
+    monkeypatch.setattr(ours, "_load_one_raw", flaky)
     img, label, weight = ours._load_one(5, 11)
-    assert len(calls) == 3 and np.array_equal(img, decode(5, 11)) and weight == 1.0
+    assert len(calls) == 3 and np.array_equal(img, load(5, 11)[0]) and weight == 1.0
     calls.clear()
-    monkeypatch.setattr(ours, "_decode", lambda idx, seed: calls.append(idx) or int("x"))
-    with pytest.raises(OSError, match="in 3 attempts .*item 2"):
+    monkeypatch.setattr(ours, "_load_one_raw", lambda idx, seed: calls.append(idx) or int("x"))
+    # every attempt fails, then FAULT.DEGRADE's three neighbours, one try each
+    with pytest.raises(OSError, match="in 3 attempts .*FAULT.DEGRADE found none"):
         ours._load_one(5, 11)
-    assert len(calls) == 3
+    assert calls == [5, 5, 5, 6, 7, 8]
 
 
 def test_digits_csv_equals_sklearn_and_the_folder_equals_jax(tmp_path):

@@ -1002,3 +1002,38 @@ def test_service_pinned_batches_reach_the_card_bitwise(cuda, tmp_path):
         assert pinned.fallbacks == 0
     finally:
         svc.stop()
+
+
+@pytest.mark.gpu
+def test_watchdog_fires_while_the_host_waits_on_a_stalled_device(cuda):
+    """The hang as it happens on the card: the host runs ahead, so a stalled
+    device shows as the host blocked in a sync (the trainer's window fetch,
+    an NCCL wait). A kernel that spins ``torch.cuda._sleep`` far past
+    ``HANG_TIMEOUT_S``, then a sync: the watchdog thread still runs (the
+    sync releases the GIL), dumps every stack, the blocked sync's frame
+    among them, and the process exits 124 without waiting for the kernel."""
+    import subprocess
+    import sys
+    import time
+    from pathlib import Path
+
+    timeout_s = 3.0
+    code = ("import sys, torch; sys.path.insert(0, %r)\n"
+            "from distribuuuu_tpu_torch import resilience\n"
+            "torch.cuda.init()\n"
+            "resilience.start_watchdog(%r)\n"
+            "resilience.watchdog_beat(0)\n"
+            "torch.cuda._sleep(int(120e9))  # ~60 s of spinning at the H100's ~2 GHz\n"
+            "def wait_for_the_stalled_device():\n"
+            "    torch.cuda.synchronize()\n"
+            "wait_for_the_stalled_device()\n"
+            "print('the sync returned')\n" % (str(Path(__file__).resolve().parents[1]), timeout_s))
+    tic = time.monotonic()
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=150)
+    wall = time.monotonic() - tic
+    assert proc.returncode == 124, proc.stderr[-3000:]
+    assert wall < timeout_s + 25, wall  # process start, CUDA init, not the kernel's 60 s
+    assert "the sync returned" not in proc.stdout
+    assert "WATCHDOG: hang" in proc.stderr
+    assert "wait_for_the_stalled_device" in proc.stderr and "synchronize" in proc.stderr
