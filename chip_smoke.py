@@ -159,7 +159,26 @@ Phases (any failure exits non-zero):
    of the hang, every thread's stack in the rank log. The emergency save's
    ms and bytes, the relaunch's time to its first step and the steps run
    after the signal, beside the card's name and power limit;
-19. the ``{"kernels": [...]}`` line; 20. the ``{"ok": true, ...}`` last line.
+19. [train-zoo] the rest of the classification zoo through ``train_net`` at
+   full width, 224^2, bf16, batch 64 (each config's), ZOO_STEPS steps:
+   DenseNet-121 (``config/resnet50.yaml MODEL.ARCH densenet121
+   MODEL.STEM_S2D False``), RegNetY-16GF, EfficientNet-B0 (drop path and
+   dropout from the trainer's stream) and ViT-B/16 (LAMB), each on its
+   config: the loss finite and falling, K1 and K1-bwd 121 / 59 / 49 / 0
+   times a step (every BN), none scalar, the checkpoint, ``test_net`` on
+   it, step ms, images/s, peak memory and the profile of 3 steps by kernel
+   class beside K1's and K1-bwd's bound from the step's sites;
+20. [zoo f32] (after 21) each of those families at full width, 64^2, batch 8: the f32
+   eval forward card vs CPU (F32_REL_TOL of max|logit|) and one f32 step
+   card vs CPU ([train]'s and [train-bot]'s limits), every BN one K1 and
+   one K1-bwd launch; then served by the engine in bf16 at 224^2 on
+   [serve]'s seeded weights against the CPU's f32 forward (BF16_REL_TOL, or
+   no farther than the JAX package's own bf16 forward: ZOO_BF16_JAX_GAP);
+21. the ``test_net`` runs of [train], [train-bot], [train-bot-512] and
+   [train-zoo] (each on its phase's checkpoint), concurrently, after the
+   last timed training phase: each must exit 0 reporting Acc@1;
+22. the whole run's wall time and each phase's, the ``{"kernels": [...]}``
+   line; 23. the ``{"ok": true, ...}`` last line.
 
 Each path is driven with the launch counts set to 0 just before it and read
 just after. Per-shape numbers are also written to ``smoke_out/``.
@@ -723,32 +742,33 @@ def crop_args(im: int) -> list:
                                 "TEST.CROP_SIZE", str(im)]
 
 
-def train_args(cfg_file: str, batch: int, out: Path, im: int = IM) -> list:
+def train_args(cfg_file: str, batch: int, out: Path, im: int = IM, extra=()) -> list:
     """``train_net``'s arguments for ``cfg_file`` on dummy input at ``batch`` a GPU
-    and crop ``im``."""
+    and crop ``im``, then ``extra``."""
     return ["--cfg", cfg_file, "MODEL.DUMMY_INPUT", "True", *crop_args(im), "TRAIN.BATCH_SIZE",
             str(batch), "TEST.BATCH_SIZE", str(batch), "TRAIN.PRINT_FREQ", str(TRAIN_PRINT),
-            "RNG_SEED", "0", "OUT_DIR", str(out)]
+            "RNG_SEED", "0", "OUT_DIR", str(out), *extra]
 
 
 def train_run(card: str, out: Path, tag: str, what: str, cfg_file: str, batch: int, steps: int,
               window: tuple, attention: int, bound_ms: dict, im: int = IM,
-              route: str = "cluster") -> dict:
+              route: str = "cluster", k1: int = TRAIN_K1, extra=(), *, deferred: list) -> dict:
     """``python -m distribuuuu_tpu_torch.train_net --cfg <cfg_file>
-    MODEL.DUMMY_INPUT True`` at ``batch`` a GPU and crop ``im`` over
-    ``steps`` steps into ``out``, as a subprocess, with the TRAIN.PROFILE
-    ``window`` (start, steps): the loss finite and falling; TRAIN_K1 K1 and
-    K1-bwd launches a step and ``attention`` attention and
+    MODEL.DUMMY_INPUT True`` (then ``extra``) at ``batch`` a GPU and crop
+    ``im`` over ``steps`` steps into ``out``, as a subprocess, with the
+    TRAIN.PROFILE ``window`` (start, steps): the loss finite and falling;
+    ``k1`` K1 and K1-bwd launches a step and ``attention`` attention and
     attention-backward calls, every backward call on ``route`` (the
     trainer's counts, set to 0 just before the first
     step and read just after the last); the checkpoint verified against its
-    manifest; ``test_net`` on it reporting Acc@1. Step ms and images/s from
-    the progress lines before the profiler window; the profile by kernel
-    class."""
+    manifest; ``test_net`` on it, appended to ``deferred`` (a list) for
+    :func:`run_test_nets`. Step ms and images/s from
+    the progress lines before the profiler window; the peak memory the
+    trainer logs; the profile by kernel class."""
     from distribuuuu_tpu_torch import checkpoint as ckpt
 
     tic = time.perf_counter()
-    log = run_cli(["distribuuuu_tpu_torch.train_net", *train_args(cfg_file, batch, out, im),
+    log = run_cli(["distribuuuu_tpu_torch.train_net", *train_args(cfg_file, batch, out, im, extra),
                    "OPTIM.MAX_EPOCH", "1", "TRAIN.DUMMY_EPOCH_SAMPLES", str(batch * steps),
                    "TRAIN.PROFILE", "True", "TRAIN.PROFILE_START", str(window[0]),
                    "TRAIN.PROFILE_STEPS", str(window[1])], f"train_net {what}")
@@ -761,7 +781,7 @@ def train_run(card: str, out: Path, tag: str, what: str, cfg_file: str, batch: i
     if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
         fail(f"{what} training loss not finite or not falling: {losses}")
     # every attention backward call on ``route`` (cluster at L 196, blockwise at L 1024)
-    want = dict(k1=TRAIN_K1 * steps, k1_bwd=TRAIN_K1 * steps, k1_scalar=0, k1_bwd_scalar=0,
+    want = dict(k1=k1 * steps, k1_bwd=k1 * steps, k1_scalar=0, k1_bwd_scalar=0,
                 attention=attention * steps, attention_bwd=attention * steps,
                 attention_bwd_cluster=0, attention_bwd_blockwise=0, attention_bwd_scalar=0)
     want[f"attention_bwd_{route}"] = attention * steps
@@ -769,42 +789,76 @@ def train_run(card: str, out: Path, tag: str, what: str, cfg_file: str, batch: i
         fail(f"{what} launches over {steps} steps: {counts}; want {want}")
     steady = [t for it, t, _ in prog if TRAIN_PRINT * 2 <= it <= window[0] - TRAIN_PRINT]
     step_ms = 1e3 * statistics.median(steady)
+    peak = re.search(r"peak memory (\S+) GiB", log)
+    peak_gib = float(peak[1]) if peak else float("nan")
     say(f"[{tag}] step {step_ms:.2f} ms (median of the {len(steady)} windows of {TRAIN_PRINT} "
         f"steps from step {TRAIN_PRINT * 2} to {window[0] - TRAIN_PRINT}), "
-        f"{1e3 * batch / step_ms:.0f} images/s ({card})")
+        f"{1e3 * batch / step_ms:.0f} images/s, peak memory {peak_gib:.2f} GiB ({card})")
     path = ckpt.get_checkpoint_path(str(out), 1)
     status, errors = ckpt.verify_checkpoint(path)
     if status != "ok":
         fail(f"checkpoint {path}: {status} {errors}")
     profile = train_profile(out / "profile" / "train_steps.json", window[1], bound_ms, what, tag)
-    ev = run_cli(["distribuuuu_tpu_torch.test_net", "--cfg", cfg_file, "MODEL.DUMMY_INPUT",
-                  "True", *crop_args(im), "TEST.BATCH_SIZE", str(batch),
-                  "TRAIN.DUMMY_EPOCH_SAMPLES",
-                  str(batch * 4), "MODEL.WEIGHTS", path, "OUT_DIR", f"{out}_eval"],
-                 f"test_net {what}")
-    acc = re.search(r"\* Acc@1 (\S+) Acc@5 (\S+)", ev)
-    if acc is None:
-        fail(f"test_net reported no Acc@1:\n{ev[-2000:]}")
-    say(f"[{tag}] {path} verified against its manifest; test_net on it: Acc@1 {acc[1]}, "
-        f"Acc@5 {acc[2]}")
     wait = re.search(r"data wait (\S+)% of the epoch", log)
-    return dict(steps=steps, batch=batch, im=im, launches=counts, losses=losses, step_ms=step_ms,
-                images_per_s=1e3 * batch / step_ms, windows=prog, wall_s=wall, profile=profile,
-                acc1=float(acc[1]), acc5=float(acc[2]),
-                data_wait_pct=float(wait[1]) if wait else float("nan"))
+    res = dict(steps=steps, batch=batch, im=im, launches=counts, losses=losses, step_ms=step_ms,
+               images_per_s=1e3 * batch / step_ms, windows=prog, wall_s=wall, profile=profile,
+               peak_gib=peak_gib, data_wait_pct=float(wait[1]) if wait else float("nan"))
+    # the eval-only check autotunes nothing (no number is taken from its time)
+    ev = Evaluation(["distribuuuu_tpu_torch.test_net", "--cfg", cfg_file, "MODEL.DUMMY_INPUT",
+                     "True", *crop_args(im), "TEST.BATCH_SIZE", str(batch),
+                     "TRAIN.DUMMY_EPOCH_SAMPLES", str(batch * 4), "MODEL.WEIGHTS", path,
+                     "OUT_DIR", f"{out}_eval", *extra, "CUDNN.BENCHMARK", "False"],
+                    Path(f"{out}_eval.log"),
+                    f"[{tag}] {path} verified against its manifest; test_net {what} on it", res)
+    deferred.append(ev)
+    return res
 
 
-def phase_train(card: str, tmp: Path, bound_ms: dict) -> dict:
+class Evaluation:
+    """A ``test_net`` run on a checkpoint (its arguments, its log file)
+    whose Acc@1 and Acc@5 go into ``res`` once :func:`run_test_nets` ran it."""
+
+    def __init__(self, args: list, log: Path, what: str, res: dict):
+        self.args, self.log, self.what, self.res = args, log, what, res
+
+
+def run_test_nets(evals: list) -> None:
+    """Run ``evals`` (:class:`Evaluation`) as concurrent subprocesses on the
+    card (no timing is read from them), each logging to its file, wait for
+    every one, and fail unless each exits 0 reporting Acc@1."""
+    procs = []
+    try:
+        for ev in evals:
+            with open(ev.log, "w") as log:
+                procs.append(subprocess.Popen([sys.executable, "-m", *ev.args], cwd=ROOT,
+                                              stdout=subprocess.DEVNULL, stderr=log))
+        for proc in procs:
+            proc.wait(timeout=600)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for ev, proc in zip(evals, procs):
+        log = ev.log.read_text()
+        acc = re.search(r"\* Acc@1 (\S+) Acc@5 (\S+)", log)
+        if proc.returncode != 0 or acc is None:
+            fail(f"{ev.what}: exit {proc.returncode}, no Acc@1:\n{log[-3000:]}")
+        ev.res.update(acc1=float(acc[1]), acc5=float(acc[2]))
+        say(f"{ev.what}: Acc@1 {acc[1]}, Acc@5 {acc[2]}")
+
+
+def phase_train(card: str, tmp: Path, bound_ms: dict, deferred: list) -> dict:
     """[train]: ResNet-50 training at full width, :func:`train_run` on
-    ``config/resnet50.yaml`` at batch LADDER_BATCH over TRAIN_STEPS steps;
-    then a relaunch with ``OPTIM.MAX_EPOCH 2`` that must resume from the
-    checkpoint and write the next; then one f32 ResNet-18 step card vs
-    CPU."""
+    ``config/resnet50.yaml`` at batch LADDER_BATCH over TRAIN_STEPS steps
+    (its ``test_net`` appended to ``deferred``); then a relaunch with
+    ``OPTIM.MAX_EPOCH 2`` that must resume from the checkpoint and write
+    the next; then one f32 ResNet-18 step card vs CPU."""
     from distribuuuu_tpu_torch import checkpoint as ckpt
 
     out = tmp / "train"
     res = train_run(card, out, "train", "ResNet-50", "config/resnet50.yaml", LADDER_BATCH,
-                    TRAIN_STEPS, TRAIN_PROFILE, 0, bound_ms)
+                    TRAIN_STEPS, TRAIN_PROFILE, 0, bound_ms, deferred=deferred)
     log = run_cli(["distribuuuu_tpu_torch.train_net",
                    *train_args("config/resnet50.yaml", LADDER_BATCH, out), "OPTIM.MAX_EPOCH", "2",
                    "TRAIN.DUMMY_EPOCH_SAMPLES", str(LADDER_BATCH * 4)], "train_net relaunch")
@@ -872,14 +926,15 @@ BOT_F32_UPDATE_RL2 = 1e-1
 BOT_F32_STATS_RL2 = 1e-3
 
 
-def phase_train_bot(card: str, tmp: Path, bound_ms: dict) -> dict:
+def phase_train_bot(card: str, tmp: Path, bound_ms: dict, deferred: list) -> dict:
     """[train-bot]: BoTNet-50 training at full width, :func:`train_run` on
     ``config/botnet50.yaml`` (224^2, bf16, batch 32 a GPU, SGD nesterov,
     cosine) over BOT_STEPS steps, 3 attention and 3 attention-backward calls
     a step beside K1's and K1-bwd's 53; then one f32 botnet50 step card vs
     CPU."""
     res = train_run(card, tmp / "train_bot", "train-bot", "BoTNet-50", "config/botnet50.yaml",
-                    BOT_BATCH, BOT_STEPS, BOT_PROFILE, BOT_ATTENTION, bound_ms)
+                    BOT_BATCH, BOT_STEPS, BOT_PROFILE, BOT_ATTENTION, bound_ms,
+                    deferred=deferred)
     res["f32_check"] = train_f32_botnet_check()
     return res
 
@@ -893,14 +948,15 @@ BOT512_BATCH = 32
 BOT512_PROFILE = (20, 3)  # TRAIN.PROFILE_START, TRAIN.PROFILE_STEPS
 
 
-def phase_train_bot_512(card: str, tmp: Path, bound_ms: dict) -> dict:
+def phase_train_bot_512(card: str, tmp: Path, bound_ms: dict, deferred: list) -> dict:
     """[train-bot-512]: :func:`train_run` on ``config/botnet50.yaml`` at a
     BOT512_IM^2 crop (train and eval), bf16, batch BOT512_BATCH, over
     BOT512_STEPS steps: 3 attention calls a step on K4's route and 3
     backward calls on the blockwise route beside K1's and K1-bwd's 53."""
     return train_run(card, tmp / "train_bot_512", "train-bot-512", "BoTNet-50",
                      "config/botnet50.yaml", BOT512_BATCH, BOT512_STEPS, BOT512_PROFILE,
-                     BOT_ATTENTION, bound_ms, im=BOT512_IM, route="blockwise")
+                     BOT_ATTENTION, bound_ms, im=BOT512_IM, route="blockwise",
+                     deferred=deferred)
 
 
 def train_f32_botnet_check() -> dict:
@@ -959,6 +1015,280 @@ def train_f32_botnet_check() -> dict:
             and float(ac.abs().max()) > 0 and launches == BOT_ATTENTION):
         fail("the f32 BoTNet-50 step on the card is outside the stated tolerance of the CPU's")
     return d
+
+
+# [train-zoo]: the rest of the classification zoo through the training CLI at
+# full width, each at its config's batch of 64 a GPU, 224^2, bf16, dummy input.
+# (tag, config, extra arguments, K1 and K1-bwd launches a step: every BN).
+# DenseNet trains on resnet50.yaml's recipe (the repo has no DenseNet YAML;
+# the reference trains it so), without the ResNet stem option.
+ZOO_RUNS = [
+    ("densenet121", "config/resnet50.yaml",
+     ["MODEL.ARCH", "densenet121", "MODEL.STEM_S2D", "False", "TRAIN.BATCH_SIZE", "64"], 121),
+    ("regnety_160", "config/regnety_160.yaml", [], 59),
+    ("efficientnet_b0", "config/efficientnet_b0.yaml", [], 49),
+    ("vit_b16", "config/vit_b16.yaml", [], 0),
+]
+ZOO_BATCH = 64
+ZOO_STEPS = 25  # steps of the counted epoch
+ZOO_PROFILE = (20, 3)  # TRAIN.PROFILE_START, TRAIN.PROFILE_STEPS
+
+
+def zoo_sites(arch: str) -> Counter:
+    """The K1 sites of a training step of ``arch`` at ZOO_BATCH, 224^2,
+    bf16 boundaries (:func:`epilogue_sites`)."""
+    import torch
+
+    return epilogue_sites(arch, ZOO_BATCH, bn_dtype=torch.bfloat16)
+
+
+def zoo_bounds(sites: Counter, bw: float) -> dict:
+    """K1's and K1-bwd's bound (ms) a training step from its K1 ``sites``."""
+    if not sites:
+        return {}
+    return {"k1": sum(k1_bound((*site[:6], "a"), bw, (2, 2, 2, 2))[0] * m
+                      for site, m in sites.items()),
+            "k1_bwd": sum(k1_bwd_bound(site, bw)[0] * m for site, m in sites.items())}
+
+
+def zoo_k1_check(sites: Counter) -> dict:
+    """K1 and K1-bwd against their plain versions at each distinct site of
+    a zoo training step (``sites``), on seeded inputs of the step's
+    shapes and dtypes (x, residual and gradient bf16): K1 bitwise in the
+    site's mode, K1-bwd as [k1-bwd] holds it (:func:`k1_bwd_check`), every
+    call on the vector route. These shapes give K1's launch group counts
+    that are not powers of two (C 24, 40, 112, 1232, 3024, ...), which
+    ResNet-50's sites never do. Returns the counts and the errors."""
+    import torch
+
+    from distribuuuu_tpu_torch.ops import epilogue as ep
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    bf16 = torch.bfloat16
+    scalar = ep.SCALAR_LAUNCHES + ep.BWD_SCALAR_LAUNCHES
+    err, bwd_err, worst = 0.0, 0.0, 0.0
+    for site in sorted(sites):
+        n, h, w, c, res, relu, mode = site
+        args = k1_inputs(n, h, w, c, res, bf16, gen)
+        err = max(err, k1_check(ep, args, k1_kwargs(mode, relu, bf16, bf16), f"{site} bf16"))
+        g = torch.randn(args[0].shape, generator=gen, device="cuda").to(bf16).contiguous(
+            memory_format=torch.channels_last)
+        e, r = k1_bwd_check(ep, args, (g, None), dict(relu=relu, bn_dtype=bf16), f"{site} bf16")
+        bwd_err, worst = max(bwd_err, e), max(worst, r)
+        del args, g
+    torch.cuda.empty_cache()
+    if ep.SCALAR_LAUNCHES + ep.BWD_SCALAR_LAUNCHES != scalar:
+        fail("K1 or K1-bwd took the scalar route at a zoo training site")
+    return dict(sites=len(sites), launches_a_step=sum(sites.values()), k1_max_abs_err=err,
+                k1_bwd_max_abs_err=bwd_err, k1_bwd_sum_rel_err=worst)
+
+
+def phase_train_zoo(card: str, tmp: Path, bw: float, deferred: list) -> dict:
+    """[train-zoo]: for each of ZOO_RUNS, K1 and K1-bwd against their plain
+    versions at the step's sites (:func:`zoo_k1_check`), then
+    :func:`train_run`, ZOO_STEPS steps at batch ZOO_BATCH: the loss finite
+    and falling, every BN's K1 and K1-bwd launches a step and none scalar,
+    the checkpoint (its ``test_net`` appended to ``deferred``), step ms,
+    images/s, peak memory and the profile of 3 steps."""
+    out = {}
+    for arch, cfg_file, extra, k1 in ZOO_RUNS:
+        sites = zoo_sites(arch)
+        if sum(sites.values()) != k1:
+            fail(f"[train-zoo] {arch}: {sum(sites.values())} K1 sites a step, want {k1}")
+        check = zoo_k1_check(sites)
+        bound_ms = zoo_bounds(sites, bw)
+        out[arch] = train_run(card, tmp / f"zoo_{arch}", "train-zoo", arch, cfg_file, ZOO_BATCH,
+                              ZOO_STEPS, ZOO_PROFILE, 0, bound_ms, k1=k1, extra=extra,
+                              deferred=deferred)
+        launches = out[arch]["launches"]
+        say(f"[train-zoo] {arch}: K1 and K1-bwd at the step's {check['sites']} distinct sites "
+            f"(batch {ZOO_BATCH}, 224^2, x/residual/gradient bf16), each against its plain "
+            f"version: K1 bitwise, K1-bwd d_x and d_identity bitwise, sums within "
+            f"{check['k1_bwd_sum_rel_err']:.2e} of sum|terms| (limit {K1_BWD_SUM_RTOL}), none "
+            f"scalar; in the run K1 {launches['k1']}, K1-bwd {launches['k1_bwd']} launches "
+            f"({k1} a step x {ZOO_STEPS} steps), scalar {launches['k1_scalar']} / "
+            f"{launches['k1_bwd_scalar']}")
+        out[arch].update(bound_ms=bound_ms, k1_a_step=k1, k1_check=check)
+    return out
+
+
+# [zoo f32]: each family at full width, a 64^2 crop and batch 8 (the cut: the
+# resolution and the batch, not the depth), card against CPU with TF32 off:
+# the eval forward within F32_REL_TOL of max|logit|; one training step with
+# the loss within BOT_F32_LOSS_RTOL, the statistics within TRAIN_F32_REL_TOL
+# of max|.| and BOT_F32_STATS_RL2 in relative L2, and the parameters and the
+# update within the family's own limits (ZOO_F32_STEP). Then the engine's bf16
+# forward at 224^2 on the card against the CPU's f32 forward, on [serve]'s
+# seeded weights (:func:`synthetic_state_dict`), within BF16_REL_TOL, as
+# [serve]; or, where the JAX package's own bf16 forward of those weights lies
+# farther from its f32 one, no farther than it (ZOO_BF16_JAX_GAP).
+ZOO_F32 = {arch: k1 for arch, _, _, k1 in ZOO_RUNS}  # arch -> K1 launches a forward
+ZOO_F32_IM, ZOO_F32_BATCH, ZOO_SERVE_BATCH = 64, 8, 4
+# The JAX package's bf16 logits against its f32 ones on the served weights,
+# relative to max|logit| (``scripts/torch_zoo_numerics.py serve``, CPU): the
+# SE gates of RegNetY, in the compute dtype as in JAX, amplify bf16 rounding
+# on random weights (RegNetY-4GF 0.239, RegNetX-16GF, without them, 4.3e-3).
+# DenseNet-121 4.3e-3, EfficientNet-B0 4.8e-3 and ViT-B/16 1.0e-2 stay
+# within BF16_REL_TOL.
+ZOO_BF16_JAX_GAP = {"regnety_160": 0.160}
+# arch -> (the parameters after the step, max|card - CPU| / max|p|; the
+# update, relative L2) a family's f32 step is held to. The parameters:
+# [train]'s TRAIN_F32_REL_TOL wherever the JAX package's own f32 step lies
+# closer than that to its float64 one. The update, and RegNetY's parameters:
+# about 3x the card's reading (NVIDIA H100 80GB HBM3, 700 W; card and CPU
+# both deterministic, the same reading on every run), and no more than twice
+# the JAX package's own f32 gap from float64 at this size where that is known
+# (``scripts/torch_zoo_numerics.py step``: the gradient in relative L2, the
+# SGD step in max|.|): two f32 summation orders can differ by the sum of
+# their distances from exact.
+#   densenet121     reads 2.1e-4, 6.0e-3; JAX gap 7.4e-4, 2.17e-2
+#   regnety_160     reads 5.0e-3, 1.98e-2; JAX gap 6.8e-3, 2.65e-2: the only
+#                   family above [train]'s TRAIN_F32_REL_TOL, as JAX itself is
+#   efficientnet_b0 reads 5.6e-7, 1.18e-5; JAX gap 1.6e-6, 2.0e-5
+#   vit_b16         reads 7.9e-6, 2.0e-4 (LAMB's first step is ~sign(g), so a
+#                   gradient's last bits move the update more than the SGD
+#                   gap of 2.5e-9, 9.3e-7 predicts)
+ZOO_F32_STEP = {"densenet121": (TRAIN_F32_REL_TOL, 1.8e-2),
+                "regnety_160": (1.36e-2, 5.3e-2),
+                "efficientnet_b0": (TRAIN_F32_REL_TOL, 4e-5),
+                "vit_b16": (TRAIN_F32_REL_TOL, 6e-4)}
+
+
+def zoo_model(arch: str, im: int, seed: int = 0):
+    """``arch`` in f32 with the JAX initialisers from ``seed``, every BN
+    scale drawn in [0.5, 1.5] and bias N(0, 0.1), and ViT's head (zero at
+    init, which would leave the first step without a gradient below it)
+    N(0, 0.02). EfficientNet without dropout and drop path: the card's and
+    the CPU's generators draw different masks ([train-zoo] trains it with
+    both)."""
+    import torch
+
+    from distribuuuu_tpu_torch.models import build_model, layers
+
+    kw = dict(dropout=0.0, drop_path_rate=0.0) if arch.startswith("efficientnet") else {}
+    model = layers.init_weights(build_model(arch, num_classes=1000 if im == IM else 10,
+                                            dtype=torch.float32, im_size=im, **kw),
+                                torch.Generator().manual_seed(seed))
+    gen = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, layers.BatchNorm):
+                m.weight.uniform_(0.5, 1.5, generator=gen)
+                m.bias.normal_(0.0, 0.1, generator=gen)
+        if arch.startswith("vit"):
+            model.heads.head.weight.normal_(0.0, 0.02, generator=gen)
+    return model
+
+
+def zoo_f32_step(arch: str) -> dict:
+    """The f32 eval forward and one f32 training step of ``arch`` at
+    ZOO_F32_IM, batch ZOO_F32_BATCH (SGD, or LAMB for ViT as its config),
+    card against CPU; the card's K1 and K1-bwd launches in the step."""
+    import torch
+
+    from distribuuuu_tpu_torch.config import cfg, reset_cfg
+    from distribuuuu_tpu_torch.data.transforms import device_normalize
+    from distribuuuu_tpu_torch.ops import epilogue as ep
+    from distribuuuu_tpu_torch.trainer import TrainState, train_step
+
+    reset_cfg()
+    cfg.MODEL.DTYPE = "float32"
+    if arch.startswith("vit"):
+        cfg.OPTIM.OPTIMIZER, cfg.OPTIM.WEIGHT_DECAY = "lamb", 0.05
+    lr = 2e-3 if arch.startswith("vit") else 0.4 * ZOO_F32_BATCH / 256
+    gen = torch.Generator().manual_seed(7)
+    imgs = torch.randint(0, 256, (ZOO_F32_BATCH, ZOO_F32_IM, ZOO_F32_IM, 3), dtype=torch.uint8,
+                         generator=gen)
+    labels = torch.randint(0, 10, (ZOO_F32_BATCH,), generator=gen)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        model = zoo_model(arch, ZOO_F32_IM).to(dev, memory_format=torch.channels_last)
+        with torch.no_grad():
+            logits = model.eval()(device_normalize(imgs.to(dev))).cpu()
+        st = TrainState(model)
+        start = st.params.cpu().clone()
+        before = (ep.LAUNCHES, ep.BWD_LAUNCHES, ep.SCALAR_LAUNCHES + ep.BWD_SCALAR_LAUNCHES)
+        m = train_step(st, {"image": imgs.to(dev), "label": labels.to(dev)}, lr)
+        res[dev] = (logits, m["loss_sum"].item() / ZOO_F32_BATCH, st.params.cpu(),
+                    st.params.cpu() - start, st.stats.cpu(),
+                    tuple(b - a for a, b in zip(before, (
+                        ep.LAUNCHES, ep.BWD_LAUNCHES,
+                        ep.SCALAR_LAUNCHES + ep.BWD_SCALAR_LAUNCHES))))
+    reset_cfg()
+    (oc, lc, pc, uc, sc, _), (og, lg, pg, ug, sg, launches) = res["cpu"], res["cuda"]
+
+    def rel_l2(a, b):
+        return float((a.double() - b.double()).norm() / b.double().norm()) if b.numel() else 0.0
+
+    def rel_max(a, b):
+        return float((a - b).abs().max() / b.abs().max()) if b.numel() else 0.0
+
+    d = dict(logits=rel_max(og, oc), loss=abs(lc - lg) / abs(lc), params=rel_max(pg, pc),
+             stats=rel_max(sg, sc), update_l2=rel_l2(ug, uc), stats_l2=rel_l2(sg, sc))
+    limits = dict(zip(("params", "update_l2"), ZOO_F32_STEP[arch]), logits=F32_REL_TOL,
+                  loss=BOT_F32_LOSS_RTOL, stats=TRAIN_F32_REL_TOL, stats_l2=BOT_F32_STATS_RL2)
+    ok = (all(d[k] <= v for k, v in limits.items())
+          and launches == (ZOO_F32[arch], ZOO_F32[arch], 0))
+    say(f"[zoo f32] {arch} {ZOO_F32_IM}^2 batch {ZOO_F32_BATCH}, card vs CPU: eval logits "
+        f"{d['logits']:.2e} of max|logit| (limit {F32_REL_TOL}); one step: loss {lg:.6f} / "
+        f"{lc:.6f}; " + ", ".join(f"{k} {v:.2e} (limit {limits[k]})" for k, v in d.items()
+                                  if k != "logits")
+        + f" (params, stats: of max|.|; update_l2, stats_l2: relative L2); card launches K1, "
+        f"K1-bwd, scalar {launches}")
+    if not ok:
+        fail(f"[zoo f32] {arch}: the card's f32 forward or step is outside the stated limits")
+    return dict(d, launches=launches, limits=limits)
+
+
+def zoo_serve(arch: str, tmp: Path) -> dict:
+    """``arch`` hosted by the serving engine (bf16, uint8 wire, f32 BN
+    boundaries) on :func:`synthetic_state_dict`'s weights: its forward of
+    ZOO_SERVE_BATCH seeded images at IM against the CPU's f32 forward,
+    within BF16_REL_TOL of max|logit| (or ZOO_BF16_JAX_GAP); every BN one
+    K1 launch, none scalar."""
+    import numpy as np
+    import torch
+
+    from distribuuuu_tpu_torch.data.transforms import device_normalize
+    from distribuuuu_tpu_torch.models import build_model
+    from distribuuuu_tpu_torch.ops import epilogue as ep
+    from distribuuuu_tpu_torch.serve.engine import InferenceEngine, ModelSpec
+
+    sd = synthetic_state_dict(arch)
+    path = tmp / f"{arch}.pt"
+    torch.save(sd, path)
+    engine = InferenceEngine(batch_sizes=[ZOO_SERVE_BATCH], im_size=IM, num_classes=1000,
+                             compute_dtype="bfloat16", device="cuda")
+    engine.load(ModelSpec(name=arch, arch=arch, weights=str(path)))
+    imgs = np.random.default_rng(11).integers(0, 256, size=(ZOO_SERVE_BATCH, IM, IM, 3),
+                                              dtype=np.uint8)
+    engine.forward(arch, imgs)  # warm-up: cuDNN's algorithm choice
+    ep.LAUNCHES = ep.SCALAR_LAUNCHES = 0
+    got = engine.forward(arch, imgs)
+    launches = (ep.LAUNCHES, ep.SCALAR_LAUNCHES)
+    ref_model = build_model(arch, num_classes=1000, dtype=torch.float32, im_size=IM)
+    ref_model.load_state_dict(sd, strict=True)
+    with torch.no_grad():
+        ref = ref_model.to(memory_format=torch.channels_last).eval()(
+            device_normalize(torch.from_numpy(imgs))).numpy()
+    err = float(np.abs(got - ref).max() / np.abs(ref).max())
+    limit = max(BF16_REL_TOL, ZOO_BF16_JAX_GAP.get(arch, 0.0))
+    say(f"[zoo f32] {arch} served bf16 {IM}^2 batch {ZOO_SERVE_BATCH} vs CPU f32: {err:.2e} of "
+        f"max|logit| {float(np.abs(ref).max()):.3f} (limit {limit}); K1 launches, scalar "
+        f"{launches}")
+    if not err <= limit or launches != (ZOO_F32[arch], 0) or not np.isfinite(got).all():
+        fail(f"[zoo f32] {arch}: the served bf16 forward is outside {limit} of the CPU's "
+             f"f32 one, or its launches {launches} are not every BN's")
+    return dict(bf16_rel_err=err, limit=limit, launches=launches[0])
+
+
+def phase_zoo_f32(tmp: Path) -> dict:
+    """[zoo f32]: :func:`zoo_f32_step` and :func:`zoo_serve` for each family."""
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return {arch: dict(zoo_f32_step(arch), serve=zoo_serve(arch, tmp)) for arch in ZOO_F32}
 
 
 # [input], [train-jpeg], [oracle]: the real-image input path. A JPEG
@@ -2124,9 +2454,11 @@ def kernel_split(call, calls: int = 10) -> dict:
 
 
 def synthetic_state_dict(arch: str = "resnet50", seed: int = 0, im: int = IM):
-    """Seeded weights: fan-in normal convs, BN stats and affine drawn away
-    from the identity (every BN scale, BoTNet's zero-γ ``bn_out`` too),
-    position tables at their init scale, a small fc."""
+    """Seeded weights: fan-in normal convs (and SE convs), BN stats and
+    affine drawn away from the identity (every BN scale, BoTNet's zero-γ
+    ``bn_out`` too), position tables at their init scale, a small fc (the
+    last linear); ViT's linears fan-in normal, its class token and position
+    table N(0, 0.02), its LayerNorms as the BNs' affine."""
     import numpy as np
     import torch
 
@@ -2134,7 +2466,7 @@ def synthetic_state_dict(arch: str = "resnet50", seed: int = 0, im: int = IM):
 
     rng = np.random.default_rng(seed)
     model = build_model(arch, num_classes=1000, dtype=torch.float32, im_size=im)
-    fc = next(n for n, m in model.named_modules() if isinstance(m, torch.nn.Linear))
+    fc = [n for n, m in model.named_modules() if isinstance(m, torch.nn.Linear)][-1]
     sd = {}
     for k, v in model.state_dict().items():
         shape = tuple(v.shape)
@@ -2146,7 +2478,11 @@ def synthetic_state_dict(arch: str = "resnet50", seed: int = 0, im: int = IM):
             a = rng.standard_normal(shape) * shape[1] ** -0.5
         elif v.dim() == 4:
             a = rng.standard_normal(shape) * np.sqrt(2.0 / np.prod(shape[1:]))
-        elif k.endswith("running_mean") or k.endswith(".bias"):
+        elif v.dim() == 2:  # ViT's linears, the packed qkv among them
+            a = rng.standard_normal(shape) / np.sqrt(shape[1])
+        elif v.dim() == 3:  # ViT's class token and position table
+            a = rng.standard_normal(shape) * 0.02
+        elif k.endswith("running_mean") or k.endswith("bias"):
             a = rng.standard_normal(shape) * 0.1
         elif k.endswith("running_var"):
             a = rng.uniform(0.5, 2.0, shape)
@@ -3233,6 +3569,7 @@ def phase_moe_dist(tmp: Path) -> dict:
 def main() -> None:
     import torch
 
+    wall0 = time.perf_counter()
     args = sys.argv[1:]
     if args not in ([], ["--profile-only"]):
         fail(f"usage: python3 chip_smoke.py [--profile-only]; got {args}")
@@ -3251,7 +3588,15 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False  # f32 on the card is full f32 everywhere
     torch.backends.cuda.matmul.allow_tf32 = False
 
+    laps, tic = {}, [time.perf_counter()]
+
+    def lap(name: str) -> None:  # the wall time since the previous lap, under ``name``
+        now = time.perf_counter()
+        laps[name] = round(now - tic[0], 1)
+        tic[0] = now
+
     builds = phase_build()
+    lap("build")
     if args:
         with tempfile.TemporaryDirectory() as tmp:
             for arch in SERVED:
@@ -3267,6 +3612,7 @@ def main() -> None:
         if sum(by_b[LADDER_BATCH].values()) != SERVED[arch]["k1"]:
             fail(f"{arch}: {sum(by_b[LADDER_BATCH].values())} K1 sites, want {SERVED[arch]['k1']}")
     rows, scalar, k1_err = phase_k1(card, {arch: by_b[LADDER_BATCH] for arch, by_b in sites.items()})
+    lap("k1")
     train_sites = epilogue_sites("resnet50", LADDER_BATCH, bn_dtype=torch.bfloat16)
     if sum(train_sites.values()) != TRAIN_K1:
         fail(f"resnet50 training: {sum(train_sites.values())} K1 sites, want {TRAIN_K1}")
@@ -3277,18 +3623,26 @@ def main() -> None:
         "k1_bwd": sum(k1_bwd_bound(site, bw)[0] * m for site, m in train_sites.items())}
     bwd_rows, bwd_step, bwd_err, bwd_worst = phase_k1_bwd(card, train_sites,
                                                           sites["resnet50"][LADDER_BATCH])
+    lap("k1-bwd")
     attn = phase_attention(card)
     attn_bwd = phase_attention_bwd(card)
+    lap("attention, attention-bwd")
     with tempfile.TemporaryDirectory() as tmp:
         serve = phase_serve(card, Path(tmp), "resnet50", k1_bound_us["resnet50"])
         bot = phase_serve(card, Path(tmp), "botnet50", k1_bound_us["botnet50"])
         large = phase_large_crop(card, Path(tmp))
     table = phase_mhsa_table()
+    lap("serve, large crop, mhsa table")
     moe = phase_moe_kernels(card)
     with tempfile.TemporaryDirectory() as tmp:
         moe_dist = phase_moe_dist(Path(tmp))
-    with tempfile.TemporaryDirectory() as tmp:
-        train = phase_train(card, Path(tmp), train_bound_ms)
+    lap("moe")
+    # the training phases' checkpoints outlive their phases: their test_net
+    # runs go together, after the last timed phase (run_test_nets)
+    train_tmp = tempfile.TemporaryDirectory()
+    evals: list = []
+    train = phase_train(card, Path(train_tmp.name), train_bound_ms, evals)
+    lap("train")
     bot_sites = epilogue_sites("botnet50", BOT_BATCH, bn_dtype=torch.bfloat16)
     if sum(bot_sites.values()) != TRAIN_K1:
         fail(f"botnet50 training: {sum(bot_sites.values())} K1 sites, want {TRAIN_K1}")
@@ -3299,8 +3653,8 @@ def main() -> None:
         "attention": BOT_ATTENTION * attention_bound(BOT_BATCH * 4, 196, 128, 128, "bfloat16",
                                                      "bias", bw)[0],
         "attention_bwd": BOT_ATTENTION * attn_bwd["K2 train"]["bound_ms"]}
-    with tempfile.TemporaryDirectory() as tmp:
-        train_bot = phase_train_bot(card, Path(tmp), bot_bound_ms)
+    train_bot = phase_train_bot(card, Path(train_tmp.name), bot_bound_ms, evals)
+    lap("train-bot")
     l512 = (BOT512_IM // 16) ** 2
     bot512_bound_ms = dict(
         bot_bound_ms,
@@ -3315,8 +3669,8 @@ def main() -> None:
                                 for site, m in bot512_sites.items())
     bot512_bound_ms["k1_bwd"] = sum(k1_bwd_bound(site, bw)[0] * m
                                     for site, m in bot512_sites.items())
-    with tempfile.TemporaryDirectory() as tmp:
-        train_bot_512 = phase_train_bot_512(card, Path(tmp), bot512_bound_ms)
+    train_bot_512 = phase_train_bot_512(card, Path(train_tmp.name), bot512_bound_ms, evals)
+    lap("train-bot-512")
     with tempfile.TemporaryDirectory() as tmp:
         jpegs = write_jpeg_imagefolder(Path(tmp) / "jpeg")
         say(f"[input] wrote {jpegs['files']} JPEGs ({JPEG_SPLITS}, {JPEG_CLASSES} classes, "
@@ -3327,8 +3681,18 @@ def main() -> None:
         train_dp = phase_train_dataplane(card, Path(tmp), Path(tmp) / "jpeg", train_bound_ms,
                                          train_jpeg, train, inp)
         oracle = phase_oracle(card, Path(tmp))
+    lap("input, train-jpeg, train-dataplane, oracle")
     with tempfile.TemporaryDirectory() as tmp:
         train_preempt = phase_train_preempt(card, Path(tmp), smi)
+    lap("train-preempt")
+    zoo = phase_train_zoo(card, Path(train_tmp.name), bw, evals)
+    lap("train-zoo")
+    run_test_nets(evals)
+    train_tmp.cleanup()
+    lap(f"test_net x {len(evals)}, concurrently")
+    with tempfile.TemporaryDirectory() as tmp:
+        zoo_f32 = phase_zoo_f32(Path(tmp))
+    lap("zoo f32")
 
     # K1 per batch-128 forward of each served model: its sites' rows summed
     per_fwd, modes = {}, {}
@@ -3357,7 +3721,8 @@ def main() -> None:
          "train_bot_sites": [[*site, m] for site, m in sorted(bot_sites.items())],
          "train_bot_512": train_bot_512, "train_bot_512_bound_ms": bot512_bound_ms,
          "input": inp, "train_jpeg": train_jpeg, "train_dataplane": train_dp,
-         "oracle": oracle, "train_preempt": train_preempt}, indent=1))
+         "oracle": oracle, "train_preempt": train_preempt, "train_zoo": zoo,
+         "zoo_f32": zoo_f32, "phase_wall_s": laps}, indent=1))
     (out / "chip_smoke_moe.json").write_text(json.dumps(
         {"card": smi, "build": builds["moe"], "kernels": moe, "dist": moe_dist}, indent=1))
     for arch, f in per_fwd.items():
@@ -3480,7 +3845,7 @@ def main() -> None:
                f"epilogue_reference) and library_ms (autograd through F.batch_norm + cast + add "
                f"+ relu): back to back; launches: the {TRAIN_STEPS} steps of [train]; "
                f"max_abs_err: over d_x, d_identity (bitwise) and the per-channel sums (within "
-               f"{K1_BWD_SUM_RTOL} of sum|terms|)",
+               f"{K1_BWD_SUM_RTOL} of sum|terms|) at [k1-bwd]'s and [train-zoo]'s sites",
         "back_to_back_ms": bwd_step["ms"],
         "single_call_ms": bwd_step["single_call_ms"],
         "sum_rel_err": bwd_worst,
@@ -3493,6 +3858,26 @@ def main() -> None:
         kernels[i]["train_dataplane_launches"] = train_dp["launches"][key]
         kernels[i]["oracle_epoch0_launches"] = oracle["launches"][key]
         kernels[i]["train_preempt_launches"] = train_preempt["launches"][key]
+    # the zoo's sites checked too ([train-zoo], zoo_k1_check)
+    kernels[0]["max_abs_err"] = max([k1_err, *(r["k1_check"]["k1_max_abs_err"]
+                                               for r in zoo.values())])
+    kernels[1]["max_abs_err"] = max([bwd_err, *(r["k1_check"]["k1_bwd_max_abs_err"]
+                                               for r in zoo.values())])
+    kernels[1]["sum_rel_err"] = max([bwd_worst, *(r["k1_check"]["k1_bwd_sum_rel_err"]
+                                                 for r in zoo.values())])
+    for i, key in ((0, "k1"), (1, "k1_bwd")):  # the zoo: every BN of each family
+        kernels[i]["train_zoo"] = {
+            arch: {"launches": r["launches"][key], "per_step": r["k1_a_step"],
+                   "in_situ_us_per_step": r["profile"].get("per_step_us", {}).get(
+                       "K1" if key == "k1" else "K1-bwd"),
+                   "bound_ms_per_step": r["bound_ms"].get(key),
+                   "per": f"{r['steps']} steps of [train-zoo] at batch {r['batch']}, 224x224, "
+                          f"bf16; the profiler's µs a step of the kernel class; the bound "
+                          f"from the step's K1 sites"}
+            for arch, r in zoo.items()}
+    kernels[0]["zoo_serve_launches"] = {arch: r["serve"]["launches"] for arch, r in zoo_f32.items()}
+    kernels[0]["zoo_f32_launches"] = {arch: r["launches"][0] for arch, r in zoo_f32.items()}
+    kernels[1]["zoo_f32_launches"] = {arch: r["launches"][1] for arch, r in zoo_f32.items()}
     k2 = next(k for k in kernels if k["name"].startswith("K2 "))
     k2["train_launches"] = train_bot["launches"]["attention"]
     r = attn_bwd["K2 train"]
@@ -3606,6 +3991,8 @@ def main() -> None:
                    for name, row in attn_bwd.items()
                    if "device_ms" in row and row["bias_dtype"] == "table"},
     })
+    say(f"[smoke] the whole run took {time.perf_counter() - wall0:.1f} s; by phase (s): "
+        + ", ".join(f"{k} {v}" for k, v in laps.items()))
     say(smi)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -245,12 +245,16 @@ def save_mid_checkpoint(out_dir: str, epoch: int, step: int, state, best_acc1: f
     then removes the older emergency checkpoints of the same epoch, which it
     dominates. Returns the path.
 
-    The port draws no random number a step (ResNet and BoTNet have no
-    dropout), so there is no generator state to save; a model with dropout
-    must add its dropout ``torch.Generator``'s ``get_state()`` here (the
-    JAX package's ``rng_key``) and restore it in :func:`load_mid_checkpoint`."""
+    The dropout stream is counter-based (``trainer.dropout_seed``:
+    each micro-step's generator is seeded from the run's base seed, the
+    epoch, the step, the micro-step and the rank), so the checkpoint holds
+    what the JAX package's ``rng_key`` holds, the base seed
+    (``dropout_seed``), and no generator state: a resume draws the same
+    masks."""
     payload = dict(_state_payload(state, epoch, best_acc1), step=int(step),
                    devices=int(state.world))
+    if getattr(state, "dropout_seed", None) is not None:
+        payload["dropout_seed"] = int(state.dropout_seed)
     if samples_per_step:
         payload["samples_per_step"] = int(samples_per_step)
         payload["global_samples"] = int(step) * int(samples_per_step)
@@ -328,6 +332,8 @@ def load_mid_checkpoint(path: str, state, samples_per_step: int | None = None,
                     + f") -> step {step} (@{samples_per_step} samples/step) at sample offset "
                     f"{global_samples}")
     _restore_state(payload, state, load_opt)
+    if "dropout_seed" in payload:  # continue the interrupted run's dropout stream
+        state.dropout_seed = int(payload["dropout_seed"])
     return int(payload["epoch"]), step, float(payload.get("best_acc1", 0.0))
 
 

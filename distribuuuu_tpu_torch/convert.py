@@ -5,10 +5,13 @@
   HWIO -> OIHW convs, ``[in, out]`` -> ``[out, in]`` linears, ``layerS_I`` ->
   ``layerS.I``, ``ds_conv``/``ds_bn`` -> ``downsample.0``/``downsample.1``;
   for botnet50 the reference's Sequential numbering, with the position
-  tables carried verbatim. The port's own copy of the ResNet and BoTNet
-  parts of ``distribuuuu_tpu.convert``'s ``export_state_dict``.
+  tables carried verbatim; torchvision naming for DenseNet and ViT, timm's
+  for EfficientNet and RegNet. The port's own copy of
+  ``distribuuuu_tpu.convert``'s ``export_state_dict``: both give the same
+  keys and values, so a JAX export loads into the port with ``strict=True``.
+  MAE raises (ROADMAP Queue 1 item 11).
 - :func:`load_weights` reads a torch ``.pt``/``.pth`` state_dict in
-  torchvision naming.
+  torchvision naming (DenseNet's pre-1.0 keys, ``norm.1``, remapped).
 - :func:`botnet50_trunk_from_resnet50` and :func:`merge_pretrained`: the
   reference's ``botnet50(pretrained=True)``, a resnet50's stem and stages
   1-3 under botnet50's numbering over a fresh botnet50.
@@ -87,15 +90,130 @@ def _botnet_module_name(mod: list[str]) -> str:
     return f"{prefix}.{_BOT_SLOTS[mod[1]]}"
 
 
+def _densenet_module_name(mod: list[str]) -> str:
+    """torchvision's ``features.denseblock{B}.denselayer{L}``,
+    ``features.transition{B}.{norm, conv}``, ``features.{conv0, norm0,
+    norm5}``, ``classifier``."""
+    parts = []
+    for p in mod:
+        m = re.fullmatch(r"block(\d+)_layer(\d+)", p)
+        t = re.fullmatch(r"trans(\d+)_(norm|conv)", p)
+        if m:
+            parts += [f"features.denseblock{m.group(1)}", f"denselayer{m.group(2)}"]
+        elif t:
+            parts.append(f"features.transition{t.group(1)}.{t.group(2)}")
+        elif p in ("conv0", "norm0", "norm5"):
+            parts.append(f"features.{p}")
+        else:
+            parts.append(p)
+    return ".".join(parts)
+
+
+# MBConv submodules -> timm's names: the first stage's depthwise-separable
+# block, the others' inverted residual
+_EFF_DS = {"dw_conv": "conv_dw", "dw_bn": "bn1", "project_conv": "conv_pw", "project_bn": "bn2"}
+_EFF_IR = {"expand_conv": "conv_pw", "expand_bn": "bn1", "dw_conv": "conv_dw", "dw_bn": "bn2",
+           "project_conv": "conv_pwl", "project_bn": "bn3"}
+_EFF_TOP = {"stem_conv": "conv_stem", "stem_bn": "bn1", "head_conv": "conv_head",
+            "head_bn": "bn2", "classifier": "classifier"}
+
+
+def _efficientnet_module_name(mod: list[str]) -> str:
+    if mod[0] in _EFF_TOP:
+        return _EFF_TOP[mod[0]]
+    m = re.fullmatch(r"stage(\d+)_block(\d+)", mod[0])
+    if not m:
+        raise KeyError(f"unmapped efficientnet module path {mod}")
+    prefix = f"blocks.{int(m.group(1)) - 1}.{int(m.group(2)) - 1}"
+    if mod[1] == "se":
+        return f"{prefix}.se.conv_{'reduce' if mod[2] == 'reduce' else 'expand'}"
+    return f"{prefix}.{(_EFF_DS if m.group(1) == '1' else _EFF_IR)[mod[1]]}"
+
+
+_REGNET_TOP = {"stem_conv": "stem.conv", "stem_bn": "stem.bn", "head_fc": "head.fc"}
+
+
+def _regnet_module_name(mod: list[str]) -> str:
+    if mod[0] in _REGNET_TOP:
+        return _REGNET_TOP[mod[0]]
+    m = re.fullmatch(r"stage(\d+)_block(\d+)", mod[0])
+    if not m:
+        raise KeyError(f"unmapped regnet module path {mod}")
+    prefix = f"s{m.group(1)}.b{m.group(2)}"
+    inner = mod[1]
+    if inner == "se":
+        return f"{prefix}.se.fc{'1' if mod[2] == 'reduce' else '2'}"
+    if inner in ("sc_conv", "sc_bn"):
+        return f"{prefix}.downsample.{inner[3:]}"
+    c = re.fullmatch(r"(conv|bn)(\d)", inner)
+    if not c:
+        raise KeyError(f"unmapped regnet module path {mod}")
+    return f"{prefix}.conv{c.group(2)}.{c.group(1)}"
+
+
+def _family_module_name(arch: str):
+    if arch == "botnet50":
+        return _botnet_module_name
+    for family, fn in (("densenet", _densenet_module_name),
+                       ("efficientnet", _efficientnet_module_name),
+                       ("regnet", _regnet_module_name)):
+        if arch.startswith(family):
+            return fn
+    return _resnet_module_name
+
+
+def _vit_state_dict(variables: Mapping) -> dict[str, np.ndarray]:
+    """torchvision's ``vit_b_16`` keys from JAX ViT params: the qkv and
+    out-projection leaves are whole-key renames, not module paths."""
+    sd: dict[str, np.ndarray] = {}
+
+    def w_or_b(leaf_name, val):  # a Dense leaf: kernel [in, out] -> weight [out, in]
+        return ("weight", val.T) if leaf_name == "kernel" else ("bias", val)
+
+    for path, leaf in _flatten(variables.get("params", {})):
+        val = np.array(leaf, dtype=np.float32)
+        mod, leaf_name = list(path[:-1]), path[-1]
+        if not mod:
+            sd["class_token" if leaf_name == "cls_token" else "encoder.pos_embedding"] = val
+        elif mod[0] == "patch_embed":
+            sd[f"conv_proj.{'weight' if leaf_name == 'kernel' else 'bias'}"] = (
+                np.transpose(val, (3, 2, 0, 1)) if leaf_name == "kernel" else val)
+        elif mod[0] == "ln_f":
+            sd[f"encoder.ln.{'weight' if leaf_name == 'scale' else 'bias'}"] = val
+        elif mod[0] == "head":
+            name, v = w_or_b(leaf_name, val)
+            sd[f"heads.head.{name}"] = v
+        else:
+            p = f"encoder.layers.encoder_layer_{int(mod[0].removeprefix('block'))}"
+            if mod[1] in ("ln1", "ln2"):
+                sd[f"{p}.ln_{mod[1][-1]}.{'weight' if leaf_name == 'scale' else 'bias'}"] = val
+            elif mod[1] == "attn" and mod[2] == "qkv":
+                name, v = w_or_b(leaf_name, val)
+                sd[f"{p}.self_attention.in_proj_{name}"] = v
+            elif mod[1] == "attn":
+                name, v = w_or_b(leaf_name, val)
+                sd[f"{p}.self_attention.out_proj.{name}"] = v
+            else:  # fc1 / fc2
+                name, v = w_or_b(leaf_name, val)
+                sd[f"{p}.mlp.linear_{mod[1][-1]}.{name}"] = v
+    return sd
+
+
 # leaves stored verbatim on both sides (BoTNet's position tables)
 _RAW_LEAVES = {"rel_height", "rel_width", "height", "width"}
 
 
 def from_jax_variables(variables: Mapping, arch: str) -> dict[str, torch.Tensor]:
     """The port's state_dict for ``arch`` from JAX ``{"params", "batch_stats"}``."""
+    if arch.startswith("mae_"):
+        raise NotImplementedError(f"{arch}: MAE is not ported yet (ROADMAP Queue 1 item 11), "
+                                  f"and has no torch-layout schema")
     if arch not in list_models():
         raise KeyError(f"{arch!r} is not a model of the port; it has: {', '.join(list_models())}")
-    module_name = _botnet_module_name if arch == "botnet50" else _resnet_module_name
+    if arch.startswith("vit"):
+        return {k: torch.from_numpy(np.ascontiguousarray(v))
+                for k, v in _vit_state_dict(variables).items()}
+    module_name = _family_module_name(arch)
     sd: dict[str, torch.Tensor] = {}
     for col in ("params", "batch_stats"):
         for path, leaf in _flatten(variables.get(col, {})):
@@ -118,14 +236,19 @@ def from_jax_variables(variables: Mapping, arch: str) -> dict[str, torch.Tensor]
     return sd
 
 
+# DenseNet's pre-1.0 keys: ``denselayer1.norm.1.weight`` -> ``denselayer1.norm1.weight``
+_DENSENET_LEGACY = re.compile(r"^(.*denselayer\d+\.(?:norm|relu|conv))\.([12])\.(.*)$")
+
+
 def load_weights(path: str) -> dict[str, torch.Tensor]:
     """A torchvision-layout state_dict from a ``.pt``/``.pth`` file.
 
     Loaded with ``weights_only=True`` (no arbitrary unpickling). A
     ``{"state_dict": ...}`` wrapper and ``module.`` prefixes are unwrapped,
-    and torchvision's ``num_batches_tracked`` buffers are dropped: the
-    port's BN has none. A directory (an Orbax checkpoint of the JAX package)
-    raises a ValueError that names the export route.
+    torchvision's ``num_batches_tracked`` buffers are dropped (the port's
+    BN has none), and DenseNet's legacy ``norm.1``-style keys renamed. A
+    directory (an Orbax checkpoint of the JAX package) raises a ValueError
+    that names the export route.
     """
     if Path(path).is_dir():
         raise ValueError(
@@ -138,10 +261,11 @@ def load_weights(path: str) -> dict[str, torch.Tensor]:
     if isinstance(sd.get("state_dict"), Mapping):
         sd = sd["state_dict"]
     return {
-        k.removeprefix("module."): v
+        _DENSENET_LEGACY.sub(r"\1\2.\3", k.removeprefix("module.")): v
         for k, v in sd.items()
         if not k.endswith(".num_batches_tracked")
     }
+
 
 
 # torchvision resnet50 trunk -> botnet50's Sequential slots

@@ -217,10 +217,13 @@ class BoTStack(nn.Module):
 
 class BoTNet50(nn.Module):
     """ResNet-50 stem and stages 1-3, a 3-block BoTStack (2048 wide, heads
-    4, dim_qk = dim_v = 128, relative position bias, stride 1), the head."""
+    4, dim_qk = dim_v = 128, relative position bias, stride 1), the head.
+    ``stem_s2d`` is accepted and changes nothing, as in :class:`ResNet`."""
+
+    crop_sized = True  # the position tables are sized by the crop at construction
 
     def __init__(self, num_classes=1000, fmap_size=(14, 14), dtype=torch.bfloat16,
-                 bn_dtype=torch.float32):
+                 bn_dtype=torch.float32, stem_s2d=False):
         super().__init__()
         self.add_module("0", conv(3, 64, 7, 2, padding=3, dtype=dtype))
         self.add_module("1", BatchNorm(64, bn_dtype=bn_dtype))

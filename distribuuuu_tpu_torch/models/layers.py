@@ -26,6 +26,13 @@ affine; gradients reach the statistics through autograd on those ops, and
 K1's own backward is a kernel (``ops/epilogue.py``). ``bn_dtype`` is then
 the model's compute dtype unless the config says otherwise.
 
+The rest of the zoo's pieces: :class:`SqueezeExcite` (RegNetY,
+EfficientNet), :func:`bn_silu` (K1 without ReLU, then SiLU), and the
+random masks :class:`DropPath` and :class:`Dropout`, which draw only from
+a generator handed to them (the trainer reseeds one each micro-step;
+:func:`set_generator` hands one to a whole model). :func:`init_weights` draws every family's JAX
+initialisers from one generator.
+
 Tensors are NCHW-logical and stored channels-last, so C is contiguous.
 """
 
@@ -177,27 +184,150 @@ def classifier_head(x, fc: nn.Linear):
     return F.linear(x, fc.weight.float(), fc.bias.float())
 
 
+def bn_silu(x, bn: BatchNorm):
+    """BN without ReLU through K1 (the BN dtype), then SiLU: EfficientNet's
+    ``nn.silu(bn(x))``. K1 has no SiLU mode, as the JAX kernel has none."""
+    return F.silu(bn(x))
+
+
+class SqueezeExcite(nn.Module):
+    """The SE gate (``layers.SqueezeExcite``): an f32 mean over H and W cast
+    back to the input's dtype, a 1x1 reduce conv with bias, ``act``, a 1x1
+    expand conv with bias (both in the compute dtype), then ``x *
+    sigmoid(s)`` in the promoted dtype (f32 where the gated tensor is the
+    f32 BN boundary). ``names``: the two convs' names (timm's
+    ``conv_reduce``/``conv_expand`` in EfficientNet, ``fc1``/``fc2`` in
+    RegNet). The 1x1 convs on a 1x1 map run as linears over ``[N, C]``;
+    their weights keep the conv shape ``[out, in, 1, 1]``."""
+
+    def __init__(self, channels: int, se_dim: int, act, *, dtype,
+                 names=("conv_reduce", "conv_expand")):
+        super().__init__()
+        self.names = names
+        self.add_module(names[0], nn.Conv2d(channels, se_dim, 1))
+        self.add_module(names[1], nn.Conv2d(se_dim, channels, 1))
+        self.act = act
+        self.compute_dtype = dtype
+
+    def _linear(self, s, conv: nn.Conv2d):
+        dt = self.compute_dtype
+        return F.linear(s.to(dt), conv.weight.flatten(1).to(dt), conv.bias.to(dt))
+
+    def forward(self, x):
+        reduce, expand = (self._modules[n] for n in self.names)
+        s = x.mean((2, 3), dtype=torch.float32).to(x.dtype)
+        s = self._linear(self.act(self._linear(s, reduce)), expand)
+        return x * torch.sigmoid(s)[:, :, None, None]
+
+    def init_params(self, generator: torch.Generator) -> None:
+        """flax ``nn.Conv``'s defaults: ``lecun_normal`` kernels (a normal
+        cut at +-2 std, rescaled to std ``sqrt(1 / fan_in)``, as the variance
+        scaling initialisers do) and zero biases."""
+        for conv in self.children():
+            trunc_normal_(conv.weight, 1.0 / math.sqrt(conv.in_channels) / _TRUNC_STD, generator)
+            conv.bias.zero_()
+
+
+class RandomMask(nn.Module):
+    """A layer that draws a mask in training from ``generator``, which the
+    trainer sets before every forward (``TrainState.masks``); it raises
+    without one rather than draw from a global stream. ``rate`` is the
+    share dropped; the kept values are scaled by ``1 / (1 - rate)`` in the
+    input's dtype, as flax's ``jnp.where(mask, h / keep, 0)``."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = float(rate)
+        self.generator: torch.Generator | None = None
+
+    @property
+    def active(self) -> bool:
+        return self.training and self.rate > 0.0
+
+    def mask_shape(self, x) -> tuple:
+        raise NotImplementedError
+
+    def forward(self, x):
+        if not self.active:
+            return x
+        if self.generator is None:
+            raise RuntimeError(f"{type(self).__name__}(rate={self.rate}) in training needs a "
+                               f"generator: set one with layers.set_generator")
+        keep = 1.0 - self.rate
+        mask = torch.rand(self.mask_shape(x), device=x.device, generator=self.generator) < keep
+        return torch.where(mask, x / keep, 0.0).to(x.dtype)
+
+
+class DropPath(RandomMask):
+    """Stochastic depth: one draw a sample (EfficientNet's MBConv)."""
+
+    def mask_shape(self, x) -> tuple:
+        return (x.shape[0],) + (1,) * (x.dim() - 1)
+
+
+class Dropout(RandomMask):
+    """Dropout: one draw an element (flax ``nn.Dropout``)."""
+
+    def mask_shape(self, x) -> tuple:
+        return tuple(x.shape)
+
+
+def set_generator(model: nn.Module, generator: torch.Generator | None) -> None:
+    """Hand ``generator`` to every :class:`RandomMask` of ``model``."""
+    for m in model.modules():
+        if isinstance(m, RandomMask):
+            m.generator = generator
+
+
+# std of N(0, 1) truncated to [-2, 2]
+_TRUNC_STD = 0.87962566103423978
+
+
+def trunc_normal_(t: torch.Tensor, std: float, generator: torch.Generator) -> torch.Tensor:
+    """flax's ``truncated_normal(std)``: N(0, std) cut at +-2 std, so the
+    result's own std is ``0.8796 * std``. (torch's ``trunc_normal_`` takes
+    its bounds in absolute units: they are passed here.)"""
+    return nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+
+
+def xavier_uniform_(t: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """flax's ``xavier_uniform`` on a ``[out, in]`` weight: U(+-sqrt(6 /
+    (fan_in + fan_out)))."""
+    bound = math.sqrt(6.0 / (t.shape[0] + t.shape[1]))
+    return t.uniform_(-bound, bound, generator=generator)
+
+
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """The JAX zoo's initialisers, drawn from ``generator`` in module order:
     convs kaiming-normal fan-out ``N(0, 2 / (out * kh * kw))``, linears
     ``U(-1/sqrt(fan_in), 1/sqrt(fan_in))`` with a zero bias, BN scale one
     (zero under ``zero_scale``) and bias zero, running statistics zero and
     one, BoTNet's position tables ``N(0, dim_head^-0.5)`` (a module's
-    ``init_tables``). Returns ``model``."""
+    ``init_tables``). A module with ``init_params`` draws its whole subtree
+    itself (the SE gate's ``lecun_normal`` convs, ViT's initialisers).
+    Returns ``model``."""
     with torch.no_grad():
-        for m in model.modules():
-            if isinstance(m, nn.Conv2d):
-                fan_out = m.out_channels * m.kernel_size[0] * m.kernel_size[1]
-                m.weight.normal_(0.0, math.sqrt(2.0 / fan_out), generator=generator)
-            elif isinstance(m, nn.Linear):
-                bound = 1.0 / math.sqrt(m.in_features)
-                m.weight.uniform_(-bound, bound, generator=generator)
-                m.bias.zero_()
-            elif isinstance(m, BatchNorm):
-                m.weight.fill_(0.0 if m.zero_scale else 1.0)
-                m.bias.zero_()
-                m.running_mean.zero_()
-                m.running_var.fill_(1.0)
-            elif hasattr(m, "init_tables"):
-                m.init_tables(generator)
+        _init(model, generator)
     return model
+
+
+def _init(m: nn.Module, generator: torch.Generator) -> None:
+    if hasattr(m, "init_params"):
+        m.init_params(generator)
+        return
+    if isinstance(m, nn.Conv2d):
+        fan_out = m.out_channels * m.kernel_size[0] * m.kernel_size[1]
+        m.weight.normal_(0.0, math.sqrt(2.0 / fan_out), generator=generator)
+    elif isinstance(m, nn.Linear):
+        bound = 1.0 / math.sqrt(m.in_features)
+        m.weight.uniform_(-bound, bound, generator=generator)
+        m.bias.zero_()
+    elif isinstance(m, BatchNorm):
+        m.weight.fill_(0.0 if m.zero_scale else 1.0)
+        m.bias.zero_()
+        m.running_mean.zero_()
+        m.running_var.fill_(1.0)
+    elif hasattr(m, "init_tables"):
+        m.init_tables(generator)
+    for child in m.children():
+        _init(child, generator)

@@ -121,10 +121,16 @@ def resnet_stages(block, stage_sizes, groups=1, width_per_group=64, *, dtype, bn
 
 
 class ResNet(nn.Module):
-    """Stem -> 4 stages -> global average pool -> fc."""
+    """Stem -> 4 stages -> global average pool -> fc.
+
+    ``stem_s2d`` (``MODEL.STEM_S2D``) is accepted as the JAX family accepts
+    it, and changes nothing: the JAX space-to-depth stem computes the 7x7/2
+    conv's function bitwise, and here cuDNN runs that conv as it is. The
+    other families refuse the option."""
 
     def __init__(self, block, stage_sizes, num_classes=1000, groups=1, width_per_group=64,
-                 dtype=torch.bfloat16, bn_dtype=torch.float32, zero_init_residual=False):
+                 dtype=torch.bfloat16, bn_dtype=torch.float32, zero_init_residual=False,
+                 stem_s2d=False):
         super().__init__()
         self.conv1 = conv(3, 64, 7, 2, padding=3, dtype=dtype)
         self.bn1 = BatchNorm(64, bn_dtype=bn_dtype)

@@ -91,15 +91,19 @@ class SGD:
 
 class LAMB:
     """Adam moments -> masked weight decay -> trust ratio, over a flat
-    buffer whose parameters are ``segments`` (offset, numel, ndim)."""
+    buffer whose parameters are ``segments`` (offset, numel, ndim), in
+    order; the zeros between two of them (alignment gaps) stay zero."""
 
     def __init__(self, params: torch.Tensor, segments, *, b1: float, b2: float, eps: float,
                  weight_decay: float):
         self.b1, self.b2, self.eps, self.weight_decay = b1, b2, eps, weight_decay
         dev = params.device
-        self.sizes = torch.tensor([n for _, n, _ in segments], device=dev)
+        # each segment's span up to the next one's offset: its gap takes its ratio
+        ends = [o for o, _, _ in segments[1:]] + [params.numel()]
+        spans = [end - o for (o, _, _), end in zip(segments, ends)]
+        self.sizes = torch.tensor(spans, device=dev)
         self.decay = torch.cat([torch.full((n,), nd > 1, dtype=torch.bool, device=dev)
-                                for _, n, nd in segments])
+                                for (_, _, nd), n in zip(segments, spans)])
         self.segments = segments
         self.state = {"mu": torch.zeros_like(params), "nu": torch.zeros_like(params),
                       "count": torch.zeros((), dtype=torch.int32, device=dev)}

@@ -14,10 +14,13 @@ One process a GPU, data-parallel over the process group:
 buffer, its gradient as a view into a second and every BN running
 statistic as a view into a third, so the collectives, the guard and the
 optimizer each act on one tensor. On the card every BN runs K1 forward and
-K1-bwd backward (53 of each per ResNet-50 or BoTNet-50 step), and BoTNet's
-MHSA the attention kernel and its backward kernel (3 of each a step, the
-backward on its one-launch cluster route at 224^2, on the blockwise route
-at 512^2); on the CPU their plain versions.
+K1-bwd backward (53 of each per ResNet-50 or BoTNet-50 step, 121 per
+DenseNet-121, 59 per RegNetY-16GF, 49 per EfficientNet-B0, none in ViT),
+and BoTNet's MHSA the attention kernel and its backward kernel (3 of each
+a step, the backward on its one-launch cluster route at 224^2, on the
+blockwise route at 512^2); on the CPU their plain versions. Dropout and
+drop path draw from a generator seeded each micro-step from ``(seed,
+epoch, step, micro-step, rank)`` (:func:`dropout_seed`).
 
 Fault tolerance, as the JAX trainer's (:mod:`distribuuuu_tpu_torch.resilience`):
 at every step boundary the watchdog is beaten, the fault injector may kill,
@@ -38,6 +41,7 @@ import json
 import os
 import time
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -70,36 +74,69 @@ from distribuuuu_tpu_torch.runtime.seeding import configure_determinism, setup_s
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
+def _aligned_offsets(tensors) -> tuple[list[int], int]:
+    """Offsets of ``tensors`` laid out one after another in a flat f32
+    buffer, each rounded up to 4 elements so that every view starts 16 bytes
+    aligned, as an allocation of its own would (K1's vector route and
+    PyTorch's vectorised kernels need it; an odd-sized parameter, such as
+    EfficientNet-B0's 6-wide SE bias, would misalign every view after it);
+    and the buffer's length. The gaps hold zeros."""
+    offsets, o = [], 0
+    for t in tensors:
+        o = -(-o // 4) * 4
+        offsets.append(o)
+        o += t.numel()
+    return offsets, o
+
+
 class TrainState:
     """A model, its flat parameter/gradient/statistics buffers and the
     optimizer. ``grads`` has one slot more than ``params``: the step's loss,
-    all-reduced with the gradients."""
+    all-reduced with the gradients. Each parameter and buffer is a 16-byte
+    aligned view (:func:`_aligned_offsets`)."""
 
     def __init__(self, model: torch.nn.Module, group=None):
         self.model, self.group = model, group
         named = list(model.named_parameters())
         self.names = [n for n, _ in named]
-        self.params = torch.cat([p.detach().reshape(-1).float() for _, p in named])
-        self.grads = torch.zeros(self.params.numel() + 1, device=self.params.device)
-        self.segments, o = [], 0
-        for _, p in named:
+        offsets, total = _aligned_offsets([p for _, p in named])
+        device = named[0][1].device
+        self.params = torch.zeros(total, device=device)
+        self.grads = torch.zeros(total + 1, device=device)
+        self.segments = []
+        for (_, p), o in zip(named, offsets):
             k = p.numel()
+            self.params[o:o + k].copy_(p.detach().reshape(-1))
             p.data = self.params[o:o + k].view(p.shape)
             p.grad = self.grads[o:o + k].view(p.shape)
             self.segments.append((o, k, p.dim()))
-            o += k
         bufs = [b for _, b in model.named_buffers()]
-        self.stats = torch.cat([b.reshape(-1).float() for b in bufs]) if bufs else \
-            torch.zeros(0, device=self.params.device)
-        o = 0
-        for b in bufs:
+        offsets, total = _aligned_offsets(bufs)
+        self.stats = torch.zeros(total, device=device)
+        for b, o in zip(bufs, offsets):
+            self.stats[o:o + b.numel()].copy_(b.reshape(-1))
             b.data = self.stats[o:o + b.numel()].view(b.shape)
-            o += b.numel()
         self.optimizer = optim.construct_optimizer(self.params, self.segments)
+        # the dropout and drop-path layers that draw in training, one
+        # generator reseeded for them each micro-step, and the base of its
+        # stream (:func:`dropout_seed`), which a mid-epoch checkpoint
+        # carries as JAX's carries its rng_key
+        self.masks = [m for m in model.modules()
+                      if isinstance(m, layers.RandomMask) and m.rate > 0.0]
+        self.mask_generator = torch.Generator(device=device) if self.masks else None
+        self.dropout_seed: int | None = None
+
+    @property
+    def draws(self) -> bool:
+        return bool(self.masks)
 
     @property
     def world(self) -> int:
         return 1 if self.group is None else dist.get_world_size(self.group)
+
+    @property
+    def rank(self) -> int:
+        return 0 if self.group is None else dist.get_rank(self.group)
 
     def unflatten(self, flat: torch.Tensor) -> dict:
         """A flat parameter-shaped buffer (the momentum, say) by parameter name."""
@@ -108,15 +145,29 @@ class TrainState:
                 for n, (o, k, _) in zip(self.names, self.segments)}
 
 
+def dropout_seed(seed: int, epoch: int, step: int, micro: int, rank: int) -> int:
+    """The seed of one micro-step's dropout stream on one rank, from
+    ``(seed, epoch, step, micro, rank)`` alone, as JAX folds ``epoch``,
+    ``step`` and the device into its key and splits it per micro-step.
+    Ranks draw different masks, and a resumed run draws the same ones
+    without any saved generator state."""
+    hi, lo = np.random.SeedSequence([seed, epoch, step, micro, rank]).generate_state(2)
+    return (int(hi) << 32 | int(lo)) >> 1
+
+
 def train_step(state: TrainState, batch: dict, lr: float, *, accum_steps: int = 1,
-               topk: int = 5, label_smooth: float = 0.0, guard: bool = True) -> dict:
+               topk: int = 5, label_smooth: float = 0.0, guard: bool = True,
+               dropout_key: tuple | None = None) -> dict:
     """One optimizer step on the local batch (``image`` uint8 or float NHWC,
     ``label``), on the batch's device. Forward and backward per micro-batch
     (BN statistics updated in order), gradients and loss averaged over the
     micro-batches and over the group, the running statistics averaged over
     the group, then the update. With ``guard``, a non-finite loss or
     gradient leaves parameters, optimizer state and statistics as they
-    were. Returns this rank's metric sums as 0-d device tensors (no sync)."""
+    were. ``dropout_key``: ``(seed, epoch, step, rank)``, from which each
+    micro-step's dropout and drop-path masks are drawn
+    (:func:`dropout_seed`); a model that draws none needs none.
+    Returns this rank's metric sums as 0-d device tensors (no sync)."""
     model = state.model.train()
     images, labels = batch["image"], batch["label"]
     n = images.shape[0]
@@ -128,6 +179,13 @@ def train_step(state: TrainState, batch: dict, lr: float, *, accum_steps: int = 
     loss_sum, correct = 0.0, {1: 0.0, topk: 0.0}
     for i in range(accum_steps):
         sl = slice(i * mb, (i + 1) * mb)
+        if state.masks:  # without a key the layers raise rather than draw
+            gen = None
+            if dropout_key is not None:
+                gen = state.mask_generator.manual_seed(
+                    dropout_seed(*dropout_key[:3], i, dropout_key[3]))
+            for m in state.masks:
+                m.generator = gen
         logits = model(device_normalize(images[sl]))
         loss = cross_entropy_loss(logits, labels[sl], label_smooth)
         loss.backward()
@@ -185,7 +243,8 @@ UNPORTED_KEYS = (
 
 def _check_supported() -> None:
     """Raise on a config value whose subsystem the port does not have yet."""
-    todo = (("MESH.FSDP", cfg.MESH.FSDP in (0, 1), "item 12"),
+    todo = (("MODEL.ARCH", not cfg.MODEL.ARCH.startswith("mae_"), "item 11"),
+            ("MESH.FSDP", cfg.MESH.FSDP in (0, 1), "item 12"),
             # a fleet-scheduled dataplane (the key or DTPU_DATA_SERVICE); a
             # host:port address is ported
             ("DATA.SERVICE", service_address().lower() != "fleet", "item 13"),
@@ -203,17 +262,33 @@ def _check_supported() -> None:
 def build_cfg_model(generator: torch.Generator | None = None) -> torch.nn.Module:
     """``MODEL.ARCH`` with the config's classes, compute dtype and BN
     boundary dtype (``auto`` follows ``MODEL.DTYPE``), weights drawn from
-    ``generator`` with the JAX initialisers (:func:`layers.init_weights`)."""
+    ``generator`` with the JAX initialisers (:func:`layers.init_weights`).
+    ``MODEL.STEM_S2D`` reaches the factory, which refuses it outside the
+    ResNet family (a TypeError, as JAX's)."""
     for mod in filter(None, (m.strip() for m in cfg.MODEL.MODULE.split(","))):
         importlib.import_module(mod)
     dtype = _DTYPES[cfg.MODEL.DTYPE]
     bn = cfg.MODEL.BN_DTYPE
     bn_dtype = dtype if bn == "auto" else _DTYPES[bn]
+    # the ResNet family's option, as in JAX: another family's factory
+    # refuses the keyword with a TypeError
+    kwargs = {"stem_s2d": True} if cfg.MODEL.STEM_S2D else {}
     model = build_model(cfg.MODEL.ARCH, num_classes=cfg.MODEL.NUM_CLASSES, dtype=dtype,
-                        bn_dtype=bn_dtype, im_size=cfg.TRAIN.IM_SIZE)
+                        bn_dtype=bn_dtype, im_size=cfg.TRAIN.IM_SIZE, **kwargs)
     if generator is not None:
         layers.init_weights(model, generator)
     return model
+
+
+def _check_crop(model) -> None:
+    """A model whose position tables are sized by the crop at construction
+    (``crop_sized``: BoTNet-50, ViT) refuses an eval crop other than the
+    training one, as the JAX trainer does for botnet50: now, rather than at
+    the first validation after an epoch."""
+    if getattr(model, "crop_sized", False) and cfg.TRAIN.IM_SIZE != cfg.TEST.CROP_SIZE:
+        raise ValueError(f"{cfg.MODEL.ARCH} requires TRAIN.IM_SIZE == TEST.CROP_SIZE (got "
+                         f"{cfg.TRAIN.IM_SIZE} vs {cfg.TEST.CROP_SIZE}): its position tables "
+                         f"are sized by the training crop")
 
 
 def _launch_counts() -> tuple[int, ...]:
@@ -362,7 +437,8 @@ def train_epoch(loader, state: TrainState, epoch: int, device, is_primary: bool,
             profiler.before(it)
         window.append(train_step(state, batch, lr, accum_steps=cfg.TRAIN.ACCUM_STEPS,
                                  topk=topk, label_smooth=cfg.TRAIN.LABEL_SMOOTH,
-                                 guard=cfg.FAULT.NONFINITE_GUARD))
+                                 guard=cfg.FAULT.NONFINITE_GUARD,
+                                 dropout_key=(state.dropout_seed, epoch, it, state.rank)))
         if profiler is not None:
             profiler.after(it)
         if it % cfg.TRAIN.PRINT_FREQ == 0 or it == len(loader) - 1:
@@ -410,10 +486,12 @@ def train_epoch(loader, state: TrainState, epoch: int, device, is_primary: bool,
         if epoch_skipped:
             logger.warning(f"Epoch[{epoch}] skipped_steps: {epoch_skipped} non-finite step(s) "
                            f"left parameters and optimizer state untouched")
+        peak = (f"; peak memory {torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB"
+                if torch.device(device).type == "cuda" else "")
         logger.info(f"Epoch[{epoch}] done: {wall:.1f}s, {step_imgs * steps / wall:.0f} img/s; "
                     f"steady state {1e3 * batch_time.avg:.2f} ms a step, "
                     f"{step_imgs / max(batch_time.avg, 1e-9):.0f} img/s; data wait "
-                    f"{100 * data_time.sum / wall:.1f}% of the epoch{_input_tail(loader)}")
+                    f"{100 * data_time.sum / wall:.1f}% of the epoch{_input_tail(loader)}{peak}")
 
 
 def validate(loader, model, device, is_primary: bool, group=None, prefix="Test: "):
@@ -514,12 +592,6 @@ def _input_tail(loader) -> str:
 def train_model(device=None):
     """A full training run on ``device`` (None: the card). Returns
     ``(state, best_acc1)``."""
-    if cfg.MODEL.ARCH == "botnet50" and cfg.TRAIN.IM_SIZE != cfg.TEST.CROP_SIZE:
-        # as the JAX trainer: the position tables are sized by the training
-        # crop, so fail now rather than at the first validate() after an epoch
-        raise ValueError(f"botnet50 requires TRAIN.IM_SIZE == TEST.CROP_SIZE (got "
-                         f"{cfg.TRAIN.IM_SIZE} vs {cfg.TEST.CROP_SIZE}): the relative "
-                         f"position tables are sized by the training crop")
     info = _setup(device)
     gen = setup_seed(cfg.RNG_SEED, info.rank, info.group, info.device)
     if info.is_primary:
@@ -542,9 +614,12 @@ def _train(info, gen):
                        f"(failures={injector.io_failures}), nan_steps="
                        f"{sorted(injector.nan_steps)}, preempt_step={injector.preempt_step}, "
                        f"hang_step={injector.hang_step}, kill_step={injector.kill_step}")
-    model = build_cfg_model(gen).to(info.device)
+    model = build_cfg_model(gen)
+    _check_crop(model)
+    model = model.to(info.device)
     _sync_bn(model, info.group)
     state = TrainState(model, info.group)
+    state.dropout_seed = gen.initial_seed()  # a mid-epoch resume replaces it with the saved one
     # the samples a step consumes over the group: the unit of the elastic remap
     samples_per_step = cfg.TRAIN.BATCH_SIZE * cfg.TRAIN.ACCUM_STEPS * info.world_size
     logger.info(f"Processes: {info.world_size} (rank 0 on {info.device}), global batch "
@@ -604,7 +679,9 @@ def test_model(device=None):
     """Evaluate ``MODEL.WEIGHTS`` (a checkpoint) on the val loader; returns
     ``(acc1, acck)``."""
     info = _setup(device)
-    model = build_cfg_model(torch.Generator().manual_seed(0)).to(info.device)
+    model = build_cfg_model(torch.Generator().manual_seed(0))
+    _check_crop(model)
+    model = model.to(info.device)
     state = TrainState(model, info.group)
     logger.info(f"Params(M): {count_parameters(model):.3f}")
     if cfg.MODEL.WEIGHTS:

@@ -205,11 +205,14 @@ def test_bf16_max_pool_commutes_with_the_cast():
 
 
 def test_all_nine_factories_registered_with_torchvision_names():
-    """The nine ResNets, plus botnet50 (tests/test_torch_botnet.py)."""
+    """The nine ResNets, plus botnet50 (tests/test_torch_botnet.py) and the
+    rest of the zoo (tests/test_torch_zoo.py)."""
     assert set(list_models()) == {
         "resnet18", "resnet34", "resnet50", "resnet101", "resnet152",
         "resnext50_32x4d", "resnext101_32x8d", "wide_resnet50_2", "wide_resnet101_2",
-        "botnet50",
+        "botnet50", "densenet121", "densenet161", "densenet169", "densenet201",
+        "regnetx_160", "regnety_040", "regnety_160", "regnety_320", "efficientnet_b0",
+        "efficientnet_b1", "vit_s16", "vit_b16", "vit_l16",
     }
     keys = build_model("resnext50_32x4d", num_classes=5).state_dict().keys()
     assert {"conv1.weight", "bn1.running_var", "layer1.0.downsample.0.weight",
