@@ -174,11 +174,37 @@ Phases (any failure exits non-zero):
    one K1-bwd launch; then served by the engine in bf16 at 224^2 on
    [serve]'s seeded weights against the CPU's f32 forward (BF16_REL_TOL, or
    no farther than the JAX package's own bf16 forward: ZOO_BF16_JAX_GAP);
-21. the ``test_net`` runs of [train], [train-bot], [train-bot-512] and
-   [train-zoo] (each on its phase's checkpoint), concurrently, after the
-   last timed training phase: each must exit 0 reporting Acc@1;
-22. the whole run's wall time and each phase's, the ``{"kernels": [...]}``
-   line; 23. the ``{"ok": true, ...}`` last line.
+21. [train-mae] ``python -m distribuuuu_tpu_torch.train_net --cfg
+   config/mae_vit_b16.yaml MESH.FSDP 1 MESH.SEQ 1 MODEL.DUMMY_INPUT True``:
+   ViT-B/16 MAE at the YAML's 448^2 (784 tokens), batch 8, REMAT on, LAMB,
+   MAE_STEPS steps: the masked patches' MSE finite and falling, no K1 or
+   attention launch (MAE is cuBLAS and eager ops), the checkpoint,
+   ``test_net`` on it (a finite masked MSE), step ms, images/s, peak memory
+   and the profile of 3 steps;
+22. [pretrained] a seeded ResNet-50 written as a torchvision ``.pth``,
+   provisioned by ``python -m distribuuuu_tpu_torch.convert`` (and botnet50
+   ``--from-resnet50`` from it), each directory verified and bitwise its
+   source; ``test_model`` with ``MODEL.PRETRAINED True`` in this process,
+   its logits bitwise those of ``MODEL.WEIGHTS`` on the same directory, and
+   ``test_net MODEL.PRETRAINED True`` as a subprocess;
+23. the ``test_net`` runs of [train], [train-bot], [train-bot-512],
+   [train-zoo], [train-mae] and [pretrained] (each on its phase's
+   checkpoint), concurrently, after the last timed training phase: each
+   must exit 0 reporting Acc@1 (and [train-mae]'s a finite masked MSE);
+24. [mae f32] (after [zoo f32]) MAE-ViT-B/16 at full width, 64^2, batch 2,
+   f32, card vs CPU under one mask: eval predictions within F32_REL_TOL of
+   max|pred|, one LAMB step's update within MAE_F32_UPDATE_RL2;
+25. [remat] ``MODEL.REMAT`` on against off in this process, cuDNN
+   deterministic, two steps from one state of ResNet-50 b32, BoTNet-50 b8
+   (the attention kernel and its backward under recompute),
+   EfficientNet-B0 b16 (drop path and dropout from the trainer's stream) and
+   MAE-ViT-B/16 at 448^2 b8: parameters, optimizer state and BN statistics
+   ``torch.equal``; K1 twice and K1-bwd once a step for every BN inside a
+   recomputed block, the attention kernel twice and its backward once, none
+   scalar; peak memory and step ms both ways, and remat must lower MAE's
+   peak;
+26. the whole run's wall time and each phase's, the ``{"kernels": [...]}``
+   line; 27. the ``{"ok": true, ...}`` last line.
 
 Each path is driven with the launch counts set to 0 just before it and read
 just after. Per-shape numbers are also written to ``smoke_out/``.
@@ -752,7 +778,8 @@ def train_args(cfg_file: str, batch: int, out: Path, im: int = IM, extra=()) -> 
 
 def train_run(card: str, out: Path, tag: str, what: str, cfg_file: str, batch: int, steps: int,
               window: tuple, attention: int, bound_ms: dict, im: int = IM,
-              route: str = "cluster", k1: int = TRAIN_K1, extra=(), *, deferred: list) -> dict:
+              route: str = "cluster", k1: int = TRAIN_K1, extra=(), *, deferred: list,
+              mse: bool = False) -> dict:
     """``python -m distribuuuu_tpu_torch.train_net --cfg <cfg_file>
     MODEL.DUMMY_INPUT True`` (then ``extra``) at ``batch`` a GPU and crop
     ``im`` over ``steps`` steps into ``out``, as a subprocess, with the
@@ -762,7 +789,8 @@ def train_run(card: str, out: Path, tag: str, what: str, cfg_file: str, batch: i
     trainer's counts, set to 0 just before the first
     step and read just after the last); the checkpoint verified against its
     manifest; ``test_net`` on it, appended to ``deferred`` (a list) for
-    :func:`run_test_nets`. Step ms and images/s from
+    :func:`run_test_nets` (``mse``: it must report a finite masked-MSE
+    loss too, TRAIN.TASK mae). Step ms and images/s from
     the progress lines before the profiler window; the peak memory the
     trainer logs; the profile by kernel class."""
     from distribuuuu_tpu_torch import checkpoint as ckpt
@@ -809,29 +837,37 @@ def train_run(card: str, out: Path, tag: str, what: str, cfg_file: str, batch: i
                      "TRAIN.DUMMY_EPOCH_SAMPLES", str(batch * 4), "MODEL.WEIGHTS", path,
                      "OUT_DIR", f"{out}_eval", *extra, "CUDNN.BENCHMARK", "False"],
                     Path(f"{out}_eval.log"),
-                    f"[{tag}] {path} verified against its manifest; test_net {what} on it", res)
+                    f"[{tag}] {path} verified against its manifest; test_net {what} on it", res,
+                    mse=mse)
     deferred.append(ev)
     return res
 
 
 class Evaluation:
-    """A ``test_net`` run on a checkpoint (its arguments, its log file)
-    whose Acc@1 and Acc@5 go into ``res`` once :func:`run_test_nets` ran it."""
+    """A ``test_net`` run on a checkpoint (its arguments, its log file, the
+    variables ``env`` adds) whose Acc@1 and Acc@5 (and, with ``mse``, its
+    masked-MSE loss) go into ``res`` once :func:`run_test_nets` ran it."""
 
-    def __init__(self, args: list, log: Path, what: str, res: dict):
+    def __init__(self, args: list, log: Path, what: str, res: dict, *, mse: bool = False,
+                 env: dict | None = None):
         self.args, self.log, self.what, self.res = args, log, what, res
+        self.mse, self.env = mse, env
 
 
 def run_test_nets(evals: list) -> None:
     """Run ``evals`` (:class:`Evaluation`) as concurrent subprocesses on the
     card (no timing is read from them), each logging to its file, wait for
-    every one, and fail unless each exits 0 reporting Acc@1."""
+    every one, and fail unless each exits 0 reporting Acc@1 (and a finite
+    masked-MSE loss where asked)."""
+    import os
+
     procs = []
     try:
         for ev in evals:
             with open(ev.log, "w") as log:
                 procs.append(subprocess.Popen([sys.executable, "-m", *ev.args], cwd=ROOT,
-                                              stdout=subprocess.DEVNULL, stderr=log))
+                                              stdout=subprocess.DEVNULL, stderr=log,
+                                              env=dict(os.environ, **(ev.env or {}))))
         for proc in procs:
             proc.wait(timeout=600)
     finally:
@@ -845,7 +881,13 @@ def run_test_nets(evals: list) -> None:
         if proc.returncode != 0 or acc is None:
             fail(f"{ev.what}: exit {proc.returncode}, no Acc@1:\n{log[-3000:]}")
         ev.res.update(acc1=float(acc[1]), acc5=float(acc[2]))
-        say(f"{ev.what}: Acc@1 {acc[1]}, Acc@5 {acc[2]}")
+        if ev.mse:
+            mse = re.search(r"masked-MSE loss ([-+.\w]+)", log)
+            if mse is None or not math.isfinite(float(mse[1])):
+                fail(f"{ev.what}: no finite masked-MSE loss:\n{log[-3000:]}")
+            ev.res["eval_mse"] = float(mse[1])
+        say(f"{ev.what}: Acc@1 {acc[1]}, Acc@5 {acc[2]}"
+            + (f", masked-MSE loss {ev.res['eval_mse']}" if ev.mse else ""))
 
 
 def phase_train(card: str, tmp: Path, bound_ms: dict, deferred: list) -> dict:
@@ -1289,6 +1331,347 @@ def phase_zoo_f32(tmp: Path) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     return {arch: dict(zoo_f32_step(arch), serve=zoo_serve(arch, tmp)) for arch in ZOO_F32}
+
+
+# [train-mae]: config/mae_vit_b16.yaml through the training CLI on one card:
+# ViT-B/16 MAE at the YAML's 448^2 (784 tokens), batch 8, REMAT on, LAMB,
+# mask ratio 0.25, with the mesh cut to one card (the YAML's fsdp 2 x seq 2
+# is ROADMAP item 12); its checkpoint then through test_net (the eval's
+# masked MSE under the fixed mask)
+MAE_CFG = "config/mae_vit_b16.yaml"
+MAE_IM, MAE_BATCH = 448, 8  # the YAML's
+MAE_STEPS = 25  # steps of the counted epoch
+MAE_PROFILE = (20, 3)  # TRAIN.PROFILE_START, TRAIN.PROFILE_STEPS
+MAE_MESH = ["MESH.FSDP", "1", "MESH.SEQ", "1"]
+
+
+def phase_train_mae(card: str, tmp: Path, deferred: list) -> dict:
+    """[train-mae]: :func:`train_run` on MAE_CFG with MAE_MESH: the loss (the
+    masked patches' MSE) finite and falling, no K1 or attention launch (MAE
+    runs cuBLAS and eager ops), the checkpoint, ``test_net`` on it (its
+    masked MSE finite), step ms, images/s, peak memory and the profile."""
+    return train_run(card, tmp / "mae", "train-mae", "MAE-ViT-B/16 (REMAT)", MAE_CFG, MAE_BATCH,
+                     MAE_STEPS, MAE_PROFILE, 0, {}, im=MAE_IM, k1=0, extra=MAE_MESH,
+                     deferred=deferred, mse=True)
+
+
+# [remat]: MODEL.REMAT on against off, in this process, two steps of each model
+# from one state with cuDNN deterministic (so that a recompute gives the bits of
+# its forward): parameters, optimizer state and BN statistics torch.equal; K1
+# twice and K1-bwd once a step for every BN inside a recomputed block (once for
+# the stem's and the head's), the attention kernel twice and its backward once,
+# none scalar; each model's peak memory both ways, and its step ms both ways
+# as the median of REMAT_TIMED further steps (CUDA events around each).
+# (arch, batch, crop, TRAIN.TASK)
+REMAT_RUNS = [("resnet50", 32, IM, "classify"), ("botnet50", 8, IM, "classify"),
+              ("efficientnet_b0", 16, IM, "classify"), ("mae_vit_b16", MAE_BATCH, MAE_IM, "mae")]
+REMAT_STEPS = 2
+REMAT_TIMED = 5
+
+
+def remat_expected(model) -> dict:
+    """Launches a step of ``model``: (K1 and attention forward without
+    remat, with remat; their backward), from its modules: every BN and
+    every MHSA once, and once more inside a :class:`layers.RematUnit`."""
+    from distribuuuu_tpu_torch.models import layers
+    from distribuuuu_tpu_torch.models.botnet import MHSA
+
+    def count(kind, root):
+        return sum(isinstance(m, kind) for m in root.modules())
+
+    units = [m for m in model.modules() if isinstance(m, layers.RematUnit)]
+    bn, att = count(layers.BatchNorm, model), count(MHSA, model)
+    rbn = sum(count(layers.BatchNorm, u) for u in units)
+    ratt = sum(count(MHSA, u) for u in units)
+    return dict(k1=(bn, bn + rbn), attention=(att, att + ratt), k1_bwd=bn, attention_bwd=att,
+                units=len(units))
+
+
+def remat_run(arch: str, batch: int, im: int, task: str, remat: bool) -> dict:
+    """REMAT_STEPS bf16 steps of ``arch`` on the card from seed 0 (every BN
+    scale drawn in [0.5, 1.5], so that BoTNet's zero-gamma blocks pass a
+    gradient to MHSA), the masks from the trainer's stream; the state after
+    them on the host, the launches and the peak memory; then the median ms
+    of REMAT_TIMED more steps."""
+    import torch
+
+    from distribuuuu_tpu_torch.config import cfg, reset_cfg
+    from distribuuuu_tpu_torch.models import layers
+    from distribuuuu_tpu_torch.ops import attention as att
+    from distribuuuu_tpu_torch.ops import epilogue as ep
+    from distribuuuu_tpu_torch.trainer import TrainState, build_cfg_model, train_step
+
+    reset_cfg()
+    cfg.MODEL.ARCH, cfg.TRAIN.TASK, cfg.TRAIN.IM_SIZE, cfg.MODEL.REMAT = arch, task, im, remat
+    if task == "mae":
+        cfg.OPTIM.OPTIMIZER, cfg.OPTIM.WEIGHT_DECAY = "lamb", 0.05
+    model = build_cfg_model(torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, layers.BatchNorm):
+                m.weight.uniform_(0.5, 1.5, generator=gen)
+    want = remat_expected(model)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = TrainState(model.to("cuda", memory_format=torch.channels_last))
+    images = torch.randint(0, 256, (batch, im, im, 3), dtype=torch.uint8, generator=gen).cuda()
+    labels = torch.randint(0, 1000, (batch,), generator=gen).cuda()
+    torch.cuda.synchronize()
+    ep.LAUNCHES = ep.BWD_LAUNCHES = ep.SCALAR_LAUNCHES = ep.BWD_SCALAR_LAUNCHES = 0
+    att.LAUNCHES = att.BWD_LAUNCHES = 0
+    att.BWD_ROUTE_CALLS.update(dict.fromkeys(att.BWD_ROUTE_CALLS, 0))
+    batch_ = {"image": images, "label": labels}
+    lr = 1e-3 if task == "mae" else 0.1
+    for step in range(REMAT_STEPS):
+        train_step(state, batch_, lr, dropout_key=(0, 0, step, 0), task=task)
+    torch.cuda.synchronize()
+    counts = dict(k1=ep.LAUNCHES, k1_bwd=ep.BWD_LAUNCHES,
+                  scalar=ep.SCALAR_LAUNCHES + ep.BWD_SCALAR_LAUNCHES
+                  + att.BWD_ROUTE_CALLS["scalar"],
+                  attention=att.LAUNCHES, attention_bwd=att.BWD_LAUNCHES)
+    res = dict(params=state.params.cpu(), stats=state.stats.cpu(),
+               opt={k: v.cpu() for k, v in state.optimizer.state.items()}, counts=counts,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30, want=want)
+    times = []
+    for step in range(REMAT_STEPS, REMAT_STEPS + REMAT_TIMED):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        train_step(state, batch_, lr, dropout_key=(0, 0, step, 0), task=task)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    res["step_ms"] = statistics.median(times)
+    reset_cfg()
+    del state, model, images, labels
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_remat(card: str) -> dict:
+    """[remat]: :func:`remat_run` off then on for each of REMAT_RUNS (module
+    comment above REMAT_RUNS). Fails on any difference, any launch count
+    other than the modules say, any scalar launch, or unless remat lowers
+    MAE's peak memory."""
+    import torch
+
+    before = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    out = {}
+    try:
+        for arch, batch, im, task in REMAT_RUNS:
+            off, on = (remat_run(arch, batch, im, task, r) for r in (False, True))
+            w, steps = on["want"], REMAT_STEPS
+            equal = (torch.equal(on["params"], off["params"])
+                     and torch.equal(on["stats"], off["stats"])
+                     and on["opt"].keys() == off["opt"].keys()
+                     and all(torch.equal(on["opt"][k], v) for k, v in off["opt"].items()))
+            want = {r: dict(k1=steps * w["k1"][r], k1_bwd=steps * w["k1_bwd"], scalar=0,
+                            attention=steps * w["attention"][r],
+                            attention_bwd=steps * w["attention_bwd"]) for r in (0, 1)}
+            say(f"[remat] {arch} batch {batch} {im}^2 bf16, {steps} steps from one state "
+                f"(cuDNN deterministic), REMAT off / on ({w['units']} recomputed blocks): "
+                f"parameters, optimizer state and BN statistics "
+                f"{'torch.equal' if equal else 'DIFFER'}; launches {off['counts']} / "
+                f"{on['counts']} (want {want[0]} / {want[1]}); peak memory "
+                f"{off['peak_gib']:.2f} / {on['peak_gib']:.2f} GiB; step {off['step_ms']:.2f} / "
+                f"{on['step_ms']:.2f} ms (median of {REMAT_TIMED} more steps; {card})")
+            if not equal or off["counts"] != want[0] or on["counts"] != want[1]:
+                fail(f"[remat] {arch}: REMAT changed the result or the launches")
+            out[arch] = dict(batch=batch, im=im, launches_off=off["counts"],
+                             launches_on=on["counts"], peak_gib_off=off["peak_gib"],
+                             peak_gib_on=on["peak_gib"], step_ms_off=off["step_ms"],
+                             step_ms_on=on["step_ms"], recomputed_blocks=w["units"])
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = before
+    mae = out["mae_vit_b16"]
+    if not mae["peak_gib_on"] < mae["peak_gib_off"]:
+        fail(f"[remat] REMAT did not lower MAE-ViT-B/16's peak memory: {mae}")
+    return out
+
+
+# [mae f32]: MAE-ViT-B/16 at full width, a 64^2 crop and batch 2 (16 tokens;
+# the cut: the crop and the batch, for the CPU's side), f32 with TF32 off,
+# card against CPU under one mask drawn on the CPU: the eval predictions
+# within F32_REL_TOL of max|pred|; one LAMB step (the YAML's optimizer) with
+# the loss within BOT_F32_LOSS_RTOL, the parameters within TRAIN_F32_REL_TOL
+# of max|p| and the update within MAE_F32_UPDATE_RL2 in relative L2: 3x the
+# card's reading of 1.20e-4 (NVIDIA H100 80GB HBM3, 700 W; both sides
+# deterministic, the same reading on every run). That reading lies above the
+# JAX package's own f32 LAMB update's distance from its float64 one at this
+# size, 1.59e-5 (its gradient's 1.04e-6; ``scripts/torch_zoo_numerics.py
+# step mae_vit_b16``), and the port's f32 gradient on the CPU moves the
+# update as little (1.62e-5), so the card's f32 gradient is the one farther
+# from exact; how far is not measured (``grad_l2`` reads its distance from
+# the CPU's). LAMB's first step is ~g / (|g| + eps): the last bits of small
+# gradients move it most.
+MAE_F32_IM, MAE_F32_BATCH = 64, 2
+MAE_F32_UPDATE_RL2 = 3.6e-4
+
+
+def phase_mae_f32() -> dict:
+    import torch
+
+    from distribuuuu_tpu_torch.config import cfg, reset_cfg
+    from distribuuuu_tpu_torch.data.transforms import device_normalize
+    from distribuuuu_tpu_torch.trainer import TrainState, mae_mask, train_step
+
+    reset_cfg()
+    cfg.MODEL.DTYPE, cfg.TRAIN.TASK = "float32", "mae"
+    cfg.OPTIM.OPTIMIZER, cfg.OPTIM.WEIGHT_DECAY = "lamb", 0.05
+    gen = torch.Generator().manual_seed(7)
+    imgs = torch.randint(0, 256, (MAE_F32_BATCH, MAE_F32_IM, MAE_F32_IM, 3), dtype=torch.uint8,
+                         generator=gen)
+    mask = mae_mask(MAE_F32_BATCH, (MAE_F32_IM // 16) ** 2, gen)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        model = zoo_model("mae_vit_b16", MAE_F32_IM).to(dev)
+        with torch.no_grad():
+            pred = model.eval()(device_normalize(imgs.to(dev)), mask.to(dev)).cpu()
+        st = TrainState(model)
+        start = st.params.cpu().clone()
+        m = train_step(st, {"image": imgs.to(dev), "label": torch.zeros(MAE_F32_BATCH,
+                                                                        dtype=torch.long,
+                                                                        device=dev)},
+                       2e-3, task="mae", mask=mask.to(dev))
+        res[dev] = (pred, m["loss_sum"].item() / MAE_F32_BATCH, st.params.cpu(),
+                    st.params.cpu() - start, st.grads[:-1].cpu())
+    reset_cfg()
+    (oc, lc, pc, uc, gc), (og, lg, pg, ug, gg) = res["cpu"], res["cuda"]
+
+    def rel_l2(a, b):
+        return float((a.double() - b.double()).norm() / b.double().norm())
+
+    d = dict(pred=float((og - oc).abs().max() / oc.abs().max()), loss=abs(lc - lg) / abs(lc),
+             params=float((pg - pc).abs().max() / pc.abs().max()), update_l2=rel_l2(ug, uc))
+    grad_l2 = rel_l2(gg, gc)
+    limits = dict(pred=F32_REL_TOL, loss=BOT_F32_LOSS_RTOL, params=TRAIN_F32_REL_TOL,
+                  update_l2=MAE_F32_UPDATE_RL2)
+    say(f"[mae f32] MAE-ViT-B/16 {MAE_F32_IM}^2 batch {MAE_F32_BATCH}, mask {int(mask.sum())} of "
+        f"{mask.numel()} tokens, card vs CPU: eval predictions {d['pred']:.2e} of max|pred| "
+        f"(limit {F32_REL_TOL}); one LAMB step: loss {lg:.6f} / {lc:.6f}; "
+        + ", ".join(f"{k} {v:.2e} (limit {limits[k]})" for k, v in d.items() if k != "pred")
+        + f"; the gradient {grad_l2:.2e} (relative L2, no limit)")
+    if not all(d[k] <= v for k, v in limits.items()) or not torch.isfinite(og).all():
+        fail("[mae f32] the card's f32 MAE forward or step is outside the stated limits")
+    return dict(d, grad_l2=grad_l2, limits=limits)
+
+
+# [pretrained]: MODEL.PRETRAINED on the card. A seeded ResNet-50 written as a
+# torchvision .pth (num_batches_tracked included), provisioned with the port's
+# CLI into $DTPU_PRETRAINED_DIR/resnet50, and botnet50 from it with
+# --from-resnet50; test_net with MODEL.PRETRAINED True (the CLI, deferred to
+# run_test_nets) and, in this process, test_model's logits bitwise those of
+# MODEL.WEIGHTS on the same directory.
+PRE_ARGS = ["--cfg", "config/resnet50.yaml", "MODEL.DUMMY_INPUT", "True", "TEST.BATCH_SIZE", "32",
+            "TRAIN.DUMMY_EPOCH_SAMPLES", "64", "CUDNN.DETERMINISTIC", "True"]
+
+
+def torchvision_file(path: Path, arch: str, seed: int) -> dict:
+    """A seeded ``arch`` state_dict as a downloaded torchvision file holds it
+    (running statistics drawn, ``num_batches_tracked`` beside them)."""
+    import torch
+
+    from distribuuuu_tpu_torch.models import build_model, layers
+
+    sd = {k: v.clone() for k, v in layers.init_weights(
+        build_model(arch), torch.Generator().manual_seed(seed)).state_dict().items()}
+    gen = torch.Generator().manual_seed(seed + 1)
+    for k in sd:
+        if k.endswith("running_mean"):
+            sd[k] = torch.randn(sd[k].shape, generator=gen) * 0.1
+        elif k.endswith("running_var"):
+            sd[k] = torch.rand(sd[k].shape, generator=gen) + 0.5
+    torch.save(dict(sd, **{k.replace("running_mean", "num_batches_tracked"): torch.tensor(5)
+                           for k in sd if k.endswith("running_mean")}), path)
+    return sd
+
+
+def captured_test_model(argv: list, out: Path) -> list:
+    """``trainer.test_model`` on the card in this process with ``argv``; the
+    logits of each val batch, from a forward hook on the model it builds."""
+    import torch
+
+    from distribuuuu_tpu_torch import trainer
+    from distribuuuu_tpu_torch.config import load_cfg_fom_args, reset_cfg
+
+    logits, build = [], trainer.build_cfg_model
+
+    def spy(*a):
+        model = build(*a)
+        model.register_forward_hook(lambda m, i, o: logits.append(o.detach().cpu()))
+        return model
+
+    before = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    reset_cfg()
+    load_cfg_fom_args(argv=[*argv, "OUT_DIR", str(out)])
+    trainer.build_cfg_model = spy
+    try:
+        trainer.test_model()
+    finally:
+        trainer.build_cfg_model = build
+        reset_cfg()
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = before
+    return logits
+
+
+def phase_pretrained(tmp: Path, deferred: list) -> dict:
+    import os
+
+    import torch
+
+    from distribuuuu_tpu_torch import checkpoint as ckpt
+    from distribuuuu_tpu_torch.convert import botnet50_trunk_from_resnet50, merge_pretrained
+    from distribuuuu_tpu_torch.models import build_model, layers
+
+    src, root = tmp / "resnet50.pth", tmp / "pretrained"
+    want = torchvision_file(src, "resnet50", seed=3)
+    tic = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-m", "distribuuuu_tpu_torch.convert", "--arch",
+                               arch, "--src", str(src), "--dst", str(root / arch), *extra],
+                              cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+             for arch, extra in (("resnet50", []), ("botnet50", ["--from-resnet50"]))]
+    for p in procs:
+        text = p.communicate(timeout=300)[0]
+        if p.returncode != 0:
+            fail(f"[pretrained] the provisioning CLI exited {p.returncode}:\n{text[-3000:]}")
+    cli_s = time.perf_counter() - tic
+    for arch in ("resnet50", "botnet50"):
+        if ckpt.verify_checkpoint(str(root / arch)) != ("ok", []):
+            fail(f"[pretrained] {root / arch} does not verify against its manifest")
+    got = {a: torch.load(root / a / "checkpoint.pt", weights_only=True)["model"]
+           for a in ("resnet50", "botnet50")}
+    bot = merge_pretrained(layers.init_weights(build_model("botnet50"),
+                                               torch.Generator().manual_seed(0)).state_dict(),
+                           botnet50_trunk_from_resnet50(torch.load(src, weights_only=True)))
+    for name, a, b in (("resnet50", got["resnet50"], want), ("botnet50", got["botnet50"], bot)):
+        if a.keys() != b.keys() or not all(torch.equal(a[k], b[k]) for k in b):
+            fail(f"[pretrained] the provisioned {name} is not its source")
+    env = {"DTPU_PRETRAINED_DIR": str(root)}
+    os.environ.update(env)
+    try:
+        pre = captured_test_model([*PRE_ARGS, "MODEL.PRETRAINED", "True"], tmp / "eval_pre")
+    finally:
+        del os.environ["DTPU_PRETRAINED_DIR"]
+    weights = captured_test_model([*PRE_ARGS, "MODEL.WEIGHTS", str(root / "resnet50")],
+                                  tmp / "eval_weights")
+    bitwise = len(pre) == len(weights) > 0 and all(torch.equal(a, b) for a, b in
+                                                   zip(pre, weights))
+    say(f"[pretrained] provisioned resnet50 and botnet50 --from-resnet50 with python -m "
+        f"distribuuuu_tpu_torch.convert in {cli_s:.1f} s (both concurrently), each verified and "
+        f"equal to its source ({len(want)} / {len(bot)} tensors); test_model MODEL.PRETRAINED "
+        f"True: {len(pre)} val batches of logits "
+        f"{'bitwise' if bitwise else 'NOT bitwise'} those of MODEL.WEIGHTS on the directory")
+    if not bitwise or not all(torch.isfinite(t).all() for t in pre):
+        fail("[pretrained] MODEL.PRETRAINED's logits differ from MODEL.WEIGHTS' on the same "
+             "directory")
+    res = dict(cli_s=cli_s, batches=len(pre))
+    deferred.append(Evaluation(["distribuuuu_tpu_torch.test_net", *PRE_ARGS,
+                                "MODEL.PRETRAINED", "True", "OUT_DIR", str(tmp / "eval_cli")],
+                               tmp / "eval_cli.log", "[pretrained] test_net MODEL.PRETRAINED "
+                               "True (resnet50)", res, env=env))
+    return res
 
 
 # [input], [train-jpeg], [oracle]: the real-image input path. A JPEG
@@ -3687,12 +4070,19 @@ def main() -> None:
     lap("train-preempt")
     zoo = phase_train_zoo(card, Path(train_tmp.name), bw, evals)
     lap("train-zoo")
+    train_mae = phase_train_mae(card, Path(train_tmp.name), evals)
+    lap("train-mae")
+    pretrained = phase_pretrained(Path(train_tmp.name), evals)
+    lap("pretrained")
     run_test_nets(evals)
     train_tmp.cleanup()
     lap(f"test_net x {len(evals)}, concurrently")
     with tempfile.TemporaryDirectory() as tmp:
         zoo_f32 = phase_zoo_f32(Path(tmp))
-    lap("zoo f32")
+    mae_f32 = phase_mae_f32()
+    lap("zoo f32, mae f32")
+    remat = phase_remat(card)
+    lap("remat")
 
     # K1 per batch-128 forward of each served model: its sites' rows summed
     per_fwd, modes = {}, {}
@@ -3722,7 +4112,8 @@ def main() -> None:
          "train_bot_512": train_bot_512, "train_bot_512_bound_ms": bot512_bound_ms,
          "input": inp, "train_jpeg": train_jpeg, "train_dataplane": train_dp,
          "oracle": oracle, "train_preempt": train_preempt, "train_zoo": zoo,
-         "zoo_f32": zoo_f32, "phase_wall_s": laps}, indent=1))
+         "zoo_f32": zoo_f32, "train_mae": train_mae, "pretrained": pretrained,
+         "mae_f32": mae_f32, "remat": remat, "phase_wall_s": laps}, indent=1))
     (out / "chip_smoke_moe.json").write_text(json.dumps(
         {"card": smi, "build": builds["moe"], "kernels": moe, "dist": moe_dist}, indent=1))
     for arch, f in per_fwd.items():
@@ -3875,11 +4266,19 @@ def main() -> None:
                           f"bf16; the profiler's µs a step of the kernel class; the bound "
                           f"from the step's K1 sites"}
             for arch, r in zoo.items()}
+    for i, key in ((0, "k1"), (1, "k1_bwd")):  # under MODEL.REMAT, and MAE's none
+        kernels[i]["remat_launches"] = {
+            arch: {"off": r["launches_off"][key], "on": r["launches_on"][key],
+                   "per": f"{REMAT_STEPS} steps of [remat] at batch {r['batch']}, "
+                          f"{r['im']}x{r['im']}, bf16, REMAT off and on"}
+            for arch, r in remat.items()}
+        kernels[i]["train_mae_launches"] = train_mae["launches"][key]
     kernels[0]["zoo_serve_launches"] = {arch: r["serve"]["launches"] for arch, r in zoo_f32.items()}
     kernels[0]["zoo_f32_launches"] = {arch: r["launches"][0] for arch, r in zoo_f32.items()}
     kernels[1]["zoo_f32_launches"] = {arch: r["launches"][1] for arch, r in zoo_f32.items()}
     k2 = next(k for k in kernels if k["name"].startswith("K2 "))
     k2["train_launches"] = train_bot["launches"]["attention"]
+    k2["remat_launches"] = {k: remat["botnet50"][f"launches_{k}"]["attention"] for k in ("off", "on")}
     r = attn_bwd["K2 train"]
     kernels.insert(kernels.index(k2) + 1, {
         "name": "K2/K4 backward fused_attention_backward",
@@ -3906,6 +4305,8 @@ def main() -> None:
                f"[attention-bwd]",
         "max_rel_err": max(max(row["rel_errors"].values()) for row in attn_bwd.values()
                            if row["bias_dtype"] != "table"),
+        "remat_launches": {k: remat["botnet50"][f"launches_{k}"]["attention_bwd"]
+                           for k in ("off", "on")},
         "kernel_route": f"{r['route']} (bf16, L <= 256: one launch, a thread-block cluster a head); "
                         f"blockwise at L > 256 (K4: {attn_bwd['K4']['route']}, the next entry); "
                         f"scalar in f32",

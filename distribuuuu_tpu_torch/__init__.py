@@ -1,11 +1,13 @@
 """distribuuuu_tpu_torch: the PyTorch/CUDA port of distribuuuu_tpu for NVIDIA Hopper.
 
-It serves the ResNet family and BoTNet-50 (``python -m
+It serves the classification zoo (``python -m
 distribuuuu_tpu_torch.serve``), with the fused conv epilogue and BoTNet's
 attention running as hand-written CUDA kernels; trains and evaluates the
-ResNet family and BoTNet-50 (``python -m distribuuuu_tpu_torch.train_net``
-/ ``test_net``) on a JPEG ImageFolder or its tar shards, every BN through
-the epilogue kernel forward and its backward kernel; and trains the expert-parallel switch-MoE layer
+whole zoo (``python -m distribuuuu_tpu_torch.train_net`` / ``test_net``),
+MAE pretraining included, on a JPEG ImageFolder or its tar shards, every
+BN through the epilogue kernel forward and its backward kernel, with
+``MODEL.REMAT`` and ``MODEL.PRETRAINED`` (provisioned by ``python -m
+distribuuuu_tpu_torch.convert``); and trains the expert-parallel switch-MoE layer
 (``parallel.switch_moe``) over a ``torch.distributed`` group on
 hand-written dispatch and combine kernels.
 Entry points run on

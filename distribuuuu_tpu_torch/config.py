@@ -27,7 +27,10 @@ _C.MODEL.ARCH = "resnet18"
 # out-of-tree package can register archs with @register_model
 _C.MODEL.MODULE = ""
 _C.MODEL.NUM_CLASSES = 1000
-# torchvision-pretrained init: not yet ported (ROADMAP Queue 1 item 11)
+# torchvision-pretrained init: the port's checkpoint directory
+# $DTPU_PRETRAINED_DIR/<arch> (default ~/.cache/distribuuuu_tpu_torch/
+# pretrained), provisioned once from a torchvision .pth with ``python -m
+# distribuuuu_tpu_torch.convert``; loaded without the optimizer
 _C.MODEL.PRETRAINED = False
 # batch statistics averaged over the process group (one all-reduce per BN)
 _C.MODEL.SYNCBN = False
@@ -40,7 +43,8 @@ _C.MODEL.DUMMY_INPUT = False
 # compute dtype of convs and linears; params, optimizer state and BN
 # statistics stay float32
 _C.MODEL.DTYPE = "bfloat16"
-# activation checkpointing: not yet ported
+# activation checkpointing: each family's block is recomputed in the
+# backward (torch.utils.checkpoint), the same function bit for bit
 _C.MODEL.REMAT = False
 # the space-to-depth stem is the plain 7x7/2 stem by construction (the same
 # function and the same (7,7,3,64) parameter); the port always computes the
@@ -49,9 +53,11 @@ _C.MODEL.STEM_S2D = False
 # accepted so JAX-side YAMLs merge; on the card the epilogue kernel always runs
 _C.MODEL.FUSED_EPILOGUE = None
 _C.MODEL.FUSED_MOE = None
-# sequence-parallel attention (item 12) and masked-autoencoder knobs (item
-# 11): not yet ported
+# sequence-parallel attention: "none", "ring" or "ulysses", read only at
+# MESH.SEQ > 1 (not yet ported, ROADMAP Queue 1 item 12), inert at 1
 _C.MODEL.SEQ_ATTN = "none"
+# TRAIN.TASK mae: the Bernoulli rate of a masked patch and the pixel
+# decoder's width
 _C.MODEL.MAE_MASK_RATIO = 0.25
 _C.MODEL.MAE_DECODER_DIM = 512
 # dtype BN emits between conv stages: "auto" tracks MODEL.DTYPE in
@@ -76,7 +82,8 @@ _C.TRAIN.WORKERS = 4
 _C.TRAIN.PIN_MEMORY = True
 _C.TRAIN.PRINT_FREQ = 30
 _C.TRAIN.TOPK = 5
-# "classify" only; "mae" is not yet ported
+# "classify" (softmax cross-entropy, top-k) or "mae" (masked pixel
+# reconstruction of a mae_* arch; top-k stays zero)
 _C.TRAIN.TASK = "classify"
 # batches staged on the device ahead of compute; the loader's queue holds
 # twice as many decoded host batches

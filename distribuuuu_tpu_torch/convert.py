@@ -9,7 +9,8 @@
   for EfficientNet and RegNet. The port's own copy of
   ``distribuuuu_tpu.convert``'s ``export_state_dict``: both give the same
   keys and values, so a JAX export loads into the port with ``strict=True``.
-  MAE raises (ROADMAP Queue 1 item 11).
+  MAE, which JAX does not export, keeps JAX's module names (its blocks as
+  ``blocks.{i}`` in ViT's block naming).
 - :func:`load_weights` reads a torch ``.pt``/``.pth`` state_dict in
   torchvision naming (DenseNet's pre-1.0 keys, ``norm.1``, remapped).
 - :func:`botnet50_trunk_from_resnet50` and :func:`merge_pretrained`: the
@@ -17,6 +18,10 @@
   1-3 under botnet50's numbering over a fresh botnet50.
 - :func:`moe_from_jax` takes the JAX package's switch-MoE parameters and
   returns what one rank of the port's ``switch_moe`` holds.
+- ``python -m distribuuuu_tpu_torch.convert --arch A --src <torchvision
+  .pth> --dst DIR [--from-resnet50]`` provisions ``MODEL.PRETRAINED``: the
+  file checked against the built model with ``strict=True``, written to
+  DIR as the port's checkpoint (``checkpoint.pt`` and its manifest).
 
 Orbax directories cannot be read without JAX: a weights directory written
 by the JAX package reaches the port through ``export_state_dict`` and
@@ -162,40 +167,72 @@ def _family_module_name(arch: str):
     return _resnet_module_name
 
 
-def _vit_state_dict(variables: Mapping) -> dict[str, np.ndarray]:
-    """torchvision's ``vit_b_16`` keys from JAX ViT params: the qkv and
+def _w_or_b(leaf_name, val):
+    """A Dense leaf: kernel ``[in, out]`` -> weight ``[out, in]``, or the bias;
+    a LayerNorm's scale -> weight."""
+    if leaf_name == "kernel":
+        return "weight", val.T
+    return ("weight" if leaf_name == "scale" else "bias"), val
+
+
+def _encoder_block_keys(p: str, mod: list[str], leaf_name: str, val) -> tuple[str, np.ndarray]:
+    """One leaf of a JAX ``EncoderBlock`` (``ln1``, ``attn/{qkv, proj}``,
+    ``ln2``, ``fc1``, ``fc2``) under the port's block ``p``: the qkv and
     out-projection leaves are whole-key renames, not module paths."""
+    name, v = _w_or_b(leaf_name, val)
+    if mod[0] in ("ln1", "ln2"):
+        return f"{p}.ln_{mod[0][-1]}.{name}", v
+    if mod[0] == "attn":
+        inner = f"in_proj_{name}" if mod[1] == "qkv" else f"out_proj.{name}"
+        return f"{p}.self_attention.{inner}", v
+    return f"{p}.mlp.linear_{mod[0][-1]}.{name}", v  # fc1 / fc2
+
+
+def _patch_embed(leaf_name, val):  # the patch conv: HWIO -> OIHW
+    return ("weight", np.transpose(val, (3, 2, 0, 1))) if leaf_name == "kernel" else ("bias", val)
+
+
+def _vit_state_dict(variables: Mapping) -> dict[str, np.ndarray]:
+    """torchvision's ``vit_b_16`` keys from JAX ViT params."""
     sd: dict[str, np.ndarray] = {}
-
-    def w_or_b(leaf_name, val):  # a Dense leaf: kernel [in, out] -> weight [out, in]
-        return ("weight", val.T) if leaf_name == "kernel" else ("bias", val)
-
     for path, leaf in _flatten(variables.get("params", {})):
         val = np.array(leaf, dtype=np.float32)
         mod, leaf_name = list(path[:-1]), path[-1]
         if not mod:
             sd["class_token" if leaf_name == "cls_token" else "encoder.pos_embedding"] = val
         elif mod[0] == "patch_embed":
-            sd[f"conv_proj.{'weight' if leaf_name == 'kernel' else 'bias'}"] = (
-                np.transpose(val, (3, 2, 0, 1)) if leaf_name == "kernel" else val)
-        elif mod[0] == "ln_f":
-            sd[f"encoder.ln.{'weight' if leaf_name == 'scale' else 'bias'}"] = val
-        elif mod[0] == "head":
-            name, v = w_or_b(leaf_name, val)
-            sd[f"heads.head.{name}"] = v
+            name, v = _patch_embed(leaf_name, val)
+            sd[f"conv_proj.{name}"] = v
+        elif mod[0] in ("ln_f", "head"):
+            name, v = _w_or_b(leaf_name, val)
+            sd[f"{'encoder.ln' if mod[0] == 'ln_f' else 'heads.head'}.{name}"] = v
         else:
             p = f"encoder.layers.encoder_layer_{int(mod[0].removeprefix('block'))}"
-            if mod[1] in ("ln1", "ln2"):
-                sd[f"{p}.ln_{mod[1][-1]}.{'weight' if leaf_name == 'scale' else 'bias'}"] = val
-            elif mod[1] == "attn" and mod[2] == "qkv":
-                name, v = w_or_b(leaf_name, val)
-                sd[f"{p}.self_attention.in_proj_{name}"] = v
-            elif mod[1] == "attn":
-                name, v = w_or_b(leaf_name, val)
-                sd[f"{p}.self_attention.out_proj.{name}"] = v
-            else:  # fc1 / fc2
-                name, v = w_or_b(leaf_name, val)
-                sd[f"{p}.mlp.linear_{mod[1][-1]}.{name}"] = v
+            k, v = _encoder_block_keys(p, mod[1:], leaf_name, val)
+            sd[k] = v
+    return sd
+
+
+def _mae_state_dict(variables: Mapping) -> dict[str, np.ndarray]:
+    """The port's MAE keys from JAX ``MAEViT`` params: JAX's names
+    (``patch_embed``, ``mask_token``, ``pos_embed``, ``ln_f``, ``dec_fc``,
+    ``dec_pred``), ``block{i}`` as ``blocks.{i}`` in ViT's block naming."""
+    sd: dict[str, np.ndarray] = {}
+    for path, leaf in _flatten(variables.get("params", {})):
+        val = np.array(leaf, dtype=np.float32)
+        mod, leaf_name = list(path[:-1]), path[-1]
+        if not mod:  # mask_token, pos_embed
+            sd[leaf_name] = val
+        elif mod[0] == "patch_embed":
+            name, v = _patch_embed(leaf_name, val)
+            sd[f"patch_embed.{name}"] = v
+        elif mod[0] in ("ln_f", "dec_fc", "dec_pred"):
+            name, v = _w_or_b(leaf_name, val)
+            sd[f"{mod[0]}.{name}"] = v
+        else:
+            k, v = _encoder_block_keys(f"blocks.{int(mod[0].removeprefix('block'))}", mod[1:],
+                                       leaf_name, val)
+            sd[k] = v
     return sd
 
 
@@ -205,14 +242,12 @@ _RAW_LEAVES = {"rel_height", "rel_width", "height", "width"}
 
 def from_jax_variables(variables: Mapping, arch: str) -> dict[str, torch.Tensor]:
     """The port's state_dict for ``arch`` from JAX ``{"params", "batch_stats"}``."""
-    if arch.startswith("mae_"):
-        raise NotImplementedError(f"{arch}: MAE is not ported yet (ROADMAP Queue 1 item 11), "
-                                  f"and has no torch-layout schema")
     if arch not in list_models():
         raise KeyError(f"{arch!r} is not a model of the port; it has: {', '.join(list_models())}")
-    if arch.startswith("vit"):
-        return {k: torch.from_numpy(np.ascontiguousarray(v))
-                for k, v in _vit_state_dict(variables).items()}
+    for family, keys in (("vit", _vit_state_dict), ("mae_", _mae_state_dict)):
+        if arch.startswith(family):
+            return {k: torch.from_numpy(np.ascontiguousarray(v))
+                    for k, v in keys(variables).items()}
     module_name = _family_module_name(arch)
     sd: dict[str, torch.Tensor] = {}
     for col in ("params", "batch_stats"):
@@ -322,3 +357,58 @@ def moe_from_jax(params: Mapping, rank: int) -> tuple[torch.Tensor, dict[str, to
     gate = torch.from_numpy(np.array(params["gate"], dtype=np.float32))
     return gate, {k: torch.from_numpy(np.array(v[rank], dtype=np.float32))
                   for k, v in experts.items()}
+
+
+def provision(arch: str, src: str, dst: str, *, from_resnet50: bool = False,
+              num_classes: int = 1000) -> dict[str, torch.Tensor]:
+    """Write ``MODEL.PRETRAINED``'s directory ``dst`` for ``arch`` from the
+    torchvision-layout file ``src`` (:func:`load_weights`): the weights
+    loaded into ``arch`` built for ``num_classes`` (and a 224^2 crop, which
+    sizes BoTNet's and ViT's position tables) with ``strict=True``, then
+    saved as the port's checkpoint (``checkpoint.pt``
+    with the model alone, and its manifest). ``from_resnet50`` (botnet50
+    only): ``src`` is a resnet50, whose trunk
+    (:func:`botnet50_trunk_from_resnet50`) is laid over botnet50's
+    initialisers drawn from seed 0 (:func:`merge_pretrained`), the
+    reference's ``botnet50(pretrained=True)``. Returns the state_dict
+    written."""
+    from distribuuuu_tpu_torch import checkpoint
+    from distribuuuu_tpu_torch.models import build_model, layers
+
+    if from_resnet50 and arch != "botnet50":
+        raise ValueError("--from-resnet50 only applies to --arch botnet50")
+    model = build_model(arch, num_classes=num_classes, im_size=224)
+    sd = load_weights(src)
+    if from_resnet50:
+        init = layers.init_weights(model, torch.Generator().manual_seed(0)).state_dict()
+        sd = merge_pretrained(init, botnet50_trunk_from_resnet50(sd))
+    model.load_state_dict(sd, strict=True)
+    out = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    checkpoint._write(dst, {"epoch": -1, "model": out, "best_acc1": 0.0})
+    return out
+
+
+def main(argv: list[str] | None = None) -> int:
+    """``python -m distribuuuu_tpu_torch.convert --arch A --src <.pth> --dst DIR``."""
+    import argparse
+
+    ap = argparse.ArgumentParser(
+        prog="python -m distribuuuu_tpu_torch.convert",
+        description="Provision MODEL.PRETRAINED: a torchvision-layout .pth -> the port's "
+                    "checkpoint directory ($DTPU_PRETRAINED_DIR/<arch>)")
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--src", required=True, help="torch .pth/.pt state_dict (torchvision names)")
+    ap.add_argument("--dst", required=True, help="output directory (checkpoint.pt + manifest)")
+    ap.add_argument("--num-classes", type=int, default=1000)
+    ap.add_argument("--from-resnet50", action="store_true",
+                    help="botnet50 only: the trunk from a resnet50 file, the BoTStack and fc "
+                         "at the seeded init (the reference's botnet50(pretrained=True))")
+    args = ap.parse_args(argv)
+    sd = provision(args.arch, args.src, args.dst, from_resnet50=args.from_resnet50,
+                   num_classes=args.num_classes)
+    print(f"converted {args.src} ({args.arch}, {len(sd)} tensors) -> {args.dst}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

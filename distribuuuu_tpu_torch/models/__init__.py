@@ -1,10 +1,11 @@
 """Model zoo of the port. Importing it registers the ResNet family, BoTNet-50,
-DenseNet, RegNetX/Y, EfficientNet-B0/B1 and ViT (the JAX zoo but MAE)."""
+DenseNet, RegNetX/Y, EfficientNet-B0/B1, ViT and the MAE ViTs: the JAX zoo."""
 
 from distribuuuu_tpu_torch.models import (  # noqa: F401  (registers the factories)
     botnet,
     densenet,
     efficientnet,
+    mae,
     regnet,
     resnet,
     vit,

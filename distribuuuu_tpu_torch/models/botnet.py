@@ -32,12 +32,14 @@ from torch import nn
 
 from distribuuuu_tpu_torch.models.layers import (
     BatchNorm,
+    RematUnit,
     bn_epilogue,
     boundary,
     classifier_head,
     conv,
     link_handoffs,
     max_pool,
+    set_remat,
 )
 from distribuuuu_tpu_torch.models.registry import register_model
 from distribuuuu_tpu_torch.models.resnet import Bottleneck, resnet_stages
@@ -158,7 +160,7 @@ class MHSA(nn.Module):
         return out.transpose(1, 2).reshape(b, h, w, heads * dv).permute(0, 3, 1, 2)
 
 
-class BoTBlock(nn.Module):
+class BoTBlock(RematUnit):
     """MHSA bottleneck: ``net`` is the reference's Sequential (0 conv_in,
     1 bn_in, 2 ReLU, 3 MHSA, 4 avg-pool or identity, 5 bn_mid, 6 ReLU,
     7 conv_out, 8 bn_out with zero-γ at init); ``shortcut`` is conv -> BN ->
@@ -218,12 +220,13 @@ class BoTStack(nn.Module):
 class BoTNet50(nn.Module):
     """ResNet-50 stem and stages 1-3, a 3-block BoTStack (2048 wide, heads
     4, dim_qk = dim_v = 128, relative position bias, stride 1), the head.
-    ``stem_s2d`` is accepted and changes nothing, as in :class:`ResNet`."""
+    ``stem_s2d`` is accepted and changes nothing, as in :class:`ResNet`.
+    ``remat``: each Bottleneck and BoTBlock is recomputed in the backward."""
 
     crop_sized = True  # the position tables are sized by the crop at construction
 
     def __init__(self, num_classes=1000, fmap_size=(14, 14), dtype=torch.bfloat16,
-                 bn_dtype=torch.float32, stem_s2d=False):
+                 bn_dtype=torch.float32, stem_s2d=False, remat=False):
         super().__init__()
         self.add_module("0", conv(3, 64, 7, 2, padding=3, dtype=dtype))
         self.add_module("1", BatchNorm(64, bn_dtype=bn_dtype))
@@ -238,6 +241,7 @@ class BoTNet50(nn.Module):
         self.add_module("10", nn.Linear(2048, num_classes))
         blocks = [b for layer in (*stages, self._modules["7"].net) for b in layer]
         self.stem_handoff = link_handoffs(blocks, dtype)
+        set_remat(self, remat)
 
     def forward(self, x):
         """``x``: NHWC images (float); returns ``[N, num_classes]`` float32 logits."""

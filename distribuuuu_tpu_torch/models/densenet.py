@@ -13,7 +13,8 @@ compute dtype alone. As in JAX, the concatenation is in the dtype of the
 block's input (``new.astype(x.dtype)``): the BN dtype in the first block,
 the compute dtype after a transition (its conv's output), so with f32
 boundaries the first block's ``norm1`` reads f32 and the later blocks' read
-bf16. No remat: ``MODEL.REMAT`` raises (ROADMAP Queue 1 item 12).
+bf16. Under ``remat`` each dense layer is recomputed in the backward, as
+JAX's ``maybe_remat(DenseLayer)``.
 
 Module names follow torchvision (``features.conv0``,
 ``features.denseblock1.denselayer1.norm1``, ``features.transition1.conv``,
@@ -29,15 +30,17 @@ from torch import nn
 
 from distribuuuu_tpu_torch.models.layers import (
     BatchNorm,
+    RematUnit,
     bn_epilogue,
     classifier_head,
     conv,
     max_pool,
+    set_remat,
 )
 from distribuuuu_tpu_torch.models.registry import register_model
 
 
-class DenseLayer(nn.Module):
+class DenseLayer(RematUnit):
     """BN -> ReLU -> 1x1 -> BN -> ReLU -> 3x3: ``growth_rate`` new features."""
 
     def __init__(self, in_ch: int, growth_rate: int, bn_size: int, *, dtype, bn_dtype):
@@ -84,7 +87,7 @@ class DenseNet(nn.Module):
 
     def __init__(self, growth_rate: int, block_config, num_init_features: int,
                  num_classes: int = 1000, bn_size: int = 4, dtype=torch.bfloat16,
-                 bn_dtype=torch.float32):
+                 bn_dtype=torch.float32, remat: bool = False):
         super().__init__()
         kw = dict(dtype=dtype, bn_dtype=bn_dtype)
         self.features = nn.Module()
@@ -105,6 +108,7 @@ class DenseNet(nn.Module):
         f.add_module("norm5", BatchNorm(width, bn_dtype=bn_dtype))
         self.classifier = nn.Linear(width, num_classes)
         self.num_blocks = len(block_config)
+        set_remat(self, remat)
 
     def forward(self, x):
         """``x``: NHWC images (float); returns ``[N, num_classes]`` float32 logits."""

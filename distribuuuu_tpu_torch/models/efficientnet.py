@@ -34,10 +34,12 @@ from distribuuuu_tpu_torch.models.layers import (
     BatchNorm,
     DropPath,
     Dropout,
+    RematUnit,
     SqueezeExcite,
     bn_epilogue,
     bn_silu,
     conv,
+    set_remat,
 )
 from distribuuuu_tpu_torch.models.registry import register_model
 
@@ -69,8 +71,9 @@ def _round_repeats(repeats: int, depth_coef: float) -> int:
     return int(math.ceil(depth_coef * repeats))
 
 
-class MBConv(nn.Module):
-    """Mobile inverted bottleneck with SE and stochastic depth."""
+class MBConv(RematUnit):
+    """Mobile inverted bottleneck with SE and stochastic depth (the remat
+    unit under ``remat``: its drop-path mask is replayed in the recompute)."""
 
     def __init__(self, in_ch: int, out_ch: int, expand_ratio: int, kernel: int, stride: int,
                  se_ratio: float, drop_path: float, *, dtype, bn_dtype):
@@ -111,7 +114,7 @@ class EfficientNet(nn.Module):
 
     def __init__(self, num_classes: int = 1000, dropout: float = 0.2,
                  drop_path_rate: float = 0.2, width_coef: float = 1.0, depth_coef: float = 1.0,
-                 dtype=torch.bfloat16, bn_dtype=torch.float32):
+                 dtype=torch.bfloat16, bn_dtype=torch.float32, remat: bool = False):
         super().__init__()
         kw = dict(dtype=dtype, bn_dtype=bn_dtype)
         stem = _round_filters(32, width_coef)
@@ -134,6 +137,7 @@ class EfficientNet(nn.Module):
         self.bn2 = BatchNorm(head, bn_dtype=bn_dtype)
         self.dropout = Dropout(dropout)
         self.classifier = nn.Linear(head, num_classes)
+        set_remat(self, remat)
 
     def forward(self, x):
         """``x``: NHWC images (float); returns ``[N, num_classes]`` float32 logits."""

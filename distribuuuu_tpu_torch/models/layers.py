@@ -33,18 +33,32 @@ a generator handed to them (the trainer reseeds one each micro-step;
 :func:`set_generator` hands one to a whole model). :func:`init_weights` draws every family's JAX
 initialisers from one generator.
 
+Remat (``MODEL.REMAT``, the JAX package's ``maybe_remat``): each family's
+block is a :class:`RematUnit`, which :func:`set_remat` switches to
+``torch.utils.checkpoint`` (non-reentrant): its forward keeps only its
+inputs, and the backward recomputes it. The recompute is the same function
+as the forward, bit for bit: BN uses the recomputed batch statistics but
+leaves the running ones as the forward left them (:func:`recomputing`), as
+``nn.remat`` mutates ``batch_stats`` once; the dropout and drop-path
+generators are replayed from their state at the forward; a :class:`Pair`
+goes in and out whole. On the card the recompute launches K1 (and BoTNet's
+attention) a second time, the backward kernels once.
+
 Tensors are NCHW-logical and stored channels-last, so C is contiguous.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import NamedTuple
 
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from distribuuuu_tpu_torch.ops.epilogue import fused_conv_epilogue
 
@@ -129,15 +143,20 @@ class BatchNorm(nn.Module):
         """``(mean, mul, bias)`` in flax's order: rsqrt first, then the scale
         multiply (the association changes bits). Eval mode: the running
         statistics. Train mode: the statistics of ``x``, and the running
-        ones updated in place."""
+        ones updated in place, except in a remat unit's recompute
+        (:func:`recomputing`), which updated them in its forward already.
+        Under SyncBN the recompute all-reduces the statistics again: every
+        rank recomputes its units in the same order (the backward's), so
+        the collectives pair up as in the forward."""
         if not self.training:
             mul = torch.rsqrt(self.running_var + self.eps) * self.weight
             return self.running_mean, mul, self.bias
         mean, var = self.batch_stats(x)
-        with torch.no_grad():
-            m = self.momentum
-            self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
-            self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        if not recomputing():
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
         return mean, torch.rsqrt(var + self.eps) * self.weight, self.bias
 
     def forward(self, x):
@@ -277,6 +296,79 @@ def set_generator(model: nn.Module, generator: torch.Generator | None) -> None:
     for m in model.modules():
         if isinstance(m, RandomMask):
             m.generator = generator
+
+
+_RECOMPUTE = threading.local()
+
+
+def recomputing() -> bool:
+    """Whether this thread is inside a remat unit's recompute (the backward
+    runs it, on autograd's thread for the device)."""
+    return getattr(_RECOMPUTE, "depth", 0) > 0
+
+
+class _Replay:
+    """The two contexts of one checkpointed call (``checkpoint``'s
+    ``context_fn``): the forward's records the state of every generator the
+    unit's active masks draw from; the recompute's marks the thread as
+    recomputing and sets those generators back to that state, then restores
+    what they held. ``checkpoint``'s own ``preserve_rng_state`` covers only
+    the default CPU and CUDA generators."""
+
+    def __init__(self, unit: nn.Module):
+        gens = {id(m.generator): m.generator for m in unit.modules()
+                if isinstance(m, RandomMask) and m.active and m.generator is not None}
+        self.gens = list(gens.values())
+        self.states: list = []
+
+    @contextlib.contextmanager
+    def forward(self):
+        self.states = [g.get_state() for g in self.gens]
+        yield
+
+    @contextlib.contextmanager
+    def recompute(self):
+        held = [g.get_state() for g in self.gens]
+        for g, s in zip(self.gens, self.states):
+            g.set_state(s)
+        _RECOMPUTE.depth = getattr(_RECOMPUTE, "depth", 0) + 1
+        try:
+            yield
+        finally:
+            _RECOMPUTE.depth -= 1
+            for g, s in zip(self.gens, held):
+                g.set_state(s)
+
+    def contexts(self):
+        return self.forward(), self.recompute()
+
+
+class RematUnit(nn.Module):
+    """A block the JAX package wraps in ``nn.remat`` under ``MODEL.REMAT``.
+    With ``remat`` set (:func:`set_remat`) and gradients enabled, a call
+    runs through ``torch.utils.checkpoint`` (non-reentrant): the module's
+    forward, hooks included, is run again in the backward. Its arguments
+    and result may be tensors or :class:`Pair` tuples."""
+
+    remat = False
+
+    def __call__(self, *args):
+        if not (self.remat and torch.is_grad_enabled()):
+            return super().__call__(*args)
+        return checkpoint(super().__call__, *args, use_reentrant=False,
+                          context_fn=_Replay(self).contexts)
+
+
+def set_remat(model: nn.Module, enabled: bool) -> nn.Module:
+    """Switch every :class:`RematUnit` of ``model`` to recompute (``enabled``)
+    or not. A model with no such unit cannot be checkpointed: enabling
+    raises. Returns ``model``."""
+    units = [m for m in model.modules() if isinstance(m, RematUnit)]
+    if enabled and not units:
+        raise ValueError(f"MODEL.REMAT: {type(model).__name__} has no block to recompute")
+    for u in units:
+        u.remat = bool(enabled)
+    return model
 
 
 # std of N(0, 1) truncated to [-2, 2]

@@ -30,12 +30,14 @@ from torch import nn
 
 from distribuuuu_tpu_torch.models.layers import (
     BatchNorm,
+    RematUnit,
     SqueezeExcite,
     bn_epilogue,
     boundary,
     classifier_head,
     conv,
     link_handoffs,
+    set_remat,
 )
 from distribuuuu_tpu_torch.models.registry import register_model
 
@@ -71,8 +73,8 @@ class ConvBN(nn.Module):
         return bn_epilogue(self.conv(x), self.bn, identity, **kw)
 
 
-class RegNetBlock(nn.Module):
-    """X/Y bottleneck block, ratio 1."""
+class RegNetBlock(RematUnit):
+    """X/Y bottleneck block, ratio 1 (the remat unit under ``remat``)."""
 
     def __init__(self, w_in: int, width: int, stride: int, group_width: int, se_ratio: float,
                  *, dtype, bn_dtype):
@@ -108,7 +110,7 @@ class RegNet(nn.Module):
 
     def __init__(self, wa: float, w0: int, wm: float, depth: int, group_width: int,
                  se_ratio: float = 0.0, num_classes: int = 1000, dtype=torch.bfloat16,
-                 bn_dtype=torch.float32):
+                 bn_dtype=torch.float32, remat: bool = False):
         super().__init__()
         kw = dict(dtype=dtype, bn_dtype=bn_dtype)
         widths, depths = generate_regnet_widths(wa, w0, wm, depth)
@@ -127,6 +129,7 @@ class RegNet(nn.Module):
         self.head.fc = nn.Linear(w_in, num_classes)
         self.blocks = blocks  # a plain list: the modules are registered in their stages
         self.stem_handoff = link_handoffs(blocks, dtype)
+        set_remat(self, remat)
 
     def forward(self, x):
         """``x``: NHWC images (float); returns ``[N, num_classes]`` float32 logits."""

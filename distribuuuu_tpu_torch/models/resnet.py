@@ -21,17 +21,19 @@ from torch import nn
 
 from distribuuuu_tpu_torch.models.layers import (
     BatchNorm,
+    RematUnit,
     bn_epilogue,
     boundary,
     classifier_head,
     conv,
     link_handoffs,
     max_pool,
+    set_remat,
 )
 from distribuuuu_tpu_torch.models.registry import register_model
 
 
-class BasicBlock(nn.Module):
+class BasicBlock(RematUnit):
     """3x3 + 3x3 residual block (expansion 1)."""
 
     expansion = 1
@@ -62,7 +64,7 @@ class BasicBlock(nn.Module):
         return bn_epilogue(out, self.bn2, identity, **self.handoff)
 
 
-class Bottleneck(nn.Module):
+class Bottleneck(RematUnit):
     """1x1 -> 3x3(stride, groups) -> 1x1 block (expansion 4)."""
 
     expansion = 4
@@ -126,11 +128,12 @@ class ResNet(nn.Module):
     ``stem_s2d`` (``MODEL.STEM_S2D``) is accepted as the JAX family accepts
     it, and changes nothing: the JAX space-to-depth stem computes the 7x7/2
     conv's function bitwise, and here cuDNN runs that conv as it is. The
-    other families refuse the option."""
+    other families refuse the option. ``remat``: each block is recomputed in
+    the backward (``layers.set_remat``), the stem is not, as in JAX."""
 
     def __init__(self, block, stage_sizes, num_classes=1000, groups=1, width_per_group=64,
                  dtype=torch.bfloat16, bn_dtype=torch.float32, zero_init_residual=False,
-                 stem_s2d=False):
+                 stem_s2d=False, remat=False):
         super().__init__()
         self.conv1 = conv(3, 64, 7, 2, padding=3, dtype=dtype)
         self.bn1 = BatchNorm(64, bn_dtype=bn_dtype)
@@ -142,6 +145,7 @@ class ResNet(nn.Module):
         self.num_stages = len(stage_sizes)
         self.fc = nn.Linear(inplanes, num_classes)
         self.stem_handoff = link_handoffs([b for layer in stages for b in layer], dtype)
+        set_remat(self, remat)
 
     def forward(self, x):
         """``x``: NHWC images (float); returns ``[N, num_classes]`` float32 logits."""

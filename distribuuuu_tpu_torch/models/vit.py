@@ -22,8 +22,9 @@ D], ``pos_embedding`` [1, L, D], the packed ``in_proj_weight`` [3D, D]), so
 LAMB's weight-decay mask (``ndim > 1``) covers the same parameters. The
 position table is sized by the crop at construction (``im_size``), so the
 trainer refuses an eval crop other than the training one
-(``crop_sized``). The sequence-parallel branch is not ported (``MESH.SEQ``
-and ``MODEL.SEQ_ATTN`` raise, ROADMAP Queue 1 item 12).
+(``crop_sized``). Under ``remat`` each encoder block is recomputed in the
+backward. The sequence-parallel branch is not ported (``MESH.SEQ`` above 1
+raises, ROADMAP Queue 1 item 12).
 
 Module names follow torchvision's ``vit_b_16`` (``conv_proj``,
 ``class_token``, ``encoder.pos_embedding``,
@@ -38,7 +39,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from distribuuuu_tpu_torch.models.layers import trunc_normal_, xavier_uniform_
+from distribuuuu_tpu_torch.models.layers import (
+    RematUnit,
+    set_remat,
+    trunc_normal_,
+    xavier_uniform_,
+)
 from distribuuuu_tpu_torch.models.registry import register_model
 
 LN_EPS = 1e-6
@@ -85,7 +91,7 @@ class MLP(nn.Module):
         return _linear(F.gelu(_linear(x, self.linear_1, dt)), self.linear_2, dt)
 
 
-class EncoderBlock(nn.Module):
+class EncoderBlock(RematUnit):
     """Pre-LN block: ``x + attn(LN(x))``, then ``x + mlp(LN(x))``."""
 
     def __init__(self, dim: int, num_heads: int, mlp_dim: int, *, dtype):
@@ -126,7 +132,8 @@ class ViT(nn.Module):
 
     def __init__(self, patch: int = 16, dim: int = 768, depth: int = 12, num_heads: int = 12,
                  mlp_dim: int = 3072, num_classes: int = 1000, pool: str = "token",
-                 im_size: int = 224, dtype=torch.bfloat16, bn_dtype=torch.float32):
+                 im_size: int = 224, dtype=torch.bfloat16, bn_dtype=torch.float32,
+                 remat: bool = False):
         super().__init__()
         if pool not in ("token", "gap"):
             raise ValueError(f"pool must be 'token' or 'gap', got {pool!r}")
@@ -139,6 +146,7 @@ class ViT(nn.Module):
         self.encoder = Encoder(seq_len, dim, depth, num_heads, mlp_dim, dtype=dtype)
         self.heads = nn.Module()
         self.heads.head = nn.Linear(dim, num_classes)
+        set_remat(self, remat)
 
     def forward(self, x):
         """``x``: NHWC images (float); returns ``[N, num_classes]`` float32 logits."""

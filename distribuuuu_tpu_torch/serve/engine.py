@@ -125,6 +125,9 @@ class InferenceEngine:
                 f"{spec.name}: ':{spec.quant}' serving is not ported yet "
                 f"(ROADMAP.md Queue 1, item 'Quant')"
             )
+        if spec.arch.startswith("mae_"):
+            raise ValueError(f"{spec.name}: {spec.arch} emits pixel reconstructions, not class "
+                             f"logits; it trains with TRAIN.TASK mae and is not served")
         with self._lock:
             if spec.name in self.models:
                 raise ValueError(f"model {spec.name!r} already hosted")

@@ -18,9 +18,20 @@ K1-bwd backward (53 of each per ResNet-50 or BoTNet-50 step, 121 per
 DenseNet-121, 59 per RegNetY-16GF, 49 per EfficientNet-B0, none in ViT),
 and BoTNet's MHSA the attention kernel and its backward kernel (3 of each
 a step, the backward on its one-launch cluster route at 224^2, on the
-blockwise route at 512^2); on the CPU their plain versions. Dropout and
-drop path draw from a generator seeded each micro-step from ``(seed,
-epoch, step, micro-step, rank)`` (:func:`dropout_seed`).
+blockwise route at 512^2); on the CPU their plain versions. Under
+``MODEL.REMAT`` each block's forward runs again in the backward, so K1
+and the attention launch once more a recomputed BN or attention (105 K1 a
+ResNet-50 step: the stem's BN is not recomputed). Dropout and drop path
+draw from a generator seeded each micro-step from ``(seed, epoch, step,
+micro-step, rank)`` (:func:`dropout_seed`).
+
+``TRAIN.TASK mae`` (an ``mae_*`` arch): the loss is the masked patches'
+pixel MSE (:func:`mae_loss`); the mask is drawn first from the same
+micro-step stream, on the device, so a resumed run draws it again; eval
+uses one fixed mask from ``RNG_SEED or 0`` for every batch. The top-k
+counters stay zero, so the meters and checkpoints are the classifier's.
+``MODEL.PRETRAINED`` warm-starts from the port's converted checkpoint
+(:func:`_pretrained_path`), without the optimizer.
 
 Fault tolerance, as the JAX trainer's (:mod:`distribuuuu_tpu_torch.resilience`):
 at every step boundary the watchdog is beaten, the fault injector may kill,
@@ -66,6 +77,7 @@ from distribuuuu_tpu_torch.metrics import (
     topk_correct_weighted,
 )
 from distribuuuu_tpu_torch.models import build_model, layers
+from distribuuuu_tpu_torch.models.mae import patchify
 from distribuuuu_tpu_torch.ops import attention as att
 from distribuuuu_tpu_torch.ops import epilogue as ep
 from distribuuuu_tpu_torch.runtime.dist import setup_distributed
@@ -118,12 +130,13 @@ class TrainState:
             b.data = self.stats[o:o + b.numel()].view(b.shape)
         self.optimizer = optim.construct_optimizer(self.params, self.segments)
         # the dropout and drop-path layers that draw in training, one
-        # generator reseeded for them each micro-step, and the base of its
-        # stream (:func:`dropout_seed`), which a mid-epoch checkpoint
-        # carries as JAX's carries its rng_key
+        # generator reseeded for them (and, before them, for an MAE model's
+        # patch mask) each micro-step, and the base of its stream
+        # (:func:`dropout_seed`), which a mid-epoch checkpoint carries as
+        # JAX's carries its rng_key
         self.masks = [m for m in model.modules()
                       if isinstance(m, layers.RandomMask) and m.rate > 0.0]
-        self.mask_generator = torch.Generator(device=device) if self.masks else None
+        self.mask_generator = torch.Generator(device=device)
         self.dropout_seed: int | None = None
 
     @property
@@ -155,9 +168,33 @@ def dropout_seed(seed: int, epoch: int, step: int, micro: int, rank: int) -> int
     return (int(hi) << 32 | int(lo)) >> 1
 
 
+def mae_loss(model, images: torch.Tensor, mask: torch.Tensor, weights=None) -> torch.Tensor:
+    """The masked-autoencoder loss of JAX's ``_forward_loss_mae``: ``model``
+    (an ``mae_*`` arch) on the normalised NHWC ``images`` with ``mask``
+    (``[B, L]`` bool, True: masked), each patch's mean squared error in f32
+    against :func:`patchify` of the images, summed over the masked patches
+    (each weighted by its sample's ``weights``, when given: a padded eval
+    sample counts for nothing) and divided by their count, at least 1."""
+    pred = model(images, mask)
+    target = patchify(images.float(), model.patch)
+    mask_f = mask.float()
+    if weights is not None:
+        mask_f = mask_f * weights.float()[:, None]
+    err = (pred.float() - target).square().mean(-1)  # [B, L]
+    return (err * mask_f).sum() / mask_f.sum().clamp_min(1.0)
+
+
+def mae_mask(n: int, tokens: int, generator: torch.Generator, device=None) -> torch.Tensor:
+    """``[n, tokens]`` Bernoulli(``MODEL.MAE_MASK_RATIO``) draws from
+    ``generator`` (on its device unless ``device`` says where to put them)."""
+    u = torch.rand((n, tokens), generator=generator, device=generator.device)
+    return (u < cfg.MODEL.MAE_MASK_RATIO).to(device or generator.device)
+
+
 def train_step(state: TrainState, batch: dict, lr: float, *, accum_steps: int = 1,
                topk: int = 5, label_smooth: float = 0.0, guard: bool = True,
-               dropout_key: tuple | None = None) -> dict:
+               dropout_key: tuple | None = None, task: str = "classify",
+               mask: torch.Tensor | None = None) -> dict:
     """One optimizer step on the local batch (``image`` uint8 or float NHWC,
     ``label``), on the batch's device. Forward and backward per micro-batch
     (BN statistics updated in order), gradients and loss averaged over the
@@ -167,31 +204,46 @@ def train_step(state: TrainState, batch: dict, lr: float, *, accum_steps: int = 
     were. ``dropout_key``: ``(seed, epoch, step, rank)``, from which each
     micro-step's dropout and drop-path masks are drawn
     (:func:`dropout_seed`); a model that draws none needs none.
+    ``task`` "mae": the loss is :func:`mae_loss`, top-k stays zero, and
+    each micro-step's patch mask is ``mask``'s rows (``[n, L]``), or, when
+    ``mask`` is None, drawn from the micro-step's stream before any
+    dropout (so ``dropout_key`` is needed).
     Returns this rank's metric sums as 0-d device tensors (no sync)."""
     model = state.model.train()
     images, labels = batch["image"], batch["label"]
     n = images.shape[0]
     if n % accum_steps:
         raise ValueError(f"batch {n} does not split into {accum_steps} micro-batches")
+    mae = task == "mae"
+    if mae and mask is None and dropout_key is None:
+        raise ValueError("TRAIN.TASK mae draws its mask from the dropout stream: pass "
+                         "dropout_key (or the mask)")
     mb = n // accum_steps
     state.grads.zero_()
     stats_before = state.stats.clone() if guard else None
-    loss_sum, correct = 0.0, {1: 0.0, topk: 0.0}
+    zero = torch.zeros((), device=images.device)
+    loss_sum, correct = 0.0, {1: zero, topk: zero}
     for i in range(accum_steps):
         sl = slice(i * mb, (i + 1) * mb)
-        if state.masks:  # without a key the layers raise rather than draw
-            gen = None
-            if dropout_key is not None:
-                gen = state.mask_generator.manual_seed(
-                    dropout_seed(*dropout_key[:3], i, dropout_key[3]))
-            for m in state.masks:
-                m.generator = gen
-        logits = model(device_normalize(images[sl]))
-        loss = cross_entropy_loss(logits, labels[sl], label_smooth)
+        gen = None
+        if dropout_key is not None and (state.masks or mae):
+            gen = state.mask_generator.manual_seed(
+                dropout_seed(*dropout_key[:3], i, dropout_key[3]))
+        for m in state.masks:  # without a key the layers raise rather than draw
+            m.generator = gen
+        x = device_normalize(images[sl])
+        if mae:
+            tokens = (x.shape[1] // model.patch) * (x.shape[2] // model.patch)
+            m_i = mask[sl] if mask is not None else mae_mask(mb, tokens, gen)
+            loss = mae_loss(model, x, m_i)
+        else:
+            logits = model(x)
+            loss = cross_entropy_loss(logits, labels[sl], label_smooth)
         loss.backward()
         loss_sum = loss_sum + loss.detach()
-        for k, v in topk_correct(logits.detach(), labels[sl], ks=(1, topk)).items():
-            correct[k] = correct[k] + v
+        if not mae:
+            for k, v in topk_correct(logits.detach(), labels[sl], ks=(1, topk)).items():
+                correct[k] = correct[k] + v
     loss = loss_sum / accum_steps
     grads = state.grads[:-1]
     if accum_steps > 1:
@@ -212,19 +264,29 @@ def train_step(state: TrainState, batch: dict, lr: float, *, accum_steps: int = 
                f"correct{topk}": correct[topk]}
     if guard:
         state.stats.copy_(torch.where(keep, state.stats, stats_before))
-        zero = torch.zeros((), device=loss.device)
         metrics = {k: torch.where(keep, v, zero) for k, v in metrics.items()}
         metrics["skipped"] = (~keep).float()
     return metrics
 
 
 @torch.no_grad()
-def eval_step(model, batch: dict, totals: torch.Tensor, topk: int = 5) -> torch.Tensor:
+def eval_step(model, batch: dict, totals: torch.Tensor, topk: int = 5,
+              task: str = "classify") -> torch.Tensor:
     """Add the batch's ``[sum(nll * w), sum(w), correct@1, correct@k]`` to
-    ``totals`` (a 4-vector on the device) and return it."""
+    ``totals`` (a 4-vector on the device) and return it. ``task`` "mae":
+    ``[mae_loss * sum(w), sum(w), 0, 0]`` under one fixed mask, drawn from
+    ``RNG_SEED or 0`` on the CPU for every batch and run (so the card and
+    the CPU evaluate the same mask), the weights excluding padded samples."""
     model.eval()
-    logits = model(device_normalize(batch["image"])).float()
+    x = device_normalize(batch["image"])
     w = batch["weight"]
+    if task == "mae":
+        tokens = (x.shape[1] // model.patch) * (x.shape[2] // model.patch)
+        gen = torch.Generator().manual_seed(cfg.RNG_SEED or 0)
+        loss = mae_loss(model, x, mae_mask(x.shape[0], tokens, gen, x.device), w)
+        zero = torch.zeros((), device=x.device)
+        return totals + torch.stack([loss * w.sum(), w.sum(), zero, zero])
+    logits = model(x).float()
     nll = per_example_nll(logits, batch["label"])
     c = topk_correct_weighted(logits, batch["label"], w, ks=(1, topk))
     return totals + torch.stack([(nll * w).sum(), w.sum(), c[1], c[topk]])
@@ -233,18 +295,13 @@ def eval_step(model, batch: dict, totals: torch.Tensor, topk: int = 5) -> torch.
 # Keys the port accepts, so that the JAX package's YAMLs and command lines
 # merge, but does not honour yet: any value other than the default raises
 # with the ROADMAP Queue 1 item that ports the subsystem.
-UNPORTED_KEYS = (
-    ("MESH.SEQ", "item 12"), ("TRAIN.TASK", "item 11"), ("MODEL.REMAT", "item 12"),
-    ("MODEL.PRETRAINED", "item 11"),
-    ("MESH.FSDP_MIN_SIZE", "item 12"), ("MODEL.SEQ_ATTN", "item 12"),
-    ("MODEL.MAE_MASK_RATIO", "item 11"), ("MODEL.MAE_DECODER_DIM", "item 11"),
-    ("DATA.ADVERTISE_HOST", "item 13"))
+UNPORTED_KEYS = (("MESH.SEQ", "item 12"), ("MESH.FSDP_MIN_SIZE", "item 12"),
+                 ("DATA.ADVERTISE_HOST", "item 13"))
 
 
 def _check_supported() -> None:
     """Raise on a config value whose subsystem the port does not have yet."""
-    todo = (("MODEL.ARCH", not cfg.MODEL.ARCH.startswith("mae_"), "item 11"),
-            ("MESH.FSDP", cfg.MESH.FSDP in (0, 1), "item 12"),
+    todo = (("MESH.FSDP", cfg.MESH.FSDP in (0, 1), "item 12"),
             # a fleet-scheduled dataplane (the key or DTPU_DATA_SERVICE); a
             # host:port address is ported
             ("DATA.SERVICE", service_address().lower() != "fleet", "item 13"),
@@ -260,21 +317,38 @@ def _check_supported() -> None:
 
 
 def build_cfg_model(generator: torch.Generator | None = None) -> torch.nn.Module:
-    """``MODEL.ARCH`` with the config's classes, compute dtype and BN
-    boundary dtype (``auto`` follows ``MODEL.DTYPE``), weights drawn from
-    ``generator`` with the JAX initialisers (:func:`layers.init_weights`).
-    ``MODEL.STEM_S2D`` reaches the factory, which refuses it outside the
-    ResNet family (a TypeError, as JAX's)."""
+    """``MODEL.ARCH`` with the config's classes, compute dtype, BN boundary
+    dtype (``auto`` follows ``MODEL.DTYPE``) and ``MODEL.REMAT``, weights
+    drawn from ``generator`` with the JAX initialisers
+    (:func:`layers.init_weights`). ``MODEL.STEM_S2D`` reaches the factory,
+    which refuses it outside the ResNet family (a TypeError, as JAX's).
+    ``TRAIN.TASK`` and ``MODEL.SEQ_ATTN`` are checked as JAX's
+    ``_build_cfg_model`` checks them: ``mae`` needs an ``mae_*`` arch (and
+    gets ``MODEL.MAE_DECODER_DIM``), and an ``mae_*`` arch needs ``mae``."""
     for mod in filter(None, (m.strip() for m in cfg.MODEL.MODULE.split(","))):
         importlib.import_module(mod)
+    if cfg.TRAIN.TASK not in ("classify", "mae"):
+        raise ValueError(f"TRAIN.TASK must be 'classify' or 'mae', got {cfg.TRAIN.TASK!r}")
+    if cfg.MODEL.SEQ_ATTN not in ("none", "ring", "ulysses"):
+        raise ValueError(f"MODEL.SEQ_ATTN must be 'none', 'ring' or 'ulysses', "
+                         f"got {cfg.MODEL.SEQ_ATTN!r}")
     dtype = _DTYPES[cfg.MODEL.DTYPE]
     bn = cfg.MODEL.BN_DTYPE
     bn_dtype = dtype if bn == "auto" else _DTYPES[bn]
     # the ResNet family's option, as in JAX: another family's factory
     # refuses the keyword with a TypeError
     kwargs = {"stem_s2d": True} if cfg.MODEL.STEM_S2D else {}
+    if cfg.TRAIN.TASK == "mae":
+        if not cfg.MODEL.ARCH.startswith("mae_"):
+            raise ValueError(f"TRAIN.TASK 'mae' needs a pixel-decoder arch (mae_*), got "
+                             f"MODEL.ARCH {cfg.MODEL.ARCH!r}")
+        kwargs["decoder_dim"] = cfg.MODEL.MAE_DECODER_DIM
+    elif cfg.MODEL.ARCH.startswith("mae_"):
+        raise ValueError(f"MODEL.ARCH {cfg.MODEL.ARCH!r} emits pixel reconstructions, not "
+                         f"class logits: set TRAIN.TASK 'mae'")
     model = build_model(cfg.MODEL.ARCH, num_classes=cfg.MODEL.NUM_CLASSES, dtype=dtype,
-                        bn_dtype=bn_dtype, im_size=cfg.TRAIN.IM_SIZE, **kwargs)
+                        bn_dtype=bn_dtype, im_size=cfg.TRAIN.IM_SIZE, remat=cfg.MODEL.REMAT,
+                        **kwargs)
     if generator is not None:
         layers.init_weights(model, generator)
     return model
@@ -289,6 +363,40 @@ def _check_crop(model) -> None:
         raise ValueError(f"{cfg.MODEL.ARCH} requires TRAIN.IM_SIZE == TEST.CROP_SIZE (got "
                          f"{cfg.TRAIN.IM_SIZE} vs {cfg.TEST.CROP_SIZE}): its position tables "
                          f"are sized by the training crop")
+
+
+def _pretrained_path() -> str:
+    """``MODEL.PRETRAINED``'s directory, ``$DTPU_PRETRAINED_DIR/<arch>``
+    (default ``~/.cache/distribuuuu_tpu_torch/pretrained/<arch>``, the
+    port's own root: a JAX Orbax directory is never found by default). A
+    missing directory, or one without the port's ``checkpoint.pt`` (such as
+    an Orbax one), raises ``FileNotFoundError`` naming the command that
+    provisions it from a torchvision ``.pth``."""
+    root = os.environ.get("DTPU_PRETRAINED_DIR", os.path.join(
+        os.path.expanduser("~"), ".cache", "distribuuuu_tpu_torch", "pretrained"))
+    path = os.path.join(root, cfg.MODEL.ARCH)
+    provision = (f"provision it once with: python -m distribuuuu_tpu_torch.convert --arch "
+                 f"{cfg.MODEL.ARCH} --src <torchvision .pth> --dst {path}")
+    if not os.path.isdir(path):
+        raise FileNotFoundError(f"MODEL.PRETRAINED=True but no converted weights at {path}; "
+                                f"{provision}")
+    if not os.path.isfile(os.path.join(path, "checkpoint.pt")):
+        raise FileNotFoundError(f"MODEL.PRETRAINED=True but {path} holds no checkpoint.pt of "
+                                f"the port (a JAX Orbax directory cannot be read); {provision}")
+    return path
+
+
+def _load_pretrained(state: TrainState) -> str:
+    """Verify ``MODEL.PRETRAINED``'s checkpoint against its manifest and load
+    its model into ``state`` (the optimizer untouched); returns its path."""
+    path = _pretrained_path()
+    status, errors = ckpt.verify_checkpoint(path)
+    if status != "ok":
+        raise RuntimeError(f"MODEL.PRETRAINED: {path} is {status} against its manifest "
+                           f"({errors or 'no dtpu_manifest.json'}); provision it again with "
+                           f"python -m distribuuuu_tpu_torch.convert")
+    ckpt.load_checkpoint(path, state, load_opt=False)
+    return path
 
 
 def _launch_counts() -> tuple[int, ...]:
@@ -438,7 +546,8 @@ def train_epoch(loader, state: TrainState, epoch: int, device, is_primary: bool,
         window.append(train_step(state, batch, lr, accum_steps=cfg.TRAIN.ACCUM_STEPS,
                                  topk=topk, label_smooth=cfg.TRAIN.LABEL_SMOOTH,
                                  guard=cfg.FAULT.NONFINITE_GUARD,
-                                 dropout_key=(state.dropout_seed, epoch, it, state.rank)))
+                                 dropout_key=(state.dropout_seed, epoch, it, state.rank),
+                                 task=cfg.TRAIN.TASK))
         if profiler is not None:
             profiler.after(it)
         if it % cfg.TRAIN.PRINT_FREQ == 0 or it == len(loader) - 1:
@@ -513,7 +622,7 @@ def validate(loader, model, device, is_primary: bool, group=None, prefix="Test: 
                                                  cfg.TRAIN.PIN_MEMORY)):
         data_time.update(time.time() - t_end)
         resilience.watchdog_beat(it, phase="eval")
-        totals = eval_step(model, batch, totals, topk)
+        totals = eval_step(model, batch, totals, topk, cfg.TRAIN.TASK)
         window_n += 1
         if it % cfg.TEST.PRINT_FREQ == 0 or it == len(loader) - 1:
             loss_s, n, c1, ck = summed(totals)
@@ -534,7 +643,8 @@ def validate(loader, model, device, is_primary: bool, group=None, prefix="Test: 
     n = max(n, 1.0)
     acc1, acck = 100.0 * c1 / n, 100.0 * ck / n
     if is_primary:
-        logger.info(f" * Acc@1 {acc1:.3f} Acc@{topk} {acck:.3f} over {n:.0f} images"
+        mse = f"; masked-MSE loss {loss_s / n:.6f}" if cfg.TRAIN.TASK == "mae" else ""
+        logger.info(f" * Acc@1 {acc1:.3f} Acc@{topk} {acck:.3f} over {n:.0f} images{mse}"
                     f"{_input_tail(loader)}")
     return acc1, acck
 
@@ -648,6 +758,9 @@ def _train(info, gen):
     if res is None and cfg.MODEL.WEIGHTS:
         ckpt.load_checkpoint(cfg.MODEL.WEIGHTS, state, load_opt=cfg.TRAIN.LOAD_OPT)
         logger.info(f"Warm-started weights from {cfg.MODEL.WEIGHTS}")
+    elif res is None and cfg.MODEL.PRETRAINED:
+        path = _load_pretrained(state)
+        logger.info(f"Initialized from pretrained weights ({cfg.MODEL.ARCH}) at {path}")
     profiler = _Profiler(info.device) if cfg.TRAIN.PROFILE and info.is_primary else None
     run_tic = time.time()
     # armed over train and eval (both hang when a peer dies); its first beat
@@ -687,6 +800,9 @@ def test_model(device=None):
     if cfg.MODEL.WEIGHTS:
         ckpt.load_checkpoint(cfg.MODEL.WEIGHTS, state, load_opt=False)
         logger.info(f"Loaded weights from {cfg.MODEL.WEIGHTS}")
+    elif cfg.MODEL.PRETRAINED:
+        path = _load_pretrained(state)
+        logger.info(f"Loaded pretrained weights ({cfg.MODEL.ARCH}) from {path}")
     val_loader = construct_val_loader(info.world_size, info.rank, _pin_device(info.device))
     _log_input(val_loader)
     return validate(val_loader, model, info.device, info.is_primary, info.group)

@@ -3,11 +3,12 @@
     python tests/_torch_train_worker.py SPEC_JSON RANK
 
 ``SPEC_JSON`` holds ``init`` (a ``file://`` store), ``world``, ``threads``,
-``arch``, ``classes``, ``syncbn``, ``accum`` and ``inputs``: an ``.npz`` with
-the global batches (``image`` ``[K, B, H, W, 3]`` uint8, ``label`` ``[K,
-B]``), the learning rates ``lr`` ``[K]`` and, per step k, the state every
-rank starts that step from (``s{k}/<state_dict key>``: the JAX run's, in the
-port's layout). Rank r trains on rows ``[r B / world, (r + 1) B / world)``
+``arch``, ``classes``, ``syncbn``, ``accum``, optionally ``remat``, and
+``inputs``: an ``.npz`` with the global batches (``image`` ``[K, B, H, W,
+3]`` uint8, ``label`` ``[K, B]``), the learning rates ``lr`` ``[K]`` and the
+state every rank starts step 0 from (``s0/<state_dict key>``) and, for any
+later step k that should not run on from the last, the state it starts
+from (``s{k}/...``: the JAX run's, in the port's layout). Rank r trains on rows ``[r B / world, (r + 1) B / world)``
 of each batch through ``trainer.train_step`` (gradient and statistics
 all-reduced over the group, SyncBN when asked) and writes ``rank<R>.npz``
 beside the spec: per step the loss over the whole batch, the state after
@@ -50,6 +51,7 @@ def main() -> None:
         data = np.load(spec["inputs"])
         cfg.MODEL.ARCH, cfg.MODEL.NUM_CLASSES = spec["arch"], int(spec["classes"])
         cfg.MODEL.DTYPE, cfg.MODEL.SYNCBN = "float32", bool(spec["syncbn"])
+        cfg.MODEL.REMAT = bool(spec.get("remat", False))
         model = build_cfg_model()
         _sync_bn(model, dist.group.WORLD)
         state = TrainState(model, dist.group.WORLD)
@@ -60,7 +62,8 @@ def main() -> None:
         for k in range(k_steps):
             sd = {name[len(f"s{k}/"):]: torch.from_numpy(data[name]) for name in data.files
                   if name.startswith(f"s{k}/")}
-            model.load_state_dict(sd, strict=True)
+            if sd or k == 0:  # later steps may run on from the state the last one left
+                model.load_state_dict(sd, strict=True)
             m = train_step(state, {"image": torch.from_numpy(images[k, rows]),
                                    "label": torch.from_numpy(labels[k, rows]).long()},
                            float(data["lr"][k]), accum_steps=int(spec["accum"]), topk=5)

@@ -1037,3 +1037,84 @@ def test_watchdog_fires_while_the_host_waits_on_a_stalled_device(cuda):
     assert "the sync returned" not in proc.stdout
     assert "WATCHDOG: hang" in proc.stderr
     assert "wait_for_the_stalled_device" in proc.stderr and "synchronize" in proc.stderr
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["resnet18", "efficientnet_b0"])
+def test_remat_training_steps_equal_without_remat_on_the_card(cuda, arch):
+    """MODEL.REMAT on the card, cuDNN deterministic: two bf16 steps at 64^2,
+    batch 8, from one state, with REMAT on and off, give torch.equal
+    parameters, BN statistics and optimizer state (EfficientNet-B0 with its
+    drop path and dropout drawing from the trainer's CUDA generator, which
+    the recompute replays); K1 launches once more for every BN inside a
+    block, K1-bwd once for every BN."""
+    from distribuuuu_tpu_torch.config import cfg, reset_cfg
+    from distribuuuu_tpu_torch.runtime.seeding import configure_determinism
+    from distribuuuu_tpu_torch.trainer import TrainState, build_cfg_model, train_step
+
+    before = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    configure_determinism(True, benchmark=False)
+    runs = []
+    try:
+        for remat in (False, True):
+            reset_cfg()
+            cfg.MODEL.ARCH, cfg.MODEL.NUM_CLASSES, cfg.TRAIN.IM_SIZE = arch, 10, 64
+            cfg.MODEL.REMAT = remat
+            model = build_cfg_model(torch.Generator().manual_seed(0))
+            units = [m for m in model.modules() if isinstance(m, layers.RematUnit)]
+            bns = sum(isinstance(m, layers.BatchNorm) for m in model.modules())
+            inner = sum(isinstance(m, layers.BatchNorm) for u in units for m in u.modules())
+            st = TrainState(model.to(cuda))
+            gen = torch.Generator().manual_seed(1)
+            k1, k1_bwd = ep.LAUNCHES, ep.BWD_LAUNCHES
+            for step in range(2):
+                train_step(st, {"image": torch.randint(0, 256, (8, 64, 64, 3), dtype=torch.uint8,
+                                                       generator=gen).to(cuda),
+                                "label": torch.randint(0, 10, (8,), generator=gen).to(cuda)},
+                           0.1, dropout_key=(3, 0, step, 0))
+            torch.cuda.synchronize()
+            assert ep.LAUNCHES - k1 == 2 * (bns + inner * remat)
+            assert ep.BWD_LAUNCHES - k1_bwd == 2 * bns
+            runs.append([st.params.cpu(), st.stats.cpu(),
+                         *(v.cpu() for v in st.optimizer.state.values())])
+    finally:
+        reset_cfg()
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = before
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.gpu
+def test_mae_forward_and_step_card_equal_cpu(cuda, monkeypatch):
+    """A small MAE ViT (patch 4, width 64, depth 2) in f32 with TF32 off, at
+    32^2, batch 4, under one mask: the predictions within 1e-5 of max|pred|
+    and one LAMB step's parameters within 1e-4 of max|p|, card vs CPU."""
+    from distribuuuu_tpu_torch.config import cfg, reset_cfg
+    from distribuuuu_tpu_torch.data.transforms import device_normalize
+    from distribuuuu_tpu_torch.models.mae import MAEViT
+    from distribuuuu_tpu_torch.trainer import TrainState, mae_mask, train_step
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    reset_cfg()
+    cfg.OPTIM.OPTIMIZER, cfg.OPTIM.WEIGHT_DECAY = "lamb", 0.05
+    gen = torch.Generator().manual_seed(2)
+    imgs = torch.randint(0, 256, (4, 32, 32, 3), dtype=torch.uint8, generator=gen)
+    mask = mae_mask(4, 64, gen)
+    out = {}
+    try:
+        for dev in ("cpu", cuda):
+            model = layers.init_weights(
+                MAEViT(patch=4, dim=64, depth=2, num_heads=2, mlp_dim=128, decoder_dim=32,
+                       im_size=32, dtype=torch.float32), torch.Generator().manual_seed(0)).to(dev)
+            with torch.no_grad():
+                pred = model.eval()(device_normalize(imgs.to(dev)), mask.to(dev)).cpu()
+            st = TrainState(model)
+            train_step(st, {"image": imgs.to(dev), "label": torch.zeros(4, dtype=torch.long,
+                                                                        device=dev)},
+                       2e-3, task="mae", mask=mask.to(dev))
+            out[str(dev)] = (pred, st.params.cpu())
+    finally:
+        reset_cfg()
+    (pc, wc), (pg, wg) = out["cpu"], out[str(cuda)]
+    assert (pg - pc).abs().max() <= 1e-5 * pc.abs().max()
+    assert (wg - wc).abs().max() <= 1e-4 * wc.abs().max()

@@ -34,8 +34,9 @@
   counting exactly the 300 val images (the last batch padded at weight 0);
 - a non-default value of each key the port accepts but does not honour
   yet raises ``NotImplementedError`` naming its ROADMAP item; each
-  ``FAULT.RETRY_*`` key is honoured by ``resilience.retry``, and each
-  fault key of ROADMAP item 2 is accepted and does what it says.
+  ``FAULT.RETRY_*`` key is honoured by ``resilience.retry``, each fault
+  key of ROADMAP item 2 is accepted and does what it says, and so is each
+  key of MAE, remat and pretrained weights.
 """
 
 import math
@@ -385,10 +386,7 @@ def test_digits_imagefolder_trains_and_every_val_image_is_counted_once(tmp_path_
 
 @pytest.mark.parametrize("key,value,item", [
     ("DATA.SERVICE", "fleet", "item 13"), ("MESH.FSDP_MIN_SIZE", "1024", "item 12"),
-    ("MODEL.SEQ_ATTN", "ring", "item 12"), ("MODEL.MAE_MASK_RATIO", "0.5", "item 11"),
-    ("MODEL.MAE_DECODER_DIM", "256", "item 11"), ("MESH.FSDP", "2", "item 12"),
-    ("MESH.SEQ", "2", "item 12"), ("MODEL.REMAT", "True", "item 12"),
-    ("TRAIN.TASK", "mae", "item 11"), ("MODEL.PRETRAINED", "True", "item 11"),
+    ("MESH.FSDP", "2", "item 12"), ("MESH.SEQ", "2", "item 12"),
     ("DATA.ADVERTISE_HOST", "10.0.0.2", "item 13")])
 def test_an_unported_key_raises_naming_its_roadmap_item(tmp_path, key, value, item):
     _load(tmp_path, key, value)
@@ -396,6 +394,50 @@ def test_an_unported_key_raises_naming_its_roadmap_item(tmp_path, key, value, it
                                                   rf"{item}\)"):
         train_model(device="cpu")
     assert not (tmp_path / "checkpoints").exists()
+
+
+@pytest.mark.parametrize("key,value", [
+    ("MODEL.SEQ_ATTN", "ring"), ("MODEL.MAE_MASK_RATIO", "0.5"), ("MODEL.MAE_DECODER_DIM", "256"),
+    ("MODEL.REMAT", "True"), ("TRAIN.TASK", "mae"), ("MODEL.PRETRAINED", "True")])
+def test_a_ported_key_is_honoured(tmp_path, monkeypatch, key, value):
+    """The keys that raised until MAE, remat and pretrained weights were
+    ported: the trainer accepts each and does what it says. SEQ_ATTN is
+    inert at MESH.SEQ 1 (as in JAX) but still checked; the MAE keys reach
+    the mask and the decoder; REMAT sets every block to recompute; TASK mae
+    builds the pixel decoder (on an mae_* arch); PRETRAINED reads the
+    port's pretrained directory, and names the command that provisions it
+    when it is missing."""
+    from distribuuuu_tpu_torch.models import layers
+    from distribuuuu_tpu_torch.models.mae import MAEViT
+    from distribuuuu_tpu_torch.trainer import _check_supported, build_cfg_model, mae_mask
+
+    mae = ()
+    if key.startswith(("MODEL.MAE", "TRAIN.TASK")):
+        mae = ("TRAIN.TASK", "mae", "MODEL.ARCH", "mae_vit_s16", "MODEL.STEM_S2D", "False")
+    _load(tmp_path, key, value, *mae)
+    _check_supported()
+    if key == "MODEL.PRETRAINED":
+        monkeypatch.setenv("DTPU_PRETRAINED_DIR", str(tmp_path / "pretrained"))
+        with pytest.raises(FileNotFoundError, match=r"python -m distribuuuu_tpu_torch.convert "
+                                                    r"--arch resnet18"):
+            train_model(device="cpu")
+        return
+    with torch.device("meta"):
+        model = build_cfg_model()
+    if key == "MODEL.SEQ_ATTN":
+        cfg.MODEL.SEQ_ATTN = "rings"
+        with pytest.raises(ValueError, match="MODEL.SEQ_ATTN must be"):
+            build_cfg_model()
+    elif key == "MODEL.MAE_MASK_RATIO":
+        share = mae_mask(64, 256, torch.Generator().manual_seed(0)).float().mean().item()
+        assert abs(share - 0.5) < 0.02
+    elif key == "MODEL.MAE_DECODER_DIM":
+        assert model.dec_fc.out_features == 256
+    elif key == "MODEL.REMAT":
+        units = [m for m in model.modules() if isinstance(m, layers.RematUnit)]
+        assert len(units) == 8 and all(u.remat for u in units)
+    else:
+        assert isinstance(model, MAEViT) and model.dec_fc.out_features == 512
 
 
 def test_a_fleet_service_from_the_env_raises(tmp_path, monkeypatch):

@@ -1,5 +1,8 @@
 """DenseNet, RegNet, EfficientNet and ViT of the PyTorch port against the JAX package.
 
+(MAE has its own file, ``test_torch_mae.py``; every JAX zoo name, MAE
+included, is registered.)
+
 Each family is built small through the JAX classes' own constructor
 fields (``tests/_torch_zoo.py``: ``FAMILIES``), with weights drawn from a
 numpy seed and carried into the port by ``from_jax_variables``. Training
@@ -120,15 +123,27 @@ def test_full_size_parameters_and_keys_equal_jax(arch):
 
 def test_every_jax_zoo_name_but_mae_is_registered():
     """Every arch the JAX package's own zoo modules register (other tests
-    register archs of their own in the same process), MAE aside."""
+    register archs of their own in the same process), the MAE ViTs
+    included, is the port's. Each MAE ViT has JAX's parameter count at full
+    width (``jax.eval_shape`` against the port on the meta device), and
+    ``mae_vit_s16``'s full-width JAX tree converts onto the port's keys and
+    shapes exactly."""
     from distribuuuu_tpu.models.registry import _REGISTRY as jax_registry
 
     zoo = {name for name, factory in jax_registry.items()
            if factory.__module__.startswith("distribuuuu_tpu.models.")}
-    assert "densenet121" in zoo and "vit_l16" in zoo
-    assert set(list_models()) == {a for a in zoo if not a.startswith("mae_")}
-    with pytest.raises(NotImplementedError, match="item 11"):
-        from_jax_variables({"params": {}}, "mae_vit_b16")
+    assert "densenet121" in zoo and "vit_l16" in zoo and "mae_vit_b16" in zoo
+    assert set(list_models()) == zoo
+    for arch in sorted(a for a in zoo if a.startswith("mae_")):
+        tree = shapes(jax_build_model(arch, num_classes=1000), 224)
+        with torch.device("meta"):
+            port = build_model(arch, num_classes=1000, im_size=224)
+        assert sum(p.numel() for p in port.parameters()) == \
+            sum(int(np.prod(s.shape)) for s in jax.tree.leaves(tree["params"]))
+        if arch == "mae_vit_s16":
+            zeros = jax.tree.map(lambda s: np.zeros(s.shape, np.float32), tree)
+            got = {k: tuple(t.shape) for k, t in from_jax_variables(zeros, arch).items()}
+            assert got == {k: tuple(t.shape) for k, t in port.state_dict().items()}
 
 
 @pytest.mark.parametrize("family", ["densenet", "regnet", "efficientnet"])

@@ -17,9 +17,10 @@ Tolerances:
   dropout 0.2) on the CPU ends bitwise the uninterrupted run;
 - the trainer's checks: crop-sized models (ViT, BoTNet-50) refuse an eval
   crop other than the training one before the first step,
-  ``MODEL.STEM_S2D`` raises on a family without that stem, the unported
-  zoo configs raise naming their ROADMAP item, and each zoo config builds
-  the model it names.
+  ``MODEL.STEM_S2D`` raises on a family without that stem, the zoo configs
+  at a mesh the port does not have (``vit_l16.yaml``'s and
+  ``mae_vit_b16.yaml``'s ``MESH.FSDP``) raise naming their ROADMAP item,
+  and each zoo config builds the model it names.
 """
 
 import os
@@ -197,7 +198,7 @@ def test_stem_s2d_on_a_family_without_that_stem_raises(_fresh, arch):
 
 
 @pytest.mark.parametrize("yaml,key,item", [("vit_l16.yaml", "MESH.FSDP", "item 12"),
-                                           ("mae_vit_b16.yaml", "MODEL.ARCH", "item 11")])
+                                           ("mae_vit_b16.yaml", "MESH.FSDP", "item 12")])
 def test_unported_zoo_configs_raise_naming_their_item(tmp_path, _fresh, yaml, key, item):
     _load(yaml, tmp_path)
     with pytest.raises(NotImplementedError,
