@@ -16,7 +16,11 @@ The JAX package's layout and naming under ``OUT_DIR/checkpoints/``:
 Each is a directory holding ``checkpoint.pt`` and a ``dtpu_manifest.json``
 of sha256 hashes of its files, written into a temporary directory and
 renamed into place, so a directory under the exact name is complete. Only
-rank 0 writes. :func:`restore_latest` resumes from the most advanced
+rank 0 writes. A checkpoint holds the replicated layout at every
+``MESH.FSDP``: the model's whole tensors and the optimizer's state as one
+process without fsdp keeps it (``TrainState.full_optimizer_state``, which
+every rank enters before rank 0 writes), so a run restores at any fsdp
+size; each rank takes its own shards on load. :func:`restore_latest` resumes from the most advanced
 candidate (:func:`resume_candidates`), quarantining a corrupt one, skipping
 ``rollback`` known-good ones and falling back past one whose offset the new
 world size cannot land on. ``python -m distribuuuu_tpu_torch.checkpoint
@@ -208,24 +212,32 @@ def _write(path: str, payload: dict) -> None:
     os.replace(tmp, path)
 
 
-def _state_payload(state, epoch: int, best_acc1: float) -> dict:
+def _state_payload(state, epoch: int, best_acc1: float, optimizer: dict | None = None) -> dict:
+    """``optimizer``: ``state.full_optimizer_state()``, which a sharded
+    state gathers on every rank before rank 0 writes (then it must be
+    given); None takes it here."""
+    if optimizer is None:
+        if state.fsdp > 1:
+            raise ValueError("a sharded state's optimizer is gathered on every rank: pass "
+                             "optimizer=state.full_optimizer_state() from each")
+        optimizer = state.full_optimizer_state()
     return {
         "epoch": int(epoch),
         "model": {k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()},
-        "optimizer": {k: v.detach().cpu().clone()
-                      for k, v in state.optimizer.state_dict().items()},
+        "optimizer": {k: v.detach().cpu().clone() for k, v in optimizer.items()},
         "best_acc1": float(best_acc1),
     }
 
 
-def save_checkpoint(out_dir: str, epoch: int, state, best_acc1: float, is_best: bool) -> str:
+def save_checkpoint(out_dir: str, epoch: int, state, best_acc1: float, is_best: bool,
+                    optimizer: dict | None = None) -> str:
     """Write the checkpoint after 0-based ``epoch`` (named ``epoch + 1``)
     and refresh ``best`` on an improvement. Returns its path. Emergency
     checkpoints of the epochs before ``epoch`` are pruned first (the
     previous epoch checkpoint, written as synchronously as this one,
-    dominates them)."""
+    dominates them). ``optimizer``: as :func:`_state_payload`'s."""
     prune_mid_checkpoints(out_dir, before_epoch=epoch)
-    payload = _state_payload(state, epoch, best_acc1)
+    payload = _state_payload(state, epoch, best_acc1, optimizer)
     os.makedirs(get_checkpoint_dir(out_dir), exist_ok=True)
     path = get_checkpoint_path(out_dir, epoch + 1)
     _write(path, payload)
@@ -235,7 +247,8 @@ def save_checkpoint(out_dir: str, epoch: int, state, best_acc1: float, is_best: 
 
 
 def save_mid_checkpoint(out_dir: str, epoch: int, step: int, state, best_acc1: float,
-                        samples_per_step: int | None = None) -> str:
+                        samples_per_step: int | None = None,
+                        optimizer: dict | None = None) -> str:
     """The emergency checkpoint of a preempted run, before step ``step``
     (the batches of 0-based ``epoch`` already consumed) with the world size
     (``devices``), ``samples_per_step`` (``BATCH_SIZE * ACCUM_STEPS * world``) and
@@ -250,8 +263,8 @@ def save_mid_checkpoint(out_dir: str, epoch: int, step: int, state, best_acc1: f
     epoch, the step, the micro-step and the rank), so the checkpoint holds
     what the JAX package's ``rng_key`` holds, the base seed
     (``dropout_seed``), and no generator state: a resume draws the same
-    masks."""
-    payload = dict(_state_payload(state, epoch, best_acc1), step=int(step),
+    masks. ``optimizer``: as :func:`_state_payload`'s."""
+    payload = dict(_state_payload(state, epoch, best_acc1, optimizer), step=int(step),
                    devices=int(state.world))
     if getattr(state, "dropout_seed", None) is not None:
         payload["dropout_seed"] = int(state.dropout_seed)
@@ -292,9 +305,11 @@ def _load_payload(path: str) -> dict:
 
 
 def _restore_state(payload: dict, state, load_opt: bool) -> None:
+    """The replicated layout into ``state``; under fsdp this rank's shards."""
     state.model.load_state_dict(payload["model"], strict=True)
+    state.reshard()
     if load_opt and "optimizer" in payload:
-        state.optimizer.load_state_dict(payload["optimizer"])
+        state.load_full_optimizer_state(payload["optimizer"])
 
 
 def load_checkpoint(path: str, state, load_opt: bool = True) -> tuple[int, float]:

@@ -136,9 +136,11 @@ _C.OPTIM.WARMUP_FACTOR = 0.1
 _C.OPTIM.WARMUP_EPOCHS = 5
 _C.OPTIM.WEIGHT_DECAY = 5e-5
 
-# device mesh: the port is data-parallel over the process group (one GPU a
-# process); DATA -1 means every process. FSDP and SEQ > 1 and FSDP_MIN_SIZE:
-# not yet ported (ROADMAP Queue 1 item 12)
+# device mesh over the processes (one GPU a process), JAX's ('data', 'fsdp')
+# order (runtime/mesh.py): DATA x FSDP must be the world, -1 a wildcard;
+# parameters and optimizer state of at least FSDP_MIN_SIZE elements shard
+# over FSDP (parallel/fsdp.py). SEQ > 1: not yet ported (ROADMAP Queue 1
+# item 12)
 _C.MESH = CN()
 _C.MESH.DATA = -1
 _C.MESH.FSDP = 1

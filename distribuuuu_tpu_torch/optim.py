@@ -12,18 +12,24 @@
 - :class:`LAMB`, as ``construct_optimizer`` builds it: Adam moments with
   bias correction, weight decay on parameters of more than one dimension,
   and optax's trust ratio ``|p| / |u|`` per parameter (1 where either norm
-  is 0).
+  is 0), the norms accumulated in float64 (as accurate as XLA's pairwise
+  sums; an f32 running sum over millions of elements is not). On fsdp shards (``sharded`` segments and the fsdp ``group``) the
+  norms of a sharded parameter are global, as JAX's
+  ``_scale_by_trust_ratio_fsdp``: the shards' squared norms summed over the
+  group in one all-reduce, then the square root.
 
 Both work on the flat float32 buffers the trainer keeps (every parameter a
-view into one tensor), in place, with their state in plain tensors; ``keep``
-(a 0-d bool tensor, the non-finite guard) leaves parameters and state as
-they were, bitwise, without a host sync.
+view into one tensor, or one fsdp rank's shard buffer), in place, with
+their state in plain tensors; ``keep`` (a 0-d bool tensor, the non-finite
+guard) leaves parameters and state as they were, bitwise, without a host
+sync. SGD is elementwise, so it runs on a shard unchanged.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from distribuuuu_tpu_torch.config import cfg
 
@@ -91,13 +97,20 @@ class SGD:
 
 class LAMB:
     """Adam moments -> masked weight decay -> trust ratio, over a flat
-    buffer whose parameters are ``segments`` (offset, numel, ndim), in
-    order; the zeros between two of them (alignment gaps) stay zero."""
+    buffer whose parameters are ``segments`` (offset, numel, ndim of the
+    whole parameter), in order; the zeros between two of them (alignment
+    gaps) stay zero. ``sharded`` (a bool a segment) marks the segments that
+    are one fsdp rank's shard of a parameter, whose norms are summed over
+    ``group``."""
 
     def __init__(self, params: torch.Tensor, segments, *, b1: float, b2: float, eps: float,
-                 weight_decay: float):
+                 weight_decay: float, sharded=None, group=None):
         self.b1, self.b2, self.eps, self.weight_decay = b1, b2, eps, weight_decay
         dev = params.device
+        self.group = group
+        self.sharded = None
+        if group is not None and sharded is not None and any(sharded):
+            self.sharded = torch.tensor([i for i, s in enumerate(sharded) if s], device=dev)
         # each segment's span up to the next one's offset: its gap takes its ratio
         ends = [o for o, _, _ in segments[1:]] + [params.numel()]
         spans = [end - o for (o, _, _), end in zip(segments, ends)]
@@ -118,10 +131,17 @@ class LAMB:
         nu_hat = nu / (1 - torch.pow(b2, count))
         u = mu_hat / (torch.sqrt(nu_hat) + self.eps)
         u = torch.where(self.decay, u + self.weight_decay * params, u)
-        p_norm = torch.stack(torch._foreach_norm(self._views(params)))
-        u_norm = torch.stack(torch._foreach_norm(self._views(u)))
+        # accumulated in float64: an f32 sum over a segment of millions
+        # (ViT-B's MLP weights, 2.4 M) is off by ~4e-5, and the ratio with it
+        p_norm = torch.stack(torch._foreach_norm(self._views(params), dtype=torch.float64))
+        u_norm = torch.stack(torch._foreach_norm(self._views(u), dtype=torch.float64))
+        if self.sharded is not None:  # global norms: the shards' squares summed
+            sq = torch.stack([p_norm[self.sharded], u_norm[self.sharded]]).square()
+            dist.all_reduce(sq, group=self.group)
+            p_norm = p_norm.index_copy(0, self.sharded, sq[0].sqrt())
+            u_norm = u_norm.index_copy(0, self.sharded, sq[1].sqrt())
         ratio = torch.where((p_norm == 0) | (u_norm == 0), torch.ones_like(p_norm),
-                            p_norm / u_norm)
+                            p_norm / u_norm).to(u.dtype)
         u = u * torch.repeat_interleave(ratio, self.sizes, output_size=params.numel())
         _commit(params, params - lr * u, keep)
         _commit(st["mu"], mu, keep)
@@ -139,13 +159,14 @@ class LAMB:
             v.copy_(sd[k])
 
 
-def construct_optimizer(params: torch.Tensor, segments):
-    """The OPTIM.OPTIMIZER of the config over the flat ``params``."""
+def construct_optimizer(params: torch.Tensor, segments, sharded=None, group=None):
+    """The OPTIM.OPTIMIZER of the config over the flat ``params``
+    (``sharded`` and ``group``: an fsdp rank's shard buffer, for LAMB)."""
     name = cfg.OPTIM.OPTIMIZER
     if name == "sgd":
         return SGD(params, momentum=cfg.OPTIM.MOMENTUM, dampening=cfg.OPTIM.DAMPENING,
                    nesterov=cfg.OPTIM.NESTEROV, weight_decay=cfg.OPTIM.WEIGHT_DECAY)
     if name == "lamb":
         return LAMB(params, segments, b1=cfg.OPTIM.BETA1, b2=cfg.OPTIM.BETA2, eps=cfg.OPTIM.EPS,
-                    weight_decay=cfg.OPTIM.WEIGHT_DECAY)
+                    weight_decay=cfg.OPTIM.WEIGHT_DECAY, sharded=sharded, group=group)
     raise ValueError(f"Unknown OPTIM.OPTIMIZER {name!r} (available: 'sgd', 'lamb')")

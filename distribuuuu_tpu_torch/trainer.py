@@ -1,10 +1,14 @@
 """Training and evaluation loops of the port (counterpart of ``trainer.py``).
 
-One process a GPU, data-parallel over the process group:
+One process a GPU, over the process group laid out as JAX's ``('data',
+'fsdp')`` mesh (:mod:`distribuuuu_tpu_torch.runtime.mesh`; rank ``d * F + f``):
 
-| JAX (shard_map over Mesh('data'))        | here                                        |
+| JAX (shard_map over Mesh('data'[, 'fsdp']))  | here                                        |
 |------------------------------------------|---------------------------------------------|
 | ``pmean(grads, 'data')``                  | one all-reduce of the flat gradient buffer (the loss rides in its last slot), divided by the world |
+| fsdp: ``all_gather_params`` in the loss   | one all-gather a step, after the update, of every rank's shard buffer into the full working buffer (``TrainState.gather``) |
+| fsdp: the gather's transpose, ``average_grads``, then ``pmean('data')`` | a reduce-scatter of the sharded leaves' gradients over the fsdp group, an all-reduce over the data group; the replicated leaves and the loss all-reduced over the world (``TrainState.reduce_grads``) |
+| fsdp: ``psum`` of local finiteness        | one all-reduce of the guard's flag over the world |
 | ``pmean(new_stats)`` after every step     | one all-reduce of the flat BN-statistics buffer |
 | SyncBN: BN ``axis_name='data'``           | ``BatchNorm.sync_group``: ``[E[x], E[x^2]]`` all-reduced in the forward |
 | non-finite guard (``jnp.where(keep, ..)``) | the same selection on the flat buffers, ``keep`` a device bool |
@@ -80,7 +84,9 @@ from distribuuuu_tpu_torch.models import build_model, layers
 from distribuuuu_tpu_torch.models.mae import patchify
 from distribuuuu_tpu_torch.ops import attention as att
 from distribuuuu_tpu_torch.ops import epilogue as ep
+from distribuuuu_tpu_torch.parallel import fsdp
 from distribuuuu_tpu_torch.runtime.dist import setup_distributed
+from distribuuuu_tpu_torch.runtime.mesh import data_mesh
 from distribuuuu_tpu_torch.runtime.seeding import configure_determinism, setup_seed
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -105,10 +111,25 @@ class TrainState:
     """A model, its flat parameter/gradient/statistics buffers and the
     optimizer. ``grads`` has one slot more than ``params``: the step's loss,
     all-reduced with the gradients. Each parameter and buffer is a 16-byte
-    aligned view (:func:`_aligned_offsets`)."""
+    aligned view (:func:`_aligned_offsets`).
 
-    def __init__(self, model: torch.nn.Module, group=None):
-        self.model, self.group = model, group
+    ``mesh`` (:class:`~distribuuuu_tpu_torch.runtime.mesh.ProcessMesh`)
+    with an fsdp axis above 1: ``master`` is this rank's shard buffer
+    (:class:`~distribuuuu_tpu_torch.parallel.fsdp.ShardLayout`: its shards
+    of the leaves the rule shards, the rest whole, ``min_size`` the rule's
+    ``MESH.FSDP_MIN_SIZE``) and the optimizer's state is of exactly that;
+    ``grad_shard`` the reduced gradient of it, with the loss slot. ``params``
+    stays the full working buffer the model's views point into, filled by
+    one all-gather after each update (:meth:`gather`), so the forward, eval
+    and the checkpoints read whole parameters. The staging buffers of the
+    collectives are ``params`` (before the reduce-scatter: the parameters
+    are not read again before the gather, and its alignment gaps hold
+    nothing after it) and ``grads`` (before the gather). Without fsdp
+    ``master`` is ``params``."""
+
+    def __init__(self, model: torch.nn.Module, group=None, mesh=None,
+                 min_size: int = fsdp.DEFAULT_MIN_SIZE):
+        self.model, self.group, self.mesh = model, group, mesh
         named = list(model.named_parameters())
         self.names = [n for n, _ in named]
         offsets, total = _aligned_offsets([p for _, p in named])
@@ -123,12 +144,22 @@ class TrainState:
             p.grad = self.grads[o:o + k].view(p.shape)
             self.segments.append((o, k, p.dim()))
         bufs = [b for _, b in model.named_buffers()]
-        offsets, total = _aligned_offsets(bufs)
+        offsets_b, total = _aligned_offsets(bufs)
         self.stats = torch.zeros(total, device=device)
-        for b, o in zip(bufs, offsets):
+        for b, o in zip(bufs, offsets_b):
             self.stats[o:o + b.numel()].copy_(b.reshape(-1))
             b.data = self.stats[o:o + b.numel()].view(b.shape)
-        self.optimizer = optim.construct_optimizer(self.params, self.segments)
+        self.layout = None
+        self.master = self.params
+        if mesh is not None and mesh.fsdp > 1:
+            self.layout = fsdp.ShardLayout([(n, p.shape) for n, p in named], offsets, mesh.fsdp,
+                                           mesh.fsdp_rank, min_size)
+            self.master = self.layout.take(self.params)
+            self.grad_shard = torch.zeros(self.layout.size + 1, device=device)
+            self.optimizer = optim.construct_optimizer(self.master, self.layout.segments,
+                                                       self.layout.sharded, mesh.fsdp_group)
+        else:
+            self.optimizer = optim.construct_optimizer(self.params, self.segments)
         # the dropout and drop-path layers that draw in training, one
         # generator reseeded for them (and, before them, for an MAE model's
         # patch mask) each micro-step, and the base of its stream
@@ -151,11 +182,77 @@ class TrainState:
     def rank(self) -> int:
         return 0 if self.group is None else dist.get_rank(self.group)
 
+    @property
+    def fsdp(self) -> int:
+        return 1 if self.layout is None else self.layout.fsdp
+
     def unflatten(self, flat: torch.Tensor) -> dict:
         """A flat parameter-shaped buffer (the momentum, say) by parameter name."""
         shapes = dict(self.model.named_parameters())
         return {n: flat[o:o + k].view(shapes[n].shape)
                 for n, (o, k, _) in zip(self.names, self.segments)}
+
+    def reduce_grads(self) -> torch.Tensor:
+        """Under fsdp: ``grad_shard``, the mean over the run of the gradient
+        of this rank's shard buffer, and the mean loss in its last slot. The
+        sharded chunk: one reduce-scatter over the fsdp group (the sum over
+        it, divided by its size), then an all-reduce over the data group;
+        the replicated leaves and the loss: one all-reduce over the world."""
+        lay, mesh, gs = self.layout, self.mesh, self.grad_shard
+        lay.reduce_scatter(self.grads, gs, self.params, mesh.fsdp_group)
+        gs[-1:].copy_(self.grads[-1:])
+        sharded = gs[:lay.chunk]
+        sharded.div_(lay.fsdp)
+        if mesh.data > 1:
+            dist.all_reduce(sharded, group=mesh.data_group)
+            sharded.div_(mesh.data)
+        rest = gs[lay.chunk:]
+        dist.all_reduce(rest, group=self.group)
+        rest.div_(self.world)
+        return gs
+
+    def gather(self) -> None:
+        """Under fsdp: the full parameters from every rank's shard buffer
+        (one all-gather over the fsdp group, ``grads`` as its staging)."""
+        self.layout.gather(self.master, self.params, self.grads, self.mesh.fsdp_group)
+
+    def reshard(self) -> None:
+        """This rank's shard buffer anew from the full parameters (after a
+        load into the model's views); nothing without fsdp."""
+        if self.layout is not None:
+            self.layout.take(self.params, out=self.master)
+
+    def full_optimizer_state(self) -> dict:
+        """The optimizer's state in the layout of the full buffer, as it is
+        without fsdp (the checkpoints' format at every ``MESH.FSDP``). Under
+        fsdp a collective: every rank of the run must call it."""
+        sd = self.optimizer.state_dict()
+        if self.layout is None:
+            return sd
+        out = {}
+        for k, v in sd.items():
+            if v.dim() == 1:  # parameter-shaped: gathered from the shards
+                full = torch.zeros_like(self.params)
+                self.layout.gather(v, full, self.grads, self.mesh.fsdp_group)
+                v = full
+            out[k] = v
+        return out
+
+    def load_full_optimizer_state(self, sd: dict) -> None:
+        """Load :meth:`full_optimizer_state`'s layout (this rank's shards of it)."""
+        if self.layout is not None:
+            sd = {k: self.layout.take(v.to(self.params.device)) if v.dim() == 1 else v
+                  for k, v in sd.items()}
+        self.optimizer.load_state_dict(sd)
+
+    def held_bytes(self) -> dict:
+        """The bytes this process holds of parameters (its shard buffer),
+        optimizer state and BN statistics: what JAX's ``state_bytes``
+        record counts per device."""
+        nbytes = lambda t: t.numel() * t.element_size()  # noqa: E731
+        return dict(params=nbytes(self.master),
+                    opt=sum(nbytes(v) for v in self.optimizer.state_dict().values()),
+                    bn=nbytes(self.stats))
 
 
 def dropout_seed(seed: int, epoch: int, step: int, micro: int, rank: int) -> int:
@@ -249,17 +346,26 @@ def train_step(state: TrainState, batch: dict, lr: float, *, accum_steps: int = 
     if accum_steps > 1:
         grads.div_(accum_steps)
     state.grads[-1:].copy_(loss.reshape(1))
-    if state.world > 1:
+    reduced = state.grads
+    if state.layout is not None:  # fsdp: this rank's shard of the mean gradient
+        reduced = state.reduce_grads()
+    elif state.world > 1:
         dist.all_reduce(state.grads, group=state.group)
         state.grads.div_(state.world)
-        if state.stats.numel():
-            dist.all_reduce(state.stats, group=state.group)
-            state.stats.div_(state.world)
+    if state.world > 1 and state.stats.numel():
+        dist.all_reduce(state.stats, group=state.group)
+        state.stats.div_(state.world)
     n_t = torch.full((), float(n), device=loss.device)
     keep = None
     if guard:
-        keep = torch.isfinite(state.grads[-1]) & torch.isfinite(grads).all()
-    state.optimizer.step(state.params, grads, lr, keep)
+        keep = torch.isfinite(reduced[-1]) & torch.isfinite(reduced[:-1]).all()
+        if state.layout is not None:  # shards: finiteness is local, agreed over the run
+            ok = keep.float()
+            dist.all_reduce(ok, group=state.group)
+            keep = ok == state.world
+    state.optimizer.step(state.master, reduced[:-1], lr, keep)
+    if state.layout is not None:
+        state.gather()
     metrics = {"loss_sum": loss * n_t, "n": n_t, "correct1": correct[1],
                f"correct{topk}": correct[topk]}
     if guard:
@@ -295,14 +401,13 @@ def eval_step(model, batch: dict, totals: torch.Tensor, topk: int = 5,
 # Keys the port accepts, so that the JAX package's YAMLs and command lines
 # merge, but does not honour yet: any value other than the default raises
 # with the ROADMAP Queue 1 item that ports the subsystem.
-UNPORTED_KEYS = (("MESH.SEQ", "item 12"), ("MESH.FSDP_MIN_SIZE", "item 12"),
-                 ("DATA.ADVERTISE_HOST", "item 13"))
+UNPORTED_KEYS = (("MESH.SEQ", "item 12"), ("DATA.ADVERTISE_HOST", "item 13"))
 
 
 def _check_supported() -> None:
-    """Raise on a config value whose subsystem the port does not have yet."""
-    todo = (("MESH.FSDP", cfg.MESH.FSDP in (0, 1), "item 12"),
-            # a fleet-scheduled dataplane (the key or DTPU_DATA_SERVICE); a
+    """Raise on a config value whose subsystem the port does not have yet
+    (before the mesh's sizes are checked against the processes)."""
+    todo = (# a fleet-scheduled dataplane (the key or DTPU_DATA_SERVICE); a
             # host:port address is ported
             ("DATA.SERVICE", service_address().lower() != "fleet", "item 13"),
             *((key, lookup(key) == get_default(key), item) for key, item in UNPORTED_KEYS))
@@ -475,12 +580,14 @@ def _fetch(window: list, state: TrainState, stop: bool = False) -> tuple[list[di
 
 def _preempt(state: TrainState, epoch: int, it: int, best_acc1: float, samples_per_step: int,
              is_primary: bool) -> None:
-    """Write the emergency checkpoint before step ``it`` (rank 0; the other
-    ranks wait for it), log its wall time and bytes, raise ``Preempted``."""
+    """Write the emergency checkpoint before step ``it`` (rank 0, after
+    every rank entered the optimizer state's gather; the other ranks wait
+    for the write), log its wall time and bytes, raise ``Preempted``."""
+    tic = time.perf_counter()
+    opt = state.full_optimizer_state()
     if is_primary:
-        tic = time.perf_counter()
         path = ckpt.save_mid_checkpoint(cfg.OUT_DIR, epoch, it, state, best_acc1,
-                                        samples_per_step=samples_per_step)
+                                        samples_per_step=samples_per_step, optimizer=opt)
         wall = time.perf_counter() - tic
         size = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
         logger.warning(f"Preempted at epoch {epoch} step {it}: emergency checkpoint {path} "
@@ -583,9 +690,11 @@ def train_epoch(loader, state: TrainState, epoch: int, device, is_primary: bool,
         t_end = time.time()
     wall = time.time() - epoch_start
     resilience.RUN_STATS.skipped_steps[epoch] = epoch_skipped
-    fwd, bwd, fwd_s, bwd_s, att_f, att_b, *att_r = (
-        b - a for a, b in zip(launches0, _launch_counts()))
+    deltas = [b - a for a, b in zip(launches0, _launch_counts())]
+    fwd, bwd, fwd_s, bwd_s, att_f, att_b, *att_r = deltas
     steps = max(1, len(loader) - start_step)  # the steps this run took
+    if state.world > 1:  # every rank's launches and bytes, gathered once an epoch
+        _log_by_rank(state, epoch, deltas, device, is_primary)
     if is_primary:
         logger.info(f"Epoch[{epoch}] K1 launches: {fwd} forward ({fwd / steps:.2f} a step), "
                     f"{bwd} backward ({bwd / steps:.2f} a step), scalar route {fwd_s} forward, "
@@ -601,6 +710,23 @@ def train_epoch(loader, state: TrainState, epoch: int, device, is_primary: bool,
                     f"steady state {1e3 * batch_time.avg:.2f} ms a step, "
                     f"{step_imgs / max(batch_time.avg, 1e-9):.0f} img/s; data wait "
                     f"{100 * data_time.sum / wall:.1f}% of the epoch{_input_tail(loader)}{peak}")
+
+
+def _log_by_rank(state: TrainState, epoch: int, launches: list, device, is_primary: bool) -> None:
+    """One all-gather an epoch: each rank's launches of the epoch (as the
+    ``K1 launches`` line counts them), the bytes it holds (parameters,
+    optimizer state) and its peak memory, logged by rank 0."""
+    held = state.held_bytes()
+    peak = torch.cuda.max_memory_allocated(device) if torch.device(device).type == "cuda" else 0
+    row = torch.tensor([*launches, held["params"], held["opt"], peak], dtype=torch.float64,
+                       device=device)
+    rows = torch.empty(state.world * row.numel(), dtype=row.dtype, device=device)
+    dist.all_gather_into_tensor(rows, row, group=state.group)
+    cols = rows.view(state.world, -1).T.long().tolist()
+    if is_primary:
+        logger.info(f"Epoch[{epoch}] by rank: K1 forward {cols[0]}, backward {cols[1]}, scalar "
+                    f"route {cols[2]} / {cols[3]}; attention {cols[4]} / {cols[5]}; params "
+                    f"bytes {cols[-3]}, optimizer bytes {cols[-2]}, peak memory bytes {cols[-1]}")
 
 
 def validate(loader, model, device, is_primary: bool, group=None, prefix="Test: "):
@@ -650,16 +776,38 @@ def validate(loader, model, device, is_primary: bool, group=None, prefix="Test: 
 
 
 def _setup(device):
+    """The run's process group and ``(data, fsdp)`` mesh: ``(info, mesh)``."""
     configure_determinism(cfg.CUDNN.DETERMINISTIC, cfg.CUDNN.BENCHMARK)
     _check_supported()
     info = setup_distributed(device)
-    if cfg.MESH.DATA not in (-1, info.world_size):
-        raise ValueError(f"MESH.DATA {cfg.MESH.DATA} != the {info.world_size} processes of the "
-                         f"run (the port is data-parallel over every process)")
+    mesh = data_mesh(cfg.MESH.DATA, cfg.MESH.FSDP, info.world_size, info.rank, info.group)
     setup_logger(cfg.OUT_DIR if info.is_primary else None)
     if not info.is_primary:  # one progress log for the run: rank 0's
         logger.setLevel("WARNING")
-    return info
+    return info, mesh
+
+
+def _train_state(model, info, mesh) -> TrainState:
+    """The model's :class:`TrainState` on ``mesh`` (built whole on every
+    rank from the seed; under fsdp each rank keeps its shards), with the
+    census of what sharded logged as JAX's ``create_train_state`` logs it,
+    and the bytes this process holds."""
+    state = TrainState(model, info.group, mesh, cfg.MESH.FSDP_MIN_SIZE)
+    named = list(model.named_parameters())
+    c = fsdp.census(named, mesh.fsdp, cfg.MESH.FSDP_MIN_SIZE)
+    n_opt = sum(v.dim() == 1 for v in state.optimizer.state_dict().values())
+    scalars = sum(v.numel() * v.element_size() for v in state.optimizer.state_dict().values()
+                  if v.dim() == 0)
+    held = state.held_bytes()
+    logger.info(f"fsdp={mesh.fsdp}: params {c['sharded_leaves']} leaves/"
+                f"{c['sharded_bytes'] / 1e6:.1f} MB sharded, {c['replicated_leaves']} leaves/"
+                f"{c['replicated_bytes'] / 1e6:.1f} MB replicated; opt state "
+                f"{n_opt * c['sharded_bytes'] / 1e6:.1f} MB sharded/"
+                f"{(n_opt * c['replicated_bytes'] + scalars) / 1e6:.1f} MB replicated")
+    logger.info(f"Mesh: data {mesh.data} x fsdp {mesh.fsdp}; census {json.dumps(c)}; this "
+                f"process holds params {held['params']} bytes, optimizer state {held['opt']} "
+                f"bytes, BN statistics {held['bn']} bytes")
+    return state
 
 
 def _sync_bn(model, group) -> None:
@@ -702,7 +850,7 @@ def _input_tail(loader) -> str:
 def train_model(device=None):
     """A full training run on ``device`` (None: the card). Returns
     ``(state, best_acc1)``."""
-    info = _setup(device)
+    info, mesh = _setup(device)
     gen = setup_seed(cfg.RNG_SEED, info.rank, info.group, info.device)
     if info.is_primary:
         dump_cfg()
@@ -712,12 +860,12 @@ def train_model(device=None):
     if cfg.FAULT.HANDLE_SIGNALS:
         resilience.install_preemption_handler()
     try:
-        return _train(info, gen)
+        return _train(info, mesh, gen)
     finally:
         resilience.uninstall_preemption_handler()
 
 
-def _train(info, gen):
+def _train(info, mesh, gen):
     injector = resilience.FaultInjector()
     if injector.active:
         logger.warning(f"FAULT INJECTION active: io_indices={sorted(injector.io_indices)} "
@@ -728,7 +876,7 @@ def _train(info, gen):
     _check_crop(model)
     model = model.to(info.device)
     _sync_bn(model, info.group)
-    state = TrainState(model, info.group)
+    state = _train_state(model, info, mesh)
     state.dropout_seed = gen.initial_seed()  # a mid-epoch resume replaces it with the saved one
     # the samples a step consumes over the group: the unit of the elastic remap
     samples_per_step = cfg.TRAIN.BATCH_SIZE * cfg.TRAIN.ACCUM_STEPS * info.world_size
@@ -777,8 +925,10 @@ def _train(info, gen):
             is_best = acc1 > best_acc1
             best_acc1 = max(acc1, best_acc1)
             resilience.watchdog_beat(phase="checkpoint")
+            opt = state.full_optimizer_state()  # every rank: a gather under fsdp
             if info.is_primary:
-                path = ckpt.save_checkpoint(cfg.OUT_DIR, epoch, state, best_acc1, is_best)
+                path = ckpt.save_checkpoint(cfg.OUT_DIR, epoch, state, best_acc1, is_best,
+                                            optimizer=opt)
                 logger.info(f"Saving checkpoint: {path} (best Acc@1 {best_acc1:.3f})")
     finally:
         # disarmed first: a finished or failing run must not be killed by its own watchdog
@@ -791,11 +941,11 @@ def _train(info, gen):
 def test_model(device=None):
     """Evaluate ``MODEL.WEIGHTS`` (a checkpoint) on the val loader; returns
     ``(acc1, acck)``."""
-    info = _setup(device)
+    info, mesh = _setup(device)
     model = build_cfg_model(torch.Generator().manual_seed(0))
     _check_crop(model)
     model = model.to(info.device)
-    state = TrainState(model, info.group)
+    state = _train_state(model, info, mesh)
     logger.info(f"Params(M): {count_parameters(model):.3f}")
     if cfg.MODEL.WEIGHTS:
         ckpt.load_checkpoint(cfg.MODEL.WEIGHTS, state, load_opt=False)

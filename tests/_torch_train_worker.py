@@ -3,7 +3,12 @@
     python tests/_torch_train_worker.py SPEC_JSON RANK
 
 ``SPEC_JSON`` holds ``init`` (a ``file://`` store), ``world``, ``threads``,
-``arch``, ``classes``, ``syncbn``, ``accum``, optionally ``remat``, and
+``arch``, ``classes``, ``syncbn``, ``accum``, optionally ``remat``, the
+mesh (``data``, ``fsdp``, ``min_size``: ``MESH.DATA``, ``MESH.FSDP``,
+``MESH.FSDP_MIN_SIZE``), ``optimizer``, ``weight_decay``, ``module``
+(``MODEL.MODULE``), ``nan`` (``[step, rank]``: that rank's gradient of the
+first sharded parameter gets a NaN at its first element in that step, a
+slot of fsdp rank 0's shard), and
 ``inputs``: an ``.npz`` with the global batches (``image`` ``[K, B, H, W,
 3]`` uint8, ``label`` ``[K, B]``), the learning rates ``lr`` ``[K]`` and the
 state every rank starts step 0 from (``s0/<state_dict key>``) and, for any
@@ -12,8 +17,10 @@ from (``s{k}/...``: the JAX run's, in the port's layout). Rank r trains on rows 
 of each batch through ``trainer.train_step`` (gradient and statistics
 all-reduced over the group, SyncBN when asked) and writes ``rank<R>.npz``
 beside the spec: per step the loss over the whole batch, the state after
-the step (``p{k}`` flat parameters, ``b{k}`` flat statistics), the final
-momentum and step counter. :func:`run_ranks` spawns the ranks for
+the step (``p{k}`` flat parameters, or with ``gapless`` ``w{k}``: the
+parameters one after another without the alignment gaps; ``b{k}`` flat statistics, ``s{k}`` the
+step's ``skipped`` flag), the final optimizer state in the replicated layout
+(SGD's ``momentum`` and ``step``, LAMB's ``mu``, ``nu`` and ``count``). :func:`run_ranks` spawns the ranks for
 ``tests/test_torch_train_dist.py``. :func:`launch_train_net` starts the
 ranks of a whole ``train_net`` run on the CPU instead (the launcher's
 ``RANK``/``WORLD_SIZE``/``MASTER_*`` variables, a ``gloo`` group).
@@ -37,6 +44,8 @@ import torch  # noqa: E402
 import torch.distributed as dist  # noqa: E402
 
 from distribuuuu_tpu_torch.config import cfg  # noqa: E402
+from distribuuuu_tpu_torch.parallel.fsdp import DEFAULT_MIN_SIZE, shard_dim  # noqa: E402
+from distribuuuu_tpu_torch.runtime.mesh import data_mesh  # noqa: E402
 from distribuuuu_tpu_torch.trainer import TrainState, _fetch, _sync_bn, build_cfg_model, train_step  # noqa: E402,E501
 
 
@@ -52,9 +61,28 @@ def main() -> None:
         cfg.MODEL.ARCH, cfg.MODEL.NUM_CLASSES = spec["arch"], int(spec["classes"])
         cfg.MODEL.DTYPE, cfg.MODEL.SYNCBN = "float32", bool(spec["syncbn"])
         cfg.MODEL.REMAT = bool(spec.get("remat", False))
+        cfg.MODEL.MODULE = spec.get("module", "")
+        cfg.OPTIM.OPTIMIZER = spec.get("optimizer", "sgd")
+        cfg.OPTIM.WEIGHT_DECAY = float(spec.get("weight_decay", cfg.OPTIM.WEIGHT_DECAY))
+        cfg.TRAIN.IM_SIZE = int(data["image"].shape[2])  # a crop-sized model's table
+        min_size = int(spec.get("min_size", DEFAULT_MIN_SIZE))
         model = build_cfg_model()
         _sync_bn(model, dist.group.WORLD)
-        state = TrainState(model, dist.group.WORLD)
+        mesh = data_mesh(spec.get("data", -1), spec.get("fsdp", 1), world, rank, dist.group.WORLD)
+        state = TrainState(model, dist.group.WORLD, mesh, min_size)
+        nan_step, nan_rank = spec.get("nan", (-1, -1))
+        if rank == nan_rank:
+            first = next(p for n, p in model.named_parameters()
+                         if shard_dim(n, p.shape, mesh.fsdp, min_size) is not None)
+            poison = {"on": False}
+
+            def hook(g):
+                if not poison["on"]:
+                    return g
+                g = g.clone()
+                g[(0,) * g.dim()] = float("nan")
+                return g
+            first.register_hook(hook)
         images, labels = data["image"], data["label"]
         k_steps, b = labels.shape
         rows = slice(rank * b // world, (rank + 1) * b // world)
@@ -64,15 +92,22 @@ def main() -> None:
                   if name.startswith(f"s{k}/")}
             if sd or k == 0:  # later steps may run on from the state the last one left
                 model.load_state_dict(sd, strict=True)
+                state.reshard()
+            if rank == nan_rank:
+                poison["on"] = k == nan_step
             m = train_step(state, {"image": torch.from_numpy(images[k, rows]),
                                    "label": torch.from_numpy(labels[k, rows]).long()},
                            float(data["lr"][k]), accum_steps=int(spec["accum"]), topk=5)
             v = _fetch([m], state)[0][0]
-            out[f"loss{k}"] = np.array(v["loss_sum"] / v["n"])
-            out[f"p{k}"] = state.params.numpy().copy()
+            out[f"loss{k}"] = np.array(v["loss_sum"] / v["n"] if v["n"] else np.nan)  # skipped: n 0
+            if spec.get("gapless"):  # under fsdp the alignment gaps of the buffer are scratch
+                out[f"w{k}"] = torch.cat([p.detach().reshape(-1)
+                                          for p in model.parameters()]).numpy()
+            else:
+                out[f"p{k}"] = state.params.numpy().copy()
             out[f"b{k}"] = state.stats.numpy().copy()
-        out["momentum"] = state.optimizer.state["momentum"].numpy().copy()
-        out["step"] = state.optimizer.state["step"].numpy().copy()
+            out[f"s{k}"] = np.array(v["skipped"])
+        out.update({k: v.numpy().copy() for k, v in state.full_optimizer_state().items()})
         dist.barrier()
     finally:
         dist.destroy_process_group()
@@ -109,7 +144,13 @@ def run_ranks(spec: dict, workdir: Path, deadline_s: float) -> list[dict]:
                            for r, rc in enumerate(rcs))
         raise RuntimeError(f"train ranks failed or passed the {deadline_s:.0f} s deadline "
                            f"(rcs {rcs}):\n{tails}")
-    return [dict(np.load(workdir / f"rank{r}.npz")) for r in range(world)]
+    out = []
+    for r in range(world):  # read whole, then removed: a ResNet-18 rank writes ~200 MB
+        path = workdir / f"rank{r}.npz"
+        with np.load(path) as data:
+            out.append(dict(data))
+        path.unlink()
+    return out
 
 
 _TRAIN_NET = ("import sys; sys.path.insert(0, %r)\n"

@@ -1118,3 +1118,97 @@ def test_mae_forward_and_step_card_equal_cpu(cuda, monkeypatch):
     (pc, wc), (pg, wg) = out["cpu"], out[str(cuda)]
     assert (pg - pc).abs().max() <= 1e-5 * pc.abs().max()
     assert (wg - wc).abs().max() <= 1e-4 * wc.abs().max()
+
+
+_FSDP_RANK = """
+import sys, datetime, torch, torch.distributed as dist
+sys.path.insert(0, sys.argv[4])
+from distribuuuu_tpu_torch.config import cfg
+from distribuuuu_tpu_torch.runtime.mesh import data_mesh
+from distribuuuu_tpu_torch.runtime.seeding import configure_determinism
+from distribuuuu_tpu_torch.trainer import TrainState, build_cfg_model, train_step
+from distribuuuu_tpu_torch.ops import epilogue as ep
+r, f = int(sys.argv[1]), int(sys.argv[2])
+torch.cuda.set_device(r)
+dist.init_process_group("nccl", init_method=sys.argv[3], rank=r, world_size=2,
+                        timeout=datetime.timedelta(seconds=120))
+configure_determinism(True, benchmark=False)
+cfg.MODEL.ARCH, cfg.MODEL.NUM_CLASSES, cfg.TRAIN.IM_SIZE = "resnet18", 10, 64
+st = TrainState(build_cfg_model(torch.Generator().manual_seed(0)).cuda(), dist.group.WORLD,
+                data_mesh(-1, f, 2, r, dist.group.WORLD), min_size=1024)
+gen = torch.Generator().manual_seed(1)
+before = (ep.LAUNCHES, ep.BWD_LAUNCHES, ep.SCALAR_LAUNCHES, ep.BWD_SCALAR_LAUNCHES)
+for _ in range(2):
+    x = torch.randint(0, 256, (16, 64, 64, 3), dtype=torch.uint8, generator=gen)
+    y = torch.randint(0, 10, (16,), generator=gen)
+    train_step(st, {"image": x[8 * r:8 * (r + 1)].cuda(), "label": y[8 * r:8 * (r + 1)].cuda()},
+               0.1)
+launches = [b - a for a, b in zip(before, (ep.LAUNCHES, ep.BWD_LAUNCHES, ep.SCALAR_LAUNCHES,
+                                         ep.BWD_SCALAR_LAUNCHES))]
+opt = st.full_optimizer_state()
+torch.save({"params": [p.detach().cpu() for p in st.model.parameters()],
+            "momentum": opt["momentum"].cpu(), "launches": launches, "fsdp": st.fsdp},
+           sys.argv[5])
+dist.destroy_process_group()
+"""
+
+
+@pytest.mark.gpu
+def test_fsdp_two_nccl_ranks_step_as_data_parallel(cuda, tmp_path):
+    """2 bf16 ResNet-18 steps on 2 NCCL ranks (one card each, cuDNN
+    deterministic) at fsdp 2 (``MIN_SIZE`` 1024) and at data 2: the
+    parameters and the momentum in the replicated layout bitwise equal (the
+    reduce-scatter and the all-reduce add the same two terms), K1 and K1-bwd
+    20 times a step on every rank, none scalar."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from distribuuuu_tpu_torch.runtime.dist import pick_rendezvous_port
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 CUDA GPUs: NCCL refuses two ranks on one card")
+    root = str(Path(__file__).resolve().parents[1])
+    runs = {}
+    for f in (2, 1):
+        init = f"tcp://127.0.0.1:{pick_rendezvous_port()}"
+        outs = [tmp_path / f"f{f}_r{r}.pt" for r in range(2)]
+        procs = [subprocess.Popen([sys.executable, "-c", _FSDP_RANK, str(r), str(f), init, root,
+                                   str(outs[r])]) for r in range(2)]
+        assert [p.wait(timeout=300) for p in procs] == [0, 0]
+        runs[f] = [torch.load(o, weights_only=True) for o in outs]
+    for res in (*runs[2], *runs[1]):
+        assert res["launches"] == [40, 40, 0, 0]
+    assert runs[2][0]["fsdp"] == 2 and runs[1][0]["fsdp"] == 1
+    for a in (*runs[2], runs[1][1]):
+        b = runs[1][0]
+        assert all(torch.equal(x, y) for x, y in zip(a["params"], b["params"]))
+        assert torch.equal(a["momentum"], b["momentum"])
+
+
+@pytest.mark.gpu
+def test_fsdp_shard_layout_round_trips_on_the_card(cuda):
+    """``ShardLayout`` on CUDA buffers: each of 4 ranks' ``take`` of a
+    ResNet-50's full aligned buffer, stacked rank-major, is what ``pack``
+    writes and what ``unpack`` reads back into every parameter bitwise;
+    the views stay 16-byte aligned."""
+    from distribuuuu_tpu_torch.parallel.fsdp import ShardLayout
+    from distribuuuu_tpu_torch.trainer import _aligned_offsets
+
+    model = build_model("resnet50", num_classes=1000)
+    named = [(n, p.shape) for n, p in model.named_parameters()]
+    offsets, total = _aligned_offsets([p for p in model.parameters()])
+    full = torch.randn(total, generator=torch.Generator().manual_seed(0)).to(cuda)
+    lays = [ShardLayout(named, offsets, 4, r) for r in range(4)]
+    shards = [lay.take(full) for lay in lays]
+    stage = torch.cat([s[:lays[0].chunk] for s in shards])
+    packed = torch.empty_like(stage)
+    lays[0].pack(full, packed)
+    assert torch.equal(packed, stage) and len(lays[0].sharded_leaves) == 52
+    back = torch.zeros_like(full)
+    lays[0].unpack(stage, back)
+    for (name, shape), o in zip(named, offsets):
+        n = torch.Size(shape).numel()
+        if any(leaf[0] == name for leaf in lays[0].sharded_leaves):
+            assert torch.equal(back[o:o + n], full[o:o + n]), name
+        assert (full[o:].data_ptr() % 16) == 0

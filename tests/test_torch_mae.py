@@ -327,11 +327,12 @@ def test_a_preempted_mae_run_resumes_bitwise(tmp_path, _fresh, _tiny_arch):
     assert ckpt.verify_checkpoint(str(tmp_path / "pre" / "checkpoints" / "ckpt_ep_002"))[0] == "ok"
 
 
-@pytest.mark.parametrize("mesh,key", [((), "MESH.FSDP"), (("MESH.FSDP", "1"), "MESH.SEQ"),
+@pytest.mark.parametrize("mesh,key", [((), "MESH.SEQ"), (("MESH.FSDP", "1"), "MESH.SEQ"),
                                       (("MESH.FSDP", "1", "MESH.SEQ", "1"), None)])
 def test_mae_vit_b16_yaml_on_one_card(tmp_path, _fresh, mesh, key):
-    """At its own mesh (fsdp 2 x seq 2) the YAML raises naming ROADMAP item
-    12; with both axes cut to 1 it builds ViT-B/16 MAE at 448^2 (784
+    """At its own mesh (fsdp 2 x seq 2) the YAML raises naming its sequence
+    axis, ROADMAP item 12 (before the mesh's sizes are checked against the
+    one process); with both axes cut to 1 it builds ViT-B/16 MAE at 448^2 (784
     tokens), REMAT on every block, decoder 512 (on the meta device)."""
     from distribuuuu_tpu_torch.trainer import _check_supported
 

@@ -33,7 +33,9 @@
   log, the checkpoint verified, and the val pass and ``test_model`` each
   counting exactly the 300 val images (the last batch padded at weight 0);
 - a non-default value of each key the port accepts but does not honour
-  yet raises ``NotImplementedError`` naming its ROADMAP item; each
+  yet raises ``NotImplementedError`` naming its ROADMAP item; the fsdp
+  keys (``MESH.FSDP``, ``MESH.FSDP_MIN_SIZE``) are honoured, and a mesh
+  other than the processes of the run raises naming its sizes; each
   ``FAULT.RETRY_*`` key is honoured by ``resilience.retry``, each fault
   key of ROADMAP item 2 is accepted and does what it says, and so is each
   key of MAE, remat and pretrained weights.
@@ -385,8 +387,7 @@ def test_digits_imagefolder_trains_and_every_val_image_is_counted_once(tmp_path_
 
 
 @pytest.mark.parametrize("key,value,item", [
-    ("DATA.SERVICE", "fleet", "item 13"), ("MESH.FSDP_MIN_SIZE", "1024", "item 12"),
-    ("MESH.FSDP", "2", "item 12"), ("MESH.SEQ", "2", "item 12"),
+    ("DATA.SERVICE", "fleet", "item 13"), ("MESH.SEQ", "2", "item 12"),
     ("DATA.ADVERTISE_HOST", "10.0.0.2", "item 13")])
 def test_an_unported_key_raises_naming_its_roadmap_item(tmp_path, key, value, item):
     _load(tmp_path, key, value)
@@ -394,6 +395,28 @@ def test_an_unported_key_raises_naming_its_roadmap_item(tmp_path, key, value, it
                                                   rf"{item}\)"):
         train_model(device="cpu")
     assert not (tmp_path / "checkpoints").exists()
+
+
+@pytest.mark.parametrize("key,value,error", [
+    ("MESH.FSDP_MIN_SIZE", "1024", None), ("MESH.FSDP", "-1", None),
+    ("MESH.FSDP", "2", "MESH.DATA=-1 x MESH.FSDP=2: the 1 processes of the run do not divide"),
+    ("MESH.DATA", "2", "MESH.DATA=2 x MESH.FSDP=1 needs 2 processes, the run has 1")])
+def test_the_fsdp_keys_are_honoured(tmp_path, key, value, error):
+    """``MESH.FSDP_MIN_SIZE`` and ``MESH.FSDP -1`` train on one process
+    (fsdp 1: nothing to shard, the census says so); ``MESH.FSDP 2`` or
+    ``MESH.DATA 2`` on one process raise on the mesh sizes, before any
+    checkpoint (``DATA x FSDP`` must be the world)."""
+    _load(tmp_path, key, value, "OPTIM.MAX_EPOCH", "1")
+    if error is not None:
+        with pytest.raises(ValueError, match=re.escape(error)):
+            train_model(device="cpu")
+        assert not (tmp_path / "checkpoints").exists()
+        return
+    train_model(device="cpu")
+    log = "".join(p.read_text() for p in tmp_path.glob("*.log"))
+    assert "fsdp=1: params 0 leaves/0.0 MB sharded, 62 leaves/" in log, log[-2000:]
+    assert "Mesh: data 1 x fsdp 1" in log
+    assert ckpt.verify_checkpoint(str(tmp_path / "checkpoints" / "ckpt_ep_001"))[0] == "ok"
 
 
 @pytest.mark.parametrize("key,value", [
