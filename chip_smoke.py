@@ -146,7 +146,8 @@ Phases (any failure exits non-zero):
    the service stopped and its workers reaped in any case;
 17. [oracle] the digits recipe of ``tutorial/real_data_oracle.py`` through
    ``train_net`` on ``config/resnet18.yaml`` (5 epochs, 1497 train and 300
-   val JPEGs): val Acc@1 and Acc@5 an epoch; fails below the band of 65;
+   val JPEGs): val Acc@1 and Acc@5 an epoch; fails below the band of 65
+   (run after 22, beside 23–26: see there);
 18. [train-preempt] [train]'s command with ``CUDNN.DETERMINISTIC True`` over
    2 epochs of PREEMPT_STEPS steps, each run a subprocess: one uninterrupted
    run; one sent a real SIGTERM once its log shows a step of epoch 2, which
@@ -195,20 +196,30 @@ Phases (any failure exits non-zero):
    K1 and K1-bwd 53 times a step on every rank, none scalar, the loss
    streams and the final model and optimizer state within
    tests/test_fsdp.py's limits;
-23. [pretrained] a seeded ResNet-50 written as a torchvision ``.pth``,
+23. [train-seq] ``config/mae_vit_b16.yaml`` at full width (448^2, batch 8,
+   REMAT, LAMB; f32, as JAX's seq oracle) at ``MESH.DATA 1 MESH.FSDP 1 MESH.SEQ 2`` on 2 ranks, ring
+   and then Ulysses, against ``MESH.SEQ 1`` on 1 rank (the same global
+   batch, seed and masks), SEQ_STEPS steps each: the loss streams and the
+   final parameters within tests/test_seq_parallel.py's limits, the census
+   ``l_local`` 392 of 784, no K1 or attention launch on any rank, step ms
+   and each rank's peak memory; NCCL where 2 cards are visible, else 2
+   gloo ranks sharing the card (their seq collectives staged through host
+   memory); the three runs at once; a run that cannot start fails the
+   smoke;
+24. [pretrained] a seeded ResNet-50 written as a torchvision ``.pth``,
    provisioned by ``python -m distribuuuu_tpu_torch.convert`` (and botnet50
    ``--from-resnet50`` from it), each directory verified and bitwise its
    source; ``test_model`` with ``MODEL.PRETRAINED True`` in this process,
    its logits bitwise those of ``MODEL.WEIGHTS`` on the same directory, and
    ``test_net MODEL.PRETRAINED True`` as a subprocess;
-24. the ``test_net`` runs of [train], [train-bot], [train-bot-512],
+25. the ``test_net`` runs of [train], [train-bot], [train-bot-512],
    [train-zoo], [train-mae], [train-fsdp] and [pretrained] (each on its phase's
    checkpoint), concurrently, after the last timed training phase: each
    must exit 0 reporting Acc@1 (and [train-mae]'s a finite masked MSE);
-25. [mae f32] (after [zoo f32]) MAE-ViT-B/16 at full width, 64^2, batch 2,
+26. [mae f32] (after [zoo f32]) MAE-ViT-B/16 at full width, 64^2, batch 2,
    f32, card vs CPU under one mask: eval predictions within F32_REL_TOL of
    max|pred|, one LAMB step's update within MAE_F32_UPDATE_RL2;
-26. [remat] ``MODEL.REMAT`` on against off in this process, cuDNN
+27. [remat] ``MODEL.REMAT`` on against off in this process, cuDNN
    deterministic, two steps from one state of ResNet-50 b32, BoTNet-50 b8
    (the attention kernel and its backward under recompute),
    EfficientNet-B0 b16 (drop path and dropout from the trainer's stream) and
@@ -217,9 +228,12 @@ Phases (any failure exits non-zero):
    recomputed block, the attention kernel twice and its backward once, none
    scalar; peak memory and step ms both ways, and remat must lower MAE's
    peak;
-27. the whole run's wall time and each phase's, the ``{"kernels": [...]}``
-   line; 28. the ``{"ok": true, ...}`` last line.
+28. the whole run's wall time and each phase's, the ``{"kernels": [...]}``
+   line; 29. the ``{"ok": true, ...}`` last line.
 
+Nothing from [oracle] to [mae f32] is timed, so after [train-fsdp] they run
+side by side ([oracle], [train-seq] and the test_net runs as subprocesses,
+[pretrained], [zoo f32] and [mae f32] in this process), then [remat] alone.
 Each path is driven with the launch counts set to 0 just before it and read
 just after. Per-shape numbers are also written to ``smoke_out/``.
 """
@@ -871,6 +885,29 @@ class Evaluation:
         self.mse, self.env = mse, env
 
 
+class Background(threading.Thread):
+    """``fn(*args)`` in a thread beside the caller's; :meth:`result` waits
+    and returns its value, or ends the smoke as ``fn`` did (``fail`` raises
+    ``SystemExit`` in the thread; its message is already printed)."""
+
+    def __init__(self, fn, *args):
+        super().__init__(daemon=True)
+        self.fn, self.args, self.value, self.error = fn, args, None, None
+        self.start()
+
+    def run(self):
+        try:
+            self.value = self.fn(*self.args)
+        except BaseException as e:  # noqa: BLE001  (re-raised in the caller)
+            self.error = e
+
+    def result(self):
+        self.join()
+        if self.error is not None:
+            raise self.error
+        return self.value
+
+
 def run_test_nets(evals: list) -> None:
     """Run ``evals`` (:class:`Evaluation`) as concurrent subprocesses on the
     card (no timing is read from them), each logging to its file, wait for
@@ -1378,8 +1415,8 @@ def phase_train_mae(card: str, tmp: Path, deferred: list) -> dict:
 # checkpoint; the census line and the bytes the process holds. Then, in this
 # process, 2 steps of the YAML at MESH.FSDP -1 and at MESH.FSDP 1 with cuDNN
 # deterministic: every tensor torch.equal. Then the sharded path on 2 ranks
-# (FSDP_DIST): ResNet-50 b128 at MESH.FSDP 2 against MESH.FSDP 1 on the same
-# ranks, K1 and K1-bwd 53 times a step on every rank, none scalar, the loss
+# (FSDP_DIST): ResNet-50 b128 at MESH.FSDP 2 against MESH.FSDP 1, the two runs
+# at once, K1 and K1-bwd 53 times a step on every rank, none scalar, the loss
 # streams within tests/test_fsdp.py's limits; on 2 NCCL cards where there
 # are 2, else on 2 gloo ranks sharing the one card where gloo takes CUDA
 # tensors for both collectives (fsdp_gloo_cuda), else not run, and the
@@ -1465,24 +1502,6 @@ GLOO_CARD_RANK = ("import os, sys, torch.distributed as dist\n"
                   "main(sys.argv[1:], device='cuda:0')\n")
 
 
-def launch_ranks(world: int, cmd: list, logs: Path) -> list:
-    """``world`` processes of ``cmd`` with the launcher's variables, each
-    logging to ``logs/rank<R>.log``."""
-    import os
-
-    from distribuuuu_tpu_torch.runtime.dist import pick_rendezvous_port
-
-    logs.mkdir(parents=True, exist_ok=True)
-    port, procs = pick_rendezvous_port(), []
-    for r in range(world):
-        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world), LOCAL_RANK=str(r),
-                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
-        with open(logs / f"rank{r}.log", "w") as log:
-            procs.append(subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=log,
-                                          stderr=subprocess.STDOUT))
-    return procs
-
-
 def fsdp_sharded(tmp: Path) -> dict:
     """FSDP_DIST: ResNet-50 at MESH.FSDP 2 and MESH.FSDP 1 on 2 ranks
     (``scripts/torch_fsdp_dist.py``'s arguments and log readings): NCCL on 2
@@ -1504,23 +1523,15 @@ def fsdp_sharded(tmp: Path) -> dict:
                 f"scripts/torch_fsdp_dist.py runs it on 4 cards")
             return {"ran": None, "why": why}
         how, cmd = f"{world} gloo ranks sharing the one card", ["-c", GLOO_CARD_RANK]
-    runs = {}
-    for f in ("2", "1"):
+    import torch_seq_dist as sd
+    from distribuuuu_tpu_torch.runtime.dist import pick_rendezvous_port
+
+    procs, ports = {}, []
+    for f in ("2", "1"):  # both at once (cuDNN deterministic: the bits do not depend on it)
         argv = fd.rn50_argv(False, world, tmp / f"fsdp{f}", steps, 1, "MESH.FSDP", f)
-        logs = tmp / f"fsdp{f}_logs"
-        procs = launch_ranks(world, [sys.executable, *cmd, *argv], logs)
-        try:
-            rcs = [p.wait(timeout=600) for p in procs]
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-        texts = [(logs / f"rank{r}.log").read_text() for r in range(world)]
-        if rcs != [0] * world:
-            fail(f"[train-fsdp] sharded ResNet-50 at MESH.FSDP {f} ({how}): exit codes {rcs}:\n"
-                 + "\n".join(f"--- rank {r}:\n{t[-2000:]}" for r, t in enumerate(texts)))
-        runs[f] = fd.read(texts[0])
+        ports.append(pick_rendezvous_port(exclude=ports))
+        procs[f] = sd.launch(world, [sys.executable, *cmd], argv, tmp / f"fsdp{f}_logs", ports[-1])
+    runs = {f: fd.read(sd.finish(p, tmp / f"fsdp{f}_logs", 600)) for f, p in procs.items()}
     shard, rep = runs["2"], runs["1"]
     final = [torch.load(tmp / f"fsdp{f}" / "checkpoints" / "ckpt_ep_001" / "checkpoint.pt",
                         weights_only=True) for f in ("2", "1")]
@@ -1547,7 +1558,7 @@ def fsdp_sharded(tmp: Path) -> dict:
              f"{rep['losses']} ({how}): not within {tol}")
     say(f"[train-fsdp] sharded path ran on {how}: ResNet-50 b{batch} {shard['first_line']}; K1 / K1-bwd by rank {shard['k1']} / {shard['k1_bwd']} over "
         f"{steps} steps, none scalar; step {shard['step_ms']:.2f} ms (fsdp 1: "
-        f"{rep['step_ms']:.2f}); losses {shard['losses']} vs fsdp 1 {rep['losses']}; the final "
+        f"{rep['step_ms']:.2f}; the two runs at once); losses {shard['losses']} vs fsdp 1 {rep['losses']}; the final "
         f"model and optimizer state {'bitwise equal' if bitwise else 'within the limits'}")
     return {"ran": how, "fsdp2": shard, "fsdp1": rep, "final_bitwise": bitwise}
 
@@ -1577,6 +1588,77 @@ def phase_train_fsdp(card: str, tmp: Path, deferred: list) -> dict:
         f"deterministic, batch 8): parameters, LAMB state and losses {a[2]} torch.equal")
     res["two_steps_equal"] = a[2]
     res["sharded"] = fsdp_sharded(tmp)
+    return res
+
+
+# [train-seq]: MAE_CFG at full width (448^2, batch 8, REMAT, LAMB; f32, as JAX's
+# seq oracle: in bf16 the dense attention rounds its softmax weights to bf16
+# before the value product and ring and Ulysses, as JAX's, do not, which LAMB
+# turns into parameter differences past the f32 limits) at
+# MESH.DATA 1 MESH.FSDP 1 MESH.SEQ 2 on 2 ranks, with ring and then with Ulysses
+# attention, against MESH.SEQ 1 on 1 rank (the same global batch, seed and
+# masks), SEQ_STEPS steps each (scripts/torch_seq_dist.py's runs and readings;
+# cuDNN deterministic; the three runs at once, beside the untimed phases that
+# follow [train-fsdp]: their step ms share the card):
+# the loss streams and the final parameters within tests/test_seq_parallel.py's
+# limits, the census l_local 392 of 784, no K1 or attention launch on any rank,
+# step ms and each rank's peak memory. On 2 NCCL cards where 2 are visible,
+# else on 2 gloo ranks sharing the one card, whose ring exchanges and
+# all-to-alls stage through host memory (the trainer's log says so). Never
+# skipped: a run that cannot start fails the smoke.
+SEQ_STEPS = 8
+
+
+def start_train_seq(tmp: Path) -> tuple:
+    """Start [train-seq]'s three runs; ``(how, procs)`` for :func:`phase_train_seq`."""
+    import torch
+
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import torch_seq_dist as sd
+    from distribuuuu_tpu_torch.runtime.dist import pick_rendezvous_port
+
+    world, one = 2, ["MESH.DATA", "1", "MESH.FSDP", "1"]
+    if torch.cuda.device_count() >= world:
+        how, cmd = f"{world} NCCL ranks on {world} cards", sd.NCCL
+    else:
+        how, cmd = f"{world} gloo ranks sharing the one card", [sys.executable, "-c",
+                                                                GLOO_CARD_RANK]
+    one.extend(("MODEL.DTYPE", "float32"))
+    runs, ports = {"seq1": (1, sd.NCCL, ["MESH.SEQ", "1"])}, []
+    for impl in ("ring", "ulysses"):
+        runs[impl] = (world, cmd, ["MESH.SEQ", str(world), "MODEL.SEQ_ATTN", impl])
+    procs = {}
+    for name, (n, c, mesh) in runs.items():  # all three at once
+        ports.append(pick_rendezvous_port(exclude=ports))
+        procs[name] = sd.launch(n, c, sd.mae_argv(False, tmp / name, SEQ_STEPS, 1, *one, *mesh),
+                                tmp / f"{name}_logs", ports[-1])
+    return how, procs
+
+
+def phase_train_seq(card: str, tmp: Path, started: tuple) -> dict:
+    """[train-seq]: wait for :func:`start_train_seq`'s runs and hold them
+    against each other."""
+    import torch_seq_dist as sd
+
+    (how, procs), world = started, 2
+    logs = {name: sd.finish(p, tmp / f"{name}_logs") for name, p in procs.items()}
+    ref = sd.read(logs["seq1"])
+    ref_model = sd.final_model(tmp / "seq1")
+    res = {"ran": how, "seq1": ref, "steps": SEQ_STEPS}
+    for impl in ("ring", "ulysses"):
+        r = sd.read(logs[impl])
+        sd.check_seq(f"train-seq {impl}", r, world, (MAE_IM // 16) ** 2)
+        r["param_excess"] = sd.compare(f"train-seq {impl}", r, ref, sd.final_model(tmp / impl),
+                                       ref_model)
+        say(f"[train-seq] {MAE_CFG} in f32 at MESH.SEQ {world}, {impl}, on {how}: {r['seq_line']}; "
+            f"census {r['census']}; no K1 or attention launch on any rank; step "
+            f"{r['step_ms']:.2f} ms on every rank (they meet in each step's all-reduce; MESH.SEQ "
+            f"1 on 1 rank: {ref['step_ms']:.2f} ms; the three runs share the card); peak GiB by rank {r['peak_gib']} (MESH.SEQ "
+            f"1: {ref['peak_gib']}); losses {r['losses']} vs MESH.SEQ 1 {ref['losses']}, val "
+            f"masked MSE {r['val_mse']} vs {ref['val_mse']}; the final parameters within "
+            f"rtol {sd.PARAM_TOL['rtol']}, past it by {r['param_excess']:.3e} "
+            f"(atol {sd.PARAM_TOL['atol']}); {card}")
+        res[impl] = r
     return res
 
 
@@ -4201,6 +4283,7 @@ def main() -> None:
         now = time.perf_counter()
         laps[name] = round(now - tic[0], 1)
         tic[0] = now
+        say(f"[smoke] {name} took {laps[name]} s ({now - wall0:.1f} s so far)")
 
     builds = phase_build()
     lap("build")
@@ -4287,8 +4370,7 @@ def main() -> None:
         train_jpeg = phase_train_jpeg(card, Path(tmp), Path(tmp) / "jpeg", train_bound_ms, train)
         train_dp = phase_train_dataplane(card, Path(tmp), Path(tmp) / "jpeg", train_bound_ms,
                                          train_jpeg, train, inp)
-        oracle = phase_oracle(card, Path(tmp))
-    lap("input, train-jpeg, train-dataplane, oracle")
+    lap("input, train-jpeg, train-dataplane")
     with tempfile.TemporaryDirectory() as tmp:
         train_preempt = phase_train_preempt(card, Path(tmp), smi)
     lap("train-preempt")
@@ -4298,15 +4380,21 @@ def main() -> None:
     lap("train-mae")
     train_fsdp = phase_train_fsdp(card, Path(train_tmp.name), evals)
     lap("train-fsdp")
+    # the phases up to [remat] time nothing, so they run side by side: the
+    # subprocess-bound ones in threads beside this one's card-vs-CPU checks
+    tail_tmp = tempfile.TemporaryDirectory()
+    seq_runs = start_train_seq(Path(tail_tmp.name) / "seq")
+    oracle = Background(phase_oracle, card, Path(tail_tmp.name))
     pretrained = phase_pretrained(Path(train_tmp.name), evals)
-    lap("pretrained")
-    run_test_nets(evals)
-    train_tmp.cleanup()
-    lap(f"test_net x {len(evals)}, concurrently")
-    with tempfile.TemporaryDirectory() as tmp:
-        zoo_f32 = phase_zoo_f32(Path(tmp))
+    test_nets = Background(run_test_nets, evals)
+    zoo_f32 = phase_zoo_f32(Path(tail_tmp.name))
     mae_f32 = phase_mae_f32()
-    lap("zoo f32, mae f32")
+    train_seq = phase_train_seq(card, Path(tail_tmp.name) / "seq", seq_runs)
+    test_nets.result()
+    oracle = oracle.result()
+    train_tmp.cleanup()
+    tail_tmp.cleanup()
+    lap(f"oracle, train-seq, pretrained, test_net x {len(evals)}, zoo f32, mae f32, side by side")
     remat = phase_remat(card)
     lap("remat")
 
@@ -4339,6 +4427,7 @@ def main() -> None:
          "input": inp, "train_jpeg": train_jpeg, "train_dataplane": train_dp,
          "oracle": oracle, "train_preempt": train_preempt, "train_zoo": zoo,
          "zoo_f32": zoo_f32, "train_mae": train_mae, "train_fsdp": train_fsdp,
+         "train_seq": train_seq,
          "pretrained": pretrained,
          "mae_f32": mae_f32, "remat": remat, "phase_wall_s": laps}, indent=1))
     (out / "chip_smoke_moe.json").write_text(json.dumps(
@@ -4501,6 +4590,9 @@ def main() -> None:
             for arch, r in remat.items()}
         kernels[i]["train_mae_launches"] = train_mae["launches"][key]
         kernels[i]["train_fsdp_launches"] = train_fsdp["launches"][key]
+        # every K1, K1-bwd, attention and attention-bwd launch of each rank, summed
+        kernels[i]["train_seq_launches"] = {impl: train_seq[impl]["launches"]
+                                            for impl in ("ring", "ulysses")}
         sharded = train_fsdp["sharded"]
         if sharded.get("ran"):
             kernels[i]["fsdp_sharded_launches_by_rank"] = {
@@ -4512,6 +4604,7 @@ def main() -> None:
     kernels[1]["zoo_f32_launches"] = {arch: r["launches"][1] for arch, r in zoo_f32.items()}
     k2 = next(k for k in kernels if k["name"].startswith("K2 "))
     k2["train_launches"] = train_bot["launches"]["attention"]
+    k2["train_seq_launches"] = kernels[0]["train_seq_launches"]
     k2["remat_launches"] = {k: remat["botnet50"][f"launches_{k}"]["attention"] for k in ("off", "on")}
     r = attn_bwd["K2 train"]
     kernels.insert(kernels.index(k2) + 1, {

@@ -54,7 +54,7 @@ _C.MODEL.STEM_S2D = False
 _C.MODEL.FUSED_EPILOGUE = None
 _C.MODEL.FUSED_MOE = None
 # sequence-parallel attention: "none", "ring" or "ulysses", read only at
-# MESH.SEQ > 1 (not yet ported, ROADMAP Queue 1 item 12), inert at 1
+# MESH.SEQ > 1 (parallel/seq.py; "none" there raises), inert at 1
 _C.MODEL.SEQ_ATTN = "none"
 # TRAIN.TASK mae: the Bernoulli rate of a masked patch and the pixel
 # decoder's width
@@ -136,11 +136,11 @@ _C.OPTIM.WARMUP_FACTOR = 0.1
 _C.OPTIM.WARMUP_EPOCHS = 5
 _C.OPTIM.WEIGHT_DECAY = 5e-5
 
-# device mesh over the processes (one GPU a process), JAX's ('data', 'fsdp')
-# order (runtime/mesh.py): DATA x FSDP must be the world, -1 a wildcard;
-# parameters and optimizer state of at least FSDP_MIN_SIZE elements shard
-# over FSDP (parallel/fsdp.py). SEQ > 1: not yet ported (ROADMAP Queue 1
-# item 12)
+# device mesh over the processes (one GPU a process), JAX's ('data', 'fsdp',
+# 'seq') order (runtime/mesh.py): DATA x FSDP x SEQ must be the world, -1 a
+# wildcard for DATA and FSDP; parameters and optimizer state of at least
+# FSDP_MIN_SIZE elements shard over FSDP (parallel/fsdp.py); SEQ > 1 splits
+# each sample's tokens over a seq group (parallel/seq.py; ViT and MAE)
 _C.MESH = CN()
 _C.MESH.DATA = -1
 _C.MESH.FSDP = 1

@@ -22,6 +22,14 @@ ViT block naming (``ln_1``, ``self_attention.in_proj_weight``, ...):
 ``convert.from_jax_variables`` maps a JAX tree onto them. ``pos_embed`` is
 sized by the crop at construction (``crop_sized``). ``remat`` recomputes
 each encoder block in the backward.
+
+Sequence parallelism (``MESH.SEQ`` > 1, switched on by the trainer with
+:func:`~distribuuuu_tpu_torch.parallel.seq.set_seq`): the mask token and
+the positions are applied on the whole stream, then ``local_tokens`` keeps
+this member's block; the blocks attend over the seq group, and the pixel
+decoder, per token, runs on the member's tokens alone, so the predictions
+are ``[B, L / S, patch^2 * 3]`` (``trainer.mae_loss`` slices its target and
+mask to match).
 """
 
 from __future__ import annotations
@@ -33,6 +41,7 @@ from torch import nn
 from distribuuuu_tpu_torch.models.layers import set_remat, trunc_normal_, xavier_uniform_
 from distribuuuu_tpu_torch.models.registry import register_model
 from distribuuuu_tpu_torch.models.vit import LN_EPS, EncoderBlock, SelfAttention, _linear
+from distribuuuu_tpu_torch.parallel.seq import local_tokens
 
 
 def patchify(images: torch.Tensor, patch: int) -> torch.Tensor:
@@ -50,10 +59,12 @@ class MAEViT(nn.Module):
 
     ``forward(x, mask=None)``: ``x`` NHWC images (float), ``mask`` a ``[B,
     L]`` bool (True: masked) or None (unmasked). Returns per-token pixel
-    predictions ``[B, L, patch^2 * 3]`` in float32. ``num_classes`` and
+    predictions ``[B, L, patch^2 * 3]`` in float32 (``L / S`` tokens, this
+    member's, under sequence parallelism). ``num_classes`` and
     ``bn_dtype`` are accepted for the factory contract and ignored."""
 
     crop_sized = True  # the position table is sized by the crop at construction
+    seq_group, seq_impl = None, "ring"  # set_seq's
 
     def __init__(self, patch: int = 16, dim: int = 768, depth: int = 12, num_heads: int = 12,
                  mlp_dim: int = 3072, decoder_dim: int = 512, num_classes: int = 0,
@@ -61,6 +72,7 @@ class MAEViT(nn.Module):
                  remat: bool = False):
         super().__init__()
         self.patch, self.dim, self.im_size = patch, dim, int(im_size)
+        self.depth, self.mlp_dim = depth, mlp_dim
         self.compute_dtype = dtype
         self.patch_embed = nn.Conv2d(3, dim, patch, patch)
         # created unconditionally, as JAX's: masked and unmasked calls share
@@ -87,6 +99,8 @@ class MAEViT(nn.Module):
             m = mask.to(x.dtype)[..., None]
             x = x * (1.0 - m) + self.mask_token.to(x.dtype) * m
         x = x + self.pos_embed.to(x.dtype)
+        if self.seq_group is not None:
+            x = local_tokens(x, self.seq_group)
         for block in self.blocks:
             x = block(x)
         x = self.ln_f(x.float()).to(x.dtype)

@@ -23,8 +23,16 @@ LAMB's weight-decay mask (``ndim > 1``) covers the same parameters. The
 position table is sized by the crop at construction (``im_size``), so the
 trainer refuses an eval crop other than the training one
 (``crop_sized``). Under ``remat`` each encoder block is recomputed in the
-backward. The sequence-parallel branch is not ported (``MESH.SEQ`` above 1
-raises, ROADMAP Queue 1 item 12).
+backward.
+
+Sequence parallelism (``MESH.SEQ`` > 1; the trainer switches it on after
+the build with :func:`~distribuuuu_tpu_torch.parallel.seq.set_seq`, which
+leaves the parameters as they are): embedding and positions run on the
+whole stream, ``local_tokens`` keeps this member's block, the attention is
+ring or Ulysses over the seq group, and the head, which needs ``pool='gap'``
+(the class token has no home block), is JAX's bias-1/S head: ``logits_s =
+W (sum of the member's tokens) / L + b / S``, summed over the group by
+``psum_partial``, so every parameter's gradient stays member-partial.
 
 Module names follow torchvision's ``vit_b_16`` (``conv_proj``,
 ``class_token``, ``encoder.pos_embedding``,
@@ -36,6 +44,7 @@ Module names follow torchvision's ``vit_b_16`` (``conv_proj``,
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -46,6 +55,7 @@ from distribuuuu_tpu_torch.models.layers import (
     xavier_uniform_,
 )
 from distribuuuu_tpu_torch.models.registry import register_model
+from distribuuuu_tpu_torch.parallel.seq import local_tokens, psum_partial, seq_attention
 
 LN_EPS = 1e-6
 
@@ -56,7 +66,10 @@ def _linear(x, lin: nn.Linear, dtype):
 
 class SelfAttention(nn.Module):
     """Packed-qkv multi-head self-attention (torchvision's
-    ``nn.MultiheadAttention`` parameter names)."""
+    ``nn.MultiheadAttention`` parameter names). With ``seq_group`` set the
+    score and value contractions run as ``seq_impl`` attention over it."""
+
+    seq_group, seq_impl = None, "ring"
 
     def __init__(self, dim: int, num_heads: int, *, dtype):
         super().__init__()
@@ -71,9 +84,13 @@ class SelfAttention(nn.Module):
         dt, h = self.compute_dtype, self.num_heads
         qkv = F.linear(x.to(dt), self.in_proj_weight.to(dt), self.in_proj_bias.to(dt))
         q, k, v = qkv.view(b, l, 3, h, d // h).permute(2, 0, 3, 1, 4)  # each [B, H, L, hd]
-        s = torch.matmul(q.float(), k.float().transpose(-1, -2))
-        w = torch.softmax(s * (d // h) ** -0.5, dim=-1)
-        out = torch.matmul(w.to(v.dtype), v).transpose(1, 2).reshape(b, l, d)
+        if self.seq_group is not None:
+            out = seq_attention(q, k, v, impl=self.seq_impl, group=self.seq_group)
+        else:
+            s = torch.matmul(q.float(), k.float().transpose(-1, -2))
+            w = torch.softmax(s * (d // h) ** -0.5, dim=-1)
+            out = torch.matmul(w.to(v.dtype), v)
+        out = out.transpose(1, 2).reshape(b, l, d)
         return _linear(out, self.out_proj, dt)
 
 
@@ -129,6 +146,7 @@ class ViT(nn.Module):
     """ViT classifier: patch embedding -> encoder -> head."""
 
     crop_sized = True  # the position table is sized by the crop at construction
+    seq_group, seq_impl = None, "ring"  # set_seq's
 
     def __init__(self, patch: int = 16, dim: int = 768, depth: int = 12, num_heads: int = 12,
                  mlp_dim: int = 3072, num_classes: int = 1000, pool: str = "token",
@@ -138,6 +156,7 @@ class ViT(nn.Module):
         if pool not in ("token", "gap"):
             raise ValueError(f"pool must be 'token' or 'gap', got {pool!r}")
         self.patch, self.dim, self.pool, self.im_size = patch, dim, pool, int(im_size)
+        self.depth, self.mlp_dim = depth, mlp_dim
         self.compute_dtype = dtype
         self.conv_proj = nn.Conv2d(3, dim, patch, patch)
         if pool == "token":
@@ -154,16 +173,27 @@ class ViT(nn.Module):
         if (h, w) != (self.im_size, self.im_size):
             raise ValueError(f"{h}x{w} images into a ViT whose position table is sized for "
                              f"{self.im_size}x{self.im_size}: build the model for the crop it sees")
+        group = self.seq_group
+        if group is not None and self.pool != "gap":
+            raise ValueError("sequence-parallel ViT requires pool='gap': the class token has no "
+                             "home shard once tokens shard over the seq axis")
         dt = self.compute_dtype
         x = F.conv2d(x.permute(0, 3, 1, 2).to(dt), self.conv_proj.weight.to(dt),
                      self.conv_proj.bias.to(dt), stride=self.patch)
         x = x.permute(0, 2, 3, 1).reshape(b, -1, self.dim)  # [B, L, D], row-major patches
         if self.pool == "token":
             x = torch.cat([self.class_token.to(dt).expand(b, 1, self.dim), x], dim=1)
-        x = self.encoder(x + self.encoder.pos_embedding.to(dt))
+        x = x + self.encoder.pos_embedding.to(dt)
+        if group is not None:
+            x = local_tokens(x, group)
+        x = self.encoder(x)
+        w, bias = self.heads.head.weight.float(), self.heads.head.bias.float()
+        if group is not None:  # the bias-1/S head: every parameter's use stays partial
+            p = dist.get_world_size(group)
+            rep = x.float().sum(1) / (x.shape[1] * p)
+            return psum_partial(F.linear(rep, w, bias) - (1.0 - 1.0 / p) * bias, group)
         rep = x[:, 0].float() if self.pool == "token" else x.mean(1, dtype=torch.float32)
-        head = self.heads.head
-        return F.linear(rep, head.weight.float(), head.bias.float())
+        return F.linear(rep, w, bias)
 
     def init_params(self, generator: torch.Generator) -> None:
         """JAX's initialisers: ``trunc_normal_02`` for the patch embedding,

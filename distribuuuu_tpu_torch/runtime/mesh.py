@@ -1,96 +1,170 @@
 """The training mesh over processes (the port's ``runtime/mesh.py::data_mesh``).
 
-One process a GPU. The JAX package's mesh is ``('data', 'fsdp')`` with fsdp
-the inner axis; here the same order lays the processes out: world rank
-``d * F + f`` is data index ``d``, fsdp index ``f``. The batch is sharded
-over both axes jointly (each process reads its own shard of the loader, as
-data parallelism does), so ``TRAIN.BATCH_SIZE`` stays per process.
+One process a GPU. The JAX package's mesh is ``('data'[, 'fsdp'][,
+'seq'])`` with fsdp inside data and seq innermost; here the same order lays
+the processes out: world rank ``(d * F + f) * S + s`` is data index ``d``,
+fsdp index ``f``, seq index ``s``. The batch is sharded over data and fsdp
+jointly (each process reads the shard of its *batch rank* ``d * F + f``,
+as data parallelism does), so ``TRAIN.BATCH_SIZE`` stays per batch rank;
+the ``S`` processes of a seq group read the same rows and split the
+tokens of each sample (:mod:`distribuuuu_tpu_torch.parallel.seq`).
 Parameters and optimizer state shard over fsdp
-(:mod:`distribuuuu_tpu_torch.parallel.fsdp`).
+(:mod:`distribuuuu_tpu_torch.parallel.fsdp`) and replicate over seq.
 
 Sizes follow JAX's ``data_mesh``: ``MESH.FSDP`` 0 or 1 is data parallelism
-alone; -1 is a wildcard for what the other axis leaves; ``MESH.DATA -1`` and
-``MESH.FSDP -1`` together are pure fsdp (data 1). ``DATA x FSDP`` must equal
-the processes of the run: JAX can build a smaller submesh and leave devices
-idle, but a process of the run cannot idle, so the port raises naming the
-sizes.
+alone; -1 is a wildcard for what the other axis leaves of ``world // S``;
+``MESH.DATA -1`` and ``MESH.FSDP -1`` together are pure fsdp (data 1).
+``MESH.SEQ`` 0 or 1 adds no axis and has no wildcard: a negative value
+raises. ``DATA x FSDP x SEQ`` must equal the processes of the run: JAX can
+build a smaller submesh and leave devices idle, but a process of the run
+cannot idle, so the port raises naming the sizes. A seq group must lie on
+one node (JAX's ``_check_seq_host_local``).
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import torch.distributed as dist
 
 
-def mesh_sizes(data: int, fsdp: int, world: int) -> tuple[int, int]:
-    """``(data, fsdp)`` of ``MESH.DATA``/``MESH.FSDP`` over ``world``
-    processes, the wildcards resolved; raises unless the product is the
-    world."""
-    data, fsdp = int(data), int(fsdp)
+def seq_degree(seq) -> int:
+    """``MESH.SEQ`` as an axis size: 0 and 1 are 1; a negative value raises."""
+    seq = int(seq or 1)
+    if seq < 0:
+        raise ValueError("MESH.SEQ has no -1 wildcard: the sequence split must divide the "
+                         "model's token count, so pick it explicitly")
+    return seq
+
+
+def mesh_sizes(data: int, fsdp: int, world: int, seq: int = 1) -> tuple[int, int]:
+    """``(data, fsdp)`` of ``MESH.DATA``/``MESH.FSDP`` over the ``world //
+    seq`` batch ranks of ``world`` processes, the wildcards resolved; raises
+    unless ``data * fsdp * seq`` is the world."""
+    data, fsdp, seq = int(data), int(fsdp), seq_degree(seq)
     if fsdp in (0, 1):
         fsdp = 1
     elif data == -1 and fsdp == -1:  # shard state over everything: data axis trivial
         data = 1
-    shape = f"MESH.DATA={data} x MESH.FSDP={fsdp}"
+    shape = f"MESH.DATA={data} x MESH.FSDP={fsdp}" + (f" x MESH.SEQ={seq}" if seq > 1 else "")
     for v in (data, fsdp):
         if v == 0 or v < -1:
             raise ValueError(f"{shape}: each axis is a positive size or -1")
+    if world % seq:
+        raise ValueError(f"{shape}: the {world} processes of the run do not divide into seq "
+                         f"groups of {seq}")
+    batch_world = world // seq
     known = (data if data != -1 else 1) * (fsdp if fsdp != -1 else 1)
     if -1 in (data, fsdp):
-        if world % known:
+        if batch_world % known:
             raise ValueError(f"{shape}: the {world} processes of the run do not divide into the "
                              f"fixed axis")
-        data, fsdp = (world // known, fsdp) if data == -1 else (data, world // known)
-    if data * fsdp != world:
-        raise ValueError(f"{shape} needs {data * fsdp} processes, the run has {world}: a "
-                         f"submesh that leaves processes idle is not supported (one process a "
-                         f"GPU; relaunch on {data * fsdp} processes or resize the mesh)")
+        data, fsdp = ((batch_world // known, fsdp) if data == -1
+                      else (data, batch_world // known))
+    if data * fsdp * seq != world:
+        n = data * fsdp * seq
+        raise ValueError(f"{shape} needs {n} processes, the run has {world}: a submesh that "
+                         f"leaves processes idle is not supported (one process a GPU; relaunch "
+                         f"on {n} processes or resize the mesh)")
     return data, fsdp
+
+
+def check_seq_node_local(seq: int, world: int, local_world: int | None = None) -> None:
+    """Refuse seq groups that span nodes, as JAX's ``_check_seq_host_local``
+    refuses groups that span hosts: its loader feeds each host's devices, so
+    a group across hosts would stitch attention over mismatched samples.
+    Here a seq group is ``seq`` consecutive ranks and a node holds
+    ``local_world`` consecutive ranks (``LOCAL_WORLD_SIZE``, as ``torchrun``
+    sets it; the world when unset), so every group lies on one node exactly
+    when ``seq`` divides ``local_world``; the ring's exchanges in every
+    block then stay on the node's links."""
+    local_world = int(os.environ.get("LOCAL_WORLD_SIZE", world) if local_world is None
+                      else local_world)
+    if seq > 1 and world > local_world and local_world % seq:
+        raise ValueError(f"MESH.SEQ={seq} spans nodes (a node holds {local_world} of the "
+                         f"{world} processes): members of one seq group would sit on two "
+                         f"nodes. Pick MESH.SEQ dividing the per-node process count.")
 
 
 @dataclass
 class ProcessMesh:
-    """A run's ``(data, fsdp)`` layout: this process's indices and its
+    """A run's ``(data, fsdp, seq)`` layout: this process's indices and its
     groups (None where the axis has one member)."""
 
     data: int
     fsdp: int
     rank: int
-    fsdp_group: object = None  # the F processes d*F .. d*F + F-1 of this data index
-    data_group: object = None  # the D processes f, F + f, ... of this fsdp index
+    fsdp_group: object = None  # the F processes of this data and seq index
+    data_group: object = None  # the D processes of this fsdp and seq index
+    seq: int = 1
+    seq_group: object = None  # the S processes (d*F + f)*S .. (d*F + f)*S + S-1
+    batch_group: object = None  # the D*F processes of this seq index (the world without seq)
+
+    @property
+    def batch_rank(self) -> int:
+        """``d * F + f``: the shard of the batch this process reads."""
+        return self.rank // self.seq
+
+    @property
+    def batch_world(self) -> int:
+        """The processes that read distinct batch shards: ``D * F``."""
+        return self.data * self.fsdp
+
+    @property
+    def seq_rank(self) -> int:
+        return self.rank % self.seq
 
     @property
     def data_rank(self) -> int:
-        return self.rank // self.fsdp
+        return self.batch_rank // self.fsdp
 
     @property
     def fsdp_rank(self) -> int:
-        return self.rank % self.fsdp
+        return self.batch_rank % self.fsdp
 
 
-def data_mesh(data: int, fsdp: int, world: int, rank: int, group=None) -> ProcessMesh:
-    """The mesh of ``MESH.DATA``/``MESH.FSDP`` over the ``world`` processes
-    of ``group`` (the default group; None with one process). Every process
-    creates every subgroup, in one order, as ``dist.new_group`` requires."""
-    d_n, f_n = mesh_sizes(data, fsdp, world)
-    mesh = ProcessMesh(d_n, f_n, rank)
+def data_mesh(data: int, fsdp: int, world: int, rank: int, group=None, seq: int = 1,
+              local_world: int | None = None) -> ProcessMesh:
+    """The mesh of ``MESH.DATA``/``MESH.FSDP``/``MESH.SEQ`` over the
+    ``world`` processes of ``group`` (the default group; None with one
+    process). Every process creates every subgroup, in one order, as
+    ``dist.new_group`` requires."""
+    s_n = seq_degree(seq)
+    d_n, f_n = mesh_sizes(data, fsdp, world, s_n)
+    check_seq_node_local(s_n, world, local_world)
+    mesh = ProcessMesh(d_n, f_n, rank, seq=s_n)
     if world == 1:
         return mesh
+
+    def ranks(d, f, s):
+        return (d * f_n + f) * s_n + s
+
+    def subgroups(members: list, mine: int):
+        """One group for each list of ``members`` (the whole group when one
+        list holds every process); this process's is ``members[mine]``."""
+        if len(members[0]) == world:
+            return group
+        out = None
+        for i, m in enumerate(members):
+            g = dist.new_group(ranks=m)
+            if i == mine:
+                out = g
+        return out
+
+    d, f, s = mesh.data_rank, mesh.fsdp_rank, mesh.seq_rank
     if f_n > 1:
-        if f_n == world:
-            mesh.fsdp_group = group
-        else:
-            for d in range(d_n):
-                g = dist.new_group(ranks=[d * f_n + f for f in range(f_n)])
-                if d == mesh.data_rank:
-                    mesh.fsdp_group = g
+        mesh.fsdp_group = subgroups([[ranks(d_, f_, s_) for f_ in range(f_n)]
+                                     for d_ in range(d_n) for s_ in range(s_n)], d * s_n + s)
     if d_n > 1:
-        if d_n == world:
-            mesh.data_group = group
-        else:
-            for f in range(f_n):
-                g = dist.new_group(ranks=[d * f_n + f for d in range(d_n)])
-                if f == mesh.fsdp_rank:
-                    mesh.data_group = g
+        mesh.data_group = subgroups([[ranks(d_, f_, s_) for d_ in range(d_n)]
+                                     for f_ in range(f_n) for s_ in range(s_n)], f * s_n + s)
+    if s_n > 1:
+        mesh.seq_group = subgroups([[b * s_n + s_ for s_ in range(s_n)]
+                                    for b in range(d_n * f_n)], mesh.batch_rank)
+        if d_n * f_n > 1:
+            mesh.batch_group = subgroups([[b * s_n + s_ for b in range(d_n * f_n)]
+                                          for s_ in range(s_n)], s)
+    else:
+        mesh.batch_group = group
     return mesh

@@ -1,7 +1,8 @@
 """Training and evaluation loops of the port (counterpart of ``trainer.py``).
 
 One process a GPU, over the process group laid out as JAX's ``('data',
-'fsdp')`` mesh (:mod:`distribuuuu_tpu_torch.runtime.mesh`; rank ``d * F + f``):
+'fsdp', 'seq')`` mesh (:mod:`distribuuuu_tpu_torch.runtime.mesh`; rank ``(d *
+F + f) * S + s``, batch rank ``d * F + f``):
 
 | JAX (shard_map over Mesh('data'[, 'fsdp']))  | here                                        |
 |------------------------------------------|---------------------------------------------|
@@ -13,6 +14,12 @@ One process a GPU, over the process group laid out as JAX's ``('data',
 | SyncBN: BN ``axis_name='data'``           | ``BatchNorm.sync_group``: ``[E[x], E[x^2]]`` all-reduced in the forward |
 | non-finite guard (``jnp.where(keep, ..)``) | the same selection on the flat buffers, ``keep`` a device bool |
 | metric psums, fetched at PRINT_FREQ      | device sums per step, all-reduced and fetched at PRINT_FREQ |
+| seq: ``local_tokens``, ring/Ulysses attention over ``'seq'`` | the same over the seq group (:mod:`distribuuuu_tpu_torch.parallel.seq`): slices, ``batch_isend_irecv`` exchanges, ``all_to_all_single`` |
+| seq: ``psum_partial`` of the loss's sums and the head's logits | an all-reduce over the seq group whose backward is the identity |
+| seq: ``psum(grads, 'seq')`` before the fsdp/data reductions | one all-reduce of the flat gradient buffer (not the loss slot) over the seq group, first |
+| seq: metric psums over the batch axes only | the world's sums divided by ``S`` (each member holds the same sums) |
+| seq: the RNG fold without the seq index  | the dropout stream's rank is the batch rank |
+| seq: loader and samples a step by ``batch_device_count`` | by the batch ranks, ``D * F`` |
 
 :class:`TrainState` keeps every parameter as a view into one float32
 buffer, its gradient as a view into a second and every BN running
@@ -36,6 +43,15 @@ uses one fixed mask from ``RNG_SEED or 0`` for every batch. The top-k
 counters stay zero, so the meters and checkpoints are the classifier's.
 ``MODEL.PRETRAINED`` warm-starts from the port's converted checkpoint
 (:func:`_pretrained_path`), without the optimizer.
+
+``MESH.SEQ`` > 1 (ViT and MAE; ``MODEL.SEQ_ATTN`` ring or ulysses): the
+members of a seq group read the same rows and draw the same mask, the
+model runs over the group (:func:`_seq_parallel`) and each member's
+gradient is the partial one of its tokens, summed over the group before
+the fsdp or data reduction. Eval runs sequence-parallel too. A model with
+BN statistics, ``SEQ_ATTN none`` and ``MESH.SEQ -1`` raise, as in JAX; a
+classifier ViT gets ``pool='gap'``. The state is seq-replicated, so a
+checkpoint resumes at any ``MESH.SEQ``.
 
 Fault tolerance, as the JAX trainer's (:mod:`distribuuuu_tpu_torch.resilience`):
 at every step boundary the watchdog is beaten, the fault injector may kill,
@@ -85,6 +101,7 @@ from distribuuuu_tpu_torch.models.mae import patchify
 from distribuuuu_tpu_torch.ops import attention as att
 from distribuuuu_tpu_torch.ops import epilogue as ep
 from distribuuuu_tpu_torch.parallel import fsdp
+from distribuuuu_tpu_torch.parallel import seq as seqpar
 from distribuuuu_tpu_torch.runtime.dist import setup_distributed
 from distribuuuu_tpu_torch.runtime.mesh import data_mesh
 from distribuuuu_tpu_torch.runtime.seeding import configure_determinism, setup_seed
@@ -130,6 +147,10 @@ class TrainState:
     def __init__(self, model: torch.nn.Module, group=None, mesh=None,
                  min_size: int = fsdp.DEFAULT_MIN_SIZE):
         self.model, self.group, self.mesh = model, group, mesh
+        # seq: the members' partial gradients are summed over seq_group; the
+        # batch reductions run over the batch ranks of this seq index
+        self.seq_group = getattr(mesh, "seq_group", None)
+        self.batch_group = group if mesh is None else mesh.batch_group
         named = list(model.named_parameters())
         self.names = [n for n, _ in named]
         offsets, total = _aligned_offsets([p for _, p in named])
@@ -186,6 +207,19 @@ class TrainState:
     def fsdp(self) -> int:
         return 1 if self.layout is None else self.layout.fsdp
 
+    @property
+    def seq(self) -> int:
+        return seqpar.seq_size(self.mesh)
+
+    @property
+    def batch_world(self) -> int:
+        """The processes reading distinct batch shards (the world without seq)."""
+        return self.world // self.seq
+
+    @property
+    def batch_rank(self) -> int:
+        return self.rank // self.seq
+
     def unflatten(self, flat: torch.Tensor) -> dict:
         """A flat parameter-shaped buffer (the momentum, say) by parameter name."""
         shapes = dict(self.model.named_parameters())
@@ -193,11 +227,12 @@ class TrainState:
                 for n, (o, k, _) in zip(self.names, self.segments)}
 
     def reduce_grads(self) -> torch.Tensor:
-        """Under fsdp: ``grad_shard``, the mean over the run of the gradient
-        of this rank's shard buffer, and the mean loss in its last slot. The
-        sharded chunk: one reduce-scatter over the fsdp group (the sum over
-        it, divided by its size), then an all-reduce over the data group;
-        the replicated leaves and the loss: one all-reduce over the world."""
+        """Under fsdp: ``grad_shard``, the mean over the batch ranks of the
+        gradient of this rank's shard buffer, and the mean loss in its last
+        slot. The sharded chunk: one reduce-scatter over the fsdp group (the
+        sum over it, divided by its size), then an all-reduce over the data
+        group; the replicated leaves and the loss: one all-reduce over the
+        batch ranks (the world without seq)."""
         lay, mesh, gs = self.layout, self.mesh, self.grad_shard
         lay.reduce_scatter(self.grads, gs, self.params, mesh.fsdp_group)
         gs[-1:].copy_(self.grads[-1:])
@@ -207,8 +242,8 @@ class TrainState:
             dist.all_reduce(sharded, group=mesh.data_group)
             sharded.div_(mesh.data)
         rest = gs[lay.chunk:]
-        dist.all_reduce(rest, group=self.group)
-        rest.div_(self.world)
+        dist.all_reduce(rest, group=self.batch_group)
+        rest.div_(self.batch_world)
         return gs
 
     def gather(self) -> None:
@@ -271,14 +306,24 @@ def mae_loss(model, images: torch.Tensor, mask: torch.Tensor, weights=None) -> t
     (``[B, L]`` bool, True: masked), each patch's mean squared error in f32
     against :func:`patchify` of the images, summed over the masked patches
     (each weighted by its sample's ``weights``, when given: a padded eval
-    sample counts for nothing) and divided by their count, at least 1."""
+    sample counts for nothing) and divided by their count, at least 1. A
+    sequence-parallel model predicts its member's tokens: the target and
+    the mask are sliced alike, and the sum and the count are summed over
+    the seq group by ``psum_partial``, so the loss is the whole one on
+    every member and each member's gradient the partial one."""
     pred = model(images, mask)
     target = patchify(images.float(), model.patch)
     mask_f = mask.float()
     if weights is not None:
         mask_f = mask_f * weights.float()[:, None]
+    group = getattr(model, "seq_group", None)
+    if group is not None:
+        target, mask_f = seqpar.local_tokens(target, group), seqpar.local_tokens(mask_f, group)
     err = (pred.float() - target).square().mean(-1)  # [B, L]
-    return (err * mask_f).sum() / mask_f.sum().clamp_min(1.0)
+    se, cnt = (err * mask_f).sum(), mask_f.sum()
+    if group is not None:
+        se, cnt = seqpar.psum_partial(torch.stack([se, cnt]), group).unbind()
+    return se / cnt.clamp_min(1.0)
 
 
 def mae_mask(n: int, tokens: int, generator: torch.Generator, device=None) -> torch.Tensor:
@@ -346,15 +391,17 @@ def train_step(state: TrainState, batch: dict, lr: float, *, accum_steps: int = 
     if accum_steps > 1:
         grads.div_(accum_steps)
     state.grads[-1:].copy_(loss.reshape(1))
+    if state.seq_group is not None:  # the members' partial gradients (the loss is whole)
+        dist.all_reduce(grads, group=state.seq_group)
     reduced = state.grads
     if state.layout is not None:  # fsdp: this rank's shard of the mean gradient
         reduced = state.reduce_grads()
-    elif state.world > 1:
-        dist.all_reduce(state.grads, group=state.group)
-        state.grads.div_(state.world)
-    if state.world > 1 and state.stats.numel():
-        dist.all_reduce(state.stats, group=state.group)
-        state.stats.div_(state.world)
+    elif state.batch_world > 1:
+        dist.all_reduce(state.grads, group=state.batch_group)
+        state.grads.div_(state.batch_world)
+    if state.batch_world > 1 and state.stats.numel():
+        dist.all_reduce(state.stats, group=state.batch_group)
+        state.stats.div_(state.batch_world)
     n_t = torch.full((), float(n), device=loss.device)
     keep = None
     if guard:
@@ -401,7 +448,7 @@ def eval_step(model, batch: dict, totals: torch.Tensor, topk: int = 5,
 # Keys the port accepts, so that the JAX package's YAMLs and command lines
 # merge, but does not honour yet: any value other than the default raises
 # with the ROADMAP Queue 1 item that ports the subsystem.
-UNPORTED_KEYS = (("MESH.SEQ", "item 12"), ("DATA.ADVERTISE_HOST", "item 13"))
+UNPORTED_KEYS = (("DATA.ADVERTISE_HOST", "item 13"),)
 
 
 def _check_supported() -> None:
@@ -429,7 +476,9 @@ def build_cfg_model(generator: torch.Generator | None = None) -> torch.nn.Module
     which refuses it outside the ResNet family (a TypeError, as JAX's).
     ``TRAIN.TASK`` and ``MODEL.SEQ_ATTN`` are checked as JAX's
     ``_build_cfg_model`` checks them: ``mae`` needs an ``mae_*`` arch (and
-    gets ``MODEL.MAE_DECODER_DIM``), and an ``mae_*`` arch needs ``mae``."""
+    gets ``MODEL.MAE_DECODER_DIM``), an ``mae_*`` arch needs ``mae``, and
+    ``MESH.SEQ`` > 1 needs ring or Ulysses attention (and gives a
+    classifier ViT ``pool='gap'``)."""
     for mod in filter(None, (m.strip() for m in cfg.MODEL.MODULE.split(","))):
         importlib.import_module(mod)
     if cfg.TRAIN.TASK not in ("classify", "mae"):
@@ -443,6 +492,13 @@ def build_cfg_model(generator: torch.Generator | None = None) -> torch.nn.Module
     # the ResNet family's option, as in JAX: another family's factory
     # refuses the keyword with a TypeError
     kwargs = {"stem_s2d": True} if cfg.MODEL.STEM_S2D else {}
+    if cfg.MESH.SEQ > 1:
+        if cfg.MODEL.SEQ_ATTN == "none":
+            # dense attention on each block alone would attend within blocks only
+            raise ValueError("MESH.SEQ > 1 needs MODEL.SEQ_ATTN 'ring' or 'ulysses' to stitch "
+                             "the attention contraction across token shards")
+        if cfg.TRAIN.TASK == "classify" and cfg.MODEL.ARCH.startswith("vit_"):
+            kwargs["pool"] = "gap"  # the class token has no home block
     if cfg.TRAIN.TASK == "mae":
         if not cfg.MODEL.ARCH.startswith("mae_"):
             raise ValueError(f"TRAIN.TASK 'mae' needs a pixel-decoder arch (mae_*), got "
@@ -572,9 +628,9 @@ def _fetch(window: list, state: TrainState, stop: bool = False) -> tuple[list[di
     if state.world > 1:
         stop = flat.pop() > 0
     rows = [dict(zip(keys, flat[i:i + len(keys)])) for i in range(0, len(flat), len(keys))]
-    for v in rows:
-        if "skipped" in v:  # identical on every rank: summed world times
-            v["skipped"] /= state.world
+    for v in rows:  # each seq member holds its group's sums; "skipped" every rank
+        for k in v:
+            v[k] /= state.world if k == "skipped" else state.seq
     return rows, stop
 
 
@@ -617,7 +673,7 @@ def train_epoch(loader, state: TrainState, epoch: int, device, is_primary: bool,
         len(loader), prefix=f"Epoch[{epoch}] ", topk=topk)
     progress.configure_run_eta(tic=run_tic or time.time(), cur_epoch=epoch,
                                start_epoch=start_epoch, max_epoch=cfg.OPTIM.MAX_EPOCH)
-    step_imgs = cfg.TRAIN.BATCH_SIZE * cfg.TRAIN.ACCUM_STEPS * state.world
+    step_imgs = cfg.TRAIN.BATCH_SIZE * cfg.TRAIN.ACCUM_STEPS * state.batch_world
     steps_per_epoch = len(loader)
     # the group's verdict on stopping, from the last window (one process:
     # None, its own flag is read at every step)
@@ -653,7 +709,7 @@ def train_epoch(loader, state: TrainState, epoch: int, device, is_primary: bool,
         window.append(train_step(state, batch, lr, accum_steps=cfg.TRAIN.ACCUM_STEPS,
                                  topk=topk, label_smooth=cfg.TRAIN.LABEL_SMOOTH,
                                  guard=cfg.FAULT.NONFINITE_GUARD,
-                                 dropout_key=(state.dropout_seed, epoch, it, state.rank),
+                                 dropout_key=(state.dropout_seed, epoch, it, state.batch_rank),
                                  task=cfg.TRAIN.TASK))
         if profiler is not None:
             profiler.after(it)
@@ -729,8 +785,10 @@ def _log_by_rank(state: TrainState, epoch: int, launches: list, device, is_prima
                     f"bytes {cols[-3]}, optimizer bytes {cols[-2]}, peak memory bytes {cols[-1]}")
 
 
-def validate(loader, model, device, is_primary: bool, group=None, prefix="Test: "):
-    """Weighted top-1/top-k and loss over ``loader``; returns ``(acc1, acck)``."""
+def validate(loader, model, device, is_primary: bool, group=None, prefix="Test: ", seq: int = 1):
+    """Weighted top-1/top-k and loss over ``loader``; returns ``(acc1, acck)``.
+    The totals are summed over ``group``, each divided by ``seq`` (the
+    members of a seq group hold the same totals)."""
     topk = cfg.TRAIN.TOPK
     batch_time, data_time, losses, top1, topk_m, progress = construct_meters(
         len(loader), prefix=prefix, topk=topk)
@@ -742,7 +800,7 @@ def validate(loader, model, device, is_primary: bool, group=None, prefix="Test: 
         t = t.clone()
         if group is not None:
             dist.all_reduce(t, group=group)
-        return t.tolist()
+        return [v / seq for v in t.tolist()]
 
     for it, batch in enumerate(DevicePrefetcher(loader, device, cfg.TRAIN.PREFETCH,
                                                  cfg.TRAIN.PIN_MEMORY)):
@@ -776,11 +834,12 @@ def validate(loader, model, device, is_primary: bool, group=None, prefix="Test: 
 
 
 def _setup(device):
-    """The run's process group and ``(data, fsdp)`` mesh: ``(info, mesh)``."""
+    """The run's process group and ``(data, fsdp, seq)`` mesh: ``(info, mesh)``."""
     configure_determinism(cfg.CUDNN.DETERMINISTIC, cfg.CUDNN.BENCHMARK)
     _check_supported()
     info = setup_distributed(device)
-    mesh = data_mesh(cfg.MESH.DATA, cfg.MESH.FSDP, info.world_size, info.rank, info.group)
+    mesh = data_mesh(cfg.MESH.DATA, cfg.MESH.FSDP, info.world_size, info.rank, info.group,
+                     seq=cfg.MESH.SEQ)
     setup_logger(cfg.OUT_DIR if info.is_primary else None)
     if not info.is_primary:  # one progress log for the run: rank 0's
         logger.setLevel("WARNING")
@@ -804,10 +863,43 @@ def _train_state(model, info, mesh) -> TrainState:
                 f"{c['replicated_bytes'] / 1e6:.1f} MB replicated; opt state "
                 f"{n_opt * c['sharded_bytes'] / 1e6:.1f} MB sharded/"
                 f"{(n_opt * c['replicated_bytes'] + scalars) / 1e6:.1f} MB replicated")
-    logger.info(f"Mesh: data {mesh.data} x fsdp {mesh.fsdp}; census {json.dumps(c)}; this "
+    seq = f" x seq {mesh.seq}" if mesh.seq > 1 else ""
+    logger.info(f"Mesh: data {mesh.data} x fsdp {mesh.fsdp}{seq}; census {json.dumps(c)}; this "
                 f"process holds params {held['params']} bytes, optimizer state {held['opt']} "
                 f"bytes, BN statistics {held['bn']} bytes")
     return state
+
+
+def _seq_parallel(model, mesh, device) -> None:
+    """``MESH.SEQ`` > 1: refuse a model with BN statistics (its token blocks
+    would see different activations), as JAX does; run ``model`` over the
+    seq group with ``MODEL.SEQ_ATTN``; say over which backend, and that
+    gloo stages the card's tensors through host memory."""
+    if seqpar.seq_size(mesh) == 1:
+        return
+    if next(model.buffers(), None) is not None:
+        raise ValueError(f"MESH.SEQ > 1 requires a BatchNorm-free model (vit_*/mae_*): "
+                         f"{cfg.MODEL.ARCH} carries batch_stats")
+    seqpar.set_seq(model, mesh.seq_group, cfg.MODEL.SEQ_ATTN)
+    backend = dist.get_backend(mesh.seq_group)
+    staged = ("; gloo stages the exchanges' and all-to-alls' CUDA tensors through host memory"
+              if device.type == "cuda" and backend == "gloo" else "")
+    logger.info(f"Sequence parallel: {mesh.seq} processes a group, {cfg.MODEL.SEQ_ATTN} "
+                f"attention over {backend}{staged}")
+
+
+def _log_activations(model, mesh) -> None:
+    """A transformer model's activation census a process (JAX's
+    ``activation_bytes`` record), as one line."""
+    geometry = [getattr(model, a, None) for a in ("patch", "dim", "depth", "mlp_dim")]
+    if None in geometry:
+        return
+    patch, dim, depth, mlp_dim = geometry
+    l_global = (cfg.TRAIN.IM_SIZE // patch) ** 2 + (getattr(model, "pool", None) == "token")
+    c = seqpar.activation_bytes(batch_per_device=cfg.TRAIN.BATCH_SIZE, l_global=l_global,
+                                seq=seqpar.seq_size(mesh), dim=dim, depth=depth, mlp_dim=mlp_dim,
+                                dtype_bytes=2 if cfg.MODEL.DTYPE == "bfloat16" else 4)
+    logger.info(f"Activation census: {json.dumps(c)}")
 
 
 def _sync_bn(model, group) -> None:
@@ -876,16 +968,20 @@ def _train(info, mesh, gen):
     _check_crop(model)
     model = model.to(info.device)
     _sync_bn(model, info.group)
+    _seq_parallel(model, mesh, info.device)
     state = _train_state(model, info, mesh)
+    _log_activations(model, mesh)
     state.dropout_seed = gen.initial_seed()  # a mid-epoch resume replaces it with the saved one
-    # the samples a step consumes over the group: the unit of the elastic remap
-    samples_per_step = cfg.TRAIN.BATCH_SIZE * cfg.TRAIN.ACCUM_STEPS * info.world_size
+    # the samples a step consumes over the batch ranks: the unit of the elastic remap
+    samples_per_step = (cfg.TRAIN.BATCH_SIZE * cfg.TRAIN.ACCUM_STEPS
+                        * seqpar.batch_device_count(mesh))
     logger.info(f"Processes: {info.world_size} (rank 0 on {info.device}), global batch "
                 f"{samples_per_step}")
     logger.info(f"Model:\n{cfg.MODEL.ARCH}")
     logger.info(f"Params(M): {count_parameters(model):.3f}")
-    train_loader = construct_train_loader(info.world_size, info.rank, _pin_device(info.device))
-    val_loader = construct_val_loader(info.world_size, info.rank, _pin_device(info.device))
+    train_loader = construct_train_loader(mesh.batch_world, mesh.batch_rank,
+                                          _pin_device(info.device))
+    val_loader = construct_val_loader(mesh.batch_world, mesh.batch_rank, _pin_device(info.device))
     _log_input(train_loader, val_loader)
     start_epoch, start_step, best_acc1 = 0, 0, 0.0
     res = None
@@ -921,7 +1017,8 @@ def _train(info, mesh, gen):
                         profiler=profiler if epoch == start_epoch else None,
                         start_step=start_step if epoch == start_epoch else 0,
                         best_acc1=best_acc1, injector=injector)
-            acc1, _ = validate(val_loader, model, info.device, info.is_primary, info.group)
+            acc1, _ = validate(val_loader, model, info.device, info.is_primary, info.group,
+                               seq=mesh.seq)
             is_best = acc1 > best_acc1
             best_acc1 = max(acc1, best_acc1)
             resilience.watchdog_beat(phase="checkpoint")
@@ -945,6 +1042,7 @@ def test_model(device=None):
     model = build_cfg_model(torch.Generator().manual_seed(0))
     _check_crop(model)
     model = model.to(info.device)
+    _seq_parallel(model, mesh, info.device)
     state = _train_state(model, info, mesh)
     logger.info(f"Params(M): {count_parameters(model):.3f}")
     if cfg.MODEL.WEIGHTS:
@@ -953,6 +1051,6 @@ def test_model(device=None):
     elif cfg.MODEL.PRETRAINED:
         path = _load_pretrained(state)
         logger.info(f"Loaded pretrained weights ({cfg.MODEL.ARCH}) from {path}")
-    val_loader = construct_val_loader(info.world_size, info.rank, _pin_device(info.device))
+    val_loader = construct_val_loader(mesh.batch_world, mesh.batch_rank, _pin_device(info.device))
     _log_input(val_loader)
-    return validate(val_loader, model, info.device, info.is_primary, info.group)
+    return validate(val_loader, model, info.device, info.is_primary, info.group, seq=mesh.seq)

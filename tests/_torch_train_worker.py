@@ -5,15 +5,19 @@
 ``SPEC_JSON`` holds ``init`` (a ``file://`` store), ``world``, ``threads``,
 ``arch``, ``classes``, ``syncbn``, ``accum``, optionally ``remat``, the
 mesh (``data``, ``fsdp``, ``min_size``: ``MESH.DATA``, ``MESH.FSDP``,
-``MESH.FSDP_MIN_SIZE``), ``optimizer``, ``weight_decay``, ``module``
-(``MODEL.MODULE``), ``nan`` (``[step, rank]``: that rank's gradient of the
+``MESH.FSDP_MIN_SIZE``; ``seq``, ``impl``: ``MESH.SEQ``,
+``MODEL.SEQ_ATTN``), ``optimizer``, ``weight_decay``, ``module``
+(``MODEL.MODULE``), ``task`` and ``decoder`` (``TRAIN.TASK``,
+``MODEL.MAE_DECODER_DIM``: "mae" trains on the inputs' masks ``m{k}``
+``[K, B, L]``), ``nan`` (``[step, rank]``: that rank's gradient of the
 first sharded parameter gets a NaN at its first element in that step, a
 slot of fsdp rank 0's shard), and
 ``inputs``: an ``.npz`` with the global batches (``image`` ``[K, B, H, W,
 3]`` uint8, ``label`` ``[K, B]``), the learning rates ``lr`` ``[K]`` and the
 state every rank starts step 0 from (``s0/<state_dict key>``) and, for any
 later step k that should not run on from the last, the state it starts
-from (``s{k}/...``: the JAX run's, in the port's layout). Rank r trains on rows ``[r B / world, (r + 1) B / world)``
+from (``s{k}/...``: the JAX run's, in the port's layout). Batch rank r
+(``d * F + f``) of ``D * F`` trains on rows ``[r B / (D F), (r + 1) B / (D F))``
 of each batch through ``trainer.train_step`` (gradient and statistics
 all-reduced over the group, SyncBN when asked) and writes ``rank<R>.npz``
 beside the spec: per step the loss over the whole batch, the state after
@@ -46,7 +50,8 @@ import torch.distributed as dist  # noqa: E402
 from distribuuuu_tpu_torch.config import cfg  # noqa: E402
 from distribuuuu_tpu_torch.parallel.fsdp import DEFAULT_MIN_SIZE, shard_dim  # noqa: E402
 from distribuuuu_tpu_torch.runtime.mesh import data_mesh  # noqa: E402
-from distribuuuu_tpu_torch.trainer import TrainState, _fetch, _sync_bn, build_cfg_model, train_step  # noqa: E402,E501
+from distribuuuu_tpu_torch.trainer import (TrainState, _fetch, _seq_parallel, _sync_bn,  # noqa: E402
+                                           build_cfg_model, train_step)
 
 
 def main() -> None:
@@ -62,13 +67,18 @@ def main() -> None:
         cfg.MODEL.DTYPE, cfg.MODEL.SYNCBN = "float32", bool(spec["syncbn"])
         cfg.MODEL.REMAT = bool(spec.get("remat", False))
         cfg.MODEL.MODULE = spec.get("module", "")
+        cfg.MESH.SEQ, cfg.MODEL.SEQ_ATTN = int(spec.get("seq", 1)), spec.get("impl", "none")
+        cfg.TRAIN.TASK = spec.get("task", "classify")
+        cfg.MODEL.MAE_DECODER_DIM = int(spec.get("decoder", cfg.MODEL.MAE_DECODER_DIM))
         cfg.OPTIM.OPTIMIZER = spec.get("optimizer", "sgd")
         cfg.OPTIM.WEIGHT_DECAY = float(spec.get("weight_decay", cfg.OPTIM.WEIGHT_DECAY))
         cfg.TRAIN.IM_SIZE = int(data["image"].shape[2])  # a crop-sized model's table
         min_size = int(spec.get("min_size", DEFAULT_MIN_SIZE))
         model = build_cfg_model()
         _sync_bn(model, dist.group.WORLD)
-        mesh = data_mesh(spec.get("data", -1), spec.get("fsdp", 1), world, rank, dist.group.WORLD)
+        mesh = data_mesh(spec.get("data", -1), spec.get("fsdp", 1), world, rank, dist.group.WORLD,
+                         seq=cfg.MESH.SEQ)
+        _seq_parallel(model, mesh, torch.device("cpu"))
         state = TrainState(model, dist.group.WORLD, mesh, min_size)
         nan_step, nan_rank = spec.get("nan", (-1, -1))
         if rank == nan_rank:
@@ -85,7 +95,8 @@ def main() -> None:
             first.register_hook(hook)
         images, labels = data["image"], data["label"]
         k_steps, b = labels.shape
-        rows = slice(rank * b // world, (rank + 1) * b // world)
+        br, bw = mesh.batch_rank, mesh.batch_world
+        rows = slice(br * b // bw, (br + 1) * b // bw)
         out = {}
         for k in range(k_steps):
             sd = {name[len(f"s{k}/"):]: torch.from_numpy(data[name]) for name in data.files
@@ -95,9 +106,11 @@ def main() -> None:
                 state.reshard()
             if rank == nan_rank:
                 poison["on"] = k == nan_step
+            mask = torch.from_numpy(data[f"m{k}"][rows]) if cfg.TRAIN.TASK == "mae" else None
             m = train_step(state, {"image": torch.from_numpy(images[k, rows]),
                                    "label": torch.from_numpy(labels[k, rows]).long()},
-                           float(data["lr"][k]), accum_steps=int(spec["accum"]), topk=5)
+                           float(data["lr"][k]), accum_steps=int(spec["accum"]), topk=5,
+                           task=cfg.TRAIN.TASK, mask=mask)
             v = _fetch([m], state)[0][0]
             out[f"loss{k}"] = np.array(v["loss_sum"] / v["n"] if v["n"] else np.nan)  # skipped: n 0
             if spec.get("gapless"):  # under fsdp the alignment gaps of the buffer are scratch
@@ -114,9 +127,10 @@ def main() -> None:
     np.savez(spec_path.parent / f"rank{rank}.npz", **out)
 
 
-def run_ranks(spec: dict, workdir: Path, deadline_s: float) -> list[dict]:
-    """Run ``spec`` (without ``init``) on ``spec["world"]`` rank processes in
-    ``workdir``; kill every rank still running after ``deadline_s`` seconds.
+def run_ranks(spec: dict, workdir: Path, deadline_s: float, worker=__file__) -> list[dict]:
+    """Run ``spec`` (without ``init``) on ``spec["world"]`` rank processes of
+    ``worker`` (this file) in ``workdir``; kill every rank still running
+    after ``deadline_s`` seconds.
     Returns each rank's results; raises with the ranks' log tails if any
     rank failed or hung."""
     workdir.mkdir(parents=True, exist_ok=True)
@@ -128,7 +142,7 @@ def run_ranks(spec: dict, workdir: Path, deadline_s: float) -> list[dict]:
     try:
         for r in range(world):
             with open(logs[r], "w") as log:
-                procs.append(subprocess.Popen([sys.executable, __file__, str(spec_path), str(r)],
+                procs.append(subprocess.Popen([sys.executable, str(worker), str(spec_path), str(r)],
                                               stdout=log, stderr=subprocess.STDOUT))
         end = time.monotonic() + deadline_s
         while any(p.poll() is None for p in procs) and time.monotonic() < end:
@@ -157,14 +171,20 @@ _TRAIN_NET = ("import sys; sys.path.insert(0, %r)\n"
               "import torch; torch.set_num_threads(1)\n"
               "from distribuuuu_tpu_torch.train_net import main\n"
               "main(sys.argv[1:], device='cpu')\n")
+_TEST_NET = ("import sys; sys.path.insert(0, %r)\n"
+             "import torch; torch.set_num_threads(1)\n"
+             "from distribuuuu_tpu_torch.config import load_cfg_fom_args\n"
+             "from distribuuuu_tpu_torch.trainer import test_model\n"
+             "load_cfg_fom_args(argv=sys.argv[1:]); test_model(device='cpu')\n")
 
 
-def launch_train_net(world: int, argv: list, logs: Path, port: int) -> list:
-    """Start ``world`` ranks of ``train_net`` on the CPU (``argv`` after
-    ``--cfg``...), each logging to ``logs/rank<R>.log``; returns the
-    ``Popen`` objects (the caller reaps them)."""
+def launch_train_net(world: int, argv: list, logs: Path, port: int, test: bool = False) -> list:
+    """Start ``world`` ranks of ``train_net`` (``test``: of ``test_net``) on
+    the CPU (``argv`` after ``--cfg``...), each logging to
+    ``logs/rank<R>.log``; returns the ``Popen`` objects (the caller reaps
+    them)."""
     logs.mkdir(parents=True, exist_ok=True)
-    code = _TRAIN_NET % str(Path(__file__).resolve().parents[1])
+    code = (_TEST_NET if test else _TRAIN_NET) % str(Path(__file__).resolve().parents[1])
     procs = []
     for r in range(world):
         env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world), LOCAL_RANK=str(r),

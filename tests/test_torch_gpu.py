@@ -1212,3 +1212,65 @@ def test_fsdp_shard_layout_round_trips_on_the_card(cuda):
         if any(leaf[0] == name for leaf in lays[0].sharded_leaves):
             assert torch.equal(back[o:o + n], full[o:o + n]), name
         assert (full[o:].data_ptr() % 16) == 0
+
+
+_SEQ_RANK = """
+import sys, datetime, torch, torch.distributed as dist
+sys.path.insert(0, sys.argv[3])
+from distribuuuu_tpu_torch.parallel import seq
+r = int(sys.argv[1])
+torch.cuda.set_device(r)
+dist.init_process_group("nccl", init_method=sys.argv[2], rank=r, world_size=2,
+                        timeout=datetime.timedelta(seconds=120))
+gen, out = torch.Generator().manual_seed(0), {}
+for impl in ("ring", "ulysses"):
+    for causal in (False, True):
+        for dtype in (torch.float32, torch.bfloat16):
+            t = [torch.randn(2, 4, 64, 32, generator=gen).cuda() for _ in range(4)]
+            q, k, v = (seq.local_tokens(x, dist.group.WORLD, 2).to(dtype).requires_grad_()
+                       for x in t[:3])
+            o = seq.seq_attention(q, k, v, impl=impl, group=dist.group.WORLD, causal=causal)
+            (o.float() * seq.local_tokens(t[3], dist.group.WORLD, 2)).sum().backward()
+            out[(impl, causal, str(dtype))] = [x.detach().float().cpu()
+                                               for x in (o, q.grad, k.grad, v.grad, *t)]
+torch.save(out, sys.argv[4])
+dist.destroy_process_group()
+"""
+
+
+@pytest.mark.gpu
+def test_ring_and_ulysses_on_two_nccl_cards(cuda, tmp_path):
+    """Ring and Ulysses attention over a 2-rank NCCL seq group (one card
+    each), causal or not, f32 and bf16: each rank's output tokens and the
+    gradients of ``sum(out * g)`` against dense attention of the whole
+    sequence on the card, within JAX's limits (``tests/test_ring_attention.py``:
+    f32 2e-5 forward, rtol 2e-4 / atol 2e-5 gradients; bf16 5e-2)."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from distribuuuu_tpu_torch.runtime.dist import pick_rendezvous_port
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 CUDA GPUs: NCCL refuses two ranks on one card")
+    init, root = f"tcp://127.0.0.1:{pick_rendezvous_port()}", str(Path(__file__).parents[1])
+    outs = [tmp_path / f"r{r}.pt" for r in range(2)]
+    procs = [subprocess.Popen([sys.executable, "-c", _SEQ_RANK, str(r), init, root, str(outs[r])])
+             for r in range(2)]
+    assert [p.wait(timeout=300) for p in procs] == [0, 0]
+    runs = [torch.load(o, weights_only=False) for o in outs]
+    for key, (o0, *grads0, q, k, v, g) in runs[0].items():
+        impl, causal, dtype = key
+        dt = getattr(torch, dtype.split(".")[1])
+        qd, kd, vd = (x.to(cuda, dt).requires_grad_() for x in (q, k, v))
+        s = torch.matmul(qd.float(), kd.float().transpose(-1, -2)) * 32 ** -0.5
+        if causal:
+            s = s.masked_fill(~torch.ones(64, 64, dtype=torch.bool, device=cuda).tril(),
+                              float("-inf"))
+        od = torch.matmul(torch.softmax(s, -1), vd.float()).to(dt)
+        (od.float() * g.to(cuda)).sum().backward()
+        tol = dict(rtol=5e-2, atol=5e-2) if dt == torch.bfloat16 else None
+        for i, want in enumerate((od, qd.grad, kd.grad, vd.grad)):
+            got = torch.cat([runs[r][key][i] for r in range(2)], dim=2)
+            lim = tol or (dict(rtol=2e-5, atol=2e-5) if i == 0 else dict(rtol=2e-4, atol=2e-5))
+            torch.testing.assert_close(got, want.detach().float().cpu(), **lim, msg=str(key))

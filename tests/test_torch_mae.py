@@ -23,8 +23,9 @@ Tolerances:
   and the padded sample counting for nothing;
 - the trainer's checks: both task/arch refusals and the engine's, a
   preempted MAE run (REMAT on, LAMB, as ``mae_vit_b16.yaml``) resumed
-  bitwise, and ``mae_vit_b16.yaml`` building its model once its mesh is
-  cut to one card (and raising naming ROADMAP item 12 until then).
+  bitwise, and ``mae_vit_b16.yaml`` building its model at its own mesh
+  (fsdp 2 x seq 2) and cut to one card (at seq 2 one process raises on the
+  mesh's sizes).
 """
 
 import os
@@ -327,23 +328,30 @@ def test_a_preempted_mae_run_resumes_bitwise(tmp_path, _fresh, _tiny_arch):
     assert ckpt.verify_checkpoint(str(tmp_path / "pre" / "checkpoints" / "ckpt_ep_002"))[0] == "ok"
 
 
-@pytest.mark.parametrize("mesh,key", [((), "MESH.SEQ"), (("MESH.FSDP", "1"), "MESH.SEQ"),
-                                      (("MESH.FSDP", "1", "MESH.SEQ", "1"), None)])
-def test_mae_vit_b16_yaml_on_one_card(tmp_path, _fresh, mesh, key):
-    """At its own mesh (fsdp 2 x seq 2) the YAML raises naming its sequence
-    axis, ROADMAP item 12 (before the mesh's sizes are checked against the
-    one process); with both axes cut to 1 it builds ViT-B/16 MAE at 448^2 (784
-    tokens), REMAT on every block, decoder 512 (on the meta device)."""
+@pytest.mark.parametrize("mesh,error", [
+    ((), r"MESH.DATA=-1 x MESH.FSDP=2 x MESH.SEQ=2: the 1 processes of the run do not divide "
+         r"into seq groups of 2"),
+    (("MESH.FSDP", "1"), r"MESH.DATA=-1 x MESH.FSDP=1 x MESH.SEQ=2: the 1 processes"),
+    (("MESH.FSDP", "1", "MESH.SEQ", "1"), None)])
+def test_mae_vit_b16_yaml_on_one_card(tmp_path, _fresh, mesh, error):
+    """The YAML builds ViT-B/16 MAE at 448^2 (784 tokens), REMAT on every
+    block, decoder 512 (on the meta device) at its own mesh (fsdp 2 x seq 2,
+    ring: the 4 processes it asks for are ``mesh_sizes``' answer) and cut to
+    one card; on one process its seq axis raises on the mesh's sizes before
+    anything is written."""
+    from distribuuuu_tpu_torch.runtime.mesh import mesh_sizes
     from distribuuuu_tpu_torch.trainer import _check_supported
 
     reset_cfg()
     load_cfg_fom_args(argv=["--cfg", str(ROOT / "config" / "mae_vit_b16.yaml"), *mesh,
                             "MODEL.DUMMY_INPUT", "True", "OUT_DIR", str(tmp_path)])
-    if key is not None:
-        with pytest.raises(NotImplementedError,
-                           match=rf"{key} is not ported yet \(ROADMAP Queue 1 item 12\)"):
+    if error is not None:
+        with pytest.raises(ValueError, match=error):
             train_model(device="cpu")
-        return
+        assert not (tmp_path / "checkpoints").exists()
+    seq = cfg.MESH.SEQ
+    assert mesh_sizes(cfg.MESH.DATA, cfg.MESH.FSDP, cfg.MESH.FSDP * seq, seq) == \
+        (1, cfg.MESH.FSDP) and cfg.MODEL.SEQ_ATTN == "ring"
     _check_supported()
     with torch.device("meta"):
         model = build_cfg_model()

@@ -387,8 +387,7 @@ def test_digits_imagefolder_trains_and_every_val_image_is_counted_once(tmp_path_
 
 
 @pytest.mark.parametrize("key,value,item", [
-    ("DATA.SERVICE", "fleet", "item 13"), ("MESH.SEQ", "2", "item 12"),
-    ("DATA.ADVERTISE_HOST", "10.0.0.2", "item 13")])
+    ("DATA.SERVICE", "fleet", "item 13"), ("DATA.ADVERTISE_HOST", "10.0.0.2", "item 13")])
 def test_an_unported_key_raises_naming_its_roadmap_item(tmp_path, key, value, item):
     _load(tmp_path, key, value)
     with pytest.raises(NotImplementedError, match=rf"{key} is not ported yet \(ROADMAP Queue 1 "
@@ -400,12 +399,16 @@ def test_an_unported_key_raises_naming_its_roadmap_item(tmp_path, key, value, it
 @pytest.mark.parametrize("key,value,error", [
     ("MESH.FSDP_MIN_SIZE", "1024", None), ("MESH.FSDP", "-1", None),
     ("MESH.FSDP", "2", "MESH.DATA=-1 x MESH.FSDP=2: the 1 processes of the run do not divide"),
-    ("MESH.DATA", "2", "MESH.DATA=2 x MESH.FSDP=1 needs 2 processes, the run has 1")])
+    ("MESH.DATA", "2", "MESH.DATA=2 x MESH.FSDP=1 needs 2 processes, the run has 1"),
+    ("MESH.SEQ", "2", "MESH.DATA=-1 x MESH.FSDP=1 x MESH.SEQ=2: the 1 processes of the run do "
+                      "not divide into seq groups of 2"),
+    ("MESH.SEQ", "-1", "MESH.SEQ has no -1 wildcard")])
 def test_the_fsdp_keys_are_honoured(tmp_path, key, value, error):
     """``MESH.FSDP_MIN_SIZE`` and ``MESH.FSDP -1`` train on one process
-    (fsdp 1: nothing to shard, the census says so); ``MESH.FSDP 2`` or
-    ``MESH.DATA 2`` on one process raise on the mesh sizes, before any
-    checkpoint (``DATA x FSDP`` must be the world)."""
+    (fsdp 1: nothing to shard, the census says so); ``MESH.FSDP 2``,
+    ``MESH.DATA 2`` or ``MESH.SEQ 2`` on one process raise on the mesh
+    sizes, before any checkpoint (``DATA x FSDP x SEQ`` must be the world),
+    and ``MESH.SEQ -1`` as JAX's mesh raises (no wildcard)."""
     _load(tmp_path, key, value, "OPTIM.MAX_EPOCH", "1")
     if error is not None:
         with pytest.raises(ValueError, match=re.escape(error)):

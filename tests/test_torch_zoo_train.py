@@ -199,15 +199,21 @@ def test_stem_s2d_on_a_family_without_that_stem_raises(_fresh, arch):
     build_cfg_model()  # accepted: the plain stem computes the same function
 
 
-@pytest.mark.parametrize("yaml,key,item", [("mae_vit_b16.yaml", "MESH.SEQ", "item 12")])
-def test_unported_zoo_configs_raise_naming_their_item(tmp_path, _fresh, yaml, key, item):
-    """``mae_vit_b16.yaml``'s fsdp 2 x seq 2: the sequence axis is not
-    ported, and the unported key is named before the mesh's sizes are
-    checked against the one process."""
-    _load(yaml, tmp_path)
-    with pytest.raises(NotImplementedError,
-                       match=rf"{key} is not ported yet \(ROADMAP Queue 1 {item}\)"):
-        train_model(device="cpu")
+@pytest.mark.parametrize("yaml,key,value", [("mae_vit_b16.yaml", "MODEL.SEQ_ATTN", "none")])
+def test_unported_zoo_configs_raise_naming_their_item(tmp_path, _fresh, fresh_cfg, yaml, key,
+                                                       value):
+    """``mae_vit_b16.yaml``'s seq axis is honoured: with ``MODEL.SEQ_ATTN
+    none`` at its ``MESH.SEQ 2`` the build raises in JAX's words (dense
+    attention on each token block would attend within blocks only)."""
+    from distribuuuu_tpu.trainer import _build_cfg_model as jax_build_cfg_model
+
+    _load(yaml, tmp_path, key, value)
+    fresh_cfg.merge_from_file(str(ROOT / "config" / yaml))
+    fresh_cfg.merge_from_list([key, value])
+    with pytest.raises(ValueError, match="MESH.SEQ > 1 needs MODEL.SEQ_ATTN") as err:
+        build_cfg_model()
+    with pytest.raises(ValueError, match=re.escape(str(err.value))):
+        jax_build_cfg_model()
 
 
 def test_vit_l16_yaml_trains_as_written(tmp_path, _fresh, vit_tiny):
