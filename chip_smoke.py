@@ -206,20 +206,31 @@ Phases (any failure exits non-zero):
    gloo ranks sharing the card (their seq collectives staged through host
    memory); the three runs at once; a run that cannot start fails the
    smoke;
-24. [pretrained] a seeded ResNet-50 written as a torchvision ``.pth``,
+24. [parallel] ``scripts/torch_parallel_dist.py --phases tp,pp``: the
+   class-parallel head at ImageNet-21k width (features ``[128, 2048]``, C
+   21,844) at model 4 and data 2 x model 2, smoothing 0 and 0.1, against
+   the replicated ``F.cross_entropy``, and ViT-B/16's 12 encoder blocks as
+   a 4-stage GPipe pipeline (tokens ``[64, 197, 768]``, 16 microbatches)
+   against the 12 blocks run densely, in f32 with TF32 off, within
+   tests/test_tensor_parallel.py's and tests/test_pipeline.py's limits; on
+   4 gloo ranks sharing the card (the pipeline's sends staged through host
+   memory), NCCL where 4 cards are visible; any mismatch or a rank's
+   non-zero exit fails the smoke. No kernel lies on this path (JAX's head
+   and pipeline are XLA einsums and collectives);
+25. [pretrained] a seeded ResNet-50 written as a torchvision ``.pth``,
    provisioned by ``python -m distribuuuu_tpu_torch.convert`` (and botnet50
    ``--from-resnet50`` from it), each directory verified and bitwise its
    source; ``test_model`` with ``MODEL.PRETRAINED True`` in this process,
    its logits bitwise those of ``MODEL.WEIGHTS`` on the same directory, and
    ``test_net MODEL.PRETRAINED True`` as a subprocess;
-25. the ``test_net`` runs of [train], [train-bot], [train-bot-512],
+26. the ``test_net`` runs of [train], [train-bot], [train-bot-512],
    [train-zoo], [train-mae], [train-fsdp] and [pretrained] (each on its phase's
    checkpoint), concurrently, after the last timed training phase: each
    must exit 0 reporting Acc@1 (and [train-mae]'s a finite masked MSE);
-26. [mae f32] (after [zoo f32]) MAE-ViT-B/16 at full width, 64^2, batch 2,
+27. [mae f32] (after [zoo f32]) MAE-ViT-B/16 at full width, 64^2, batch 2,
    f32, card vs CPU under one mask: eval predictions within F32_REL_TOL of
    max|pred|, one LAMB step's update within MAE_F32_UPDATE_RL2;
-27. [remat] ``MODEL.REMAT`` on against off in this process, cuDNN
+28. [remat] ``MODEL.REMAT`` on against off in this process, cuDNN
    deterministic, two steps from one state of ResNet-50 b32, BoTNet-50 b8
    (the attention kernel and its backward under recompute),
    EfficientNet-B0 b16 (drop path and dropout from the trainer's stream) and
@@ -228,12 +239,13 @@ Phases (any failure exits non-zero):
    recomputed block, the attention kernel twice and its backward once, none
    scalar; peak memory and step ms both ways, and remat must lower MAE's
    peak;
-28. the whole run's wall time and each phase's, the ``{"kernels": [...]}``
-   line; 29. the ``{"ok": true, ...}`` last line.
+29. the whole run's wall time and each phase's, the ``{"kernels": [...]}``
+   line; 30. the ``{"ok": true, ...}`` last line.
 
 Nothing from [oracle] to [mae f32] is timed, so after [train-fsdp] they run
-side by side ([oracle], [train-seq] and the test_net runs as subprocesses,
-[pretrained], [zoo f32] and [mae f32] in this process), then [remat] alone.
+side by side ([oracle], [train-seq], [parallel] and the test_net runs as
+subprocesses, [pretrained], [zoo f32] and [mae f32] in this process), then
+[remat] alone.
 Each path is driven with the launch counts set to 0 just before it and read
 just after. Per-shape numbers are also written to ``smoke_out/``.
 """
@@ -1659,6 +1671,43 @@ def phase_train_seq(card: str, tmp: Path, started: tuple) -> dict:
             f"rtol {sd.PARAM_TOL['rtol']}, past it by {r['param_excess']:.3e} "
             f"(atol {sd.PARAM_TOL['atol']}); {card}")
         res[impl] = r
+    return res
+
+
+# [parallel]: scripts/torch_parallel_dist.py's [tp] and [pp] at full width, f32,
+# checked against their dense runs on the card by the script itself (it exits
+# non-zero on a mismatch or a failed rank); 4 gloo ranks sharing the card, or
+# NCCL on 4 cards where they show (the script then also times both).
+PARALLEL_DEADLINE_S = 600
+
+
+def phase_parallel(card: str, tmp: Path) -> dict:
+    """[parallel]: the script's ranks as one subprocess; its readings."""
+    import torch
+
+    one_card = torch.cuda.device_count() < 4
+    out = tmp / "parallel"
+    cmd = [sys.executable, str(ROOT / "scripts" / "torch_parallel_dist.py"), "--phases", "tp,pp",
+           "--out", str(out), "--deadline", str(PARALLEL_DEADLINE_S),
+           *(["--one-card"] if one_card else [])]
+    tic = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                              timeout=PARALLEL_DEADLINE_S + 60)
+    except subprocess.TimeoutExpired as exc:
+        fail(f"[parallel] passed its {PARALLEL_DEADLINE_S + 60} s deadline: {exc}")
+    if proc.returncode != 0:
+        fail(f"[parallel] scripts/torch_parallel_dist.py exited {proc.returncode}:\n"
+             f"{(proc.stdout + proc.stderr)[-4000:]}")
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    for line in proc.stdout.splitlines():
+        if line.startswith(("[tp]", "[pp]")):
+            say(f"[parallel] {line}")
+    tp, pp = res["tp"], res["pp"]
+    say(f"[parallel] on {res['mode']}: [tp] {len(tp['checks'])} layouts x smoothings within "
+        f"rtol 1e-5 / atol 1e-6 (loss) and 1e-4 / 1e-6 (gradients); [pp] loss "
+        f"{pp['loss']:.7f} vs dense {pp['dense_loss']:.7f}, gradients within rtol 1e-4 / atol "
+        f"1e-5; {time.perf_counter() - tic:.1f} s with process start; {card}")
     return res
 
 
@@ -4384,6 +4433,7 @@ def main() -> None:
     # subprocess-bound ones in threads beside this one's card-vs-CPU checks
     tail_tmp = tempfile.TemporaryDirectory()
     seq_runs = start_train_seq(Path(tail_tmp.name) / "seq")
+    parallel = Background(phase_parallel, card, Path(tail_tmp.name))
     oracle = Background(phase_oracle, card, Path(tail_tmp.name))
     pretrained = phase_pretrained(Path(train_tmp.name), evals)
     test_nets = Background(run_test_nets, evals)
@@ -4392,9 +4442,11 @@ def main() -> None:
     train_seq = phase_train_seq(card, Path(tail_tmp.name) / "seq", seq_runs)
     test_nets.result()
     oracle = oracle.result()
+    parallel = parallel.result()
     train_tmp.cleanup()
     tail_tmp.cleanup()
-    lap(f"oracle, train-seq, pretrained, test_net x {len(evals)}, zoo f32, mae f32, side by side")
+    lap(f"oracle, train-seq, parallel, pretrained, test_net x {len(evals)}, zoo f32, mae f32, "
+        f"side by side")
     remat = phase_remat(card)
     lap("remat")
 
@@ -4427,7 +4479,7 @@ def main() -> None:
          "input": inp, "train_jpeg": train_jpeg, "train_dataplane": train_dp,
          "oracle": oracle, "train_preempt": train_preempt, "train_zoo": zoo,
          "zoo_f32": zoo_f32, "train_mae": train_mae, "train_fsdp": train_fsdp,
-         "train_seq": train_seq,
+         "train_seq": train_seq, "parallel": parallel,
          "pretrained": pretrained,
          "mae_f32": mae_f32, "remat": remat, "phase_wall_s": laps}, indent=1))
     (out / "chip_smoke_moe.json").write_text(json.dumps(

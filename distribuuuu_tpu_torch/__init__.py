@@ -9,7 +9,8 @@ BN through the epilogue kernel forward and its backward kernel, with
 ``MODEL.REMAT`` and ``MODEL.PRETRAINED`` (provisioned by ``python -m
 distribuuuu_tpu_torch.convert``); and trains the expert-parallel switch-MoE layer
 (``parallel.switch_moe``) over a ``torch.distributed`` group on
-hand-written dispatch and combine kernels.
+hand-written dispatch and combine kernels, beside the class-parallel head
+and the GPipe pipeline (``parallel.tensor``, ``parallel.pipeline``).
 Entry points run on
 ``cuda`` unless the caller passes ``device="cpu"``; without a card and
 without that explicit choice they raise.

@@ -73,6 +73,15 @@ def setup_distributed(device=None, *, init_method: str | None = None, rank: int 
     return DistInfo(rank, world_size, local_rank, dev, group)
 
 
+def close_distributed() -> None:
+    """Destroy the default process group, if one is initialized, at the
+    clean end of an entry point: gloo's and NCCL's threads are joined then,
+    not while the interpreter tears down (where a live gloo group could
+    abort the process: ``terminate called without an active exception``)."""
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
 def _install_stack_dump_signal() -> None:
     """SIGUSR2: every thread's stack to stderr (the rank log), the process
     left running: ``kill -USR2 <pid>`` shows where a wedged rank waits even

@@ -19,13 +19,21 @@ raises. ``DATA x FSDP x SEQ`` must equal the processes of the run: JAX can
 build a smaller submesh and leave devices idle, but a process of the run
 cannot idle, so the port raises naming the sizes. A seq group must lie on
 one node (JAX's ``_check_seq_host_local``).
+
+:func:`create_mesh` is the general form, JAX's ``create_mesh``: any named
+axes (``model``, ``stage``, ``expert``, ...) over the processes, row-major,
+each with its process group. The tensor-parallel head, the pipeline and the
+MoE layer take their groups from it; the trainer's mesh stays
+:func:`data_mesh`.
 """
 
 from __future__ import annotations
 
+import math
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
+import numpy as np
 import torch.distributed as dist
 
 
@@ -167,4 +175,64 @@ def data_mesh(data: int, fsdp: int, world: int, rank: int, group=None, seq: int 
                                           for s_ in range(s_n)], s)
     else:
         mesh.batch_group = group
+    return mesh
+
+
+def mesh_shape(axes: dict, world: int) -> dict:
+    """Ordered ``{axis: size}`` over ``world`` processes with the one
+    allowed -1 resolved; raises JAX's ``create_mesh`` errors in its words
+    (a device is a process here)."""
+    sizes = dict(axes)
+    wildcards = [k for k, v in sizes.items() if v == -1]
+    if len(wildcards) > 1:
+        raise ValueError(f"At most one -1 axis allowed, got {wildcards}")
+    known = math.prod(v for v in sizes.values() if v != -1)
+    if wildcards:
+        if world % known != 0:
+            raise ValueError(f"{world} devices not divisible by fixed axes {sizes}")
+        sizes[wildcards[0]] = world // known
+    total = math.prod(sizes.values())
+    if total != world:
+        raise ValueError(f"Mesh {sizes} needs {total} devices, have {world}")
+    return sizes
+
+
+@dataclass
+class NamedMesh:
+    """Named axes over the processes: the sizes, this rank's index along
+    each axis and the process group through this rank along each axis
+    (None everywhere with one process; ``mesh[axis]`` is the group)."""
+
+    shape: dict
+    coords: dict
+    groups: dict = field(default_factory=dict)
+
+    def __getitem__(self, axis: str):
+        return self.groups[axis]
+
+
+def create_mesh(axes: dict, world: int, rank: int) -> NamedMesh:
+    """The mesh of ordered ``{axis: size}`` (one size may be -1) over the
+    ``world`` processes of the default group. Ranks lie row-major over the
+    axes, as JAX's CPU mesh lays out its devices
+    (``np.asarray(devices).reshape(shape)``). Every process creates every
+    axis's groups in one order (``dist.new_group`` is collective); an axis
+    spanning the whole world is the default group, and a size-1 axis gets
+    a one-member group, so its collectives are no-ops (JAX's size-1 axis)."""
+    sizes = mesh_shape(axes, world)
+    layout = np.arange(world).reshape(tuple(sizes.values()))
+    where = np.argwhere(layout == rank)[0]
+    mesh = NamedMesh(sizes, {a: int(i) for a, i in zip(sizes, where)})
+    for dim, axis in enumerate(sizes):
+        mesh.groups[axis] = None
+        if world == 1:
+            continue
+        if sizes[axis] == world:
+            mesh.groups[axis] = dist.group.WORLD
+            continue
+        lines = np.moveaxis(layout, dim, -1).reshape(-1, sizes[axis])
+        for line in lines:
+            g = dist.new_group(ranks=[int(r) for r in line])
+            if rank in line:
+                mesh.groups[axis] = g
     return mesh

@@ -12,6 +12,7 @@ checkpoint written), 124 hung (the watchdog fired), 117 poisoned
 
 from distribuuuu_tpu_torch import resilience
 from distribuuuu_tpu_torch.config import cfg, load_cfg_fom_args
+from distribuuuu_tpu_torch.runtime.dist import close_distributed
 from distribuuuu_tpu_torch.trainer import train_model
 
 
@@ -21,6 +22,7 @@ def main(argv=None, device=None) -> None:
     code, _ = resilience.call_with_poison_exit(lambda: train_model(device))
     if code:
         raise SystemExit(code)
+    close_distributed()
 
 
 if __name__ == "__main__":

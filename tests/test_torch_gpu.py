@@ -1274,3 +1274,123 @@ def test_ring_and_ulysses_on_two_nccl_cards(cuda, tmp_path):
             got = torch.cat([runs[r][key][i] for r in range(2)], dim=2)
             lim = tol or (dict(rtol=2e-5, atol=2e-5) if i == 0 else dict(rtol=2e-4, atol=2e-5))
             torch.testing.assert_close(got, want.detach().float().cpu(), **lim, msg=str(key))
+
+
+_PARALLEL_RANK = """
+import sys, datetime, numpy as np, torch, torch.distributed as dist
+sys.path[:0] = [sys.argv[3], sys.argv[3] + "/scripts"]
+from distribuuuu_tpu_torch.parallel import column_parallel_logits, pipeline_apply, tp_cross_entropy
+from torch_parallel_dist import moe_step
+r = int(sys.argv[1])
+torch.cuda.set_device(r)
+torch.backends.cuda.matmul.allow_tf32 = False
+dist.init_process_group("nccl", init_method=sys.argv[2], rank=r, world_size=2,
+                        timeout=datetime.timedelta(seconds=120))
+g, rng, out = dist.group.WORLD, np.random.default_rng(0), {}
+x, w, b = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).cuda()
+           for s in ((16, 32), (32, 24), (24,)))
+labels = torch.from_numpy(rng.integers(0, 24, 16)).cuda()
+xl = x.clone().requires_grad_()
+wl, bl = (t[..., 12 * r:12 * (r + 1)].clone().requires_grad_() for t in (w, b))
+loss = tp_cross_entropy(column_parallel_logits(xl, wl, bl, group=g), labels, group=g,
+                        label_smooth=0.1)
+loss.mean().backward()
+out["tp"] = [t.detach().cpu() for t in (x, w, b, labels, loss, xl.grad, wl.grad, bl.grad)]
+p = {k: torch.from_numpy(0.4 * rng.standard_normal((2, 16, 16), dtype=np.float32)).cuda()
+     for k in ("w1", "w2")}
+h, y = (torch.from_numpy(rng.standard_normal((8, 16), dtype=np.float32)).cuda() for _ in "hy")
+mine = {k: v[r].clone().requires_grad_() for k, v in p.items()}
+o = pipeline_apply(mine, h, lambda q, a: a + torch.tanh(a @ q["w1"]) @ q["w2"],
+                   num_microbatches=4, group=g)
+lp = torch.mean((o - y) ** 2)
+lp.backward()
+out["pp"] = [p["w1"].cpu(), p["w2"].cpu(), h.cpu(), y.cpu(), lp.detach().cpu(),
+             mine["w1"].grad.cpu(), mine["w2"].grad.cpu()]
+data = {"x": (rng.integers(-16, 17, (2, 256, 64)) / 8).astype(np.float32),
+        "y": rng.standard_normal((2, 256, 64), dtype=np.float32),
+        "gate": (rng.integers(-32, 33, (64, 2)) / 64).astype(np.float32),
+        "w": rng.standard_normal((2, 64, 128), dtype=np.float32) / np.float32(8),
+        "v": rng.standard_normal((2, 128, 64), dtype=np.float32) / np.float32(np.sqrt(128))}
+host = dist.new_group(backend="gloo")
+out["moe"] = [*moe_step(torch.device("cuda", r), g, data, r, torch.float32, 160),
+              *moe_step(torch.device("cpu"), host, data, r, torch.float32, 160)]
+torch.save(out, sys.argv[4])
+dist.destroy_process_group()
+"""
+
+
+@pytest.fixture(scope="module")
+def nccl_pair(tmp_path_factory):
+    """Two NCCL ranks (one card each) of ``_PARALLEL_RANK``: the
+    class-parallel head at model 2, a 2-stage pipeline and ``switch_moe``
+    at E 2 (on the card, then the same ranks over gloo on the CPU)."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from distribuuuu_tpu_torch.runtime.dist import pick_rendezvous_port
+
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 CUDA GPUs: NCCL refuses two ranks on one card")
+    tmp = tmp_path_factory.mktemp("nccl_pair")
+    init, root = f"tcp://127.0.0.1:{pick_rendezvous_port()}", str(Path(__file__).parents[1])
+    outs = [tmp / f"r{r}.pt" for r in range(2)]
+    procs = [subprocess.Popen([sys.executable, "-c", _PARALLEL_RANK, str(r), init, root,
+                               str(outs[r])]) for r in range(2)]
+    assert [p.wait(timeout=300) for p in procs] == [0, 0]
+    return [torch.load(o, weights_only=False) for o in outs]
+
+
+@pytest.mark.gpu
+def test_tp_head_on_two_nccl_cards_equals_replicated(nccl_pair, monkeypatch):
+    """Model 2, smoothing 0.1, f32: each rank's per-example loss, dx and its
+    kernel and bias shards' gradients against ``F.cross_entropy`` of the
+    replicated head on the card (``tests/test_tensor_parallel.py``'s limits)."""
+    import torch.nn.functional as F
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    x, w, b, labels = (t.cuda() for t in nccl_pair[0]["tp"][:4])
+    x, w, b = (t.clone().requires_grad_() for t in (x, w, b))
+    loss = F.cross_entropy(x @ w + b, labels, reduction="none", label_smoothing=0.1)
+    loss.mean().backward()
+    for r, run in enumerate(nccl_pair):
+        got_loss, dx, dw, db = run["tp"][4:]
+        torch.testing.assert_close(got_loss, loss.detach().cpu(), rtol=1e-5, atol=1e-6)
+        for g, want in ((dx, x.grad), (dw, w.grad[:, 12 * r:12 * (r + 1)]),
+                        (db, b.grad[12 * r:12 * (r + 1)])):
+            torch.testing.assert_close(g, want.cpu(), rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_pipeline_on_two_nccl_cards_equals_dense(nccl_pair, monkeypatch):
+    """2 stages of ``h + tanh(h @ w1) @ w2``, 4 microbatches, f32: the loss
+    on both ranks and each stage's gradients against the dense stack on the
+    card (``tests/test_pipeline.py``'s limits)."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    w1, w2, h, y = (t.cuda() for t in nccl_pair[0]["pp"][:4])
+    w1, w2 = w1.clone().requires_grad_(), w2.clone().requires_grad_()
+    a = h
+    for s in range(2):
+        a = a + torch.tanh(a @ w1[s]) @ w2[s]
+    loss = torch.mean((a - y) ** 2)
+    loss.backward()
+    for r, run in enumerate(nccl_pair):
+        got_loss, g1, g2 = run["pp"][4:]
+        torch.testing.assert_close(got_loss, loss.detach().cpu(), rtol=1e-6, atol=0.0)
+        torch.testing.assert_close(g1, w1.grad[r].cpu(), rtol=1e-4, atol=1e-5)
+        torch.testing.assert_close(g2, w2.grad[r].cpu(), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_switch_moe_on_two_nccl_cards_equals_cpu_ranks(nccl_pair):
+    """``switch_moe`` at E 2 over NCCL (one expert a card), f32 on dyadic
+    inputs, against the same ranks over gloo on the CPU (the plain
+    versions): the routing equal, everything else within 1e-5 of max|.|;
+    K6, K7 and both backward kernels once a rank on the card, none on the
+    CPU."""
+    for run in nccl_pair:
+        card, launches, cpu, cpu_launches = run["moe"]
+        assert launches == [1, 1, 1, 1] and cpu_launches == [0, 0, 0, 0]
+        assert torch.equal(card["top"], cpu["top"]) and torch.equal(card["pos"], cpu["pos"])
+        for k in ("loss", "aux", "out", "gate_grad", "w_grad", "v_grad"):
+            assert (card[k] - cpu[k]).abs().max() <= 1e-5 * cpu[k].abs().max(), k
