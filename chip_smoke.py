@@ -102,8 +102,15 @@ Phases (any failure exits non-zero):
    steps as a subprocess: the loss finite and falling, 53 K1 and 53 K1-bwd
    launches a step (none on the scalar route), a checkpoint verified against
    its manifest, ``test_net`` on it, a relaunch that resumes from it; step ms,
-   images/s and the profile of 3 steps by kernel class; then one f32
-   ResNet-18 step at 64^2, card vs CPU;
+   images/s and the profile of 3 steps by kernel class; the run's journal
+   (``OUT_DIR/telemetry.jsonl``, :func:`train_journal_check`): valid, every
+   kind of JOURNAL_KINDS over both runs, MFU on every steady window, the
+   FLOP count against a hand count, the step p50, the memory peak and the
+   K1/K1-bwd counters against the log; then one f32 ResNet-18 step at 64^2,
+   card vs CPU. Every run through :func:`train_run` ([train], [train-bot],
+   [train-bot-512], [train-zoo], [train-mae], [train-fsdp]) holds its
+   profile and step_attribution records against the window
+   (:func:`attribution_check`);
 12. [train-bot] ``python -m distribuuuu_tpu_torch.train_net --cfg
    config/botnet50.yaml MODEL.DUMMY_INPUT True`` (224^2, bf16, batch 32) for
    35 steps as a subprocess: the loss finite and falling, 53 K1, 53 K1-bwd,
@@ -731,6 +738,27 @@ TRAIN_PROFILE = (30, 3)  # TRAIN.PROFILE_START, TRAIN.PROFILE_STEPS
 # each tensor's max|.|: summation order in the convs and the statistics,
 # through one SGD step
 TRAIN_F32_REL_TOL = 1e-3
+# the kernels the profile record lists (OBS.PROFILE_TOP_OPS): K1's forward
+# is split over its template instantiations, each well below the convs
+TRAIN_TOP_OPS = 64
+# the run's journal (obs/): what both [train] runs must write between them,
+# and how close its readings must come to the log's and a hand count's:
+# the FLOP count is exact arithmetic (0.5 % leaves room only for a wrong
+# convention), the journal's step p50 before the profiler window and the
+# log's median read the same windows' wall times, the journal's over one
+# window more (2 %), and the attribution's buckets are train_profile's
+# events rounded to 0.1 us (1 %)
+JOURNAL_KINDS = ("run_start", "window", "epoch_train", "eval", "checkpoint", "counters",
+                 "memory", "state_bytes", "profile", "step_attribution", "run_end", "resume")
+FLOPS_TOL = 5e-3
+P50_TOL = 2e-2
+ATTRIBUTION_TOL = 1e-2
+# the runs whose MFU nothing reads skip the step's FLOP count (obs/flops.py):
+# its first call in a process imports torch._dynamo behind FlopCounterMode's
+# dispatch, 6.7-10.5 s a process on the card's host, which the smoke's 1200 s
+# do not hold for every run; [train] (both runs), [train-bot] and
+# [train-bot-512] keep it
+NO_MFU = ["OBS.MFU", "False"]
 
 
 def run_cli(args: list, what: str, timeout: int = 600) -> str:
@@ -759,11 +787,21 @@ def train_log(log: str) -> tuple[list, dict]:
     return prog, dict(zip(keys, (int(v) for v in m.groups())))
 
 
-def train_profile(path: Path, steps: int, bound_ms: dict, what: str, tag: str) -> dict:
+def profile_file(out: Path) -> Path:
+    """The one profiler window a run into ``out`` wrote
+    (``OUT_DIR/profile/gstep_<N>/train_steps.json``, ``obs/profiler.py``)."""
+    found = sorted(out.glob("profile/gstep_*/train_steps.json"))
+    if len(found) != 1:
+        fail(f"{out}: want one profiler window, found {[str(f) for f in found]}")
+    return found[0]
+
+
+def train_profile(out: Path, steps: int, bound_ms: dict, what: str, tag: str) -> dict:
     """Device time per training step by kernel class from the trainer's
-    TRAIN.PROFILE window (``OUT_DIR/profile/train_steps.json``), the idle
-    share between the window's first kernel start and last kernel end."""
-    data = json.loads(path.read_text())
+    TRAIN.PROFILE window in the run's OUT_DIR ``out`` (:func:`profile_file`),
+    the idle share between the window's first kernel start and last kernel
+    end."""
+    data = json.loads(profile_file(out).read_text())
     spans = data["events"]
     if not spans:
         say(f"[{tag}] the profiler recorded no device time (not measured)")
@@ -801,6 +839,160 @@ def train_profile(path: Path, steps: int, bound_ms: dict, what: str, tag: str) -
     return res
 
 
+def journal_records(out: Path, tag: str) -> list:
+    """The run's journal (``OUT_DIR/telemetry.jsonl``), validated by the
+    port's validator (``obs/journal.py``) before it is read."""
+    from distribuuuu_tpu_torch.obs import read_journal, validate_journal
+
+    errors = validate_journal(str(out / "telemetry.jsonl"))
+    if errors:
+        fail(f"[{tag}] the journal does not validate: {errors[:10]}")
+    return list(read_journal(str(out / "telemetry.jsonl")))
+
+
+def attribution_check(recs: list, profile: dict, k1: int, attention: int, tag: str) -> dict:
+    """The run's profile and step_attribution records against
+    :func:`train_profile` of the same window: the buckets' device time a
+    step within ATTRIBUTION_TOL of the window's, K1 and K1-bwd (when the
+    step runs them) among the profile's kernels by name, and every
+    attention kernel of the window in the matmul bucket."""
+    from distribuuuu_tpu_torch.obs import attribution
+
+    profs = [r for r in recs if r["kind"] == "profile"]
+    attrs = [r for r in recs if r["kind"] == "step_attribution"]
+    if len(profs) != 1 or len(attrs) != 1 or not profile:
+        fail(f"[{tag}] want one profile and one step_attribution record and a device profile, "
+             f"got {len(profs)}, {len(attrs)}, {bool(profile)}")
+    a = attrs[0]
+    dev_ms = sum(v for b, v in a["buckets"].items() if b != "host")
+    want_ms = sum(profile["per_step_us"].values()) / 1e3
+    names = [o["op"] for o in profs[0]["top_ops"]]
+    trace = json.loads(Path(a["logdir"], "train_steps.json").read_text())["events"]
+    att_buckets = {attribution.classify_op(n) for n, _, _ in trace if "attention" in n}
+    bad = []
+    if abs(dev_ms - want_ms) > ATTRIBUTION_TOL * want_ms:
+        bad.append(f"buckets {dev_ms:.3f} ms a step against the window's {want_ms:.3f}")
+    if k1 and not (any(re.search(r"epilogue_(vec|scalar)_kernel", n) for n in names)
+                   and any("epilogue_bwd" in n for n in names)):
+        bad.append(f"K1 or K1-bwd missing from the profile's top_ops {names}")
+    if attention and att_buckets != {"matmul"}:
+        bad.append(f"attention kernels in buckets {att_buckets}, want matmul only")
+    steady = [w for w in recs if w["kind"] == "window" and not w["warmup"]]
+    mfu = [w["mfu"] for w in steady]
+    flops = steady[-1]["flops_per_step"] if steady else None
+    say(f"[{tag} attribution] {a['device_ms_per_step']:.3f} ms a step on the card "
+        f"({a.get('device_kind')}): " + ", ".join(f"{b} {v:.3f}" for b, v in a["buckets"].items())
+        + f" ms; matmul {a['matmul_pct']}%; the window's kernels by class {want_ms:.3f} ms; "
+        f"flops_per_step {flops}, MFU by steady window {mfu}; top kernels: " + "; ".join(
+            f"{o['op'][:48]} {o['ms_per_step']:.3f} ms" for o in profs[0]["top_ops"][:6]))
+    if bad:
+        fail(f"[{tag}] the profile's journal records disagree: " + "; ".join(bad))
+    return dict(buckets=a["buckets"], device_ms_per_step=a["device_ms_per_step"],
+                matmul_pct=a["matmul_pct"], flops_per_step=flops, mfu=mfu)
+
+
+def resnet_step_flops(stages, bottleneck: bool, im: int, classes: int, batch: int) -> float:
+    """A ResNet training step's FLOPs by hand, in ``obs/flops.py``'s
+    convention: 2 a multiply-add of each conv's whole kernel window (the
+    padded taps too) and of the head, times 3 (forward, input gradient,
+    weight gradient), less the stem's input gradient (the images need none)."""
+    def conv(ci, co, k, s, h):  # (output side, multiply-adds); padding (k - 1) // 2
+        ho = (h + 2 * ((k - 1) // 2) - k) // s + 1
+        return ho, ho * ho * k * k * ci * co
+    h, stem = conv(3, 64, 7, 2, im)
+    h = (h + 2 - 3) // 2 + 1  # the 3x3/2 max pool
+    macs, cin = stem, 64
+    for i, n in enumerate(stages):
+        planes = 64 << i
+        out = planes * (4 if bottleneck else 1)
+        for b in range(n):
+            s = 2 if i and not b else 1
+            if bottleneck:
+                ho, m = conv(planes, planes, 3, s, h)
+                macs += m + conv(cin, planes, 1, 1, h)[1] + conv(planes, out, 1, 1, ho)[1]
+            else:
+                ho, m = conv(cin, planes, 3, s, h)
+                macs += m + conv(planes, planes, 3, 1, ho)[1]
+            if s != 1 or cin != out:
+                macs += conv(cin, out, 1, s, h)[1]
+            cin, h = out, ho
+    macs += cin * classes
+    return 2.0 * batch * (3 * macs - stem)
+
+
+def train_journal_check(out: Path, res: dict, card: str) -> dict:
+    """[train]'s journal over its run and the relaunch: it validates, holds
+    JOURNAL_KINDS with two run_starts on the card, a clean run_end after
+    each and the relaunch's resume; the first epoch's windows carry a
+    non-null MFU at a ``flops_per_step`` within FLOPS_TOL of
+    :func:`resnet_step_flops`; the ``step_time_p50`` of the window that
+    ends where the log's steady windows end (the epoch's windows so far:
+    the log's, and the one before them; the later ones hold the profiler's
+    synchronisations) lies within P50_TOL of the log's step; the memory
+    record's peak equals the epoch line's (the
+    first run's log file in ``out``), and its counters' K1 and K1-bwd
+    launches the log's; ``python -m distribuuuu_tpu_torch.obs validate``
+    and ``summarize`` (called in this process) exit 0 on it."""
+    from distribuuuu_tpu_torch.obs.__main__ import main as obs_cli
+
+    recs = journal_records(out, "train")
+    log = sorted(out.glob("*.log"))[0].read_text()
+    kinds = [r["kind"] for r in recs]
+    at = [i for i, k in enumerate(kinds) if k == "run_start"] + [len(kinds)]
+    starts = [r for r in recs if r["kind"] == "run_start"]
+    ends = [r for r in recs if r["kind"] == "run_end"]
+    windows = [r for r in recs if r["kind"] == "window" and r["epoch"] == 0]
+    steady = [w for w in windows if not w["warmup"]]
+    mem = next((r for r in recs if r["kind"] == "memory" and r["epoch"] == 0), None)
+    cnt = next((r for r in recs if r["kind"] == "counters" and r.get("epoch") == 0), None)
+    want_flops = resnet_step_flops((3, 4, 6, 3), True, IM, 1000, LADDER_BATCH)
+    bad = [k for k in JOURNAL_KINDS if k not in kinds]
+    if len(starts) != 2 or len(ends) != 2 or not all(e["clean"] for e in ends) or \
+            "resume" not in kinds[at[1]:]:
+        bad.append(f"{len(starts)} run_start(s), run_ends {[e['clean'] for e in ends]}, the "
+                   f"resume not in the relaunch")
+    if any(r["device_kind"] != card or r["platform"] != "gpu" for r in starts):
+        bad.append(f"run_start's device {[(r['platform'], r['device_kind']) for r in starts]}")
+    if not steady or any(w["mfu"] is None for w in steady):
+        bad.append(f"windows without MFU: {[w['mfu'] for w in windows]}")
+    flops = steady[-1]["flops_per_step"] if steady else None
+    if flops is None or abs(flops - want_flops) > FLOPS_TOL * want_flops:
+        bad.append(f"flops_per_step {flops} against the hand count {want_flops:.6e}")
+    last = [w for w in steady if w["step"] == TRAIN_PROFILE[0] - TRAIN_PRINT]
+    p50 = last[0]["step_time_p50"] * 1e3 if last else float("nan")
+    if not abs(p50 - res["step_ms"]) <= P50_TOL * res["step_ms"]:
+        bad.append(f"step_time_p50 {p50:.3f} ms at step {TRAIN_PROFILE[0] - TRAIN_PRINT} "
+                   f"against the log's {res['step_ms']:.3f} ms")
+    peak = re.search(r"Epoch\[0\] done: .*peak memory \S+ GiB \((\d+) bytes\)", log)
+    mem_peak = mem["per_device"]["0"]["allocated_bytes.all.peak"] if mem else None
+    if peak is None or mem_peak != int(peak[1]):
+        bad.append(f"memory peak {mem_peak} against the log's {peak[1] if peak else None}")
+    got = (cnt or {}).get("counters", {})
+    launches = (got.get("epilogue.launches"), got.get("epilogue.bwd_launches"))
+    if launches != (res["launches"]["k1"], res["launches"]["k1_bwd"]):
+        bad.append(f"counters' K1/K1-bwd {launches} against {res['launches']}")
+    priced = re.search(r"priced in (\S+) s", log)
+    mfus = [w["mfu"] for w in steady]
+    say(f"[train journal] {len(recs)} records ({', '.join(sorted(set(kinds)))}); flops_per_step "
+        f"{flops} (hand count {want_flops:.6e}), priced in {priced[1] if priced else '?'} s; "
+        f"MFU by window {mfus} at a peak of {starts[0].get('peak_tflops_per_device')} TFLOP/s; "
+        f"step_time_p50 {p50:.3f} ms at step {TRAIN_PROFILE[0] - TRAIN_PRINT}, "
+        f"{1e3 * steady[-1]['step_time_p50'] if steady else float('nan'):.3f} ms at the epoch's "
+        f"end (log {res['step_ms']:.3f} "
+        f"ms; before the journal 92.00-98.00 ms, PERF.md §5); "
+        f"peak {mem_peak} bytes; K1/K1-bwd counters {launches}; data_wait_frac "
+        f"{[w['data_wait_frac'] for w in steady]} ({card})")
+    say("[train journal] python -m distribuuuu_tpu_torch.obs validate / summarize:")
+    cli = [obs_cli([cmd, str(out / "telemetry.jsonl")]) for cmd in ("validate", "summarize")]
+    if cli != [0, 0]:
+        bad.append(f"the obs CLI exited {cli}")
+    if bad:
+        fail("[train] the journal disagrees: " + "; ".join(bad))
+    return dict(flops_per_step=flops, hand_flops=want_flops, mfu=mfus, step_time_p50_ms=p50,
+                peak_bytes=mem_peak, priced_s=float(priced[1]) if priced else None,
+                records=len(recs))
+
+
 def crop_args(im: int) -> list:
     """The training and eval crop ``im`` as ``train_net`` and ``test_net``
     arguments (none at 224^2, the config's)."""
@@ -819,7 +1011,7 @@ def train_args(cfg_file: str, batch: int, out: Path, im: int = IM, extra=()) -> 
 def train_run(card: str, out: Path, tag: str, what: str, cfg_file: str, batch: int, steps: int,
               window: tuple, attention: int, bound_ms: dict, im: int = IM,
               route: str = "cluster", k1: int = TRAIN_K1, extra=(), *, deferred: list,
-              mse: bool = False) -> dict:
+              mse: bool = False, mfu: bool = False) -> dict:
     """``python -m distribuuuu_tpu_torch.train_net --cfg <cfg_file>
     MODEL.DUMMY_INPUT True`` (then ``extra``) at ``batch`` a GPU and crop
     ``im`` over ``steps`` steps into ``out``, as a subprocess, with the
@@ -832,14 +1024,16 @@ def train_run(card: str, out: Path, tag: str, what: str, cfg_file: str, batch: i
     :func:`run_test_nets` (``mse``: it must report a finite masked-MSE
     loss too, TRAIN.TASK mae). Step ms and images/s from
     the progress lines before the profiler window; the peak memory the
-    trainer logs; the profile by kernel class."""
+    trainer logs; the profile by kernel class, held against the journal's
+    (:func:`attribution_check`). ``mfu`` False passes NO_MFU."""
     from distribuuuu_tpu_torch import checkpoint as ckpt
 
     tic = time.perf_counter()
     log = run_cli(["distribuuuu_tpu_torch.train_net", *train_args(cfg_file, batch, out, im, extra),
                    "OPTIM.MAX_EPOCH", "1", "TRAIN.DUMMY_EPOCH_SAMPLES", str(batch * steps),
                    "TRAIN.PROFILE", "True", "TRAIN.PROFILE_START", str(window[0]),
-                   "TRAIN.PROFILE_STEPS", str(window[1])], f"train_net {what}")
+                   "TRAIN.PROFILE_STEPS", str(window[1]), "OBS.PROFILE_TOP_OPS",
+                   str(TRAIN_TOP_OPS), *([] if mfu else NO_MFU)], f"train_net {what}")
     wall = time.perf_counter() - tic
     prog, counts = train_log(log)
     losses = [p[2] for p in prog]
@@ -866,14 +1060,16 @@ def train_run(card: str, out: Path, tag: str, what: str, cfg_file: str, batch: i
     status, errors = ckpt.verify_checkpoint(path)
     if status != "ok":
         fail(f"checkpoint {path}: {status} {errors}")
-    profile = train_profile(out / "profile" / "train_steps.json", window[1], bound_ms, what, tag)
+    profile = train_profile(out, window[1], bound_ms, what, tag)
+    attribution = attribution_check(journal_records(out, tag), profile, k1, attention, tag)
     wait = re.search(r"data wait (\S+)% of the epoch", log)
     census = re.search(r"fsdp=\d+: params .*", log)
     mesh = re.search(r"Mesh: .*", log)
     res = dict(steps=steps, batch=batch, im=im, launches=counts, losses=losses, step_ms=step_ms,
                images_per_s=1e3 * batch / step_ms, windows=prog, wall_s=wall, profile=profile,
                peak_gib=peak_gib, data_wait_pct=float(wait[1]) if wait else float("nan"),
-               census=census[0] if census else None, mesh=mesh[0] if mesh else None)
+               census=census[0] if census else None, mesh=mesh[0] if mesh else None,
+               attribution=attribution)
     # the eval-only check autotunes nothing (no number is taken from its time)
     ev = Evaluation(["distribuuuu_tpu_torch.test_net", "--cfg", cfg_file, "MODEL.DUMMY_INPUT",
                      "True", *crop_args(im), "TEST.BATCH_SIZE", str(batch),
@@ -966,7 +1162,7 @@ def phase_train(card: str, tmp: Path, bound_ms: dict, deferred: list) -> dict:
 
     out = tmp / "train"
     res = train_run(card, out, "train", "ResNet-50", "config/resnet50.yaml", LADDER_BATCH,
-                    TRAIN_STEPS, TRAIN_PROFILE, 0, bound_ms, deferred=deferred)
+                    TRAIN_STEPS, TRAIN_PROFILE, 0, bound_ms, deferred=deferred, mfu=True)
     log = run_cli(["distribuuuu_tpu_torch.train_net",
                    *train_args("config/resnet50.yaml", LADDER_BATCH, out), "OPTIM.MAX_EPOCH", "2",
                    "TRAIN.DUMMY_EPOCH_SAMPLES", str(LADDER_BATCH * 4)], "train_net relaunch")
@@ -976,6 +1172,7 @@ def phase_train(card: str, tmp: Path, bound_ms: dict, deferred: list) -> dict:
         fail(f"the relaunch did not resume from ckpt_ep_001 and write ckpt_ep_002:\n{log[-3000:]}")
     say(f"[train] the relaunch with OPTIM.MAX_EPOCH 2 logged 'Resumed from {resumed[1]} (epoch "
         f"{resumed[2]}' and wrote ckpt_ep_002")
+    res["journal"] = train_journal_check(out, res, card)
     res["f32_check"] = train_f32_check()
     return res
 
@@ -1042,7 +1239,7 @@ def phase_train_bot(card: str, tmp: Path, bound_ms: dict, deferred: list) -> dic
     CPU."""
     res = train_run(card, tmp / "train_bot", "train-bot", "BoTNet-50", "config/botnet50.yaml",
                     BOT_BATCH, BOT_STEPS, BOT_PROFILE, BOT_ATTENTION, bound_ms,
-                    deferred=deferred)
+                    deferred=deferred, mfu=True)
     res["f32_check"] = train_f32_botnet_check()
     return res
 
@@ -1064,7 +1261,7 @@ def phase_train_bot_512(card: str, tmp: Path, bound_ms: dict, deferred: list) ->
     return train_run(card, tmp / "train_bot_512", "train-bot-512", "BoTNet-50",
                      "config/botnet50.yaml", BOT512_BATCH, BOT512_STEPS, BOT512_PROFILE,
                      BOT_ATTENTION, bound_ms, im=BOT512_IM, route="blockwise",
-                     deferred=deferred)
+                     deferred=deferred, mfu=True)
 
 
 def train_f32_botnet_check() -> dict:
@@ -1540,7 +1737,7 @@ def fsdp_sharded(tmp: Path) -> dict:
 
     procs, ports = {}, []
     for f in ("2", "1"):  # both at once (cuDNN deterministic: the bits do not depend on it)
-        argv = fd.rn50_argv(False, world, tmp / f"fsdp{f}", steps, 1, "MESH.FSDP", f)
+        argv = fd.rn50_argv(False, world, tmp / f"fsdp{f}", steps, 1, "MESH.FSDP", f, *NO_MFU)
         ports.append(pick_rendezvous_port(exclude=ports))
         procs[f] = sd.launch(world, [sys.executable, *cmd], argv, tmp / f"fsdp{f}_logs", ports[-1])
     runs = {f: fd.read(sd.finish(p, tmp / f"fsdp{f}_logs", 600)) for f, p in procs.items()}
@@ -1642,8 +1839,8 @@ def start_train_seq(tmp: Path) -> tuple:
     procs = {}
     for name, (n, c, mesh) in runs.items():  # all three at once
         ports.append(pick_rendezvous_port(exclude=ports))
-        procs[name] = sd.launch(n, c, sd.mae_argv(False, tmp / name, SEQ_STEPS, 1, *one, *mesh),
-                                tmp / f"{name}_logs", ports[-1])
+        procs[name] = sd.launch(n, c, sd.mae_argv(False, tmp / name, SEQ_STEPS, 1, *one, *mesh,
+                                                  *NO_MFU), tmp / f"{name}_logs", ports[-1])
     return how, procs
 
 
@@ -2183,8 +2380,7 @@ def phase_train_jpeg(card: str, tmp: Path, root: Path, bound_ms: dict, dummy: di
              f"{JPEG_VAL_BATCH}")
     steady = [t for it, t, _ in prog if TRAIN_PRINT * 2 <= it < JPEG_PROFILE[0]]
     step_ms = 1e3 * statistics.median(steady)
-    profile = train_profile(out / "profile" / "train_steps.json", JPEG_PROFILE[1], bound_ms,
-                            "ResNet-50 on JPEGs", "train-jpeg")
+    profile = train_profile(out, JPEG_PROFILE[1], bound_ms, "ResNet-50 on JPEGs", "train-jpeg")
     res = dict(steps=steps, batch=LADDER_BATCH, launches=counts, losses=losses, step_ms=step_ms,
                images_per_s=1e3 * LADDER_BATCH / step_ms, windows=prog, wall_s=wall,
                data_wait_pct=float(wait[1]), decoder=inp[2], workers=int(inp[3]),
@@ -2387,7 +2583,7 @@ def jpeg_train_args(root: Path, out: Path) -> list:
             "TRAIN.DATASET", str(root), "TRAIN.BATCH_SIZE", str(LADDER_BATCH),
             "OPTIM.MAX_EPOCH", "1", "TRAIN.PRINT_FREQ", str(TRAIN_PRINT), "RNG_SEED", "0",
             "OUT_DIR", str(out), "TRAIN.PROFILE", "True", "TRAIN.PROFILE_START",
-            str(JPEG_PROFILE[0]), "TRAIN.PROFILE_STEPS", str(JPEG_PROFILE[1])]
+            str(JPEG_PROFILE[0]), "TRAIN.PROFILE_STEPS", str(JPEG_PROFILE[1]), *NO_MFU]
 
 
 def dataplane_train(card: str, tmp: Path, root: Path, bound_ms: dict, pool: tuple,
@@ -2483,7 +2679,7 @@ def dataplane_train(card: str, tmp: Path, root: Path, bound_ms: dict, pool: tupl
         fail(f"[{tag}] the ServiceLoader gave {len(got)} batches, want {DP_BITWISE_BATCHES}")
     steady = [t for it, t, _ in prog if TRAIN_PRINT * 2 <= it < JPEG_PROFILE[0]]
     step_ms = 1e3 * statistics.median(steady)
-    profile = train_profile(out / "profile" / "train_steps.json", JPEG_PROFILE[1], bound_ms,
+    profile = train_profile(out, JPEG_PROFILE[1], bound_ms,
                             f"ResNet-50 on JPEGs through the dataplane {pool}", tag)
     res = dict(pool=list(pool), address=address, steps=steps, batch=LADDER_BATCH,
                launches=counts, losses=losses, step_ms=step_ms,
@@ -2559,7 +2755,7 @@ def preempt_args(out: Path, *extra) -> list:
                                                            out),
             "TRAIN.PRINT_FREQ", str(PREEMPT_PRINT), "CUDNN.DETERMINISTIC", "True",
             "OPTIM.MAX_EPOCH", "2", "TRAIN.DUMMY_EPOCH_SAMPLES", str(LADDER_BATCH * PREEMPT_STEPS),
-            *extra]
+            *NO_MFU, *extra]
 
 
 def watch_cli(args: list, what: str, until: str | None = None, timeout: int = 300):
@@ -2716,7 +2912,7 @@ def phase_oracle(card: str, tmp: Path) -> dict:
     root = digits_imagefolder(str(tmp / "digits"))
     tic = time.perf_counter()
     log = run_cli(["distribuuuu_tpu_torch.train_net", "--cfg", "config/resnet18.yaml",
-                   "TRAIN.DATASET", root, *ORACLE_ARGS, "OUT_DIR", str(tmp / "oracle")],
+                   "TRAIN.DATASET", root, *ORACLE_ARGS, *NO_MFU, "OUT_DIR", str(tmp / "oracle")],
                   "train_net digits oracle")
     wall = time.perf_counter() - tic
     curve = [(float(a), float(b), int(n)) for a, b, n in

@@ -24,7 +24,9 @@ size; each rank takes its own shards on load. :func:`restore_latest` resumes fro
 candidate (:func:`resume_candidates`), quarantining a corrupt one, skipping
 ``rollback`` known-good ones and falling back past one whose offset the new
 world size cannot land on. ``python -m distribuuuu_tpu_torch.checkpoint
-verify <OUT_DIR|checkpoint>`` re-hashes checkpoints offline.
+verify <OUT_DIR|checkpoint>`` re-hashes checkpoints offline. Each save,
+manifest, restore, quarantine, skipped candidate and elastic remap is a
+typed record of the run's journal (``obs.current()``), as in JAX.
 """
 
 from __future__ import annotations
@@ -34,11 +36,12 @@ import json
 import os
 import re
 import shutil
+import time
 from pathlib import Path
 
 import torch
 
-from distribuuuu_tpu_torch import resilience
+from distribuuuu_tpu_torch import obs, resilience
 from distribuuuu_tpu_torch.logging import logger
 
 _NAME_PREFIX = "ckpt_ep_"
@@ -196,6 +199,8 @@ def quarantine_checkpoint(ckpt_path: str, errors: list[str]) -> str | None:
     logger.error(f"Checkpoint {ckpt_path} FAILED integrity verification ({len(errors)} "
                  f"error(s), first: {errors[0] if errors else '?'}); "
                  + (f"quarantined to {target}" if target else "quarantine rename failed"))
+    obs.current().event("ckpt_quarantined", path=str(ckpt_path),
+                        quarantine_path=str(target) if target else "", errors=errors[:8])
     return target
 
 
@@ -206,10 +211,14 @@ def _write(path: str, payload: dict) -> None:
     shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(tmp)
     torch.save(payload, os.path.join(tmp, _FILE_NAME))
-    write_manifest(tmp)
+    tic = time.time()
+    files = write_manifest(tmp)["files"]
+    wall = time.time() - tic
     if os.path.isdir(path):
         shutil.rmtree(path)
     os.replace(tmp, path)
+    obs.current().event("manifest", path=path, files=len(files),
+                        bytes=sum(f["bytes"] for f in files.values()), wall_s=round(wall, 4))
 
 
 def _state_payload(state, epoch: int, best_acc1: float, optimizer: dict | None = None) -> dict:
@@ -240,9 +249,12 @@ def save_checkpoint(out_dir: str, epoch: int, state, best_acc1: float, is_best: 
     payload = _state_payload(state, epoch, best_acc1, optimizer)
     os.makedirs(get_checkpoint_dir(out_dir), exist_ok=True)
     path = get_checkpoint_path(out_dir, epoch + 1)
-    _write(path, payload)
-    if is_best:
-        _write(get_best_path(out_dir), payload)
+    targets = [("epoch", path)] + ([("best", get_best_path(out_dir))] if is_best else [])
+    for kind, p in targets:
+        tic = time.time()
+        _write(p, payload)
+        obs.current().event("checkpoint", ckpt_kind=kind, path=p, epoch=epoch,
+                            wall_s=round(time.time() - tic, 4), synchronous=True)
     return path
 
 
@@ -273,8 +285,11 @@ def save_mid_checkpoint(out_dir: str, epoch: int, step: int, state, best_acc1: f
         payload["global_samples"] = int(step) * int(samples_per_step)
     path = get_mid_checkpoint_path(out_dir, epoch, step)
     os.makedirs(get_checkpoint_dir(out_dir), exist_ok=True)
+    tic = time.time()
     resilience.retry(_write, path, payload, retry_on=(Exception,),
                      desc=f"emergency checkpoint save {path}")
+    obs.current().event("checkpoint", ckpt_kind="emergency", path=path, epoch=epoch, step=step,
+                        wall_s=round(time.time() - tic, 4), synchronous=True)
     for e, _, old in _mid_checkpoints(out_dir):
         if e == epoch and old != path:
             try:
@@ -316,8 +331,10 @@ def load_checkpoint(path: str, state, load_opt: bool = True) -> tuple[int, float
     """Restore ``state`` from a checkpoint directory (or its ``.pt``) in
     place; returns ``(start_epoch, best_acc1)``. ``load_opt`` False keeps
     the optimizer as it is (a warm start)."""
+    tic = time.time()
     payload = _load_payload(path)
     _restore_state(payload, state, load_opt)
+    obs.current().event("restore", path=str(path), wall_s=round(time.time() - tic, 4))
     return int(payload.get("epoch", -1)) + 1, float(payload.get("best_acc1", 0.0))
 
 
@@ -330,6 +347,7 @@ def load_mid_checkpoint(path: str, state, samples_per_step: int | None = None,
     ``global_samples // samples_per_step`` (the elastic remap), and
     :class:`ElasticResumeError` is raised, before ``state`` is touched,
     when that division leaves a remainder."""
+    tic = time.time()
     payload = _load_payload(path)
     saved_step = step = int(payload["step"])
     saved_sps = int(payload.get("samples_per_step", 0))
@@ -346,9 +364,14 @@ def load_mid_checkpoint(path: str, state, samples_per_step: int | None = None,
                     + (f", {saved_devices} devices" if saved_devices else "")
                     + f") -> step {step} (@{samples_per_step} samples/step) at sample offset "
                     f"{global_samples}")
+        obs.current().event("elastic_resume", path=str(path), global_samples=global_samples,
+                            saved_step=saved_step, saved_samples_per_step=saved_sps, step=step,
+                            samples_per_step=int(samples_per_step),
+                            **({"saved_devices": saved_devices} if saved_devices else {}))
     _restore_state(payload, state, load_opt)
     if "dropout_seed" in payload:  # continue the interrupted run's dropout stream
         state.dropout_seed = int(payload["dropout_seed"])
+    obs.current().event("restore", path=str(path), wall_s=round(time.time() - tic, 4))
     return int(payload["epoch"]), step, float(payload.get("best_acc1", 0.0))
 
 
@@ -381,6 +404,8 @@ def restore_latest(out_dir: str, state, *, step_granular: bool = True,
             to_roll_back -= 1
             logger.warning(f"Rollback: skipping known-good checkpoint {path} ({to_roll_back} "
                            f"more to skip; RESUME.ROLLBACK={rollback})")
+            obs.current().event("ckpt_skipped", path=path, reason="rollback",
+                                error=f"rollback depth {rollback}")
             continue
         try:
             if kind == "epoch":
@@ -391,11 +416,14 @@ def restore_latest(out_dir: str, state, *, step_granular: bool = True,
         except ElasticResumeError as exc:
             logger.warning(f"Checkpoint {path} skipped for elastic resume ({exc}); falling back "
                            f"to the next-highest checkpoint")
+            obs.current().event("ckpt_skipped", path=path, reason="elastic", error=str(exc))
         except Exception as exc:
             if not skip_corrupt:
                 raise
             logger.warning(f"Checkpoint {path} failed to restore ({exc!r}); falling back to "
                            f"the next-highest checkpoint")
+            obs.current().event("ckpt_skipped", path=path, reason="restore_failed",
+                                error=repr(exc))
     return None
 
 

@@ -6,9 +6,10 @@ plus every key the repository's training and serving YAMLs set, so they
 merge unchanged. Keys marked "not yet ported" are accepted and checked by
 the trainer (``trainer._check_supported``): a non-default value raises with
 the ROADMAP item that ports it. The few whose default turns a JAX
-subsystem on are gaps at their default, and say so below. The ``OBS``,
-``QUANT``, ``FLEET`` subtrees and ``SERVE.DEPLOY``/``SERVE.INGRESS`` are
-not part of these slices and are absent.
+subsystem on are gaps at their default, and say so below. The ``QUANT``,
+``FLEET`` subtrees and ``SERVE.DEPLOY``/``SERVE.INGRESS`` are not part of
+these slices and are absent. ``OBS`` holds the JAX package's 16 keys
+(``obs/``: the training run's telemetry).
 """
 
 from __future__ import annotations
@@ -95,8 +96,9 @@ _C.TRAIN.ACCUM_STEPS = 1
 # XLA compile cache: nothing to cache in eager PyTorch; accepted
 _C.TRAIN.COMPILE_CACHE = True
 _C.TRAIN.COMPILE_CACHE_DIR = ""
-# torch.profiler window of PROFILE_STEPS steps from PROFILE_START (epoch of
-# the run's first step); its device events go to OUT_DIR/profile/
+# torch.profiler window of PROFILE_STEPS steps from global step
+# PROFILE_START of epoch 0 (obs/profiler.py; written with OBS.ENABLED off
+# too): its device events go to OUT_DIR/profile/gstep_<N>/
 _C.TRAIN.PROFILE = False
 _C.TRAIN.PROFILE_START = 10
 _C.TRAIN.PROFILE_STEPS = 5
@@ -228,6 +230,52 @@ _C.DATA.WINDOW = 8
 # decode at the exact next undelivered batch (the same stream, logged and
 # counted), and return to the service at the next epoch. Off: fail the run.
 _C.DATA.FALLBACK = True
+
+# Observability (``obs/``): the rank-0 JSONL journal of the training run,
+# MFU and goodput, the launch and build counters, profiler windows, memory
+# records.
+_C.OBS = CN()
+# master switch; off, every telemetry call site does nothing (the legacy
+# TRAIN.PROFILE window still writes)
+_C.OBS.ENABLED = True
+# the journal's file name under OUT_DIR (JSONL, one typed record a line)
+_C.OBS.JOURNAL = "telemetry.jsonl"
+# os.fsync the journal after every record (the default flushes a record)
+_C.OBS.FSYNC = False
+# count the global step's FLOPs once a run (FlopCounterMode on the meta
+# device) and report MFU a window against the card's peak from the
+# built-in table; PEAK_TFLOPS_PER_DEVICE (TFLOP/s a card, 0 = the table)
+# overrides it. An unknown card (or the CPU) omits MFU.
+_C.OBS.MFU = True
+_C.OBS.PEAK_TFLOPS_PER_DEVICE = 0.0
+# torch.profiler windows of PROFILE_STEPS steps from each listed global
+# step (epoch * steps_per_epoch + step), under OUT_DIR/profile/gstep_*;
+# SIGUSR1 asks a live run for one at the next step (PROFILE_SIGUSR1 gates
+# the handler); PROFILE_TOP_OPS kernels go into the profile record
+_C.OBS.PROFILE_AT_STEPS = []
+_C.OBS.PROFILE_STEPS = 5
+_C.OBS.PROFILE_SIGUSR1 = True
+_C.OBS.PROFILE_TOP_OPS = 20
+# a memory record (the allocator's counters) at each epoch's end
+_C.OBS.MEMORY_SNAPSHOTS = True
+# span records a PRINT_FREQ window (data wait, compute) and a checkpoint
+_C.OBS.TRAIN_SPANS = True
+# read by the live aggregators (the export sidecar, the serve frontend, the
+# fleet controller), never by the training process: accepted, read by
+# nothing here (the live plane is ROADMAP Queue 1 item 7b)
+_C.OBS.ALARMS = [
+    "goodput_floor=goodput<0.1:for=3",
+    "data_wait_ceiling=data_wait_frac>0.5:for=3",
+    "heartbeat_stale=heartbeat_age_s>300",
+    "skip_streak=consecutive_skips>3",
+]
+# the /metrics exporter's port (0: none) and bind; not yet ported: a port
+# raises (item 7b)
+_C.OBS.METRICS_PORT = 0
+_C.OBS.METRICS_HOST = "127.0.0.1"
+_C.OBS.TAIL_INTERVAL_S = 2.0
+# the JAX package's kernel-verdict registry: not ported (a value raises)
+_C.OBS.PERFDB = ""
 
 # agent supervision: not yet ported (accepted for serve_resnet50.yaml)
 _C.AGENT = CN()

@@ -43,6 +43,7 @@ import os
 import queue
 import random
 import threading
+import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator
@@ -51,7 +52,7 @@ import numpy as np
 import torch
 from PIL import Image
 
-from distribuuuu_tpu_torch import resilience
+from distribuuuu_tpu_torch import obs, resilience
 from distribuuuu_tpu_torch.config import cfg, get_default
 from distribuuuu_tpu_torch.data import native
 from distribuuuu_tpu_torch.data.dataset import DummyDataset, open_image_dataset
@@ -287,7 +288,8 @@ class HostDataLoader:
                     return
 
     def __iter__(self) -> Iterator[dict]:
-        return produced(self, self._produce, self.prefetch_batches, "dtpu-host-loader")
+        return produced(self, self._produce, self.prefetch_batches, "dtpu-host-loader",
+                        wait="decode_wait_s")
 
 
 def set_pin_device(pin_device: torch.device | None) -> None:
@@ -302,12 +304,14 @@ def _raise_producer_error(exc: BaseException) -> None:
     raise RuntimeError("data loader worker failed") from exc
 
 
-def produced(owner, produce, depth: int, name: str) -> Iterator:
+def produced(owner, produce, depth: int, name: str, wait: str | None = None) -> Iterator:
     """Iterate what ``produce(emit)`` emits from a producer thread, through
     a queue of ``depth`` items (``emit`` returns False once the consumer is
     gone: the producer should return). The producer's error is raised in
     the consumer ahead of the items still queued; an abandoned iteration
-    stops the producer and reaps it. ``owner._producer`` is the thread."""
+    stops the producer and reaps it. ``owner._producer`` is the thread.
+    ``wait``: the telemetry's wait counter that the consumer's time on an
+    empty queue adds to (how long it waited on the decode)."""
     out_q: queue.Queue = queue.Queue(maxsize=depth)
     stop = threading.Event()
     err_box: list = []
@@ -330,9 +334,12 @@ def produced(owner, produce, depth: int, name: str) -> Iterator:
         while True:
             if err_box:  # a failure preempts the items still queued
                 _raise_producer_error(err_box[0])
+            t_wait = time.monotonic()
             try:
                 item = out_q.get(timeout=0.2)
             except queue.Empty:
+                if wait:
+                    obs.current().add_wait(wait, time.monotonic() - t_wait)
                 if err_box:
                     _raise_producer_error(err_box[0])
                 if not producer.is_alive():
@@ -349,6 +356,8 @@ def produced(owner, produce, depth: int, name: str) -> Iterator:
                             return
                         yield item
                 continue
+            if wait:
+                obs.current().add_wait(wait, time.monotonic() - t_wait)
             if item is None:
                 return
             yield item
@@ -477,14 +486,22 @@ class DevicePrefetcher:
         return host
 
     def __iter__(self):
+        """The batches on the device; the time the step loop waits for each
+        (host decode and the copy's dispatch) adds to the telemetry's
+        ``data_wait_s`` counter, a window's ``data_wait_frac``."""
         it = iter(self.loader)
+        tel = obs.current()
+        src = (self._host(b) for b in it) if self.device.type != "cuda" else self._to_card(it)
         try:
-            if self.device.type != "cuda":
-                for batch in it:
-                    yield self._host(batch)
-                return
-            yield from self._to_card(it)
+            while True:
+                t_wait = time.monotonic()
+                batch = next(src, None)
+                tel.add_wait("data_wait_s", time.monotonic() - t_wait)
+                if batch is None:
+                    return
+                yield batch
         finally:  # an abandoned epoch stops the loader's producer too
+            src.close()
             close = getattr(it, "close", None)
             if close is not None:
                 close()
@@ -498,10 +515,13 @@ class DevicePrefetcher:
             if batch is None:
                 return False
             host = self._host(batch)
+            t0 = time.monotonic()
             with torch.cuda.stream(side):
                 dev = {k: t.to(self.device, non_blocking=True) for k, t in host.items()}
                 done = torch.cuda.Event()
                 done.record(side)
+            # the copies' dispatch on the host (they may still be in flight: no sync)
+            obs.current().add_wait("h2d_transfer_s", time.monotonic() - t0)
             pending.append((dev, done))
             return True
 

@@ -28,12 +28,13 @@ Failures:
 
 from __future__ import annotations
 
+import time
 from contextlib import closing
 
 import numpy as np
 import torch
 
-from distribuuuu_tpu_torch import resilience
+from distribuuuu_tpu_torch import obs, resilience
 from distribuuuu_tpu_torch.config import cfg
 from distribuuuu_tpu_torch.data.dataset import open_image_dataset
 from distribuuuu_tpu_torch.data.loader import (
@@ -223,7 +224,10 @@ class ServiceLoader:
                         protocol.send_msg(f, {"op": "next", "batch": next_req})
                         inflight.append(next_req)
                         next_req += 1
+                    t_wait = time.monotonic()
                     reply, arrays = protocol.recv_msg(f, self._alloc)
+                    # the wait on the service's decode, as the local loader's queue wait
+                    obs.current().add_wait("decode_wait_s", time.monotonic() - t_wait)
                     if not reply.get("ok"):
                         error = str(reply.get("error", "?"))
                         if error.startswith("decode_failed"):

@@ -40,9 +40,12 @@ class BuildInfo:
     ptxas: str
 
 
-_lock = threading.Lock()  # guards the two dicts below
+_lock = threading.Lock()  # guards the three dicts below
 _name_locks: dict[str, threading.Lock] = {}  # one per source: different sources build at once
 _loaded: dict[str, tuple[ctypes.CDLL, BuildInfo]] = {}
+# the nvcc runs of this process: "nvcc/<name>" -> {"count", "total_s"}
+# (the journal's ``counters`` durations, ``obs/monitors.py``)
+BUILDS: dict[str, dict[str, float]] = {}
 
 
 def _nvcc() -> str:
@@ -79,6 +82,10 @@ def build(name: str) -> BuildInfo:
         )
     report.write_text(proc.stderr)
     os.replace(tmp, lib)  # atomic: a concurrent build never loads a partial file
+    with _lock:
+        d = BUILDS.setdefault(f"nvcc/{name}", {"count": 0, "total_s": 0.0})
+        d["count"] += 1
+        d["total_s"] += wall
     return BuildInfo(lib, wall, proc.stderr)
 
 

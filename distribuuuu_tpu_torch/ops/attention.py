@@ -8,7 +8,7 @@ shared ``[L, D]`` table) launch the hand-written Hopper kernel in
 single-tile and blockwise variants of both modes): bf16 q/k/v on the
 tensor cores, f32 on scalar FMAs. On a CPU tensor they compute
 :func:`attention_reference` / :func:`attention_table_reference`, the plain
-PyTorch versions. There is no other route: a CUDA tensor the kernel does
+PyTorch versions, and so on a meta tensor (``obs/flops.py`` counts on it). There is no other route: a CUDA tensor the kernel does
 not take raises, and nothing falls back. :func:`attention_blockwise_reference`
 repeats the kernel's blockwise rounding in PyTorch, for the checks.
 
@@ -196,7 +196,7 @@ def fused_attention(q, k, v, bias):
 
 
 def _forward(q, k, v, bias):
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):
         return attention_reference(q, k, v, bias)
     return _launch(q, k, v, bias, table=False)
 
@@ -209,7 +209,7 @@ def fused_attention_backward(q, k, v, bias, g):
     contiguous, in its input's dtype."""
     _check(q, k, v, bias, table=False)
     _check_g(q, v, g)
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):
         return attention_backward_reference(q, k, v, bias, g)
     return _launch_backward(q, k, v, bias, g, table=False)
 
@@ -222,7 +222,7 @@ def fused_attention_abs_backward(q, k, v, emb, g):
     contiguous, in its input's dtype."""
     _check(q, k, v, emb, table=True)
     _check_g(q, v, g)
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):
         return attention_table_backward_reference(q, k, v, emb, g)
     return _launch_backward(q, k, v, emb, g, table=True)
 
@@ -280,14 +280,14 @@ def fused_attention_abs(q, k, v, emb):
 
 
 def _forward_abs(q, k, v, emb):
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):
         return attention_table_reference(q, k, v, emb)
     return _launch(q, k, v, emb, table=True)
 
 
 def _check_cuda(q, k, v, last, g=None) -> None:
     if q.device.type != "cuda":
-        raise ValueError(f"fused attention runs on cuda or cpu tensors, got {q.device}")
+        raise ValueError(f"fused attention runs on cuda, cpu or meta tensors, got {q.device}")
     d, dv = q.shape[-1], v.shape[-1]
     if d > MAX_HEAD_DIM or dv > MAX_HEAD_DIM:
         raise ValueError(f"the CUDA kernel takes D, Dv <= {MAX_HEAD_DIM}, got D={d}, Dv={dv}")

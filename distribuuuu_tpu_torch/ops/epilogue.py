@@ -4,7 +4,8 @@ The port's counterpart of ``distribuuuu_tpu/ops/epilogue.py``. On a CUDA
 tensor, :func:`fused_conv_epilogue` launches the hand-written Hopper kernel
 in ``csrc/epilogue.cu`` (it replaces the Pallas ``_epilogue_kernel``); on a
 CPU tensor it computes :func:`epilogue_reference`, the plain PyTorch
-version. There is no other route: a CUDA tensor the kernel does not take
+version (so does a meta tensor, which has shapes only: the step's FLOP
+count, ``obs/flops.py``, runs on it and launches nothing). There is no other route: a CUDA tensor the kernel does not take
 raises, and nothing falls back.
 
 Three modes, by ``cast_to`` and ``keep_boundary``:
@@ -152,7 +153,7 @@ def fused_conv_epilogue(x, mean, mul, bias, identity=None, *, relu=True, bn_dtyp
     backward is K1-bwd when an input needs a gradient.
     """
     _check(x, mean, mul, bias, identity, bn_dtype, cast_to)
-    if x.device.type == "cpu":
+    if x.device.type in ("cpu", "meta"):
         return epilogue_reference(x, mean, mul, bias, identity, relu=relu, bn_dtype=bn_dtype,
                                   cast_to=cast_to, keep_boundary=keep_boundary)
     _check_cuda(x, mean, mul, bias, identity)
@@ -183,7 +184,7 @@ def fused_conv_epilogue_backward(x, mean, mul, bias, identity, g_out, g_cast=Non
     """
     _check(x, mean, mul, bias, identity, bn_dtype, cast_to)
     kw = dict(relu=relu, bn_dtype=bn_dtype, cast_to=cast_to, keep_boundary=keep_boundary)
-    if x.device.type == "cpu":
+    if x.device.type in ("cpu", "meta"):
         out = epilogue_backward_reference(x, mean, mul, bias, identity, g_out, g_cast, **kw)
         return out if need_identity else (*out[:4], None)
     _check_cuda(x, mean, mul, bias, identity)
@@ -200,7 +201,7 @@ def _out_dtype(bn_dtype, identity):
 
 def _check_cuda(x, mean, mul, bias, identity) -> None:
     if x.device.type != "cuda":
-        raise ValueError(f"fused_conv_epilogue runs on cuda or cpu tensors, got {x.device}")
+        raise ValueError(f"fused_conv_epilogue runs on cuda, cpu or meta tensors, got {x.device}")
     for name, t in (("x", x), ("identity", identity)):
         if t is not None and not _dense_rows(t):
             raise ValueError(

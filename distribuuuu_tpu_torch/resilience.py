@@ -16,7 +16,8 @@ belong to the agent and the fleet, ROADMAP Queue 1 item 13):
 - :class:`Watchdog`: a heartbeat thread (``FAULT.HANG_TIMEOUT_S``) beaten at
   every step boundary. A stalled step loop (a dead peer in a collective, a
   wedged device the host waits on) gets every thread's stack dumped into
-  the rank log and ``os._exit(124)``.
+  the rank log, a ``hang`` record committed to the journal and
+  ``os._exit(124)``.
 - :class:`FaultInjector`: deterministic I/O faults at chosen sample
   indices, NaN batches, a preemption, a hang or a SIGKILL at chosen global
   steps, from ``DTPU_FAULT_*`` over ``FAULT.INJECT_*``.
@@ -352,6 +353,15 @@ class Watchdog:
                      f"{step if step is not None else '<none>'}): a peer is likely dead or "
                      f"the device stalled; dumping stacks and exiting {HANG_EXIT_CODE}")
         self._dump_fn(f"watchdog: stalled {age:.1f}s at {phase} step {step}")
+        try:  # the journal's typed record, made durable before the exit
+            from distribuuuu_tpu_torch import obs
+
+            tel = obs.current()
+            tel.event("hang", timeout_s=round(self.timeout_s, 3), stalled_s=round(age, 3),
+                      phase=phase, gstep=step)
+            tel.commit()
+        except Exception:
+            pass
         fallback.cancel()
         self._exit_fn(HANG_EXIT_CODE)
 

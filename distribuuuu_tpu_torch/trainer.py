@@ -70,6 +70,7 @@ from __future__ import annotations
 import importlib
 import json
 import os
+import sys
 import time
 
 import numpy as np
@@ -77,7 +78,7 @@ import torch
 import torch.distributed as dist
 
 from distribuuuu_tpu_torch import checkpoint as ckpt
-from distribuuuu_tpu_torch import optim, resilience
+from distribuuuu_tpu_torch import obs, optim, resilience
 from distribuuuu_tpu_torch.config import cfg, dump_cfg, get_default, lookup
 from distribuuuu_tpu_torch.data.loader import (
     DevicePrefetcher,
@@ -98,8 +99,7 @@ from distribuuuu_tpu_torch.metrics import (
 )
 from distribuuuu_tpu_torch.models import build_model, layers
 from distribuuuu_tpu_torch.models.mae import patchify
-from distribuuuu_tpu_torch.ops import attention as att
-from distribuuuu_tpu_torch.ops import epilogue as ep
+from distribuuuu_tpu_torch.obs import monitors
 from distribuuuu_tpu_torch.parallel import fsdp
 from distribuuuu_tpu_torch.parallel import seq as seqpar
 from distribuuuu_tpu_torch.runtime.dist import setup_distributed
@@ -146,7 +146,7 @@ class TrainState:
 
     def __init__(self, model: torch.nn.Module, group=None, mesh=None,
                  min_size: int = fsdp.DEFAULT_MIN_SIZE):
-        self.model, self.group, self.mesh = model, group, mesh
+        self.model, self.group, self.mesh, self.min_size = model, group, mesh, min_size
         # seq: the members' partial gradients are summed over seq_group; the
         # batch reductions run over the batch ranks of this seq index
         self.seq_group = getattr(mesh, "seq_group", None)
@@ -448,7 +448,7 @@ def eval_step(model, batch: dict, totals: torch.Tensor, topk: int = 5,
 # Keys the port accepts, so that the JAX package's YAMLs and command lines
 # merge, but does not honour yet: any value other than the default raises
 # with the ROADMAP Queue 1 item that ports the subsystem.
-UNPORTED_KEYS = (("DATA.ADVERTISE_HOST", "item 13"),)
+UNPORTED_KEYS = (("DATA.ADVERTISE_HOST", "item 13"), ("OBS.METRICS_PORT", "item 7b"))
 
 
 def _check_supported() -> None:
@@ -461,6 +461,10 @@ def _check_supported() -> None:
     for key, ok, item in todo:
         if not ok:
             raise NotImplementedError(f"this {key} is not ported yet (ROADMAP Queue 1 {item})")
+    if cfg.OBS.PERFDB:
+        raise NotImplementedError("OBS.PERFDB is not ported: the JAX package's perfdb is a "
+                                  "kernel on/off switch, which the port has no use for (on the "
+                                  "card a CUDA tensor always takes the kernel)")
     if cfg.MODEL.DTYPE not in _DTYPES:
         raise ValueError(f"MODEL.DTYPE must be 'float32' or 'bfloat16', got {cfg.MODEL.DTYPE!r}")
     if cfg.MODEL.BN_DTYPE not in ("auto", *_DTYPES):
@@ -560,58 +564,19 @@ def _load_pretrained(state: TrainState) -> str:
     return path
 
 
-def _launch_counts() -> tuple[int, ...]:
-    """K1, K1-bwd, their scalar routes, the attention kernel, its backward
-    and the backward's calls on each route (cluster, blockwise, scalar)."""
-    return (ep.LAUNCHES, ep.BWD_LAUNCHES, ep.SCALAR_LAUNCHES, ep.BWD_SCALAR_LAUNCHES,
-            att.LAUNCHES, att.BWD_LAUNCHES,
-            *(att.BWD_ROUTE_CALLS[r] for r in _ROUTES))
-
-
 _ROUTES = ("cluster", "blockwise", "scalar")  # the attention backward's routes
+# K1, K1-bwd, their scalar routes, the attention kernel, its backward and the
+# backward's calls on each route: the journal's counters, by name
+_LAUNCH_KEYS = ("epilogue.launches", "epilogue.bwd_launches", "epilogue.scalar_launches",
+                "epilogue.bwd_scalar_launches", "attention.launches", "attention.bwd_launches",
+                *(f"attention.bwd_route_calls.{r}" for r in _ROUTES))
 
 
-class _Profiler:
-    """TRAIN.PROFILE: a torch.profiler window over PROFILE_STEPS steps from
-    PROFILE_START; its device events go to OUT_DIR/profile/train_steps.json
-    with the window's wall time (the device synchronised at both ends)."""
-
-    def __init__(self, device):
-        self.device, self.prof, self.tic = device, None, 0.0
-
-    def before(self, it: int) -> None:
-        if it == cfg.TRAIN.PROFILE_START and self.prof is None:
-            from torch.profiler import ProfilerActivity, profile
-
-            acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
-                                             if self.device.type == "cuda" else [])
-            self._sync()
-            self.prof = profile(activities=acts)
-            self.prof.__enter__()
-            self.tic = time.perf_counter()
-
-    def after(self, it: int) -> None:
-        if self.prof is None or it != cfg.TRAIN.PROFILE_START + cfg.TRAIN.PROFILE_STEPS - 1:
-            return
-        self._sync()
-        wall = time.perf_counter() - self.tic
-        self.prof.__exit__(None, None, None)
-        events = [(e.name, e.time_range.start, e.time_range.end) for e in self.prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA and e.time_range.end > 0]
-        out = os.path.join(cfg.OUT_DIR, "profile")
-        os.makedirs(out, exist_ok=True)
-        path = os.path.join(out, "train_steps.json")
-        with open(path, "w") as f:
-            json.dump({"steps": cfg.TRAIN.PROFILE_STEPS, "wall_ms": 1e3 * wall,
-                       "batch": cfg.TRAIN.BATCH_SIZE * cfg.TRAIN.ACCUM_STEPS,
-                       "events": events}, f)
-        logger.info(f"Profiled {cfg.TRAIN.PROFILE_STEPS} steps from step "
-                    f"{cfg.TRAIN.PROFILE_START}: {len(events)} device events -> {path}")
-        self.prof = None
-
-    def _sync(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+def _launch_counts() -> tuple[int, ...]:
+    """The counters of :data:`_LAUNCH_KEYS`, as ``obs/monitors.py`` reads
+    them for the journal."""
+    counts = monitors.launch_counts()
+    return tuple(counts[k] for k in _LAUNCH_KEYS)
 
 
 def _fetch(window: list, state: TrainState, stop: bool = False) -> tuple[list[dict], bool]:
@@ -648,6 +613,9 @@ def _preempt(state: TrainState, epoch: int, it: int, best_acc1: float, samples_p
         size = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
         logger.warning(f"Preempted at epoch {epoch} step {it}: emergency checkpoint {path} "
                        f"committed in {1e3 * wall:.1f} ms ({size} bytes); exiting")
+        tel = obs.current()
+        tel.event("preempt", epoch=epoch, step=it, path=path)
+        tel.commit()  # durable now: the hard deadline may SIGKILL us
     if state.world > 1:  # no rank leaves before the checkpoint is durable
         dist.barrier(group=state.group)
         if not is_primary:
@@ -658,10 +626,12 @@ def _preempt(state: TrainState, epoch: int, it: int, best_acc1: float, samples_p
 
 
 def train_epoch(loader, state: TrainState, epoch: int, device, is_primary: bool, *,
-                start_epoch: int = 0, run_tic: float | None = None, profiler=None,
+                start_epoch: int = 0, run_tic: float | None = None,
                 start_step: int = 0, best_acc1: float = 0.0, injector=None) -> None:
     """One epoch from batch ``start_step`` (a mid-epoch resume: the loader
-    skips the consumed batches unread)."""
+    skips the consumed batches unread), reported to ``obs.current()``: a
+    window record a PRINT_FREQ fetch, the epoch's records at its end, and
+    the profiler windows of ``OBS.PROFILE_*`` and ``TRAIN.PROFILE`` on rank 0."""
     lr = optim.get_epoch_lr(epoch)
     if is_primary:
         logger.info(f"Epoch[{epoch}] current learning rate: {lr:.6f}")
@@ -681,6 +651,9 @@ def train_epoch(loader, state: TrainState, epoch: int, device, is_primary: bool,
     epoch_skipped = consec = 0
     window: list = []
     first_window = True
+    tel = obs.current()
+    tel.epoch_start(epoch)
+    prof = obs.ProfilerWindows.from_cfg(epoch, telemetry=tel, device=device) if is_primary else None
     launches0 = _launch_counts()
     epoch_start = t_end = t_window = time.time()
     for it, batch in enumerate(DevicePrefetcher(loader, device, cfg.TRAIN.PREFETCH,
@@ -704,46 +677,62 @@ def train_epoch(loader, state: TrainState, epoch: int, device, is_primary: bool,
             batch = resilience.poison_batch_nan(batch)
             if is_primary:
                 logger.warning(f"FAULT INJECTION: NaN batch at global step {gstep}")
-        if profiler is not None:
-            profiler.before(it)
+        if prof is not None:
+            prof.maybe_start(gstep)
         window.append(train_step(state, batch, lr, accum_steps=cfg.TRAIN.ACCUM_STEPS,
                                  topk=topk, label_smooth=cfg.TRAIN.LABEL_SMOOTH,
                                  guard=cfg.FAULT.NONFINITE_GUARD,
                                  dropout_key=(state.dropout_seed, epoch, it, state.batch_rank),
                                  task=cfg.TRAIN.TASK))
-        if profiler is not None:
-            profiler.after(it)
+        if prof is not None:
+            prof.after_step(gstep)
         if it % cfg.TRAIN.PRINT_FREQ == 0 or it == len(loader) - 1:
             vals, stop = _fetch(window, state, resilience.preemption_requested())
             if agreed is not None:
                 agreed = stop
             now = time.time()
+            win_wall, win_steps, warmup = now - t_window, len(window), first_window
             if first_window:  # the first window carries cuDNN's autotuning: shown, not averaged
-                batch_time.val = (now - t_window) / len(window)
+                batch_time.val = win_wall / win_steps
                 first_window = False
             else:
-                batch_time.update((now - t_window) / len(window), n=len(window))
+                batch_time.update(win_wall / win_steps, n=win_steps)
             t_window = now
+            win_skipped = 0
             for v in vals:
                 if v.get("skipped", 0.0) >= 0.5:
-                    epoch_skipped += 1
+                    win_skipped += 1
                     consec += 1
                     if consec >= cfg.FAULT.MAX_CONSECUTIVE_SKIPS:
+                        tel.event("fault_abort", epoch=epoch, step=it, consecutive=consec)
+                        tel.commit()
                         raise resilience.NonFiniteDivergence(
                             f"{consec} consecutive non-finite steps at epoch {epoch} step {it}: "
                             f"aborting (FAULT.MAX_CONSECUTIVE_SKIPS="
                             f"{cfg.FAULT.MAX_CONSECUTIVE_SKIPS})")
                 else:
                     consec = 0
+            epoch_skipped += win_skipped
             n = sum(v["n"] for v in vals)
-            if n > 0:
-                losses.update(sum(v["loss_sum"] for v in vals) / n, n=int(n))
-                top1.update(100.0 * sum(v["correct1"] for v in vals) / n, n=int(n))
-                topk_m.update(100.0 * sum(v[f"correct{topk}"] for v in vals) / n, n=int(n))
+            win_loss = win_acc1 = win_acck = None
+            if n > 0:  # a window of skipped steps only has nothing to average
+                win_loss = sum(v["loss_sum"] for v in vals) / n
+                win_acc1 = 100.0 * sum(v["correct1"] for v in vals) / n
+                win_acck = 100.0 * sum(v[f"correct{topk}"] for v in vals) / n
+                losses.update(win_loss, n=int(n))
+                top1.update(win_acc1, n=int(n))
+                topk_m.update(win_acck, n=int(n))
             window.clear()
+            # the floats fetched above: telemetry adds no sync of its own
+            tel.window(epoch=epoch, step=it, gstep=gstep, steps=win_steps, skipped=win_skipped,
+                       lr=lr, wall_s=win_wall, data_time=data_time.avg,
+                       imgs=win_steps * step_imgs, warmup=warmup, loss=win_loss,
+                       acc1=win_acc1, acck=win_acck)
             if is_primary:
                 progress.display(it)
         t_end = time.time()
+    if prof is not None:  # the epoch ended inside a window
+        prof.finish()
     wall = time.time() - epoch_start
     resilience.RUN_STATS.skipped_steps[epoch] = epoch_skipped
     deltas = [b - a for a, b in zip(launches0, _launch_counts())]
@@ -760,12 +749,17 @@ def train_epoch(loader, state: TrainState, epoch: int, device, is_primary: bool,
         if epoch_skipped:
             logger.warning(f"Epoch[{epoch}] skipped_steps: {epoch_skipped} non-finite step(s) "
                            f"left parameters and optimizer state untouched")
-        peak = (f"; peak memory {torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB"
-                if torch.device(device).type == "cuda" else "")
+        peak = ""
+        if torch.device(device).type == "cuda":  # the memory record's allocated_bytes.all.peak
+            b = torch.cuda.max_memory_allocated(device)
+            peak = f"; peak memory {b / 2**30:.2f} GiB ({b} bytes)"
         logger.info(f"Epoch[{epoch}] done: {wall:.1f}s, {step_imgs * steps / wall:.0f} img/s; "
                     f"steady state {1e3 * batch_time.avg:.2f} ms a step, "
                     f"{step_imgs / max(batch_time.avg, 1e-9):.0f} img/s; data wait "
                     f"{100 * data_time.sum / wall:.1f}% of the epoch{_input_tail(loader)}{peak}")
+    if len(loader) > start_step:
+        tel.epoch_end(epoch=epoch, steps=len(loader) - start_step, skipped=epoch_skipped,
+                      wall_s=wall, imgs=step_imgs * (len(loader) - start_step), state=state)
 
 
 def _log_by_rank(state: TrainState, epoch: int, launches: list, device, is_primary: bool) -> None:
@@ -785,10 +779,13 @@ def _log_by_rank(state: TrainState, epoch: int, launches: list, device, is_prima
                     f"bytes {cols[-3]}, optimizer bytes {cols[-2]}, peak memory bytes {cols[-1]}")
 
 
-def validate(loader, model, device, is_primary: bool, group=None, prefix="Test: ", seq: int = 1):
-    """Weighted top-1/top-k and loss over ``loader``; returns ``(acc1, acck)``.
-    The totals are summed over ``group``, each divided by ``seq`` (the
-    members of a seq group hold the same totals)."""
+def validate(loader, model, device, is_primary: bool, group=None, prefix="Test: ", seq: int = 1,
+             epoch: int | None = None):
+    """Weighted top-1/top-k and loss over ``loader``; returns ``(acc1, acck)``
+    and journals an ``eval`` record (of ``epoch``). The totals are summed
+    over ``group``, each divided by ``seq`` (the members of a seq group hold
+    the same totals)."""
+    eval_tic = time.time()
     topk = cfg.TRAIN.TOPK
     batch_time, data_time, losses, top1, topk_m, progress = construct_meters(
         len(loader), prefix=prefix, topk=topk)
@@ -830,17 +827,23 @@ def validate(loader, model, device, is_primary: bool, group=None, prefix="Test: 
         mse = f"; masked-MSE loss {loss_s / n:.6f}" if cfg.TRAIN.TASK == "mae" else ""
         logger.info(f" * Acc@1 {acc1:.3f} Acc@{topk} {acck:.3f} over {n:.0f} images{mse}"
                     f"{_input_tail(loader)}")
+    obs.current().event("eval", epoch=epoch, acc1=acc1, acck=acck, loss=loss_s / n,
+                        wall_s=round(time.time() - eval_tic, 3), samples=n)
     return acc1, acck
 
 
-def _setup(device):
-    """The run's process group and ``(data, fsdp, seq)`` mesh: ``(info, mesh)``."""
+def _setup(device, journal: bool = False):
+    """The run's process group and ``(data, fsdp, seq)`` mesh: ``(info,
+    mesh)``; ``journal``: the run writes the telemetry journal (a training
+    run), whose path the log names."""
     configure_determinism(cfg.CUDNN.DETERMINISTIC, cfg.CUDNN.BENCHMARK)
     _check_supported()
     info = setup_distributed(device)
     mesh = data_mesh(cfg.MESH.DATA, cfg.MESH.FSDP, info.world_size, info.rank, info.group,
                      seq=cfg.MESH.SEQ)
-    setup_logger(cfg.OUT_DIR if info.is_primary else None)
+    journal = journal and info.is_primary and cfg.OBS.ENABLED
+    setup_logger(cfg.OUT_DIR if info.is_primary else None,
+                 journal_path=obs.journal_path(cfg.OUT_DIR) if journal else None)
     if not info.is_primary:  # one progress log for the run: rank 0's
         logger.setLevel("WARNING")
     return info, mesh
@@ -850,8 +853,10 @@ def _train_state(model, info, mesh) -> TrainState:
     """The model's :class:`TrainState` on ``mesh`` (built whole on every
     rank from the seed; under fsdp each rank keeps its shards), with the
     census of what sharded logged as JAX's ``create_train_state`` logs it,
-    and the bytes this process holds."""
+    and the bytes this process holds (logged, and journaled as JAX's
+    ``state_bytes`` record)."""
     state = TrainState(model, info.group, mesh, cfg.MESH.FSDP_MIN_SIZE)
+    obs.current().event("state_bytes", **obs.state_bytes(state))
     named = list(model.named_parameters())
     c = fsdp.census(named, mesh.fsdp, cfg.MESH.FSDP_MIN_SIZE)
     n_opt = sum(v.dim() == 1 for v in state.optimizer.state_dict().values())
@@ -889,8 +894,8 @@ def _seq_parallel(model, mesh, device) -> None:
 
 
 def _log_activations(model, mesh) -> None:
-    """A transformer model's activation census a process (JAX's
-    ``activation_bytes`` record), as one line."""
+    """A transformer model's activation census a process, as one line and
+    as JAX's ``activation_bytes`` record."""
     geometry = [getattr(model, a, None) for a in ("patch", "dim", "depth", "mlp_dim")]
     if None in geometry:
         return
@@ -900,6 +905,7 @@ def _log_activations(model, mesh) -> None:
                                 seq=seqpar.seq_size(mesh), dim=dim, depth=depth, mlp_dim=mlp_dim,
                                 dtype_bytes=2 if cfg.MODEL.DTYPE == "bfloat16" else 4)
     logger.info(f"Activation census: {json.dumps(c)}")
+    obs.current().event("activation_bytes", **c)
 
 
 def _sync_bn(model, group) -> None:
@@ -942,7 +948,7 @@ def _input_tail(loader) -> str:
 def train_model(device=None):
     """A full training run on ``device`` (None: the card). Returns
     ``(state, best_acc1)``."""
-    info, mesh = _setup(device)
+    info, mesh = _setup(device, journal=True)
     gen = setup_seed(cfg.RNG_SEED, info.rank, info.group, info.device)
     if info.is_primary:
         dump_cfg()
@@ -951,13 +957,23 @@ def train_model(device=None):
     resilience.clear_preemption()
     if cfg.FAULT.HANDLE_SIGNALS:
         resilience.install_preemption_handler()
+    # telemetry opens before the model is built; ranks but 0 get the inert handle
+    obs.start_run(cfg.OUT_DIR, is_primary=info.is_primary, device=info.device,
+                  devices=info.world_size, batch_ranks=seqpar.batch_device_count(mesh))
+    if cfg.OBS.ENABLED and cfg.OBS.PROFILE_SIGUSR1 and info.is_primary:
+        obs.install_sigusr1_handler()
     try:
         return _train(info, mesh, gen)
     finally:
         resilience.uninstall_preemption_handler()
+        obs.end_run(clean=False)  # a run that failed before its epochs; else a no-op
 
 
 def _train(info, mesh, gen):
+    # the step's FLOPs for MFU, counted on the meta device (nothing launches)
+    # before the run's model is built and the watchdog armed: the count's
+    # first call takes seconds
+    obs.current().capture_step_cost()
     injector = resilience.FaultInjector()
     if injector.active:
         logger.warning(f"FAULT INJECTION active: io_indices={sorted(injector.io_indices)} "
@@ -997,6 +1013,8 @@ def _train(info, mesh, gen):
                                   samples_per_step=samples_per_step, rollback=rollback)
         if res is not None:
             start_epoch, start_step, best_acc1, path = res
+            obs.current().event("resume", path=path, epoch=start_epoch, step=start_step,
+                                best_acc1=float(best_acc1))
             logger.info(f"Resumed from {path} (epoch {start_epoch}, step {start_step}, best "
                         f"{best_acc1:.3f})")
     if res is None and cfg.MODEL.WEIGHTS:
@@ -1005,7 +1023,6 @@ def _train(info, mesh, gen):
     elif res is None and cfg.MODEL.PRETRAINED:
         path = _load_pretrained(state)
         logger.info(f"Initialized from pretrained weights ({cfg.MODEL.ARCH}) at {path}")
-    profiler = _Profiler(info.device) if cfg.TRAIN.PROFILE and info.is_primary else None
     run_tic = time.time()
     # armed over train and eval (both hang when a peer dies); its first beat
     # window holds the first steps' cuDNN autotuning: HANG_TIMEOUT_S must cover it
@@ -1014,22 +1031,29 @@ def _train(info, mesh, gen):
         for epoch in range(start_epoch, cfg.OPTIM.MAX_EPOCH):
             train_epoch(train_loader, state, epoch, info.device, info.is_primary,
                         start_epoch=start_epoch, run_tic=run_tic,
-                        profiler=profiler if epoch == start_epoch else None,
                         start_step=start_step if epoch == start_epoch else 0,
                         best_acc1=best_acc1, injector=injector)
             acc1, _ = validate(val_loader, model, info.device, info.is_primary, info.group,
-                               seq=mesh.seq)
+                               seq=mesh.seq, epoch=epoch)
             is_best = acc1 > best_acc1
             best_acc1 = max(acc1, best_acc1)
             resilience.watchdog_beat(phase="checkpoint")
+            ck_tic = time.time()
             opt = state.full_optimizer_state()  # every rank: a gather under fsdp
             if info.is_primary:
                 path = ckpt.save_checkpoint(cfg.OUT_DIR, epoch, state, best_acc1, is_best,
                                             optimizer=opt)
+                if cfg.OBS.TRAIN_SPANS:  # the epoch boundary's checkpoint phase
+                    tel = obs.current()
+                    tel.span(tel.trace_tag(f"ck{epoch}"), "checkpoint",
+                             1000.0 * (time.time() - ck_tic), epoch=epoch)
                 logger.info(f"Saving checkpoint: {path} (best Acc@1 {best_acc1:.3f})")
     finally:
         # disarmed first: a finished or failing run must not be killed by its own watchdog
         resilience.stop_watchdog()
+        # the journal gets its run_end on every way out: clean, preempted, diverged or crashed
+        obs.end_run(best_acc1=best_acc1, epochs=cfg.OPTIM.MAX_EPOCH,
+                    clean=sys.exc_info()[0] is None)
     if info.is_primary:  # every epoch checkpoint written: the emergency ones are dominated
         ckpt.prune_mid_checkpoints(cfg.OUT_DIR, before_epoch=cfg.OPTIM.MAX_EPOCH)
     return state, best_acc1

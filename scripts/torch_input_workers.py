@@ -91,7 +91,7 @@ def main() -> None:
             prog, _ = cs.train_log(log)
             wait = re.search(r"data wait (\S+)% of the epoch", log)
             steady = [t for it, t, _ in prog if cs.TRAIN_PRINT * 2 <= it < cs.JPEG_PROFILE[0]]
-            prof = cs.train_profile(out / "profile" / "train_steps.json", cs.JPEG_PROFILE[1], {},
+            prof = cs.train_profile(out, cs.JPEG_PROFILE[1], {},
                                     f"ResNet-50 on JPEGs, TRAIN.WORKERS {w}", "input-workers")
             cs.say(f"[input-workers] TRAIN.WORKERS {w}: step "
                    f"{1e3 * statistics.median(steady):.2f} ms (windows: " + ", ".join(

@@ -157,9 +157,13 @@ def test_wrapper_refusals():
         att.fused_attention_abs(q, k, v, emb[:5])
     with pytest.raises(TypeError, match="q's dtype"):
         att.fused_attention_abs(q, k, v, emb.bfloat16())
+    # a meta tensor (shapes only: obs/flops.py's count) takes the plain
+    # version, as a CPU tensor does, and launches nothing
     meta = [t.to("meta") for t in (q, k, v, bias)]
-    with pytest.raises(ValueError, match="cuda or cpu"):
-        att.fused_attention(*meta)
+    before = (att.LAUNCHES, att.BWD_LAUNCHES)
+    out = att.fused_attention(*meta)
+    assert out.device.type == "meta" and out.shape == v.shape
+    assert (att.LAUNCHES, att.BWD_LAUNCHES) == before
 
 
 # the backward against the JAX custom_vjp, relative to max(1, max|grad|):

@@ -1394,3 +1394,78 @@ def test_switch_moe_on_two_nccl_cards_equals_cpu_ranks(nccl_pair):
         assert torch.equal(card["top"], cpu["top"]) and torch.equal(card["pos"], cpu["pos"])
         for k in ("loss", "aux", "out", "gate_grad", "w_grad", "v_grad"):
             assert (card[k] - cpu[k]).abs().max() <= 1e-5 * cpu[k].abs().max(), k
+
+
+@pytest.mark.gpu
+def test_peak_flops_lookup_names_this_card(cuda):
+    """``obs/flops.py``'s peak for the card's own name: an H100 is in the
+    table (989.4 TFLOP/s dense bf16 for SXM/HBM3, 756 for PCIe), and the
+    config override wins over it."""
+    from distribuuuu_tpu_torch.obs import flops
+
+    name = torch.cuda.get_device_name(cuda).lower()
+    peak = flops.peak_flops_per_device(cuda)
+    if "h100" in name:
+        assert peak == pytest.approx((756.0 if "pcie" in name else 989.4) * 1e12)
+    assert flops.peak_flops_per_device(cuda, override_tflops=123.0) == pytest.approx(123e12)
+    assert flops.peak_flops_per_device("cpu") is None
+
+
+@pytest.mark.gpu
+def test_memory_snapshot_reads_the_allocator(cuda):
+    """``obs/memory.snapshot`` on the card is ``torch.cuda.memory_stats``:
+    live blocks, allocated bytes, and every byte counter under the card's
+    index, its peak the epoch log line's ``max_memory_allocated``."""
+    from distribuuuu_tpu_torch.obs import memory
+
+    keep = torch.empty(3 << 20, device=cuda)
+    snap = memory.snapshot(cuda)
+    stats = torch.cuda.memory_stats(cuda)
+    assert snap["live_bytes"] == stats["allocated_bytes.all.current"] >= keep.numel() * 4
+    assert snap["live_arrays"] == stats["active.all.current"] >= 1
+    per = snap["per_device"][str(cuda.index or 0)]
+    assert per["allocated_bytes.all.peak"] == torch.cuda.max_memory_allocated(cuda)
+    assert all("bytes" in k for k in per)
+
+
+@pytest.mark.gpu
+def test_profile_window_names_k1_and_attributes_the_step(cuda, tmp_path):
+    """A 2-step ``ProfilerWindows`` over ResNet-18 training steps on the
+    card (bf16, 64^2, batch 8): the profile record's top_ops name K1's and
+    K1-bwd's kernels, and the step_attribution buckets add up to its device
+    time, convolutions in matmul and K1 in vector."""
+    from distribuuuu_tpu_torch.obs import attribution
+    from distribuuuu_tpu_torch.obs.profiler import ProfilerWindows
+    from distribuuuu_tpu_torch.trainer import TrainState, train_step
+
+    class Recorder:
+        def __init__(self):
+            self.records = {}
+
+        def event(self, kind, **fields):
+            self.records[kind] = fields
+
+    model = build_model("resnet18", num_classes=10, dtype=torch.bfloat16, bn_dtype=torch.bfloat16)
+    layers.init_weights(model, torch.Generator().manual_seed(0))
+    state = TrainState(model.to(cuda))
+    gen = torch.Generator().manual_seed(1)
+    batch = {"image": torch.randint(0, 256, (8, 64, 64, 3), dtype=torch.uint8,
+                                    generator=gen).to(cuda),
+             "label": torch.randint(0, 10, (8,), generator=gen).to(cuda)}
+    train_step(state, batch, 0.1)  # cuDNN's first-call work outside the window
+    rec = Recorder()
+    prof = ProfilerWindows(str(tmp_path), at_steps=[0], num_steps=2, top_ops=64, sigusr1=False,
+                           telemetry=rec, device=cuda, batch=8)
+    for g in range(2):
+        prof.maybe_start(g)
+        train_step(state, batch, 0.1)
+        prof.after_step(g)
+    p, a = rec.records["profile"], rec.records["step_attribution"]
+    names = [o["op"] for o in p["top_ops"]]
+    assert any("epilogue_vec_kernel" in n for n in names), names
+    assert any("epilogue_bwd" in n for n in names), names
+    dev = sum(v for b, v in a["buckets"].items() if b != "host")
+    assert dev == pytest.approx(p["device_ms_per_step"], rel=1e-3)
+    assert a["buckets"]["matmul"] > 0 and a["buckets"]["vector"] > 0
+    assert attribution.classify_op(next(n for n in names if "epilogue" in n)) == "vector"
+    assert a["device_kind"] == torch.cuda.get_device_name(cuda)
