@@ -1173,8 +1173,49 @@ def phase_train(card: str, tmp: Path, bound_ms: dict, deferred: list) -> dict:
     say(f"[train] the relaunch with OPTIM.MAX_EPOCH 2 logged 'Resumed from {resumed[1]} (epoch "
         f"{resumed[2]}' and wrote ckpt_ep_002")
     res["journal"] = train_journal_check(out, res, card)
+    export = start_export_once(out)  # beside the f32 step: it reads no card
     res["f32_check"] = train_f32_check()
+    res["export"] = export_once_check(export, out)
     return res
+
+
+def start_export_once(out: Path) -> tuple:
+    """``python -m distribuuuu_tpu_torch.obs export <journal> --once`` on the
+    run's journal, started; :func:`export_once_check` reads it."""
+    proc = subprocess.Popen([sys.executable, "-m", "distribuuuu_tpu_torch.obs", "export",
+                             str(out / "telemetry.jsonl"), "--once"], cwd=ROOT,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return proc, time.perf_counter()
+
+
+def export_once_check(started: tuple, out: Path) -> dict:
+    """The export sidecar's ``--once`` exits 0 and its ``dtpu_step_time``
+    and ``dtpu_mfu`` gauges are the journal's last window's (the MFU of the
+    last window that carries one); its ``.part4000`` validates."""
+    from distribuuuu_tpu_torch.obs import read_journal, validate_journal
+
+    proc, tic = started
+    try:
+        stdout, stderr = proc.communicate(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    wall = time.perf_counter() - tic
+    windows = [r for r in read_journal(str(out / "telemetry.jsonl")) if r["kind"] == "window"]
+    mfu = [w["mfu"] for w in windows if w.get("mfu") is not None]
+    want = [f"dtpu_step_time {windows[-1]['step_time']:.10g}" if windows else "no window",
+            f"dtpu_mfu {mfu[-1]:.10g}" if mfu else "no MFU"]
+    lines = stdout.splitlines()
+    if proc.returncode != 0 or any(w not in lines for w in want) or \
+            validate_journal(str(out / "telemetry.jsonl")):
+        fail(f"[train] obs export --once exited {proc.returncode} without {want}:\n"
+             f"{stdout[-2000:]}\n{stderr[-2000:]}")
+    alarms = [ln for ln in lines if ln.startswith("dtpu_alarm_active")]
+    say(f"[train] python -m distribuuuu_tpu_torch.obs export --once: exit 0 in {wall:.1f} s "
+        f"(process start included), {len(lines)} lines; {want[0]!r} and {want[1]!r} are the "
+        f"last window's; {alarms}")
+    return dict(wall_s=wall, lines=len(lines), step_time=windows[-1]["step_time"], mfu=mfu[-1])
 
 
 def train_f32_check() -> dict:
@@ -2443,11 +2484,13 @@ def loader_rate(ld, epochs=DP_RATE_EPOCHS, skip: int = DP_RATE_SKIP) -> dict:
                 epochs=list(epochs), skip=skip)
 
 
-def start_dataplane(root: Path, log_path: Path, workers: int, threads: int):
+def start_dataplane(root: Path, log_path: Path, workers: int, threads: int, out: Path):
     """``python -m distribuuuu_tpu_torch.dataplane`` on a free port with a
-    pool of ``workers`` processes x ``threads`` threads, in a process group
-    of its own (so :func:`stop_dataplane` can reap the group), its output
-    in ``log_path``; returns ``(process, address)`` once it serves."""
+    pool of ``workers`` processes x ``threads`` threads, journaling into
+    ``out`` (the trainer's OUT_DIR: the service writes its ``.part3500``),
+    in a process group of its own (so :func:`stop_dataplane` can reap the
+    group), its output in ``log_path``; returns ``(process, address)`` once
+    it serves."""
     import socket
 
     with socket.socket() as sk:
@@ -2457,7 +2500,7 @@ def start_dataplane(root: Path, log_path: Path, workers: int, threads: int):
     proc = subprocess.Popen(
         [sys.executable, "-m", "distribuuuu_tpu_torch.dataplane", "--cfg",
          "config/resnet50.yaml", "TRAIN.DATASET", str(root), "DATA.PORT", str(port),
-         "DATA.WORKERS", str(workers), "DATA.WORKER_THREADS", str(threads)],
+         "DATA.WORKERS", str(workers), "DATA.WORKER_THREADS", str(threads), "OUT_DIR", str(out)],
         cwd=ROOT, stdout=log, stderr=subprocess.STDOUT, start_new_session=True)
     log.close()
     deadline = time.monotonic() + DP_START_S
@@ -2611,7 +2654,7 @@ def dataplane_train(card: str, tmp: Path, root: Path, bound_ms: dict, pool: tupl
 
     out = tmp / f"train_dp_{pool[0]}x{pool[1]}"
     svc_log = tmp / f"dataplane_{pool[0]}x{pool[1]}.log"
-    proc, address = start_dataplane(root, svc_log, *pool)
+    proc, address = start_dataplane(root, svc_log, *pool, out)
     watch = CudaWatch(proc.pid)
     try:
         watch.start()
@@ -2675,6 +2718,7 @@ def dataplane_train(card: str, tmp: Path, root: Path, bound_ms: dict, pool: tupl
         svc_text, left = stop_dataplane(proc, svc_log, watch.service_pids)
     if left:
         fail(f"[{tag}] the service's processes {left} outlived its SIGTERM by 30 s")
+    dp_journal = dataplane_journal_check(out, address, tag)
     if len(got) != DP_BITWISE_BATCHES or not isinstance(got[0]["image"], torch.Tensor):
         fail(f"[{tag}] the ServiceLoader gave {len(got)} batches, want {DP_BITWISE_BATCHES}")
     steady = [t for it, t, _ in prog if TRAIN_PRINT * 2 <= it < JPEG_PROFILE[0]]
@@ -2688,7 +2732,8 @@ def dataplane_train(card: str, tmp: Path, root: Path, bound_ms: dict, pool: tupl
                acc1=float(acc[1]), profile=profile, fallbacks=0, bitwise_batches=len(got),
                service_stats={k: stats[k] for k in ("hits", "misses", "evictions", "reissues")},
                service_rate=rate,
-               service_pids=sorted(watch.service_pids), trainer_cuda=sorted(watch.trainer_cuda))
+               service_pids=sorted(watch.service_pids), trainer_cuda=sorted(watch.trainer_cuda),
+               journal=dp_journal)
     say(f"[{tag}] train_net ResNet-50 {IM}^2 batch {LADDER_BATCH} on {JPEG_SPLITS['train']} "
         f"JPEGs through the dataplane at {address} (DATA.WORKERS {pool[0]} x DATA.WORKER_THREADS "
         f"{pool[1]}, decoder {res['decoder']}, DATA.FALLBACK False), {steps} steps in "
@@ -2713,6 +2758,27 @@ def dataplane_train(card: str, tmp: Path, root: Path, bound_ms: dict, pool: tupl
     say(f"[{tag}] the service stopped and reaped its workers: "
         f"{stopped[1] if stopped else svc_text[-300:]}")
     return res
+
+
+def dataplane_journal_check(out: Path, address: str, tag: str) -> dict:
+    """The service's ``.part3500`` beside the trainer's journal in ``out``:
+    it validates and holds ``dataplane_start`` (at ``address``),
+    ``dataplane_stream`` and ``dataplane_cache``; the reassembled journal
+    (trainer + service) validates too."""
+    from distribuuuu_tpu_torch.obs import read_journal, validate_journal
+
+    part = out / "telemetry.jsonl.part3500"
+    errors = validate_journal(str(part)) + validate_journal(str(out / "telemetry.jsonl"))
+    recs = list(read_journal(str(part))) if part.exists() else []
+    kinds = Counter(r["kind"] for r in recs)
+    starts = [r for r in recs if r["kind"] == "dataplane_start"]
+    if errors or not starts or starts[0]["address"] != address or \
+            not kinds["dataplane_stream"] or not kinds["dataplane_cache"]:
+        fail(f"[{tag}] the service's journal {part}: kinds {dict(kinds)}, errors {errors[:5]}")
+    last = [r for r in recs if r["kind"] == "dataplane_cache"][-1]
+    say(f"[{tag}] the service journaled {len(recs)} records into {part.name}: {dict(kinds)}; "
+        f"its last dataplane_cache: hits {last['hits']}, misses {last['misses']}")
+    return dict(kinds=dict(kinds), last_cache=last)
 
 
 def phase_train_dataplane(card: str, tmp: Path, root: Path, bound_ms: dict, jpeg: dict,
@@ -3487,10 +3553,12 @@ def phase_serve(card: str, tmp: Path, arch: str, k1_bound_us: dict):
     from distribuuuu_tpu_torch.models import build_model
     from distribuuuu_tpu_torch.ops import attention as att
     from distribuuuu_tpu_torch.ops import epilogue as ep
+    from distribuuuu_tpu_torch.obs.trace import TRACE_HEADER
     from distribuuuu_tpu_torch.serve.engine import parse_model_specs
     from distribuuuu_tpu_torch.serve.frontend import ServeReplica, run_http
 
     want = SERVED[arch]
+    out_dir = tmp / f"serve_{arch}"
     name = want["name"]
     sd = synthetic_state_dict(arch, 0)
     if want["attention"]:
@@ -3500,7 +3568,7 @@ def phase_serve(card: str, tmp: Path, arch: str, k1_bound_us: dict):
     reset_cfg()
     load_cfg_fom_args(argv=["--cfg", str(SERVE_CFG), "MODEL.ARCH", arch, "SERVE.MODELS",
                             f"['{name}={arch}@{weights}']", "SERVE.PORT", "0",
-                            "OUT_DIR", str(tmp / "out")])
+                            "OUT_DIR", str(out_dir)])
     cfg.freeze()
     s = cfg.SERVE
     if (int(cfg.MODEL.NUM_CLASSES), str(cfg.MODEL.DTYPE), int(s.IM_SIZE),
@@ -3511,7 +3579,7 @@ def phase_serve(card: str, tmp: Path, arch: str, k1_bound_us: dict):
     # --- the main path: counts zeroed just before, read just after ---------
     ep.LAUNCHES = ep.SCALAR_LAUNCHES = att.LAUNCHES = att.TABLE_LAUNCHES = 0
     tic = time.perf_counter()
-    replica = ServeReplica(parse_model_specs(list(s.MODELS)))
+    replica = ServeReplica(parse_model_specs(list(s.MODELS)), str(cfg.OUT_DIR))
     startup_s = time.perf_counter() - tic
     engine = replica.engine
     stop, ready = threading.Event(), threading.Event()
@@ -3548,18 +3616,24 @@ def phase_serve(card: str, tmp: Path, arch: str, k1_bound_us: dict):
         url = f"http://127.0.0.1:{replica.port}"
         with urllib.request.urlopen(urllib.request.Request(
                 url + "/v1/predict", data=body,
-                headers={"Content-Type": "application/json"}), timeout=60) as r:
+                headers={"Content-Type": "application/json", TRACE_HEADER: SERVE_TRACE_ID}),
+                timeout=60) as r:
             http_resp = json.loads(r.read())
+            echoed = r.headers.get(TRACE_HEADER)
         with urllib.request.urlopen(url + "/healthz", timeout=10) as r:
             health = json.loads(r.read())
         launches = dict(k1=ep.LAUNCHES, k1_scalar=ep.SCALAR_LAUNCHES, attention=att.LAUNCHES,
                         table=att.TABLE_LAUNCHES)
         forwards = engine.forwards
+        # -------------------------------------------------------------------
+        trace_ids = [r["trace_id"] for r in responses] + [http_resp["trace_id"]]
+        metrics = serve_metrics_check(replica, url, trace_ids)
     finally:
         stop.set()
         http.join(10)
+        t_shutdown = time.time()
         replica.shutdown()
-    # -----------------------------------------------------------------------
+    journal = serve_journal_check(out_dir, name, trace_ids, echoed, metrics, t_shutdown)
     say(f"[serve {name}] startup {startup_s:.2f}s (load + warmup of every ladder size); "
         f"{forwards} forwards, launches {launches}; /healthz {health}")
     # every K1 launch on the vector route: the scalar one would mean a model
@@ -3614,7 +3688,101 @@ def phase_serve(card: str, tmp: Path, arch: str, k1_bound_us: dict):
     if not d_b <= BF16_REL_TOL:
         fail(f"{arch}: bf16 serve logits are outside the stated tolerance of f32")
     return dict(launches=launches, forwards=forwards, latency_ms=latency, profile=profile,
-                f32_ratio=d_a / scale, bf16_ratio=d_b, top1=top1, startup_s=startup_s)
+                f32_ratio=d_a / scale, bf16_ratio=d_b, top1=top1, startup_s=startup_s,
+                journal=journal)
+
+
+SERVE_TRACE_ID = "smoke-http-1"  # the [serve] HTTP request's x-dtpu-trace-id
+SERVE_SPANS_S = 30  # the dispatch thread's spans land after the results: wait this long
+
+
+def serve_spans(path: str, trace_ids: list) -> tuple[list, dict]:
+    """The journal's records once every trace id has its four span phases
+    (within SERVE_SPANS_S), and the phases by trace id."""
+    from distribuuuu_tpu_torch.obs import read_journal
+    from distribuuuu_tpu_torch.obs.trace import SERVE_PHASES
+
+    deadline = time.monotonic() + SERVE_SPANS_S
+    while True:
+        recs = list(read_journal(path))
+        phases = {t: sorted(r["phase"] for r in recs if r["kind"] == "span"
+                            and r["trace_id"] == t) for t in trace_ids}
+        if all(p == sorted(SERVE_PHASES) for p in phases.values()) or \
+                time.monotonic() > deadline:
+            return recs, phases
+
+
+def serve_metrics_check(replica, url: str, trace_ids: list) -> dict:
+    """Once every request's spans are in the journal (no record is pending
+    then): an HTTP ``GET /metrics`` whose ``dtpu_serve_*`` lines equal
+    ``render_prometheus`` of the replica's snapshot taken at that moment.
+    Host state only: no kernel runs."""
+    from distribuuuu_tpu_torch.obs.exporter import render_prometheus
+
+    serve_spans(str(replica.journal.path), trace_ids)
+    tic = time.perf_counter()
+    with urllib.request.urlopen(url + "/metrics", timeout=30) as r:
+        text = r.read().decode()
+    scrape_ms = 1e3 * (time.perf_counter() - tic)
+    lines = [ln for ln in text.splitlines() if ln.startswith("dtpu_serve_")]
+    want = [ln for ln in render_prometheus(replica.aggregator.snapshot()).splitlines()
+            if ln.startswith("dtpu_serve_")]
+    if not lines or lines != want:
+        fail(f"GET /metrics' dtpu_serve_* lines {lines} != the replica's snapshot {want}")
+    return dict(lines=len(lines), bytes=len(text), scrape_ms=scrape_ms,
+                batches=[ln for ln in lines if ln.startswith("dtpu_serve_batches_total")])
+
+
+def serve_journal_check(out_dir: Path, name: str, trace_ids: list, echoed, metrics,
+                        t_shutdown: float) -> dict:
+    """[serve]'s journal after ``shutdown``: it validates; one serve_start
+    and one serve_compile a ladder size; a serve_request and the four span
+    phases under each request's trace id (the HTTP one's header echoed);
+    serve_slo rollups over every request, the requests a window still held
+    at ``t_shutdown`` in the rollup ``shutdown`` flushed."""
+    from distribuuuu_tpu_torch.obs import validate_journal
+    from distribuuuu_tpu_torch.obs.trace import SERVE_PHASES
+
+    path = str(out_dir / "telemetry.jsonl")
+    errors = validate_journal(path)
+    recs, phases = serve_spans(path, trace_ids)
+    of = {k: [r for r in recs if r["kind"] == k]
+          for k in ("serve_start", "serve_compile", "serve_request", "serve_slo", "serve_batch")}
+    bad = [f"validate: {errors[:5]}"] if errors else []
+    if len(of["serve_start"]) != 1 or of["serve_start"][0]["aot_compiles"] != len(
+            of["serve_compile"]):
+        bad.append(f"serve_start {of['serve_start']} against {len(of['serve_compile'])} "
+                   f"serve_compile records")
+    if sorted(r["batch_size"] for r in of["serve_compile"]) != [1, 8, 32, LADDER_BATCH]:
+        bad.append(f"serve_compile sizes {[r['batch_size'] for r in of['serve_compile']]}")
+    if sorted(r.get("trace_id") for r in of["serve_request"]) != sorted(trace_ids):
+        bad.append(f"serve_request trace ids {[r.get('trace_id') for r in of['serve_request']]}"
+                   f" != {trace_ids}")
+    if any(p != sorted(SERVE_PHASES) for p in phases.values()):
+        bad.append(f"span phases by trace id {phases}")
+    if echoed != SERVE_TRACE_ID or SERVE_TRACE_ID not in trace_ids:
+        bad.append(f"the HTTP request's trace id came back as {echoed!r}")
+    slo_requests = sum(r["requests"] for r in of["serve_slo"] if r["model"] == name)
+    at_shutdown = sum(r["requests"] for r in of["serve_slo"]
+                      if r["model"] == name and r["ts"] >= t_shutdown)
+    # the rollups cover every request: those a window still held at shutdown
+    # are the flush's (at_shutdown), the rest a rollup's while serving
+    if slo_requests != len(trace_ids):
+        bad.append(f"serve_slo rollups count {slo_requests} requests ({at_shutdown} in "
+                   f"shutdown's flush), want {len(trace_ids)}")
+    if bad:
+        fail(f"[serve {name}] the journal disagrees: " + "; ".join(bad))
+    size = Path(path).stat().st_size
+    say(f"[serve {name}] journal {path}: {len(recs)} records, {size} bytes, valid; "
+        f"serve_start 1, serve_compile {len(of['serve_compile'])} (warmup s "
+        f"{[r['wall_s'] for r in of['serve_compile']]}), serve_request {len(of['serve_request'])}, "
+        f"serve_batch {len(of['serve_batch'])}, serve_slo {len(of['serve_slo'])} over "
+        f"{slo_requests} requests ({at_shutdown} in shutdown's flush), 4 span phases under each of {len(trace_ids)} trace ids "
+        f"(header {SERVE_TRACE_ID!r} echoed); GET /metrics {metrics['bytes']} bytes in "
+        f"{metrics['scrape_ms']:.2f} ms, its {metrics['lines']} dtpu_serve_* lines equal to the "
+        f"snapshot's ({metrics['batches']})")
+    return dict(records=len(recs), bytes=size, metrics=metrics, slo_at_shutdown=at_shutdown,
+                compile_s=[r["wall_s"] for r in of["serve_compile"]])
 
 
 def latency_and_profile(engine, name: str, rng, card: str, k1_bound_us: dict | None = None):

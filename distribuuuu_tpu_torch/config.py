@@ -260,17 +260,18 @@ _C.OBS.PROFILE_TOP_OPS = 20
 _C.OBS.MEMORY_SNAPSHOTS = True
 # span records a PRINT_FREQ window (data wait, compute) and a checkpoint
 _C.OBS.TRAIN_SPANS = True
-# read by the live aggregators (the export sidecar, the serve frontend, the
-# fleet controller), never by the training process: accepted, read by
-# nothing here (the live plane is ROADMAP Queue 1 item 7b)
+# rules of the live plane's alarm engine (obs/alarms.py), read by the serving
+# frontend, the dataplane's /metrics plane and the export sidecar, never by
+# the training process
 _C.OBS.ALARMS = [
     "goodput_floor=goodput<0.1:for=3",
     "data_wait_ceiling=data_wait_frac>0.5:for=3",
     "heartbeat_stale=heartbeat_age_s>300",
     "skip_streak=consecutive_skips>3",
 ]
-# the /metrics exporter's port (0: none) and bind; not yet ported: a port
-# raises (item 7b)
+# the /metrics exporter's port (0: none), bind and journal tail cadence, read
+# by the dataplane service; the trainer accepts them and reads nothing of
+# them, as the JAX trainer does
 _C.OBS.METRICS_PORT = 0
 _C.OBS.METRICS_HOST = "127.0.0.1"
 _C.OBS.TAIL_INTERVAL_S = 2.0
@@ -306,9 +307,10 @@ _C.SERVE.DTYPE = ""
 _C.SERVE.WARMUP = True
 # integrity manifests: not yet ported (weights are torch state_dicts)
 _C.SERVE.VERIFY_INTEGRITY = True
-# SLO rollup cadence; rollups go to the log
+# cadence of the serve_slo rollups in OUT_DIR's journal
 _C.SERVE.SLO_WINDOW_S = 10.0
-# per-request journal records and trace spans: not yet ported
+# a serve_request record a request, and its queue_wait/pad/execute/total
+# span records under its x-dtpu-trace-id (the SLO rollups are always on)
 _C.SERVE.JOURNAL_REQUESTS = True
 _C.SERVE.TRACE_SPANS = True
 

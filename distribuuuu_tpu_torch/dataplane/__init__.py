@@ -15,9 +15,11 @@ A port of ``distribuuuu_tpu/dataplane``, with its wire format:
   started by ``python -m distribuuuu_tpu_torch.dataplane``.
 
 The fault injector reaches the workers' loaders and the client's batch
-requests, as in the JAX package. Not ported (ROADMAP Queue 1): the journal
-and ``/metrics`` gauges (item 7), ``DATA.SERVICE fleet`` and
-``AGENT.DATAPLANE`` (item 13).
+requests, as in the JAX package. The service journals its ``dataplane_*``
+records into OUT_DIR's ``.part3500`` and serves ``/metrics`` on
+``OBS.METRICS_PORT``; a client's fallback lands in the trainer's journal.
+Not ported (ROADMAP Queue 1 item 13): ``DATA.SERVICE fleet`` and
+``AGENT.DATAPLANE``.
 """
 
 from distribuuuu_tpu_torch.dataplane.client import ServiceLoader

@@ -4,7 +4,9 @@
   processes, configured like every entry point (``--cfg FILE`` and trailing
   ``KEY VALUE`` overrides; ``DATA.*`` and the dataset keys). Prints
   ``dtpu-dataplane: serving at HOST:PORT`` and runs until SIGTERM or SIGINT,
-  then stops and reaps every worker.
+  then stops and reaps every worker. It journals into OUT_DIR's
+  ``telemetry.jsonl.part3500`` (a ``dataplane_cache`` rollup every
+  ``STATS_EVERY_S``) and, with ``OBS.METRICS_PORT``, serves ``/metrics``.
 - worker (``--worker --address HOST:PORT --id wN --threads T``): one
   decode worker, as the service starts it; also what another machine runs
   to join a dispatcher.
@@ -20,6 +22,11 @@ import argparse
 import signal
 import sys
 import threading
+import time
+
+#: the cadence of the service's dataplane_cache rollups, so a tailing plane
+#: sees live gauges
+STATS_EVERY_S = 10.0
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -58,9 +65,13 @@ def main(argv: list[str] | None = None) -> int:
 
     service = DataPlaneService.from_cfg(worker_argv=rest).start()
     try:
+        service.start_obs_plane()
         print(f"dtpu-dataplane: serving at {service.address}", flush=True)
+        next_stats = time.monotonic() + STATS_EVERY_S
         while not stop.wait(1.0):  # a timed wait: the signal handler runs between waits
-            pass
+            if time.monotonic() >= next_stats:
+                service.journal_stats()
+                next_stats += STATS_EVERY_S
     finally:
         service.stop()
     return 0

@@ -22,8 +22,9 @@ Failures:
 - a dispatcher that stays dead: with ``DATA.FALLBACK`` the rest of the
   epoch is decoded here by the ``HostDataLoader`` the service replaced,
   from the next undelivered batch (the same stream, bit for bit), logged at
-  WARNING and counted in ``fallbacks``; the next epoch tries the service
-  again. Without it the run fails.
+  WARNING, counted in ``fallbacks`` and journaled as ``dataplane_fallback``
+  by the run's telemetry; the next epoch tries the service again. Without
+  it the run fails.
 """
 
 from __future__ import annotations
@@ -284,6 +285,9 @@ class ServiceLoader:
         self.fallbacks += 1
         logger.warning(f"dataplane: falling back to local decode ({reason} at epoch "
                        f"{self.epoch} batch {batch}): {exc!r}")
+        # into the trainer's journal, next to the run it slowed
+        obs.current().event("dataplane_fallback", reason=reason, epoch=int(self.epoch),
+                            batch=int(batch), error=repr(exc))
 
 
 def _close(*handles) -> None:

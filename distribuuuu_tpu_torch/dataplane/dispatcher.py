@@ -174,8 +174,9 @@ class Dispatcher:
     replies."""
 
     def __init__(self, host: str = "127.0.0.1", port: int = 0, *, cache_bytes: int = 256 << 20,
-                 lease_timeout_s: float = 30.0, window: int = 8):
+                 lease_timeout_s: float = 30.0, window: int = 8, journal_event=None):
         self._lock = threading.RLock()
+        self._event = journal_event or (lambda kind, **fields: None)
         self.cache = BatchCache(cache_bytes)
         self.lease_timeout_s = float(lease_timeout_s)
         self.window = max(1, int(window))
@@ -248,6 +249,9 @@ class Dispatcher:
                              self._lock)
             self._streams[key] = stream
             self._by_sid[stream.sid] = stream
+            self._event("dataplane_stream", stream=stream.sid, root=spec.root,
+                        train=bool(spec.train), epoch=int(spec.epoch),
+                        num_batches=stream.num_batches, start_batch=int(spec.start_batch))
         stream.refs += 1
         stream.cursors[conn] = max(int(spec.start_batch), stream.cursors.get(conn, 0))
         return stream
@@ -260,6 +264,7 @@ class Dispatcher:
             self._streams.pop(stream.spec.cache_key(-1), None)
             if self._by_sid.pop(stream.sid, None) is not None:
                 self._reissues += stream.table.reissues
+            self._event("dataplane_cache", stream=stream.sid, **self.cache.stats())
         stream.cond.notify_all()
 
     # -- worker side ---------------------------------------------------------
@@ -284,8 +289,12 @@ class Dispatcher:
                     # decoded once, delivered and evicted before this client got it
                     stream.table.reopen(b)
                 candidates.append(b)
+            before = stream.table.reissues
             got = stream.table.claim(candidates, worker)
             if got is not None:
+                if stream.table.reissues > before:  # a lease timed out: a stalled worker
+                    self._event("dataplane_lease", stream=stream.sid, batch=int(got),
+                                event="reissue", worker=worker)
                 return stream, got
         return None
 
@@ -308,6 +317,9 @@ class Dispatcher:
         with self._lock:
             for stream in self._by_sid.values():
                 lost = stream.table.fail_worker(worker)
+                for b in lost:
+                    self._event("dataplane_lease", stream=stream.sid, batch=int(b),
+                                event="reissue", worker=worker)
                 if lost:
                     logger.warning(f"dataplane: worker {worker} dropped; re-queued batches "
                                    f"{lost} of stream {stream.sid}")

@@ -5,6 +5,14 @@ distribuuuu_tpu_torch.dataplane --worker ...``), restarted under a small
 backoff when one dies (the dispatcher has already re-issued its leases when
 its connection dropped); ``in_process=True`` runs them as threads, for
 tests. Neither the service nor its workers touch the card.
+
+The service journals into the pool journal's ``.part3500`` continuation
+(``DATAPLANE_PART``; one writer a file: the trainers of the same OUT_DIR
+own the main file): ``dataplane_start``, ``dataplane_stream``,
+``dataplane_lease`` (re-issues), ``dataplane_worker_exit`` and
+``dataplane_cache``. With ``OBS.METRICS_PORT`` set, an embedded
+``ObsPlane`` tails that journal and serves the ``dtpu_dataplane_*``
+gauges on ``/metrics``.
 """
 
 from __future__ import annotations
@@ -18,7 +26,23 @@ import time
 from distribuuuu_tpu_torch.dataplane.dispatcher import Dispatcher
 from distribuuuu_tpu_torch.logging import logger
 
+#: the dataplane service's journal part (beside the serving replicas'
+#: 1000+R and the export sidecar's 4000)
+DATAPLANE_PART = 3500
+
 _PACKAGE_PARENT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def _journal_event(out_dir: str):
+    """``(event, close)`` of a ValidatedJournal on OUT_DIR's ``.part3500``
+    continuation (its appends are no-ops when it cannot be opened: the
+    service never dies of observability)."""
+    from distribuuuu_tpu_torch.obs.journal import ValidatedJournal
+    from distribuuuu_tpu_torch.obs.telemetry import journal_path
+
+    journal = ValidatedJournal(f"{journal_path(out_dir)}.part{DATAPLANE_PART}",
+                               label="dataplane journal")
+    return journal.event, journal.close
 
 
 class DataPlaneService:
@@ -28,12 +52,15 @@ class DataPlaneService:
     def __init__(self, *, host: str = "127.0.0.1", port: int = 0, workers: int = 2,
                  worker_threads: int = 4, in_process: bool = False, cache_bytes: int = 256 << 20,
                  lease_timeout_s: float = 30.0, window: int = 8,
-                 worker_argv: list[str] | None = None, injector=None):
+                 worker_argv: list[str] | None = None, injector=None, journal_event=None,
+                 journal_close=None):
         self.n_workers = max(1, int(workers))
         self.worker_threads = max(1, int(worker_threads))
         self.in_process = bool(in_process)
         self._worker_argv = list(worker_argv or [])
         self._injector = injector  # the in-process workers'; processes read DTPU_FAULT_*
+        self._event = journal_event or (lambda kind, **fields: None)
+        self._journal_close = journal_close or (lambda: None)
         self._stop = threading.Event()
         # written by the monitor's restarts, read by stop() and worker_pids():
         # _spawn re-checks _stop under the lock and stop() sets _stop before
@@ -44,25 +71,29 @@ class DataPlaneService:
         self._monitor: threading.Thread | None = None
         self.restarts = 0
         self.dispatcher = Dispatcher(host, int(port), cache_bytes=int(cache_bytes),
-                                     lease_timeout_s=float(lease_timeout_s), window=int(window))
+                                     lease_timeout_s=float(lease_timeout_s), window=int(window),
+                                     journal_event=self._event)
+        self.obs_plane = None
         self.dispatcher.pool = {"workers": self.n_workers, "worker_threads": self.worker_threads}
 
     @classmethod
     def from_cfg(cls, *, worker_argv=None) -> "DataPlaneService":
         """The service ``cfg.DATA`` describes (``PORT 0``: derived from the
-        absolute ``OUT_DIR``, as the JAX package derives it)."""
+        absolute ``OUT_DIR``, as the JAX package derives it), journaling
+        into OUT_DIR's ``.part3500``."""
         from distribuuuu_tpu_torch.config import cfg
         from distribuuuu_tpu_torch.runtime.dist import derive_dataplane_port
 
         d = cfg.DATA
         workers = max(1, int(d.WORKERS))
+        event, close = _journal_event(str(cfg.OUT_DIR))
         return cls(host=str(d.HOST),
                    port=int(d.PORT) or derive_dataplane_port(os.path.abspath(str(cfg.OUT_DIR))),
                    workers=workers,
                    worker_threads=int(d.WORKER_THREADS) or max(1, (os.cpu_count() or 4) // workers),
                    cache_bytes=int(d.CACHE_MB) << 20,
                    lease_timeout_s=float(d.LEASE_TIMEOUT_S), window=int(d.WINDOW),
-                   worker_argv=worker_argv)
+                   worker_argv=worker_argv, journal_event=event, journal_close=close)
 
     @property
     def address(self) -> str:
@@ -74,6 +105,9 @@ class DataPlaneService:
         return [p.pid for p in procs if p.poll() is None]
 
     def start(self) -> "DataPlaneService":
+        self._event("dataplane_start", address=self.address, workers=self.n_workers,
+                    worker_threads=self.worker_threads,
+                    cache_bytes=int(self.dispatcher.cache.max_bytes), in_process=self.in_process)
         for i in range(self.n_workers):
             self._spawn(i)
         self._monitor = threading.Thread(target=self._monitor_loop, daemon=True,
@@ -117,14 +151,43 @@ class DataPlaneService:
                 if code is None:
                     continue
                 self.restarts += 1
+                self._event("dataplane_worker_exit", worker=f"w{slot}", code=int(code),
+                            restarts=self.restarts)
                 logger.warning(f"dataplane: worker w{slot} exited {code}; restarting")
                 time.sleep(0.2)
                 self._spawn(slot)
 
+    def journal_stats(self) -> None:
+        """A ``dataplane_cache`` record of the dispatcher's cumulative counters."""
+        self._event("dataplane_cache", **self.dispatcher.stats())
+
+    def start_obs_plane(self) -> None:
+        """The embedded /metrics exporter over the pool journal, when
+        ``OBS.METRICS_PORT`` > 0; the service's records fold into the
+        ``dtpu_dataplane_*`` gauges."""
+        from distribuuuu_tpu_torch.config import cfg
+
+        if int(cfg.OBS.METRICS_PORT) <= 0:
+            return
+        from distribuuuu_tpu_torch.obs.exporter import ObsPlane
+        from distribuuuu_tpu_torch.obs.telemetry import journal_path
+
+        try:
+            self.obs_plane = ObsPlane(journal_path(str(cfg.OUT_DIR)),
+                                      port=int(cfg.OBS.METRICS_PORT),
+                                      host=str(cfg.OBS.METRICS_HOST),
+                                      interval_s=float(cfg.OBS.TAIL_INTERVAL_S)).start()
+        except OSError as exc:  # the port is taken: serve batches all the same
+            logger.warning(f"dataplane: obs plane unavailable: {exc!r}")
+
     def stop(self) -> None:
         """Stop the workers (each child terminated, killed after 5 s, and
-        reaped) and the dispatcher; logs the dispatcher's last stats."""
+        reaped) and the dispatcher; journals and logs the dispatcher's last
+        stats, then closes the journal."""
         self._stop.set()
+        self.journal_stats()
+        if self.obs_plane is not None:
+            self.obs_plane.stop()
         if self._monitor is not None:
             self._monitor.join(timeout=5.0)
         with self._procs_lock:  # _stop is set: no later spawn registers
@@ -143,4 +206,5 @@ class DataPlaneService:
         self.dispatcher.close()
         for t in self._threads:
             t.join(timeout=5.0)
+        self._journal_close()
         logger.info(f"dataplane: stopped; {stats}, worker restarts {self.restarts}")

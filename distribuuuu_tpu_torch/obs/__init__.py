@@ -17,15 +17,18 @@
 - **Profiler windows** (``obs.profiler``, ``obs.traceparse``,
   ``obs.attribution``): config- and SIGUSR1-driven ``torch.profiler``
   captures, the per-kernel table and the step attribution journaled.
+- **Live plane** (``obs.stream``, ``obs.alarms``, ``obs.exporter``): the
+  incremental journal tailer, the record -> gauge fold, the ``OBS.ALARMS``
+  engine and the Prometheus ``/metrics`` text, which the serving replica,
+  the dataplane service and the export sidecar serve. ``ValidatedJournal``
+  (``obs.journal``) is their writer.
 - **CLI** (``obs.__main__``): ``python -m distribuuuu_tpu_torch.obs
-  summarize|validate``.
-
-The live plane (journal tailing, ``/metrics``, alarms, the serve and
-dataplane records) is ROADMAP item 7b.
+  summarize|validate|export``.
 """
 
 from distribuuuu_tpu_torch.obs.journal import (  # noqa: F401
     Journal,
+    ValidatedJournal,
     read_journal,
     validate_journal,
     validate_record,

@@ -15,6 +15,12 @@ only: a ``gs://`` OUT_DIR is ``runtime/pathio``, not ported (ROADMAP item
 13). ``read_journal`` still reassembles ``.part<N>`` continuations, which
 the JAX package's supervisors write beside a run's journal.
 
+:class:`ValidatedJournal` is the writer of processes that observe other
+work (a serving replica, the dataplane service, the export sidecar): a
+record that fails validation is dropped with a log line, and a journal that
+cannot be opened makes every append a no-op, so observability never stops
+serving.
+
 ``SCHEMA`` is the JAX package's, kind for kind and field for field (later
 slices write its serve, dataplane and fleet kinds), with one change:
 ``run_start`` requires ``torch_version`` where JAX requires
@@ -28,7 +34,10 @@ import io
 import json
 import os
 import threading
+import time
 from typing import Any, Iterator
+
+from distribuuuu_tpu_torch.logging import logger
 
 # ---------------------------------------------------------------------------
 # Schema: kind -> (required fields, optional fields); values are type tuples.
@@ -810,3 +819,43 @@ class Journal:
             if self._f is not None:
                 self._f.close()
                 self._f = None
+
+
+class ValidatedJournal:
+    """Schema-validated appends that degrade to a no-op on any failure.
+
+    ``path=None`` (given, or after the file could not be opened) means
+    degraded: :meth:`event` does nothing. An invalid record is logged and
+    dropped; an append that fails is logged. Thread-safe through
+    :class:`Journal`'s lock.
+    """
+
+    def __init__(self, path: str | None, *, label: str = "journal"):
+        self.path: str | None = None
+        self._label = label
+        self._journal: Journal | None = None
+        if path is None:
+            return
+        try:
+            self._journal = Journal(str(path))
+            self.path = str(path)
+        except OSError as exc:
+            logger.warning(f"{label} unavailable: {exc!r}")
+
+    def event(self, kind: str, **fields: Any) -> None:
+        if self._journal is None:
+            return
+        record = {"ts": time.time(), "kind": kind, **fields}
+        errors = validate_record(record)
+        if errors:
+            logger.error(f"{self._label}: invalid {kind!r} record dropped: {errors}")
+            return
+        try:
+            self._journal.append(record)
+        except (OSError, ValueError) as exc:
+            logger.warning(f"{self._label} append failed: {exc!r}")
+
+    def close(self) -> None:
+        if self._journal is not None:
+            self._journal.close()
+            self._journal = None

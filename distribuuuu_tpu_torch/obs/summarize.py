@@ -2,15 +2,16 @@
 
 ``python -m distribuuuu_tpu_torch.obs summarize <journal>``: the human view
 of the machine-readable record: throughput a epoch, MFU, goodput, the
-kernels' nvcc builds and host waits, the fault and resume history,
-checkpoint cadence and the hottest device kernels of the last profiler
-window with their step attribution. A pure function of the journal (it
-reads nothing else), so it works anywhere the journal is copied to. The
-text is the JAX package's line for line, but for one line: where JAX
-reports its backend compiles, the port reports its nvcc builds. The
-sections of the records a training run does not write (supervision, the
-fleet, the dataplane, serving, deployments, ingress, alarms, kernel
-verdicts) come with the slices that write them (ROADMAP item 7b).
+kernels' nvcc builds and host waits, the fault and resume history, the
+dataplane's cache and fallbacks, serving's startup and SLO per model, the
+slowest traces, the alarms, checkpoint cadence and the hottest device
+kernels of the last profiler window with their step attribution. A pure
+function of the journal (it reads nothing else), so it works anywhere the
+journal is copied to. The text is the JAX package's line for line, but for
+one line: where JAX reports its backend compiles, the port reports its nvcc
+builds. The sections of records only the JAX package's supervision writes
+(the agent, the fleet and its goodput timeline, deployments, ingress,
+kernel verdicts) come with ROADMAP items 9 and 13.
 """
 
 from __future__ import annotations
@@ -144,6 +145,148 @@ def render(records: Iterable[dict]) -> str:
     out("")
     out("faults: " + "  ".join(parts))
 
+    # -- dataplane (dtpu-dataplane) -----------------------------------------
+    # only present when a run used the disaggregated input service; omitted
+    # otherwise so ordinary reports (and the golden test) are unchanged
+    if by_kind["dataplane_start"] or by_kind["dataplane_fallback"]:
+        out("")
+        if by_kind["dataplane_start"]:
+            s = by_kind["dataplane_start"][-1]
+            out(
+                f"dataplane: {s.get('workers', '?')} decode worker(s) x "
+                f"{s.get('worker_threads', '?')} thread(s) at "
+                f"{s.get('address', '?')}"
+            )
+        else:
+            out("dataplane:")
+        caches = by_kind["dataplane_cache"]
+        if caches:
+            c = caches[-1]
+            hits, misses = c.get("hits", 0), c.get("misses", 0)
+            rate = hits / max(1, hits + misses)
+            out(
+                f"  cache: {hits} hit(s) / {misses} decode(s) "
+                f"({100.0 * rate:.1f}% saved), {c.get('evictions', 0)} "
+                f"eviction(s), {c.get('bytes', 0) / 2**20:.1f} MB held"
+            )
+        n_streams = len(by_kind["dataplane_stream"])
+        n_reissues = len(by_kind["dataplane_lease"])
+        n_worker_exits = len(by_kind["dataplane_worker_exit"])
+        out(
+            f"  streams={n_streams}  lease_reissues={n_reissues}  "
+            f"worker_exits={n_worker_exits}  "
+            f"fallbacks={len(by_kind['dataplane_fallback'])}"
+        )
+        for r in by_kind["dataplane_fallback"]:
+            out(
+                f"  FALLBACK to local decode at epoch {r.get('epoch', '?')} "
+                f"batch {r.get('batch', '?')} ({r.get('reason', '?')})"
+            )
+
+    # -- serving (dtpu-serve) -----------------------------------------------
+    # only present for serving runs; omitted otherwise so training reports
+    # (and the golden test) are unchanged
+    if (
+        by_kind["serve_start"]
+        or by_kind["serve_slo"]
+        or by_kind["serve_shed"]
+        or by_kind["serve_compile"]
+        or by_kind["quant_quality"]
+    ):
+        out("")
+        if by_kind["serve_start"]:
+            s = by_kind["serve_start"][-1]
+            out(
+                f"serving: replica {s.get('replica', '?')} hosting "
+                f"{', '.join(s.get('models', []))} on port {s.get('port', '?')} "
+                f"(ladder {s.get('batch_sizes', [])}, "
+                f"{s.get('aot_compiles', 0)} AOT compile(s), "
+                f"warmup {s.get('warmup_s', 0.0):.2f}s)"
+            )
+        else:
+            out("serving:")
+        # per-(model, batch-size) startup wall: the JAX engine's AOT compile,
+        # the port's first warmup forward at that size (serve/engine.py); the
+        # line keeps JAX's words
+        compile_by_model: dict[str, list[dict]] = defaultdict(list)
+        for r in by_kind["serve_compile"]:
+            compile_by_model[r["model"]].append(r)
+        for model in sorted(compile_by_model):
+            recs = sorted(compile_by_model[model], key=lambda r: r["batch_size"])
+            total = sum(r["wall_s"] for r in recs)
+            per = ", ".join(f"b{r['batch_size']} {r['wall_s']:.2f}s" for r in recs)
+            quant = next((r["quant"] for r in recs if r.get("quant")), "")
+            out(
+                f"  compile[{model}]{f' ({quant})' if quant else ''}: "
+                f"{per} = {total:.2f}s"
+            )
+        # int8 quality gate verdicts (quant_quality; passed False = the
+        # model refused to serve)
+        for r in by_kind["quant_quality"]:
+            out(
+                f"  quant[{r.get('model', '?')}]: {r.get('mode', '?')} "
+                f"top-1 agree {100.0 * r.get('top1_agree', 0.0):.2f}%, "
+                f"logit rmse {r.get('logit_rmse', 0.0):.4f} "
+                f"({r.get('layers', '?')} layer(s), "
+                f"{r.get('folded_bn', 0)} BN folded) -> "
+                f"{'PASSED' if r.get('passed') else 'FAILED (refused to serve)'}"
+            )
+        # per-model SLO: aggregate every window so the report covers the
+        # whole run, not just the last rollup
+        slo_by_model: dict[str, list[dict]] = defaultdict(list)
+        for r in by_kind["serve_slo"]:
+            slo_by_model[r["model"]].append(r)
+        sheds_by_model: dict[str, int] = defaultdict(int)
+        for r in by_kind["serve_shed"]:
+            sheds_by_model[r["model"]] += 1
+        for model in sorted(set(slo_by_model) | set(sheds_by_model)):
+            rolls = slo_by_model.get(model, [])
+            n_req = sum(r["requests"] for r in rolls)
+            # service-wide elapsed = the wall-clock SPAN the windows cover
+            # (each record's ts is its window end). Summing window_s instead
+            # would double-count time when N replicas journal into one
+            # reassembled journal and understate QPS by a factor of N.
+            window = (
+                max(r["ts"] for r in rolls)
+                - min(r["ts"] - r["window_s"] for r in rolls)
+                if rolls
+                else 0.0
+            )
+            shed = sum(r["shed"] for r in rolls) or sheds_by_model.get(model, 0)
+            # p50: requests-WEIGHTED median of the per-window medians, so an
+            # idle tail window of 1 slow request cannot outvote a window of
+            # 10k fast ones; p99: the worst window's p99 (conservative — the
+            # per-window records keep the precise numbers)
+            weighted = sorted(
+                (r["p50_ms"], r["requests"]) for r in rolls if r["requests"]
+            )
+            p50, half, seen = 0.0, n_req / 2.0, 0
+            for value, weight in weighted:
+                seen += weight
+                if seen >= half:
+                    p50 = value
+                    break
+            p99 = max([r["p99_ms"] for r in rolls if r["requests"]], default=0.0)
+            fill_hist: dict[str, int] = defaultdict(int)
+            fills = []
+            for r in rolls:
+                for size, count in (r.get("fill_hist") or {}).items():
+                    fill_hist[size] += count
+                if r.get("batches"):
+                    fills.append((r.get("mean_fill", 0.0), r["batches"]))
+            mean_fill = (
+                sum(f * b for f, b in fills) / sum(b for _, b in fills) if fills else 0.0
+            )
+            hist_s = ", ".join(
+                f"{size}x{count}" for size, count in sorted(fill_hist.items(), key=lambda kv: int(kv[0]))
+            )
+            out(
+                f"  {model}: {n_req} request(s), "
+                f"qps {n_req / max(window, 1e-9):.1f}, "
+                f"p50 {p50:.1f}ms / p99 {p99:.1f}ms, shed {shed}, "
+                f"batch fill {100.0 * mean_fill:.0f}% [{hist_s or 'no batches'}]"
+            )
+
     # -- tracing (dtpu-obs v2: span records) --------------------------------
     # per-phase totals plus the critical path of the slowest traces — the
     # "where did the milliseconds go" view, reconstructed from the journal
@@ -181,6 +324,65 @@ def render(records: Iterable[dict]) -> str:
                 f"  slowest trace {trace_id}"
                 + (f" [{model}]" if model else "")
                 + f": {trace_wall(spans):.1f}ms ({phases})"
+            )
+
+    # -- alarms (dtpu-obs v2: declarative rules over the live aggregate) -----
+    if by_kind["alarm"] or by_kind["alarm_clear"] or by_kind["fleet_alarm"]:
+        out("")
+        # pair chronologically per (rule, model): a clear belongs to the
+        # fire it directly follows. One ENGINE alternates fire -> clear
+        # strictly, but an engine that dies while an alarm is active leaves
+        # an unpaired fire behind (its restart fires afresh) — index-based
+        # pairing would hand the eventual clear to the wrong firing.
+        clears_by_key: dict[tuple, list[dict]] = defaultdict(list)
+        for r in by_kind["alarm_clear"]:
+            clears_by_key[(r.get("rule"), r.get("model"))].append(r)
+        for clears in clears_by_key.values():
+            clears.sort(key=lambda r: r.get("ts", 0.0))
+        fires_by_key: dict[tuple, list[dict]] = defaultdict(list)
+        for r in by_kind["alarm"]:
+            fires_by_key[(r.get("rule"), r.get("model"))].append(r)
+        for fires in fires_by_key.values():
+            fires.sort(key=lambda r: r.get("ts", 0.0))
+
+        def fire_status(key: tuple, r: dict) -> str:
+            fires = fires_by_key[key]
+            i = fires.index(r)
+            t0 = r.get("ts", 0.0)
+            t1 = (
+                fires[i + 1].get("ts", float("inf"))
+                if i + 1 < len(fires)
+                else float("inf")
+            )
+            clear = next(
+                (c for c in clears_by_key[key] if t0 <= c.get("ts", 0.0) < t1),
+                None,
+            )
+            if clear is not None:
+                return f"cleared after {clear.get('active_s', 0.0):.0f}s"
+            if t1 != float("inf"):
+                # re-fired without a recorded clear: the firing engine died
+                # while active — the state was lost, not resolved
+                return "no clear recorded (engine restarted?)"
+            return "STILL ACTIVE at journal end"
+
+        out(
+            f"alarms: {len(by_kind['alarm'])} fired, "
+            f"{len(by_kind['alarm_clear'])} cleared"
+            + (
+                f", {len(by_kind['fleet_alarm'])} relayed to the fleet "
+                f"controller"
+                if by_kind["fleet_alarm"]
+                else ""
+            )
+        )
+        for r in by_kind["alarm"]:
+            key = (r.get("rule"), r.get("model"))
+            model_s = f"[{r['model']}]" if r.get("model") else ""
+            out(
+                f"  {r.get('rule', '?')}{model_s}: {r.get('metric', '?')} "
+                f"{r.get('value', 0.0):.4g} {r.get('op', '?')} "
+                f"{r.get('threshold', 0.0):.4g} — {fire_status(key, r)}"
             )
 
     # -- checkpoints ---------------------------------------------------------

@@ -1,14 +1,22 @@
-"""Train-step tracing: trace ids and typed ``span`` records (counterpart of ``obs/trace.py``).
+"""Request and step tracing: trace ids and typed ``span`` records (counterpart of ``obs/trace.py``).
 
 A trace is one unit of work whose phases add up to an explainable wall
-time: one train PRINT_FREQ window (data wait, then compute) or one epoch
-boundary's checkpoint. Every phase lands as a ``span`` record keyed by its
-trace id, so ``obs summarize`` rebuilds the slowest traces from the
-journal alone. Train-side ids are minted a window by ``Telemetry.window``
-(``train-<run>-g<gstep>``) and a checkpoint by the trainer
-(``train-<run>-ck<epoch>``). Spans carry host wall times only: they reuse
-the PRINT_FREQ boundary's fetch and add no device sync. The serve side's
-spans are the live plane's (ROADMAP item 7b).
+time: one served request (queue wait, pad, execute, total), one train
+PRINT_FREQ window (data wait, then compute) or one epoch boundary's
+checkpoint. Every phase lands as a ``span`` record keyed by its trace id,
+so ``obs summarize`` rebuilds the slowest traces from the journal alone.
+
+- Serving: a caller may send its id in the ``x-dtpu-trace-id`` header; the
+  frontend keeps a well-formed one (``ensure_trace_id`` mints one
+  otherwise), threads it through the batcher to the dispatch and echoes it
+  in the response.
+- Training: ids are minted a window by ``Telemetry.window``
+  (``train-<run>-g<gstep>``) and a checkpoint by the trainer
+  (``train-<run>-ck<epoch>``).
+
+Spans carry host wall times only and add no device sync: the execute span
+is timed around the forward whose logits copy to the host is the response,
+and train spans reuse the PRINT_FREQ boundary's fetch.
 """
 
 from __future__ import annotations
@@ -16,9 +24,14 @@ from __future__ import annotations
 import re
 import uuid
 
+#: HTTP header carrying the trace id end to end (client -> frontend -> response)
+TRACE_HEADER = "x-dtpu-trace-id"
+
 # ids are log- and label-safe by construction; anything else is replaced
 _TRACE_ID_RE = re.compile(r"^[A-Za-z0-9._\-]{1,128}$")
 
+#: span phases of one served request, in causal order
+SERVE_PHASES = ("queue_wait", "pad", "execute", "total")
 #: span phases of one train window / epoch boundary
 TRAIN_PHASES = ("data_wait", "compute", "checkpoint")
 

@@ -4,11 +4,18 @@ Requests coalesce in a per-model queue; a dispatcher thread packs whole
 requests up to the largest ladder size, pads them with zeros to the
 smallest ladder size that holds them, and dispatches when the batch is full
 or the oldest request has waited ``max_delay_ms``. A bounded queue sheds
-with `QueueFullError` (HTTP 503), never silently. Eval forwards are
-per-example independent, so padding rows do not change real rows.
+with `QueueFullError` (HTTP 503) and a typed ``serve_shed`` record, never
+silently. Eval forwards are per-example independent, so padding rows do
+not change real rows.
 
-Trimmed to this slice: no canary routing and no trace spans; the SLO sink
-is optional. :meth:`MicroBatcher.submit` also returns the ladder size the
+Each dispatched batch journals a ``serve_batch`` record (queue and compute
+ms, fill) and, with ``trace_spans``, each request its ``queue_wait``,
+``pad`` and ``execute`` spans under its trace id. The dispatch thread
+releases every request's result before it journals anything, and no
+record is written while a queue's condition is held.
+
+Not ported: canary routing (ROADMAP Queue 1 item 9). The sinks are
+optional. :meth:`MicroBatcher.submit` also returns the ladder size the
 request ran at.
 """
 
@@ -22,6 +29,7 @@ from typing import Callable
 import numpy as np
 
 from distribuuuu_tpu_torch.logging import logger
+from distribuuuu_tpu_torch.obs.trace import span_fields
 
 
 class QueueFullError(RuntimeError):
@@ -31,10 +39,12 @@ class QueueFullError(RuntimeError):
 class _Pending:
     """One queued request: inputs + a done-event the submitter blocks on."""
 
-    __slots__ = ("inputs", "n", "t_enqueue", "event", "result", "error", "batch_size")
+    __slots__ = ("inputs", "n", "t_enqueue", "event", "result", "error", "batch_size",
+                 "trace_id")
 
-    def __init__(self, inputs: np.ndarray):
+    def __init__(self, inputs: np.ndarray, trace_id: str | None = None):
         self.inputs = inputs
+        self.trace_id = trace_id  # obs/trace.py id riding the request
         self.n = int(inputs.shape[0])
         self.t_enqueue = time.monotonic()
         self.event = threading.Event()
@@ -49,16 +59,24 @@ class SLOTracker:
     Thread-safe; fed by the batcher (batches, sheds) and the frontend
     (request latencies). ``journal_event(kind, **fields)`` receives each
     rollup; ``None`` drops them. ``maybe_emit`` rolls the window when
-    ``window_s`` elapsed; ``flush`` emits whatever the window holds.
+    ``window_s`` elapsed; ``flush`` emits whatever the window holds, then
+    calls ``on_flush`` (the frontend evaluates its alarm rules there).
     """
 
     def __init__(
         self,
         journal_event: Callable[..., None] | None = None,
         window_s: float = 10.0,
+        on_flush: Callable[[], None] | None = None,
     ):
         self._event = journal_event or (lambda kind, **fields: None)
         self.window_s = float(window_s)
+        # queue depth at rollup time, set by the batcher: the backlog signal
+        self.depth_probe: Callable[[str], int] | None = None
+        # replica id stamped on rollups (set by the frontend): a tailing
+        # aggregator over N replicas of one model keeps N series
+        self.replica: int | None = None
+        self._on_flush = on_flush
         self._lock = threading.Lock()
         self._t0 = time.monotonic()
         self._lat: dict[str, list[float]] = {}
@@ -105,6 +123,7 @@ class SLOTracker:
                 snapshot.append(
                     dict(
                         model=m,
+                        **({} if self.replica is None else {"replica": int(self.replica)}),
                         window_s=round(window, 3),
                         requests=len(lat),
                         shed=self._shed.get(m, 0),
@@ -123,12 +142,30 @@ class SLOTracker:
                       self._batches):
                 d.clear()
             self._t0 = time.monotonic()
+        # the probe takes a queue's condition: never while this lock is held
+        if self.depth_probe is not None:
+            for fields in snapshot:
+                try:
+                    fields["queue_depth"] = int(self.depth_probe(fields["model"]))
+                except Exception as exc:  # a probe must never kill the rollup
+                    logger.warning(f"slo depth probe failed: {exc!r}")
         for fields in snapshot:  # emit outside the lock
             self._event("serve_slo", **fields)
+        if snapshot and self._on_flush is not None:
+            try:
+                self._on_flush()
+            except Exception as exc:  # alarms must never kill the rollup
+                logger.warning(f"slo on_flush hook failed: {exc!r}")
 
 
 class MicroBatcher:
-    """Per-model coalescing queues in front of an engine runner."""
+    """Per-model coalescing queues in front of an engine runner.
+
+    ``journal_event(kind, **fields)`` receives the ``serve_shed``,
+    ``serve_batch`` and (with ``trace_spans``) ``span`` records;
+    ``timed_runner(model, batch) -> (logits, ms)`` times the execute span
+    (the engine's ``forward_timed``), else the runner is timed here.
+    """
 
     def __init__(
         self,
@@ -138,12 +175,20 @@ class MicroBatcher:
         max_delay_ms: float,
         max_depth: int,
         slo: SLOTracker | None = None,
+        journal_event: Callable[..., None] | None = None,
+        timed_runner: Callable[[str, np.ndarray], tuple[np.ndarray, float]] | None = None,
+        trace_spans: bool = False,
     ):
         self._runner = runner
+        self._timed_runner = timed_runner
+        self._trace_spans = bool(trace_spans)
         self._ladders = {m: sorted(int(b) for b in ladder) for m, ladder in ladders.items()}
         self.max_delay_s = float(max_delay_ms) / 1000.0
         self.max_depth = int(max_depth)
+        self._event = journal_event or (lambda kind, **fields: None)
         self._slo = slo
+        if slo is not None:
+            slo.depth_probe = self.queue_depth
         self._cond = {m: threading.Condition() for m in self._ladders}
         self._queue: dict[str, list[_Pending]] = {m: [] for m in self._ladders}
         self._depth = {m: 0 for m in self._ladders}
@@ -195,13 +240,16 @@ class MicroBatcher:
         return min(5.0, max(0.05, rounds * self.max_delay_s))
 
     def submit(
-        self, model: str, inputs: np.ndarray, timeout_s: float = 60.0
+        self, model: str, inputs: np.ndarray, timeout_s: float = 60.0,
+        trace_id: str | None = None,
     ) -> tuple[np.ndarray, int]:
         """Block until the request's logits are ready; sheds raise.
 
         ``inputs`` is ``(n, H, W, C)`` with ``n`` <= the largest ladder size
-        (the caller splits larger requests). Returns ``(logits, batch_size)``:
-        the request's rows and the ladder size its batch ran at.
+        (the caller splits larger requests). ``trace_id`` rides the request
+        to the dispatch, which journals its spans under it. Returns
+        ``(logits, batch_size)``: the request's rows and the ladder size its
+        batch ran at.
         """
         ladder = self._ladders.get(model)
         if ladder is None:
@@ -214,20 +262,23 @@ class MicroBatcher:
                 f"request of {n} examples exceeds {model!r}'s largest compiled "
                 f"batch {ladder[-1]} — split the request client-side"
             )
-        req = _Pending(inputs)
+        req = _Pending(inputs, trace_id)
         cond = self._cond[model]
         with cond:
-            if self._depth[model] + n > self.max_depth:
-                depth = self._depth[model]
-                if self._slo is not None:
-                    self._slo.shed(model)
-                raise QueueFullError(
-                    f"{model!r} queue at {depth}/{self.max_depth} examples — "
-                    f"request of {n} shed (retry against another replica)"
-                )
-            self._queue[model].append(req)
-            self._depth[model] += n
-            cond.notify_all()
+            depth = self._depth[model]
+            shed = depth + n > self.max_depth
+            if not shed:
+                self._queue[model].append(req)
+                self._depth[model] += n
+                cond.notify_all()
+        if shed:  # journaled with the condition released
+            self._event("serve_shed", model=model, depth=depth, max_depth=self.max_depth, n=n)
+            if self._slo is not None:
+                self._slo.shed(model)
+            raise QueueFullError(
+                f"{model!r} queue at {depth}/{self.max_depth} examples — "
+                f"request of {n} shed (retry against another replica)"
+            )
         if not req.event.wait(timeout_s):
             raise TimeoutError(f"request not served within {timeout_s:.1f}s")
         if req.error is not None:
@@ -270,6 +321,7 @@ class MicroBatcher:
                 continue
             n = sum(r.n for r in taken)
             batch_size = next(b for b in ladder if b >= n)
+            t_dispatch = time.monotonic()
             try:
                 first = taken[0].inputs
                 padded = np.zeros((batch_size, *first.shape[1:]), dtype=first.dtype)
@@ -277,13 +329,41 @@ class MicroBatcher:
                 for req in taken:
                     padded[row : row + req.n] = req.inputs
                     row += req.n
-                logits = self._runner(model, padded)
+                pad_ms = 1000.0 * (time.monotonic() - t_dispatch)
+                if self._timed_runner is not None:
+                    logits, execute_ms = self._timed_runner(model, padded)
+                else:
+                    t_exec = time.monotonic()
+                    logits = self._runner(model, padded)
+                    execute_ms = 1000.0 * (time.monotonic() - t_exec)
+                compute_ms = 1000.0 * (time.monotonic() - t_dispatch)
                 row = 0
                 for req in taken:
                     req.result = logits[row : row + req.n]
                     req.batch_size = batch_size
                     row += req.n
                     req.event.set()
+                # every result is released: only now the records
+                self._event(
+                    "serve_batch", model=model, batch_size=batch_size, examples=n,
+                    requests=len(taken), fill=round(n / batch_size, 4),
+                    queue_ms=round(1000.0 * (t_dispatch - min(r.t_enqueue for r in taken)), 3),
+                    compute_ms=round(compute_ms, 3),
+                )
+                if self._trace_spans:
+                    # queue wait is the request's own; pad and execute are
+                    # the batch's, paid by every request it coalesced
+                    for req in taken:
+                        if not req.trace_id:
+                            continue
+                        common = dict(model=model, n=req.n, batch_size=batch_size)
+                        self._event("span", **span_fields(
+                            req.trace_id, "queue_wait", 1000.0 * (t_dispatch - req.t_enqueue),
+                            **common))
+                        self._event("span", **span_fields(req.trace_id, "pad", pad_ms,
+                                                          requests=len(taken), **common))
+                        self._event("span", **span_fields(req.trace_id, "execute", execute_ms,
+                                                          **common))
                 if self._slo is not None:
                     self._slo.batch(model, batch_size, n)
                     self._slo.maybe_emit()

@@ -8,6 +8,13 @@ JAX engine's ahead-of-time ladder becomes eager execution plus a
 contract is the same: exactly-ladder-sized batches of the wire dtype in,
 float32 logits as numpy out, anything else refused loudly.
 
+The port compiles nothing ahead of time. The counterpart of the JAX
+engine's per-(model, size) compile is the warmup's forward at each ladder
+size, where cuDNN picks its plans and the first launch is paid: each
+journals a ``serve_compile`` record with that forward's ``wall_s``, and
+:attr:`InferenceEngine.aot_compiles` counts them (``serve_start`` carries
+the count).
+
 Not in this slice: ``:int8`` specs and ``stage``/``promote`` (continuous
 deployment) raise ``NotImplementedError``; per-size CUDA graphs are later
 work (ROADMAP.md, Queue 1).
@@ -96,6 +103,7 @@ class InferenceEngine:
         input_dtype: str = "uint8",
         compute_dtype: str = "float32",
         device=None,
+        journal_event: Callable[..., None] | None = None,
     ):
         self.device = resolve_device(device)
         sizes = [int(b) for b in batch_sizes]
@@ -115,6 +123,8 @@ class InferenceEngine:
         self._lock = threading.Lock()
         self.models: dict[str, HostedModel] = {}
         self.forwards = 0  # forward passes executed, warmup included
+        self.aot_compiles = 0  # warmup forwards journaled as serve_compile
+        self._event = journal_event or (lambda kind, **fields: None)
 
     # -- loading -------------------------------------------------------------
 
@@ -161,13 +171,19 @@ class InferenceEngine:
 
     def warmup(self) -> float:
         """Run every (model, ladder size) once on zeros, so cuDNN's first-call
-        setup and the kernel build stay off the first request's latency."""
+        setup and the kernel build stay off the first request's latency;
+        each forward's wall (the logits' copy to the host included) is
+        journaled as that pair's ``serve_compile``."""
         tic = time.time()
         with self._lock:
-            names = list(self.models)
-        for name in names:
+            hosted = [(name, h.spec.quant) for name, h in self.models.items()]
+        for name, quant in hosted:
             for b in self.batch_sizes:
+                t0 = time.time()
                 self.forward(name, np.zeros((b, self.im_size, self.im_size, 3), self.input_dtype))
+                self.aot_compiles += 1
+                self._event("serve_compile", model=name, batch_size=b,
+                            wall_s=round(time.time() - t0, 4), quant=quant)
         wall = time.time() - tic
         logger.info(f"serve: warmup ran every (model, batch) pair in {wall:.2f}s")
         return wall

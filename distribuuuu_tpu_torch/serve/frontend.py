@@ -8,13 +8,23 @@ batcher + frontend.
 - ``POST /v1/predict``: body ``{"model": name, "inputs": ...}``, inputs a
   nested list ``(n, H, W, 3)`` or ``{"b64": ..., "shape": [n, H, W, 3]}`` in
   ``SERVE.INPUT_DTYPE``. 200 -> ``{"model", "logits", "latency_ms",
-  "batch_size"}``; 503 -> shed (retry); 400/404 -> client error.
-- ``GET /healthz``: ``{"status": "ok", "models": [...], "batch_sizes": [...]}``.
+  "batch_size", "trace_id"}``; 503 -> shed (retry); 400/404 -> client error.
+- ``GET /healthz``: ``{"status": "ok", "models": [...], "replica": R,
+  "batch_sizes": [...]}``.
+- ``GET /metrics``: Prometheus text of the replica's live aggregate
+  (p50/p99/QPS/queue depth per model, shed and batch counters, spans,
+  alarms), the JAX replica's text for the same records.
 - ``SERVE.MODE stdin``: one JSON request per stdin line, one response per
   stdout line.
 
-Not in this slice: the telemetry journal, alarms, ``/metrics``, trace spans
-and continuous deployment. SLO rollups go to the log.
+The replica journals ``serve_start``, ``serve_compile``, ``serve_request``
+(``SERVE.JOURNAL_REQUESTS``), ``serve_batch``, ``serve_slo``,
+``serve_shed``, ``span`` (``SERVE.TRACE_SPANS``: queue_wait, pad, execute
+and total a request, under the ``x-dtpu-trace-id`` header's id, minted
+when absent and echoed back) and the ``OBS.ALARMS`` transitions into
+``OUT_DIR/telemetry.jsonl``, and folds each record into the aggregator
+``/metrics`` renders. Not ported: continuous deployment and the agent's
+supervision (ROADMAP Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -33,8 +43,35 @@ import numpy as np
 
 from distribuuuu_tpu_torch.config import cfg, load_cfg_fom_args
 from distribuuuu_tpu_torch.logging import logger, setup_logger
+from distribuuuu_tpu_torch.obs.alarms import engine_from_cfg
+from distribuuuu_tpu_torch.obs.exporter import PROM_CONTENT_TYPE, merged_snapshot, render_prometheus
+from distribuuuu_tpu_torch.obs.journal import ValidatedJournal
+from distribuuuu_tpu_torch.obs.stream import LiveAggregator
+from distribuuuu_tpu_torch.obs.telemetry import journal_path
+from distribuuuu_tpu_torch.obs.trace import TRACE_HEADER, ensure_trace_id, span_fields
 from distribuuuu_tpu_torch.serve.batcher import MicroBatcher, QueueFullError, SLOTracker
 from distribuuuu_tpu_torch.serve.engine import InferenceEngine, ModelSpec, parse_model_specs
+
+
+class ServeJournal(ValidatedJournal):
+    """Validated ``serve_*`` appends, one writer a file.
+
+    A standalone replica owns ``OUT_DIR/telemetry.jsonl``; a supervised one
+    (``DTPU_SERVE_REPLICA=R``) owns ``telemetry.jsonl.part<1000+R>``, since
+    its supervisor and sibling replicas write the main file, and a journal
+    is one writer a file. ``read_journal`` reassembles the parts, so ``obs
+    summarize OUT_DIR/telemetry.jsonl`` renders the whole story.
+    ``out_dir=None``: no file (the aggregator still folds every record).
+    """
+
+    def __init__(self, out_dir: str | None):
+        path = None
+        if out_dir is not None:
+            path = journal_path(out_dir)
+            replica_env = os.environ.get("DTPU_SERVE_REPLICA")
+            if replica_env is not None:
+                path = f"{path}.part{1000 + int(replica_env)}"
+        super().__init__(path, label="serve journal")
 
 
 class BadRequest(ValueError):
@@ -87,17 +124,16 @@ def decode_inputs(payload, im_size: int, dtype: np.dtype) -> np.ndarray:
     return np.ascontiguousarray(arr)
 
 
-def _log_event(kind: str, **fields) -> None:
-    logger.info(f"{kind} {json.dumps(fields, sort_keys=True)}")
-
-
 class ServeReplica:
-    """One serving process: engine + batcher + SLO tracker, built from ``cfg``."""
+    """One serving process: engine + batcher + SLO tracker + journal and live
+    aggregate, built from ``cfg``. ``out_dir`` holds the journal (``None``:
+    no file)."""
 
-    def __init__(self, specs: list[ModelSpec], *, device=None):
+    def __init__(self, specs: list[ModelSpec], out_dir: str | None = None, *, device=None):
         s = cfg.SERVE
         self.im_size = int(s.IM_SIZE) or int(cfg.TEST.CROP_SIZE)
         self.input_dtype = np.dtype(str(s.INPUT_DTYPE))
+        self.replica = int(os.environ.get("DTPU_SERVE_REPLICA", "0"))
         self.engine = InferenceEngine(
             batch_sizes=list(s.BATCH_SIZES),
             im_size=self.im_size,
@@ -105,24 +141,78 @@ class ServeReplica:
             input_dtype=str(s.INPUT_DTYPE),
             compute_dtype=str(s.DTYPE) or str(cfg.MODEL.DTYPE),
             device=device,
+            journal_event=self.journal_event,
         )
+        self.journal = ServeJournal(out_dir)
+        self.journal_requests = bool(s.JOURNAL_REQUESTS)
+        self.trace_spans = bool(s.TRACE_SPANS)
+        # every journaled record also folds into this aggregator (a process
+        # must not tail its own open journal), which GET /metrics renders
+        self.aggregator = LiveAggregator()
+        # no heartbeat_age_s rules: an idle replica journals nothing but is
+        # not dead (/healthz answers for its liveness)
+        self.alarms = engine_from_cfg(self.journal_event, exclude_metrics=("heartbeat_age_s",))
+        self.slo = SLOTracker(self.journal_event, window_s=float(s.SLO_WINDOW_S),
+                              on_flush=self._evaluate_alarms)
+        self.slo.replica = self.replica
         self.engine.load_all(specs)
         self.warmup_s = self.engine.warmup() if s.WARMUP else 0.0
-        self.slo = SLOTracker(_log_event, window_s=float(s.SLO_WINDOW_S))
         self.batcher = MicroBatcher(
             self.engine.runner(),
             {name: self.engine.batch_sizes for name in self.engine.models},
             max_delay_ms=float(s.MAX_QUEUE_DELAY_MS),
             max_depth=int(s.MAX_QUEUE_DEPTH),
             slo=self.slo,
+            journal_event=self.journal_event,
+            timed_runner=self.engine.forward_timed,
+            trace_spans=self.trace_spans,
         ).start()
         self.port = 0  # bound ingress port (http mode fills it in)
 
-    def predict(self, model: str, inputs: np.ndarray) -> tuple[np.ndarray, int, float]:
-        """Batched inference for one request: (logits, ladder size, latency_ms)."""
+    def journal_event(self, kind: str, **fields) -> None:
+        """Journal one typed record and fold it into the live aggregator."""
+        self.journal.event(kind, **fields)
+        self.aggregator.ingest({"ts": time.time(), "kind": kind, **fields})
+
+    def _evaluate_alarms(self) -> None:
+        if self.alarms is not None:
+            self.alarms.evaluate(self.aggregator.snapshot())
+
+    def metrics_text(self) -> str:
+        """Prometheus text of the live aggregate (GET /metrics). The alarm
+        rules are evaluated on each scrape too, so a breach shows even when
+        traffic, and with it the SLO rollups, has stopped. Host state only."""
+        self._evaluate_alarms()
+        return render_prometheus(merged_snapshot(self.aggregator, self.alarms))
+
+    def announce(self, port: int) -> None:
+        """Journal ``serve_start`` once the ingress is bound (0: stdin)."""
+        self.port = int(port)
+        self.journal_event(
+            "serve_start",
+            models=sorted(self.engine.models),
+            batch_sizes=self.engine.batch_sizes,
+            port=self.port,
+            replica=self.replica,
+            host=str(cfg.SERVE.HOST),
+            aot_compiles=int(self.engine.aot_compiles),
+            warmup_s=round(self.warmup_s, 3),
+            input_dtype=str(self.input_dtype),
+        )
+
+    def predict(self, model: str, inputs: np.ndarray,
+                trace_id: str | None = None) -> tuple[np.ndarray, int, float]:
+        """Batched inference for one request: (logits, ladder size, latency_ms).
+
+        ``trace_id`` (minted here when spans are on and none is given) rides
+        the request to the dispatch, which journals its queue_wait, pad and
+        execute spans; the ``total`` span, the latency the caller saw, and
+        the ``serve_request`` record land here.
+        """
+        trace_id = ensure_trace_id(trace_id) if self.trace_spans else trace_id
         tic = time.monotonic()
         try:
-            logits, batch_size = self.batcher.submit(model, inputs)
+            logits, batch_size = self.batcher.submit(model, inputs, trace_id=trace_id)
         except QueueFullError:
             raise
         except (KeyError, ValueError) as exc:
@@ -130,38 +220,60 @@ class ServeReplica:
             raise BadRequest(str(exc)) from exc
         latency_ms = 1000.0 * (time.monotonic() - tic)
         self.slo.request(model, latency_ms)
+        n = int(inputs.shape[0])
+        if self.trace_spans and trace_id:
+            self.journal_event("span", **span_fields(trace_id, "total", latency_ms, model=model,
+                                                     n=n, ok=True))
+        if self.journal_requests:
+            extra = {"trace_id": trace_id} if trace_id else {}
+            self.journal_event("serve_request", model=model, n=n,
+                               latency_ms=round(latency_ms, 3), ok=True, **extra)
         return logits, batch_size, latency_ms
 
-    def handle(self, body: dict) -> dict:
+    def handle(self, body: dict, trace_id: str | None = None) -> dict:
         """One decoded request dict -> response dict (shared by http/stdin)."""
         if not isinstance(body, dict):
             raise BadRequest("request body must be a JSON object")
         model = str(body.get("model", ""))
+        trace_id = ensure_trace_id(trace_id or body.get("trace_id"))
         inputs = decode_inputs(body.get("inputs"), self.im_size, self.input_dtype)
-        logits, batch_size, latency_ms = self.predict(model, inputs)
+        logits, batch_size, latency_ms = self.predict(model, inputs, trace_id=trace_id)
         return {
             "model": model,
             "logits": logits.tolist(),
             "latency_ms": round(latency_ms, 3),
             "batch_size": batch_size,
+            "trace_id": trace_id,
         }
 
     def shutdown(self) -> None:
         self.batcher.stop()
         self.slo.flush()
+        self.journal.close()
 
 
 def _make_handler(replica: ServeReplica):
     class Handler(BaseHTTPRequestHandler):
         protocol_version = "HTTP/1.1"
 
-        def _reply(self, code: int, payload: dict, retry_after_s: float | None = None) -> None:
+        def _reply(self, code: int, payload: dict, trace_id: str | None = None,
+                   retry_after_s: float | None = None) -> None:
             data = json.dumps(payload).encode()
             self.send_response(code)
             self.send_header("Content-Type", "application/json")
             self.send_header("Content-Length", str(len(data)))
+            if trace_id:  # echoed, so the caller can find its spans
+                self.send_header(TRACE_HEADER, trace_id)
             if retry_after_s is not None:
                 self.send_header("Retry-After", f"{retry_after_s:.3f}")
+            self.end_headers()
+            self.wfile.write(data)
+
+        def _reply_text(self, code: int, text: str, ctype: str) -> None:
+            data = text.encode()
+            self.send_response(code)
+            self.send_header("Content-Type", ctype)
+            self.send_header("Content-Length", str(len(data)))
             self.end_headers()
             self.wfile.write(data)
 
@@ -170,8 +282,15 @@ def _make_handler(replica: ServeReplica):
                 self._reply(200, {
                     "status": "ok",
                     "models": sorted(replica.engine.models),
+                    "replica": replica.replica,
                     "batch_sizes": replica.engine.batch_sizes,
                 })
+            elif self.path == "/metrics":
+                try:
+                    self._reply_text(200, replica.metrics_text(), PROM_CONTENT_TYPE)
+                except Exception as exc:  # a scrape must never hang the socket
+                    logger.error(f"serve: /metrics failed: {exc!r}")
+                    self._reply_text(500, repr(exc), "text/plain")
             else:
                 self._reply(404, {"error": f"no route {self.path}"})
 
@@ -179,23 +298,25 @@ def _make_handler(replica: ServeReplica):
             if self.path not in ("/v1/predict", "/predict"):
                 self._reply(404, {"error": f"no route {self.path}"})
                 return
+            # the caller's trace id, or a fresh one: the spans always have a key
+            trace_id = ensure_trace_id(self.headers.get(TRACE_HEADER))
             model = ""
             try:
                 length = int(self.headers.get("Content-Length", "0"))
                 body = json.loads(self.rfile.read(length) or b"{}")
                 if isinstance(body, dict):
                     model = str(body.get("model", ""))
-                self._reply(200, replica.handle(body))
+                self._reply(200, replica.handle(body, trace_id), trace_id)
             except QueueFullError as exc:
-                self._reply(503, {"error": "shed", "detail": str(exc)},
+                self._reply(503, {"error": "shed", "detail": str(exc)}, trace_id,
                             retry_after_s=replica.batcher.retry_after_s(model))
             except BadRequest as exc:
-                self._reply(400, {"error": "bad_request", "detail": str(exc)})
+                self._reply(400, {"error": "bad_request", "detail": str(exc)}, trace_id)
             except (json.JSONDecodeError, UnicodeDecodeError) as exc:
-                self._reply(400, {"error": "bad_json", "detail": str(exc)})
+                self._reply(400, {"error": "bad_json", "detail": str(exc)}, trace_id)
             except Exception as exc:  # server-side: 500, never a hung socket
                 logger.error(f"serve: request failed: {exc!r}")
-                self._reply(500, {"error": "internal", "detail": repr(exc)})
+                self._reply(500, {"error": "internal", "detail": repr(exc)}, trace_id)
 
         def log_message(self, fmt, *args):  # access log -> logger, not stderr
             logger.debug(f"serve http: {fmt % args}")
@@ -215,7 +336,7 @@ def run_http(replica: ServeReplica, stop_event: threading.Event,
              ready: threading.Event | None = None) -> None:
     """Serve HTTP until ``stop_event`` is set; ``ready`` is set once bound."""
     server = ThreadingHTTPServer((str(cfg.SERVE.HOST), resolve_port()), _make_handler(replica))
-    replica.port = int(server.server_address[1])
+    replica.announce(server.server_address[1])
     logger.info(
         f"serve: {sorted(replica.engine.models)} on http://{cfg.SERVE.HOST}:{replica.port} "
         f"(ladder {replica.engine.batch_sizes}, device {replica.engine.device})"
@@ -234,6 +355,7 @@ def run_http(replica: ServeReplica, stop_event: threading.Event,
 
 def run_stdin(replica: ServeReplica) -> None:
     """JSONL mode: request per stdin line, response per stdout line."""
+    replica.announce(0)
     logger.info(f"serve: stdin-JSONL mode, serving {sorted(replica.engine.models)}")
     for line in sys.stdin:
         line = line.strip()
@@ -275,7 +397,7 @@ def serve_main(argv: list[str] | None = None, *, device=None) -> int:
     mode = str(cfg.SERVE.MODE)
     if mode not in ("http", "stdin"):
         raise ValueError(f"SERVE.MODE must be http/stdin, got {mode!r}")
-    replica = ServeReplica(_model_specs(), device=device)
+    replica = ServeReplica(_model_specs(), str(cfg.OUT_DIR), device=device)
     stop = threading.Event()
     stop_signum: list[int] = []
 

@@ -50,7 +50,7 @@ def service_rate(log: Path, root: Path, procs: int, threads: int) -> dict:
 
     from distribuuuu_tpu_torch.dataplane.client import ServiceLoader
 
-    proc, address = cs.start_dataplane(root, log, procs, threads)
+    proc, address = cs.start_dataplane(root, log, procs, threads, log.with_suffix(""))
     try:
         return cs.loader_rate(ServiceLoader(
             address, root=str(root / "train"), host_batch=cs.LADDER_BATCH, train=True,

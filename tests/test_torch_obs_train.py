@@ -17,12 +17,14 @@
 - 2 gloo ranks of ``train_net`` at ``MESH.FSDP 2``: rank 0's
   ``state_bytes`` equals JAX's ``state_bytes`` of the same model on a
   2-device CPU mesh, key for key (the port adds ``grad_bytes``);
-- the live plane's ``OBS.METRICS_PORT`` and ``OBS.PERFDB`` raise, the
-  aggregators' keys are accepted.
+- ``OBS.PERFDB`` raises; the live plane's keys (``OBS.METRICS_PORT`` and
+  the aggregators') are accepted and read by nothing, as in JAX.
 """
 
 import os
 import signal
+import socket
+import threading
 import time
 
 import jax
@@ -258,16 +260,20 @@ def test_fsdp2_state_bytes_equal_jax_state_bytes(tmp_path, fresh_cfg):
 
 
 def test_obs_keys_of_the_live_plane_and_perfdb(tmp_path):
-    """A non-zero OBS.METRICS_PORT raises naming item 7b, a non-empty
-    OBS.PERFDB raises with the reason it is not ported; OBS.ALARMS,
-    METRICS_HOST and TAIL_INTERVAL_S are accepted and change nothing."""
-    for key, value, match in (("OBS__METRICS_PORT", 9100, r"OBS.METRICS_PORT is not ported yet "
-                                                         r"\(ROADMAP Queue 1 item 7b\)"),
-                              ("OBS__PERFDB", "/x.json", "kernel on/off switch")):
-        _tiny(tmp_path / key, max_epoch=1, **{key: value})
-        with pytest.raises(NotImplementedError, match=match):
-            train_model(device="cpu")
-    _tiny(tmp_path / "accepted", max_epoch=1, OBS__ALARMS=["x=goodput<0.2"],
-          OBS__METRICS_HOST="0.0.0.0", OBS__TAIL_INTERVAL_S=5.0)
+    """A non-empty OBS.PERFDB raises with the reason it is not ported; a
+    non-zero OBS.METRICS_PORT, OBS.ALARMS, METRICS_HOST and TAIL_INTERVAL_S
+    are accepted and read by nothing, as in the JAX trainer: the run ends
+    clean and leaves the port unbound."""
+    _tiny(tmp_path / "perfdb", max_epoch=1, OBS__PERFDB="/x.json")
+    with pytest.raises(NotImplementedError, match="kernel on/off switch"):
+        train_model(device="cpu")
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    _tiny(tmp_path / "accepted", max_epoch=1, OBS__METRICS_PORT=port,
+          OBS__ALARMS=["x=goodput<0.2"], OBS__METRICS_HOST="0.0.0.0", OBS__TAIL_INTERVAL_S=5.0)
     train_model(device="cpu")
     assert _records(tmp_path / "accepted")[-1]["clean"] is True
+    assert not any(t.name.startswith("dtpu-obs") for t in threading.enumerate())
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", port))  # nothing listens there
