@@ -67,7 +67,17 @@ Phases (any failure exits non-zero):
    at full width (batch 128, fmap 14x14) and at fmap 32x32, card vs CPU
    (the K3/K5 route), then its forward + backward at both: f32 card vs CPU
    gradients, bf16 gradients of the tables and ``to_qk`` finite and non-zero,
-   the backward's launches by route;
+   the backward's launches by route; then [serve-int8]: one replica serving
+   ResNet-50 (``config/serve_resnet50.yaml``, the zoo's seeded init) and its
+   post-training-quantized twin (``:int8``, the QUANT defaults): the gate
+   passes, one ``quant_quality`` record (54 sites, 53 BNs folded) and a
+   ``serve_compile`` with quant int8 a ladder size, requests of b1 and b128
+   to both, K1's int32 input mode 53 times a forward (none scalar), the
+   int32 accumulators of the stem, a 3x3 stride-2 conv and the fc
+   ``torch.equal`` to the plain version on the card, K1's int32 mode
+   bitwise its plain version; the gate's numbers, both models' forward ms,
+   the weights resident before and after the prune, K1's int32 mode against
+   its plain version and bound;
 8. [moe-kernels] the switch-MoE dispatch (K6) and combine (K7) kernels
    (``ops/csrc/moe.cu``) against their plain versions on the card: the soak's
    per-device shard (N 8192, D 128, E 8, C 1280) and the Switch-Transformer-
@@ -129,9 +139,11 @@ Phases (any failure exits non-zero):
    and none on the cluster route, beside 53 K1 and 53 K1-bwd; the loss
    finite and falling, the checkpoint, ``test_net`` on it, step ms,
    images/s and the profile of 3 steps by kernel class, attention-bwd µs a
-   step against its bound;
+   step against its bound; beside [train-bot]'s run, so their step ms share
+   the card;
 14. [input] a JPEG ImageFolder written from a seed (4096 train and 512 val
-   images over 100 classes, 500x375, quality 90, ~110 KB a file), then the
+   images over 100 classes, 500x375, quality 90, ~110 KB a file; written
+   beside the kernels' build, on the cores nvcc leaves), then the
    port's ``HostDataLoader`` alone: train-transform images/s at 224^2,
    batch 128, pinned, at TRAIN.WORKERS 4 and min(32, cpu count), the
    decoder backend, the time to pin a batch;
@@ -157,7 +169,7 @@ Phases (any failure exits non-zero):
    (run after 22, beside 23–26: see there);
 18. [train-preempt] [train]'s command with ``CUDNN.DETERMINISTIC True`` over
    2 epochs of PREEMPT_STEPS steps, each run a subprocess: one uninterrupted
-   run; one sent a real SIGTERM once its log shows a step of epoch 2, which
+   run; beside it, one sent a real SIGTERM once its log shows a step of epoch 2, which
    must exit 143 leaving a ``ckpt_mid_ep_001_it_*`` that verifies against
    its manifest, after 53 K1 and 53 K1-bwd launches a step; its relaunch,
    which must log ``Resumed from ... (epoch 1, step S`` and end with model
@@ -175,7 +187,8 @@ Phases (any failure exits non-zero):
    config: the loss finite and falling, K1 and K1-bwd 121 / 59 / 49 / 0
    times a step (every BN), none scalar, the checkpoint, ``test_net`` on
    it, step ms, images/s, peak memory and the profile of 3 steps by kernel
-   class beside K1's and K1-bwd's bound from the step's sites;
+   class beside K1's and K1-bwd's bound from the step's sites; the four
+   runs at once, beside [train-mae], so their step ms share the card;
 20. [zoo f32] (after 21) each of those families at full width, 64^2, batch 8: the f32
    eval forward card vs CPU (F32_REL_TOL of max|logit|) and one f32 step
    card vs CPU ([train]'s and [train-bot]'s limits), every BN one K1 and
@@ -188,15 +201,16 @@ Phases (any failure exits non-zero):
    MAE_STEPS steps: the masked patches' MSE finite and falling, no K1 or
    attention launch (MAE is cuBLAS and eager ops), the checkpoint,
    ``test_net`` on it (a finite masked MSE), step ms, images/s, peak memory
-   and the profile of 3 steps;
+   and the profile of 3 steps; beside [train-zoo]'s runs;
 22. [train-fsdp] ``python -m distribuuuu_tpu_torch.train_net --cfg
    config/vit_l16.yaml MODEL.DUMMY_INPUT True``: ViT-L/16 exactly as the YAML
    says (``MESH.FSDP -1``, a trivial fsdp axis on one card; 224^2, batch 32,
    REMAT, LAMB), FSDP_STEPS steps: the loss falling, no K1 or attention
    launch, the census line (296 leaves replicated) and the bytes held, the
    checkpoint, ``test_net`` on it, step ms, images/s, peak memory, the
-   profile; 2 steps of the YAML at ``MESH.FSDP -1`` and ``1`` in this
-   process, cuDNN deterministic, ``torch.equal``; then ResNet-50 b128 at
+   profile; beside that run, 2 steps of the YAML at ``MESH.FSDP -1`` and ``1`` in one fresh
+   process with ``CUDNN.DETERMINISTIC``'s settings made before its first
+   CUDA work, ``torch.equal``; beside that process, ResNet-50 b128 at
    ``MESH.FSDP 2`` against ``MESH.FSDP 1`` on 2 ranks, NCCL where 2 cards
    are visible, else gloo ranks sharing the card (where gloo takes CUDA
    tensors for the fsdp collectives; it says which ran, or that none did):
@@ -260,10 +274,12 @@ just after. Per-shape numbers are also written to ``smoke_out/``.
 from __future__ import annotations
 
 import base64
+import contextlib
 import importlib.util
 import itertools
 import json
 import math
+import os
 import re
 import signal
 import statistics
@@ -744,14 +760,15 @@ TRAIN_TOP_OPS = 64
 # the run's journal (obs/): what both [train] runs must write between them,
 # and how close its readings must come to the log's and a hand count's:
 # the FLOP count is exact arithmetic (0.5 % leaves room only for a wrong
-# convention), the journal's step p50 before the profiler window and the
-# log's median read the same windows' wall times, the journal's over one
-# window more (2 %), and the attribution's buckets are train_profile's
-# events rounded to 0.1 us (1 %)
+# convention), a window's step time in the journal and on the log's
+# progress line are one number, printed to 1 ms there and to 1 us in the
+# journal (so they and the p50s of the same windows agree to half of each),
+# and the attribution's buckets are train_profile's events rounded to 0.1 us
+# (1 %)
 JOURNAL_KINDS = ("run_start", "window", "epoch_train", "eval", "checkpoint", "counters",
                  "memory", "state_bytes", "profile", "step_attribution", "run_end", "resume")
 FLOPS_TOL = 5e-3
-P50_TOL = 2e-2
+P50_ROUND_S = 0.5e-3 + 0.5e-6
 ATTRIBUTION_TOL = 1e-2
 # the runs whose MFU nothing reads skip the step's FLOP count (obs/flops.py):
 # its first call in a process imports torch._dynamo behind FlopCounterMode's
@@ -920,16 +937,25 @@ def resnet_step_flops(stages, bottleneck: bool, im: int, classes: int, batch: in
     return 2.0 * batch * (3 * macs - stem)
 
 
+def log_p50(times: list) -> float:
+    """The p50 of ``times`` as the journal takes it (``obs/telemetry.py``'s
+    ``_percentile``: the element at rank ``round(0.5 * (n - 1))`` of the
+    sorted list, not the mean of the middle two)."""
+    vals = sorted(times)
+    return vals[min(len(vals) - 1, int(round(0.5 * (len(vals) - 1))))] if vals else math.nan
+
+
 def train_journal_check(out: Path, res: dict, card: str) -> dict:
     """[train]'s journal over its run and the relaunch: it validates, holds
     JOURNAL_KINDS with two run_starts on the card, a clean run_end after
     each and the relaunch's resume; the first epoch's windows carry a
     non-null MFU at a ``flops_per_step`` within FLOPS_TOL of
-    :func:`resnet_step_flops`; the ``step_time_p50`` of the window that
-    ends where the log's steady windows end (the epoch's windows so far:
-    the log's, and the one before them; the later ones hold the profiler's
-    synchronisations) lies within P50_TOL of the log's step; the memory
-    record's peak equals the epoch line's (the
+    :func:`resnet_step_flops`; each steady window up to the one that ends
+    where the log's steady windows end (the later ones hold the profiler's
+    synchronisations) reads the ``step_time`` of the log's progress line at
+    its step, and that window's ``step_time_p50`` the same rank of those
+    lines' times (:func:`log_p50`), to the log's rounding (P50_ROUND_S);
+    the memory record's peak equals the epoch line's (the
     first run's log file in ``out``), and its counters' K1 and K1-bwd
     launches the log's; ``python -m distribuuuu_tpu_torch.obs validate``
     and ``summarize`` (called in this process) exit 0 on it."""
@@ -958,11 +984,19 @@ def train_journal_check(out: Path, res: dict, card: str) -> dict:
     flops = steady[-1]["flops_per_step"] if steady else None
     if flops is None or abs(flops - want_flops) > FLOPS_TOL * want_flops:
         bad.append(f"flops_per_step {flops} against the hand count {want_flops:.6e}")
-    last = [w for w in steady if w["step"] == TRAIN_PROFILE[0] - TRAIN_PRINT]
-    p50 = last[0]["step_time_p50"] * 1e3 if last else float("nan")
-    if not abs(p50 - res["step_ms"]) <= P50_TOL * res["step_ms"]:
-        bad.append(f"step_time_p50 {p50:.3f} ms at step {TRAIN_PROFILE[0] - TRAIN_PRINT} "
-                   f"against the log's {res['step_ms']:.3f} ms")
+    upto = TRAIN_PROFILE[0] - TRAIN_PRINT
+    seen = [w for w in steady if w["step"] <= upto]
+    log_s = {it: t for it, t, _ in res["windows"]}
+    off = [(w["step"], w["step_time"], log_s.get(w["step"])) for w in seen
+           if not abs(w["step_time"] - log_s.get(w["step"], math.inf)) <= P50_ROUND_S]
+    if not seen or seen[-1]["step"] != upto or off:
+        bad.append(f"windows to step {upto}: {[w['step'] for w in seen]}; (step, the journal's "
+                   f"step_time, the log's) apart by more than the log's rounding: {off}")
+    p50 = seen[-1]["step_time_p50"] * 1e3 if seen else float("nan")
+    p50_log = 1e3 * log_p50([log_s.get(w["step"], math.nan) for w in seen])
+    if not abs(p50 - p50_log) <= 1e3 * P50_ROUND_S:
+        bad.append(f"step_time_p50 {p50:.3f} ms at step {upto} against {p50_log:.3f} ms, the "
+                   f"log's over the same {len(seen)} windows")
     peak = re.search(r"Epoch\[0\] done: .*peak memory \S+ GiB \((\d+) bytes\)", log)
     mem_peak = mem["per_device"]["0"]["allocated_bytes.all.peak"] if mem else None
     if peak is None or mem_peak != int(peak[1]):
@@ -976,9 +1010,10 @@ def train_journal_check(out: Path, res: dict, card: str) -> dict:
     say(f"[train journal] {len(recs)} records ({', '.join(sorted(set(kinds)))}); flops_per_step "
         f"{flops} (hand count {want_flops:.6e}), priced in {priced[1] if priced else '?'} s; "
         f"MFU by window {mfus} at a peak of {starts[0].get('peak_tflops_per_device')} TFLOP/s; "
-        f"step_time_p50 {p50:.3f} ms at step {TRAIN_PROFILE[0] - TRAIN_PRINT}, "
+        f"step_time_p50 {p50:.3f} ms at step {upto} (the log's over its {len(seen)} windows "
+        f"{p50_log:.3f} ms, each window within {1e3 * P50_ROUND_S} ms of its line), "
         f"{1e3 * steady[-1]['step_time_p50'] if steady else float('nan'):.3f} ms at the epoch's "
-        f"end (log {res['step_ms']:.3f} "
+        f"end (the log's step {res['step_ms']:.3f} "
         f"ms; before the journal 92.00-98.00 ms, PERF.md §5); "
         f"peak {mem_peak} bytes; K1/K1-bwd counters {launches}; data_wait_frac "
         f"{[w['data_wait_frac'] for w in steady]} ({card})")
@@ -1367,7 +1402,8 @@ def train_f32_botnet_check() -> dict:
 # full width, each at its config's batch of 64 a GPU, 224^2, bf16, dummy input.
 # (tag, config, extra arguments, K1 and K1-bwd launches a step: every BN).
 # DenseNet trains on resnet50.yaml's recipe (the repo has no DenseNet YAML;
-# the reference trains it so), without the ResNet stem option.
+# the reference trains it so), without the ResNet stem option. They run in
+# pairs in this order (phase_train_zoo).
 ZOO_RUNS = [
     ("densenet121", "config/resnet50.yaml",
      ["MODEL.ARCH", "densenet121", "MODEL.STEM_S2D", "False", "TRAIN.BATCH_SIZE", "64"], 121),
@@ -1435,26 +1471,34 @@ def phase_train_zoo(card: str, tmp: Path, bw: float, deferred: list) -> dict:
     :func:`train_run`, ZOO_STEPS steps at batch ZOO_BATCH: the loss finite
     and falling, every BN's K1 and K1-bwd launches a step and none scalar,
     the checkpoint (its ``test_net`` appended to ``deferred``), step ms,
-    images/s, peak memory and the profile of 3 steps."""
-    out = {}
-    for arch, cfg_file, extra, k1 in ZOO_RUNS:
+    images/s, peak memory and the profile of 3 steps. The runs go all at
+    once, so their step ms share the card (the launch counts, the
+    profile's kernels and the attribution do not depend on it)."""
+    out, checks, bounds = {}, {}, {}
+    for arch, _, _, k1 in ZOO_RUNS:
         sites = zoo_sites(arch)
         if sum(sites.values()) != k1:
             fail(f"[train-zoo] {arch}: {sum(sites.values())} K1 sites a step, want {k1}")
-        check = zoo_k1_check(sites)
-        bound_ms = zoo_bounds(sites, bw)
-        out[arch] = train_run(card, tmp / f"zoo_{arch}", "train-zoo", arch, cfg_file, ZOO_BATCH,
-                              ZOO_STEPS, ZOO_PROFILE, 0, bound_ms, k1=k1, extra=extra,
-                              deferred=deferred)
-        launches = out[arch]["launches"]
-        say(f"[train-zoo] {arch}: K1 and K1-bwd at the step's {check['sites']} distinct sites "
-            f"(batch {ZOO_BATCH}, 224^2, x/residual/gradient bf16), each against its plain "
-            f"version: K1 bitwise, K1-bwd d_x and d_identity bitwise, sums within "
-            f"{check['k1_bwd_sum_rel_err']:.2e} of sum|terms| (limit {K1_BWD_SUM_RTOL}), none "
-            f"scalar; in the run K1 {launches['k1']}, K1-bwd {launches['k1_bwd']} launches "
-            f"({k1} a step x {ZOO_STEPS} steps), scalar {launches['k1_scalar']} / "
-            f"{launches['k1_bwd_scalar']}")
-        out[arch].update(bound_ms=bound_ms, k1_a_step=k1, k1_check=check)
+        checks[arch] = zoo_k1_check(sites)
+        bounds[arch] = zoo_bounds(sites, bw)
+    evals = {arch: [] for arch, _, _, _ in ZOO_RUNS}
+    runs = {arch: Background(lambda a=arch, c=cfg_file, e=extra, k=k1: train_run(
+                card, tmp / f"zoo_{a}", "train-zoo", a, c, ZOO_BATCH, ZOO_STEPS, ZOO_PROFILE,
+                0, bounds[a], k1=k, extra=e, deferred=evals[a]))
+            for arch, cfg_file, extra, k1 in ZOO_RUNS}
+    for arch, _, _, k1 in ZOO_RUNS:
+        out[arch] = runs[arch].result()
+        deferred.extend(evals[arch])
+        check, launches = checks[arch], out[arch]["launches"]
+        say(f"[train-zoo] {arch}: K1 and K1-bwd at the step's {check['sites']} distinct "
+            f"sites (batch {ZOO_BATCH}, 224^2, x/residual/gradient bf16), each against its "
+            f"plain version: K1 bitwise, K1-bwd d_x and d_identity bitwise, sums within "
+            f"{check['k1_bwd_sum_rel_err']:.2e} of sum|terms| (limit {K1_BWD_SUM_RTOL}), "
+            f"none scalar; in the run K1 {launches['k1']}, K1-bwd {launches['k1_bwd']} "
+            f"launches ({k1} a step x {ZOO_STEPS} steps), scalar {launches['k1_scalar']} / "
+            f"{launches['k1_bwd_scalar']}; run beside "
+            f"{', '.join(a for a, *_ in ZOO_RUNS if a != arch)} and [train-mae]")
+        out[arch].update(bound_ms=bounds[arch], k1_a_step=k1, k1_check=check)
     return out
 
 
@@ -1662,11 +1706,11 @@ def phase_train_mae(card: str, tmp: Path, deferred: list) -> dict:
 # [train-fsdp]: config/vit_l16.yaml exactly as written through the training
 # CLI on one card (MESH.FSDP -1: a trivial fsdp axis on one process; ViT-L/16
 # at 224^2, batch 32, REMAT on, LAMB), FSDP_STEPS steps, test_net on its
-# checkpoint; the census line and the bytes the process holds. Then, in this
-# process, 2 steps of the YAML at MESH.FSDP -1 and at MESH.FSDP 1 with cuDNN
-# deterministic: every tensor torch.equal. Then the sharded path on 2 ranks
-# (FSDP_DIST): ResNet-50 b128 at MESH.FSDP 2 against MESH.FSDP 1, the two runs
-# at once, K1 and K1-bwd 53 times a step on every rank, none scalar, the loss
+# checkpoint; the census line and the bytes the process holds. Then, in one
+# fresh process, 2 steps of the YAML at MESH.FSDP -1 and at MESH.FSDP 1,
+# deterministic: every tensor torch.equal. Beside it, the sharded path on 2
+# ranks (FSDP_DIST): ResNet-50 b128 at MESH.FSDP 2 against MESH.FSDP 1, the
+# two runs at once, K1 and K1-bwd 53 times a step on every rank, none scalar, the loss
 # streams within tests/test_fsdp.py's limits; on 2 NCCL cards where there
 # are 2, else on 2 gloo ranks sharing the one card where gloo takes CUDA
 # tensors for both collectives (fsdp_gloo_cuda), else not run, and the
@@ -1682,18 +1726,17 @@ FSDP_PARAM_TOL = dict(rtol=1e-3, atol=2e-5)
 
 def fsdp_two_steps(mesh: str) -> tuple:
     """2 steps of FSDP_CFG at ``MESH.FSDP mesh`` on one card in this process
-    (cuDNN deterministic, seeded weights and batches): the parameters, the
-    optimizer state and the losses, on the CPU."""
+    (deterministic, as :func:`fsdp_pair_main` configures the process; seeded
+    weights and batches): the parameters, the optimizer state and the
+    losses, on the CPU."""
     import torch
 
     from distribuuuu_tpu_torch.config import cfg, load_cfg_fom_args, reset_cfg
     from distribuuuu_tpu_torch.runtime.mesh import data_mesh
-    from distribuuuu_tpu_torch.runtime.seeding import configure_determinism
     from distribuuuu_tpu_torch.trainer import TrainState, build_cfg_model, train_step
 
     reset_cfg()
     load_cfg_fom_args(argv=["--cfg", str(ROOT / FSDP_CFG), "MESH.FSDP", mesh])
-    configure_determinism(True, False)
     model = build_cfg_model(torch.Generator().manual_seed(0)).to("cuda")
     st = TrainState(model, None, data_mesh(cfg.MESH.DATA, cfg.MESH.FSDP, 1, 0),
                     cfg.MESH.FSDP_MIN_SIZE)
@@ -1709,6 +1752,39 @@ def fsdp_two_steps(mesh: str) -> tuple:
            st.fsdp)
     reset_cfg()
     return out
+
+
+def fsdp_pair_main(path: str) -> None:
+    """A fresh process's :func:`fsdp_two_steps` at MESH.FSDP -1 and at 1, in
+    that order, saved to ``path``. ``CUDNN.DETERMINISTIC``'s settings
+    (``configure_determinism``) come before the process's first CUDA work,
+    as the trainer makes them: cuBLAS reads its workspace setting when a
+    handle is made."""
+    from distribuuuu_tpu_torch.runtime.seeding import configure_determinism
+
+    configure_determinism(True, False)
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False  # as main()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.save((fsdp_two_steps("-1"), fsdp_two_steps("1")), path)
+
+
+def fsdp_pair() -> tuple:
+    """:func:`fsdp_pair_main` in a process of its own: the two runs' results
+    and the process's wall in s."""
+    import torch
+
+    tic = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "two_steps.pt")
+        code = (f"import sys; sys.path.insert(0, {str(ROOT)!r}); import chip_smoke; "
+                f"chip_smoke.fsdp_pair_main({path!r})")
+        proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                              text=True, timeout=600)
+        if proc.returncode != 0:
+            fail(f"[train-fsdp] the two in-process runs failed:\n{proc.stderr[-3000:]}")
+        return torch.load(path, weights_only=False), time.perf_counter() - tic
 
 
 def fsdp_gloo_cuda() -> tuple[bool, str]:
@@ -1808,7 +1884,7 @@ def fsdp_sharded(tmp: Path) -> dict:
              f"{rep['losses']} ({how}): not within {tol}")
     say(f"[train-fsdp] sharded path ran on {how}: ResNet-50 b{batch} {shard['first_line']}; K1 / K1-bwd by rank {shard['k1']} / {shard['k1_bwd']} over "
         f"{steps} steps, none scalar; step {shard['step_ms']:.2f} ms (fsdp 1: "
-        f"{rep['step_ms']:.2f}; the two runs at once); losses {shard['losses']} vs fsdp 1 {rep['losses']}; the final "
+        f"{rep['step_ms']:.2f}; the two runs at once, beside the two-step pair); losses {shard['losses']} vs fsdp 1 {rep['losses']}; the final "
         f"model and optimizer state {'bitwise equal' if bitwise else 'within the limits'}")
     return {"ran": how, "fsdp2": shard, "fsdp1": rep, "final_bitwise": bitwise}
 
@@ -1816,9 +1892,13 @@ def fsdp_sharded(tmp: Path) -> dict:
 def phase_train_fsdp(card: str, tmp: Path, deferred: list) -> dict:
     """[train-fsdp]: :func:`train_run` on FSDP_CFG as written (no K1 or
     attention launch: ViT is cuBLAS and eager ops), its census; the two
-    in-process runs of :func:`fsdp_two_steps`; :func:`fsdp_sharded`."""
+    in-process runs of :func:`fsdp_two_steps` in :func:`fsdp_pair`'s
+    process, beside the ViT-L/16 run and then :func:`fsdp_sharded` (none is
+    timed against another; the run's step ms share the card)."""
     import torch
 
+    tic = time.perf_counter()
+    pair = Background(fsdp_pair)
     res = train_run(card, tmp / "vit_l16", "train-fsdp", "ViT-L/16 (MESH.FSDP -1, REMAT)",
                     FSDP_CFG, FSDP_BATCH, FSDP_STEPS, FSDP_PROFILE, 0, {}, k1=0,
                     deferred=deferred)
@@ -1827,17 +1907,23 @@ def phase_train_fsdp(card: str, tmp: Path, deferred: list) -> dict:
         fail(f"[train-fsdp] census line {res['census']!r}: want fsdp=1 with ViT-L/16's 296 "
              f"leaves replicated")
     say(f"[train-fsdp] {res['census']}; {res['mesh']}")
-    a, b = fsdp_two_steps("-1"), fsdp_two_steps("1")
+    run_s, tic = time.perf_counter() - tic, time.perf_counter()
     torch.cuda.empty_cache()
+    res["sharded"] = fsdp_sharded(tmp)
+    sharded_s = time.perf_counter() - tic
+    (a, b), pair_s = pair.result()
     same = torch.equal(a[0], b[0]) and a[1].keys() == b[1].keys() and all(
         torch.equal(a[1][k], b[1][k]) for k in a[1]) and a[2] == b[2]
     if not same or a[3] != 1 or b[3] != 1:
         fail(f"[train-fsdp] 2 steps at MESH.FSDP -1 (fsdp {a[3]}, losses {a[2]}) and at 1 (fsdp "
              f"{b[3]}, losses {b[2]}) are not torch.equal")
-    say(f"[train-fsdp] 2 steps of {FSDP_CFG} at MESH.FSDP -1 and at MESH.FSDP 1 (cuDNN "
-        f"deterministic, batch 8): parameters, LAMB state and losses {a[2]} torch.equal")
+    say(f"[train-fsdp] 2 steps of {FSDP_CFG} at MESH.FSDP -1 and at MESH.FSDP 1 in one fresh "
+        f"process (CUDNN.DETERMINISTIC set before its first CUDA work, batch 8): parameters, "
+        f"LAMB state and losses {a[2]} torch.equal")
     res["two_steps_equal"] = a[2]
-    res["sharded"] = fsdp_sharded(tmp)
+    res["walls_s"] = dict(run=run_s, pair=pair_s, sharded=sharded_s)
+    say(f"[train-fsdp] walls: the two-step pair's process {pair_s:.1f} s, beside the ViT-L/16 "
+        f"run {run_s:.1f} s and then the sharded runs {sharded_s:.1f} s")
     return res
 
 
@@ -2180,13 +2266,19 @@ def torchvision_file(path: Path, arch: str, seed: int) -> dict:
     return sd
 
 
+CUBLAS_ENV = "CUBLAS_WORKSPACE_CONFIG"
+
+
 def captured_test_model(argv: list, out: Path) -> list:
     """``trainer.test_model`` on the card in this process with ``argv``; the
     logits of each val batch, from a forward hook on the model it builds."""
+    import os
+
     import torch
 
     from distribuuuu_tpu_torch import trainer
     from distribuuuu_tpu_torch.config import load_cfg_fom_args, reset_cfg
+    from distribuuuu_tpu_torch.runtime.seeding import configure_determinism
 
     logits, build = [], trainer.build_cfg_model
 
@@ -2195,7 +2287,8 @@ def captured_test_model(argv: list, out: Path) -> list:
         model.register_forward_hook(lambda m, i, o: logits.append(o.detach().cpu()))
         return model
 
-    before = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    before = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+              torch.are_deterministic_algorithms_enabled(), os.environ.get(CUBLAS_ENV))
     reset_cfg()
     load_cfg_fom_args(argv=[*argv, "OUT_DIR", str(out)])
     trainer.build_cfg_model = spy
@@ -2204,7 +2297,10 @@ def captured_test_model(argv: list, out: Path) -> list:
     finally:
         trainer.build_cfg_model = build
         reset_cfg()
-        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = before
+        configure_determinism(before[2])
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = before[:2]
+        if before[3] is None:  # CUDNN.DETERMINISTIC set it for this process's later children
+            os.environ.pop(CUBLAS_ENV, None)
     return logits
 
 
@@ -2308,9 +2404,10 @@ def write_jpeg(path: Path, seed: int, index: int) -> int:
     return path.stat().st_size
 
 
-def write_jpeg_imagefolder(root: Path, seed: int = 0) -> dict:
-    """``root/{train,val}/c<k>/<i>.jpg`` (class ``i % JPEG_CLASSES``), one
-    thread a core (PIL's encoder releases the GIL)."""
+def write_jpeg_imagefolder(root: Path, seed: int = 0, threads: int | None = None) -> dict:
+    """``root/{train,val}/c<k>/<i>.jpg`` (class ``i % JPEG_CLASSES``) on
+    ``threads`` threads, one a core by default (PIL's encoder releases the
+    GIL)."""
     import os
     from concurrent.futures import ThreadPoolExecutor
 
@@ -2322,7 +2419,7 @@ def write_jpeg_imagefolder(root: Path, seed: int = 0) -> dict:
                  for i in range(n)]
         first += n
     tic = time.perf_counter()
-    with ThreadPoolExecutor(os.cpu_count()) as pool:
+    with ThreadPoolExecutor(threads or os.cpu_count()) as pool:
         sizes = list(pool.map(lambda job: write_jpeg(job[0], seed, job[1]), jobs))
     return dict(files=len(sizes), mean_bytes=statistics.fmean(sizes),
                 wall_s=time.perf_counter() - tic)
@@ -2869,15 +2966,21 @@ def final_tensors(out: Path) -> dict:
 
 
 def phase_train_preempt(card: str, tmp: Path, smi: str) -> dict:
-    """[train-preempt]: the uninterrupted run, the SIGTERM run, its
-    relaunch and the hang run (module docstring, item 18)."""
+    """[train-preempt]: the uninterrupted run beside the SIGTERM run, then
+    the relaunch and the hang run (module docstring, item 18)."""
     import torch
 
     from distribuuuu_tpu_torch import checkpoint as ckpt
 
     tic = time.perf_counter()
     whole = tmp / "whole"
-    log = run_cli(preempt_args(whole), "train_net [train-preempt] uninterrupted")
+    whole_run = Background(run_cli, preempt_args(whole), "train_net [train-preempt] uninterrupted")
+
+    # SIGTERM once the log shows a step of epoch 2 (index 1)
+    out = tmp / "preempted"
+    rc, lines, hit, _ = watch_cli(preempt_args(out), "[train-preempt] SIGTERM run",
+                               until=r"Epoch\[1\] \[\s*\d+/")
+    log = whole_run.result()
     prog = [(int(m[1]), float(m[2])) for m in re.finditer(
         r"Epoch\[0\] \[\s*(\d+)/\d+\]\s+Time (\S+) \(", log)]
     if not prog:
@@ -2887,11 +2990,6 @@ def phase_train_preempt(card: str, tmp: Path, smi: str) -> dict:
     want = (TRAIN_K1 * PREEMPT_STEPS, TRAIN_K1 * PREEMPT_STEPS, float(TRAIN_K1), float(TRAIN_K1))
     if counts.get(0) != want or counts.get(1) != want:
         fail(f"[train-preempt] uninterrupted launches {counts}; want {want} an epoch")
-
-    # SIGTERM once the log shows a step of epoch 2 (index 1)
-    out = tmp / "preempted"
-    rc, lines, hit, _ = watch_cli(preempt_args(out), "[train-preempt] SIGTERM run",
-                               until=r"Epoch\[1\] \[\s*\d+/")
     text = "".join(l for _, l in lines)
     if hit is None or rc != 143:
         fail(f"[train-preempt] the SIGTERM run exited {rc} (want 143; signal sent: "
@@ -3690,6 +3788,255 @@ def phase_serve(card: str, tmp: Path, arch: str, k1_bound_us: dict):
     return dict(launches=launches, forwards=forwards, latency_ms=latency, profile=profile,
                 f32_ratio=d_a / scale, bf16_ratio=d_b, top1=top1, startup_s=startup_s,
                 journal=journal)
+
+
+# [serve-int8]: config/serve_resnet50.yaml at full width with one replica
+# hosting rn50 and its post-training-quantized twin rn50q (":int8", the QUANT
+# defaults: 4 x 8 calibration batches, 16 gate inputs), on the zoo's own
+# seeded init (layers.init_weights: what JAX's synthetic_variables draws for
+# its int8 fixtures) with the fc scaled by INT8_FC_SCALE. JAX's site table:
+# 53 convs and the fc quantized, every BN folded into its conv's dequant,
+# which K1 runs in its int32 input mode. The gate's logit RMSE is absolute:
+# at init the BNs' unit statistics let the residual stream grow, and the
+# logits' scale with it, so the raw init fails the gate on its RMSE; with the
+# fc at a tenth the RMSE shrinks tenfold and the top-1 agreement stays, as
+# the scale leaves every ratio. The gate is then ~10x looser than its limit
+# reads, so the int8 logits at b1 and b128 are also held torch.equal to the
+# same module's forward through the plain routes (plain_routes): every
+# site's quantize, int32 accumulator, dequant and K1 on the card.
+INT8 = dict(name="rn50q", fp="rn50", sites=54, folded=53, k1=53)
+INT8_SEED = 0
+INT8_FC_SCALE = 0.1
+# the sites whose int32 accumulators are held against the plain version:
+# the stem (7x7/2, K 147 padded to 152), a 3x3 stride-2 conv and the fc
+INT8_ACC_SITES = ("conv1", "layer2.0.conv2", "fc")
+INT8_TIMED_RUNS = 10  # engine forwards a median, at b1 and b128
+
+
+def init_state_dict(arch: str, seed: int, fc_scale: float = 1.0) -> dict:
+    """``arch``'s state_dict from the zoo's own initialisers (JAX's init),
+    drawn from ``seed``, the last linear's weight and bias times ``fc_scale``."""
+    import torch
+
+    from distribuuuu_tpu_torch.models import build_model, layers
+
+    model = build_model(arch, num_classes=1000, dtype=torch.float32, im_size=IM)
+    layers.init_weights(model, torch.Generator().manual_seed(seed))
+    fc = [n for n, m in model.named_modules() if isinstance(m, torch.nn.Linear)][-1]
+    return {k: v * fc_scale if k.startswith(f"{fc}.") else v.clone()
+            for k, v in model.state_dict().items()}
+
+
+def k1_int32_bound(calls, bw: float) -> tuple[float, str]:
+    """(bound ms, what bounds it) of the recorded int32-mode K1 calls: the
+    int32 accumulator, the residual and the outputs moved once, the three
+    f32 vectors; 3-5 f32 operations an element."""
+    import torch
+
+    nbytes = flops = 0
+    for (x, _, _, _, ident), kw in calls:
+        elems, c = x.numel(), x.shape[1]
+        out = kw["bn_dtype"] if ident is None else torch.promote_types(kw["bn_dtype"], ident.dtype)
+        nbytes += elems * (x.element_size() + (0 if ident is None else ident.element_size())
+                           + out.itemsize + (0 if kw.get("cast_to") is None
+                                             else kw["cast_to"].itemsize)) + 3 * c * 4
+        flops += elems * (3 + int(kw["relu"]) + int(ident is not None))
+    by = "bytes" if nbytes / bw >= flops / F32_PEAK_FLOPS else "operations"
+    return 1e3 * max(nbytes / bw, flops / F32_PEAK_FLOPS), by
+
+
+@contextlib.contextmanager
+def plain_routes():
+    """The int8 module's plain versions for the duration, on the card's
+    tensors: the int8 products' float64 references and K1's
+    ``epilogue_reference`` (nothing counted as a launch)."""
+    from distribuuuu_tpu_torch.models import layers
+    from distribuuuu_tpu_torch.ops import epilogue as ep
+    from distribuuuu_tpu_torch.quant import ptq
+
+    swaps = [(ptq, "int8_conv2d", ptq.int8_conv2d_reference),
+             (ptq, "int8_linear", ptq.int8_linear_reference),
+             (layers, "fused_conv_epilogue", ep.epilogue_reference)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    for mod, name, fn in swaps:
+        setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def phase_serve_int8(card: str, smi: str, tmp: Path, bw: float) -> dict:
+    """[serve-int8] (INT8): the replica's startup (load, calibrate, quantize,
+    the gate, the prune, the warmup), requests of b1 and b128 to both
+    models, the journal's ``quant_quality`` and ``serve_compile`` records,
+    K1's int32 launches (INT8["k1"] a forward, none scalar), the int32
+    accumulators of INT8_ACC_SITES torch.equal to the plain version on the
+    card, the int8 logits torch.equal to :func:`plain_routes`', then the
+    gate's numbers, both models' forward ms, the weights
+    resident before and after the prune, and K1's int32 mode against its
+    plain version and its bound."""
+    import numpy as np
+    import torch
+
+    from distribuuuu_tpu_torch.config import cfg, load_cfg_fom_args, reset_cfg
+    from distribuuuu_tpu_torch.models import layers
+    from distribuuuu_tpu_torch.ops import epilogue as ep
+    from distribuuuu_tpu_torch.quant import ptq
+    from distribuuuu_tpu_torch.serve.engine import parse_model_specs
+    from distribuuuu_tpu_torch.serve.frontend import ServeReplica
+
+    wall0 = time.perf_counter()
+    weights = tmp / "rn50_init.pt"
+    torch.save(init_state_dict("resnet50", INT8_SEED, INT8_FC_SCALE), weights)
+    out_dir = tmp / "serve_int8"
+    q, fp = INT8["name"], INT8["fp"]
+    reset_cfg()
+    load_cfg_fom_args(argv=["--cfg", str(SERVE_CFG), "SERVE.MODELS",
+                            f"['{fp}=resnet50@{weights}', '{q}=resnet50@{weights}:int8']",
+                            "OUT_DIR", str(out_dir)])
+    cfg.freeze()
+    ladder = list(cfg.SERVE.BATCH_SIZES)
+
+    # --- the main path: counts zeroed just before, read just after ---------
+    ep.LAUNCHES = ep.SCALAR_LAUNCHES = ep.INT32_LAUNCHES = 0
+    tic = time.perf_counter()
+    replica = ServeReplica(parse_model_specs(list(cfg.SERVE.MODELS)), str(cfg.OUT_DIR))
+    startup_s = time.perf_counter() - tic
+    engine = replica.engine
+    rng = np.random.default_rng(3)
+    reqs = {b: rng.integers(0, 256, size=(b, IM, IM, 3), dtype=np.uint8) for b in (1, 128)}
+    try:
+        resp = {(name, b): replica.handle({"model": name, "inputs": {
+            "b64": base64.b64encode(x.tobytes()).decode(), "shape": list(x.shape)}})
+            for name in (fp, q) for b, x in reqs.items()}
+        launches = dict(k1=ep.LAUNCHES, k1_int32=ep.INT32_LAUNCHES, k1_scalar=ep.SCALAR_LAUNCHES)
+        # -------------------------------------------------------------------
+        hosted = engine.hosted(q)
+        for (name, b), r in resp.items():
+            got = np.asarray(r["logits"], np.float32)
+            if got.shape != (b, 1000) or not np.isfinite(got).all():
+                fail(f"[serve-int8] {name} at b{b}: shape {got.shape} or non-finite logits")
+            if not np.array_equal(got, engine.forward(name, reqs[b])):
+                fail(f"[serve-int8] {name} at b{b}: the response != the direct forward")
+        # one int8 forward at b128, counted alone, with K1's calls recorded
+        # and the accumulator sites' inputs kept
+        calls, site_in = [], {}
+        real = layers.fused_conv_epilogue
+
+        def spy(*args, **kw):
+            if args[0].dtype == torch.int32:
+                calls.append((args, kw))
+            return real(*args, **kw)
+
+        mods = dict(hosted.module.named_modules())
+        hooks = [mods[s].register_forward_pre_hook(
+            lambda m, a, s=s: site_in.setdefault(s, []).append(a[0])) for s in INT8_ACC_SITES]
+        before = (ep.LAUNCHES, ep.INT32_LAUNCHES, ep.SCALAR_LAUNCHES)
+        layers.fused_conv_epilogue = spy
+        try:
+            engine.forward(q, reqs[128])
+            engine.forward(q, reqs[1])
+        finally:
+            layers.fused_conv_epilogue = real
+            for h in hooks:
+                h.remove()
+        counted = tuple(a - b for a, b in zip((ep.LAUNCHES, ep.INT32_LAUNCHES,
+                                               ep.SCALAR_LAUNCHES), before))
+        if counted != (2 * INT8["k1"], 2 * INT8["k1"], 0):
+            fail(f"[serve-int8] two int8 forwards launched K1 {counted} (all, int32, scalar) "
+                 f"times, want {2 * INT8['k1']}, {2 * INT8['k1']}, 0")
+        calls = calls[:INT8["k1"]]  # the b128 forward's
+        # the int8 logits end to end: the card's routes vs the plain ones
+        for b, x in reqs.items():
+            got = engine.forward(q, x)
+            with plain_routes():
+                want = engine.forward(q, x)
+            if not np.array_equal(got, want):
+                fail(f"[serve-int8] {q} at b{b}: the logits != the plain routes' (max|d| "
+                     f"{np.abs(got - want).max()})")
+        # the int32 accumulators: the card's route vs the plain version, on the card
+        acc = {}
+        for s in INT8_ACC_SITES:
+            m = mods[s]
+            for x in site_in[s]:
+                xq = ptq.quantize_activation(x, m.act_scale)
+                if isinstance(m, ptq.QuantConv2d):
+                    args = (xq, m.w_mat, m.out_channels, m.kernel, m.stride, m.padding)
+                    got, want = ptq.int8_conv2d(*args), ptq.int8_conv2d_reference(*args)
+                else:
+                    got = ptq.int8_linear(xq, m.w_mat, m.out_channels)
+                    want = ptq.int8_linear_reference(xq, m.w_mat, m.out_channels)
+                if not torch.equal(got, want):
+                    fail(f"[serve-int8] {s} at b{x.shape[0]}: the int32 accumulator != the "
+                         f"plain version (max|d| {(got - want).abs().max().item()})")
+                acc[f"{s} b{x.shape[0]}"] = [list(xq.shape), list(got.shape)]
+        # K1's int32 mode in the b128 forward: kernel and plain version
+        k1_err = 0.0
+        for args, kw in calls:
+            g, w = ep.fused_conv_epilogue(*args, **kw), ep.epilogue_reference(*args, **kw)
+            for a, b in (zip(g, w) if isinstance(w, tuple) else [(g, w)]):
+                if not torch.equal(a, b):
+                    fail("[serve-int8] K1's int32 mode != its plain version")
+                k1_err = max(k1_err, (a.float() - b.float()).abs().max().item())
+        k1_ms = graph_ms([lambda a=a, k=k: ep.fused_conv_epilogue(*a, **k) for a, k in calls],
+                         runs=10) * len(calls)
+        plain_ms = cuda_ms(lambda: [ep.epilogue_reference(*a, **k) for a, k in calls], runs=5,
+                           warmup=1)
+        bound_ms, bound_by = k1_int32_bound(calls, bw)
+        del calls, site_in
+        times = {}
+        for name in (fp, q):
+            for b, x in reqs.items():
+                engine.forward(name, x)
+                times[f"{name} b{b}"] = statistics.median(
+                    engine.forward_timed(name, x)[1] for _ in range(INT8_TIMED_RUNS))
+        gate = hosted.gate.fields()
+        resident = dict(hosted.resident_bytes)
+    finally:
+        replica.shutdown()
+    recs = journal_records(out_dir, "serve-int8")
+    qq = [r for r in recs if r["kind"] == "quant_quality"]
+    if len(qq) != 1 or (qq[0]["model"], qq[0]["passed"], qq[0]["layers"], qq[0]["folded_bn"]) != (
+            q, True, INT8["sites"], INT8["folded"]):
+        fail(f"[serve-int8] quant_quality records {qq}: want one for {q}, passed, "
+             f"{INT8['sites']} layers, {INT8['folded']} folded BNs")
+    compiles = sorted(r["batch_size"] for r in recs
+                      if r["kind"] == "serve_compile" and r["model"] == q and r["quant"] == "int8")
+    if compiles != ladder:
+        fail(f"[serve-int8] serve_compile records of {q} with quant int8 at {compiles}, "
+             f"want {ladder}")
+    if not gate["passed"]:
+        fail(f"[serve-int8] the gate failed: {gate}")
+    # the gate forward, the warmups and the requests of rn50q in int32 mode;
+    # the calibration (4 batches and the fold check's 2 forwards), the gate's
+    # fp forward and rn50's warmups and requests in the float modes
+    n_q = 1 + len(ladder) + len(reqs)
+    n_fp = cfg.QUANT.CALIB_BATCHES + 2 + 1 + len(ladder) + len(reqs)
+    want = dict(k1=INT8["k1"] * (n_q + n_fp), k1_int32=INT8["k1"] * n_q, k1_scalar=0)
+    if launches != want:
+        fail(f"[serve-int8] launches {launches}, want {want}")
+    wall = time.perf_counter() - wall0
+    say(f"[serve-int8] {smi}: {q} = resnet50:int8, {INT8['sites']} sites, {INT8['folded']} BNs "
+        f"folded; startup {startup_s:.2f} s (both models: load, calibrate "
+        f"{cfg.QUANT.CALIB_BATCHES}x{cfg.QUANT.CALIB_BATCH_SIZE}, quantize, gate, prune, warmup "
+        f"of {ladder}); launches {launches}")
+    say(f"[serve-int8] {smi}: gate top-1 agree {gate['top1_agree']}, logit RMSE "
+        f"{gate['logit_rmse']} over {gate['n']} inputs (limits {gate['min_top1_agree']}, "
+        f"{gate['max_logit_rmse']}); int32 accumulators torch.equal to the plain version at "
+        f"{sorted(acc)}; the logits at b1 and b128 torch.equal to the plain routes'")
+    say(f"[serve-int8] {smi}: engine forward ms (median of {INT8_TIMED_RUNS}, host wall, the "
+        f"copies included): " + ", ".join(f"{k} {v:.3f}" for k, v in times.items()))
+    say(f"[serve-int8] {smi}: weights resident (torch.cuda.memory_allocated deltas): fp "
+        f"{resident.get('fp', 0) / 1e6:.3f} MB before the prune, int8 "
+        f"{resident.get('int8', 0) / 1e6:.3f} MB after")
+    say(f"[serve-int8] {smi}: K1 int32 mode per b128 forward ({INT8['k1']} launches): device "
+        f"{1e3 * k1_ms:.1f} us, plain {1e3 * plain_ms:.1f} us, bound {1e3 * bound_ms:.1f} us "
+        f"({bound_by}; {100 * bound_ms / k1_ms:.0f}% of bound); the phase took {wall:.1f} s")
+    return dict(launches=launches, gate=gate, startup_s=startup_s, forward_ms=times,
+                resident_bytes=resident, accumulators=acc, k1_ms=k1_ms, k1_plain_ms=plain_ms,
+                k1_bound_ms=bound_ms, k1_bound_by=bound_by, k1_max_abs_err=k1_err, wall_s=wall)
 
 
 SERVE_TRACE_ID = "smoke-http-1"  # the [serve] HTTP request's x-dtpu-trace-id
@@ -4698,6 +5045,11 @@ def main() -> None:
         tic[0] = now
         say(f"[smoke] {name} took {laps[name]} s ({now - wall0:.1f} s so far)")
 
+    if not args:  # [input]'s JPEGs are written beside the build, on the cores nvcc leaves
+        jpeg_tmp = tempfile.TemporaryDirectory()
+        jpeg_root = Path(jpeg_tmp.name) / "jpeg"
+        jpeg_writer = Background(write_jpeg_imagefolder, jpeg_root, 0,
+                                 max(1, (os.cpu_count() or 8) - 3))
     builds = phase_build()
     lap("build")
     if args:
@@ -4736,6 +5088,9 @@ def main() -> None:
         large = phase_large_crop(card, Path(tmp))
     table = phase_mhsa_table()
     lap("serve, large crop, mhsa table")
+    with tempfile.TemporaryDirectory() as tmp:
+        serve_int8 = phase_serve_int8(card, smi, Path(tmp), bw)
+    lap("serve-int8")
     moe = phase_moe_kernels(card)
     with tempfile.TemporaryDirectory() as tmp:
         moe_dist = phase_moe_dist(Path(tmp))
@@ -4756,8 +5111,6 @@ def main() -> None:
         "attention": BOT_ATTENTION * attention_bound(BOT_BATCH * 4, 196, 128, 128, "bfloat16",
                                                      "bias", bw)[0],
         "attention_bwd": BOT_ATTENTION * attn_bwd["K2 train"]["bound_ms"]}
-    train_bot = phase_train_bot(card, Path(train_tmp.name), bot_bound_ms, evals)
-    lap("train-bot")
     l512 = (BOT512_IM // 16) ** 2
     bot512_bound_ms = dict(
         bot_bound_ms,
@@ -4772,25 +5125,30 @@ def main() -> None:
                                 for site, m in bot512_sites.items())
     bot512_bound_ms["k1_bwd"] = sum(k1_bwd_bound(site, bw)[0] * m
                                     for site, m in bot512_sites.items())
-    train_bot_512 = phase_train_bot_512(card, Path(train_tmp.name), bot512_bound_ms, evals)
-    lap("train-bot-512")
+    # the two BoTNet-50 runs share the card (their step ms with it)
+    bot512_run = Background(phase_train_bot_512, card, Path(train_tmp.name), bot512_bound_ms,
+                            evals)
+    train_bot = phase_train_bot(card, Path(train_tmp.name), bot_bound_ms, evals)
+    train_bot_512 = bot512_run.result()
+    lap("train-bot, train-bot-512 side by side")
     with tempfile.TemporaryDirectory() as tmp:
-        jpegs = write_jpeg_imagefolder(Path(tmp) / "jpeg")
+        jpegs = jpeg_writer.result()
         say(f"[input] wrote {jpegs['files']} JPEGs ({JPEG_SPLITS}, {JPEG_CLASSES} classes, "
-            f"{JPEG_SIZE[0]}x{JPEG_SIZE[1]}, quality {JPEG_QUALITY}) in {jpegs['wall_s']:.1f} s: "
-            f"mean {jpegs['mean_bytes'] / 1e3:.1f} KB a file")
-        inp = dict(phase_input(card, Path(tmp) / "jpeg", smi), jpegs=jpegs)
-        train_jpeg = phase_train_jpeg(card, Path(tmp), Path(tmp) / "jpeg", train_bound_ms, train)
-        train_dp = phase_train_dataplane(card, Path(tmp), Path(tmp) / "jpeg", train_bound_ms,
+            f"{JPEG_SIZE[0]}x{JPEG_SIZE[1]}, quality {JPEG_QUALITY}) in {jpegs['wall_s']:.1f} s "
+            f"beside the build: mean {jpegs['mean_bytes'] / 1e3:.1f} KB a file")
+        inp = dict(phase_input(card, jpeg_root, smi), jpegs=jpegs)
+        train_jpeg = phase_train_jpeg(card, Path(tmp), jpeg_root, train_bound_ms, train)
+        train_dp = phase_train_dataplane(card, Path(tmp), jpeg_root, train_bound_ms,
                                          train_jpeg, train, inp)
+    jpeg_tmp.cleanup()
     lap("input, train-jpeg, train-dataplane")
     with tempfile.TemporaryDirectory() as tmp:
         train_preempt = phase_train_preempt(card, Path(tmp), smi)
     lap("train-preempt")
+    mae_run = Background(phase_train_mae, card, Path(train_tmp.name), evals)
     zoo = phase_train_zoo(card, Path(train_tmp.name), bw, evals)
-    lap("train-zoo")
-    train_mae = phase_train_mae(card, Path(train_tmp.name), evals)
-    lap("train-mae")
+    train_mae = mae_run.result()
+    lap("train-zoo, train-mae side by side")
     train_fsdp = phase_train_fsdp(card, Path(train_tmp.name), evals)
     lap("train-fsdp")
     # the phases up to [remat] time nothing, so they run side by side: the
@@ -4828,7 +5186,7 @@ def main() -> None:
     (out / "chip_smoke_k1.json").write_text(json.dumps(
         {"card": smi, "build": builds["epilogue"], "rows": rows, "scalar_route": scalar,
          "max_abs_err": k1_err, "per_forward_b128": per_fwd, "modes_per_forward": modes,
-         "k1_bound_us": k1_bound_us, "serve": serve}, indent=1))
+         "k1_bound_us": k1_bound_us, "serve": serve, "serve_int8": serve_int8}, indent=1))
     (out / "chip_smoke_attention.json").write_text(json.dumps(
         {"card": smi, "build": builds["attention"], "cases": attn, "backward": attn_bwd,
          "serve_botnet50": bot, "large_crop": large, "mhsa_table": table}, indent=1))
@@ -4995,8 +5353,8 @@ def main() -> None:
                        "K1" if key == "k1" else "K1-bwd"),
                    "bound_ms_per_step": r["bound_ms"].get(key),
                    "per": f"{r['steps']} steps of [train-zoo] at batch {r['batch']}, 224x224, "
-                          f"bf16; the profiler's µs a step of the kernel class; the bound "
-                          f"from the step's K1 sites"}
+                          f"bf16, two runs sharing the card; the profiler's µs a step of the "
+                          f"kernel class; the bound from the step's K1 sites"}
             for arch, r in zoo.items()}
     for i, key in ((0, "k1"), (1, "k1_bwd")):  # under MODEL.REMAT, and MAE's none
         kernels[i]["remat_launches"] = {
@@ -5134,6 +5492,26 @@ def main() -> None:
                                              "bound_ms", "bound_by")}
                    for name, row in attn_bwd.items()
                    if "device_ms" in row and row["bias_dtype"] == "table"},
+    })
+    kernels.insert(2, {
+        "name": "K1 fused_conv_epilogue, int32 input mode",
+        "route": "cuda",
+        "source": "distribuuuu_tpu_torch/ops/csrc/epilogue.cu",
+        "replaces": "distribuuuu_tpu/ops/epilogue.py:153",
+        "launches": serve_int8["launches"]["k1_int32"],
+        "max_abs_err": serve_int8["k1_max_abs_err"],
+        "ms": serve_int8["k1_ms"],
+        "plain_ms": serve_int8["k1_plain_ms"],
+        "bound_ms": serve_int8["k1_bound_ms"],
+        "bound_by": serve_int8["k1_bound_by"],
+        "library_ms": None,
+        "per": f"one int8 ResNet-50 forward at batch {LADDER_BATCH}, 224x224: the {INT8['k1']} "
+               f"launches that dequantize each quantized conv's int32 accumulator (mean 0, the "
+               f"site's scale, the folded BN's bias; JAX's dequant at quant/ptq.py:472-473 and "
+               f"the BN, residual and ReLU after it), f32 boundaries, summed; ms: device time, "
+               f"the forward's calls replayed from a CUDA graph; plain_ms: epilogue_reference "
+               f"on the same inputs, back to back; no PyTorch call computes the same function; "
+               f"launches: [serve-int8]'s startup and requests",
     })
     say(f"[smoke] the whole run took {time.perf_counter() - wall0:.1f} s; by phase (s): "
         + ", ".join(f"{k} {v}" for k, v in laps.items()))

@@ -6,8 +6,9 @@ plus every key the repository's training and serving YAMLs set, so they
 merge unchanged. Keys marked "not yet ported" are accepted and checked by
 the trainer (``trainer._check_supported``): a non-default value raises with
 the ROADMAP item that ports it. The few whose default turns a JAX
-subsystem on are gaps at their default, and say so below. The ``QUANT``,
-``FLEET`` subtrees and ``SERVE.DEPLOY``/``SERVE.INGRESS`` are not part of
+subsystem on are gaps at their default, and say so below. ``QUANT`` holds
+the JAX package's 11 keys (int8 serving; ``QUANT.QAT`` is not yet ported).
+The ``FLEET`` subtree and ``SERVE.DEPLOY``/``SERVE.INGRESS`` are not part of
 these slices and are absent. ``OBS`` holds the JAX package's 16 keys
 (``obs/``: the training run's telemetry).
 """
@@ -313,6 +314,32 @@ _C.SERVE.SLO_WINDOW_S = 10.0
 # span records under its x-dtpu-trace-id (the SLO rollups are always on)
 _C.SERVE.JOURNAL_REQUESTS = True
 _C.SERVE.TRACE_SPANS = True
+
+# Post-training int8 quantization (``quant/``). A hosted model opts in per
+# entry: SERVE.MODELS "name=arch@weights.pt:int8" quantizes that model's
+# conv/linear weights per-channel symmetric int8 (BatchNorm folded where
+# possible) and calibrates per-tensor activation scales over CALIB_BATCHES
+# seeded synthetic batches of the wire dtype.
+_C.QUANT = CN()
+_C.QUANT.CALIB_BATCHES = 4
+_C.QUANT.CALIB_BATCH_SIZE = 8
+_C.QUANT.CALIB_SEED = 1234
+# Quality gate (quant/gate.py): the int8 path against the fp engine forward
+# on GATE_N deterministic inputs (convert.golden_inputs for float wire,
+# seeded uint8 pixels otherwise). Either threshold failing refuses to serve
+# the model; the measurement is journaled as a ``quant_quality`` record
+# either way. GATE False serves anyway (the record is still written).
+_C.QUANT.GATE = True
+_C.QUANT.GATE_N = 16
+_C.QUANT.GATE_SEED = 0
+_C.QUANT.MIN_TOP1_AGREE = 0.99
+_C.QUANT.MAX_LOGIT_RMSE = 0.25
+# Quantization-aware fine-tuning through train_net: not yet ported (ROADMAP
+# Queue 1 item 8b); True raises in the trainer. QAT_MODE and QAT_DISTILL are
+# accepted and read by nothing until then.
+_C.QUANT.QAT = False
+_C.QUANT.QAT_MODE = "int8"
+_C.QUANT.QAT_DISTILL = 0.0
 
 _C.OUT_DIR = "./exp"
 _C.CFG_DEST = "config.yaml"

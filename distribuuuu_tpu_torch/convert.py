@@ -18,6 +18,8 @@
   1-3 under botnet50's numbering over a fresh botnet50.
 - :func:`moe_from_jax` takes the JAX package's switch-MoE parameters and
   returns what one rank of the port's ``switch_moe`` holds.
+- :func:`golden_inputs`: the JAX package's fixture inputs (the int8
+  quality gate's, for float wire).
 - ``python -m distribuuuu_tpu_torch.convert --arch A --src <torchvision
   .pth> --dst DIR [--from-resnet50]`` provisions ``MODEL.PRETRAINED``: the
   file checked against the built model with ``strict=True``, written to
@@ -269,6 +271,14 @@ def from_jax_variables(variables: Mapping, arch: str) -> dict[str, torch.Tensor]
                 raise KeyError(f"unmapped leaf {'/'.join(path)} for {arch}")
             sd[key] = torch.from_numpy(np.ascontiguousarray(val))
     return sd
+
+
+def golden_inputs(n: int, size: int, seed: int = 0) -> np.ndarray:
+    """The JAX package's fixture inputs (``distribuuuu_tpu.convert.golden_inputs``):
+    seeded standard-normal ``(n, s, s, 3)`` float32, post-normalization
+    scale. Deterministic across platforms (PCG64)."""
+    rng = np.random.default_rng(seed)
+    return rng.standard_normal((n, size, size, 3), dtype=np.float32)
 
 
 # DenseNet's pre-1.0 keys: ``denselayer1.norm.1.weight`` -> ``denselayer1.norm1.weight``

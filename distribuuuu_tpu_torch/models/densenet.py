@@ -36,6 +36,7 @@ from distribuuuu_tpu_torch.models.layers import (
     conv,
     max_pool,
     set_remat,
+    to_conv,
 )
 from distribuuuu_tpu_torch.models.registry import register_model
 
@@ -50,11 +51,11 @@ class DenseLayer(RematUnit):
         self.norm2 = BatchNorm(bn_size * growth_rate, bn_dtype=bn_dtype)
         self.conv2 = conv(bn_size * growth_rate, growth_rate, 3, dtype=dtype)
         self.compute_dtype = dtype
+        self.to_conv = to_conv(dtype)  # norm1's and norm2's (DenseNet.link_handoffs)
 
     def forward(self, x):
-        to_conv = dict(cast_to=self.compute_dtype, keep_boundary=False)
-        h = bn_epilogue(x, self.norm1, **to_conv)
-        h = bn_epilogue(self.conv1(h), self.norm2, **to_conv)
+        h = bn_epilogue(x, self.norm1, **self.to_conv)
+        h = bn_epilogue(self.conv1(h), self.norm2, **self.to_conv)
         return self.conv2(h)
 
 
@@ -75,9 +76,10 @@ class Transition(nn.Module):
         self.norm = BatchNorm(in_ch, bn_dtype=bn_dtype)
         self.conv = conv(in_ch, out_ch, 1, dtype=dtype)
         self.compute_dtype = dtype
+        self.to_conv = to_conv(dtype)  # norm's (DenseNet.link_handoffs)
 
     def forward(self, x):
-        h = bn_epilogue(x, self.norm, cast_to=self.compute_dtype, keep_boundary=False)
+        h = bn_epilogue(x, self.norm, **self.to_conv)
         return F.avg_pool2d(self.conv(h), 2, 2)
 
 
@@ -109,6 +111,13 @@ class DenseNet(nn.Module):
         self.classifier = nn.Linear(width, num_classes)
         self.num_blocks = len(block_config)
         set_remat(self, remat)
+
+    def link_handoffs(self, boundaries: bool = False) -> None:
+        """The K1 mode of every BN that only convs read: the compute dtype,
+        or with ``boundaries`` the BN boundary (``layers.boundary_handoffs``)."""
+        for m in self.modules():
+            if isinstance(m, (DenseLayer, Transition)):
+                m.to_conv = to_conv(m.compute_dtype, boundaries)
 
     def forward(self, x):
         """``x``: NHWC images (float); returns ``[N, num_classes]`` float32 logits."""

@@ -14,8 +14,11 @@ Every BN runs through K1, which also writes the next conv's input in the
 compute dtype from the same pass (``cast_to``), so no activation is cast
 in a pass of its own: where only convs read a result, K1 writes it in the
 compute dtype alone; where a residual or the head reads it too, K1 writes
-both as a :class:`Pair`. Each block's ``handoff`` (set by
-:func:`link_handoffs`) says which its last BN writes.
+both as a :class:`Pair`. Each block's ``handoff`` and ``to_conv`` (set by
+:func:`link_handoffs`) say which its BNs write. Every BN call is a call of
+its module and the head calls its ``fc``, so module hooks see them; the
+int8 path (``quant/ptq.py``) hooks and swaps them, with every K1 writing
+the BN boundary (:func:`boundary_handoffs`), the value JAX's convs quantize.
 
 Training (``model.train()``): each BN takes float32 batch statistics of
 its input, flax ``nn.BatchNorm``'s way (the fast variance ``max(0, E[x^2]
@@ -159,18 +162,22 @@ class BatchNorm(nn.Module):
                 self.running_var.copy_(m * self.running_var + (1 - m) * var)
         return mean, torch.rsqrt(var + self.eps) * self.weight, self.bias
 
-    def forward(self, x):
-        return fused_conv_epilogue(x, *self.affine(x), relu=False, bn_dtype=self.bn_dtype)
+    def forward(self, x, identity=None, *, relu: bool = False, cast_to=None,
+                keep_boundary: bool = True):
+        """BN (-> + ``identity`` -> ReLU) through K1, in the modes of
+        :func:`bn_epilogue`; called bare, BN alone in the BN dtype."""
+        out = fused_conv_epilogue(x, *self.affine(x), identity, relu=relu, bn_dtype=self.bn_dtype,
+                                  cast_to=cast_to, keep_boundary=keep_boundary)
+        return Pair(*out) if isinstance(out, tuple) else out
 
 
 def bn_epilogue(x, bn: BatchNorm, identity=None, *, relu: bool = True, cast_to=None,
                 keep_boundary: bool = True):
     """BN -> (+``identity``) -> ReLU through K1. With ``cast_to`` the result
     comes in that dtype too: as a :class:`Pair` when ``keep_boundary``, else
-    the cast tensor alone."""
-    out = fused_conv_epilogue(x, *bn.affine(x), identity, relu=relu, bn_dtype=bn.bn_dtype,
-                              cast_to=cast_to, keep_boundary=keep_boundary)
-    return Pair(*out) if isinstance(out, tuple) else out
+    the cast tensor alone. A call of the module ``bn``, so its hooks see it
+    (the int8 path's calibration, ``quant/ptq.py``)."""
+    return bn(x, identity, relu=relu, cast_to=cast_to, keep_boundary=keep_boundary)
 
 
 def boundary(x):
@@ -187,20 +194,51 @@ def max_pool(x):
     return F.max_pool2d(x, 3, 2, 1)
 
 
-def link_handoffs(blocks, dtype) -> dict:
+def to_conv(dtype, boundaries: bool = False) -> dict:
+    """The K1 mode of a BN that only convs read: the compute dtype alone, or
+    with ``boundaries`` the BN boundary alone (:func:`link_handoffs`)."""
+    return {} if boundaries else dict(cast_to=dtype, keep_boundary=False)
+
+
+def link_handoffs(blocks, dtype, *, boundaries: bool = False) -> dict:
     """Set each block's ``handoff``, the K1 mode of its last BN, from what
     reads its output: the next block's convs read ``dtype``; the next
     block's identity (when it has no projection shortcut) and, after the
-    last block, the f32 head read the BN boundary. Returns the stem's."""
+    last block, the f32 head read the BN boundary; and each block's
+    ``to_conv``, the mode of its BNs that only convs read. Returns the
+    stem's. With ``boundaries`` every one writes the BN boundary alone: the
+    int8 path's convs quantize the BN dtype's value, as JAX's do
+    (``quant/ptq.py``), and a conv casts it itself on the fp path, to the
+    same bits K1's cast writes."""
     for block, nxt in zip(blocks, [*blocks[1:], None]):
-        block.handoff = {} if nxt is None else dict(cast_to=dtype, keep_boundary=not nxt.projects)
-    return dict(cast_to=dtype, keep_boundary=not blocks[0].projects)
+        block.to_conv = to_conv(dtype, boundaries)
+        block.handoff = ({} if nxt is None or boundaries
+                         else dict(cast_to=dtype, keep_boundary=not nxt.projects))
+    return {} if boundaries else dict(cast_to=dtype, keep_boundary=not blocks[0].projects)
+
+
+def link_boundaries(model: nn.Module, enabled: bool = True) -> None:
+    """``model.link_handoffs(boundaries=enabled)``: with ``enabled`` every K1
+    of ``model`` writes the BN boundary alone. The fp forward's output is
+    bitwise unchanged. A model without ``link_handoffs`` keeps its modes."""
+    if hasattr(model, "link_handoffs"):
+        model.link_handoffs(boundaries=enabled)
+
+
+@contextlib.contextmanager
+def boundary_handoffs(model: nn.Module):
+    """:func:`link_boundaries` inside the context, then back."""
+    link_boundaries(model, True)
+    try:
+        yield model
+    finally:
+        link_boundaries(model, False)
 
 
 def classifier_head(x, fc: nn.Linear):
-    """Global average pool over H and W in float32, then a float32 linear."""
-    x = x.float().mean(dim=(2, 3))
-    return F.linear(x, fc.weight.float(), fc.bias.float())
+    """Global average pool over H and W in float32, then ``fc`` (a float32
+    linear, or the int8 path's quantized one)."""
+    return fc(x.float().mean(dim=(2, 3)))
 
 
 def bn_silu(x, bn: BatchNorm):

@@ -29,6 +29,7 @@ from distribuuuu_tpu_torch.models.layers import (
     link_handoffs,
     max_pool,
     set_remat,
+    to_conv,
 )
 from distribuuuu_tpu_torch.models.registry import register_model
 
@@ -52,13 +53,14 @@ class BasicBlock(RematUnit):
         )
         self.compute_dtype = dtype
         self.handoff: dict = {}  # the K1 mode of bn2 (link_handoffs)
+        self.to_conv = to_conv(dtype)  # bn1's
 
     @property
     def projects(self) -> bool:
         return self.downsample is not None
 
     def forward(self, x):
-        out = bn_epilogue(self.conv1(x), self.bn1, cast_to=self.compute_dtype, keep_boundary=False)
+        out = bn_epilogue(self.conv1(x), self.bn1, **self.to_conv)
         out = self.conv2(out)
         identity = boundary(x) if self.downsample is None else self.downsample(x)
         return bn_epilogue(out, self.bn2, identity, **self.handoff)
@@ -87,15 +89,15 @@ class Bottleneck(RematUnit):
         )
         self.compute_dtype = dtype
         self.handoff: dict = {}  # the K1 mode of bn3 (link_handoffs)
+        self.to_conv = to_conv(dtype)  # bn1's and bn2's
 
     @property
     def projects(self) -> bool:
         return self.downsample is not None
 
     def forward(self, x):
-        to_conv = dict(cast_to=self.compute_dtype, keep_boundary=False)
-        out = bn_epilogue(self.conv1(x), self.bn1, **to_conv)
-        out = bn_epilogue(self.conv2(out), self.bn2, **to_conv)
+        out = bn_epilogue(self.conv1(x), self.bn1, **self.to_conv)
+        out = bn_epilogue(self.conv2(out), self.bn2, **self.to_conv)
         out = self.conv3(out)
         identity = boundary(x) if self.downsample is None else self.downsample(x)
         return bn_epilogue(out, self.bn3, identity, **self.handoff)
@@ -144,8 +146,15 @@ class ResNet(nn.Module):
             self.add_module(f"layer{stage + 1}", layer)
         self.num_stages = len(stage_sizes)
         self.fc = nn.Linear(inplanes, num_classes)
-        self.stem_handoff = link_handoffs([b for layer in stages for b in layer], dtype)
+        self.compute_dtype = dtype
+        self.link_handoffs()
         set_remat(self, remat)
+
+    def link_handoffs(self, boundaries: bool = False) -> None:
+        """Each BN's K1 mode (``layers.link_handoffs``); ``boundaries``: the
+        BN boundary alone everywhere (``layers.boundary_handoffs``)."""
+        blocks = [b for stage in range(self.num_stages) for b in getattr(self, f"layer{stage + 1}")]
+        self.stem_handoff = link_handoffs(blocks, self.compute_dtype, boundaries=boundaries)
 
     def forward(self, x):
         """``x``: NHWC images (float); returns ``[N, num_classes]`` float32 logits."""

@@ -12,6 +12,11 @@
 //     out  = round_to(out_dtype, y)              the BN boundary (a residual, the head)
 //     cast = round_to(cast_dtype, out)           the next conv's input
 //
+// x may also be an int32 accumulator (the int8 path's quantized conv): it is
+// converted to f32 with round-to-nearest (__int2float_rn, as the plain
+// version's promotion), and with mean 0, mul the dequant scale and bias the
+// folded BN's shift the first line is the dequant acc * scale + bias.
+//
 // Either output may be left out. In eager PyTorch the next conv's bf16 input
 // would otherwise be a separate cast pass over the f32 boundary (XLA folds
 // that convert into the conv; here only this pass can absorb it).
@@ -71,7 +76,7 @@
 
 namespace {
 
-enum DType : int { kF32 = 0, kBF16 = 1, kNone = -1 };
+enum DType : int { kF32 = 0, kBF16 = 1, kI32 = 2, kNone = -1 };  // kI32: x alone
 using bf16 = __nv_bfloat16;
 
 constexpr int kUnroll = 4;       // rows in flight per thread (vector route)
@@ -79,6 +84,7 @@ constexpr int kThreads = 256;   // block size of both routes
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f32(int32_t v) { return __int2float_rn(v); }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float v);
@@ -114,6 +120,14 @@ __device__ __forceinline__ void load8(const bf16* p, float v[8]) {
     v[2 * i] = __uint_as_float(w[i] << 16);
     v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
   }
+}
+
+__device__ __forceinline__ void load8(const int32_t* p, float v[8]) {
+  const int4 a = __ldg(reinterpret_cast<const int4*>(p));
+  const int4 b = __ldg(reinterpret_cast<const int4*>(p) + 1);
+  const int w[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+#pragma unroll
+  for (int i = 0; i < 8; ++i) v[i] = __int2float_rn(w[i]);
 }
 
 __device__ __forceinline__ void store8(float* p, const float v[8]) {
@@ -583,7 +597,8 @@ __global__ void __launch_bounds__(kThreads)
 }  // namespace
 
 // Plain C entry point for ctypes. dtype codes: 0 = float32, 1 = bfloat16,
-// -1 = none (no residual / no cast output). `out` (the out dtype) or `cast`
+// 2 = int32 (x only: a quantized conv's accumulator), -1 = none (no residual /
+// no cast output). `out` (the out dtype) or `cast`
 // (cast_dt) may be null, not both. vec = 1 takes the vector route (the
 // caller guarantees c % 8 == 0 and 16-byte-aligned pointers), 0 the scalar
 // one. Returns cudaGetLastError() after the launch (0 = ok).
@@ -602,6 +617,8 @@ extern "C" int dtpu_epilogue_launch(const void* x, int x_dt, const void* mean, c
       return (int)dispatch_bn<float>(a, bn_dt, res_dt, cast_dt);
     case kBF16:
       return (int)dispatch_bn<bf16>(a, bn_dt, res_dt, cast_dt);
+    case kI32:
+      return (int)dispatch_bn<int32_t>(a, bn_dt, res_dt, cast_dt);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -622,6 +639,7 @@ extern "C" int dtpu_epilogue_bwd_launch(const void* x, int x_dt, const void* mea
                                         void* stream) {
   const int groups = (c + 7) / 8;
   if (rows <= 0 || c <= 0 || gpb <= 0 || gpb > 32 || blocks_x <= 0 || d_x == nullptr ||
+      (x_dt != kF32 && x_dt != kBF16) ||
       (g_out == nullptr && g_cast == nullptr) || (relu && has_res && res == nullptr) ||
       (vec && c % 8 != 0))
     return (int)cudaErrorInvalidValue;

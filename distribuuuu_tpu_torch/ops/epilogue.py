@@ -21,6 +21,14 @@ Three modes, by ``cast_to`` and ``keep_boundary``:
 Where ``dt`` is already the output dtype (an f32 model, or bf16 BN), one
 tensor serves both roles: (b) returns it and (c) returns it twice.
 
+The int32 input mode (the int8 path, ``quant/ptq.py``): ``x`` may be a
+quantized conv's int32 accumulator, which K1 reads directly. With ``mean``
+0, ``mul`` the per-channel dequant scale and ``bias`` the folded BN's shift,
+``(x - 0) * mul + bias`` is JAX's dequant ``acc.astype(f32) * scale +
+bias`` term for term (int32 -> f32 rounds to nearest in both), then the
+cast to the BN dtype, the residual and the ReLU as in every mode. Such a
+call has no gradient.
+
 Layout: ``x`` is a conv output, NCHW-logical and stored channels-last (or a
 2-D ``[R, C]`` tensor), so C is the contiguous axis and the kernel reads a
 dense ``[R, C]`` view without a copy. The wrapper checks that and raises
@@ -47,25 +55,29 @@ import threading
 import torch
 
 # Launches of the CUDA kernel since the last reset (both routes), and of its
-# scalar route alone. chip_smoke.py zeroes them before driving the serving
-# path and reads them after, to show the path went through the kernel.
+# scalar route alone, and of its int32 input mode alone. chip_smoke.py zeroes
+# them before driving the serving path and reads them after, to show the path
+# went through the kernel.
 LAUNCHES = 0
 SCALAR_LAUNCHES = 0
+INT32_LAUNCHES = 0
 # the same for the backward kernel, K1-bwd
 BWD_LAUNCHES = 0
 BWD_SCALAR_LAUNCHES = 0
 _count_lock = threading.Lock()
 
 _DT_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_X_DT_CODE = {**_DT_CODE, torch.int32: 2}  # x alone may be an int32 accumulator
 
 
 def epilogue_reference(x, mean, mul, bias, identity=None, *, relu=True, bn_dtype,
                        cast_to=None, keep_boundary=True):
     """The epilogue as separate eager ops, term for term as
     ``distribuuuu_tpu.ops.epilogue.oracle_epilogue``: subtract, multiply,
-    add (all in f32 by promotion against the f32 vectors), cast to
-    ``bn_dtype``, add the residual in the promoted dtype, ReLU; then, in
-    modes (b) and (c), the cast to ``cast_to``."""
+    add (all in f32 by promotion against the f32 vectors; an int32 ``x``
+    is converted to f32 by the subtraction), cast to ``bn_dtype``, add the
+    residual in the promoted dtype, ReLU; then, in modes (b) and (c), the
+    cast to ``cast_to``."""
     shape = (1, -1) + (1,) * (x.dim() - 2)
     y = x - mean.view(shape)
     y = y * mul.view(shape)
@@ -117,8 +129,8 @@ def _dense_rows(t: torch.Tensor) -> bool:
 def _check(x, mean, mul, bias, identity, bn_dtype, cast_to) -> None:
     if x.dim() not in (2, 4):
         raise ValueError(f"x must be 4-D NCHW or 2-D [R, C], got {tuple(x.shape)}")
-    if x.dtype not in _DT_CODE:
-        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    if x.dtype not in _X_DT_CODE:
+        raise TypeError(f"x must be float32, bfloat16 or an int32 accumulator, got {x.dtype}")
     if bn_dtype not in _DT_CODE:
         raise TypeError(f"bn_dtype must be torch.float32 or torch.bfloat16, got {bn_dtype}")
     if cast_to is not None and cast_to not in _DT_CODE:
@@ -163,6 +175,8 @@ def fused_conv_epilogue(x, mean, mul, bias, identity=None, *, relu=True, bn_dtyp
               keep_boundary=keep_boundary or cast_dtype is None)
     ins = (x, mean, mul, bias, identity)
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in ins):
+        if x.dtype not in _DT_CODE:
+            raise TypeError("K1's int32 input mode has no backward: call it without gradients")
         res = _Epilogue.apply(*ins, kw)
     else:
         res = _epilogue_cuda(*ins, **kw)
@@ -183,6 +197,8 @@ def fused_conv_epilogue_backward(x, mean, mul, bias, identity, g_out, g_cast=Non
     gets :func:`epilogue_backward_reference`; a CUDA tensor launches K1-bwd.
     """
     _check(x, mean, mul, bias, identity, bn_dtype, cast_to)
+    if x.dtype not in _DT_CODE:
+        raise TypeError(f"K1's backward takes a float32 or bfloat16 x, got {x.dtype}")
     kw = dict(relu=relu, bn_dtype=bn_dtype, cast_to=cast_to, keep_boundary=keep_boundary)
     if x.device.type in ("cpu", "meta"):
         out = epilogue_backward_reference(x, mean, mul, bias, identity, g_out, g_cast, **kw)
@@ -229,7 +245,7 @@ def _epilogue_cuda(x, mean, mul, bias, identity, *, relu, bn_dtype, cast_to, kee
         lib = _library()
         with torch.cuda.device(x.device):
             err = lib.dtpu_epilogue_launch(
-                x.data_ptr(), _DT_CODE[x.dtype],
+                x.data_ptr(), _X_DT_CODE[x.dtype],
                 mean.data_ptr(), mul.data_ptr(), bias.data_ptr(),
                 None if identity is None else identity.data_ptr(),
                 -1 if identity is None else _DT_CODE[identity.dtype],
@@ -241,10 +257,11 @@ def _epilogue_cuda(x, mean, mul, bias, identity, *, relu, bn_dtype, cast_to, kee
             )
         if err != 0:
             raise RuntimeError(f"epilogue kernel launch failed: cudaError {err}")
-        global LAUNCHES, SCALAR_LAUNCHES
+        global LAUNCHES, SCALAR_LAUNCHES, INT32_LAUNCHES
         with _count_lock:
             LAUNCHES += 1
             SCALAR_LAUNCHES += not vec
+            INT32_LAUNCHES += x.dtype == torch.int32
     if cast is None:
         return out
     return (out, cast) if keep_boundary else cast

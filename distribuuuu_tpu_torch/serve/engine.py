@@ -15,23 +15,31 @@ journals a ``serve_compile`` record with that forward's ``wall_s``, and
 :attr:`InferenceEngine.aot_compiles` counts them (``serve_start`` carries
 the count).
 
-Not in this slice: ``:int8`` specs and ``stage``/``promote`` (continuous
-deployment) raise ``NotImplementedError``; per-size CUDA graphs are later
-work (ROADMAP.md, Queue 1).
+A spec ending in ``:int8`` hosts the post-training-quantized model
+(``quant/``, JAX's dtpu-quant): calibrated on seeded synthetic batches of
+the wire dtype, quantized, then gated against the fp forward on
+deterministic inputs (top-1 agreement and logit RMSE against ``QUANT``'s
+thresholds). A failed gate refuses to serve unless ``QUANT.GATE`` is off;
+the measurement is journaled as a ``quant_quality`` record either way. The
+hosted module is then the int8 one, its fp weights freed.
+
+Not in this slice: ``stage``/``promote`` (continuous deployment) raise
+``NotImplementedError``; per-size CUDA graphs are later work (ROADMAP.md,
+Queue 1).
 """
 
 from __future__ import annotations
 
 import threading
 import time
-from dataclasses import dataclass
-from typing import Callable
+from dataclasses import dataclass, field
+from typing import Any, Callable
 
 import numpy as np
 import torch
 
 from distribuuuu_tpu_torch import resolve_device
-from distribuuuu_tpu_torch.convert import load_weights
+from distribuuuu_tpu_torch.convert import golden_inputs, load_weights
 from distribuuuu_tpu_torch.data.transforms import device_normalize
 from distribuuuu_tpu_torch.logging import logger
 from distribuuuu_tpu_torch.models import build_model
@@ -80,11 +88,18 @@ def parse_model_specs(entries: list[str]) -> list[ModelSpec]:
 
 @dataclass
 class HostedModel:
-    """One model's module on the device."""
+    """One model's module on the device. An int8 model's module is the
+    quantized one (``quant.prune_variables``); ``gate`` is its quality-gate
+    measurement, ``quant_s`` the calibrate+quantize+gate wall and
+    ``resident_bytes`` what its weights held on the card before and after
+    the fp ones were freed (``torch.cuda.memory_allocated`` deltas)."""
 
     spec: ModelSpec
     module: torch.nn.Module
     load_s: float = 0.0
+    gate: Any = None
+    quant_s: float = 0.0
+    resident_bytes: dict = field(default_factory=dict)
 
 
 class InferenceEngine:
@@ -104,6 +119,7 @@ class InferenceEngine:
         compute_dtype: str = "float32",
         device=None,
         journal_event: Callable[..., None] | None = None,
+        quant_cfg: dict | None = None,
     ):
         self.device = resolve_device(device)
         sizes = [int(b) for b in batch_sizes]
@@ -125,16 +141,25 @@ class InferenceEngine:
         self.forwards = 0  # forward passes executed, warmup included
         self.aot_compiles = 0  # warmup forwards journaled as serve_compile
         self._event = journal_event or (lambda kind, **fields: None)
+        # cfg.QUANT's knobs, engine-shaped (ServeReplica builds this dict; a
+        # bare engine in tests gets the same defaults)
+        q = dict(quant_cfg or {})
+        self.quant_cfg = {
+            "calib_batches": int(q.get("calib_batches", 4)),
+            "calib_batch_size": int(q.get("calib_batch_size", 8)),
+            "calib_seed": int(q.get("calib_seed", 1234)),
+            "gate": bool(q.get("gate", True)),
+            "gate_n": int(q.get("gate_n", 16)),
+            "gate_seed": int(q.get("gate_seed", 0)),
+            "min_top1_agree": float(q.get("min_top1_agree", 0.99)),
+            "max_logit_rmse": float(q.get("max_logit_rmse", 0.25)),
+        }
 
     # -- loading -------------------------------------------------------------
 
     def load(self, spec: ModelSpec) -> HostedModel:
-        """Load one model's weights onto the device."""
-        if spec.quant:
-            raise NotImplementedError(
-                f"{spec.name}: ':{spec.quant}' serving is not ported yet "
-                f"(ROADMAP.md Queue 1, item 'Quant')"
-            )
+        """Load one model's weights onto the device (and quantize it, for an
+        ``:int8`` spec)."""
         if spec.arch.startswith("mae_"):
             raise ValueError(f"{spec.name}: {spec.arch} emits pixel reconstructions, not class "
                              f"logits; it trains with TRAIN.TASK mae and is not served")
@@ -142,20 +167,133 @@ class InferenceEngine:
             if spec.name in self.models:
                 raise ValueError(f"model {spec.name!r} already hosted")
         tic = time.time()
+        base = self._allocated()
         module = build_model(spec.arch, num_classes=self.num_classes, dtype=self.compute_dtype,
                              im_size=self.im_size)
         module.load_state_dict(load_weights(spec.weights), strict=True)
         module = module.to(self.device, memory_format=torch.channels_last).eval()
         hosted = HostedModel(spec, module, time.time() - tic)
+        if spec.quant:
+            fp_bytes = self._allocated() - base
+            int8_bytes = fp_bytes + self._quantize(hosted)
+            if self.device.type == "cuda":
+                hosted.resident_bytes = {"fp": fp_bytes, "int8": int8_bytes}
         with self._lock:
             if spec.name in self.models:
                 raise ValueError(f"model {spec.name!r} already hosted")
             self.models[spec.name] = hosted
+        quant_note = f" [{spec.quant}]" if spec.quant else ""
         logger.info(
-            f"serve: hosted {spec.name} ({spec.arch}) from {spec.weights} on "
+            f"serve: hosted {spec.name} ({spec.arch}{quant_note}) from {spec.weights} on "
             f"{self.device}: weights {hosted.load_s:.2f}s, ladder {self.batch_sizes}"
         )
         return hosted
+
+    def _allocated(self) -> int:
+        """Bytes the card's allocator holds in tensors (0 off the card)."""
+        return torch.cuda.memory_allocated(self.device) if self.device.type == "cuda" else 0
+
+    # -- int8 (quant/) -------------------------------------------------------
+
+    def _synthetic_batches(self, n_batches: int, batch_size: int, seed: int) -> list:
+        """Seeded wire-dtype calibration batches (uint8 pixels or
+        post-normalization floats, matching what requests will carry)."""
+        rng = np.random.default_rng(seed)
+        shape = (batch_size, self.im_size, self.im_size, 3)
+        batches = []
+        for _ in range(n_batches):
+            if self.input_dtype == np.uint8:
+                batches.append(rng.integers(0, 256, size=shape, dtype=np.uint8))
+            else:
+                batches.append(np.asarray(rng.standard_normal(shape), np.float32))
+        return batches
+
+    def _gate_inputs(self, n: int, seed: int) -> np.ndarray:
+        """Deterministic gate inputs: `convert.golden_inputs` for float wire,
+        seeded uint8 pixels otherwise."""
+        if self.input_dtype == np.uint8:
+            rng = np.random.default_rng(seed)
+            return rng.integers(0, 256, size=(n, self.im_size, self.im_size, 3), dtype=np.uint8)
+        return golden_inputs(n, self.im_size, seed)
+
+    def _quantize(self, hosted: HostedModel) -> int:
+        """Calibrate -> quantize -> quality-gate one hosted model, then make
+        its module the int8 one and free the fp weights it no longer reads.
+        A failed gate raises (refuse to serve) unless ``QUANT.GATE`` is
+        off; the measurement is journaled as a ``quant_quality`` record in
+        every case. Returns what the int8 module holds on the card less
+        what the fp one held, from two allocator deltas: what quantizing
+        allocated and what the prune then freed (so a cuBLAS workspace made
+        by the calibration's first GEMM counts in neither)."""
+        from distribuuuu_tpu_torch.quant import (
+            calibrate,
+            compare_logits,
+            prune_variables,
+            quantize,
+        )
+        from distribuuuu_tpu_torch.quant.ptq import supported
+
+        spec, module, qc = hosted.spec, hosted.module, self.quant_cfg
+        if not supported(module):
+            raise NotImplementedError(
+                f"{spec.name}: ':{spec.quant}' serving takes the ResNet family and DenseNet; "
+                f"{spec.arch} is not ported to it yet (ROADMAP Queue 1 item 8c)")
+        tic = time.time()
+
+        def fwd(images):
+            # the serve pipeline, device_normalize included: activation
+            # ranges are recorded where requests will land
+            return module(device_normalize(images)).float()
+
+        def on_device(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+        with torch.inference_mode():
+            batches = [on_device(b) for b in self._synthetic_batches(
+                qc["calib_batches"], qc["calib_batch_size"], qc["calib_seed"])]
+            sites = calibrate(module, batches, apply_fn=fwd)
+            del batches
+            before = self._allocated()
+            qmodel, qparams = quantize(module, sites)
+            quantized = self._allocated() - before
+            gate_x = on_device(self._gate_inputs(qc["gate_n"], qc["gate_seed"]))
+            fp_logits = fwd(gate_x).cpu().numpy()
+            q_logits = qmodel.apply(module, qparams, gate_x, apply_fn=fwd).cpu().numpy()
+            del gate_x
+        result = compare_logits(fp_logits, q_logits, min_top1_agree=qc["min_top1_agree"],
+                                max_logit_rmse=qc["max_logit_rmse"])
+        hosted.gate = result
+        hosted.quant_s = time.time() - tic
+        self._event("quant_quality", model=spec.name, mode=spec.quant, **result.fields(),
+                    calib_batches=qc["calib_batches"], layers=qmodel.n_quantized,
+                    folded_bn=len(qmodel.folded), wall_s=round(hosted.quant_s, 3))
+        logger.info(
+            f"serve: {spec.name} int8 quality gate: top-1 agree "
+            f"{100.0 * result.top1_agree:.2f}%, logit RMSE {result.logit_rmse:.4f} over "
+            f"{result.n} fixture inputs ({qmodel.n_quantized} layer(s) quantized, "
+            f"{len(qmodel.folded)} BN(s) folded) -> {'PASSED' if result.passed else 'FAILED'}"
+        )
+        if not result.passed:
+            msg = (
+                f"refusing to serve {spec.name!r} int8: quality gate failed "
+                f"(top-1 agree {result.top1_agree:.4f} < "
+                f"{qc['min_top1_agree']} or logit RMSE "
+                f"{result.logit_rmse:.4f} > {qc['max_logit_rmse']} vs the "
+                f"fp32 engine on {result.n} fixture inputs). Remedy: a "
+                f"QUANT.QAT fine-tune (straight-through-estimator fake-quant "
+                f"training, docs/PERFORMANCE.md 'Quantized training') moves "
+                f"the weights to a quantization-robust minimum; re-serve the "
+                f"fine-tuned checkpoint with the same ':int8' spec"
+            )
+            if qc["gate"]:
+                raise RuntimeError(msg)
+            logger.warning(msg + " — serving anyway (QUANT.GATE False)")
+        # the gate needed the fp module; the served one does not: its sites
+        # and folded BNs become the int8 modules and their fp tensors go
+        before = self._allocated()
+        prune_variables(module, qmodel, qparams)
+        del qparams  # the int8 modules keep what they read
+        return quantized - (before - self._allocated())
 
     def load_all(self, specs: list[ModelSpec]) -> None:
         for spec in specs:

@@ -142,6 +142,16 @@ class ServeReplica:
             compute_dtype=str(s.DTYPE) or str(cfg.MODEL.DTYPE),
             device=device,
             journal_event=self.journal_event,
+            quant_cfg={
+                "calib_batches": int(cfg.QUANT.CALIB_BATCHES),
+                "calib_batch_size": int(cfg.QUANT.CALIB_BATCH_SIZE),
+                "calib_seed": int(cfg.QUANT.CALIB_SEED),
+                "gate": bool(cfg.QUANT.GATE),
+                "gate_n": int(cfg.QUANT.GATE_N),
+                "gate_seed": int(cfg.QUANT.GATE_SEED),
+                "min_top1_agree": float(cfg.QUANT.MIN_TOP1_AGREE),
+                "max_logit_rmse": float(cfg.QUANT.MAX_LOGIT_RMSE),
+            },
         )
         self.journal = ServeJournal(out_dir)
         self.journal_requests = bool(s.JOURNAL_REQUESTS)

@@ -448,7 +448,7 @@ def eval_step(model, batch: dict, totals: torch.Tensor, topk: int = 5,
 # Keys the port accepts, so that the JAX package's YAMLs and command lines
 # merge, but does not honour yet: any value other than the default raises
 # with the ROADMAP Queue 1 item that ports the subsystem.
-UNPORTED_KEYS = (("DATA.ADVERTISE_HOST", "item 13"),)
+UNPORTED_KEYS = (("DATA.ADVERTISE_HOST", "item 13"), ("QUANT.QAT", "item 8b"))
 
 
 def _check_supported() -> None:

@@ -869,6 +869,26 @@ def test_resnet18_train_step_card_equals_cpu(cuda, monkeypatch):
     assert (s_cpu - s_gpu).abs().max() <= 1e-3 * s_cpu.abs().max()
 
 
+def _determinism_state() -> tuple:
+    """What ``configure_determinism`` sets process-wide, to put back after."""
+    import os
+
+    return (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+            torch.are_deterministic_algorithms_enabled(),
+            os.environ.get("CUBLAS_WORKSPACE_CONFIG"))
+
+
+def _restore_determinism(state: tuple) -> None:
+    import os
+
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = state[:2]
+    torch.use_deterministic_algorithms(state[2])
+    if state[3] is None:
+        os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+    else:
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = state[3]
+
+
 @pytest.mark.gpu
 def test_deterministic_training_steps_repeat_bitwise(cuda):
     """CUDNN.DETERMINISTIC: two runs of two bf16 ResNet-18 training steps
@@ -878,7 +898,7 @@ def test_deterministic_training_steps_repeat_bitwise(cuda):
     from distribuuuu_tpu_torch.runtime.seeding import configure_determinism
     from distribuuuu_tpu_torch.trainer import TrainState, build_cfg_model, train_step
 
-    before = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    before = _determinism_state()
     configure_determinism(True, benchmark=False)
     try:
         runs = []
@@ -894,7 +914,7 @@ def test_deterministic_training_steps_repeat_bitwise(cuda):
             runs.append([t.cpu() for t in (st.params, st.stats, st.grads)])
     finally:
         reset_cfg()
-        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = before
+        _restore_determinism(before)
     assert all(torch.equal(a, b) for a, b in zip(*runs))
 
 
@@ -908,7 +928,7 @@ def test_deterministic_botnet50_training_steps_repeat_bitwise(cuda):
     from distribuuuu_tpu_torch.runtime.seeding import configure_determinism
     from distribuuuu_tpu_torch.trainer import train_step
 
-    before = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    before = _determinism_state()
     configure_determinism(True, benchmark=False)
     try:
         runs = []
@@ -922,7 +942,7 @@ def test_deterministic_botnet50_training_steps_repeat_bitwise(cuda):
             runs.append([t.cpu() for t in (st.params, st.stats, st.grads)])
     finally:
         reset_cfg()
-        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = before
+        _restore_determinism(before)
     assert all(torch.equal(a, b) for a, b in zip(*runs))
 
 
@@ -1052,7 +1072,7 @@ def test_remat_training_steps_equal_without_remat_on_the_card(cuda, arch):
     from distribuuuu_tpu_torch.runtime.seeding import configure_determinism
     from distribuuuu_tpu_torch.trainer import TrainState, build_cfg_model, train_step
 
-    before = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    before = _determinism_state()
     configure_determinism(True, benchmark=False)
     runs = []
     try:
@@ -1079,7 +1099,7 @@ def test_remat_training_steps_equal_without_remat_on_the_card(cuda, arch):
                          *(v.cpu() for v in st.optimizer.state.values())])
     finally:
         reset_cfg()
-        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = before
+        _restore_determinism(before)
     assert all(torch.equal(a, b) for a, b in zip(*runs))
 
 
@@ -1469,3 +1489,143 @@ def test_profile_window_names_k1_and_attributes_the_step(cuda, tmp_path):
     assert a["buckets"]["matmul"] > 0 and a["buckets"]["vector"] > 0
     assert attribution.classify_op(next(n for n in names if "epilogue" in n)) == "vector"
     assert a["device_kind"] == torch.cuda.get_device_name(cuda)
+
+
+@pytest.mark.gpu
+def test_cuda_epilogue_int32_mode_equals_plain_bitwise(cuda):
+    """K1's int32 input mode (a quantized conv's accumulator, values past
+    2^24 included, so the int -> f32 rounding shows) vs its plain version,
+    bitwise, on the vector route and on the scalar one (C 36; a view 2
+    elements off a 16-byte boundary), with mean 0 as the int8 path runs it
+    and with a mean, each BN, residual and cast dtype, each mode; every call
+    counted in ``INT32_LAUNCHES``. Gradients are refused."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+
+    def nchw(n, h, w, c, dtype, offset=0):
+        if dtype == torch.int32:
+            t = torch.randint(-(1 << 26), 1 << 26, (n * h * w * c + offset,), generator=gen,
+                              device=cuda, dtype=torch.int32)
+        else:
+            t = torch.randn(n * h * w * c + offset, generator=gen, device=cuda).to(dtype)
+        return t[offset:].view(n, h, w, c).permute(0, 3, 1, 2)
+
+    for (n, h, w, c), offset, scalar in (((2, 7, 7, 2048), 0, False), ((3, 5, 9, 40), 0, False),
+                                         ((3, 5, 9, 36), 0, True), ((2, 6, 6, 64), 2, True)):
+        x = nchw(n, h, w, c, torch.int32, offset)
+        for bn_dt in (torch.float32, torch.bfloat16):
+            for res_dt in (None, torch.float32, torch.bfloat16):
+                ident = None if res_dt is None else nchw(n, h, w, c, res_dt, offset)
+                mul = torch.rand(c, generator=gen, device=cuda) * 1e-6
+                bias = torch.randn(c, generator=gen, device=cuda)
+                for mean in (torch.zeros(c, device=cuda), torch.randn(c, generator=gen,
+                                                                      device=cuda) * 1e5):
+                    for relu in (False, True):
+                        for mode, kw in _K1_MODES.items():
+                            kw = dict(kw, relu=relu, bn_dtype=bn_dt,
+                                      cast_to=None if mode == "a" else torch.bfloat16)
+                            before = (ep.LAUNCHES, ep.SCALAR_LAUNCHES, ep.INT32_LAUNCHES)
+                            got = ep.fused_conv_epilogue(x, mean, mul, bias, ident, **kw)
+                            assert (ep.LAUNCHES, ep.SCALAR_LAUNCHES, ep.INT32_LAUNCHES) == (
+                                before[0] + 1, before[1] + scalar, before[2] + 1)
+                            want = ep.epilogue_reference(x, mean, mul, bias, ident, **kw)
+                            torch.cuda.synchronize()
+                            pairs = zip(got, want) if mode == "c" else [(got, want)]
+                            for g, wt in pairs:
+                                assert g.dtype == wt.dtype and torch.equal(g, wt), (
+                                    (n, h, w, c), offset, bn_dt, res_dt, relu, mode)
+    with pytest.raises(TypeError, match="no backward"):
+        ep.fused_conv_epilogue(x, mean, mul.requires_grad_(), bias, bn_dtype=torch.float32)
+
+
+# (N, C, H, W, O, k, stride, padding): ResNet-50's stem (K 147 padded to 152),
+# a 1x1, the downsample's 1x1 stride 2, a 3x3 stride 2, a 3x3 and one whose
+# M (1 * 4 * 4) is below _int_mm's 17 rows
+_INT8_CONVS = [(2, 3, 224, 224, 64, 7, 2, 3), (4, 256, 56, 56, 64, 1, 1, 0),
+               (4, 512, 28, 28, 1024, 1, 2, 0), (4, 256, 28, 28, 256, 3, 2, 1),
+               (2, 64, 56, 56, 64, 3, 1, 1), (1, 512, 4, 4, 512, 3, 1, 1)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", _INT8_CONVS, ids=lambda s: "x".join(map(str, s)))
+def test_int8_conv_accumulator_on_the_card_equals_plain(cuda, shape):
+    """The int8 conv's card route (im2col + ``torch._int_mm``) vs its plain
+    version (the float64 conv of the int8 values, on the card): the int32
+    accumulators ``torch.equal``, channels-last."""
+    from distribuuuu_tpu_torch.quant import ptq
+
+    n, c, h, w, o, k, s, p = shape
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    xq = torch.randint(-127, 128, (n, h, w, c), generator=gen, device=cuda,
+                       dtype=torch.int8).permute(0, 3, 1, 2)
+    wm = ptq.int8_matrix(torch.randint(-127, 128, (o, c, k, k), generator=gen, device=cuda,
+                                       dtype=torch.int8))
+    args = (xq, wm, o, (k, k), (s, s), (p, p))
+    got, want = ptq.int8_conv2d(*args), ptq.int8_conv2d_reference(*args)
+    assert got.dtype == torch.int32 and got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 128])
+def test_int8_linear_accumulator_on_the_card_equals_plain(cuda, n):
+    """ResNet-50's fc (2048 -> 1000) in int8 at batch 1 (M 1, padded to 17
+    rows) and 128: ``torch._int_mm``'s int32 accumulator ``torch.equal`` to
+    the float64 product on the card."""
+    from distribuuuu_tpu_torch.quant import ptq
+
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    xq = torch.randint(-127, 128, (n, 2048), generator=gen, device=cuda, dtype=torch.int8)
+    wm = ptq.int8_matrix(torch.randint(-127, 128, (1000, 2048), generator=gen, device=cuda,
+                                       dtype=torch.int8))
+    assert torch.equal(ptq.int8_linear(xq, wm, 1000), ptq.int8_linear_reference(xq, wm, 1000))
+
+
+_VIT_STEPS = r'''
+import sys
+sys.path.insert(0, sys.argv[1])
+from distribuuuu_tpu_torch.runtime.seeding import configure_determinism
+configure_determinism(True, benchmark=False)  # before any CUDA work, as the trainer
+import torch
+from distribuuuu_tpu_torch.config import cfg, reset_cfg
+from distribuuuu_tpu_torch.trainer import TrainState, build_cfg_model, train_step
+# other CUDA work first: GEMMs on the default stream and on a side stream, a conv
+a = torch.randn(1024, 1024, device="cuda")
+side = torch.cuda.Stream()
+with torch.cuda.stream(side):
+    (a @ a.t()).sum().item()
+(a @ a).sum().item()
+torch.nn.functional.conv2d(torch.randn(2, 3, 32, 32, device="cuda"),
+                           torch.randn(8, 3, 3, 3, device="cuda")).sum().item()
+runs = []
+for _ in range(2):
+    reset_cfg()
+    cfg.MODEL.ARCH, cfg.MODEL.NUM_CLASSES, cfg.TRAIN.IM_SIZE = "vit_s16", 10, 64
+    st = TrainState(build_cfg_model(torch.Generator().manual_seed(0)).cuda())
+    gen = torch.Generator().manual_seed(1)
+    for k in range(2):
+        train_step(st, {"image": torch.randint(0, 256, (8, 64, 64, 3), dtype=torch.uint8,
+                                               generator=gen).cuda(),
+                        "label": torch.randint(0, 10, (8,), generator=gen).cuda()}, 1e-3,
+                   dropout_key=(0, 0, k, 0))
+    runs.append([st.params.cpu(), st.grads.cpu()])
+assert torch.are_deterministic_algorithms_enabled()
+print("equal" if all(torch.equal(x, y) for x, y in zip(*runs)) else "differ")
+'''
+
+
+@pytest.mark.gpu
+def test_deterministic_vit_steps_repeat_after_other_cuda_work(cuda):
+    """CUDNN.DETERMINISTIC as the trainer sets it, before the process's first
+    CUDA work: after GEMMs on two streams and a conv, two runs of two ViT-S/16
+    steps (64^2, batch 8) in the same process end with torch.equal
+    parameters and gradients. A fresh process, so that the setting comes
+    before any cuBLAS handle."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = str(Path(__file__).resolve().parents[1])
+    out = subprocess.run([sys.executable, "-c", _VIT_STEPS, root], capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().splitlines()[-1] == "equal"
