@@ -179,6 +179,18 @@ Phases (any failure exits non-zero):
    of the hang, every thread's stack in the rank log. The emergency save's
    ms and bytes, the relaunch's time to its first step and the steps run
    after the signal, beside the card's name and power limit;
+18b. [deploy] (beside 18) a ``config/serve_resnet50.yaml`` replica hosting
+   ``rn50=resnet50@<checkpoint A>:int8`` with ``SERVE.DEPLOY.WATCH_DIR`` on a
+   training run's directory (DEPLOY), HTTP traffic from the port's
+   ``ServeClient`` throughout: checkpoint B (A's weights times 1 + 1e-3
+   noise) staged with its own PTQ and gate, canaried and promoted;
+   checkpoint C (B with the fc negated) rolled back by the deploy quality
+   gate, its strike persisted and then struck out; no client request may
+   fail, ``/healthz`` shows B's version and ready, every step a valid
+   ``deploy_*`` record, K1's int32 mode launched and none scalar, and the
+   allocator (``torch.cuda.memory_allocated``, no request in flight) back
+   to one version after the promotion and the discard; the stage, canary
+   and promote times;
 19. [train-zoo] the rest of the classification zoo through ``train_net`` at
    full width, 224^2, bf16, batch 64 (each config's), ZOO_STEPS steps:
    DenseNet-121 (``config/resnet50.yaml MODEL.ARCH densenet121
@@ -260,13 +272,31 @@ Phases (any failure exits non-zero):
    recomputed block, the attention kernel twice and its backward once, none
    scalar; peak memory and step ms both ways, and remat must lower MAE's
    peak;
+28b. [train-qat] (beside 28) ``train_net --cfg config/resnet50.yaml ...
+   QUANT.QAT True`` at 224^2, bf16 (QAT_RUNS): DenseNet-121 b64 warm-started
+   from [train-zoo]'s checkpoint with ``QUANT.QAT_DISTILL``, ResNet-50 b128
+   from QAT_SEED (its seeded init, which fails the ``:int8`` gate) in int8
+   and in fp8, the three at once, QAT_STEPS steps:
+   K1 and K1-bwd against their plain versions at every site of the QAT
+   step (mode a, bf16 boundaries); the loss finite, K1 once a BN (twice
+   with the distillation's teacher) and K1-bwd once a BN a step, none
+   scalar, the calibration's sites and ``qat`` record, the checkpoint,
+   ``test_net`` under ``QUANT.QAT`` on it; the fake-quant forward of the
+   ResNet-50 checkpoint (f32, TF32 on for the process) against the true
+   int8 path of the same weights: each site's product within QAT_TRACK_ACC,
+   above it with the interception's TF32 scoping disabled, the first grid
+   flips within QAT_FIRST_FLIPS and QAT_EDGE; the ``:int8`` gate of
+   ResNet-50 at QAT_SEED (must fail) and after QAT (the RMSE must fall;
+   whether it passes printed), and of DenseNet-121 before and
+   after, printed; each QAT step's ms against the fp step of [train] or
+   [train-zoo];
 29. the whole run's wall time and each phase's, the ``{"kernels": [...]}``
    line; 30. the ``{"ok": true, ...}`` last line.
 
 Nothing from [oracle] to [mae f32] is timed, so after [train-fsdp] they run
 side by side ([oracle], [train-seq], [parallel] and the test_net runs as
 subprocesses, [pretrained], [zoo f32] and [mae f32] in this process), then
-[remat] alone.
+[remat] beside [train-qat]'s subprocesses and its test_nets.
 Each path is driven with the launch counts set to 0 just before it and read
 just after. Per-shape numbers are also written to ``smoke_out/``.
 """
@@ -349,13 +379,16 @@ F32_PEAK_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
 BF16_PEAK_FLOPS = 989e12  # H100 SXM, dense bf16 on the tensor cores
 
 
-def epilogue_sites(arch: str, n: int, im: int = IM, bn_dtype=None) -> Counter:
+def epilogue_sites(arch: str, n: int, im: int = IM, bn_dtype=None,
+                   boundaries: bool = False) -> Counter:
     """(N, H, W, C, residual, relu, mode) -> K1 calls in one bf16 forward of
     ``arch`` at batch ``n``, recorded by a spy on K1 while the model runs on
     the meta device (shapes only, no data; the attention returns an empty
     tensor of its shape). mode: a (the BN boundary), b (the next conv's
     input), c (both). ``bn_dtype``: the boundaries' dtype (None: f32, as
-    served; bf16: as trained, where b and c are one tensor)."""
+    served; bf16: as trained, where b and c are one tensor). ``boundaries``:
+    under ``layers.boundary_handoffs``, every K1 in mode a (the quantized
+    paths: QAT and PTQ's calibration)."""
     import torch
 
     from distribuuuu_tpu_torch.models import botnet, build_model, layers
@@ -377,6 +410,7 @@ def epilogue_sites(arch: str, n: int, im: int = IM, bn_dtype=None) -> Counter:
         model = build_model(arch, num_classes=1000, dtype=torch.bfloat16, im_size=im,
                             bn_dtype=bn_dtype or torch.float32)
     layers.fused_conv_epilogue, botnet.fused_attention = k1, attention
+    layers.link_boundaries(model, boundaries)
     try:
         with torch.inference_mode():
             model.eval()(torch.empty(n, im, im, 3, device="meta"))
@@ -1101,6 +1135,7 @@ def train_run(card: str, out: Path, tag: str, what: str, cfg_file: str, batch: i
     census = re.search(r"fsdp=\d+: params .*", log)
     mesh = re.search(r"Mesh: .*", log)
     res = dict(steps=steps, batch=batch, im=im, launches=counts, losses=losses, step_ms=step_ms,
+               path=path,
                images_per_s=1e3 * batch / step_ms, windows=prog, wall_s=wall, profile=profile,
                peak_gib=peak_gib, data_wait_pct=float(wait[1]) if wait else float("nan"),
                census=census[0] if census else None, mesh=mesh[0] if mesh else None,
@@ -1500,6 +1535,415 @@ def phase_train_zoo(card: str, tmp: Path, bw: float, deferred: list) -> dict:
             f"{', '.join(a for a, *_ in ZOO_RUNS if a != arch)} and [train-mae]")
         out[arch].update(bound_ms=bounds[arch], k1_a_step=k1, k1_check=check)
     return out
+
+
+# [train-qat]: QUANT.QAT through the training CLI at full width, 224^2, bf16,
+# dummy input, QAT_STEPS steps each (QAT_RUNS: tag, arch arguments, batch,
+# QUANT.QAT_MODE, QUANT.QAT_DISTILL, BNs a step, warm start). DenseNet-121
+# (on resnet50.yaml's recipe, as [train-zoo]) is warm-started from
+# [train-zoo]'s checkpoint and fine-tuned with the distillation term;
+# ResNet-50 in int8 and in fp8 from QAT_SEED's checkpoint. A fine-tune's
+# learning rate: a tenth of resnet50.yaml's, no warmup (QAT_ARGS). A step
+# launches K1 once a BN for the fake-quant forward (under
+# layers.boundary_handoffs: mode a, the bf16 boundary) and, with the
+# distillation, once more for the teacher's forward; K1-bwd once a BN.
+QAT_STEPS = 20
+QAT_PRINT = 5  # TRAIN.PRINT_FREQ: windows at steps 5, 10, 15, 19
+QAT_DISTILL = 1.0
+# cuDNN's autotuning of the f32 products (forward and both backward passes
+# at every shape) took about a minute of the first step with the three runs
+# at once: the runs take cuDNN's heuristics instead
+QAT_ARGS = ["OPTIM.BASE_LR", "0.02", "OPTIM.WARMUP_EPOCHS", "0", "CUDNN.BENCHMARK", "False"]
+QAT_RUNS = [
+    ("densenet121", ["MODEL.ARCH", "densenet121", "MODEL.STEM_S2D", "False"], 64, "int8",
+     QAT_DISTILL, 121, "zoo"),
+    ("resnet50", [], 128, "int8", 0.0, TRAIN_K1, "seed"),
+    ("resnet50-fp8", [], 128, "fp8", 0.0, TRAIN_K1, "seed"),
+]
+# The rescue: QAT_SEED is ResNet-50's seeded init (init_state_dict, the fc
+# unscaled), whose :int8 gate fails on its logit RMSE ([serve-int8]'s
+# comment: the BNs' unit statistics let the residual stream grow); the
+# seed must fail it, and the int8 QAT run's checkpoint must lower that
+# RMSE; whether it then passes is printed. A fine-tune's first
+# effect there is the BN statistics, taken in train mode over the
+# fake-quant activations. The activation scales stay what the calibration
+# (JAX's: eval mode, at the seed's unit statistics) set: at ResNet-50's
+# deep sites up to ~80 times the train-mode amax, so those sites train on a
+# few grid steps (scripts/torch_qat_recipes.py reports the calibration and
+# the same run without QUANT.QAT). DenseNet-121's seed, [train-zoo]'s
+# checkpoint, passes the gate already: its gate before and after is
+# printed. DenseNet-121's own init is no seed for QAT: there the deep
+# sites' scales are up to ~1e8 times the train-mode amax and 70 of its 121
+# sites round every input to 0.
+QAT_SEED = ("resnet50", 0)  # [serve-int8]'s draw (INT8_SEED)
+# The fake-quant forward against the true int8 path of the same weights on
+# the card, on one batch (f32, eval), with cuDNN's and cuBLAS's TF32 turned
+# ON for the process, as train_net leaves cuDNN's: QATModel.intercept must
+# turn them off for its products. At each site, on the input the int8
+# path's forward gave it, the fake-quant product equals the int8
+# accumulator times the two scales within QAT_TRACK_ACC of the product's
+# sum of |terms| (quant.qat.site_product_errors): float32 accumulation in
+# any order leaves a few units of 2**-24 (4.14e-07 at ResNet-50 224^2,
+# PERF.md), a TF32 product about 2**-11 of a term. The same check with the
+# interception's TF32 scoping disabled must read above the limit (the check
+# sees the fault it is for). End to end the two forwards part where float32
+# rounding puts a value on the other side of a rounding edge, and the step
+# it moved cascades through the later layers: at the first site whose grid
+# indices differ, at most QAT_FIRST_FLIPS of its elements may differ, each
+# within QAT_EDGE of a step's rounding edge in the int8 path's value (a
+# wrong scale or offset moves values off the edges and by many elements;
+# tests/test_torch_qat.py holds the CPU against JAX to the same two
+# limits); later sites and the logits are reported, beside the int8 path
+# against itself with its input nudged by one float32 ulp (the cascade a
+# few edge flips start in the quantized network alone).
+QAT_TRACK_ACC = 1e-5
+QAT_TRACK_BATCH = 8
+QAT_FIRST_FLIPS = 1e-3
+QAT_EDGE = 1e-3
+
+
+def qat_sites(arch: str) -> int:
+    """The conv and linear modules of ``arch`` (the fake-quant sites)."""
+    import torch
+
+    from distribuuuu_tpu_torch.models import build_model
+
+    with torch.device("meta"):
+        model = build_model(arch, num_classes=1000, dtype=torch.bfloat16, im_size=IM)
+    return sum(isinstance(m, (torch.nn.Conv2d, torch.nn.Linear)) for m in model.modules())
+
+
+def qat_run(card: str, out: Path, run: tuple, warm: str | None, deferred: list,
+            qat_args: list | None = None) -> dict:
+    """One QAT_RUNS entry through ``train_net`` as a subprocess, warm-started
+    from ``warm``: the loss finite, the launches (module comment), the
+    calibration's site count and ``qat`` record, the checkpoint verified,
+    step ms (the median of the windows from step 2 x QAT_PRINT), peak
+    memory; ``test_net`` under ``QUANT.QAT`` on the checkpoint appended to
+    ``deferred``. ``qat_args``: in place of QAT_ARGS."""
+    from distribuuuu_tpu_torch import checkpoint as ckpt
+
+    tag, extra, batch, mode, distill, bns = run[:6]
+    arch = extra[1] if extra else "resnet50"
+    qat = ["QUANT.QAT", "True", "QUANT.QAT_MODE", mode, "QUANT.QAT_DISTILL", str(distill)]
+    args = ["--cfg", "config/resnet50.yaml", "MODEL.DUMMY_INPUT", "True", *extra,
+            "TRAIN.BATCH_SIZE", str(batch), "TEST.BATCH_SIZE", str(batch), "TRAIN.PRINT_FREQ",
+            str(QAT_PRINT), "RNG_SEED", "0", "OUT_DIR", str(out), "OPTIM.MAX_EPOCH", "1",
+            "TRAIN.DUMMY_EPOCH_SAMPLES", str(batch * QAT_STEPS), *(qat_args or QAT_ARGS), *qat,
+            *NO_MFU,
+            *(["MODEL.WEIGHTS", warm] if warm else [])]
+    tic = time.perf_counter()
+    log = run_cli(["distribuuuu_tpu_torch.train_net", *args], f"train_net [train-qat] {tag}")
+    wall = time.perf_counter() - tic
+    Path(f"{out}.log").write_text(log)
+    prog, counts = train_log(log)
+    losses = [p[2] for p in prog]
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"[train-qat] {tag}: loss not finite: {losses}")
+    teacher = 2 if distill > 0 else 1
+    want = dict(k1=teacher * bns * QAT_STEPS, k1_bwd=bns * QAT_STEPS, k1_scalar=0,
+                k1_bwd_scalar=0, attention=0, attention_bwd=0, attention_bwd_cluster=0,
+                attention_bwd_blockwise=0, attention_bwd_scalar=0)
+    if counts != want:
+        fail(f"[train-qat] {tag}: launches over {QAT_STEPS} steps {counts}; want {want}")
+    sites = re.search(r"QUANT.QAT: (\S+) fake-quant fine-tune over (\d+) conv/dense", log)
+    if sites is None or (sites[1], int(sites[2])) != (mode, qat_sites(arch)):
+        fail(f"[train-qat] {tag}: no calibration line for {mode} over {qat_sites(arch)} sites")
+    recs = [r for r in journal_records(out, f"train-qat {tag}") if r["kind"] == "qat"]
+    if [(r["mode"], r["layers"]) for r in recs] != [(mode, qat_sites(arch))]:
+        fail(f"[train-qat] {tag}: the journal's qat records {recs}")
+    steady = [t for it, t, _ in prog if it >= 2 * QAT_PRINT]
+    step_ms = 1e3 * statistics.median(steady)
+    peak = re.search(r"peak memory (\S+) GiB", log)
+    peak_gib = float(peak[1]) if peak else float("nan")
+    path = ckpt.get_checkpoint_path(str(out), 1)
+    status, errors = ckpt.verify_checkpoint(path)
+    if status != "ok":
+        fail(f"[train-qat] {tag}: checkpoint {path}: {status} {errors}")
+    say(f"[train-qat] {tag}: {mode}, distill {distill}, batch {batch}, {QAT_STEPS} steps in "
+        f"{wall:.1f} s from {warm} ({sites[2]} sites calibrated; process start, calibration, "
+        f"eval and checkpoint included); loss {losses[0]:.4f} -> {losses[-1]:.4f}; launches "
+        f"{counts}; step {step_ms:.2f} ms, peak memory {peak_gib:.2f} GiB ({card})")
+    res = dict(tag=tag, arch=arch, mode=mode, distill=distill, batch=batch, steps=QAT_STEPS,
+               launches=counts, k1_a_step=teacher * bns, k1_bwd_a_step=bns, losses=losses,
+               step_ms=step_ms, peak_gib=peak_gib, wall_s=wall, sites=int(sites[2]), path=path,
+               warm_start=warm)
+    deferred.append(Evaluation(
+        ["distribuuuu_tpu_torch.test_net", "--cfg", "config/resnet50.yaml", "MODEL.DUMMY_INPUT",
+         "True", *extra, "TEST.BATCH_SIZE", str(batch), "TRAIN.DUMMY_EPOCH_SAMPLES",
+         str(batch * 4), "MODEL.WEIGHTS", path, "OUT_DIR", f"{out}_eval", *qat,
+         "CUDNN.BENCHMARK", "False"], Path(f"{out}_eval.log"),
+        f"[train-qat] {path} verified against its manifest; test_net {tag} under QUANT.QAT on it",
+        res))
+    return res
+
+
+def grid_flips(sites: dict, scale, fake: dict, true: dict) -> dict:
+    """Each site's input in both forwards on its grid (``scale(site)``), in
+    forward order: how many indices differ; at the first site that has any,
+    its size, the largest distance of a differing element from its step's
+    rounding edge in ``true``'s value, and the largest |fake - true| over
+    the site, both in grid steps."""
+    import torch
+
+    rows, first = [], None
+    for key, site in sites.items():
+        f, t = fake[key].float() / scale(site), true[key].float() / scale(site)
+        differ = torch.round(f) != torch.round(t)
+        rows.append((key, int(differ.sum())))
+        if first is None and rows[-1][1]:
+            edge = ((t - torch.floor(t)) - 0.5).abs()[differ]
+            first = dict(site=key, flips=rows[-1][1], size=differ.numel(),
+                         edge=float(edge.max()), deviation=float((f - t).abs().max()))
+    return dict(first=first, flips=rows, total=sum(n for _, n in rows))
+
+
+def qat_tracking(path: str) -> dict:
+    """The fake-quant forward of ResNet-50 (``path``'s weights, f32, eval)
+    against the true int8 path of the same weights (``quantize`` of the same
+    calibrated site table, ``prune_variables``) on QAT_TRACK_BATCH golden
+    inputs, with TF32 on for the process (module comment): each site's
+    product error (``quant.qat.site_product_errors``), again with the
+    interception's TF32 scoping disabled, the grid flips
+    (:func:`grid_flips`), the logits' RMSE, K1's launches. Measures only;
+    :func:`qat_tracking_checks` holds the numbers."""
+    import contextlib
+    import copy
+
+    import numpy as np
+    import torch
+
+    from distribuuuu_tpu_torch.convert import golden_inputs
+    from distribuuuu_tpu_torch.models import build_model, layers
+    from distribuuuu_tpu_torch.ops import epilogue as ep
+    from distribuuuu_tpu_torch.quant import calibrate_qat, prune_variables, quantize
+    from distribuuuu_tpu_torch.quant import qat as qat_mod
+
+    model = build_model("resnet50", num_classes=1000, dtype=torch.float32, im_size=IM)
+    model.load_state_dict(torch.load(Path(path) / "checkpoint.pt", map_location="cpu",
+                                     weights_only=True)["model"], strict=True)
+    model = model.cuda().to(memory_format=torch.channels_last).eval()
+    rng = np.random.default_rng(1234)
+    batches = [torch.from_numpy(rng.standard_normal((8, IM, IM, 3)).astype(np.float32)).cuda()
+               for _ in range(4)]
+    x = torch.from_numpy(golden_inputs(QAT_TRACK_BATCH, IM, 0)).cuda()
+    qat = calibrate_qat(model, batches, mode="int8")  # the same site table as PTQ's
+    qmodel, qparams = quantize(model, qat.sites)
+
+    def inputs(run):
+        seen = {}
+
+        def hook(key):
+            def record(mod, args):
+                t = args[0].boundary if isinstance(args[0], layers.Pair) else args[0]
+                seen.setdefault(key, t.detach().clone())
+            return record
+
+        hooks = [model.get_submodule(k).register_forward_pre_hook(hook(k)) for k in qat.sites]
+        try:
+            with torch.no_grad():
+                logits = run().float().cpu().numpy()
+        finally:
+            for h in hooks:
+                h.remove()
+        return logits, seen
+
+    prior = qat_mod._tf32()
+    qat_mod._set_tf32(True, True)  # train_net's cuDNN default, and cuBLAS's too
+    try:
+        before = (ep.LAUNCHES, ep.INT32_LAUNCHES, ep.SCALAR_LAUNCHES)
+        fake, fake_in = inputs(lambda: qat.apply(model, x))
+        with torch.no_grad():
+            fp = model(x).float().cpu().numpy()
+        fp_model = copy.deepcopy(model)
+        prune_variables(model, qmodel, qparams)
+        true, true_in = inputs(lambda: model(x))
+        launched = tuple(a - b for a, b in zip(
+            (ep.LAUNCHES, ep.INT32_LAUNCHES, ep.SCALAR_LAUNCHES), before))
+        nudged, nudged_in = inputs(lambda: model(torch.nextafter(x, torch.full_like(x, 1e30))))
+        products = qat_mod.site_product_errors(qat, fp_model, model, true_in)
+        scoped = qat_mod._tf32_as
+        qat_mod._tf32_as = lambda conv, matmul: contextlib.nullcontext()
+        try:  # the interception with its TF32 scoping disabled
+            unscoped = qat_mod.site_product_errors(qat, fp_model, model, true_in)
+        finally:
+            qat_mod._tf32_as = scoped
+        tf32_after = qat_mod._tf32()
+    finally:
+        qat_mod._set_tf32(*prior)
+    flips = grid_flips(qat.sites, qat.act_scale, fake_in, true_in)
+    self_flips = grid_flips(qat.sites, qat.act_scale, nudged_in, true_in)
+    del model, fp_model, qparams, batches, fake_in, true_in, nudged_in
+    torch.cuda.empty_cache()
+
+    def rmse(a, b):
+        return float(np.sqrt(np.mean((a - b) ** 2)))
+
+    worst = max(products, key=products.get)
+    worst_unscoped = max(unscoped, key=unscoped.get)
+    return dict(fake_vs_int8_rmse=rmse(fake, true), int8_vs_fp_rmse=rmse(true, fp),
+                top1_equal=int((fake.argmax(1) == true.argmax(1)).sum()), batch=QAT_TRACK_BATCH,
+                launches=launched, products_worst=(worst, products[worst]),
+                unscoped_worst=(worst_unscoped, unscoped[worst_unscoped]),
+                tf32_after=tf32_after, nudged_flips=self_flips["total"],
+                nudged_first=self_flips["first"], nudged_rmse=rmse(nudged, true), **flips)
+
+
+def qat_tracking_checks(track: dict) -> None:
+    """QAT_TRACK_ACC, QAT_FIRST_FLIPS, QAT_EDGE (module comment) on
+    :func:`qat_tracking`'s numbers; K1 in both forwards, none scalar; TF32
+    as it was after the interception."""
+    if track["launches"] != (3 * TRAIN_K1, TRAIN_K1, 0):
+        fail(f"[train-qat] the tracking forwards launched K1 {track['launches']} (all, int32, "
+             f"scalar), want {3 * TRAIN_K1}, {TRAIN_K1}, 0")
+    if track["tf32_after"] != (True, True):
+        fail(f"[train-qat] TF32 (cuDNN, cuBLAS) {track['tf32_after']} after the interception, "
+             f"want it as before: (True, True)")
+    key, err = track["products_worst"]
+    if err > QAT_TRACK_ACC:
+        fail(f"[train-qat] the fake-quant product at {key} differs from the int8 path's by "
+             f"{err:.2e} of its sum|terms| (limit {QAT_TRACK_ACC})")
+    key, err = track["unscoped_worst"]
+    if err <= QAT_TRACK_ACC:
+        fail(f"[train-qat] with the interception's TF32 scoping disabled the worst product "
+             f"({key}) reads {err:.2e} of its sum|terms|, within the limit {QAT_TRACK_ACC}: "
+             f"the check cannot see TF32")
+    first = track["first"]
+    if first is not None and (first["flips"] > max(1, QAT_FIRST_FLIPS * first["size"])
+                              or first["edge"] > QAT_EDGE):
+        fail(f"[train-qat] at the first site whose grid indices differ between the fake-quant "
+             f"and the int8 forward, {first}: more than {QAT_FIRST_FLIPS} of its elements, or "
+             f"one farther than {QAT_EDGE} of a step from a rounding edge")
+
+
+def qat_gates(arch: str, paths: dict) -> dict:
+    """The ``:int8`` engine's gate (QUANT's defaults: 4 x 8 calibration
+    batches, 16 inputs, top-1 0.99, RMSE 0.25; uint8 wire, bf16, as
+    serve_resnet50.yaml serves) of ``arch`` at each of ``paths`` (name ->
+    checkpoint), measured with the gate off so every one is hosted."""
+    import torch
+
+    from distribuuuu_tpu_torch.serve.engine import InferenceEngine, ModelSpec
+
+    engine = InferenceEngine(batch_sizes=[8], im_size=IM, num_classes=1000, input_dtype="uint8",
+                             compute_dtype="bfloat16", quant_cfg={"gate": False})
+    out = {name: engine.load(ModelSpec(name, arch, path, quant="int8")).gate.fields()
+           for name, path in paths.items()}
+    del engine
+    torch.cuda.empty_cache()
+    return out
+
+
+def qat_k1_checks() -> dict:
+    """K1 and K1-bwd against their plain versions at every site of the
+    QAT_RUNS steps (:func:`zoo_k1_check`; mode a, bf16 boundaries)."""
+    import torch
+
+    checks = {}
+    for _, extra, batch, _, _, bns, _ in QAT_RUNS:
+        arch = extra[1] if extra else "resnet50"
+        if arch in checks:
+            continue
+        sites = epilogue_sites(arch, batch, bn_dtype=torch.bfloat16, boundaries=True)
+        if sum(sites.values()) != bns or {site[-1] for site in sites} != {"a"}:
+            fail(f"[train-qat] {arch}: {sum(sites.values())} K1 sites a step in modes "
+                 f"{ {site[-1] for site in sites} }, want {bns} in mode a")
+        checks[arch] = zoo_k1_check(sites)
+    return checks
+
+
+def qat_seed(tmp: Path) -> str:
+    """QAT_SEED's weights as a checkpoint directory under ``tmp``."""
+    arch, seed = QAT_SEED
+    return deploy_checkpoint(tmp / f"qat_seed_{arch}", init_state_dict(arch, seed))
+
+
+def start_train_qat(card: str, tmp: Path, deferred: list, zoo_ckpt: str) -> dict:
+    """QAT_SEED's checkpoint, then the QAT_RUNS at once, each a
+    :class:`Background` of :func:`qat_run` (subprocesses and files only,
+    nothing on this process's card)."""
+    warm = dict(zoo=zoo_ckpt, seed=qat_seed(tmp))
+    return {run[0]: Background(qat_run, card, tmp / f"qat_{run[0]}", run, warm[run[6]], deferred)
+            for run in QAT_RUNS}
+
+
+def finish_train_qat(card: str, runs: dict, zoo_ckpt: str, checks: dict) -> dict:
+    """The runs' results, the fake-quant forward against the int8 path
+    (:func:`qat_tracking`, :func:`qat_tracking_checks`), then the ``:int8``
+    gates (:func:`qat_gates`) of ResNet-50 at QAT_SEED and after its int8
+    QAT run (the seed must fail, the RMSE must fall), and of DenseNet-121 at [train-zoo]'s
+    checkpoint and after its QAT run, printed."""
+    out = {tag: r.result() for tag, r in runs.items()}
+    say(f"[train-qat] K1 and K1-bwd at the QAT steps' distinct sites, each against its plain "
+        f"version (bf16, mode a): " + ", ".join(
+            f"{a} {c['sites']} sites, K1 max|d| {c['k1_max_abs_err']}, K1-bwd sums within "
+            f"{c['k1_bwd_sum_rel_err']:.2e}" for a, c in checks.items()))
+    track = qat_tracking(out["resnet50"]["path"])
+    first = track["first"]
+    say(f"[train-qat] the fake-quant forward of the ResNet-50 QAT checkpoint (f32, TF32 on for "
+        f"the process, {QAT_TRACK_BATCH} golden inputs) against its true int8 path: each site's "
+        f"product on the int8 forward's input within {track['products_worst'][1]:.2e} of its "
+        f"sum|terms| (worst {track['products_worst'][0]}; limit {QAT_TRACK_ACC}); with the "
+        f"interception's TF32 scoping disabled {track['unscoped_worst'][1]:.2e} (at "
+        f"{track['unscoped_worst'][0]}); end to end {track['total']} grid indices moved over "
+        f"{len(track['flips'])} sites"
+        + (f", the first {first['flips']} of {first['size']} at {first['site']}, each within "
+           f"{first['edge']:.2e} of a step from a rounding edge, the site's inputs within "
+           f"{first['deviation']:.2e} of a step (limits {QAT_FIRST_FLIPS} of the elements, "
+           f"{QAT_EDGE})" if first else "")
+        + f"; logits RMSE {track['fake_vs_int8_rmse']:.3e} against the int8 path's "
+        f"{track['int8_vs_fp_rmse']:.3e} from fp, top-1 equal on {track['top1_equal']} of "
+        f"{QAT_TRACK_BATCH}; the int8 path against itself with its input one ulp up: "
+        f"{track['nudged_flips']} grid indices moved (the first "
+        f"{(track['nudged_first'] or {}).get('flips')} at "
+        f"{(track['nudged_first'] or {}).get('site')}), logits RMSE "
+        f"{track['nudged_rmse']:.3e} ({card})")
+    qat_tracking_checks(track)
+    gates = {}
+    for arch, seed, tuned in (("resnet50", out["resnet50"]["warm_start"], out["resnet50"]["path"]),
+                              ("densenet121", zoo_ckpt, out["densenet121"]["path"])):
+        g = qat_gates(arch, {"seed": seed, "qat": tuned})
+        g["rmse_fell"] = g["qat"]["logit_rmse"] < g["seed"]["logit_rmse"]
+        gates[arch] = g
+        for name in ("seed", "qat"):
+            f = g[name]
+            say(f"[train-qat] {arch} {name} ({seed if name == 'seed' else tuned}) "
+                f"through the :int8 engine: top-1 agree {f['top1_agree']}, logit RMSE "
+                f"{f['logit_rmse']} over {f['n']} inputs -> "
+                f"{'PASSED' if f['passed'] else 'FAILED'} (limits {f['min_top1_agree']}, "
+                f"{f['max_logit_rmse']})")
+        say(f"[train-qat] {arch}'s int8 logit RMSE {'fell' if g['rmse_fell'] else 'did not fall'}"
+            f" over the {QAT_STEPS} QAT steps: {g['seed']['logit_rmse']} -> "
+            f"{g['qat']['logit_rmse']} ({card})")
+    rn = gates["resnet50"]
+    if rn["seed"]["passed"]:
+        fail(f"[train-qat] QAT_SEED passes the :int8 gate ({rn['seed']}): no rescue to show")
+    if not rn["rmse_fell"]:
+        fail(f"[train-qat] ResNet-50's int8 logit RMSE did not fall over its QAT run: "
+             f"{rn['seed']['logit_rmse']} -> {rn['qat']['logit_rmse']}")
+    return dict(runs=out, k1_check=checks, track=track, gates=gates)
+
+
+def phase_train_qat(card: str, tmp: Path, deferred: list, zoo_ckpt: str | None = None) -> dict:
+    """[train-qat] alone: :func:`qat_k1_checks`, the runs, then
+    :func:`finish_train_qat`. ``zoo_ckpt``: [train-zoo]'s DenseNet-121
+    checkpoint; without it the same run is made here first."""
+    if zoo_ckpt is None:
+        zoo_ckpt = zoo_seed(tmp)
+    checks = qat_k1_checks()
+    return finish_train_qat(card, start_train_qat(card, tmp, deferred, zoo_ckpt), zoo_ckpt,
+                            checks)
+
+
+def zoo_seed(tmp: Path) -> str:
+    """[train-zoo]'s DenseNet-121 run (ZOO_RUNS[0]) under ``tmp``; its
+    checkpoint."""
+    _, cfg_file, extra, _ = ZOO_RUNS[0]
+    run_cli(["distribuuuu_tpu_torch.train_net", *train_args(cfg_file, ZOO_BATCH,
+                                                            tmp / "zoo_densenet121", extra=extra),
+             "OPTIM.MAX_EPOCH", "1", "TRAIN.DUMMY_EPOCH_SAMPLES", str(ZOO_BATCH * ZOO_STEPS),
+             *NO_MFU], "train_net [train-qat] densenet121 seed")
+    return str(tmp / "zoo_densenet121" / "checkpoints" / "ckpt_ep_001")
 
 
 # [zoo f32]: each family at full width, a 64^2 crop and batch 8 (the cut: the
@@ -4039,6 +4483,273 @@ def phase_serve_int8(card: str, smi: str, tmp: Path, bw: float) -> dict:
                 k1_bound_ms=bound_ms, k1_bound_by=bound_by, k1_max_abs_err=k1_err, wall_s=wall)
 
 
+# [deploy]: a serve_resnet50.yaml replica hosting rn50 = resnet50 :int8 (the
+# [serve-int8] weights: INT8_SEED, the fc at INT8_FC_SCALE, so its PTQ gate
+# holds), the deploy watcher on a training run's directory with DEPLOY's
+# knobs, HTTP traffic from DEPLOY["clients"] ServeClient threads throughout.
+# Checkpoint B (A's weights, each tensor times 1 + 1e-3 N(0, 1): the next
+# step of a run) is staged (its own PTQ and gate), canaried and promoted;
+# C (B with the fc negated: every top-1 wrong) passes its PTQ gate but fails
+# the deploy quality gate and is rolled back, its strike persisted.
+DEPLOY = dict(name="rn50", poll_s=0.5, canary_s=20.0, min_requests=24, fraction=0.5,
+              max_strikes=1, clients=2, deadline_s=180.0)
+DEPLOY_LIVE_BATCH = 8  # deploy_live_check's inputs, a ladder size
+
+
+def deploy_checkpoint(path: Path, state_dict: dict) -> str:
+    """``state_dict`` as one of the port's checkpoint directories (the
+    payload, then its manifest), as a training run writes it."""
+    import torch
+
+    from distribuuuu_tpu_torch import checkpoint as ckpt
+
+    path.mkdir(parents=True)
+    torch.save({"epoch": 0, "model": state_dict, "best_acc1": 0.0}, path / "checkpoint.pt")
+    ckpt.write_manifest(str(path))
+    return str(path)
+
+
+def phase_deploy(card: str, smi: str, tmp: Path) -> dict:
+    """[deploy] (DEPLOY): the replica's main path (startup, traffic, B's
+    rollout, C's rollback) with K1's counts zeroed just before; no client
+    request may fail; ``/healthz`` shows B's version, ready; C's strike is
+    on disk; every step a valid ``deploy_*`` record. The allocator's bytes
+    (``torch.cuda.memory_allocated``) with no request in flight: serving A,
+    B under canary (both versions resident), serving B, after C's discard;
+    B's promotion and C's discard must each come back to one version, within
+    a tenth of one int8 version's resident bytes. After the traffic, the
+    live version is B's (:func:`deploy_live_check`). Times: stage, canary,
+    promote, from the records."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from distribuuuu_tpu_torch import checkpoint as ckpt
+    from distribuuuu_tpu_torch.config import cfg, load_cfg_fom_args, reset_cfg
+    from distribuuuu_tpu_torch.obs.journal import validate_journal
+    from distribuuuu_tpu_torch.ops import epilogue as ep
+    from distribuuuu_tpu_torch.serve.client import ServeClient
+    from distribuuuu_tpu_torch.serve.deploy import StrikeStore
+    from distribuuuu_tpu_torch.serve.engine import parse_model_specs
+    from distribuuuu_tpu_torch.serve.frontend import ServeReplica, run_http
+
+    wall0 = time.perf_counter()
+    name, run = DEPLOY["name"], tmp / "run"
+    a = init_state_dict("resnet50", INT8_SEED, INT8_FC_SCALE)
+    gen = torch.Generator().manual_seed(1)
+    b = {k: v * (1 + 1e-3 * torch.randn(v.shape, generator=gen)) if v.is_floating_point() else v
+         for k, v in a.items()}
+    c = {k: -v if k.startswith("fc.") else v for k, v in b.items()}
+    path_a = deploy_checkpoint(run / "checkpoints" / "ckpt_ep_001", a)
+    out_dir = tmp / "serve_deploy"
+    reset_cfg()
+    load_cfg_fom_args(argv=[
+        "--cfg", str(SERVE_CFG), "SERVE.MODELS", f"['{name}=resnet50@{path_a}:int8']",
+        "SERVE.PORT", "0", "SERVE.SLO_WINDOW_S", "2.0", "OUT_DIR", str(out_dir),
+        "SERVE.DEPLOY.WATCH_DIR", str(run), "SERVE.DEPLOY.POLL_S", str(DEPLOY["poll_s"]),
+        "SERVE.DEPLOY.CANARY_S", str(DEPLOY["canary_s"]), "SERVE.DEPLOY.CANARY_FRACTION",
+        str(DEPLOY["fraction"]), "SERVE.DEPLOY.MIN_CANARY_REQUESTS", str(DEPLOY["min_requests"]),
+        "SERVE.DEPLOY.MAX_STRIKES", str(DEPLOY["max_strikes"])])
+    cfg.freeze()
+
+    # --- the main path: counts zeroed just before, read just after ---------
+    ep.LAUNCHES = ep.SCALAR_LAUNCHES = ep.INT32_LAUNCHES = 0
+    replica = ServeReplica(parse_model_specs(list(cfg.SERVE.MODELS)), str(out_dir))
+    engine = replica.engine
+    # A's int8 weights, from the startup's allocator deltas (no traffic yet)
+    one = engine.models[name].resident_bytes["int8"]
+    stop, bound = threading.Event(), threading.Event()
+    http = threading.Thread(target=run_http, args=(replica, stop, bound), daemon=True)
+    http.start()
+    served, failed = [0] * DEPLOY["clients"], []
+    go, idle = threading.Event(), [threading.Event() for _ in range(DEPLOY["clients"])]
+    quit_clients = threading.Event()
+
+    def client(i):
+        cl = ServeClient([replica.port], deadline_s=60.0)
+        rng = np.random.default_rng(100 + i)
+        while not quit_clients.is_set():
+            if not go.is_set():  # paused: no request of this client in flight
+                idle[i].set()
+                go.wait(0.1)
+                continue
+            idle[i].clear()
+            n = (1, 8)[served[i] % 2]
+            try:
+                got = cl.predict(name, rng.integers(0, 256, (n, IM, IM, 3), dtype=np.uint8))
+                if got.shape != (n, 1000) or not np.isfinite(got).all():
+                    failed.append(f"client {i}: logits {got.shape}")
+                served[i] += 1
+            except Exception as exc:  # noqa: BLE001  (every failure is counted)
+                failed.append(f"client {i}: {exc!r}")
+        idle[i].set()
+
+    def until(cond, what):
+        deadline = time.monotonic() + DEPLOY["deadline_s"]
+        while not cond():
+            if time.monotonic() > deadline:
+                fail(f"[deploy] {what} not reached within {DEPLOY['deadline_s']} s")
+            time.sleep(0.05)
+
+    def quiet_bytes():  # the clients paused, nothing in flight, the card idle
+        go.clear()
+        for ev in idle:
+            ev.wait(60)
+        # earlier phases' garbage freed now, not between two samples
+        gc.collect()
+        torch.cuda.synchronize()
+        n = torch.cuda.memory_allocated()
+        go.set()
+        return n
+
+    mem = {}
+    try:
+        if not bound.wait(60):
+            fail("[deploy] the HTTP frontend did not bind")
+        clients = [threading.Thread(target=client, args=(i,), daemon=True)
+                   for i in range(DEPLOY["clients"])]
+        for t in clients:
+            t.start()
+        go.set()
+        time.sleep(3 * float(cfg.SERVE.SLO_WINDOW_S))  # the incumbent's p99 rollups first
+        mem["serving A"] = quiet_bytes()
+        torch.cuda.reset_peak_memory_stats()
+        path_b = deploy_checkpoint(run / "checkpoints" / "ckpt_ep_002", b)
+        t_b = time.perf_counter()
+        until(lambda: replica.batcher.canary_fraction(name) > 0
+              or engine.models[name].version["path"] == path_b, "B's canary")
+        if replica.batcher.canary_fraction(name) <= 0:
+            fail("[deploy] B was promoted before its canary was seen: raise "
+                 "DEPLOY['min_requests']")
+        mem["B under canary"] = quiet_bytes()
+        until(lambda: engine.models[name].version["path"] == path_b, "B promoted")
+        until(replica.is_ready, "the replica ready after B")
+        promote_s = time.perf_counter() - t_b
+        mem["peak while B rolled out"] = torch.cuda.max_memory_allocated()
+        mem["serving B"] = quiet_bytes()
+        path_c = deploy_checkpoint(run / "checkpoints" / "ckpt_ep_003", c)
+        until(lambda: StrikeStore(str(out_dir)).get(path_c) >= 1 and name not in engine.staged
+              and replica.is_ready(), "C rolled back")
+        time.sleep(2 * DEPLOY["poll_s"])  # a poll past the strike: C struck out, B serving
+        quit_clients.set()
+        for t in clients:
+            t.join(timeout=120)
+        gc.collect()
+        torch.cuda.synchronize()
+        mem["serving B after C"] = torch.cuda.memory_allocated()
+        with urllib.request.urlopen(f"http://127.0.0.1:{replica.port}/healthz",
+                                    timeout=10) as resp:
+            health = json.loads(resp.read())
+        launches = dict(k1=ep.LAUNCHES, k1_int32=ep.INT32_LAUNCHES, k1_scalar=ep.SCALAR_LAUNCHES)
+        # -------------------------------------------------------------------
+        live = deploy_live_check(engine, name, b, a)
+    finally:
+        quit_clients.set()
+        go.set()
+        stop.set()
+        http.join(timeout=30)
+        replica.shutdown()
+    if failed:
+        fail(f"[deploy] {len(failed)} client request(s) failed: {failed[:5]}")
+    if not (live["logits_equal_plain"] and live["equal"] == live["sites"] == INT8["sites"]
+            and live["differ_from_a"]):
+        fail(f"[deploy] the live version after B's promotion: {live}; want its logits the plain "
+             f"routes', all {INT8['sites']} sites B's int8 weights, some unlike A's")
+    v = health["versions"][name]
+    if not (health["ready"] and v["path"] == path_b and v["epoch"] == 2 and "staged" not in v
+            and v["manifest_hash"] == ckpt.manifest_hash(path_b)):
+        fail(f"[deploy] /healthz {health}: want {path_b} serving, ready")
+    strikes = StrikeStore(str(out_dir)).get(path_c)
+    if strikes != 1:
+        fail(f"[deploy] C's persisted strikes {strikes}, want 1")
+    path = str(out_dir / "telemetry.jsonl")
+    if validate_journal(path):
+        fail(f"[deploy] the journal does not validate: {validate_journal(path)[:3]}")
+    recs = journal_records(out_dir, "deploy")
+
+    def kind(k, p):
+        return [r for r in recs if r["kind"] == k and r.get("path") == p]
+
+    steps = {"B stage": kind("deploy_stage", path_b), "B canary": kind("deploy_canary", path_b),
+             "B promote": kind("deploy_promote", path_b), "C stage": kind("deploy_stage", path_c),
+             "C canary": kind("deploy_canary", path_c),
+             "C rollback": kind("deploy_rollback", path_c)}
+    watch = [r["action"] for r in recs if r["kind"] == "deploy_watch"]
+    if (any(len(r) != 1 for r in steps.values()) or not steps["B canary"][0]["passed"]
+            or steps["C canary"][0]["passed"] or "quality" not in steps["C rollback"][0]["reason"]
+            or watch.count("candidate") != 2 or "struck_out" not in watch
+            or kind("deploy_promote", path_c) or kind("deploy_rollback", path_b)):
+        fail(f"[deploy] the deploy records: {steps}, watch actions {watch}")
+    if launches["k1_scalar"] or not launches["k1_int32"]:
+        fail(f"[deploy] launches {launches}: want int32-mode K1 launches, none scalar")
+    freed = mem["B under canary"] - mem["serving B"]
+    after_c = mem["serving B after C"] - mem["serving B"]
+    after_b = mem["serving B"] - mem["serving A"]
+    if not (abs(freed - one) <= 0.1 * one and abs(after_c) <= 0.1 * one):
+        fail(f"[deploy] the allocator's bytes {mem}: B's promotion freed {freed}, C's discard "
+             f"left {after_c:+d}; one int8 version holds {one}")
+    canary = steps["B canary"][0]
+    times = dict(stage_b_s=steps["B stage"][0]["wall_s"], canary_b_s=canary["wall_s"],
+                 rollout_b_s=steps["B promote"][0]["wall_s"], promote_seen_s=promote_s,
+                 stage_c_s=steps["C stage"][0]["wall_s"])
+    wall = time.perf_counter() - wall0
+    say(f"[deploy] {smi}: {sum(served)} client requests over HTTP, none failed; B staged in "
+        f"{times['stage_b_s']:.2f} s (PTQ, gate, prune, ladder {list(cfg.SERVE.BATCH_SIZES)}), "
+        f"canary {canary['requests']} requests in {canary['wall_s']:.2f} s (p99 "
+        f"{canary['p99_ms']:.1f} ms vs the incumbent's {canary['incumbent_p99_ms']:.1f}), "
+        f"promoted {times['rollout_b_s']:.2f} s after its stage began; C staged in "
+        f"{times['stage_c_s']:.2f} s and rolled back ({steps['C rollback'][0]['reason']}), "
+        f"strike 1 persisted; /healthz {v['path']} @ {v['manifest_hash']}, ready; launches "
+        f"{launches}")
+    say(f"[deploy] {smi}: torch.cuda.memory_allocated (bytes, no request in flight) "
+        + ", ".join(f"{k} {n}" for k, n in mem.items()) + f"; one int8 version {one}: B's "
+        f"promotion freed {freed}, C's discard left {after_c:+d}, serving B against serving A "
+        f"{after_b:+d} (the deploy thread's own library workspaces); the phase took "
+        f"{wall:.1f} s")
+    say(f"[deploy] the live version after B's promotion: its int8 logits on {DEPLOY_LIVE_BATCH} "
+        f"inputs torch.equal to its plain routes'; {live['equal']} of {live['sites']} sites "
+        f"hold B's int8 weights, {live['differ_from_a']} unlike A's ({smi})")
+    return dict(launches=launches, requests=sum(served), memory=mem, one_version_bytes=one,
+                freed_at_promote=freed, after_discard_bytes=after_c, b_over_a_bytes=after_b,
+                times=times, canary=canary, health=v, live=live, wall_s=wall)
+
+
+def deploy_live_check(engine, name: str, want: dict, other: dict) -> dict:
+    """What the replica serves after a promotion, beside the deploy gate
+    (whose top-1 agreement is trivial on these weights: every input has the
+    same top-1): its logits on DEPLOY_LIVE_BATCH inputs against the same
+    module through :func:`plain_routes`, and each site's int8 weight
+    against ``want``'s and ``other``'s quantized as the engine quantizes
+    them (the compute dtype's cast, ``ptq.quantize_weight``)."""
+    import numpy as np
+    import torch
+
+    from distribuuuu_tpu_torch.models import build_model
+    from distribuuuu_tpu_torch.quant import ptq
+
+    x = np.random.default_rng(7).integers(0, 256, (DEPLOY_LIVE_BATCH, IM, IM, 3), dtype=np.uint8)
+    got = engine.forward(name, x)
+    with plain_routes():
+        want_logits = engine.forward(name, x)
+    with torch.device("meta"):
+        ref = build_model("resnet50", num_classes=1000, dtype=engine.compute_dtype, im_size=IM)
+    sites = {k: m for k, m in engine.models[name].module.named_modules()
+             if isinstance(m, ptq._Int8Site)}
+
+    def w_mat(sd, key):
+        w = sd[f"{key}.weight"].to(ref.get_submodule(key).weight.dtype)
+        return ptq.int8_matrix(torch.from_numpy(ptq.quantize_weight(w)[0]))
+
+    equal = differ = 0
+    for key, mod in sites.items():
+        live = mod.w_mat.cpu()
+        equal += torch.equal(live, w_mat(want, key))
+        differ += not torch.equal(live, w_mat(other, key))
+    return dict(logits_equal_plain=bool(np.array_equal(got, want_logits)), sites=len(sites),
+                equal=equal, differ_from_a=differ)
+
+
 SERVE_TRACE_ID = "smoke-http-1"  # the [serve] HTTP request's x-dtpu-trace-id
 SERVE_SPANS_S = 30  # the dispatch thread's spans land after the results: wait this long
 
@@ -5142,9 +5853,11 @@ def main() -> None:
                                          train_jpeg, train, inp)
     jpeg_tmp.cleanup()
     lap("input, train-jpeg, train-dataplane")
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as tmp, tempfile.TemporaryDirectory() as deploy_tmp:
+        deploy_run = Background(phase_deploy, card, smi, Path(deploy_tmp))
         train_preempt = phase_train_preempt(card, Path(tmp), smi)
-    lap("train-preempt")
+        deploy = deploy_run.result()
+    lap("train-preempt, deploy side by side")
     mae_run = Background(phase_train_mae, card, Path(train_tmp.name), evals)
     zoo = phase_train_zoo(card, Path(train_tmp.name), bw, evals)
     train_mae = mae_run.result()
@@ -5165,12 +5878,19 @@ def main() -> None:
     test_nets.result()
     oracle = oracle.result()
     parallel = parallel.result()
-    train_tmp.cleanup()
     tail_tmp.cleanup()
     lap(f"oracle, train-seq, parallel, pretrained, test_net x {len(evals)}, zoo f32, mae f32, "
         f"side by side")
+    # [train-qat]'s subprocesses beside [remat]; its in-process checks before and
+    # after it, since [remat] counts this process's launches
+    qat_evals: list = []
+    qat_checks = qat_k1_checks()
+    qat_runs = start_train_qat(card, Path(train_tmp.name), qat_evals, zoo["densenet121"]["path"])
     remat = phase_remat(card)
-    lap("remat")
+    train_qat = finish_train_qat(card, qat_runs, zoo["densenet121"]["path"], qat_checks)
+    run_test_nets(qat_evals)
+    train_tmp.cleanup()
+    lap("remat, train-qat side by side")
 
     # K1 per batch-128 forward of each served model: its sites' rows summed
     per_fwd, modes = {}, {}
@@ -5202,7 +5922,7 @@ def main() -> None:
          "oracle": oracle, "train_preempt": train_preempt, "train_zoo": zoo,
          "zoo_f32": zoo_f32, "train_mae": train_mae, "train_fsdp": train_fsdp,
          "train_seq": train_seq, "parallel": parallel,
-         "pretrained": pretrained,
+         "pretrained": pretrained, "train_qat": train_qat, "deploy": deploy,
          "mae_f32": mae_f32, "remat": remat, "phase_wall_s": laps}, indent=1))
     (out / "chip_smoke_moe.json").write_text(json.dumps(
         {"card": smi, "build": builds["moe"], "kernels": moe, "dist": moe_dist}, indent=1))
@@ -5373,6 +6093,20 @@ def main() -> None:
                 "fsdp2": sharded["fsdp2"][key], "fsdp1": sharded["fsdp1"][key],
                 "per": f"{FSDP_DIST['steps']} steps of ResNet-50 at batch {FSDP_DIST['batch']} "
                        f"on {sharded['ran']} ([train-fsdp])"}
+    for i, key in ((0, "k1"), (1, "k1_bwd")):  # QUANT.QAT's steps, K1 checked at their sites
+        kernels[i]["train_qat_launches"] = {
+            tag: {"launches": r["launches"][key],
+                  "per_step": r["k1_a_step" if key == "k1" else "k1_bwd_a_step"],
+                  "per": f"{r['steps']} QAT steps ({r['mode']}, distill {r['distill']}) at batch "
+                         f"{r['batch']}, 224x224, bf16, [train-qat]'s runs sharing the card"}
+            for tag, r in train_qat["runs"].items()}
+        err = "k1_max_abs_err" if key == "k1" else "k1_bwd_max_abs_err"
+        kernels[i]["max_abs_err"] = max([kernels[i]["max_abs_err"],
+                                         *(c[err] for c in train_qat["k1_check"].values())])
+    kernels[1]["sum_rel_err"] = max([kernels[1]["sum_rel_err"],
+                                     *(c["k1_bwd_sum_rel_err"]
+                                       for c in train_qat["k1_check"].values())])
+    kernels[0]["deploy_launches"] = deploy["launches"]["k1"]
     kernels[0]["zoo_serve_launches"] = {arch: r["serve"]["launches"] for arch, r in zoo_f32.items()}
     kernels[0]["zoo_f32_launches"] = {arch: r["launches"][0] for arch, r in zoo_f32.items()}
     kernels[1]["zoo_f32_launches"] = {arch: r["launches"][1] for arch, r in zoo_f32.items()}
@@ -5512,7 +6246,17 @@ def main() -> None:
                f"the forward's calls replayed from a CUDA graph; plain_ms: epilogue_reference "
                f"on the same inputs, back to back; no PyTorch call computes the same function; "
                f"launches: [serve-int8]'s startup and requests",
+        "deploy_launches": deploy["launches"]["k1_int32"],
+        "train_qat_track_launches": train_qat["track"]["launches"][1],
     })
+    for tag, fp_ms, fp_what in (("resnet50", train["step_ms"], "[train]'s, alone"),
+                                ("resnet50-fp8", train["step_ms"], "[train]'s, alone"),
+                                ("densenet121", zoo["densenet121"]["step_ms"],
+                                 "[train-zoo]'s, four runs and [train-mae] sharing the card")):
+        r = train_qat["runs"][tag]
+        say(f"[train-qat] {tag} QAT step {r['step_ms']:.2f} ms ({r['mode']}, distill "
+            f"{r['distill']}, batch {r['batch']}, beside the other QAT runs and [remat]) "
+            f"against the fp step {fp_ms:.2f} ms ({fp_what}): {r['step_ms'] / fp_ms:.2f}x ({smi})")
     say(f"[smoke] the whole run took {time.perf_counter() - wall0:.1f} s; by phase (s): "
         + ", ".join(f"{k} {v}" for k, v in laps.items()))
     say(smi)

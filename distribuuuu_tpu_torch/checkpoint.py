@@ -123,6 +123,32 @@ def manifest_path(ckpt_path: str) -> str:
     return os.path.join(ckpt_path, _MANIFEST_NAME)
 
 
+def manifest_hash(ckpt_path: str) -> str:
+    """The first 16 hex digits of the sha256 of a checkpoint's manifest ("":
+    none, or unreadable). The manifest hashes every file, so this names the
+    checkpoint's bytes: the version the serving replica reports in
+    ``/healthz`` and its ``deploy_*`` records."""
+    try:
+        with open(manifest_path(ckpt_path), "rb") as f:
+            return hashlib.sha256(f.read()).hexdigest()[:16]
+    except OSError:
+        return ""
+
+
+def watch_candidates(watch_dir: str) -> list[tuple[tuple[int, int, int], str, str]]:
+    """Deployable checkpoints under ``watch_dir`` as ``(position, kind,
+    path)``, most advanced first, ranked as :func:`resume_candidates` ranks
+    them (the deploy watcher's scan, ``serve/deploy.py``). ``watch_dir`` is a
+    training run's OUT_DIR (its ``checkpoints/`` is scanned) or the
+    checkpoints directory itself. The exact-name patterns leave out
+    temporary directories of a write in progress and ``corrupt_*`` ones; a
+    missing directory gives []."""
+    d = str(watch_dir)
+    if os.path.isdir(os.path.join(d, _DIR_NAME)):
+        d = os.path.join(d, _DIR_NAME)
+    return _ranked_candidates(_scan_epoch_dirs(d), _scan_mid_dirs(d))
+
+
 def _hash_file(path: str) -> tuple[int, str]:
     h, n = hashlib.sha256(), 0
     with open(path, "rb") as f:

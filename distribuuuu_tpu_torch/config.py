@@ -7,10 +7,11 @@ merge unchanged. Keys marked "not yet ported" are accepted and checked by
 the trainer (``trainer._check_supported``): a non-default value raises with
 the ROADMAP item that ports it. The few whose default turns a JAX
 subsystem on are gaps at their default, and say so below. ``QUANT`` holds
-the JAX package's 11 keys (int8 serving; ``QUANT.QAT`` is not yet ported).
-The ``FLEET`` subtree and ``SERVE.DEPLOY``/``SERVE.INGRESS`` are not part of
-these slices and are absent. ``OBS`` holds the JAX package's 16 keys
-(``obs/``: the training run's telemetry).
+the JAX package's 11 keys (int8 serving and ``QUANT.QAT`` fine-tuning),
+``SERVE.DEPLOY`` its 13 (continuous deployment into a replica). The
+``FLEET`` subtree and ``SERVE.INGRESS`` are not part of these slices and
+are absent. ``OBS`` holds the JAX package's 16 keys (``obs/``: the training
+run's telemetry).
 """
 
 from __future__ import annotations
@@ -306,7 +307,8 @@ _C.SERVE.NUM_CLASSES = 0
 _C.SERVE.DTYPE = ""
 # run every ladder size once at startup
 _C.SERVE.WARMUP = True
-# integrity manifests: not yet ported (weights are torch state_dicts)
+# a checkpoint directory's weights are verified against its sha256 manifest
+# before they load (a .pt state_dict has no manifest)
 _C.SERVE.VERIFY_INTEGRITY = True
 # cadence of the serve_slo rollups in OUT_DIR's journal
 _C.SERVE.SLO_WINDOW_S = 10.0
@@ -314,6 +316,34 @@ _C.SERVE.SLO_WINDOW_S = 10.0
 # span records under its x-dtpu-trace-id (the SLO rollups are always on)
 _C.SERVE.JOURNAL_REQUESTS = True
 _C.SERVE.TRACE_SPANS = True
+
+# Continuous train->serve deployment (``serve/deploy.py``). A non-empty
+# WATCH_DIR (a training run's OUT_DIR or its checkpoints/) arms a watcher
+# thread a replica: each new integrity-verified checkpoint is staged beside
+# the serving version (its own PTQ and gate for an :int8 spec), gated on
+# golden-fixture logits against the incumbent, given CANARY_FRACTION of the
+# traffic (sticky by trace id) for CANARY_S or MIN_CANARY_REQUESTS, and
+# promoted when its p99 stays within SLO_P99_FACTOR of the incumbent's; a
+# failure rolls back and bumps the checkpoint's strike count under
+# OUT_DIR/deploy/ (MAX_STRIKES: never tried again). Replicas serialize their
+# rollouts through a lease file held at most LOCK_LEASE_S.
+_C.SERVE.DEPLOY = CN()
+_C.SERVE.DEPLOY.WATCH_DIR = ""
+# the hosted model to deploy into ("": the sole one)
+_C.SERVE.DEPLOY.MODEL = ""
+_C.SERVE.DEPLOY.POLL_S = 5.0
+_C.SERVE.DEPLOY.CANARY_FRACTION = 0.1
+_C.SERVE.DEPLOY.CANARY_S = 30.0
+_C.SERVE.DEPLOY.MIN_CANARY_REQUESTS = 20
+_C.SERVE.DEPLOY.SLO_P99_FACTOR = 2.0
+# the quality gate: finite logits, top-1 agreement with the incumbent on
+# GATE_N inputs, and (MAX_LOGIT_RMSE > 0) an RMSE bound
+_C.SERVE.DEPLOY.GATE_N = 16
+_C.SERVE.DEPLOY.GATE_SEED = 0
+_C.SERVE.DEPLOY.MIN_TOP1_AGREE = 0.5
+_C.SERVE.DEPLOY.MAX_LOGIT_RMSE = 0.0
+_C.SERVE.DEPLOY.MAX_STRIKES = 2
+_C.SERVE.DEPLOY.LOCK_LEASE_S = 600.0
 
 # Post-training int8 quantization (``quant/``). A hosted model opts in per
 # entry: SERVE.MODELS "name=arch@weights.pt:int8" quantizes that model's
@@ -334,9 +364,11 @@ _C.QUANT.GATE_N = 16
 _C.QUANT.GATE_SEED = 0
 _C.QUANT.MIN_TOP1_AGREE = 0.99
 _C.QUANT.MAX_LOGIT_RMSE = 0.25
-# Quantization-aware fine-tuning through train_net: not yet ported (ROADMAP
-# Queue 1 item 8b); True raises in the trainer. QAT_MODE and QAT_DISTILL are
-# accepted and read by nothing until then.
+# Quantization-aware fine-tuning through train_net (``quant/qat.py``): every
+# train and eval forward runs each conv and linear on the fake-quant grid
+# (QAT_MODE int8 or fp8) with a straight-through gradient, its scales
+# calibrated on the run's weights over CALIB_BATCHES seeded batches.
+# QAT_DISTILL > 0 adds the distillation term toward the model's own fp logits.
 _C.QUANT.QAT = False
 _C.QUANT.QAT_MODE = "int8"
 _C.QUANT.QAT_DISTILL = 0.0

@@ -345,6 +345,19 @@ def recomputing() -> bool:
     return getattr(_RECOMPUTE, "depth", 0) > 0
 
 
+@contextlib.contextmanager
+def frozen_running_stats():
+    """Train-mode BNs inside the context normalize with their batch
+    statistics and leave the running ones as they are, as in a remat unit's
+    recompute: the QAT distillation's teacher forward, whose statistics the
+    JAX trainer throws away."""
+    _RECOMPUTE.depth = getattr(_RECOMPUTE, "depth", 0) + 1
+    try:
+        yield
+    finally:
+        _RECOMPUTE.depth -= 1
+
+
 class _Replay:
     """The two contexts of one checkpointed call (``checkpoint``'s
     ``context_fn``): the forward's records the state of every generator the

@@ -11,8 +11,8 @@ record, so a SIGKILL loses at most the line being written (the reader skips
 a torn final line instead of failing, and a relaunch drops it before its
 first append). ``OBS.FSYNC`` adds an ``os.fsync`` a record; :meth:`Journal.commit`
 (flush + fsync) is the preemption path's durability point. Local paths
-only: a ``gs://`` OUT_DIR is ``runtime/pathio``, not ported (ROADMAP item
-13). ``read_journal`` still reassembles ``.part<N>`` continuations, which
+only: a ``gs://`` OUT_DIR is ``runtime/pathio``'s remote half, not ported
+(ROADMAP item 13). ``read_journal`` still reassembles ``.part<N>`` continuations, which
 the JAX package's supervisors write beside a run's journal.
 
 :class:`ValidatedJournal` is the writer of processes that observe other

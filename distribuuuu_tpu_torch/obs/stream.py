@@ -45,7 +45,7 @@ class JournalTailer:
         self.path = str(path)
         if "://" in self.path:
             raise NotImplementedError(
-                f"tailing the remote journal {self.path} is runtime/pathio, not ported yet "
+                f"tailing the remote journal {self.path} is runtime/pathio's remote half, not ported "
                 f"(ROADMAP Queue 1 item 13)")
         self._cursors: dict[str, int] = {}
         self.bytes_read = 0  # committed (consumed) bytes

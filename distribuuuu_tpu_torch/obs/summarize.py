@@ -3,15 +3,16 @@
 ``python -m distribuuuu_tpu_torch.obs summarize <journal>``: the human view
 of the machine-readable record: throughput a epoch, MFU, goodput, the
 kernels' nvcc builds and host waits, the fault and resume history, the
-dataplane's cache and fallbacks, serving's startup and SLO per model, the
-slowest traces, the alarms, checkpoint cadence and the hottest device
-kernels of the last profiler window with their step attribution. A pure
+dataplane's cache and fallbacks, serving's startup and SLO per model, its
+deployments, the slowest traces, the alarms, checkpoint cadence and the
+hottest device kernels of the last profiler window with their step
+attribution. A pure
 function of the journal (it reads nothing else), so it works anywhere the
 journal is copied to. The text is the JAX package's line for line, but for
 one line: where JAX reports its backend compiles, the port reports its nvcc
 builds. The sections of records only the JAX package's supervision writes
-(the agent, the fleet and its goodput timeline, deployments, ingress,
-kernel verdicts) come with ROADMAP items 9 and 13.
+(the agent, the fleet and its goodput timeline, ingress, kernel verdicts)
+come with ROADMAP items 9 and 13.
 """
 
 from __future__ import annotations
@@ -286,6 +287,80 @@ def render(records: Iterable[dict]) -> str:
                 f"p50 {p50:.1f}ms / p99 {p99:.1f}ms, shed {shed}, "
                 f"batch fill {100.0 * mean_fill:.0f}% [{hist_s or 'no batches'}]"
             )
+
+    # -- deployments (serve/deploy.py) ---------------------------------------
+    # the continuous train->serve lifecycle: watch verdicts, then each
+    # rollout's stage -> canary -> promote/rollback story in order. Omitted
+    # when no deploy records exist, so plain serving reports are unchanged.
+    deploy_kinds = (
+        "deploy_watch", "deploy_stage", "deploy_canary", "deploy_promote",
+        "deploy_rollback",
+    )
+    if any(by_kind[k] for k in deploy_kinds):
+        out("")
+        n_promote = len(by_kind["deploy_promote"])
+        n_rollback = len(by_kind["deploy_rollback"])
+        out(
+            f"deployments: {len(by_kind['deploy_stage'])} staged, "
+            f"{n_promote} promoted, {n_rollback} rolled back"
+        )
+        # non-candidate watch verdicts (held / corrupt / struck_out / ...)
+        # are the "why is my checkpoint not deploying" answers
+        watch_skips: dict[str, int] = defaultdict(int)
+        for r in by_kind["deploy_watch"]:
+            if r.get("action") != "candidate":
+                watch_skips[r.get("action", "?")] += 1
+        if watch_skips:
+            out(
+                "  watch skips: "
+                + ", ".join(f"{k}={v}" for k, v in sorted(watch_skips.items()))
+            )
+        lifecycle = sorted(
+            (
+                r for k in ("deploy_stage", "deploy_canary", "deploy_promote",
+                            "deploy_rollback")
+                for r in by_kind[k]
+            ),
+            key=lambda r: r.get("ts", 0.0),
+        )
+        for r in lifecycle:
+            kind = r.get("kind")
+            name = str(r.get("path", "?")).rstrip("/").rsplit("/", 1)[-1]
+            tag = f"[{r.get('model', '?')}] {name}"
+            if kind == "deploy_stage":
+                out(
+                    f"  stage   {tag}: {r.get('aot_compiles', '?')} ladder "
+                    f"compile(s) in {r.get('wall_s', 0.0):.2f}s "
+                    f"(incumbent kept serving)"
+                )
+            elif kind == "deploy_canary":
+                verdict = "PASSED" if r.get("passed") else "FAILED"
+                detail = (
+                    f"p99 {r.get('p99_ms', 0.0):.1f}ms vs incumbent "
+                    f"{r.get('incumbent_p99_ms', 0.0):.1f}ms, top-1 agree "
+                    f"{100.0 * r.get('top1_agree', 0.0):.1f}%"
+                )
+                out(
+                    f"  canary  {tag}: {100.0 * r.get('fraction', 0.0):.0f}% "
+                    f"traffic, {r.get('requests', 0)} request(s), {detail} "
+                    f"-> {verdict}"
+                    + (f" ({r['reason']})" if not r.get("passed") and r.get("reason") else "")
+                )
+            elif kind == "deploy_promote":
+                out(
+                    f"  promote {tag}"
+                    + (" (fast-follow)" if r.get("fast_follow") else "")
+                    + (
+                        f": now serving @ manifest {r['manifest_hash']}"
+                        if r.get("manifest_hash")
+                        else ""
+                    )
+                )
+            elif kind == "deploy_rollback":
+                out(
+                    f"  ROLLBACK {tag}: {r.get('reason', '?')} "
+                    f"(strike {r.get('strikes', '?')})"
+                )
 
     # -- tracing (dtpu-obs v2: span records) --------------------------------
     # per-phase totals plus the critical path of the slowest traces — the

@@ -14,7 +14,12 @@ ms, fill) and, with ``trace_spans``, each request its ``queue_wait``,
 releases every request's result before it journals anything, and no
 record is written while a queue's condition is held.
 
-Not ported: canary routing (ROADMAP Queue 1 item 9). The sinks are
+Canary routing (``serve/deploy.py``): :meth:`MicroBatcher.set_canary`
+sends a fraction of a model's requests to the engine's staged version,
+chosen by a hash of the request's trace id (else of its bytes), so a
+retried request keeps its version; a dispatched batch holds requests of one
+version only, a canary batch's ``serve_batch`` record says so, and each of
+its requests' latency goes to the deploy manager's hook. The sinks are
 optional. :meth:`MicroBatcher.submit` also returns the ladder size the
 request ran at.
 """
@@ -24,6 +29,7 @@ from __future__ import annotations
 import math
 import threading
 import time
+import zlib
 from typing import Callable
 
 import numpy as np
@@ -40,11 +46,12 @@ class _Pending:
     """One queued request: inputs + a done-event the submitter blocks on."""
 
     __slots__ = ("inputs", "n", "t_enqueue", "event", "result", "error", "batch_size",
-                 "trace_id")
+                 "trace_id", "version")
 
-    def __init__(self, inputs: np.ndarray, trace_id: str | None = None):
+    def __init__(self, inputs: np.ndarray, trace_id: str | None = None, version: str = "live"):
         self.inputs = inputs
         self.trace_id = trace_id  # obs/trace.py id riding the request
+        self.version = version  # "live" | "canary" (deploy rollouts)
         self.n = int(inputs.shape[0])
         self.t_enqueue = time.monotonic()
         self.event = threading.Event()
@@ -194,6 +201,14 @@ class MicroBatcher:
         self._depth = {m: 0 for m in self._ladders}
         self._threads: list[threading.Thread] = []
         self._stop = False
+        # canary routing (serve/deploy.py): model -> the staged version's
+        # share of traffic, and the deploy manager's latency hook. The
+        # deploy thread changes both while the submitters and the dispatch
+        # threads read them: one lock, so a cleared canary never routes a
+        # request to a version whose hook is gone
+        self._canary_lock = threading.Lock()
+        self._canary: dict[str, float] = {}
+        self._canary_hook: dict[str, Callable[[str, float], None]] = {}
 
     # -- lifecycle -----------------------------------------------------------
 
@@ -220,6 +235,44 @@ class MicroBatcher:
                 cond.notify_all()
         for t in self._threads:
             t.join(timeout=5.0)
+
+    # -- canary routing (serve/deploy.py) ------------------------------------
+
+    def set_canary(self, model: str, fraction: float,
+                   hook: Callable[[str, float], None] | None = None) -> None:
+        """Route ``fraction`` of ``model``'s requests to the engine's staged
+        version; ``hook(model, latency_ms)`` gets each canary request's
+        enqueue-to-result wall."""
+        if model not in self._ladders:
+            raise KeyError(f"unknown model {model!r}")
+        with self._canary_lock:
+            if hook is not None:
+                self._canary_hook[model] = hook
+            self._canary[model] = min(1.0, max(0.0, float(fraction)))
+
+    def canary_fraction(self, model: str) -> float:
+        """The share of ``model``'s requests routed to the staged version."""
+        with self._canary_lock:
+            return self._canary.get(model, 0.0)
+
+    def clear_canary(self, model: str) -> None:
+        with self._canary_lock:
+            self._canary.pop(model, None)
+            self._canary_hook.pop(model, None)
+
+    def _version_for(self, model: str, inputs: np.ndarray, trace_id: str | None) -> str:
+        """live or canary for one request, by a sticky hash: of the trace id
+        when it carries one (the client keeps one across retries), else of
+        its shape and first 64 KiB."""
+        with self._canary_lock:
+            fraction = self._canary.get(model, 0.0)
+        if fraction <= 0.0:
+            return "live"
+        if fraction >= 1.0:
+            return "canary"
+        key = (trace_id.encode() if trace_id
+               else repr(inputs.shape).encode() + inputs.reshape(-1)[:65536].tobytes())
+        return "canary" if zlib.crc32(key) / 2**32 < fraction else "live"
 
     # -- submission ----------------------------------------------------------
 
@@ -262,7 +315,7 @@ class MicroBatcher:
                 f"request of {n} examples exceeds {model!r}'s largest compiled "
                 f"batch {ladder[-1]} — split the request client-side"
             )
-        req = _Pending(inputs, trace_id)
+        req = _Pending(inputs, trace_id, self._version_for(model, inputs, trace_id))
         cond = self._cond[model]
         with cond:
             depth = self._depth[model]
@@ -303,11 +356,21 @@ class MicroBatcher:
                 if remaining <= 0:
                     break
                 cond.wait(remaining)
+            # whole requests while they fit the largest size and share the
+            # head's version: a batch runs one version; the others keep
+            # their order and head the next take
             taken: list[_Pending] = []
-            total = 0
+            total, i = 0, 0
             queue = self._queue[model]
-            while queue and total + queue[0].n <= max_size:
-                req = queue.pop(0)
+            version = queue[0].version if queue else "live"
+            while i < len(queue):
+                req = queue[i]
+                if req.version != version:
+                    i += 1
+                    continue
+                if total + req.n > max_size:
+                    break
+                queue.pop(i)
                 total += req.n
                 taken.append(req)
             self._depth[model] -= total
@@ -321,6 +384,10 @@ class MicroBatcher:
                 continue
             n = sum(r.n for r in taken)
             batch_size = next(b for b in ladder if b >= n)
+            version = taken[0].version  # the whole batch's (see _take_batch)
+            # the version reaches the runner off the live path only, so a
+            # plain (model, batch) runner serves when no rollout is running
+            extra = {} if version == "live" else {"version": version}
             t_dispatch = time.monotonic()
             try:
                 first = taken[0].inputs
@@ -331,12 +398,13 @@ class MicroBatcher:
                     row += req.n
                 pad_ms = 1000.0 * (time.monotonic() - t_dispatch)
                 if self._timed_runner is not None:
-                    logits, execute_ms = self._timed_runner(model, padded)
+                    logits, execute_ms = self._timed_runner(model, padded, **extra)
                 else:
                     t_exec = time.monotonic()
-                    logits = self._runner(model, padded)
+                    logits = self._runner(model, padded, **extra)
                     execute_ms = 1000.0 * (time.monotonic() - t_exec)
                 compute_ms = 1000.0 * (time.monotonic() - t_dispatch)
+                t_done = time.monotonic()
                 row = 0
                 for req in taken:
                     req.result = logits[row : row + req.n]
@@ -348,8 +416,17 @@ class MicroBatcher:
                     "serve_batch", model=model, batch_size=batch_size, examples=n,
                     requests=len(taken), fill=round(n / batch_size, 4),
                     queue_ms=round(1000.0 * (t_dispatch - min(r.t_enqueue for r in taken)), 3),
-                    compute_ms=round(compute_ms, 3),
+                    compute_ms=round(compute_ms, 3), **extra,
                 )
+                if version == "canary":  # the deploy manager's latency samples
+                    with self._canary_lock:
+                        hook = self._canary_hook.get(model)
+                    if hook is not None:
+                        for req in taken:
+                            try:
+                                hook(model, 1000.0 * (t_done - req.t_enqueue))
+                            except Exception:  # a hook must never kill the loop
+                                pass
                 if self._trace_spans:
                     # queue wait is the request's own; pad and execute are
                     # the batch's, paid by every request it coalesced

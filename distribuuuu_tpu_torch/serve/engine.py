@@ -23,21 +23,35 @@ thresholds). A failed gate refuses to serve unless ``QUANT.GATE`` is off;
 the measurement is journaled as a ``quant_quality`` record either way. The
 hosted module is then the int8 one, its fp weights freed.
 
-Not in this slice: ``stage``/``promote`` (continuous deployment) raise
-``NotImplementedError``; per-size CUDA graphs are later work (ROADMAP.md,
-Queue 1).
+Continuous deployment (``serve/deploy.py``) adds a second slot a model:
+:meth:`InferenceEngine.stage` builds an incoming version beside the serving
+one with the incumbent's spec (for ``:int8`` its own calibration, gate and
+prune) and runs every ladder size once before any canary request,
+``forward(..., version="canary")`` reaches it, and :meth:`promote` or
+:meth:`discard_staged` settle the rollout by dropping the engine's
+reference to the old or the staged version. The registries change under
+``_lock`` (dict operations only, never across a build or a forward), and a
+forward keeps its own reference, so an in-flight batch finishes on the
+version it started with before that version's tensors are freed. A weights
+path may be a ``.pt`` state_dict or one of the port's checkpoint
+directories (``checkpoint.pt`` and its manifest, verified first when
+``verify_integrity``); each hosted version reports :func:`version_of`.
+
+Not in this slice: per-size CUDA graphs (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
 
+import os
 import threading
 import time
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Any, Callable
 
 import numpy as np
 import torch
 
+from distribuuuu_tpu_torch import checkpoint as ckpt
 from distribuuuu_tpu_torch import resolve_device
 from distribuuuu_tpu_torch.convert import golden_inputs, load_weights
 from distribuuuu_tpu_torch.data.transforms import device_normalize
@@ -86,13 +100,46 @@ def parse_model_specs(entries: list[str]) -> list[ModelSpec]:
     return specs
 
 
+def version_of(weights_path: str) -> dict:
+    """What a weights path is: its checkpoint position (epoch and step from
+    the checkpoint naming contract, as ``checkpoint.watch_candidates`` ranks
+    them; -1/-1 for any other path) and its manifest's hash ("" without
+    one). ``GET /healthz`` reports it a model; the deploy watcher orders
+    candidates against it."""
+    name = str(weights_path).rstrip("/").rsplit("/", 1)[-1]
+    epoch, step = -1, -1
+    m = ckpt._CKPT_RE.match(name)
+    if m:
+        epoch, step = int(m.group(1)), 0
+    elif (m := ckpt._MID_RE.match(name)):
+        epoch, step = int(m.group(1)), int(m.group(2))
+    return {"path": str(weights_path), "epoch": epoch, "step": step,
+            "manifest_hash": ckpt.manifest_hash(weights_path)}
+
+
+def _state_dict(path: str, verify_integrity: bool) -> dict:
+    """The model state_dict at ``path``: a ``.pt``/``.pth`` file, or one of
+    the port's checkpoint directories (its manifest verified first when
+    ``verify_integrity``; a corrupt one raises)."""
+    if os.path.isfile(os.path.join(str(path), ckpt._FILE_NAME)):
+        if verify_integrity:
+            status, errors = ckpt.verify_checkpoint(path)
+            if status == "corrupt":
+                raise ValueError(f"{path} fails its manifest: {'; '.join(errors[:3])}")
+        return torch.load(os.path.join(str(path), ckpt._FILE_NAME), map_location="cpu",
+                          weights_only=True)["model"]
+    return load_weights(path)
+
+
 @dataclass
 class HostedModel:
     """One model's module on the device. An int8 model's module is the
     quantized one (``quant.prune_variables``); ``gate`` is its quality-gate
     measurement, ``quant_s`` the calibrate+quantize+gate wall and
     ``resident_bytes`` what its weights held on the card before and after
-    the fp ones were freed (``torch.cuda.memory_allocated`` deltas)."""
+    the fp ones were freed (``torch.cuda.memory_allocated`` deltas);
+    ``version`` is :func:`version_of` its weights, ``warmed`` the ladder
+    sizes a staged version ran before its canary."""
 
     spec: ModelSpec
     module: torch.nn.Module
@@ -100,6 +147,8 @@ class HostedModel:
     gate: Any = None
     quant_s: float = 0.0
     resident_bytes: dict = field(default_factory=dict)
+    version: dict = field(default_factory=dict)
+    warmed: list = field(default_factory=list)
 
 
 class InferenceEngine:
@@ -120,6 +169,7 @@ class InferenceEngine:
         device=None,
         journal_event: Callable[..., None] | None = None,
         quant_cfg: dict | None = None,
+        verify_integrity: bool = True,
     ):
         self.device = resolve_device(device)
         sizes = [int(b) for b in batch_sizes]
@@ -136,8 +186,13 @@ class InferenceEngine:
         self.num_classes = int(num_classes)
         self.input_dtype = np.dtype(input_dtype)
         self.compute_dtype = _DTYPES[compute_dtype]
+        self.verify_integrity = bool(verify_integrity)
+        # the registries change on the deploy thread (stage, promote,
+        # discard) while the dispatch threads resolve names through them:
+        # _lock covers dict operations only, never a build or a forward
         self._lock = threading.Lock()
         self.models: dict[str, HostedModel] = {}
+        self.staged: dict[str, HostedModel] = {}  # incoming versions under canary
         self.forwards = 0  # forward passes executed, warmup included
         self.aot_compiles = 0  # warmup forwards journaled as serve_compile
         self._event = journal_event or (lambda kind, **fields: None)
@@ -160,24 +215,10 @@ class InferenceEngine:
     def load(self, spec: ModelSpec) -> HostedModel:
         """Load one model's weights onto the device (and quantize it, for an
         ``:int8`` spec)."""
-        if spec.arch.startswith("mae_"):
-            raise ValueError(f"{spec.name}: {spec.arch} emits pixel reconstructions, not class "
-                             f"logits; it trains with TRAIN.TASK mae and is not served")
         with self._lock:
             if spec.name in self.models:
                 raise ValueError(f"model {spec.name!r} already hosted")
-        tic = time.time()
-        base = self._allocated()
-        module = build_model(spec.arch, num_classes=self.num_classes, dtype=self.compute_dtype,
-                             im_size=self.im_size)
-        module.load_state_dict(load_weights(spec.weights), strict=True)
-        module = module.to(self.device, memory_format=torch.channels_last).eval()
-        hosted = HostedModel(spec, module, time.time() - tic)
-        if spec.quant:
-            fp_bytes = self._allocated() - base
-            int8_bytes = fp_bytes + self._quantize(hosted)
-            if self.device.type == "cuda":
-                hosted.resident_bytes = {"fp": fp_bytes, "int8": int8_bytes}
+        hosted = self._build_hosted(spec)
         with self._lock:
             if spec.name in self.models:
                 raise ValueError(f"model {spec.name!r} already hosted")
@@ -187,6 +228,26 @@ class InferenceEngine:
             f"serve: hosted {spec.name} ({spec.arch}{quant_note}) from {spec.weights} on "
             f"{self.device}: weights {hosted.load_s:.2f}s, ladder {self.batch_sizes}"
         )
+        return hosted
+
+    def _build_hosted(self, spec: ModelSpec) -> HostedModel:
+        """Build, load and (for an ``:int8`` spec) quantize one version
+        without registering it: :meth:`load`'s and :meth:`stage`'s."""
+        if spec.arch.startswith("mae_"):
+            raise ValueError(f"{spec.name}: {spec.arch} emits pixel reconstructions, not class "
+                             f"logits; it trains with TRAIN.TASK mae and is not served")
+        tic = time.time()
+        base = self._allocated()
+        module = build_model(spec.arch, num_classes=self.num_classes, dtype=self.compute_dtype,
+                             im_size=self.im_size)
+        module.load_state_dict(_state_dict(spec.weights, self.verify_integrity), strict=True)
+        module = module.to(self.device, memory_format=torch.channels_last).eval()
+        hosted = HostedModel(spec, module, time.time() - tic, version=version_of(spec.weights))
+        if spec.quant:
+            fp_bytes = self._allocated() - base
+            int8_bytes = fp_bytes + self._quantize(hosted)
+            if self.device.type == "cuda":
+                hosted.resident_bytes = {"fp": fp_bytes, "int8": int8_bytes}
         return hosted
 
     def _allocated(self) -> int:
@@ -299,13 +360,71 @@ class InferenceEngine:
         for spec in specs:
             self.load(spec)
 
-    def stage(self, name: str, weights: str):
-        raise NotImplementedError(
-            "continuous deployment (stage/promote) is not ported yet "
-            "(ROADMAP.md Queue 1, item 'Serving')"
-        )
+    # -- continuous deployment (serve/deploy.py) -----------------------------
 
-    promote = stage
+    def stage(self, name: str, weights: str) -> HostedModel:
+        """Build an incoming version of hosted model ``name`` from
+        ``weights`` with the incumbent's spec (an ``:int8`` one runs its own
+        calibration, gate and prune: a failed gate raises and nothing is
+        staged), run every ladder size once on zeros (each a
+        ``serve_compile`` record), and hold it for ``version="canary"``
+        forwards. The incumbent keeps serving throughout."""
+        incumbent = self.hosted(name)
+        with self._lock:
+            if name in self.staged:
+                raise ValueError(f"model {name!r} already has a staged version")
+        hosted = self._build_hosted(replace(incumbent.spec, weights=str(weights)))
+        tic = time.time()
+        for b in self.batch_sizes:
+            t0 = time.time()
+            self._run(hosted, np.zeros((b, self.im_size, self.im_size, 3), self.input_dtype))
+            hosted.warmed.append(b)
+            self.aot_compiles += 1
+            self._event("serve_compile", model=name, batch_size=b,
+                        wall_s=round(time.time() - t0, 4), quant=hosted.spec.quant)
+        with self._lock:
+            if name in self.staged:
+                raise ValueError(f"model {name!r} already has a staged version")
+            self.staged[name] = hosted
+        logger.info(f"serve: staged {name} <- {weights} (weights {hosted.load_s:.2f}s, ladder "
+                    f"{self.batch_sizes} run in {time.time() - tic:.2f}s; incumbent "
+                    f"{incumbent.version.get('path', '?')} still serving)")
+        return hosted
+
+    def promote(self, name: str) -> dict:
+        """Make the staged version the serving one; returns the old version
+        (:func:`version_of`). The engine drops its reference to the old
+        version, whose tensors are freed once a batch still running on it
+        returns; a dispatch resolving ``name`` meanwhile sees the old or the
+        new version, never neither."""
+        with self._lock:
+            staged = self.staged.pop(name, None)
+            if staged is None:
+                raise ValueError(f"model {name!r} has no staged version to promote")
+            old = self.models[name]
+            self.models[name] = staged
+        logger.info(f"serve: promoted {name} -> {staged.version.get('path', '?')} (retired "
+                    f"{old.version.get('path', '?')})")
+        return dict(old.version)
+
+    def discard_staged(self, name: str) -> None:
+        """Drop the staged version of ``name`` (a failed canary), freed once
+        a canary batch still running on it returns."""
+        with self._lock:
+            self.staged.pop(name, None)
+
+    def versions(self) -> dict[str, dict]:
+        """Each model's serving version, with the staged one beside it while
+        a rollout is in flight (the ``/healthz`` payload)."""
+        with self._lock:
+            hosted, staged = list(self.models.items()), dict(self.staged)
+        out = {}
+        for name, h in hosted:
+            v = dict(h.version)
+            if name in staged:
+                v["staged"] = dict(staged[name].version)
+            out[name] = v
+        return out
 
     def warmup(self) -> float:
         """Run every (model, ladder size) once on zeros, so cuDNN's first-call
@@ -336,13 +455,18 @@ class InferenceEngine:
             raise KeyError(f"unknown model {name!r}; hosting: {hosting}")
         return hosted
 
-    def forward(self, name: str, batch: np.ndarray) -> np.ndarray:
+    def forward(self, name: str, batch: np.ndarray, version: str = "live") -> np.ndarray:
         """Run one exactly-ladder-sized batch; returns float32 logits.
 
         The batcher owns padding; this layer refuses non-ladder sizes and
         wrong dtypes. Copying the logits to the host is the one sync.
+        ``version="canary"`` runs the staged version when there is one (a
+        canary-routed retry after the rollout settled takes the incumbent).
         """
         hosted = self.hosted(name)
+        if version == "canary":
+            with self._lock:
+                hosted = self.staged.get(name, hosted)
         b = int(batch.shape[0])
         if b not in self.batch_sizes:
             raise ValueError(
@@ -357,6 +481,9 @@ class InferenceEngine:
         expected = (self.im_size, self.im_size, 3)
         if tuple(batch.shape[1:]) != expected:
             raise ValueError(f"batch images are {tuple(batch.shape[1:])}, expected {expected}")
+        return self._run(hosted, batch)
+
+    def _run(self, hosted: HostedModel, batch: np.ndarray) -> np.ndarray:
         with torch.inference_mode():
             images = torch.from_numpy(np.ascontiguousarray(batch)).to(self.device)
             logits = hosted.module(device_normalize(images)).float().cpu().numpy()
@@ -364,10 +491,11 @@ class InferenceEngine:
             self.forwards += 1
         return logits
 
-    def forward_timed(self, name: str, batch: np.ndarray) -> tuple[np.ndarray, float]:
+    def forward_timed(self, name: str, batch: np.ndarray,
+                      version: str = "live") -> tuple[np.ndarray, float]:
         """`forward` plus its wall in ms, the result fetch included."""
         tic = time.monotonic()
-        logits = self.forward(name, batch)
+        logits = self.forward(name, batch, version=version)
         return logits, 1000.0 * (time.monotonic() - tic)
 
     def runner(self) -> Callable[[str, np.ndarray], np.ndarray]:

@@ -9,8 +9,10 @@ batcher + frontend.
   nested list ``(n, H, W, 3)`` or ``{"b64": ..., "shape": [n, H, W, 3]}`` in
   ``SERVE.INPUT_DTYPE``. 200 -> ``{"model", "logits", "latency_ms",
   "batch_size", "trace_id"}``; 503 -> shed (retry); 400/404 -> client error.
-- ``GET /healthz``: ``{"status": "ok", "models": [...], "replica": R,
-  "batch_sizes": [...]}``.
+- ``GET /healthz``: ``{"status": "ok", "ready": bool, "models": [...],
+  "versions": {name: {path, epoch, step, manifest_hash[, staged]}},
+  "replica": R, "batch_sizes": [...]}``; ``ready`` is False only while a
+  deploy swap is in flight (the replica serves throughout).
 - ``GET /metrics``: Prometheus text of the replica's live aggregate
   (p50/p99/QPS/queue depth per model, shed and batch counters, spans,
   alarms), the JAX replica's text for the same records.
@@ -23,8 +25,9 @@ The replica journals ``serve_start``, ``serve_compile``, ``serve_request``
 and total a request, under the ``x-dtpu-trace-id`` header's id, minted
 when absent and echoed back) and the ``OBS.ALARMS`` transitions into
 ``OUT_DIR/telemetry.jsonl``, and folds each record into the aggregator
-``/metrics`` renders. Not ported: continuous deployment and the agent's
-supervision (ROADMAP Queue 1 item 9).
+``/metrics`` renders. A non-empty ``SERVE.DEPLOY.WATCH_DIR`` starts the
+replica's ``serve/deploy.DeployManager``, whose ``deploy_*`` records go the
+same way. Not ported: the agent's supervision (ROADMAP Queue 1 item 13).
 """
 
 from __future__ import annotations
@@ -142,6 +145,7 @@ class ServeReplica:
             compute_dtype=str(s.DTYPE) or str(cfg.MODEL.DTYPE),
             device=device,
             journal_event=self.journal_event,
+            verify_integrity=bool(s.VERIFY_INTEGRITY),
             quant_cfg={
                 "calib_batches": int(cfg.QUANT.CALIB_BATCHES),
                 "calib_batch_size": int(cfg.QUANT.CALIB_BATCH_SIZE),
@@ -177,7 +181,23 @@ class ServeReplica:
             timed_runner=self.engine.forward_timed,
             trace_spans=self.trace_spans,
         ).start()
+        # continuous deployment: the watcher owns readiness (False while a
+        # version swap is in flight)
+        self.deploy = None
+        if str(s.DEPLOY.WATCH_DIR):
+            from distribuuuu_tpu_torch.serve.deploy import DeployManager, DeploySettings
+
+            self.deploy = DeployManager(
+                DeploySettings.from_cfg(s.DEPLOY), engine=self.engine, batcher=self.batcher,
+                aggregator=self.aggregator, journal_event=self.journal_event,
+                out_dir=out_dir if out_dir is not None else str(cfg.OUT_DIR),
+                replica=self.replica).start()
         self.port = 0  # bound ingress port (http mode fills it in)
+
+    def is_ready(self) -> bool:
+        """False exactly while a deploy swap is in flight (the replica still
+        serves; readiness gates rollouts and restarts, not traffic)."""
+        return self.deploy is None or self.deploy.ready
 
     def journal_event(self, kind: str, **fields) -> None:
         """Journal one typed record and fold it into the live aggregator."""
@@ -257,6 +277,8 @@ class ServeReplica:
         }
 
     def shutdown(self) -> None:
+        if self.deploy is not None:
+            self.deploy.stop()
         self.batcher.stop()
         self.slo.flush()
         self.journal.close()
@@ -291,7 +313,9 @@ def _make_handler(replica: ServeReplica):
             if self.path == "/healthz":
                 self._reply(200, {
                     "status": "ok",
+                    "ready": replica.is_ready(),
                     "models": sorted(replica.engine.models),
+                    "versions": replica.engine.versions(),
                     "replica": replica.replica,
                     "batch_sizes": replica.engine.batch_sizes,
                 })

@@ -44,6 +44,12 @@ counters stay zero, so the meters and checkpoints are the classifier's.
 ``MODEL.PRETRAINED`` warm-starts from the port's converted checkpoint
 (:func:`_pretrained_path`), without the optimizer.
 
+``QUANT.QAT`` (:func:`_build_qat`, ``quant/qat.py``): after any resume or
+warm start the fake-quant sites are calibrated on the run's weights, and
+every train and eval forward (``test_net`` too) runs on the int8 or fp8
+grid; ``QUANT.QAT_DISTILL`` > 0 adds the distillation term toward the
+model's own plain logits, whose forward launches K1 once more a BN.
+
 ``MESH.SEQ`` > 1 (ViT and MAE; ``MODEL.SEQ_ATTN`` ring or ulysses): the
 members of a seq group read the same rows and draw the same mask, the
 model runs over the group (:func:`_seq_parallel`) and each member's
@@ -67,6 +73,7 @@ world size); non-finite steps back to back raise ``NonFiniteDivergence``.
 
 from __future__ import annotations
 
+import contextlib
 import importlib
 import json
 import os
@@ -336,7 +343,7 @@ def mae_mask(n: int, tokens: int, generator: torch.Generator, device=None) -> to
 def train_step(state: TrainState, batch: dict, lr: float, *, accum_steps: int = 1,
                topk: int = 5, label_smooth: float = 0.0, guard: bool = True,
                dropout_key: tuple | None = None, task: str = "classify",
-               mask: torch.Tensor | None = None) -> dict:
+               mask: torch.Tensor | None = None, qat=None, distill: float = 0.0) -> dict:
     """One optimizer step on the local batch (``image`` uint8 or float NHWC,
     ``label``), on the batch's device. Forward and backward per micro-batch
     (BN statistics updated in order), gradients and loss averaged over the
@@ -350,6 +357,11 @@ def train_step(state: TrainState, batch: dict, lr: float, *, accum_steps: int = 
     each micro-step's patch mask is ``mask``'s rows (``[n, L]``), or, when
     ``mask`` is None, drawn from the micro-step's stream before any
     dropout (so ``dropout_key`` is needed).
+    ``qat`` (a ``quant.QATModel``, ``QUANT.QAT``): the forward and backward
+    run on its fake-quant grid; ``distill`` > 0 adds ``distill * mean((q -
+    fp)^2)`` over the logits, ``fp`` the plain forward's on the same batch
+    with the same masks, without gradient and leaving the BN statistics as
+    the fake-quant forward left them (JAX's ``QUANT.QAT_DISTILL``).
     Returns this rank's metric sums as 0-d device tensors (no sync)."""
     model = state.model.train()
     images, labels = batch["image"], batch["label"]
@@ -367,21 +379,29 @@ def train_step(state: TrainState, batch: dict, lr: float, *, accum_steps: int = 
     loss_sum, correct = 0.0, {1: zero, topk: zero}
     for i in range(accum_steps):
         sl = slice(i * mb, (i + 1) * mb)
-        gen = None
+        gen = seed = None
         if dropout_key is not None and (state.masks or mae):
-            gen = state.mask_generator.manual_seed(
-                dropout_seed(*dropout_key[:3], i, dropout_key[3]))
+            seed = dropout_seed(*dropout_key[:3], i, dropout_key[3])
+            gen = state.mask_generator.manual_seed(seed)
         for m in state.masks:  # without a key the layers raise rather than draw
             m.generator = gen
         x = device_normalize(images[sl])
-        if mae:
-            tokens = (x.shape[1] // model.patch) * (x.shape[2] // model.patch)
-            m_i = mask[sl] if mask is not None else mae_mask(mb, tokens, gen)
-            loss = mae_loss(model, x, m_i)
-        else:
-            logits = model(x)
-            loss = cross_entropy_loss(logits, labels[sl], label_smooth)
-        loss.backward()
+        with contextlib.nullcontext() if qat is None else qat.intercept(model):
+            if mae:
+                tokens = (x.shape[1] // model.patch) * (x.shape[2] // model.patch)
+                m_i = mask[sl] if mask is not None else mae_mask(mb, tokens, gen)
+                loss = mae_loss(model, x, m_i)
+            else:
+                logits = model(x)
+                loss = cross_entropy_loss(logits, labels[sl], label_smooth)
+            if qat is not None and distill > 0.0:
+                if gen is not None:  # the teacher draws the student's masks
+                    gen.manual_seed(seed)
+                with torch.no_grad(), qat.bypass(), layers.frozen_running_stats():
+                    fp_logits = model(x)
+                drift = logits.float() - fp_logits.float()
+                loss = loss + distill * drift.square().mean()
+            loss.backward()
         loss_sum = loss_sum + loss.detach()
         if not mae:
             for k, v in topk_correct(logits.detach(), labels[sl], ks=(1, topk)).items():
@@ -424,9 +444,10 @@ def train_step(state: TrainState, batch: dict, lr: float, *, accum_steps: int = 
 
 @torch.no_grad()
 def eval_step(model, batch: dict, totals: torch.Tensor, topk: int = 5,
-              task: str = "classify") -> torch.Tensor:
+              task: str = "classify", qat=None) -> torch.Tensor:
     """Add the batch's ``[sum(nll * w), sum(w), correct@1, correct@k]`` to
-    ``totals`` (a 4-vector on the device) and return it. ``task`` "mae":
+    ``totals`` (a 4-vector on the device) and return it; ``qat``: of the
+    fake-quant forward (``QUANT.QAT``). ``task`` "mae":
     ``[mae_loss * sum(w), sum(w), 0, 0]`` under one fixed mask, drawn from
     ``RNG_SEED or 0`` on the CPU for every batch and run (so the card and
     the CPU evaluate the same mask), the weights excluding padded samples."""
@@ -439,7 +460,7 @@ def eval_step(model, batch: dict, totals: torch.Tensor, topk: int = 5,
         loss = mae_loss(model, x, mae_mask(x.shape[0], tokens, gen, x.device), w)
         zero = torch.zeros((), device=x.device)
         return totals + torch.stack([loss * w.sum(), w.sum(), zero, zero])
-    logits = model(x).float()
+    logits = (model(x) if qat is None else qat.apply(model, x)).float()
     nll = per_example_nll(logits, batch["label"])
     c = topk_correct_weighted(logits, batch["label"], w, ks=(1, topk))
     return totals + torch.stack([(nll * w).sum(), w.sum(), c[1], c[topk]])
@@ -448,7 +469,7 @@ def eval_step(model, batch: dict, totals: torch.Tensor, topk: int = 5,
 # Keys the port accepts, so that the JAX package's YAMLs and command lines
 # merge, but does not honour yet: any value other than the default raises
 # with the ROADMAP Queue 1 item that ports the subsystem.
-UNPORTED_KEYS = (("DATA.ADVERTISE_HOST", "item 13"), ("QUANT.QAT", "item 8b"))
+UNPORTED_KEYS = (("DATA.ADVERTISE_HOST", "item 13"),)
 
 
 def _check_supported() -> None:
@@ -627,7 +648,7 @@ def _preempt(state: TrainState, epoch: int, it: int, best_acc1: float, samples_p
 
 def train_epoch(loader, state: TrainState, epoch: int, device, is_primary: bool, *,
                 start_epoch: int = 0, run_tic: float | None = None,
-                start_step: int = 0, best_acc1: float = 0.0, injector=None) -> None:
+                start_step: int = 0, best_acc1: float = 0.0, injector=None, qat=None) -> None:
     """One epoch from batch ``start_step`` (a mid-epoch resume: the loader
     skips the consumed batches unread), reported to ``obs.current()``: a
     window record a PRINT_FREQ fetch, the epoch's records at its end, and
@@ -683,7 +704,8 @@ def train_epoch(loader, state: TrainState, epoch: int, device, is_primary: bool,
                                  topk=topk, label_smooth=cfg.TRAIN.LABEL_SMOOTH,
                                  guard=cfg.FAULT.NONFINITE_GUARD,
                                  dropout_key=(state.dropout_seed, epoch, it, state.batch_rank),
-                                 task=cfg.TRAIN.TASK))
+                                 task=cfg.TRAIN.TASK, qat=qat,
+                                 distill=float(cfg.QUANT.QAT_DISTILL)))
         if prof is not None:
             prof.after_step(gstep)
         if it % cfg.TRAIN.PRINT_FREQ == 0 or it == len(loader) - 1:
@@ -780,7 +802,7 @@ def _log_by_rank(state: TrainState, epoch: int, launches: list, device, is_prima
 
 
 def validate(loader, model, device, is_primary: bool, group=None, prefix="Test: ", seq: int = 1,
-             epoch: int | None = None):
+             epoch: int | None = None, qat=None):
     """Weighted top-1/top-k and loss over ``loader``; returns ``(acc1, acck)``
     and journals an ``eval`` record (of ``epoch``). The totals are summed
     over ``group``, each divided by ``seq`` (the members of a seq group hold
@@ -803,7 +825,7 @@ def validate(loader, model, device, is_primary: bool, group=None, prefix="Test: 
                                                  cfg.TRAIN.PIN_MEMORY)):
         data_time.update(time.time() - t_end)
         resilience.watchdog_beat(it, phase="eval")
-        totals = eval_step(model, batch, totals, topk, cfg.TRAIN.TASK)
+        totals = eval_step(model, batch, totals, topk, cfg.TRAIN.TASK, qat)
         window_n += 1
         if it % cfg.TEST.PRINT_FREQ == 0 or it == len(loader) - 1:
             loss_s, n, c1, ck = summed(totals)
@@ -915,6 +937,44 @@ def _sync_bn(model, group) -> None:
                 m.sync_group = group
 
 
+def _build_qat(model, mesh, device):
+    """Calibrate the ``QUANT.QAT`` fake-quant sites on ``model``'s weights
+    (JAX's ``_build_qat``): ``QUANT.CALIB_BATCHES`` standard-normal NHWC
+    batches from ``QUANT.CALIB_SEED`` (the post-normalization scale a
+    training batch has), on ``device``, through ``quant.calibrate_qat``
+    (eval mode; the model returns to its mode untouched). The mode is
+    checked first, then the mesh and the task, with JAX's messages, then
+    the arch (ResNet family and DenseNet, else item 8c). Journals the
+    ``qat`` record. Returns the ``quant.QATModel``."""
+    from distribuuuu_tpu_torch.quant import qat as qat_mod
+
+    try:
+        qat_mod._check_mode(cfg.QUANT.QAT_MODE)
+    except ValueError as exc:
+        raise ValueError(f"QUANT.QAT_MODE: {exc}") from None
+    if mesh.fsdp > 1:
+        raise ValueError("QUANT.QAT requires MESH.FSDP 1: the calibration pass runs on the "
+                         "unsharded weights (fine-tune the model data-parallel)")
+    if mesh.seq > 1 or cfg.TRAIN.TASK == "mae":
+        raise ValueError("QUANT.QAT requires MESH.SEQ 1 and TRAIN.TASK 'classify' (fine-tune "
+                         "the classifier data-parallel)")
+    tic = time.time()
+    rng = np.random.default_rng(cfg.QUANT.CALIB_SEED)
+    shape = (cfg.QUANT.CALIB_BATCH_SIZE, cfg.TRAIN.IM_SIZE, cfg.TRAIN.IM_SIZE, 3)
+    batches = [torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(device)
+               for _ in range(cfg.QUANT.CALIB_BATCHES)]
+    qat = qat_mod.calibrate_qat(model, batches, mode=cfg.QUANT.QAT_MODE, arch=cfg.MODEL.ARCH)
+    wall = time.time() - tic
+    obs.current().event("qat", mode=cfg.QUANT.QAT_MODE, layers=qat.n_sites,
+                        calib_batches=cfg.QUANT.CALIB_BATCHES,
+                        distill=float(cfg.QUANT.QAT_DISTILL), wall_s=round(wall, 3),
+                        im_size=cfg.TRAIN.IM_SIZE)
+    logger.info(f"QUANT.QAT: {cfg.QUANT.QAT_MODE} fake-quant fine-tune over {qat.n_sites} "
+                f"conv/dense site(s) (calibrated in {wall:.2f}s, distill weight "
+                f"{cfg.QUANT.QAT_DISTILL})")
+    return qat
+
+
 def _pin_device(device: torch.device):
     """The device whose context the loader pins its batches in
     (TRAIN.PIN_MEMORY on a card), else None."""
@@ -1023,6 +1083,8 @@ def _train(info, mesh, gen):
     elif res is None and cfg.MODEL.PRETRAINED:
         path = _load_pretrained(state)
         logger.info(f"Initialized from pretrained weights ({cfg.MODEL.ARCH}) at {path}")
+    # calibrated on the weights the run trains: after the resume or warm start
+    qat = _build_qat(model, mesh, info.device) if cfg.QUANT.QAT else None
     run_tic = time.time()
     # armed over train and eval (both hang when a peer dies); its first beat
     # window holds the first steps' cuDNN autotuning: HANG_TIMEOUT_S must cover it
@@ -1032,9 +1094,9 @@ def _train(info, mesh, gen):
             train_epoch(train_loader, state, epoch, info.device, info.is_primary,
                         start_epoch=start_epoch, run_tic=run_tic,
                         start_step=start_step if epoch == start_epoch else 0,
-                        best_acc1=best_acc1, injector=injector)
+                        best_acc1=best_acc1, injector=injector, qat=qat)
             acc1, _ = validate(val_loader, model, info.device, info.is_primary, info.group,
-                               seq=mesh.seq, epoch=epoch)
+                               seq=mesh.seq, epoch=epoch, qat=qat)
             is_best = acc1 > best_acc1
             best_acc1 = max(acc1, best_acc1)
             resilience.watchdog_beat(phase="checkpoint")
@@ -1060,8 +1122,9 @@ def _train(info, mesh, gen):
 
 
 def test_model(device=None):
-    """Evaluate ``MODEL.WEIGHTS`` (a checkpoint) on the val loader; returns
-    ``(acc1, acck)``."""
+    """Evaluate ``MODEL.WEIGHTS`` (a checkpoint) on the val loader, through
+    the fake-quant forward under ``QUANT.QAT`` (calibrated on the weights
+    loaded); returns ``(acc1, acck)``."""
     info, mesh = _setup(device)
     model = build_cfg_model(torch.Generator().manual_seed(0))
     _check_crop(model)
@@ -1075,6 +1138,8 @@ def test_model(device=None):
     elif cfg.MODEL.PRETRAINED:
         path = _load_pretrained(state)
         logger.info(f"Loaded pretrained weights ({cfg.MODEL.ARCH}) from {path}")
+    qat = _build_qat(model, mesh, info.device) if cfg.QUANT.QAT else None
     val_loader = construct_val_loader(mesh.batch_world, mesh.batch_rank, _pin_device(info.device))
     _log_input(val_loader)
-    return validate(val_loader, model, info.device, info.is_primary, info.group, seq=mesh.seq)
+    return validate(val_loader, model, info.device, info.is_primary, info.group, seq=mesh.seq,
+                    qat=qat)

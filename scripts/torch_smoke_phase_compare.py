@@ -10,9 +10,10 @@ Each run is a process of its own from the root of its checkout: it imports
 that checkout's ``chip_smoke``, builds the kernels (``phase_build``, not
 timed), then times ``phase_<PHASE>`` as the smoke calls it, with the smoke's
 own lines and checks (the ``test_net`` runs a phase defers to the smoke's
-end are not made). Phases whose arguments are among ``card``, ``smi``, ``tmp``, ``bw``
-and ``deferred`` can run (``train_mae``, ``train_fsdp``, ``serve_int8``,
-``train_preempt``, ...). The phase's wall in s, per run, with the card's
+end are not made). Phases whose arguments without a default are among
+``card``, ``smi``, ``tmp``, ``bw`` and ``deferred`` can run (``train_mae``,
+``train_fsdp``, ``serve_int8``, ``train_preempt``, ``train_qat``, ``deploy``,
+...). The phase's wall in s, per run, with the card's
 name and power limit, as the last line (JSON). Needs a CUDA GPU; imports no
 JAX.
 """
@@ -43,7 +44,8 @@ cs.phase_build()
 deferred = []
 with tempfile.TemporaryDirectory() as tmp:
     given = dict(card=card, smi=smi, tmp=Path(tmp), bw=cs.hbm_bytes_per_s(card), deferred=deferred)
-    args = [given[p] for p in inspect.signature(phase).parameters]
+    args = [given[p] for p, v in inspect.signature(phase).parameters.items()
+            if v.default is inspect.Parameter.empty]
     tic = time.perf_counter()
     phase(*args)
     wall = time.perf_counter() - tic

@@ -1629,3 +1629,97 @@ def test_deterministic_vit_steps_repeat_after_other_cuda_work(cuda):
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.strip().splitlines()[-1] == "equal"
+
+
+@pytest.mark.gpu
+def test_qat_forward_tracks_int8_and_scopes_tf32_on_the_card(cuda):
+    """The fake-quant forward of a seeded ResNet-18 (f32, 64^2, eval) against
+    the true int8 path of the same weights on the card, with cuDNN's and
+    cuBLAS's TF32 on for the process: TF32 off inside the interception and
+    as it was after; at every site, on the input the int8 forward gave it,
+    the fake-quant product equals the int8 accumulator times the activation
+    and weight scales (plus the bias) within 1e-5 of the product's
+    sum|terms| (``quant.qat.site_product_errors``; chip_smoke.py
+    QAT_TRACK_ACC: float32 accumulation leaves a few units of 2**-24 of it);
+    with the interception's TF32 scoping disabled the same check reads
+    above that limit."""
+    import contextlib
+    import copy
+
+    from distribuuuu_tpu_torch.quant import calibrate_qat, prune_variables, quantize
+    from distribuuuu_tpu_torch.quant import qat as qat_mod
+
+    gen = torch.Generator().manual_seed(0)
+    model = build_model("resnet18", num_classes=10, dtype=torch.float32)
+    layers.init_weights(model, gen)
+    model = model.to(cuda, memory_format=torch.channels_last).eval()
+    batches = [torch.randn(8, 64, 64, 3, generator=gen).to(cuda) for _ in range(2)]
+    x = torch.randn(8, 64, 64, 3, generator=gen).to(cuda)
+    qat = calibrate_qat(model, batches)
+    qmodel, qparams = quantize(model, qat.sites)
+    prior, tf32 = qat_mod._tf32(), []
+    hook = model.conv1.register_forward_pre_hook(lambda m, a: tf32.append(qat_mod._tf32()))
+    qat_mod._set_tf32(True, True)
+    scoped = qat_mod._tf32_as
+    try:
+        with torch.no_grad():
+            qat.apply(model, x)
+        assert qat_mod._tf32() == (True, True) and tf32 == [(False, False)]
+        hook.remove()
+        fp_model = copy.deepcopy(model)
+        prune_variables(model, qmodel, qparams)
+        seen = {}
+
+        def record(key):
+            def hook(mod, args):
+                seen.setdefault(key, args[0].detach().clone())
+            return hook
+
+        hooks = [model.get_submodule(k).register_forward_pre_hook(record(k)) for k in qat.sites]
+        with torch.no_grad():
+            model(x)
+        for h in hooks:
+            h.remove()
+        errors = qat_mod.site_product_errors(qat, fp_model, model, seen)
+        assert max(errors.values()) <= 1e-5, errors
+        qat_mod._tf32_as = lambda conv, matmul: contextlib.nullcontext()
+        unscoped = qat_mod.site_product_errors(qat, fp_model, model, seen)
+        assert max(unscoped.values()) > 1e-5, unscoped
+    finally:
+        qat_mod._tf32_as = scoped
+        qat_mod._set_tf32(*prior)
+        hook.remove()
+
+
+@pytest.mark.gpu
+def test_qat_train_step_launches_k1_and_k1_bwd_a_bn_on_the_card(cuda):
+    """A bf16 ResNet-18 QAT step with the distillation term at 64^2 on the
+    card: K1 twice a BN (the fake-quant forward and the teacher's), K1-bwd
+    once, none scalar; the loss finite; the teacher leaves the statistics
+    as the same step without it does."""
+    from distribuuuu_tpu_torch.config import reset_cfg
+    from distribuuuu_tpu_torch.quant import calibrate_qat
+    from distribuuuu_tpu_torch.trainer import TrainState, train_step
+
+    reset_cfg()
+    gen = torch.Generator().manual_seed(0)
+    batch = {"image": torch.randint(0, 256, (8, 64, 64, 3), dtype=torch.uint8,
+                                    generator=gen).to(cuda),
+             "label": torch.randint(0, 10, (8,), generator=gen).to(cuda)}
+    calib = [torch.randn(8, 64, 64, 3, generator=gen).to(cuda)]
+    stats = []
+    for distill in (1.0, 0.0):
+        model = build_model("resnet18", num_classes=10, dtype=torch.bfloat16,
+                            bn_dtype=torch.bfloat16)
+        layers.init_weights(model, torch.Generator().manual_seed(1))
+        st = TrainState(model.to(cuda))
+        qat = calibrate_qat(st.model, calib)
+        before = (ep.LAUNCHES, ep.BWD_LAUNCHES, ep.SCALAR_LAUNCHES, ep.BWD_SCALAR_LAUNCHES)
+        m = train_step(st, batch, 0.01, qat=qat, distill=distill)
+        torch.cuda.synchronize()
+        got = tuple(a - b for a, b in zip((ep.LAUNCHES, ep.BWD_LAUNCHES, ep.SCALAR_LAUNCHES,
+                                           ep.BWD_SCALAR_LAUNCHES), before))
+        assert got == ((2 if distill else 1) * 20, 20, 0, 0)
+        assert torch.isfinite(m["loss_sum"]).item()
+        stats.append(st.stats.clone())
+    assert torch.equal(*stats)

@@ -27,7 +27,8 @@ against the live JAX ``quant`` on the CPU, from the same weights
   serves through the int8 modules with the fp weights gone; a failing gate
   refuses (``RuntimeError``, the record written), or serves under ``QUANT.GATE
   False``; an arch the int8 path does not take is refused.
-- The 11 ``QUANT`` keys merge; ``QUANT.QAT True`` raises naming item 8b.
+- The 11 ``QUANT`` keys merge; ``QUANT.QAT True`` is accepted, and a bad
+  ``QUANT.QAT_MODE`` raises naming the key when the trainer calibrates.
 - ``CUDNN.DETERMINISTIC`` sets ``use_deterministic_algorithms`` and
   ``CUBLAS_WORKSPACE_CONFIG``; False leaves both unset.
 """
@@ -355,8 +356,10 @@ _QUANT_KEYS = {"CALIB_BATCHES": 2, "CALIB_BATCH_SIZE": 4, "CALIB_SEED": 7, "GATE
 
 
 def test_quant_keys_merge_and_qat_raises():
+    from types import SimpleNamespace
+
     from distribuuuu_tpu.config import cfg as jax_cfg
-    from distribuuuu_tpu_torch.trainer import _check_supported
+    from distribuuuu_tpu_torch.trainer import _build_qat, _check_supported
 
     cfg = port_config.cfg
     assert set(_QUANT_KEYS) == set(cfg.QUANT) == set(jax_cfg.QUANT)
@@ -364,10 +367,11 @@ def test_quant_keys_merge_and_qat_raises():
     try:
         cfg.merge_from_list([x for k, v in _QUANT_KEYS.items() for x in (f"QUANT.{k}", str(v))])
         assert {k: cfg.QUANT[k] for k in _QUANT_KEYS} == _QUANT_KEYS
-        _check_supported()  # QAT_MODE and QAT_DISTILL are read by nothing yet
-        cfg.merge_from_list(["QUANT.QAT", "True"])
-        with pytest.raises(NotImplementedError, match="QUANT.QAT.*item 8b"):
-            _check_supported()
+        cfg.merge_from_list(["QUANT.QAT", "True", "QUANT.QAT_MODE", "int4"])
+        _check_supported()  # QUANT.QAT is ported (tests/test_torch_qat.py)
+        model = build_model("resnet18", num_classes=NC, dtype=torch.float32)
+        with pytest.raises(ValueError, match="QUANT.QAT_MODE.*int4"):
+            _build_qat(model, SimpleNamespace(fsdp=1, seq=1), "cpu")
     finally:
         port_config.reset_cfg()
 

@@ -122,7 +122,12 @@ def test_engine_refuses_off_ladder_and_wrong_dtype(rn18):
     assert engine.forward("q", np.zeros((4, IM, IM, 3), np.uint8)).shape == (4, CLASSES)
     with pytest.raises(ValueError, match="ladder"):
         engine.forward("q", np.zeros((3, IM, IM, 3), np.uint8))
-    with pytest.raises(NotImplementedError):
+    # staging a version keeps the ladder contract on its canary route
+    # (tests/test_torch_deploy.py holds the rollout)
+    engine.stage("rn18", weights)
+    with pytest.raises(ValueError, match="ladder"):
+        engine.forward("rn18", np.zeros((3, IM, IM, 3), np.uint8), version="canary")
+    with pytest.raises(ValueError, match="already has a staged version"):
         engine.stage("rn18", weights)
 
 
